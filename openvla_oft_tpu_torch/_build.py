@@ -1,0 +1,97 @@
+"""Build the port's hand-written CUDA kernels and load them through ctypes.
+
+Every `csrc/*.cu` file of this package compiles with `nvcc` into ONE shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds). The library lands in `_build/<hash>/libopenvla_kernels.so`, keyed
+by a hash of the sources and flags: a rebuild happens only when they change.
+There is no fallback: a missing `nvcc` or a failed build raises with the
+compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_NAME = "libopenvla_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def _sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        candidate = Path(home) / "bin" / "nvcc"
+        nvcc = str(candidate) if candidate.exists() else None
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+            "openvla_oft_tpu_torch are built from csrc/ at first use")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile csrc/*.cu for sm_90a unless a library for these sources exists.
+
+    Returns the library's path. The compiler's output (with `-Xptxas -v`
+    register and shared-memory counts) is kept beside it as `build.log`.
+    """
+    out_dir = BUILD_DIR / _source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # Build into a temporary name, then rename: a concurrent build never
+    # loads a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, with argtypes declared for every entry."""
+    lib = ctypes.CDLL(str(build()))
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.openvla_flash_attention_fwd
+    fn.argtypes = [p, p, p, p, p, p, p,          # q k v key_valid bidir o lse
+                   i, i, i, i, i,                # B S H Hkv D
+                   i64, i64, i64,                # q strides (b, s, h)
+                   i64, i64, i64,                # k strides
+                   i64, i64, i64,                # v strides
+                   i, ctypes.c_float, p]         # causal scale stream
+    fn.restype = ctypes.c_int
+    lib.openvla_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.openvla_cuda_error_string.restype = ctypes.c_char_p
+    return lib

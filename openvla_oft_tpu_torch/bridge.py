@@ -1,0 +1,189 @@
+"""Parameters: the JAX param pytree as torch tensors, and random init on the device.
+
+`params_from_numpy` converts a JAX pytree (nested dicts and lists of arrays)
+leaf for leaf, keeping the JAX layout: (in, out) kernels, layers stacked
+(L, ...). `init_params` draws the tree `openvla_oft_tpu.policy.
+init_openvla_params(..., head="l1", with_lm_head=False, head_dtype=dtype)`
+builds, with the same shapes and scales, directly on the device from a
+`torch.Generator` (the numbers differ from JAX's: the generators differ).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from openvla_oft_tpu.config import OpenVLAConfig, PhiConfig, ViTConfig
+from openvla_oft_tpu.constants import PlatformSpec
+
+Params = Dict[str, Any]
+
+
+def _to_tensor(leaf, device, dtype) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":   # ml_dtypes bfloat16: reinterpret the bits
+        t = torch.from_numpy(arr.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))   # a writable copy
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
+    """JAX pytree (arrays or numpy) -> the same tree of torch tensors.
+
+    dtype: cast floating leaves to it (None keeps each leaf's dtype).
+    """
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
+    return _to_tensor(tree, device, dtype)
+
+
+def index_layer(tree: Params, i: int) -> Params:
+    """Layer i of a stacked (L, ...) param tree; every leaf is a view."""
+    return {name: index_layer(v, i) if isinstance(v, dict) else v[i]
+            for name, v in tree.items()}
+
+
+class Init(NamedTuple):
+    """One parameter: shape, and how it is drawn (normal * scale, or a constant)."""
+    shape: tuple
+    scale: float = 0.0          # std of the normal draw; 0 = constant fill
+    fill: float = 0.0
+
+
+def _linear(d_in: int, d_out: int) -> Params:
+    """ops/layers.py::init_linear: 0.02 * normal kernel, zero bias."""
+    return {"kernel": Init((d_in, d_out), 0.02), "bias": Init((d_out,))}
+
+
+def _layer_norm(dim: int) -> Params:
+    return {"scale": Init((dim,), fill=1.0), "bias": Init((dim,))}
+
+
+def _vit_spec(cfg: ViTConfig) -> Params:
+    """models/vit.py::init_vit_params."""
+    d, L = cfg.width, cfg.depth
+    patch_dim = cfg.patch_size * cfg.patch_size * 3
+    n_pos = cfg.num_patches if cfg.pos_embed_patches_only \
+        else cfg.num_patches + cfg.num_prefix_tokens
+    p: Params = {
+        "patch_embed": {"kernel": Init((patch_dim, d), patch_dim ** -0.5),
+                        "bias": Init((d,))},
+        "pos_embed": Init((n_pos, d), d ** -0.5),
+        "layers": {
+            "norm1": {"scale": Init((L, d), fill=1.0), "bias": Init((L, d))},
+            "norm2": {"scale": Init((L, d), fill=1.0), "bias": Init((L, d))},
+            "attn": {
+                "qkv": {"kernel": Init((L, d, 3 * d), d ** -0.5),
+                        "bias": Init((L, 3 * d))},
+                "proj": {"kernel": Init((L, d, d), d ** -0.5), "bias": Init((L, d))},
+            },
+            "mlp": {
+                "fc1": {"kernel": Init((L, d, cfg.mlp_dim), d ** -0.5),
+                        "bias": Init((L, cfg.mlp_dim))},
+                "fc2": {"kernel": Init((L, cfg.mlp_dim, d), cfg.mlp_dim ** -0.5),
+                        "bias": Init((L, d))},
+            },
+        },
+    }
+    if cfg.num_cls_tokens:
+        p["cls_token"] = Init((cfg.num_cls_tokens, d))
+    if cfg.num_reg_tokens:
+        p["reg_token"] = Init((cfg.num_reg_tokens, d))
+    if cfg.use_pre_norm:
+        p["norm_pre"] = _layer_norm(d)
+    if cfg.use_layer_scale:
+        p["layers"]["ls1"] = {"scale_factor": Init((L, d), fill=1e-5)}
+        p["layers"]["ls2"] = {"scale_factor": Init((L, d), fill=1e-5)}
+    return p
+
+
+def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec) -> Params:
+    """The tree of `Init` leaves for an L1-head serving model without lm_head."""
+    llm = cfg.llm
+    if isinstance(llm, PhiConfig):
+        raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
+    if cfg.use_film:
+        raise NotImplementedError("FiLM is not ported yet (ROADMAP queue 1, item 10)")
+    h, kv, d = llm.num_heads, llm.num_kv_heads, llm.hidden_size
+    hd, inter, L = llm.head_dim, llm.intermediate_size, llm.num_layers
+    names = ("featurizer", "fused_featurizer")[: len(cfg.vision_configs)]
+    vision_dim, llm_dim = cfg.vision_dim, cfg.llm_dim
+    if cfg.use_fused_vision_backbone:
+        projector = {"fc1": _linear(vision_dim, 4 * vision_dim),
+                     "fc2": _linear(4 * vision_dim, llm_dim),
+                     "fc3": _linear(llm_dim, llm_dim)}
+    else:
+        projector = {"fc1": _linear(vision_dim, llm_dim),
+                     "fc2": _linear(llm_dim, llm_dim)}
+    head_in = llm_dim * platform.action_dim
+    spec: Params = {
+        "llm": {
+            "embed": {"embedding": Init((llm.vocab_size, d), d ** -0.5)},
+            "layers": {
+                "attn": {
+                    "wq": {"kernel": Init((L, d, h * hd), d ** -0.5)},
+                    "wk": {"kernel": Init((L, d, kv * hd), d ** -0.5)},
+                    "wv": {"kernel": Init((L, d, kv * hd), d ** -0.5)},
+                    "wo": {"kernel": Init((L, h * hd, d), (h * hd) ** -0.5)},
+                },
+                "mlp": {
+                    "gate": {"kernel": Init((L, d, inter), d ** -0.5)},
+                    "up": {"kernel": Init((L, d, inter), d ** -0.5)},
+                    "down": {"kernel": Init((L, inter, d), inter ** -0.5)},
+                },
+                "attn_norm": {"scale": Init((L, d), fill=1.0)},
+                "mlp_norm": {"scale": Init((L, d), fill=1.0)},
+            },
+            "final_norm": {"scale": Init((d,), fill=1.0)},
+        },
+        "vision_backbone": {name: _vit_spec(v)
+                            for name, v in zip(names, cfg.vision_configs)},
+        "projector": projector,
+        "proprio_projector": {"fc1": _linear(platform.proprio_dim, llm_dim),
+                              "fc2": _linear(llm_dim, llm_dim)},
+        "action_head": {"model": {
+            "ln_in": _layer_norm(head_in),
+            "fc_in": _linear(head_in, llm_dim),
+            "blocks": [{"ln": _layer_norm(llm_dim), "fc": _linear(llm_dim, llm_dim)}
+                       for _ in range(2)],
+            "ln_out": _layer_norm(llm_dim),
+            "fc_out": _linear(llm_dim, platform.action_dim),
+        }},
+    }
+    return spec
+
+
+def _draw(init: Init, generator: torch.Generator, device, dtype) -> torch.Tensor:
+    out = torch.full(init.shape, init.fill, dtype=dtype, device=device)
+    if init.scale == 0.0:
+        return out
+    # Draw in fp32 one leading slice at a time (one layer of a stacked
+    # kernel), scale, then cast, so the fp32 temporary stays one layer large.
+    rows = out if out.ndim == 3 else out[None]
+    for row in rows:
+        row.copy_(torch.randn(row.shape, generator=generator, device=device,
+                              dtype=torch.float32) * init.scale)
+    return out
+
+
+def materialize(spec, generator: torch.Generator, device, dtype):
+    if isinstance(spec, Init):
+        return _draw(spec, generator, device, dtype)
+    if isinstance(spec, dict):
+        return {k: materialize(v, generator, device, dtype) for k, v in spec.items()}
+    return [materialize(v, generator, device, dtype) for v in spec]
+
+
+def init_params(cfg: OpenVLAConfig, platform: PlatformSpec,
+                generator: torch.Generator, device="cpu",
+                dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Random L1-head serving params drawn on `device` (the generator must
+    live there too): the structure, shapes and scales of the JAX init."""
+    return materialize(param_spec(cfg, platform), generator, device, dtype)

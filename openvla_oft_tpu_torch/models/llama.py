@@ -1,0 +1,226 @@
+"""Llama-2 decoder for the OFT parallel-decoding prefill.
+
+Port of `openvla_oft_tpu/models/llama.py` (`embed_tokens`,
+`fuse_inference_weights`, `_block`, `_qkv_proj`, `_mlp`, `llama_model` with
+`out_window`). RMSNorm -> RoPE attention with the OFT block-bidirectional mask
+-> SwiGLU; hidden states are returned after the final RMSNorm. Layers stay
+stacked (L, ...) and run as a Python loop over per-layer views.
+
+On the flash path every layer but a sliced `out_window` last layer runs its
+attention through kernel K1 (`ops/flash_attention.py`); the window layer has
+fewer query rows than keys and always takes the dense path.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from openvla_oft_tpu.config import LlamaConfig
+from openvla_oft_tpu_torch.bridge import index_layer
+from openvla_oft_tpu_torch.ops.attention import attention, resolve_use_flash
+from openvla_oft_tpu_torch.ops.layers import linear, rms_norm
+from openvla_oft_tpu_torch.ops.masks import make_block_bidirectional_mask
+from openvla_oft_tpu_torch.ops.rotary import apply_rope, rope_sin_cos
+
+Params = Dict[str, Any]
+
+
+def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+    return params["embed"]["embedding"][input_ids.long()]
+
+
+def fuse_inference_weights(llm_params: Params, fold_norms: bool = True) -> Params:
+    """wq|wk|wv -> wqkv and gate|up -> gate_up (concatenated on the output
+    dim), and with `fold_norms` the RMSNorm scales folded into them
+    ((standardize(x) * g) @ W = standardize(x) @ (diag(g) W)); the folded
+    norms become empty dicts, which `rms_norm` reads as standardize-only.
+    Folds compute in fp32 one layer at a time, then cast, as the JAX version
+    does for the whole stack, so fp32 temporaries stay one layer large.
+    """
+    layers = llm_params["layers"]
+    attn, mlp = layers["attn"], layers["mlp"]
+    if "attn_norm" not in layers:
+        raise NotImplementedError("only Llama-family trees are ported")
+    if any("lora" in key for sub in (attn, mlp) for leaf in sub.values()
+           for key in leaf):
+        raise ValueError("fuse_inference_weights after LoRA merge, not before")
+
+    def concat_fold(norm, kernels):
+        ref = kernels[0]
+        out = torch.empty(ref.shape[:-1] + (sum(k.shape[-1] for k in kernels),),
+                          dtype=ref.dtype, device=ref.device)
+        for i in range(ref.shape[0]):
+            cat = torch.cat([k[i] for k in kernels], dim=-1)
+            if fold_norms:
+                cat = (cat.float() * norm["scale"][i].float()[:, None]).to(ref.dtype)
+            out[i] = cat
+        return out
+
+    new_attn, new_mlp = dict(attn), dict(mlp)
+    attn_norm, mlp_norm = layers["attn_norm"], layers["mlp_norm"]
+    if "wq" in attn and "bias" not in attn["wq"]:
+        new_attn = {"wqkv": {"kernel": concat_fold(
+            attn_norm, [attn[n]["kernel"] for n in ("wq", "wk", "wv")])},
+            "wo": attn["wo"]}
+        if fold_norms:
+            attn_norm = {}
+    if "gate" in mlp and "bias" not in mlp["gate"]:
+        new_mlp = {"gate_up": {"kernel": concat_fold(
+            mlp_norm, [mlp["gate"]["kernel"], mlp["up"]["kernel"]])},
+            "down": mlp["down"]}
+        if fold_norms:
+            mlp_norm = {}
+    return {**llm_params,
+            "layers": {**layers, "attn": new_attn, "mlp": new_mlp,
+                       "attn_norm": attn_norm, "mlp_norm": mlp_norm}}
+
+
+def _qkv_proj(attn: Params, cfg: LlamaConfig, xa: torch.Tensor):
+    """q/k/v projections; the fused wqkv layout gives strided views of one
+    matmul's output (kernel K1 reads them through their strides)."""
+    b, s, _ = xa.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if "wqkv" in attn:
+        qkv = linear(attn["wqkv"], xa)
+        return (qkv[..., :h * hd].reshape(b, s, h, hd),
+                qkv[..., h * hd:(h + kv) * hd].reshape(b, s, kv, hd),
+                qkv[..., (h + kv) * hd:].reshape(b, s, kv, hd))
+    return (linear(attn["wq"], xa).reshape(b, s, h, hd),
+            linear(attn["wk"], xa).reshape(b, s, kv, hd),
+            linear(attn["wv"], xa).reshape(b, s, kv, hd))
+
+
+def _mlp(mlp: Params, xm: torch.Tensor) -> torch.Tensor:
+    """SwiGLU, handling the fused gate_up layout."""
+    if "gate_up" in mlp:
+        gu = linear(mlp["gate_up"], xm)
+        inter = gu.shape[-1] // 2
+        act = F.silu(gu[..., :inter]) * gu[..., inter:]
+    else:
+        act = F.silu(linear(mlp["gate"], xm)) * linear(mlp["up"], xm)
+    return linear(mlp["down"], act)
+
+
+def _block(p: Params, cfg: LlamaConfig, x: torch.Tensor, sin, cos, mask,
+           is_causal: bool, use_flash: bool, bidir_block, key_valid=None,
+           bidir_1d=None) -> torch.Tensor:
+    b, s, _ = x.shape
+    xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
+    q, k, v = _qkv_proj(p["attn"], cfg, xa)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    o = attention(q, k, v, mask=mask, is_causal=is_causal, use_flash=use_flash,
+                  key_valid=key_valid, bidir_mask=bidir_1d,
+                  bidir_block=bidir_block)
+    x = x + linear(p["attn"]["wo"], o.reshape(b, s, cfg.num_heads * cfg.head_dim))
+    xm = rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps)
+    return x + _mlp(p["mlp"], xm)
+
+
+def _window(b: int, s: int, start_len: Tuple[int, int], device) -> torch.Tensor:
+    w0, wl = start_len
+    out = torch.zeros((b, s), dtype=torch.bool, device=device)
+    out[:, w0:w0 + wl] = True
+    return out
+
+
+def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None,
+                bidir_mask: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                use_flash=False,
+                bidir_block: Optional[tuple] = None,
+                out_window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Run the decoder stack; returns post-final-norm hidden states (B, S, D),
+    or with `out_window=(start, len)` only those rows of the last layer
+    (B, len, D) — every earlier layer still computes all rows as keys.
+
+    use_flash: True | False | "auto" (K1 on CUDA, see ops/attention.py).
+    """
+    b, s, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    use_flash = resolve_use_flash(use_flash, inputs_embeds)
+    if positions is None:
+        positions = torch.arange(s, device=device).expand(b, s)
+    sin, cos = rope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)
+
+    is_causal = False
+    key_valid = bidir_1d = None
+    if use_flash:
+        mask = None
+        is_causal = True
+        key_valid = padding_mask.bool() if padding_mask is not None else None
+        bidir_1d = bidir_mask
+    elif bidir_mask is not None or bidir_block is not None:
+        if bidir_mask is None:
+            bidir_mask = _window(b, s, bidir_block, device)
+        pad = padding_mask.bool() if padding_mask is not None else \
+            torch.ones((b, s), dtype=torch.bool, device=device)
+        mask = make_block_bidirectional_mask(pad, bidir_mask)[:, None]
+    elif padding_mask is not None:
+        mask = padding_mask.bool()[:, None, None, :]
+        is_causal = True
+    else:
+        mask = None
+        is_causal = True
+
+    layers = params["layers"]
+    n_layers = layers["mlp"]["down"]["kernel"].shape[0]
+    n_full = n_layers if out_window is None else n_layers - 1
+    x = inputs_embeds
+    for i in range(n_full):
+        x = _block(index_layer(layers, i), cfg, x, sin, cos, mask, is_causal,
+                   use_flash, bidir_block, key_valid=key_valid, bidir_1d=bidir_1d)
+    if out_window is None:
+        return rms_norm(params["final_norm"], x, cfg.rms_norm_eps)
+
+    # Sliced final layer: Q and MLP over the window rows only, keys/values
+    # over all rows, through the dense path with the window's mask rows.
+    w0, wl = out_window
+    last = index_layer(layers, n_layers - 1)
+    if mask is not None and mask.shape[2] == s and not is_causal:
+        win_mask = mask[:, :, w0:w0 + wl]
+    else:
+        kv_full = key_valid if key_valid is not None else padding_mask
+        kv_full = torch.ones((b, s), dtype=torch.bool, device=device) \
+            if kv_full is None else kv_full.bool()
+        if bidir_1d is None and bidir_block is not None:
+            bidir_1d = _window(b, s, bidir_block, device)
+        rows = w0 + torch.arange(wl, device=device)
+        allow = kv_full[:, None, :] & (
+            torch.arange(s, device=device)[None, None, :] <= rows[None, :, None])
+        if bidir_1d is not None:
+            bidir_1d = bidir_1d.bool()
+            allow = allow | (bidir_1d[:, rows][:, :, None]
+                             & bidir_1d[:, None, :] & kv_full[:, None, :])
+        win_mask = allow[:, None]
+
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xa = rms_norm(last["attn_norm"], x, cfg.rms_norm_eps)
+    xa_w = xa[:, w0:w0 + wl]
+    x_w = x[:, w0:w0 + wl]
+    if "wqkv" in last["attn"]:
+        wqkv = last["attn"]["wqkv"]
+
+        def col_slice(lo, hi):
+            return {name: leaf[..., lo:hi] for name, leaf in wqkv.items()}
+
+        q = linear(col_slice(0, h * hd), xa_w).reshape(b, wl, h, hd)
+        k = linear(col_slice(h * hd, (h + kv) * hd), xa).reshape(b, s, kv, hd)
+        v = linear(col_slice((h + kv) * hd, (h + 2 * kv) * hd), xa
+                   ).reshape(b, s, kv, hd)
+    else:
+        q = linear(last["attn"]["wq"], xa_w).reshape(b, wl, h, hd)
+        k = linear(last["attn"]["wk"], xa).reshape(b, s, kv, hd)
+        v = linear(last["attn"]["wv"], xa).reshape(b, s, kv, hd)
+    q = apply_rope(q, sin[:, w0:w0 + wl], cos[:, w0:w0 + wl])
+    k = apply_rope(k, sin, cos)
+    o = attention(q, k, v, mask=win_mask)
+    x_w = x_w + linear(last["attn"]["wo"], o.reshape(b, wl, h * hd))
+    xm = rms_norm(last["mlp_norm"], x_w, cfg.rms_norm_eps)
+    x_w = x_w + _mlp(last["mlp"], xm)
+    return rms_norm(params["final_norm"], x_w, cfg.rms_norm_eps)
+

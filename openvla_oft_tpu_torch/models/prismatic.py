@@ -1,0 +1,153 @@
+"""Prismatic VLM + OpenVLA action prediction: the serving prefill.
+
+Port of the serving part of `openvla_oft_tpu/models/prismatic.py`. The
+prompt is LEFT-padded into a static bucket and a per-row gather places the
+tokens in their logical order:
+
+    [pads (p)][BOS][patches (+proprio)][prompt rest][action slots][STOP]
+
+so attention is causal + key padding + a static bidirectional window over the
+action slots and STOP, and the action-slot hidden states are a static tail
+slice. RoPE positions are (physical index - pad count).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from openvla_oft_tpu.config import OpenVLAConfig, PhiConfig
+from openvla_oft_tpu.constants import (
+    EMPTY_TOKEN_ID,
+    STOP_INDEX,
+    NormalizationType,
+    PlatformSpec,
+)
+from openvla_oft_tpu_torch.models.llama import embed_tokens, llama_model
+from openvla_oft_tpu_torch.models.projector import proprio_projector, vision_projector
+from openvla_oft_tpu_torch.models.vision_backbone import vision_backbone_forward
+
+Params = Dict[str, Any]
+
+
+def _patch_block(params: Params, cfg: OpenVLAConfig, pixels: torch.Tensor,
+                 proprio: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """Vision features -> projector (+ one proprio token), in `dtype`."""
+    feats = vision_backbone_forward(params["vision_backbone"], cfg,
+                                    pixels.to(dtype))
+    proj = vision_projector(params["projector"], feats,
+                            fast_gelu=cfg.fast_gelu).to(dtype)
+    if proprio is None:
+        return proj
+    p_tok = proprio_projector(params["proprio_projector"], proprio.float())
+    return torch.cat([proj, p_tok[:, None, :].to(dtype)], dim=1)
+
+
+def _left_padded_layout(text_embeds: torch.Tensor, patch_embeds: torch.Tensor,
+                        prompt_mask: torch.Tensor,
+                        tail_embeds: Optional[torch.Tensor] = None):
+    """staged [text (P)][patches][tail] -> [pads][BOS][patches][text rest][tail]
+    by a per-row gather. Returns (embeds, positions, key_valid, pad_counts)."""
+    b, p_len = prompt_mask.shape
+    n_patch = patch_embeds.shape[1]
+    parts = [text_embeds, patch_embeds]
+    if tail_embeds is not None:
+        parts.append(tail_embeds)
+    staged = torch.cat(parts, dim=1)
+    s = staged.shape[1]
+    pad_counts = p_len - prompt_mask.long().sum(dim=1)
+    i = torch.arange(s, device=staged.device)[None, :]
+    p = pad_counts[:, None]
+    src = torch.where(
+        i <= p, i,
+        torch.where(i < p + 1 + n_patch, p_len + (i - (p + 1)),      # patches
+                    torch.where(i < p_len + n_patch, i - n_patch,    # text rest
+                                i)))                                 # tail
+    embeds = torch.gather(staged, 1, src[..., None].expand(b, s, staged.shape[-1]))
+    positions = torch.clamp(i - p, min=0)
+    key_valid = i >= p
+    return embeds, positions, key_valid, pad_counts
+
+
+class PredictOutput(NamedTuple):
+    actions_hidden: torch.Tensor          # (B, chunk_len, D)
+
+
+def predict_action_hidden(params: Params, cfg: OpenVLAConfig,
+                          platform: PlatformSpec, input_ids: torch.Tensor,
+                          prompt_mask: torch.Tensor, pixels: torch.Tensor,
+                          proprio: Optional[torch.Tensor] = None,
+                          use_flash="auto") -> PredictOutput:
+    """One prefill with parallel decoding; returns the action-slot hidden
+    states (the rows whose NEXT token is an action slot).
+
+    input_ids / prompt_mask (B, P) left-padded; pixels (B, N, n_backbones,
+    H, W, 3). use_flash: True | False | "auto" (kernel K1 on CUDA).
+    """
+    if isinstance(cfg.llm, PhiConfig):
+        raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
+    if cfg.use_film:
+        raise NotImplementedError("FiLM is not ported yet (ROADMAP queue 1, item 10)")
+    b, p_len = input_ids.shape
+    chunk = platform.chunk_len
+    dtype = params["llm"]["embed"]["embedding"].dtype
+    prompt_mask = prompt_mask.bool()
+
+    text_embeds = embed_tokens(params["llm"], input_ids).to(dtype) * prompt_mask[..., None]
+    patch_embeds = _patch_block(params, cfg, pixels, proprio, dtype)
+    n_patch = patch_embeds.shape[1]
+    action_embeds = torch.zeros((b, chunk, cfg.llm_dim), dtype=dtype,
+                                device=text_embeds.device)
+    stop_ids = torch.full((b, 1), STOP_INDEX, dtype=input_ids.dtype,
+                          device=input_ids.device)
+    stop_embeds = embed_tokens(params["llm"], stop_ids).to(dtype)
+    embeds, positions, key_valid, _ = _left_padded_layout(
+        text_embeds, patch_embeds, prompt_mask,
+        tail_embeds=torch.cat([action_embeds, stop_embeds], dim=1))
+    s = p_len + n_patch + chunk + 1
+    # Bidirectional window: the action slots and the trailing STOP.
+    window = (p_len + n_patch, chunk + 1)
+    bidir = torch.zeros((b, s), dtype=torch.bool, device=embeds.device)
+    bidir[:, window[0]:window[0] + chunk + 1] = True
+    # Predictor rows: the last prompt token through the second-to-last slot.
+    start = p_len + n_patch - 1
+    actions_hidden = llama_model(params["llm"], cfg.llm, embeds,
+                                 positions=positions, padding_mask=key_valid,
+                                 bidir_mask=bidir, use_flash=use_flash,
+                                 bidir_block=window, out_window=(start, chunk))
+    return PredictOutput(actions_hidden)
+
+
+def prepare_prompt_ids(tokenizer, instruction: str, bucket: int,
+                       max_length: int = 2048) -> tuple:
+    """Tokenize the OFT prompt (+ the 29871 empty-token fixup) and LEFT-pad it
+    to `bucket`; longer prompts escalate to the next multiple of `bucket`."""
+    from openvla_oft_tpu_torch.processing.processor import build_prompt
+
+    ids = tokenizer(build_prompt(instruction), add_special_tokens=True)["input_ids"]
+    if ids[-1] != EMPTY_TOKEN_ID:
+        ids = ids + [EMPTY_TOKEN_ID]
+    if len(ids) > bucket:
+        bucket = -(-len(ids) // bucket) * bucket
+    if bucket > max_length:
+        raise ValueError(f"Prompt length {len(ids)} exceeds llm_max_length {max_length}")
+    pad = bucket - len(ids)
+    input_ids = np.asarray([0] * pad + ids, dtype=np.int32)
+    mask = np.asarray([0] * pad + [1] * len(ids), dtype=np.int32)
+    return input_ids, mask
+
+
+def unnormalize_actions(normalized: np.ndarray, action_stats: dict,
+                        norm_type: NormalizationType) -> np.ndarray:
+    """Reference `_unnormalize_actions` (modeling_prismatic.py:772-791)."""
+    if norm_type == NormalizationType.BOUNDS:
+        low, high = np.asarray(action_stats["min"]), np.asarray(action_stats["max"])
+    elif norm_type == NormalizationType.BOUNDS_Q99:
+        low, high = np.asarray(action_stats["q01"]), np.asarray(action_stats["q99"])
+    else:
+        raise ValueError(f"Unsupported normalization type {norm_type}")
+    mask = np.asarray(action_stats.get("mask", np.ones_like(low, dtype=bool)))
+    return np.where(mask, 0.5 * (normalized + 1) * (high - low + 1e-8) + low,
+                    normalized)

@@ -1,0 +1,165 @@
+"""The serving hot path and a policy object for the L1 head.
+
+Port of `openvla_oft_tpu/policy.py::serve_action_chunk` and
+`OpenVLAPolicy.predict_action_from_frames`: uint8 camera frames -> device
+preprocessing -> prefill with parallel decoding -> L1 head -> device
+un-normalization. Nothing is compiled; the functions run eagerly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from openvla_oft_tpu.config import OpenVLAConfig
+from openvla_oft_tpu.constants import NormalizationType, PlatformSpec
+from openvla_oft_tpu_torch.models.action_heads import l1_head_predict
+from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden, prepare_prompt_ids
+from openvla_oft_tpu_torch.processing.image_processing import device_preprocess
+
+Params = Dict[str, Any]
+
+
+def normalize_proprio(proprio: torch.Tensor, low: torch.Tensor, high: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None,
+                      zero: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bounds normalization to [-1, 1]: masked-out dims pass through clipped,
+    degenerate dims (`zero`, by default low == high) map to 0."""
+    scaled = torch.clamp(2.0 * (proprio - low) / (high - low + 1e-8) - 1.0, -1.0, 1.0)
+    if mask is None:
+        mask = torch.ones_like(low, dtype=torch.bool)
+    out = torch.where(mask, scaled, torch.clamp(proprio, -1.0, 1.0))
+    if zero is None:
+        zero = low == high
+    return torch.where(zero, torch.zeros_like(out), out)
+
+
+def serve_action_chunk(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec,
+                       frames_u8: torch.Tensor, input_ids: torch.Tensor,
+                       prompt_mask: torch.Tensor, proprio: Optional[torch.Tensor],
+                       action_low: torch.Tensor, action_high: torch.Tensor,
+                       action_mask: torch.Tensor,
+                       proprio_low: Optional[torch.Tensor] = None,
+                       proprio_high: Optional[torch.Tensor] = None,
+                       proprio_mask: Optional[torch.Tensor] = None,
+                       proprio_zero: Optional[torch.Tensor] = None,
+                       use_flash="auto", center_crop: bool = True,
+                       resize_size: int = 224, fast_gelu: bool = True) -> torch.Tensor:
+    """frames_u8 (B, N, H, W, 3) uint8 -> unnormalized actions
+    (B, num_actions_chunk, action_dim) fp32.
+
+    fast_gelu (the serving default) swaps exact erf-GELU for `gelu_erf_fast`;
+    False keeps exact GELU.
+    """
+    if fast_gelu and not cfg.fast_gelu:
+        cfg = dataclasses.replace(cfg, fast_gelu=True)
+    b, n = frames_u8.shape[:2]
+    flat = frames_u8.reshape((b * n,) + tuple(frames_u8.shape[2:]))
+    pixels = device_preprocess(cfg, flat, resize_size=resize_size,
+                               center_crop=center_crop)
+    pixels = pixels.reshape((b, n) + tuple(pixels.shape[1:]))
+    if proprio is not None and proprio_low is not None:
+        proprio = normalize_proprio(proprio, proprio_low, proprio_high,
+                                    proprio_mask, proprio_zero)
+    out = predict_action_hidden(params, cfg, platform, input_ids=input_ids,
+                                prompt_mask=prompt_mask, pixels=pixels,
+                                proprio=proprio, use_flash=use_flash)
+    norm = l1_head_predict(params["action_head"], out.actions_hidden.float(), platform)
+    un = 0.5 * (norm + 1.0) * (action_high - action_low + 1e-8) + action_low
+    return torch.where(action_mask, un, norm)
+
+
+def _first_key(stats: dict, *keys):
+    for k in keys:
+        if k in stats:
+            return stats[k]
+    raise KeyError(f"none of {keys} in stats {list(stats)}")
+
+
+@dataclasses.dataclass
+class OpenVLAPolicy:
+    """Owns the params (on their device) and the un-normalization stats; the
+    L1 head only (other heads: ROADMAP queue 1, items 11 and 12)."""
+
+    cfg: OpenVLAConfig
+    platform: PlatformSpec
+    params: Params
+    norm_stats: Optional[dict] = None
+    head: str = "l1"
+    prompt_bucket: int = 64
+    use_flash: Any = "auto"
+    tokenizer: Any = None
+    fast_gelu: bool = True
+
+    def __post_init__(self):
+        if self.head != "l1":
+            raise NotImplementedError(
+                f"head={self.head!r} is not ported yet (ROADMAP queue 1, items 11-12)")
+        if self.fast_gelu and not self.cfg.fast_gelu:
+            self.cfg = dataclasses.replace(self.cfg, fast_gelu=True)
+        if self.tokenizer is None:
+            from openvla_oft_tpu_torch.processing.processor import FakeLlamaTokenizer
+
+            self.tokenizer = FakeLlamaTokenizer()
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["llm"]["embed"]["embedding"].device
+
+    def _action_stats(self, unnorm_key: Optional[str]) -> dict:
+        if not self.norm_stats:
+            raise ValueError("no dataset statistics loaded")
+        if unnorm_key is None:
+            if len(self.norm_stats) != 1:
+                raise ValueError(f"pass unnorm_key from {list(self.norm_stats)}")
+            unnorm_key = next(iter(self.norm_stats))
+        return self.norm_stats[unnorm_key]["action"]
+
+    @torch.inference_mode()
+    def predict_action_from_frames(self, frames_u8: np.ndarray, instruction: str,
+                                   proprio: Optional[np.ndarray] = None,
+                                   unnorm_key: Optional[str] = None,
+                                   center_crop: bool = True) -> np.ndarray:
+        """RAW uint8 frames (N, H, W, 3) -> unnormalized action chunk
+        (num_actions_chunk, action_dim), through `serve_action_chunk`."""
+        dev = self.device
+        stats = self._action_stats(unnorm_key)
+        q99 = self.platform.norm_type == NormalizationType.BOUNDS_Q99
+        lo_k, hi_k = ("q01", "q99") if q99 else ("min", "max")
+        low, high = stats[lo_k], stats[hi_k]
+        amask = stats.get("mask", [True] * len(np.asarray(low)))
+        p_stats = None
+        if proprio is not None and self.norm_stats is not None:
+            p_stats = self.norm_stats[unnorm_key or next(iter(self.norm_stats))].get("proprio")
+
+        def f32(a):
+            return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+        def mask_t(a):
+            return torch.tensor(np.asarray(a, bool), device=dev)
+
+        p_kw = {}
+        if p_stats is not None:
+            p_low = _first_key(p_stats, lo_k, "q01", "min")
+            p_high = _first_key(p_stats, hi_k, "q99", "max")
+            zero = (np.asarray(p_stats["min"]) == np.asarray(p_stats["max"])
+                    if "min" in p_stats and "max" in p_stats
+                    else np.asarray(p_low) == np.asarray(p_high))
+            p_kw = {"proprio_low": f32(p_low), "proprio_high": f32(p_high),
+                    "proprio_mask": mask_t(p_stats["mask"]) if "mask" in p_stats else None,
+                    "proprio_zero": mask_t(zero)}
+        ids, m = prepare_prompt_ids(self.tokenizer, instruction, self.prompt_bucket)
+        actions = serve_action_chunk(
+            self.params, self.cfg, self.platform,
+            frames_u8=torch.tensor(np.asarray(frames_u8, np.uint8), device=dev)[None],
+            input_ids=torch.as_tensor(ids, device=dev)[None],
+            prompt_mask=torch.as_tensor(m, device=dev)[None],
+            proprio=None if proprio is None else f32(proprio)[None],
+            action_low=f32(low), action_high=f32(high), action_mask=mask_t(amask),
+            use_flash=self.use_flash, center_crop=center_crop,
+            resize_size=self.cfg.vision_configs[0].image_size,
+            fast_gelu=self.fast_gelu, **p_kw)
+        return actions[0].cpu().numpy()

@@ -1,0 +1,1 @@
+"""Port of the matching `openvla_oft_tpu` subpackage."""

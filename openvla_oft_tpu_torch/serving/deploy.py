@@ -1,0 +1,123 @@
+"""Serve a port policy over HTTP /act (the wire contract of `vla_scripts/deploy.py`).
+
+`build_server(policy)` wraps `OpenVLAPolicy.predict_action_from_frames` as the
+`predict(observation, instruction)` callable that the repo's
+`openvla_oft_tpu.serving.server.ActionServer` takes. The observation carries
+uint8 frames under "full_image" plus any "wrist*" keys, and the proprio state
+under "state".
+
+    python -m openvla_oft_tpu_torch.serving.deploy --random-weights --port 8777
+
+Loading a checkpoint is not ported yet, so the CLI serves the flagship model
+(DINOv2+SigLIP, Llama-2-7B, 2 images, LIBERO) with seeded random weights and
+placeholder [-1, 1] statistics.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional
+
+import numpy as np
+
+from openvla_oft_tpu.serving.server import ActionServer, get_action_from_server
+
+__all__ = ["StdlibActionServer", "build_server", "flagship_policy", "get_action_from_server",
+           "observation_frames", "placeholder_norm_stats"]
+
+
+def observation_frames(observation: dict, num_images: int) -> np.ndarray:
+    """(N, H, W, 3) uint8: "full_image", then the wrist cameras in key order."""
+    images = [observation["full_image"]]
+    if num_images > 1:
+        images += [observation[k] for k in observation
+                   if "wrist" in k or "camera_gripper_image" in k]
+    if len(images) < num_images:
+        raise ValueError(f"observation has {len(images)} images, the model takes "
+                         f"{num_images}")
+    return np.stack([np.asarray(im, np.uint8) for im in images[:num_images]])
+
+
+class StdlibActionServer(ActionServer):
+    """`ActionServer` on its stdlib HTTP server, where FastAPI is installed too.
+
+    Its FastAPI route answers every /act with 422: `server.py` postpones
+    annotations (`from __future__ import annotations`) and imports `Request`
+    inside the method, so FastAPI cannot resolve `request: Request` and reads
+    it as a missing query parameter (ROADMAP queue 3). The wire format of the
+    stdlib server is the same.
+    """
+
+    def run(self, host: str = "0.0.0.0", port: int = 8777, background: bool = False):
+        return self._run_stdlib(host, port, background)
+
+
+def build_server(policy, unnorm_key: Optional[str] = None) -> ActionServer:
+    """An ActionServer whose /act runs `policy.predict_action_from_frames`."""
+    num_images = policy.cfg.num_images_in_input
+
+    def predict(observation: dict, instruction: str) -> np.ndarray:
+        state = observation.get("state")
+        return policy.predict_action_from_frames(
+            observation_frames(observation, num_images), instruction,
+            proprio=None if state is None else np.asarray(state, np.float32),
+            unnorm_key=unnorm_key)
+
+    return StdlibActionServer(predict)
+
+
+def placeholder_norm_stats(platform) -> dict:
+    """[-1, 1] action and proprio statistics for a random-weight policy."""
+    d, pd = platform.action_dim, platform.proprio_dim
+    return {"random": {
+        "action": {"q01": [-1.0] * d, "q99": [1.0] * d, "min": [-1.0] * d,
+                   "max": [1.0] * d, "mask": [True] * (d - 1) + [False]},
+        "proprio": {"q01": [-1.0] * pd, "q99": [1.0] * pd,
+                    "min": [-1.0] * pd, "max": [1.0] * pd},
+    }}
+
+
+def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48):
+    """The flagship serving policy with seeded random bf16 weights, fused for
+    serving as the JAX bench does (wqkv/gate_up and ViT folds)."""
+    import torch
+
+    from openvla_oft_tpu.config import OpenVLAConfig
+    from openvla_oft_tpu.constants import LIBERO
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.models.llama import fuse_inference_weights
+    from openvla_oft_tpu_torch.models.vit import fuse_vit_inference_weights
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+
+    cfg = OpenVLAConfig(vision_backbone_id="dinosiglip-vit-so-224px",
+                        llm_backbone_id="llama2-7b-pure", num_images_in_input=2)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, LIBERO, gen, device=device, dtype=torch.bfloat16)
+    params["llm"] = fuse_inference_weights(params["llm"], fold_norms=True)
+    params["vision_backbone"] = {
+        name: fuse_vit_inference_weights(v, fold_norms=True)
+        for name, v in params["vision_backbone"].items()}
+    return OpenVLAPolicy(cfg=cfg, platform=LIBERO, params=params,
+                         norm_stats=placeholder_norm_stats(LIBERO),
+                         prompt_bucket=prompt_bucket)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--random-weights", action="store_true",
+                        help="serve seeded random weights (required: checkpoint "
+                             "loading is not ported yet)")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=8777)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    if not args.random_weights:
+        parser.error("checkpoint loading is not ported yet; pass --random-weights")
+    policy = flagship_policy(args.device, seed=args.seed)
+    print(f"[deploy] serving /act on {args.host}:{args.port}")
+    build_server(policy).run(args.host, args.port)
+
+
+if __name__ == "__main__":
+    main()
