@@ -1,11 +1,11 @@
 """Build the port's hand-written CUDA kernels and load them through ctypes.
 
-Every `csrc/*.cu` file of this package compiles with `nvcc` into ONE shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds). The library lands in `_build/<hash>/libopenvla_kernels.so`, keyed
-by a hash of the sources and flags: a rebuild happens only when they change.
-There is no fallback: a missing `nvcc` or a failed build raises with the
-compiler's output.
+Every `csrc/*.cu` file of this package compiles with its own `nvcc`, all of
+them at once, and the objects link into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). The library lands
+in `_build/<hash>/libopenvla_kernels.so`, keyed by a hash of the sources and
+flags: a rebuild happens only when they change. There is no fallback: a
+missing `nvcc` or a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libopenvla_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _sources() -> list:
@@ -55,7 +55,7 @@ def _find_nvcc() -> str:
 def build() -> Path:
     """Compile csrc/*.cu for sm_90a unless a library for these sources exists.
 
-    Returns the library's path. The compiler's output (with `-Xptxas -v`
+    Returns the library's path. The compilers' output (with `-Xptxas -v`
     register and shared-memory counts) is kept beside it as `build.log`.
     """
     out_dir = BUILD_DIR / _source_hash()
@@ -63,18 +63,34 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Build into a temporary name, then rename: a concurrent build never
-    # loads a half-written library.
+    nvcc = _find_nvcc()
+    # Objects go to a private directory and the library to a temporary name,
+    # then a rename: a concurrent build never loads a half-written library.
+    obj_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    jobs = []
+    for src in _sources():
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj_dir / (src.stem + ".o")),
+               str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    log, failed = [], False
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        failed |= proc.returncode != 0
+    if not failed:
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp,
+                *map(str, sorted(obj_dir.glob("*.o")))]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        failed = proc.returncode != 0
+    (out_dir / "build.log").write_text("".join(log))
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "".join(log))
     os.replace(tmp, lib)
     return lib
 
@@ -92,6 +108,13 @@ def library() -> ctypes.CDLL:
                    i64, i64, i64,                # v strides
                    i, ctypes.c_float, p]         # causal scale stream
     fn.restype = ctypes.c_int
+    strides = [i64] * 12                         # q, k, v, dO strides (b, s, h)
+    fn = lib.openvla_flash_attention_bwd_dq
+    fn.argtypes = [p] * 9 + [i] * 5 + strides + [i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int                    # q k v o lse dO valid bidir dq
+    fn = lib.openvla_flash_attention_bwd_dkv
+    fn.argtypes = [p] * 10 + [i] * 5 + strides + [i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int                    # ... dk dv, then as K2
     lib.openvla_cuda_error_string.argtypes = [ctypes.c_int]
     lib.openvla_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -181,9 +181,52 @@ def materialize(spec, generator: torch.Generator, device, dtype):
     return [materialize(v, generator, device, dtype) for v in spec]
 
 
+_HEAD_KEYS = ("projector", "proprio_projector", "action_head")
+
+
 def init_params(cfg: OpenVLAConfig, platform: PlatformSpec,
                 generator: torch.Generator, device="cpu",
-                dtype: torch.dtype = torch.bfloat16) -> Params:
-    """Random L1-head serving params drawn on `device` (the generator must
-    live there too): the structure, shapes and scales of the JAX init."""
-    return materialize(param_spec(cfg, platform), generator, device, dtype)
+                dtype: torch.dtype = torch.bfloat16,
+                head_dtype: Optional[torch.dtype] = None) -> Params:
+    """Random L1-head params drawn on `device` (the generator must live there
+    too): the structure, shapes and scales of the JAX init, in the unfused
+    layout (serving fuses afterwards; training keeps it).
+
+    head_dtype: dtype of the projector, proprio projector and action head
+    (the JAX init's `head_dtype`, fp32 for training); None = `dtype`.
+    """
+    head_dtype = dtype if head_dtype is None else head_dtype
+    return {k: materialize(v, generator, device,
+                           head_dtype if k in _HEAD_KEYS else dtype)
+            for k, v in param_spec(cfg, platform).items()}
+
+
+def split_base_trainables(params: Params, lora_generator: torch.Generator,
+                          lora_rank: int = 32, use_proprio: bool = True):
+    """(frozen base, trainables), the split of `vla_scripts/finetune.py`:
+    the base is the LLM, the vision backbone and the projector; trainables
+    are LoRA factors over the base's linears (`training/lora.py::init_lora`,
+    drawn from `lora_generator`), the action head and, with `use_proprio`,
+    the proprio projector. The base is set to requires_grad=False and the
+    trainables to True, in place."""
+    from openvla_oft_tpu_torch.training.lora import init_lora
+
+    base = {k: params[k] for k in ("llm", "vision_backbone", "projector")}
+    trainables = {"lora": init_lora(lora_generator, base, rank=lora_rank)}
+    for k in ("action_head", "proprio_projector"):
+        if k in params and (k != "proprio_projector" or use_proprio):
+            trainables[k] = params[k]
+    for t in tree_leaves(base):
+        t.requires_grad_(False)
+    for t in tree_leaves(trainables):
+        t.requires_grad_(True)
+    return base, trainables
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict/list tree, in insertion order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]

@@ -24,11 +24,11 @@
 // output accumulator live in shared memory, where two lanes per row apply the
 // mask, the online-softmax update and the rescale.
 //
-// Tile skipping. Under `causal`, a key tile wholly above the diagonal is
-// skipped only when no bidirectional query row of the query tile can reach a
-// bidirectional key in it: the action window's rows attend FORWARD into the
-// window, so a plain causal skip would drop them. Tiles with no valid key are
-// skipped too (they contribute nothing).
+// Tile skipping (oft_mask.cuh, shared with K2/K3). Under `causal`, a key
+// tile wholly above the diagonal is skipped only when no bidirectional query
+// row of the query tile can reach a bidirectional key in it: the action
+// window's rows attend FORWARD into the window, so a plain causal skip would
+// drop them. Tiles with no valid key are skipped too (they contribute nothing).
 //
 // Bound. At the LIBERO prefill (S=618, H=32, D=128) one layer is about
 // 6.3 GFLOP against about 10 MB of q/k/v/o, so the op is compute-bound once
@@ -42,15 +42,16 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "oft_mask.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64;                 // query rows per CTA
-constexpr int BK = 64;                 // key rows per tile
-constexpr int NWARPS = 4;              // 16 query rows per warp
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;      // finite, as in the TPU kernel
+using oft::BK;
+using oft::BQ;
+using oft::NEG_INF;
+using oft::NTHREADS;
 
 template <int D>
 struct Layout {
@@ -69,23 +70,6 @@ struct Layout {
   static constexpr size_t flag_off = o_off + size_t(BQ) * LDO * 4;
   static constexpr size_t bytes = flag_off + 2 * BK;
 };
-
-// Copy 64 rows of D bf16 (row stride `row_stride` elements) into a padded
-// shared tile, 16 bytes per thread per step; rows >= n_valid are zero-filled
-// so padding keys and values can never inject NaN.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int n_valid) {
-  constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += NTHREADS) {
-    const int r = idx / CHUNKS, c = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid)
-      val = *reinterpret_cast<const uint4*>(src + r * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * Layout<D>::LDQ + c * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
@@ -120,8 +104,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* k_bh = k + b * k_sb + hk * k_sh;
   const __nv_bfloat16* v_bh = v + b * v_sb + hk * v_sh;
 
-  load_tile<D>(sQ, q + b * q_sb + (long long)q0 * q_ss + h * q_sh, q_ss,
-               min(BQ, S - q0));
+  oft::load_tile<D, L::LDQ>(sQ, q + b * q_sb + (long long)q0 * q_ss + h * q_sh,
+                            q_ss, min(BQ, S - q0));
   for (int i = tid; i < BQ * L::LDO; i += NTHREADS) sO[i] = 0.f;
 
   const int q_hi = min(q0 + BQ, S) - 1;
@@ -148,14 +132,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
     const int any_valid = __syncthreads_or(vf);
     const int any_bid = __syncthreads_or(vf && bf);
-    const bool reach = !causal || k0 <= q_hi || (q_bid_any && any_bid);
-    if (!any_valid || !reach) continue;   // uniform across the CTA
+    if (!oft::tile_pair_live(causal, k0, q_hi, q_bid_any, any_valid, any_bid))
+      continue;   // uniform across the CTA
     if (tid < BK) {
       sValid[tid] = (uint8_t)vf;
       sBid[tid] = (uint8_t)bf;
     }
-    load_tile<D>(sK, k_bh + (long long)k0 * k_ss, k_ss, kn);
-    load_tile<D>(sV, v_bh + (long long)k0 * v_ss, v_ss, kn);
+    oft::load_tile<D, L::LDQ>(sK, k_bh + (long long)k0 * k_ss, k_ss, kn);
+    oft::load_tile<D, L::LDQ>(sV, v_bh + (long long)k0 * v_ss, v_ss, kn);
     __syncthreads();
 
     // Scores of this warp's 16 rows: (16 x D) . (D x 64), fp32 accumulate.
@@ -194,8 +178,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int c = 0; c < 32; ++c) {
         const int jj = half * 32 + c;
         const int j = k0 + jj;
-        const bool allow = q_live && sValid[jj] &&
-                           (!causal || j <= qi || (q_bid && sBid[jj]));
+        const bool allow =
+            q_live && oft::allow(causal, qi, j, sValid[jj], q_bid, sBid[jj]);
         sv[c] = srow[c] * scale;
         if (allow) {
           allow_bits |= 1u << c;

@@ -2,9 +2,10 @@
 
 Port of `openvla_oft_tpu/models/llama.py` (`embed_tokens`,
 `fuse_inference_weights`, `_block`, `_qkv_proj`, `_mlp`, `llama_model` with
-`out_window`). RMSNorm -> RoPE attention with the OFT block-bidirectional mask
--> SwiGLU; hidden states are returned after the final RMSNorm. Layers stay
-stacked (L, ...) and run as a Python loop over per-layer views.
+`out_window` and activation remat). RMSNorm -> RoPE attention with the OFT
+block-bidirectional mask -> SwiGLU; hidden states are returned after the
+final RMSNorm. Layers stay stacked (L, ...) and run as a Python loop over
+per-layer views.
 
 On the flash path every layer but a sliced `out_window` last layer runs its
 attention through kernel K1 (`ops/flash_attention.py`); the window layer has
@@ -17,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from openvla_oft_tpu.config import LlamaConfig
 from openvla_oft_tpu_torch.bridge import index_layer
@@ -26,6 +28,32 @@ from openvla_oft_tpu_torch.ops.masks import make_block_bidirectional_mask
 from openvla_oft_tpu_torch.ops.rotary import apply_rope, rope_sin_cos
 
 Params = Dict[str, Any]
+
+
+def resolve_remat(remat_policy: Optional[str]) -> bool:
+    """Whether each block runs under activation remat (JAX
+    `resolve_remat_policy` with its call sites' "none" check).
+
+    "all": the block's forward is recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant); None / "none": activations
+    are kept.
+    """
+    if remat_policy in (None, "none"):
+        return False
+    if remat_policy == "all":
+        return True
+    if remat_policy in ("dots", "attn_out"):
+        raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported "
+                                  "yet (ROADMAP queue 1, item 14)")
+    raise ValueError(f"Unknown remat policy {remat_policy!r} (use 'all', 'dots', "
+                     "'attn_out' or 'none')")
+
+
+def run_block(block, remat: bool, *args):
+    """block(*args), under `torch.utils.checkpoint` when `remat` and grad is on."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -133,12 +161,14 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 use_flash=False,
                 bidir_block: Optional[tuple] = None,
-                out_window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                out_window: Optional[Tuple[int, int]] = None,
+                remat_policy: Optional[str] = None) -> torch.Tensor:
     """Run the decoder stack; returns post-final-norm hidden states (B, S, D),
     or with `out_window=(start, len)` only those rows of the last layer
     (B, len, D) — every earlier layer still computes all rows as keys.
 
     use_flash: True | False | "auto" (K1 on CUDA, see ops/attention.py).
+    remat_policy: activation remat of each block (`resolve_remat`).
     """
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
@@ -170,10 +200,12 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     layers = params["layers"]
     n_layers = layers["mlp"]["down"]["kernel"].shape[0]
     n_full = n_layers if out_window is None else n_layers - 1
+    checkpointed = resolve_remat(remat_policy)
     x = inputs_embeds
     for i in range(n_full):
-        x = _block(index_layer(layers, i), cfg, x, sin, cos, mask, is_causal,
-                   use_flash, bidir_block, key_valid=key_valid, bidir_1d=bidir_1d)
+        x = run_block(_block, checkpointed, index_layer(layers, i), cfg, x, sin,
+                      cos, mask, is_causal, use_flash, bidir_block, key_valid,
+                      bidir_1d)
     if out_window is None:
         return rms_norm(params["final_norm"], x, cfg.rms_norm_eps)
 

@@ -1,8 +1,16 @@
-"""Prismatic VLM + OpenVLA action prediction: the serving prefill.
+"""Prismatic VLM + OpenVLA action prediction: the training forward and the
+serving prefill.
 
-Port of the serving part of `openvla_oft_tpu/models/prismatic.py`. The
-prompt is LEFT-padded into a static bucket and a per-row gather places the
-tokens in their logical order:
+Port of `openvla_oft_tpu/models/prismatic.py` (`prismatic_forward`,
+`predict_action_hidden` and their helpers), L1 head, no FiLM.
+
+Training (`prismatic_forward`): right-padded batches as the collator emits
+them, physical layout [BOS][patches (+proprio)][text rest][PAD], action-token
+embeddings zeroed, and a per-row bidirectional window over the action slots
+and the STOP that follows them.
+
+Serving (`predict_action_hidden`): the prompt is LEFT-padded into a static
+bucket and a per-row gather places the tokens in their logical order:
 
     [pads (p)][BOS][patches (+proprio)][prompt rest][action slots][STOP]
 
@@ -21,6 +29,7 @@ import torch
 from openvla_oft_tpu.config import OpenVLAConfig, PhiConfig
 from openvla_oft_tpu.constants import (
     EMPTY_TOKEN_ID,
+    IGNORE_INDEX,
     STOP_INDEX,
     NormalizationType,
     PlatformSpec,
@@ -28,21 +37,100 @@ from openvla_oft_tpu.constants import (
 from openvla_oft_tpu_torch.models.llama import embed_tokens, llama_model
 from openvla_oft_tpu_torch.models.projector import proprio_projector, vision_projector
 from openvla_oft_tpu_torch.models.vision_backbone import vision_backbone_forward
+from openvla_oft_tpu_torch.ops.masks import get_all_actions_mask
 
 Params = Dict[str, Any]
 
 
 def _patch_block(params: Params, cfg: OpenVLAConfig, pixels: torch.Tensor,
-                 proprio: Optional[torch.Tensor], dtype) -> torch.Tensor:
+                 proprio: Optional[torch.Tensor], dtype,
+                 remat_policy: Optional[str] = None) -> torch.Tensor:
     """Vision features -> projector (+ one proprio token), in `dtype`."""
     feats = vision_backbone_forward(params["vision_backbone"], cfg,
-                                    pixels.to(dtype))
+                                    pixels.to(dtype), remat_policy=remat_policy)
     proj = vision_projector(params["projector"], feats,
                             fast_gelu=cfg.fast_gelu).to(dtype)
     if proprio is None:
         return proj
     p_tok = proprio_projector(params["proprio_projector"], proprio.float())
     return torch.cat([proj, p_tok[:, None, :].to(dtype)], dim=1)
+
+
+class ForwardOutput(NamedTuple):
+    hidden_states: torch.Tensor            # (B, S_mm, D) post-final-norm
+    logits: Optional[torch.Tensor]         # always None: lm_head is not ported
+    multimodal_labels: torch.Tensor        # (B, S_mm)
+    actions_hidden: torch.Tensor           # (B, chunk_len, D) at action slots
+    all_actions_mask: torch.Tensor         # (B, S_txt) action positions
+
+
+def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec,
+                      input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                      pixels: torch.Tensor, labels: torch.Tensor,
+                      proprio: Optional[torch.Tensor] = None,
+                      noisy_actions: Optional[torch.Tensor] = None,
+                      diffusion_t_emb: Optional[torch.Tensor] = None,
+                      use_flash="auto", compute_logits: bool = False,
+                      remat_policy: Optional[str] = None) -> ForwardOutput:
+    """The training forward (reference `PrismaticForConditionalGeneration.
+    forward`, modeling_prismatic.py:575-675, plus the fine-tune hidden-state
+    gather, vla-scripts/finetune.py:384-394).
+
+    input_ids / attention_mask / labels (B, S_txt) right-padded; pixels
+    (B, N, n_backbones, H, W, 3). use_flash: True | False | "auto" (K1/K2/K3
+    on CUDA, see ops/attention.py::resolve_use_flash).
+    """
+    if isinstance(cfg.llm, PhiConfig):
+        raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
+    if cfg.use_film:
+        raise NotImplementedError("FiLM is not ported yet (ROADMAP queue 1, item 10)")
+    if noisy_actions is not None or diffusion_t_emb is not None:
+        raise NotImplementedError(
+            "the diffusion objective is not ported yet (ROADMAP queue 1, item 14)")
+    if compute_logits:
+        raise NotImplementedError(
+            "logits (the discrete objective) are not ported yet (ROADMAP queue 1, item 14)")
+    b = input_ids.shape[0]
+    dtype = params["llm"]["embed"]["embedding"].dtype
+    device = input_ids.device
+    pad_mask = attention_mask.bool()
+
+    all_actions_mask = get_all_actions_mask(labels, platform.action_dim)
+    text_embeds = embed_tokens(params["llm"], input_ids).to(dtype) \
+        * (~all_actions_mask)[..., None]
+    patch_embeds = _patch_block(params, cfg, pixels, proprio, dtype, remat_policy)
+    n_patch = patch_embeds.shape[1]
+
+    # Physical layout: [BOS][patch block][rest of text] (insertion after BOS,
+    # reference `_build_multimodal_attention`, modeling_prismatic.py:462-486).
+    mm_embeds = torch.cat([text_embeds[:, :1], patch_embeds, text_embeds[:, 1:]], dim=1)
+    none = torch.zeros((b, 1 + n_patch), dtype=torch.bool, device=device)
+    mm_pad = torch.cat([pad_mask[:, :1], ~none[:, 1:], pad_mask[:, 1:]], dim=1)
+    # The bidirectional window spans the action slots AND the STOP after them
+    # (modeling_prismatic.py:742); the gather mask stays actions-only.
+    after_action = torch.nn.functional.pad(all_actions_mask[:, :-1], (1, 0))
+    attn_bidir_txt = all_actions_mask | ((input_ids == STOP_INDEX) & after_action)
+    mm_actions = torch.cat([none, all_actions_mask[:, 1:]], dim=1)
+    mm_bidir = torch.cat([none, attn_bidir_txt[:, 1:]], dim=1)
+    ignore = torch.full((b, n_patch), IGNORE_INDEX, dtype=labels.dtype, device=device)
+    mm_labels = torch.cat([labels[:, :1], ignore, labels[:, 1:]], dim=1)
+
+    hidden = llama_model(params["llm"], cfg.llm, mm_embeds, padding_mask=mm_pad,
+                         bidir_mask=mm_bidir, use_flash=use_flash,
+                         remat_policy=remat_policy)
+
+    # Hidden states at positions whose NEXT token is an action token: the
+    # multimodal action mask shifted left by one.
+    predictor = torch.cat([mm_actions[:, 1:], none[:, :1]], dim=1)
+    actions_hidden = _gather_mask_rows(hidden, predictor, platform.chunk_len)
+    return ForwardOutput(hidden, None, mm_labels, actions_hidden, all_actions_mask)
+
+
+def _gather_mask_rows(x: torch.Tensor, mask: torch.Tensor, count: int) -> torch.Tensor:
+    """Per row, the first `count` True positions of `mask` gathered from x:
+    (B, count, D). Rows must hold at least `count` Trues."""
+    idx = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :count]
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
 def _left_padded_layout(text_embeds: torch.Tensor, patch_embeds: torch.Tensor,

@@ -24,11 +24,13 @@ def featurizer_names(cfg: OpenVLAConfig) -> Tuple[str, ...]:
 
 def vision_backbone_forward(params: Params, cfg: OpenVLAConfig,
                             pixels: torch.Tensor,
-                            film_params: Optional[Params] = None) -> torch.Tensor:
+                            film_params: Optional[Params] = None,
+                            remat_policy: Optional[str] = None) -> torch.Tensor:
     """pixels (B, N, n_backbones, H, W, 3) normalized -> (B, N*patches, vision_dim).
 
     With `cfg.fast_gelu` the exact-erf GELU MLPs (DINOv2) use
     `gelu_erf_fast`; tanh and quick variants are already exp-based.
+    remat_policy: activation remat of each ViT block (training).
     """
     if film_params is not None:
         raise NotImplementedError("FiLM is not ported yet (ROADMAP queue 1, item 10)")
@@ -47,6 +49,6 @@ def vision_backbone_forward(params: Params, cfg: OpenVLAConfig,
     feats = []
     for i, (name, vcfg) in enumerate(zip(names, vision_configs)):
         imgs = pixels[:, :, i].reshape(b * n, h, w, 3)
-        f = vit_featurize(params[name], vcfg, imgs)
+        f = vit_featurize(params[name], vcfg, imgs, remat_policy)
         feats.append(f.reshape(b, n * vcfg.num_patches, vcfg.width))
     return feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)

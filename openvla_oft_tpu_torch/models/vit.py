@@ -4,7 +4,8 @@ Port of `openvla_oft_tpu/models/vit.py` for serving: patchify + matmul patch
 embedding, optional class/register tokens, pre-norm blocks with optional
 LayerScale, and the OpenVLA tap (the second-to-last block's patch tokens, no
 final norm; the last block never runs). Layers stay stacked (L, ...) and run
-as a Python loop over views. FiLM is not ported yet (ROADMAP queue 1, item 10).
+as a Python loop over views, each block optionally under activation remat.
+FiLM is not ported yet (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from openvla_oft_tpu.config import ViTConfig
 from openvla_oft_tpu_torch.bridge import index_layer
+from openvla_oft_tpu_torch.models.llama import resolve_remat, run_block
 from openvla_oft_tpu_torch.ops.attention import attention
 from openvla_oft_tpu_torch.ops.layers import ACTIVATIONS, layer_norm, linear
 
@@ -119,10 +121,18 @@ def vit_frontend(params: Params, cfg: ViTConfig, images: torch.Tensor) -> torch.
     return x
 
 
-def vit_featurize(params: Params, cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
+def vit_featurize(params: Params, cfg: ViTConfig, images: torch.Tensor,
+                  remat_policy: Optional[str] = None) -> torch.Tensor:
     """(B, H, W, 3) normalized pixels -> (B, num_patches, width): the patch
-    tokens after block depth-2 (blocks 0 .. depth-2 run)."""
+    tokens after block depth-2 (blocks 0 .. depth-2 run).
+
+    remat_policy: recompute each block in the backward, like the Llama
+    blocks (`resolve_remat`).
+    Training gradients flow through the ViTs (LoRA targets their kernels).
+    """
+    checkpointed = resolve_remat(remat_policy)
     x = vit_frontend(params, cfg, images)
     for i in range(cfg.depth - 1):
-        x = _vit_block(index_layer(params["layers"], i), cfg, x)
+        x = run_block(_vit_block, checkpointed, index_layer(params["layers"], i),
+                      cfg, x)
     return x[:, cfg.num_prefix_tokens:]

@@ -1,15 +1,20 @@
-"""Flash attention with the OFT block-bidirectional mask: kernel K1 on Hopper.
+"""Flash attention with the OFT block-bidirectional mask: kernels K1, K2, K3.
 
-Port of `openvla_oft_tpu/ops/flash_attention.py::flash_attention` (the TPU
-kernel `_kernel`, launched by `_fwd_pallas`). Masking comes from 1-D vectors,
-never an (S, S) array:
+Port of `openvla_oft_tpu/ops/flash_attention.py::flash_attention` with its
+backward: the TPU kernels `_kernel` (forward, K1), `_kernel_dq` (K2) and
+`_kernel_dkv` (K3), wired there as a `custom_vjp` and here as a
+`torch.autograd.Function`. Masking comes from 1-D vectors, never an (S, S)
+array:
 
     allow[i, j] = (j <= i AND key_valid[j]) OR (bidir[i] AND bidir[j] AND key_valid[j])
 
-A CUDA tensor goes to the hand-written kernel `csrc/flash_attention_fwd.cu`
-(built on first use by `_build.py`) or raises; a CPU tensor goes to the plain
-version `flash_attention_ref` below. There is no fallback between the two.
-`flash_attention.launches` counts kernel launches.
+A CUDA tensor goes to the hand-written kernels `csrc/flash_attention_fwd.cu`
+and `csrc/flash_attention_bwd.cu` (built on first use by `_build.py`) or
+raises; a CPU tensor goes to the plain versions `flash_attention_ref`,
+`flash_attention_dq_ref` and `flash_attention_dkv_ref` below (together
+`flash_attention_bwd_ref`). There is no fallback between the two.
+`flash_attention.launches`, `flash_attention_dq.launches` and
+`flash_attention_dkv.launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -37,25 +42,34 @@ def _mask_vectors(q: torch.Tensor, key_valid: Optional[torch.Tensor],
     return key_valid.bool(), bidir_mask.bool()
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        is_causal: bool, key_valid: torch.Tensor,
-                        bidir: torch.Tensor):
-    """Plain-torch K1: the same 1-D mask rule, fp32 scores and softmax,
-    probabilities rounded to v's dtype before P.V, zeros for rows with no
-    allowed key. Returns (O (B,S,H,D) in q's dtype, LSE (B,H,S) fp32)."""
-    b, s, h, d = q.shape
-    hkv = k.shape[2]
-    if hkv != h:
-        k = k.repeat_interleave(h // hkv, dim=2)
-        v = v.repeat_interleave(h // hkv, dim=2)
-    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * (d ** -0.5)
+def _allow(q: torch.Tensor, is_causal: bool, key_valid: torch.Tensor,
+           bidir: torch.Tensor) -> torch.Tensor:
+    """The (B, 1, S, S) boolean mask of the 1-D rule."""
+    b, s = q.shape[:2]
     key_valid, bidir = key_valid.bool(), bidir.bool()
     allow = key_valid[:, None, :].expand(b, s, s)
     if is_causal:
         allow = allow & torch.ones((s, s), dtype=torch.bool,
                                    device=q.device).tril()[None]
     allow = allow | (bidir[:, :, None] & bidir[:, None, :] & key_valid[:, None, :])
-    allow = allow[:, None]                                   # (B, 1, S, S)
+    return allow[:, None]
+
+
+def _repeat_kv(t: torch.Tensor, h: int) -> torch.Tensor:
+    hkv = t.shape[2]
+    return t if hkv == h else t.repeat_interleave(h // hkv, dim=2)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        is_causal: bool, key_valid: torch.Tensor,
+                        bidir: torch.Tensor):
+    """Plain-torch K1: the same 1-D mask rule, fp32 scores and softmax,
+    probabilities rounded to v's dtype before P.V, zeros for rows with no
+    allowed key. Returns (O (B,S,H,D) in q's dtype, LSE (B,H,S) fp32)."""
+    d, h = q.shape[-1], q.shape[2]
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * (d ** -0.5)
+    allow = _allow(q, is_causal, key_valid, bidir)
     scores = torch.where(allow, scores, _NEG_INF)
     m = scores.amax(-1, keepdim=True)
     p = torch.where(allow, torch.exp(scores - m), 0.0)
@@ -63,6 +77,64 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.einsum("bhst,bthd->bhsd", p.to(v.dtype).float(), v.float()) / l
     lse = (m + torch.log(l))[..., 0]
     return o.transpose(1, 2).to(q.dtype), lse
+
+
+def _bwd_ref_scores(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+    """P and dS (B,H,S,S) fp32 of the plain backward, from K1's residuals.
+    P is taken by a select, so the overflow of exp at dead rows (LSE = -1e30)
+    never reaches a product."""
+    d, h = q.shape[-1], q.shape[2]
+    scale = d ** -0.5
+    scores = torch.einsum("bshd,bthd->bhst", q.float(),
+                          _repeat_kv(k, h).float()) * scale
+    p = torch.where(_allow(q, is_causal, key_valid, bidir),
+                    torch.exp(scores - lse[..., None]), 0.0)
+    dp = torch.einsum("bshd,bthd->bhst", do.float(), _repeat_kv(v, h).float())
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)      # (B, H, S)
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def _dq_from(ds, q, k):
+    return torch.einsum("bhst,bthd->bshd", ds.to(q.dtype).float(),
+                        _repeat_kv(k, q.shape[2]).float()).to(q.dtype)
+
+
+def _dkv_from(p, ds, q, k, v, do):
+    """dk, dv per query head, summed over each GQA group in fp32, then one
+    rounding (the JAX version sums bf16 per-head results outside its kernel)."""
+    b, s, hkv, d = k.shape
+    rep = q.shape[2] // hkv
+    dk = torch.einsum("bhst,bshd->bthd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhst,bshd->bthd", p.to(v.dtype).float(), do.float())
+    return (dk.reshape(b, s, hkv, rep, d).sum(3).to(k.dtype),
+            dv.reshape(b, s, hkv, rep, d).sum(3).to(v.dtype))
+
+
+def flash_attention_dq_ref(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+    """Plain-torch K2: dq (B,S,H,D) in q's dtype."""
+    _, ds = _bwd_ref_scores(q, k, v, o, lse, do, is_causal, key_valid, bidir)
+    return _dq_from(ds, q, k)
+
+
+def flash_attention_dkv_ref(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+    """Plain-torch K3: (dk, dv), each (B,S,Hkv,D) in k's / v's dtype."""
+    p, ds = _bwd_ref_scores(q, k, v, o, lse, do, is_causal, key_valid, bidir)
+    return _dkv_from(p, ds, q, k, v, do)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+    """Plain-torch backward of K1: (dq, dk, dv) from q/k/v, the forward's O
+    and LSE, and dO. Scores and products in fp32 on the given values; P and
+    dS round to v's / q's dtype before their products, as the TPU kernels do."""
+    args = (q, k, v, o, lse, do, is_causal, key_valid, bidir)
+    return (flash_attention_dq_ref(*args),) + flash_attention_dkv_ref(*args)
+
+
+def _kernel_readable(t: torch.Tensor) -> bool:
+    """Contiguous last dim, other strides multiples of 8 elements and a
+    16-byte aligned start: the kernels load 16-byte chunks of each row."""
+    return (t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
 
 
 def _check_operand(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -73,17 +145,15 @@ def _check_operand(name: str, t: torch.Tensor, shape: tuple, device) -> None:
     if tuple(t.shape) != shape:
         raise ValueError(f"flash_attention: {name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
-    if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) \
-            or t.data_ptr() % 16:
+    if not _kernel_readable(t):
         raise ValueError(
             f"flash_attention kernel needs {name} with a contiguous last dim, "
             f"other strides multiples of 8 and a 16-byte aligned start; got "
             f"strides {t.stride()}")
 
 
-def _launch(q, k, v, is_causal, key_valid, bidir):
-    from openvla_oft_tpu_torch import _build
-
+def _check_qkv(q, k, v) -> None:
+    """What every kernel needs of q (B,S,H,D) and k/v (B,S,Hkv,D)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     if d not in (64, 128):
@@ -93,12 +163,15 @@ def _launch(q, k, v, is_causal, key_valid, bidir):
     _check_operand("q", q, (b, s, h, d), q.device)
     _check_operand("k", k, (b, s, hkv, d), q.device)
     _check_operand("v", v, (b, s, hkv, d), q.device)
-    for name, t in (("key_valid", key_valid), ("bidir", bidir)):
-        if tuple(t.shape) != (b, s):
-            raise ValueError(f"flash_attention: {name} has shape "
-                             f"{tuple(t.shape)}, expected {(b, s)}")
-    valid_u8 = key_valid.to(device=q.device, dtype=torch.uint8).contiguous()
-    bidir_u8 = bidir.to(device=q.device, dtype=torch.uint8).contiguous()
+
+
+def _launch(q, k, v, is_causal, key_valid, bidir):
+    from openvla_oft_tpu_torch import _build
+
+    _check_qkv(q, k, v)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    valid_u8, bidir_u8 = _mask_u8(b, s, key_valid, bidir, q.device)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.library()
@@ -107,14 +180,138 @@ def _launch(q, k, v, is_causal, key_valid, bidir):
         err = lib.openvla_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_u8.data_ptr(),
             bidir_u8.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, s, h, hkv, d, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(bool(is_causal)), ctypes.c_float(d ** -0.5),
-            stream)
-    if err != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           f"{lib.openvla_cuda_error_string(err).decode()} ({err})")
+            b, s, h, hkv, d, *_strides(q, k, v), int(bool(is_causal)),
+            ctypes.c_float(d ** -0.5), stream)
+    _raise_on(err, lib, "flash_attention")
     flash_attention.launches += 1
     return o, lse
+
+
+def _mask_u8(b, s, key_valid, bidir, device):
+    for name, t in (("key_valid", key_valid), ("bidir", bidir)):
+        if tuple(t.shape) != (b, s):
+            raise ValueError(f"flash_attention: {name} has shape "
+                             f"{tuple(t.shape)}, expected {(b, s)}")
+    return (key_valid.to(device=device, dtype=torch.uint8).contiguous(),
+            bidir.to(device=device, dtype=torch.uint8).contiguous())
+
+
+def _bwd_operands(q, k, v, o, lse, do, key_valid, bidir):
+    """Check the backward's operands; returns (u8 masks, dO as the kernels
+    read it). dO from autograd is read through its strides; only a layout the
+    kernels cannot read (last dim not contiguous, misaligned) is copied."""
+    _check_qkv(q, k, v)
+    b, s, h, d = q.shape
+    if not _kernel_readable(do):
+        do = do.contiguous()
+    _check_operand("dO", do, (b, s, h, d), q.device)
+    _check_operand("O", o, (b, s, h, d), q.device)
+    if not o.is_contiguous():
+        raise ValueError("flash_attention backward needs O as K1 wrote it (contiguous)")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s) \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError("flash_attention backward needs LSE (B, H, S) fp32 "
+                         "contiguous, as K1 wrote it")
+    return _mask_u8(b, s, key_valid, bidir, q.device) + (do,)
+
+
+def _strides(*ts):
+    return [st for t in ts for st in t.stride()[:3]]
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.openvla_cuda_error_string(err).decode()} ({err})")
+
+
+def _launch_dq(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+    from openvla_oft_tpu_torch import _build
+
+    valid_u8, bidir_u8, do = _bwd_operands(q, k, v, o, lse, do, key_valid, bidir)
+    b, s, h, d = q.shape
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.openvla_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), valid_u8.data_ptr(),
+            bidir_u8.data_ptr(), dq.data_ptr(), b, s, h, k.shape[2], d,
+            *_strides(q, k, v, do), int(bool(is_causal)),
+            ctypes.c_float(d ** -0.5), stream)
+    _raise_on(err, lib, "flash_attention dq (K2)")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+    from openvla_oft_tpu_torch import _build
+
+    valid_u8, bidir_u8, do = _bwd_operands(q, k, v, o, lse, do, key_valid, bidir)
+    b, s, h, d = q.shape
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.openvla_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), valid_u8.data_ptr(),
+            bidir_u8.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h,
+            k.shape[2], d, *_strides(q, k, v, do), int(bool(is_causal)),
+            ctypes.c_float(d ** -0.5), stream)
+    _raise_on(err, lib, "flash_attention dk/dv (K3)")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+def _on_cpu(q: torch.Tensor) -> bool:
+    if q.is_cuda:
+        return False
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on CUDA or CPU, not {q.device}")
+    return True
+
+
+def _forward(q, k, v, is_causal, key_valid, bidir):
+    if _on_cpu(q):
+        return flash_attention_ref(q, k, v, is_causal, key_valid, bidir)
+    return _launch(q, k, v, is_causal, key_valid, bidir)
+
+
+def flash_attention_dq(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+    """dq of K1's attention: kernel K2 for CUDA tensors, the plain version
+    for CPU tensors. o, lse are K1's outputs; do is the gradient of o."""
+    if _on_cpu(q):
+        return flash_attention_dq_ref(q, k, v, o, lse, do, is_causal, key_valid, bidir)
+    return _launch_dq(q, k, v, o, lse, do, is_causal, key_valid, bidir)
+
+
+def flash_attention_dkv(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+    """(dk, dv) of K1's attention, GQA groups summed: kernel K3 for CUDA
+    tensors, the plain version for CPU tensors."""
+    if _on_cpu(q):
+        return flash_attention_dkv_ref(q, k, v, o, lse, do, is_causal, key_valid, bidir)
+    return _launch_dkv(q, k, v, o, lse, do, is_causal, key_valid, bidir)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward saving (q, k, v, O, LSE, masks); K2 and K3 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, is_causal, key_valid, bidir):
+        o, lse = _forward(q, k, v, is_causal, key_valid, bidir)
+        ctx.is_causal = is_causal
+        ctx.save_for_backward(q, k, v, o, lse, key_valid, bidir)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, key_valid, bidir = ctx.saved_tensors
+        args = (q, k, v, o, lse, do, ctx.is_causal, key_valid, bidir)
+        dk, dv = flash_attention_dkv(*args)
+        return flash_attention_dq(*args), dk, dv, None, None, None
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,11 +324,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[1] != q.shape[1]:
         raise ValueError("flash attention is for self-attention prefill (S == T)")
     key_valid, bidir = _mask_vectors(q, key_valid, bidir_mask, bidir_block)
-    if q.is_cuda:
-        return _launch(q, k, v, is_causal, key_valid, bidir)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on CUDA or CPU, not {q.device}")
-    return flash_attention_ref(q, k, v, is_causal, key_valid, bidir)
+    return _forward(q, k, v, is_causal, key_valid, bidir)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,9 +332,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_valid: Optional[torch.Tensor] = None,
                     bidir_mask: Optional[torch.Tensor] = None,
                     bidir_block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """Flash attention for self-attention (S == T). Returns (B, S, H, D)."""
-    return flash_attention_fwd(q, k, v, is_causal, key_valid, bidir_mask,
-                               bidir_block)[0]
+    """Flash attention for self-attention (S == T). Returns (B, S, H, D).
+
+    Differentiable: with grad enabled and any of q/k/v requiring grad it
+    runs as an autograd op whose backward is K2 and K3 (their plain versions
+    on the CPU). Otherwise (e.g. under `inference_mode`) it saves nothing.
+    """
+    if k.shape[1] != q.shape[1]:
+        raise ValueError("flash attention is for self-attention prefill (S == T)")
+    key_valid, bidir = _mask_vectors(q, key_valid, bidir_mask, bidir_block)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bool(is_causal), key_valid, bidir)
+    return _forward(q, k, v, is_causal, key_valid, bidir)[0]
 
 
 flash_attention.launches = 0
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0
+
+# Port of the JAX `flash_attention_allheads` (the TPU kernel
+# `_kernel_allheads`): K1's forward read as (B, S, H, D) blocks with all heads
+# per program, a TPU layout choice. K1 already reads q/k/v of shape
+# (B, S, H, D) through their strides, so on Hopper it is K1 itself.
+flash_attention_allheads = flash_attention

@@ -15,32 +15,42 @@ import torch.nn.functional as F
 
 Params = Dict[str, Any]
 
-_UNPORTED_LINEAR = {
-    "kernel_q4": "int4 linears (ROADMAP queue 1, item 15)",
-    "lora_a": "LoRA linears (ROADMAP queue 1, item 14)",
-}
-
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W + b with W stored (in, out); fp32 accumulation, x's dtype out.
 
     Mixed dtypes promote like jnp.dot (an fp32 activation against bf16
     weights computes in fp32), then the result casts back to x's dtype.
+
+    Injected LoRA factors ("lora_a" rank-major (r, in) and pre-scaled,
+    "lora_b" (r, out); training/lora.py::inject_lora) add
+    (x @ lora_a^T) @ lora_b merge-free, with the JAX version's roundings:
+    the down projection rounds to x's dtype, the up projection keeps an fp32
+    result on x's-dtype operands, and the sum with y rounds once.
     """
-    for leaf, what in _UNPORTED_LINEAR.items():
-        if leaf in p:
-            raise NotImplementedError(f"{what} are not ported yet")
+    if "kernel_q4" in p:
+        raise NotImplementedError(
+            "int4 linears are not ported yet (ROADMAP queue 1, item 15)")
     w = p["kernel"]
     if w.dtype == torch.int8:
         raise NotImplementedError(
             "int8 linears are not ported yet (ROADMAP queue 1, item 9)")
     dt = torch.promote_types(x.dtype, w.dtype)
     if "bias" not in p:
-        return torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
-    # addmm adds the bias to the fp32 accumulator before the one rounding to
-    # dt, as the JAX version adds it to its fp32 dot output.
-    y = torch.addmm(p["bias"].to(dt), x.reshape(-1, x.shape[-1]).to(dt), w.to(dt))
-    return y.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype)
+        y = torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
+    else:
+        # addmm adds the bias to the fp32 accumulator before the one rounding
+        # to dt, as the JAX version adds it to its fp32 dot output.
+        y = torch.addmm(p["bias"].to(dt), x.reshape(-1, x.shape[-1]).to(dt),
+                        w.to(dt))
+        y = y.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype)
+    if "lora_a" not in p:
+        return y
+    down = torch.matmul(x, p["lora_a"].to(x.dtype).transpose(-1, -2))
+    # An fp32 product of x's-dtype values: a bf16 matmul would round delta
+    # to bf16 before the add.
+    delta = torch.matmul(down.float(), p["lora_b"].to(x.dtype).float())
+    return (y.float() + delta).to(x.dtype)
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Device image preprocessing for the serving path.
+"""Device image preprocessing for the serving and training paths.
 
 Port of `openvla_oft_tpu/processing/image_processing.py::device_preprocess`,
-`center_crop_resize` and `normalize_and_stack`: uint8 camera frames ->
+`center_crop_resize`, `normalize_and_stack` and (for frames already at the
+backbone's size) `make_device_transform`. Serving: uint8 camera frames ->
 lanczos3 antialiased resize -> round to uint8 -> 0.9-area center crop
 (bilinear, the reference's floor(v*255.5) uint8 rule) -> [0, 1] -> per-backbone
 normalize -> backbone stack.
@@ -119,6 +120,32 @@ def normalize_and_stack(cfg: OpenVLAConfig, x01: torch.Tensor) -> torch.Tensor:
         std = torch.tensor(v.std, dtype=torch.float32, device=x01.device)
         outs.append((x01 - mean) / std)
     return torch.stack(outs, dim=1)
+
+
+def make_device_transform(cfg: OpenVLAConfig):
+    """The training image transform (JAX `make_device_transform`): uint8
+    (N, H, W, 3) -> (N, n_backbones, S, S, 3) fp32, normalized.
+
+    Ported for "resize-naive" on frames already at the backbone's size
+    (what the dummy dataset and RLDS frames resized by the loader give):
+    [0, 1] -> per-backbone normalize. Resizing and the other strategies
+    raise (ROADMAP queue 1, item 7).
+    """
+    size = cfg.vision_configs[0].image_size
+    strategy = getattr(cfg, "image_resize_strategy", "resize-naive")
+    if strategy != "resize-naive":
+        raise NotImplementedError(f"image_resize_strategy {strategy!r} is not "
+                                  "ported yet (ROADMAP queue 1, item 7)")
+
+    def transform(images_u8) -> torch.Tensor:
+        x = torch.as_tensor(images_u8)
+        if tuple(x.shape[1:3]) != (size, size):
+            raise NotImplementedError(
+                f"frames of {tuple(x.shape[1:3])} need a resize to {size}, which "
+                "the training transform does not port yet (ROADMAP queue 1, item 7)")
+        return normalize_and_stack(cfg, x.float() / 255.0)
+
+    return transform
 
 
 def device_preprocess(cfg: OpenVLAConfig, images_u8: torch.Tensor,

@@ -1,15 +1,18 @@
-"""Prompt building and the deterministic stand-in tokenizer.
+"""Prompt building, the deterministic stand-in tokenizer, and the processor.
 
-Small copies of `openvla_oft_tpu/processing/processor.py::build_prompt` and
-`FakeLlamaTokenizer`: that module imports the JAX image pipeline at its top,
-and this package must import where JAX is absent.
+Small copies of `openvla_oft_tpu/processing/processor.py::build_prompt`,
+`FakeLlamaTokenizer` and the part of `PrismaticProcessor` that training
+uses: that module imports the JAX image pipeline at its top, and this
+package must import where JAX is absent.
 """
 
 from __future__ import annotations
 
 import zlib
 
+from openvla_oft_tpu.config import OpenVLAConfig
 from openvla_oft_tpu.constants import EMPTY_TOKEN_ID
+from openvla_oft_tpu_torch.processing.image_processing import make_device_transform
 
 PROMPT_TEMPLATE = "In: What action should the robot take to {instruction}?\nOut: "
 
@@ -37,3 +40,13 @@ class FakeLlamaTokenizer:
         if text.endswith(" "):
             ids.append(EMPTY_TOKEN_ID)
         return {"input_ids": ids, "attention_mask": [1] * len(ids)}
+
+
+class PrismaticProcessor:
+    """A tokenizer (the stand-in by default) and the training image
+    transform (`image_processing.make_device_transform`)."""
+
+    def __init__(self, cfg: OpenVLAConfig, tokenizer=None):
+        self.cfg = cfg
+        self.tokenizer = tokenizer if tokenizer is not None else FakeLlamaTokenizer()
+        self.transform = make_device_transform(cfg)

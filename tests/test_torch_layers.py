@@ -45,8 +45,10 @@ def test_linear_rejects_unported_formats():
     x = torch.zeros(2, 4)
     with pytest.raises(NotImplementedError, match="item 9"):
         T.linear({"kernel": torch.zeros(4, 3, dtype=torch.int8)}, x)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.linear({"kernel": torch.zeros(4, 3), "lora_a": torch.zeros(2, 4)}, x)
+    # LoRA factors are ported (item 14): a zero B leaves the base product.
+    lora = {"kernel": torch.ones(4, 3), "lora_a": torch.ones(2, 4),
+            "lora_b": torch.zeros(2, 3)}
+    assert torch.equal(T.linear(lora, x + 1), T.linear({"kernel": torch.ones(4, 3)}, x + 1))
     with pytest.raises(NotImplementedError, match="item 15"):
         T.linear({"kernel_q4": torch.zeros(2, 3, dtype=torch.int8)}, x)
 
