@@ -1,30 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: `python3 chip_smoke.py`.
 
-Drives the port's serving path and its training path once each, at the full
-width of the flagship model (DINOv2 + SigLIP -> projector -> Llama-2-7B,
-2 images, LIBERO, seeded random weights made on the card), through the entry
-points a user calls: an HTTP /act server built by
-`openvla_oft_tpu_torch.serving.deploy`, and the fine-tuning CLI
+Drives the port's serving path (bf16, then int4) and its training path once
+each, at the full width of the flagship model (DINOv2 + SigLIP -> projector
+-> Llama-2-7B, 2 images, LIBERO, seeded random weights made on the card),
+through the entry points a user calls: an HTTP /act server built by
+`openvla_oft_tpu_torch.serving.deploy` (`flagship_policy`, with
+`load_in_4bit` for int4), and the fine-tuning CLI
 `openvla_oft_tpu_torch.training.finetune` (LoRA r=32, L1 objective, B=8).
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. environment: the card, torch/CUDA versions, TF32 off;
   2. build: the hand-written kernels from `openvla_oft_tpu_torch/csrc`;
   3. kernel check: K1 (and `flash_attention_allheads`, which is K1) against
-     its plain version at the serving path's shapes, timed;
+     its plain version at the serving path's shapes, timed beside SDPA with
+     the boolean OFT mask and the bound;
   4. serving: 3 /act requests, K1 launched 31 times per request;
   5. path parity: the K1 path against the dense path on the same inputs;
-  6. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
+     one request traced with torch.profiler (device time by kernel class);
+  6. int4 kernel check: K5 (W4A16) and K6 (W4A8) against their plain
+     versions at the 7B's int4 shapes (T = 618 and 57), a column view, a
+     layer view, T = 1 and group 16, timed beside the library call and the
+     bound; K5 and the dequant path at T = 618 and 2048 (the dispatch rule);
+  7. int4 serving: the policy rebuilt with `load_in_4bit`, 3 /act requests
+     W4A16 (130 K5 launches each), then 3 W4A8 (130 K6 launches each); one
+     request of each traced (the K5 and K6 share of the device time);
+  8. int4 path parity: K5 and K6 against their plain versions through
+     `predict_action_hidden` on the same int4 weights; int4 against bf16;
+  9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
      version at the training shape (B=8, per-row pads and windows), the
-     ALOHA length, GQA and dead rows, timed;
-  7. training: 3 steps of the fine-tuning CLI at B=8 (remat "all": K1 64,
+     ALOHA length, GQA and dead rows, timed beside SDPA's backward;
+ 10. training: 3 steps of the fine-tuning CLI at B=8 (remat "all": K1 64,
      K2 32 and K3 32 launches per step), loss, grad norm, step time, peak
      memory;
-  8. step profile: the CLI's train_step on its final state and first batch,
+ 11. step profile: the CLI's train_step on its final state and first batch,
      3 steps timed, then one traced with torch.profiler (device activity
      only): device time by kernel class and the idle share;
-  9. training-path parity: one loss and backward through K1/K2/K3 against
+ 12. training-path parity: one loss and backward through K1/K2/K3 against
      the dense path on the same 7B weights and batch.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -58,6 +70,15 @@ TRAIN_FLAGS = ["--vla_path", "random:7b", "--data_root_dir", "dummy",
                "--max_steps", "3", "--merge_lora_during_training", "False",
                "--wandb_log_freq", "1", "--device", "cuda"]
 TRAIN_LOSS_REL, TRAIN_GRAD_COSINE = 1e-2, 0.99
+# K5 and K6 against their plain versions, max|d| / max|ref|: K5 sums the same
+# bf16 products in another order; K6's group products are exact int32 sums,
+# so only the fp32 sum over the groups can differ.
+INT4_K5_REL, INT4_K6_REL = 1e-3, 1e-4
+# (name, K, N) of the 7B's int4 linears (wqkv and gate_up fused for serving).
+INT4_SHAPES = [("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gate_up", 4096, 22016),
+               ("down", 11008, 4096)]
+# H100 SXM (NVIDIA's data sheet): dense bf16 and int8 tensor-core peaks, HBM3 rate.
+PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
 
 def log(*args):
@@ -71,12 +92,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of `iters` CUDA-event timings of fn() after `warmup` calls."""
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
+    """Median of `iters` CUDA-event timings of fn() after `warmup` calls.
+    `flush`, a buffer larger than the 50 MB L2, is zeroed before each timed
+    call, so that fn reads its operands from device memory, as a serving
+    request that streams every weight once does."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -86,10 +112,35 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: float, n_bytes: int, peak: float) -> tuple:
+    """(ms, "operations" or "bytes"): the least time the card could take, the
+    larger of ops / peak and bytes / HBM rate."""
+    t_ops, t_bytes = ops / peak * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_args(q, k, v, key_valid, bidir):
+    """The operands of torch's scaled_dot_product_attention for the same
+    attention: (B, H, S, D) views and the boolean OFT mask (B, 1, S, S)."""
+    from openvla_oft_tpu_torch.ops import flash_attention as fa
+
+    return ([t.transpose(1, 2) for t in (q, k, v)],
+            dict(attn_mask=fa._allow(q, True, key_valid, bidir),
+                 enable_gqa=q.shape[2] != k.shape[2]))
+
+
 def kernel_check(card: str) -> dict:
-    """K1 against flash_attention_ref at the serving path's shapes."""
+    """K1 against flash_attention_ref at the serving path's shapes, timed
+    beside SDPA with the boolean OFT mask (the library yardstick) and the
+    bound (FLOPs over the live 64x64 tile pairs)."""
     from openvla_oft_tpu_torch.ops import flash_attention as fa
     from openvla_oft_tpu_torch.ops.attention import attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     dev = torch.device("cuda")
     # (name, B, S, H, Hkv, D, left pads, window (start, len))
@@ -124,15 +175,23 @@ def kernel_check(card: str) -> dict:
                                                                bidir))
         dense_ms = cuda_time_ms(lambda: attention(q, k, v, is_causal=True, use_flash=False,
                                                   key_valid=key_valid, bidir_mask=bidir))
+        qkv_t, kw = sdpa_args(q, k, v, key_valid, bidir)
+        library_ms = cuda_time_ms(lambda: sdpa(*qkv_t, **kw))
+        pairs = live_tile_pairs(key_valid.cpu().numpy(), bidir.cpu().numpy())
+        flops = 2 * 2 * 64 * 64 * d * h * pairs      # QK^T and PV per live pair and head
+        bound_ms, bound_by = bound(flops, nbytes(q, k, v, key_valid, bidir, o, lse), PEAK_BF16)
         log(f"[kernel] K1 {name}: B={b} S={s} H={h} Hkv={hkv} D={d} pads={pads} "
             f"window=({w0},{wl}) max|dO|={max_err:.3e} mean|dO|={mean_err:.3e} "
             f"max|dLSE|={lse_err:.3e} dead_rows_zero={dead_zero} | kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, dense path {dense_ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms, dense path {dense_ms:.4f} ms, SDPA with the boolean "
+            f"mask {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {pairs} live "
+            f"64x64 tile pairs per head, {flops / ms / 1e9:.1f} TFLOP/s) "
             f"(median of 20, CUDA events; {card})")
         if not (max_err <= MAX_ABS_O and mean_err <= MEAN_ABS_O
                 and lse_err <= MAX_ABS_LSE and dead_zero):
             raise AssertionError(f"K1 disagrees with its plain version at {name}")
-        results[name] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        results[name] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         if name == "libero_prefill":
             # flash_attention_allheads (the TPU's all-heads-per-block variant)
             # is K1 reading (B, S, H, D) through its strides.
@@ -152,14 +211,13 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def serve(policy, card: str, rng) -> tuple:
-    """3 /act requests through the HTTP server; returns (observations, answers,
-    launches in the run)."""
-    from openvla_oft_tpu_torch.ops.flash_attention import flash_attention
+def serve(policy, card: str, rng, label: str, expect: dict) -> tuple:
+    """3 /act requests through the HTTP server. `expect` gives each kernel's
+    launches per request; the counts are set to 0 first. Returns
+    (observations, answers, launches in the run)."""
     from openvla_oft_tpu_torch.serving.deploy import build_server, get_action_from_server
 
     platform = policy.platform
-    n_layers = policy.cfg.llm.num_layers
     server = build_server(policy)
     port = free_port()
     server.run("127.0.0.1", port, background=True)
@@ -172,43 +230,41 @@ def serve(policy, card: str, rng) -> tuple:
                    "wrist_image": rng.integers(0, 256, (256, 256, 3), dtype=np.uint8),
                    "state": rng.standard_normal(platform.proprio_dim).astype(np.float32),
                    "instruction": "put the bowl on the plate"}
-            before = flash_attention.launches
+            before = launch_counts()
             t0 = time.perf_counter()
             action = get_action_from_server(obs, f"http://127.0.0.1:{port}/act")
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            per_request = flash_attention.launches - before
+            per_request = {k: n - before[k] for k, n in launch_counts().items() if k in expect}
             if not isinstance(action, np.ndarray):
                 raise AssertionError(f"/act answered {action!r}")
-            log(f"[serve] request {i}: /act -> {action.shape} {action.dtype} finite="
-                f"{bool(np.isfinite(action).all())}, K1 launches {per_request}, "
+            log(f"[serve] {label} request {i}: /act -> {action.shape} {action.dtype} finite="
+                f"{bool(np.isfinite(action).all())}, launches {per_request}, "
                 f"latency {dt * 1e3:.2f} ms (host wall clock around the HTTP round trip, "
                 f"ends in torch.cuda.synchronize; {card})")
             if action.shape != (platform.num_actions_chunk, platform.action_dim) \
                     or not np.isfinite(action).all():
                 raise AssertionError("bad action chunk")
-            if per_request != n_layers - 1:
-                raise AssertionError(f"K1 ran {per_request} times in one request, "
-                                     f"expected {n_layers - 1}")
+            if per_request != expect:
+                raise AssertionError(f"one {label} request launched {per_request}, "
+                                     f"expected {expect}")
             observations.append(obs)
             answers.append(action)
-        launches = flash_attention.launches
+        launches = launch_counts()
     finally:
         server.shutdown()
-    log(f"[serve] torch.cuda.max_memory_allocated during serving: "
+    log(f"[serve] {label}: torch.cuda.max_memory_allocated during serving: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
     return observations, answers, launches
 
 
-def path_parity(policy, obs, served) -> None:
-    """serve_action_chunk / predict_action_hidden through K1 and through the
-    dense oracle on the same inputs, both on the card."""
-    from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden, prepare_prompt_ids
-    from openvla_oft_tpu_torch.policy import serve_action_chunk
+def model_inputs(policy, obs) -> tuple:
+    """(frames, ids, mask, pixels, proprio) of one observation on the card,
+    as serve_action_chunk builds them (proprio clamped to the [-1, 1] stats)."""
+    from openvla_oft_tpu_torch.models.prismatic import prepare_prompt_ids
     from openvla_oft_tpu_torch.processing.image_processing import device_preprocess
 
     dev = policy.device
-    cfg, platform = policy.cfg, policy.platform
     frames = torch.tensor(np.stack([obs["full_image"], obs["wrist_image"]]),
                           device=dev)[None]
     ids, mask = prepare_prompt_ids(policy.tokenizer, obs["instruction"],
@@ -216,6 +272,37 @@ def path_parity(policy, obs, served) -> None:
     ids = torch.as_tensor(ids, device=dev)[None]
     mask = torch.as_tensor(mask, device=dev)[None]
     proprio = torch.tensor(obs["state"], device=dev)[None]
+    with torch.inference_mode():
+        pixels = device_preprocess(policy.cfg, frames[0],
+                                   policy.cfg.vision_configs[0].image_size)[None]
+    return frames, ids, mask, pixels, proprio
+
+
+def actions_hidden(policy, inputs, use_flash=True) -> torch.Tensor:
+    from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden
+
+    _, ids, mask, pixels, proprio = inputs
+    with torch.inference_mode():
+        return predict_action_hidden(policy.params, policy.cfg, policy.platform, ids, mask,
+                                     pixels, proprio=proprio.clamp(-1, 1),
+                                     use_flash=use_flash).actions_hidden.float()
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return torch.nn.functional.cosine_similarity(a.double().flatten(), b.double().flatten(),
+                                                 dim=0).item()
+
+
+def path_parity(policy, obs, served) -> torch.Tensor:
+    """serve_action_chunk / predict_action_hidden through K1 and through the
+    dense oracle on the same inputs, both on the card. Returns the K1 path's
+    actions_hidden (on the host)."""
+    from openvla_oft_tpu_torch.policy import serve_action_chunk
+
+    dev = policy.device
+    cfg, platform = policy.cfg, policy.platform
+    inputs = model_inputs(policy, obs)
+    frames, ids, mask, _, proprio = inputs
     d = platform.action_dim
     common = dict(action_low=torch.full((d,), -1.0, device=dev),
                   action_high=torch.full((d,), 1.0, device=dev),
@@ -223,18 +310,14 @@ def path_parity(policy, obs, served) -> None:
                   proprio_low=torch.full((platform.proprio_dim,), -1.0, device=dev),
                   proprio_high=torch.full((platform.proprio_dim,), 1.0, device=dev),
                   resize_size=cfg.vision_configs[0].image_size)
-    with torch.inference_mode():
-        pixels = device_preprocess(cfg, frames[0], common["resize_size"])[None]
-        hidden, actions = {}, {}
-        for use_flash in (True, False):
-            hidden[use_flash] = predict_action_hidden(
-                policy.params, cfg, platform, ids, mask, pixels,
-                proprio=proprio.clamp(-1, 1), use_flash=use_flash).actions_hidden.float()
+    hidden, actions = {}, {}
+    for use_flash in (True, False):
+        hidden[use_flash] = actions_hidden(policy, inputs, use_flash)
+        with torch.inference_mode():
             actions[use_flash] = serve_action_chunk(
                 policy.params, cfg, platform, frames, ids, mask, proprio,
                 use_flash=use_flash, **common)[0].cpu().numpy()
-    cos = torch.nn.functional.cosine_similarity(hidden[True].flatten(),
-                                                hidden[False].flatten(), dim=0).item()
+    cos = cosine(hidden[True], hidden[False])
     d_act = float(np.abs(actions[True] - actions[False]).max())
     d_served = float(np.abs(actions[True] - served).max())
     log(f"[parity] actions_hidden cosine(K1 path, dense path) = {cos:.6f}; "
@@ -244,21 +327,185 @@ def path_parity(policy, obs, served) -> None:
         raise AssertionError(f"K1 path and dense path disagree: cosine {cos}")
     if not np.isfinite(actions[False]).all() or d_served > 1e-3:
         raise AssertionError("served answer differs from the direct call")
+    return hidden[True].cpu()
+
+
+def int_mm_ms(x8: torch.Tensor, w8: torch.Tensor, flush):
+    """torch._int_mm (int8 x int8 -> int32) on the unpacked int8 weight: K6's
+    products without its group and token scales; the faster of a row-major
+    and a column-major weight. None for T <= 16, which it does not take."""
+    if x8.shape[0] <= 16:
+        return None
+    times = []
+    for w in (w8, w8.t().contiguous().t()):
+        try:
+            torch._int_mm(x8, w)
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            log(f"[int4] torch._int_mm refused weight strides {w.stride()}: {err}")
+            continue
+        times.append(cuda_time_ms(lambda: torch._int_mm(x8, w), flush=flush))
+    return min(times, default=None)
+
+
+def int4_check(card: str) -> dict:
+    """K5 and K6 against int4_matmul_ref and int4_matmul_a8_ref at the 7B's
+    int4 shapes, timed (L2 flushed before each call) beside the library call
+    and the bound; then K5 and the dequant path at T = 618 and 2048."""
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops.quant import _unpack_int4, dequantize_int4, quantize_weight_int4
+
+    dev = torch.device("cuda")
+    # (name, T, K, N, how the weight is handed over)
+    cases = [(f"{name} T={t}", t, k, n, "whole") for t in (618, 57) for name, k, n in INT4_SHAPES]
+    cases += [("q column view of wqkv T=57", 57, 4096, 4096, "column"),
+              ("wo layer view of a stacked L=2 weight T=618", 618, 4096, 4096, "layer"),
+              ("wo T=1", 1, 4096, 4096, "whole"),
+              ("group 16 (d_in 4304) T=618", 618, 4304, 1152, "whole")]
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    results = {}
+
+    def weight(gen, k, n, how):
+        shape = {"layer": (2, k, n), "column": (k, 3 * n)}.get(how, (k, n))
+        q = quantize_weight_int4(torch.randn(shape, generator=gen, device=dev) * 0.02)
+        if how == "layer":
+            return q["kernel_q4"][1], q["scale_w4"][1]
+        if how == "column":                            # the q columns of q|k|v
+            return q["kernel_q4"][:, :n], q["scale_w4"][:, :n]
+        return q["kernel_q4"], q["scale_w4"]
+
+    for name, t, k, n, how in cases:
+        gen = torch.Generator(device=dev).manual_seed(t + k + n)
+        x = torch.randn((t, k), generator=gen, device=dev).bfloat16()
+        packed, scales = weight(gen, k, n, how)
+        y5, y6 = M.int4_matmul_fused(x, packed, scales), M.int4_matmul_fused_a8(x, packed, scales)
+        torch.cuda.synchronize()
+        r5, r6 = M.int4_matmul_ref(x, packed, scales), M.int4_matmul_a8_ref(x, packed, scales)
+        err5, err6 = (y5 - r5).abs().max().item(), (y6 - r6).abs().max().item()
+        rel5, rel6 = err5 / r5.abs().max().item(), err6 / r6.abs().max().item()
+        finite = bool(torch.isfinite(y5).all() and torch.isfinite(y6).all())
+        w16, w8 = dequantize_int4(packed, scales, torch.bfloat16), _unpack_int4(packed)
+        x8, _ = M.quantize_act_rows(x)
+        ms5 = cuda_time_ms(lambda: M.int4_matmul_fused(x, packed, scales), flush=flush)
+        ms6 = cuda_time_ms(lambda: M.int4_matmul_fused_a8(x, packed, scales), flush=flush)
+        plain5 = cuda_time_ms(lambda: M.int4_matmul_ref(x, packed, scales), flush=flush)
+        plain6 = cuda_time_ms(lambda: M.int4_matmul_a8_ref(x, packed, scales), flush=flush)
+        lib5 = cuda_time_ms(lambda: torch.matmul(x, w16), flush=flush)
+        lib6 = int_mm_ms(x8, w8, flush)
+        ops = 2 * t * k * n
+        moved = nbytes(x, packed, scales, y5)             # x in, fp32 y out
+        b5, by5 = bound(ops, moved, PEAK_BF16)
+        b6, by6 = bound(ops, moved, PEAK_INT8)
+        log(f"[int4] {name}: K={k} N={n} group={k // scales.shape[0]} packed strides "
+            f"{packed.stride()} | K5 max|d|={err5:.3e} rel={rel5:.3e}; K6 max|d|={err6:.3e} "
+            f"rel={rel6:.3e}; finite {finite}")
+        log(f"[int4] {name}: K5 {ms5:.4f} ms ({ops / ms5 / 1e9:.1f} TFLOP/s), plain "
+            f"{plain5:.4f}, torch.matmul on the bf16 weight {lib5:.4f}, bound {b5:.4f} ({by5}); "
+            f"K6 {ms6:.4f} ms ({ops / ms6 / 1e9:.1f} TOP/s), plain {plain6:.4f}, torch._int_mm "
+            f"without scales {'n/a' if lib6 is None else f'{lib6:.4f}'}, bound {b6:.4f} ({by6}) "
+            f"(median of 20, CUDA events, L2 flushed; {card})")
+        if not (finite and rel5 <= INT4_K5_REL and rel6 <= INT4_K6_REL):
+            raise AssertionError(f"K5/K6 disagree with their plain versions at {name}")
+        results[name] = {"err5": err5, "err6": err6, "ms5": ms5, "ms6": ms6,
+                         "plain5": plain5, "plain6": plain6, "lib5": lib5, "lib6": lib6,
+                         "bound5": (b5, by5), "bound6": (b6, by6)}
+        del x, packed, scales, y5, y6, r5, r6, w16, w8, x8
+    # The dispatch rule (rows <= 1024 take the kernel) is the TPU's crossover,
+    # kept as the reference's shape rule; these are the card's two sides of it.
+    for name, k, n in INT4_SHAPES:
+        for t in (618, 2048):
+            gen = torch.Generator(device=dev).manual_seed(t + k + n)
+            x = torch.randn((t, k), generator=gen, device=dev).bfloat16()
+            packed, scales = weight(gen, k, n, "whole")
+            ms5 = cuda_time_ms(lambda: M.int4_matmul_fused(x, packed, scales), flush=flush)
+            deq = cuda_time_ms(lambda: M.int4_matmul_ref(x, packed, scales), flush=flush)
+            log(f"[int4] dispatch {name} T={t}: K5 {ms5:.4f} ms, dequant path "
+                f"(int4_matmul_ref) {deq:.4f} ms ({card})")
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def int4_parity(policy, obs, bf16_hidden, card: str) -> None:
+    """predict_action_hidden on the int4 weights through K5 (and K6) against
+    the same call with the plain versions swapped in, on the card; then the
+    int4 answer against the bf16 one (no bound: random weights say nothing
+    about accuracy)."""
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops.quant import int4_a8
+
+    inputs = model_inputs(policy, obs)
+    per_request = 4 * (policy.cfg.llm.num_layers - 1) + 6
+    hidden = {}
+    for a8, kernel, plain, counter in ((False, "int4_matmul_fused", "int4_matmul_ref", "K5"),
+                                       (True, "int4_matmul_fused_a8", "int4_matmul_a8_ref", "K6")):
+        fused = getattr(M, kernel)
+        with int4_a8(a8):
+            before = launch_counts()[counter]
+            hidden[counter] = actions_hidden(policy, inputs)
+            used = launch_counts()[counter] - before
+            setattr(M, kernel, getattr(M, plain))
+            try:
+                ref = actions_hidden(policy, inputs)
+            finally:
+                setattr(M, kernel, fused)
+        cos = cosine(hidden[counter], ref)
+        log(f"[int4-parity] actions_hidden cosine({counter} path, plain path) = {cos:.6f}, "
+            f"max|d| = {(hidden[counter] - ref).abs().max().item():.4e}, {counter} launches "
+            f"{used}, finite {bool(torch.isfinite(hidden[counter]).all())} ({card})")
+        if not (cos >= PARITY_COSINE and used == per_request
+                and torch.isfinite(hidden[counter]).all()):
+            raise AssertionError(f"the {counter} path disagrees with the plain path")
+    log(f"[int4-vs-bf16] actions_hidden cosine(W4A16, bf16) = "
+        f"{cosine(hidden['K5'].cpu(), bf16_hidden):.6f}, cosine(W4A8, bf16) = "
+        f"{cosine(hidden['K6'].cpu(), bf16_hidden):.6f}, cosine(W4A8, W4A16) = "
+        f"{cosine(hidden['K6'], hidden['K5']):.6f} (random weights: no bound)")
+
+
+def int4_serving(card: str, rng, obs, bf16_hidden) -> dict:
+    """The flagship policy rebuilt with load_in_4bit from the same seed;
+    3 /act requests W4A16, then 3 W4A8; then int4 path parity. Returns the
+    launches of each serving run."""
+    from openvla_oft_tpu_torch.serving.deploy import flagship_policy
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy = flagship_policy("cuda", seed=0, load_in_4bit=True)
+    torch.cuda.synchronize()
+    log(f"[int4-init] load_in_4bit flagship on the card: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, peak during the build "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_layers = policy.cfg.llm.num_layers
+    per_request = 4 * (n_layers - 1) + 6          # 4 linears a layer, 6 in the window layer
+    _, _, w4a16 = serve(policy, card, rng, "int4 W4A16",
+                        {"K1": n_layers - 1, "K5": per_request, "K6": 0})
+    policy.int4_a8 = True
+    _, _, w4a8 = serve(policy, card, rng, "int4 W4A8",
+                       {"K1": n_layers - 1, "K5": 0, "K6": per_request})
+    for a8, label in ((False, "int4 W4A16"), (True, "int4 W4A8")):
+        policy.int4_a8 = a8
+        profile_request(policy, obs, label, card)
+    int4_parity(policy, obs, bf16_hidden, card)
+    return {"W4A16": w4a16, "W4A8": w4a8}
 
 
 def launch_counts() -> dict:
     from openvla_oft_tpu_torch.ops import flash_attention as fa
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
 
     return {"K1": fa.flash_attention.launches, "K2": fa.flash_attention_dq.launches,
-            "K3": fa.flash_attention_dkv.launches}
+            "K3": fa.flash_attention_dkv.launches, "K5": M.int4_matmul_fused.launches,
+            "K6": M.int4_matmul_fused_a8.launches}
 
 
 def reset_launch_counts() -> None:
     from openvla_oft_tpu_torch.ops import flash_attention as fa
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
 
-    fa.flash_attention.launches = 0
-    fa.flash_attention_dq.launches = 0
-    fa.flash_attention_dkv.launches = 0
+    for fn in (fa.flash_attention, fa.flash_attention_dq, fa.flash_attention_dkv,
+               M.int4_matmul_fused, M.int4_matmul_fused_a8):
+        fn.launches = 0
 
 
 def training_setup():
@@ -295,8 +542,12 @@ def _rel_cos(got: torch.Tensor, ref: torch.Tensor) -> tuple:
 
 
 def backward_check(card: str, s_train: int) -> dict:
-    """K2 and K3 against flash_attention_bwd_ref, timed with CUDA events."""
+    """K2 and K3 against flash_attention_bwd_ref, timed with CUDA events
+    beside the bound and SDPA's backward with the boolean OFT mask (its
+    forward plus backward less its forward: dq, dk and dv in one call)."""
     from openvla_oft_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     dev = torch.device("cuda")
     s = s_train
@@ -338,22 +589,36 @@ def backward_check(card: str, s_train: int) -> dict:
         ms_dkv = cuda_time_ms(lambda: fa.flash_attention_dkv(*args))
         plain_dq = cuda_time_ms(lambda: fa.flash_attention_dq_ref(*args))
         plain_dkv = cuda_time_ms(lambda: fa.flash_attention_dkv_ref(*args))
+        (qt, kt, vt), kw = sdpa_args(q, k, v, key_valid, bidir)
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        do_t = do.transpose(1, 2)
+        sdpa_fwd = cuda_time_ms(lambda: sdpa(*leaves, **kw))
+        sdpa_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(sdpa(*leaves, **kw), leaves, do_t))
+        library_ms = sdpa_fwd_bwd - sdpa_fwd
+        del leaves, kw
         pairs = live_tile_pairs(key_valid.cpu().numpy(), bidir.cpu().numpy())
         mm = 2 * 64 * 64 * d * h * pairs          # one 64x64xD product per live pair and head
         tf_dq, tf_dkv = 3 * mm / ms_dq / 1e9, 4 * mm / ms_dkv / 1e9
+        inputs = nbytes(q, k, v, o, lse, do, key_valid, bidir)
+        bound_dq = bound(3 * mm, inputs + nbytes(dq), PEAK_BF16)
+        bound_dkv = bound(4 * mm, inputs + nbytes(dk, dv), PEAK_BF16)
         log(f"[bwd] {name}: B={b} S={s_len} H={h} Hkv={hkv} D={d} rows={rows[:2]}"
             f"{'...' if len(rows) > 2 else ''} | " + " ".join(
                 f"{n} max|d|={e[0]:.3e} rel={e[1]:.3e} cos={e[2]:.6f}" for n, e in errs.items())
             + f" | dead rows and invalid keys exactly 0: {zeros}, finite: {finite}")
         log(f"[bwd] {name}: K2 {ms_dq:.4f} ms ({tf_dq:.1f} TFLOP/s), plain dq {plain_dq:.4f} ms;"
-            f" K3 {ms_dkv:.4f} ms ({tf_dkv:.1f} TFLOP/s), plain dk/dv {plain_dkv:.4f} ms "
+            f" K3 {ms_dkv:.4f} ms ({tf_dkv:.1f} TFLOP/s), plain dk/dv {plain_dkv:.4f} ms; "
+            f"bounds K2 {bound_dq[0]:.4f} ms ({bound_dq[1]}), K3 {bound_dkv[0]:.4f} ms "
+            f"({bound_dkv[1]}); SDPA with the boolean mask: forward {sdpa_fwd:.4f} ms, forward "
+            f"and backward {sdpa_fwd_bwd:.4f} ms, backward {library_ms:.4f} ms "
             f"({pairs} live 64x64 tile pairs per head; median of 20, CUDA events; {card})")
         if not (zeros and finite and all(e[1] <= BWD_REL and e[2] >= BWD_COSINE
                                          for e in errs.values())):
             raise AssertionError(f"K2/K3 disagree with their plain version at {name}")
         results[name] = {"dq_err": errs["dq"][0], "dkv_err": max(errs["dk"][0], errs["dv"][0]),
                          "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_dq": plain_dq,
-                         "plain_dkv": plain_dkv}
+                         "plain_dkv": plain_dkv, "library_ms": library_ms,
+                         "bound_dq": bound_dq, "bound_dkv": bound_dkv}
         del q, k, v, qkv, do, o, lse, dq, dk, dv, refs, args
     torch.cuda.empty_cache()
     return results
@@ -365,7 +630,8 @@ def train(card: str, n_layers: int):
     from openvla_oft_tpu_torch.training import finetune as FT
 
     run_root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
-    expect = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers}   # remat "all"
+    expect = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers,   # remat "all"
+              "K5": 0, "K6": 0}
     seen = {"prev": {k: 0 for k in expect}}
 
     def on_step(step, metrics, state):
@@ -418,7 +684,8 @@ def train(card: str, n_layers: int):
 def kernel_class(name: str) -> str:
     n = name.lower()
     for cls, keys in (("K1", ("flash_fwd",)), ("K2", ("flash_bwd_dq",)),
-                      ("K3", ("flash_bwd_dkv",)),
+                      ("K3", ("flash_bwd_dkv",)), ("K5", ("int4_w4a16",)),
+                      ("K6", ("int4_w4a8",)),
                       ("fp32 GEMM", ("sgemm", "f32f32", "simt")),
                       ("bf16 GEMM", ("gemm", "cutlass", "xmma", "nvjet", "sm90")),
                       ("AdamW", ("multi_tensor", "adam")),
@@ -430,30 +697,24 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_step(state, card: str) -> dict:
-    """The CLI's train_step on its final state and first batch: 3 steps
-    timed without the profiler, then one traced with torch.profiler (device
-    activity only). The idle share of the traced step is 1 - (union of kernel
-    intervals) / (its wall time); tracing slows the host, so that is an upper
-    bound. Kernel durations do not depend on the host, so 1 - (device time) /
-    (median untraced step) estimates the idle share of an untraced step."""
+def timed(fn) -> float:
+    """fn() on the host clock, ms, ending in torch.cuda.synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def trace(fn) -> tuple:
+    """fn() once under torch.profiler (device activity only): (wall ms,
+    kernel count, device ms as the union of kernel intervals, {kernel class:
+    (ms, count)}). Tracing slows the host, so 1 - device / wall is an upper
+    bound of the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from openvla_oft_tpu_torch.training.train_step import train_step
-
-    model_cfg, platform, tcfg, batch = training_setup()
-    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
-
-    def step() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_step(state, batch, model_cfg, platform, tcfg)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    untraced = [step() for _ in range(3)]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = step()
+        wall = timed(fn)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise AssertionError("torch.profiler recorded no device activity")
@@ -461,20 +722,63 @@ def profile_step(state, card: str) -> dict:
     for s, e in sorted((k.time_range.start, k.time_range.end) for k in kernels):
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-    busy /= 1e3                                         # us -> ms
     by_class = {}
     for k in kernels:
         cls = kernel_class(k.name)
         ms, n = by_class.get(cls, (0.0, 0))
         by_class[cls] = (ms + (k.time_range.end - k.time_range.start) / 1e3, n + 1)
+    return wall, len(kernels), busy / 1e3, by_class
+
+
+def log_classes(tag: str, by_class: dict) -> None:
+    for cls, (ms, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
+        log(f"[{tag}]   {cls}: {ms:.1f} ms, {n} kernels")
+
+
+def profile_request(policy, obs, label: str, card: str) -> None:
+    """One request of `policy` without HTTP, traced: device time by kernel
+    class and the share of the int4 kernels (K5, K6)."""
+    frames = np.stack([obs["full_image"], obs["wrist_image"]])
+
+    def request():
+        policy.predict_action_from_frames(frames, obs["instruction"], proprio=obs["state"])
+
+    untraced = [timed(request) for _ in range(3)]
+    wall, n, busy, by_class = trace(request)
+    int4 = sum(by_class.get(c, (0.0, 0))[0] for c in ("K5", "K6"))
+    log(f"[profile] {label} request: untraced {', '.join(f'{t:.1f}' for t in untraced)} ms; "
+        f"traced {wall:.1f} ms with {n} kernels and {busy:.1f} ms of device time; K5+K6 "
+        f"{int4:.1f} ms = {int4 / busy:.3f} of the device time; idle share of the traced "
+        f"request {1 - busy / wall:.3f}, estimate for the untraced ones "
+        f"{1 - busy / float(np.median(untraced)):.3f} (host clock, ends in "
+        f"torch.cuda.synchronize; {card})")
+    log_classes("profile", by_class)
+
+
+def profile_step(state, card: str) -> dict:
+    """The CLI's train_step on its final state and first batch: 3 steps
+    timed without the profiler, then one traced with torch.profiler (device
+    activity only). The idle share of the traced step is 1 - (union of kernel
+    intervals) / (its wall time); tracing slows the host, so that is an upper
+    bound. Kernel durations do not depend on the host, so 1 - (device time) /
+    (median untraced step) estimates the idle share of an untraced step."""
+    from openvla_oft_tpu_torch.training.train_step import train_step
+
+    model_cfg, platform, tcfg, batch = training_setup()
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+    def step():
+        train_step(state, batch, model_cfg, platform, tcfg)
+
+    untraced = [timed(step) for _ in range(3)]
+    wall, n, busy, by_class = trace(step)
     log(f"[profile] train_step at B=8: untraced {', '.join(f'{t:.1f}' for t in untraced)} ms;"
-        f" traced {wall:.1f} ms with {len(kernels)} kernels and {busy:.1f} ms of device time"
+        f" traced {wall:.1f} ms with {n} kernels and {busy:.1f} ms of device time"
         f" (union of kernel intervals); idle share of the traced step "
         f"{1 - busy / wall:.3f}; estimate for the untraced steps "
         f"{1 - busy / float(np.median(untraced)):.3f} (host clock, ends in "
         f"torch.cuda.synchronize; {card})")
-    for cls, (ms, n) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
-        log(f"[profile]   {cls}: {ms:.1f} ms, {n} kernels")
+    log_classes("profile", by_class)
     return {"untraced_ms": untraced, "traced_ms": wall, "busy_ms": busy}
 
 
@@ -527,6 +831,14 @@ def training_parity(state, card: str) -> None:
         raise AssertionError("the training path through K1/K2/K3 disagrees with the dense path")
 
 
+def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
+                 bound_by, library_ms, **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": "openvla_oft_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, **extra}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this smoke run needs one.",
@@ -562,10 +874,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
-    observations, answers, serve_launches = serve(policy, card, rng)
-    path_parity(policy, observations[0], answers[0])
     n_layers = policy.cfg.llm.num_layers
+    observations, answers, serve_launches = serve(policy, card, rng, "bf16",
+                                                  {"K1": n_layers - 1, "K5": 0, "K6": 0})
+    bf16_hidden = path_parity(policy, observations[0], answers[0])
+    profile_request(policy, observations[0], "bf16", card)
     del policy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    int4 = int4_check(card)
+    int4_launches = int4_serving(card, rng, observations[0], bf16_hidden)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -579,27 +898,36 @@ def main() -> int:
     profile_step(state, card)
     training_parity(state, card)
 
-    libero, tr = checks["libero_prefill"], bwd["training"]
-    src = "openvla_oft_tpu_torch/csrc/"
-    kernels = [{"name": "flash_attention_fwd", "route": "cuda",
-                "source": src + "flash_attention_fwd.cu",
-                "replaces": "openvla_oft_tpu/ops/flash_attention.py:50",
-                "launches": serve_launches + train_launches["K1"],
-                "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
-                "ms": libero["ms"], "plain_ms": libero["plain_ms"]},
-               {"name": "flash_attention_dq", "route": "cuda",
-                "source": src + "flash_attention_bwd.cu",
-                "replaces": "openvla_oft_tpu/ops/flash_attention.py:181",
-                "launches": train_launches["K2"],
-                "max_abs_err": max(c["dq_err"] for c in bwd.values()),
-                "ms": tr["ms_dq"], "plain_ms": tr["plain_dq"]},
-               {"name": "flash_attention_dkv", "route": "cuda",
-                "source": src + "flash_attention_bwd.cu",
-                "replaces": "openvla_oft_tpu/ops/flash_attention.py:207",
-                "launches": train_launches["K3"],
-                "max_abs_err": max(c["dkv_err"] for c in bwd.values()),
-                "ms": tr["ms_dkv"], "plain_ms": tr["plain_dkv"]}]
-    log(f"[launches] serving run: K1 {serve_launches}; training run: {train_launches}")
+    # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
+    # training batch, K5/K6 the wqkv projection at T = 618. SDPA computes dq,
+    # dk and dv in one backward, so K2 and K3 share its time.
+    libero, tr, wqkv = checks["libero_prefill"], bwd["training"], int4["wqkv T=618"]
+    w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
+    k1_launches = (serve_launches["K1"] + w4a16["K1"] + w4a8["K1"] + train_launches["K1"])
+    kernels = [
+        kernel_entry("flash_attention_fwd", "flash_attention_fwd.cu",
+                     "openvla_oft_tpu/ops/flash_attention.py:50", k1_launches,
+                     max(c["max_abs_err"] for c in checks.values()), libero["ms"],
+                     libero["plain_ms"], libero["bound_ms"], libero["bound_by"],
+                     libero["library_ms"]),
+        kernel_entry("flash_attention_dq", "flash_attention_bwd.cu",
+                     "openvla_oft_tpu/ops/flash_attention.py:181", train_launches["K2"],
+                     max(c["dq_err"] for c in bwd.values()), tr["ms_dq"], tr["plain_dq"],
+                     *tr["bound_dq"], tr["library_ms"]),
+        kernel_entry("flash_attention_dkv", "flash_attention_bwd.cu",
+                     "openvla_oft_tpu/ops/flash_attention.py:207", train_launches["K3"],
+                     max(c["dkv_err"] for c in bwd.values()), tr["ms_dkv"], tr["plain_dkv"],
+                     *tr["bound_dkv"], tr["library_ms"]),
+        kernel_entry("int4_matmul", "int4_matmul.cu", "openvla_oft_tpu/ops/int4_matmul.py:43",
+                     w4a16["K5"], max(c["err5"] for c in int4.values()), wqkv["ms5"],
+                     wqkv["plain5"], *wqkv["bound5"], wqkv["lib5"],
+                     also_replaces="openvla_oft_tpu/ops/int4_matmul.py:199"),
+        kernel_entry("int4_matmul_a8", "int4_matmul.cu", "openvla_oft_tpu/ops/int4_matmul.py:432",
+                     w4a8["K6"], max(c["err6"] for c in int4.values()), wqkv["ms6"],
+                     wqkv["plain6"], *wqkv["bound6"], wqkv["lib6"],
+                     also_replaces="openvla_oft_tpu/ops/int4_matmul.py:527")]
+    log(f"[launches] bf16 serving run: {serve_launches}; int4 serving runs: W4A16 {w4a16}, "
+        f"W4A8 {w4a8}; training run: {train_launches}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

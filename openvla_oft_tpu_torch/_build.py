@@ -115,6 +115,19 @@ def library() -> ctypes.CDLL:
     fn = lib.openvla_flash_attention_bwd_dkv
     fn.argtypes = [p] * 10 + [i] * 5 + strides + [i, ctypes.c_float, p]
     fn.restype = ctypes.c_int                    # ... dk dv, then as K2
+    fn = lib.openvla_int4_matmul_w4a16           # K5: x packed scales out
+    fn.argtypes = [p] * 4 + [i] * 4 + [i64, i64, i, i, p]   # T K N group ldp lds vec8 vec4
+    fn.restype = ctypes.c_int
+    fn = lib.openvla_int4_matmul_w4a8            # K6: x8 sx packed scales out
+    fn.argtypes = [p] * 5 + [i] * 4 + [i64, i64, i, p]      # T K N group ldp lds vec4
+    fn.restype = ctypes.c_int
     lib.openvla_cuda_error_string.argtypes = [ctypes.c_int]
     lib.openvla_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise on the cudaError_t that a launch entry of the library returned."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{library().openvla_cuda_error_string(err).decode()} ({err})")

@@ -15,8 +15,8 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from openvla_oft_tpu.config import OpenVLAConfig, PhiConfig, ViTConfig
-from openvla_oft_tpu.constants import PlatformSpec
+from openvla_oft_tpu_torch.config import OpenVLAConfig, PhiConfig, ViTConfig
+from openvla_oft_tpu_torch.constants import PlatformSpec
 
 Params = Dict[str, Any]
 
@@ -35,10 +35,12 @@ def _to_tensor(leaf, device, dtype) -> torch.Tensor:
 def params_from_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     """JAX pytree (arrays or numpy) -> the same tree of torch tensors.
 
-    dtype: cast floating leaves to it (None keeps each leaf's dtype).
+    dtype: cast floating leaves to it (None keeps each leaf's dtype). int4
+    group scales ("scale_w4") stay fp32, as the JAX package keeps them.
     """
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+        return {k: params_from_numpy(v, device, None if k == "scale_w4" else dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
     return _to_tensor(tree, device, dtype)

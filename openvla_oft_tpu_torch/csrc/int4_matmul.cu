@@ -1,0 +1,314 @@
+// K5 and K6 on Hopper: int4 dequant-matmuls, W4A16 and W4A8.
+//
+// Replace the TPU kernels of openvla_oft_tpu/ops/int4_matmul.py:
+//   K5 (W4A16): _kernel (:43) and _kernel_stacked (:199)
+//   K6 (W4A8):  _kernel_a8 (:432) and _kernel_stacked_a8 (:527)
+// The stacked TPU variants read a layer of an (L, K/2, N) buffer without a
+// copy; here every operand is read through its row stride, so a layer view
+// packed[l] and a column view packed[:, lo:hi] need no copy either, and one
+// kernel serves both variants.
+//
+// Packing (ops/quant.py::quantize_weight_int4): byte (i, n) of `packed`
+// (K/2, N) int8 holds weight row 2i in its low nibble and row 2i+1 in its
+// high nibble, each a signed 4-bit value in [-7, 7]; scales (G, N) fp32,
+// G = K / group, group even.
+//
+// K5:  y[t, n] = sum_k x[t, k] * bf16(nibble(k, n) * scales[k / group, n])
+//      x (T, K) bf16 contiguous (the wrapper rounds fp32 x to bf16, as the
+//      TPU kernel does), y (T, N) fp32. The nibbles are sign-extended as
+//      (b << 28) >> 28 and b >> 4 on the int32 byte, multiplied by their
+//      group scale in fp32 and rounded to bf16: the same weights as the plain
+//      version's dequantized bf16 weight, so only the fp32 summation order
+//      differs. x is read in its own column order: the TPU wrapper's
+//      even/odd split of x exists only because Mosaic cannot relayout.
+// K6:  y[t, n] = sx[t] * sum_g float(sum_{k in g} x8[t, k] * nibble(k, n)) * scales[g, n]
+//      x8 (T, K) int8 and sx (T) fp32 from the wrapper (per-token absmax
+//      / 127, round half to even). Each group's depth is an exact int32
+//      product on the int8 tensor cores; the group scale multiplies that
+//      partial in fp32 and the partials add in group order, with the
+//      roundings of the plain version (no fused multiply-add).
+//
+// Design. One CTA computes a 64 x 128 tile of y with 8 warps (2 x 4), each
+// a 32 x 32 block of 2 x 2 wmma fragments (bf16 m16n16k16 with fp32
+// accumulators for K5, s8 m16n16k16 with int32 accumulators for K6). Per
+// step the CTA stages x's tile and the dequantized weight tile in shared
+// memory: the packed bytes are read as 4-byte words where alignment allows
+// and are unpacked by all 256 threads. K6 steps one scale group at a time:
+// after the group's products its int32 tile goes through shared memory to
+// the threads, which scale it into fp32 accumulators held in registers.
+// K6 stages its int8 tiles as 16-wide panels, so that every wmma pointer is
+// 32-byte aligned.
+//
+// Bound. At T = 618 the LLM's linears are compute-bound on the card: a 4096
+// x 12288 weight is 25 MB of int4 and 62 GFLOP, 0.0075 ms of bytes against
+// 0.063 ms of bf16 tensor-core time (0.031 ms in int8). At T = 57 bytes and
+// operations come near balance. This first version has no pipelining:
+// wgmma, TMA, a ring of staged tiles, and a split over K for the small-T
+// shapes (a 57-row layer fills 32-172 of the 132 SMs) are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int BM = 64;          // rows of x per CTA
+constexpr int BN = 128;         // output columns per CTA
+constexpr int BK = 64;          // K5 depth per step (32 packed rows)
+constexpr int NTHREADS = 256;   // 8 warps: 2 along rows x 4 along columns
+constexpr int MAX_GROUP = 128;  // ops/quant.py INT4_GROUP: groups never exceed it
+
+constexpr int LDA = BK + 8;     // K5 bf16 x tile row stride (144 B)
+constexpr int LDB = BN + 8;     // K5 bf16 weight tile row stride (272 B)
+constexpr int LDC = BN + 4;     // fp32 / int32 output tile row stride (528 B)
+
+constexpr int K5_SMEM_AB = (BM * LDA + BK * LDB) * 2;
+constexpr int SMEM_C = BM * LDC * 4;
+constexpr int K5_SMEM = K5_SMEM_AB > SMEM_C ? K5_SMEM_AB : SMEM_C;
+constexpr int K6_A_BYTES = BM * MAX_GROUP;      // x8 panels [k/16][row][16]
+constexpr int K6_SMEM_AB = K6_A_BYTES + MAX_GROUP * BN;   // + weight panels [n/16][k][16]
+constexpr int K6_SMEM = K6_SMEM_AB > SMEM_C ? K6_SMEM_AB : SMEM_C;
+
+constexpr int ACC_PER_THREAD = BM * BN / NTHREADS;   // 32 K6 accumulators
+
+__device__ __forceinline__ int byte_of(int word, int j) {
+  // Byte j of a little-endian word, sign-extended.
+  return (int)((unsigned)word << (24 - 8 * j)) >> 24;
+}
+__device__ __forceinline__ int low_nibble(int b) { return (int)((unsigned)b << 28) >> 28; }
+__device__ __forceinline__ int high_nibble(int b) { return b >> 4; }
+
+// Calls f(i, c, b) for every packed byte b at (row p0 + i, column n0 + c),
+// i < rows, c < BN, with b = 0 outside (K/2, N). 4-byte words when vec4.
+template <typename F>
+__device__ __forceinline__ void for_packed_bytes(const int8_t* packed, long long ldp, int K2,
+                                                 int N, int p0, int n0, int rows, bool vec4,
+                                                 F f) {
+  const int tid = threadIdx.x;
+  if (vec4) {
+    // N % 4 == 0, so a word is wholly inside or outside the weight.
+    for (int w = tid; w < rows * (BN / 4); w += NTHREADS) {
+      const int i = w / (BN / 4), c = (w % (BN / 4)) * 4;
+      const int p = p0 + i, n = n0 + c;
+      int word = 0;
+      if (p < K2 && n < N) word = __ldg(reinterpret_cast<const int*>(packed + p * ldp + n));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f(i, c + j, byte_of(word, j));
+    }
+  } else {
+    for (int e = tid; e < rows * BN; e += NTHREADS) {
+      const int i = e / BN, c = e % BN;
+      const int p = p0 + i, n = n0 + c;
+      const int b = (p < K2 && n < N) ? (int)__ldg(packed + p * ldp + n) : 0;
+      f(i, c, b);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: W4A16
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NTHREADS)
+int4_w4a16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
+                  const float* __restrict__ scales, float* __restrict__ out, int T, int K,
+                  int N, int group, long long ldp, long long lds, int vec8, int vec4) {
+  __shared__ __align__(128) unsigned char smem[K5_SMEM];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Bs = As + BM * LDA;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    // x tile (BM x BK), zeros outside (T, K).
+    if (vec8) {
+      for (int c = tid; c < BM * (BK / 8); c += NTHREADS) {
+        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+        const int m = m0 + r, k = k0 + kc;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (m < T && k < K) v = __ldg(reinterpret_cast<const uint4*>(x + (long long)m * K + k));
+        *reinterpret_cast<uint4*>(As + r * LDA + kc) = v;
+      }
+    } else {
+      for (int e = tid; e < BM * BK; e += NTHREADS) {
+        const int r = e / BK, kk = e % BK;
+        const int m = m0 + r, k = k0 + kk;
+        As[r * LDA + kk] = (m < T && k < K) ? x[(long long)m * K + k] : zero;
+      }
+    }
+    // Weight tile (BK x BN): packed rows k0/2 .. k0/2 + BK/2, dequantized.
+    // Rows 2i and 2i+1 share a scale group (group is even).
+    for_packed_bytes(packed, ldp, K / 2, N, k0 / 2, n0, BK / 2, vec4 != 0,
+                     [&](int i, int c, int b) {
+                       const int k = k0 + 2 * i, n = n0 + c;
+                       const float s = (k < K && n < N)
+                                           ? __ldg(scales + (long long)(k / group) * lds + n)
+                                           : 0.f;
+                       Bs[(2 * i) * LDB + c] = __float2bfloat16_rn((float)low_nibble(b) * s);
+                       Bs[(2 * i + 1) * LDB + c] = __float2bfloat16_rn((float)high_nibble(b) * s);
+                     });
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (32 * wm + 16 * i) * LDA + kk, LDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], Bs + kk * LDB + 32 * wn + 16 * j, LDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: fragments -> shared (over the staging tiles) -> y with bounds.
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (32 * wm + 16 * i) * LDC + 32 * wn + 16 * j, acc[i][j],
+                              LDC, wmma::mem_row_major);
+  __syncthreads();
+  const int c = tid % BN, n = n0 + c;
+  for (int r = tid / BN; r < BM; r += NTHREADS / BN) {
+    const int m = m0 + r;
+    if (m < T && n < N) out[(long long)m * N + n] = Cs[r * LDC + c];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6: W4A8
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NTHREADS)
+int4_w4a8_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
+                 const int8_t* __restrict__ packed, const float* __restrict__ scales,
+                 float* __restrict__ out, int T, int K, int N, int group, long long ldp,
+                 long long lds, int vec4) {
+  __shared__ __align__(128) unsigned char smem[K6_SMEM];
+  signed char* Ap = reinterpret_cast<signed char*>(smem);                // [k/16][BM][16]
+  signed char* Bp = reinterpret_cast<signed char*>(smem + K6_A_BYTES);   // [n/16][group][16]
+  int* Ci = reinterpret_cast<int*>(smem);
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int c = tid % BN, n = n0 + c, r0 = tid / BN;   // this thread's accumulators:
+  float acc[ACC_PER_THREAD];                          // rows r0 + 2j, column c
+#pragma unroll
+  for (int j = 0; j < ACC_PER_THREAD; ++j) acc[j] = 0.f;
+
+  const int panels = group / 16;
+  for (int g = 0; g < K / group; ++g) {
+    const int k0 = g * group;
+    // x8 panels: 16 bytes of one row per load (K % 16 == 0, rows 16-byte aligned).
+    for (int e = tid; e < BM * panels; e += NTHREADS) {
+      const int ks = e / BM, r = e % BM, m = m0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m < T) v = __ldg(reinterpret_cast<const uint4*>(x8 + (long long)m * K + k0 + 16 * ks));
+      *reinterpret_cast<uint4*>(Ap + (ks * BM + r) * 16) = v;
+    }
+    // Weight panels: the group's packed rows unpacked to int8 nibbles.
+    for_packed_bytes(packed, ldp, K / 2, N, k0 / 2, n0, group / 2, vec4 != 0,
+                     [&](int i, int cc, int b) {
+                       signed char* col = Bp + ((cc / 16) * group + 2 * i) * 16 + cc % 16;
+                       col[0] = (signed char)low_nibble(b);
+                       col[16] = (signed char)high_nibble(b);
+                     });
+    __syncthreads();
+    wmma::fragment<wmma::accumulator, 16, 16, 16, int> ci[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(ci[i][j], 0);
+    for (int ks = 0; ks < panels; ++ks) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], Ap + (ks * BM + 32 * wm + 16 * i) * 16, 16);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], Bp + ((2 * wn + j) * group + 16 * ks) * 16, 16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(ci[i][j], a[i], b[j], ci[i][j]);
+    }
+    __syncthreads();   // every warp is done with the panels before Ci overwrites them
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(Ci + (32 * wm + 16 * i) * LDC + 32 * wn + 16 * j, ci[i][j],
+                                LDC, wmma::mem_row_major);
+    __syncthreads();
+    const float s = n < N ? __ldg(scales + (long long)g * lds + n) : 0.f;
+#pragma unroll
+    for (int j = 0; j < ACC_PER_THREAD; ++j)
+      acc[j] = __fadd_rn(acc[j], __fmul_rn((float)Ci[(r0 + 2 * j) * LDC + c], s));
+    __syncthreads();   // before the next group's panels overwrite Ci
+  }
+  if (n < N) {
+#pragma unroll
+    for (int j = 0; j < ACC_PER_THREAD; ++j) {
+      const int m = m0 + r0 + 2 * j;
+      if (m < T) out[(long long)m * N + n] = __fmul_rn(acc[j], __ldg(sx + m));
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch K5 on `stream`; returns the launch's cudaError_t (0 = success).
+// ldp, lds: row strides of packed and scales in elements (their columns are
+// contiguous). vec8: x rows may be read as 16-byte chunks; vec4: packed as
+// 4-byte words. The wrapper checks shapes, dtypes and alignment.
+int openvla_int4_matmul_w4a16(const void* x, const void* packed, const void* scales,
+                              void* out, int T, int K, int N, int group, long long ldp,
+                              long long lds, int vec8, int vec4, void* stream) {
+  if (T <= 0 || N <= 0 || K <= 0 || K % 2 || group <= 0 || group % 2 || K % group)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + BN - 1) / BN, (T + BM - 1) / BM);
+  int4_w4a16_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(packed),
+      static_cast<const float*>(scales), static_cast<float*>(out), T, K, N, group, ldp, lds,
+      vec8, vec4);
+  return (int)cudaGetLastError();
+}
+
+// Launch K6 on `stream`: x8 (T, K) int8 contiguous, sx (T) fp32, group a
+// multiple of 16 and at most 128. Returns the launch's cudaError_t.
+int openvla_int4_matmul_w4a8(const void* x8, const void* sx, const void* packed,
+                             const void* scales, void* out, int T, int K, int N, int group,
+                             long long ldp, long long lds, int vec4, void* stream) {
+  if (T <= 0 || N <= 0 || K <= 0 || group <= 0 || group % 16 || group > MAX_GROUP ||
+      K % group)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + BN - 1) / BN, (T + BM - 1) / BM);
+  int4_w4a8_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x8), static_cast<const float*>(sx),
+      static_cast<const int8_t*>(packed), static_cast<const float*>(scales),
+      static_cast<float*>(out), T, K, N, group, ldp, lds, vec4);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

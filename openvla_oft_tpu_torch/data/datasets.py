@@ -19,8 +19,8 @@ from typing import Any, Dict, Iterator, List
 
 import numpy as np
 
-from openvla_oft_tpu.constants import EMPTY_TOKEN_ID, IGNORE_INDEX, STOP_INDEX, PlatformSpec
-from openvla_oft_tpu.processing.action_tokenizer import ActionTokenizer
+from openvla_oft_tpu_torch.constants import EMPTY_TOKEN_ID, IGNORE_INDEX, STOP_INDEX, PlatformSpec
+from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
 from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor, build_prompt
 
 

@@ -12,7 +12,7 @@ from typing import Any, Dict
 
 import torch
 
-from openvla_oft_tpu.constants import PlatformSpec
+from openvla_oft_tpu_torch.constants import PlatformSpec
 from openvla_oft_tpu_torch.ops.layers import layer_norm, linear
 
 Params = Dict[str, Any]

@@ -5,7 +5,10 @@ Port of `openvla_oft_tpu/models/llama.py` (`embed_tokens`,
 `out_window` and activation remat). RMSNorm -> RoPE attention with the OFT
 block-bidirectional mask -> SwiGLU; hidden states are returned after the
 final RMSNorm. Layers stay stacked (L, ...) and run as a Python loop over
-per-layer views.
+per-layer views (`bridge.index_layer`). That covers int4 layers too: the
+JAX package's `_has_int4`/`_index_layer` keep the stacked int4 leaves and
+pass a layer index to its stacked kernels, while here `kernel_q4[l]` and
+`scale_w4[l]` are views that the int4 kernels read without a copy.
 
 On the flash path every layer but a sliced `out_window` last layer runs its
 attention through kernel K1 (`ops/flash_attention.py`); the window layer has
@@ -20,8 +23,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from openvla_oft_tpu.config import LlamaConfig
-from openvla_oft_tpu_torch.bridge import index_layer
+from openvla_oft_tpu_torch.config import LlamaConfig
+from openvla_oft_tpu_torch.bridge import index_layer, tree_leaves
 from openvla_oft_tpu_torch.ops.attention import attention, resolve_use_flash
 from openvla_oft_tpu_torch.ops.layers import linear, rms_norm
 from openvla_oft_tpu_torch.ops.masks import make_block_bidirectional_mask
@@ -198,7 +201,7 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         is_causal = True
 
     layers = params["layers"]
-    n_layers = layers["mlp"]["down"]["kernel"].shape[0]
+    n_layers = tree_leaves(layers)[0].shape[0]
     n_full = n_layers if out_window is None else n_layers - 1
     checkpointed = resolve_remat(remat_policy)
     x = inputs_embeds
@@ -237,6 +240,9 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     if "wqkv" in last["attn"]:
         wqkv = last["attn"]["wqkv"]
 
+        # Every leaf's last axis is `out`, so these are column views: of the
+        # bf16 kernel, or of kernel_q4 and scale_w4, whose row stride is then
+        # larger than their width (the int4 kernels read it).
         def col_slice(lo, hi):
             return {name: leaf[..., lo:hi] for name, leaf in wqkv.items()}
 

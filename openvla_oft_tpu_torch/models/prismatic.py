@@ -26,8 +26,8 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from openvla_oft_tpu.config import OpenVLAConfig, PhiConfig
-from openvla_oft_tpu.constants import (
+from openvla_oft_tpu_torch.config import OpenVLAConfig, PhiConfig
+from openvla_oft_tpu_torch.constants import (
     EMPTY_TOKEN_ID,
     IGNORE_INDEX,
     STOP_INDEX,

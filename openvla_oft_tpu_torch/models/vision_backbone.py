@@ -12,7 +12,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from openvla_oft_tpu.config import OpenVLAConfig
+from openvla_oft_tpu_torch.config import OpenVLAConfig
 from openvla_oft_tpu_torch.models.vit import vit_featurize
 
 Params = Dict[str, Any]

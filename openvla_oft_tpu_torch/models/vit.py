@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from openvla_oft_tpu.config import ViTConfig
+from openvla_oft_tpu_torch.config import ViTConfig
 from openvla_oft_tpu_torch.bridge import index_layer
 from openvla_oft_tpu_torch.models.llama import resolve_remat, run_block
 from openvla_oft_tpu_torch.ops.attention import attention

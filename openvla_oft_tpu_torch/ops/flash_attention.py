@@ -182,7 +182,7 @@ def _launch(q, k, v, is_causal, key_valid, bidir):
             bidir_u8.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, s, h, hkv, d, *_strides(q, k, v), int(bool(is_causal)),
             ctypes.c_float(d ** -0.5), stream)
-    _raise_on(err, lib, "flash_attention")
+    _build.check_launch(err, "flash_attention")
     flash_attention.launches += 1
     return o, lse
 
@@ -219,12 +219,6 @@ def _strides(*ts):
     return [st for t in ts for st in t.stride()[:3]]
 
 
-def _raise_on(err: int, lib, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.openvla_cuda_error_string(err).decode()} ({err})")
-
-
 def _launch_dq(q, k, v, o, lse, do, is_causal, key_valid, bidir):
     from openvla_oft_tpu_torch import _build
 
@@ -240,7 +234,7 @@ def _launch_dq(q, k, v, o, lse, do, is_causal, key_valid, bidir):
             bidir_u8.data_ptr(), dq.data_ptr(), b, s, h, k.shape[2], d,
             *_strides(q, k, v, do), int(bool(is_causal)),
             ctypes.c_float(d ** -0.5), stream)
-    _raise_on(err, lib, "flash_attention dq (K2)")
+    _build.check_launch(err, "flash_attention dq (K2)")
     flash_attention_dq.launches += 1
     return dq
 
@@ -261,7 +255,7 @@ def _launch_dkv(q, k, v, o, lse, do, is_causal, key_valid, bidir):
             bidir_u8.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h,
             k.shape[2], d, *_strides(q, k, v, do), int(bool(is_causal)),
             ctypes.c_float(d ** -0.5), stream)
-    _raise_on(err, lib, "flash_attention dk/dv (K3)")
+    _build.check_launch(err, "flash_attention dk/dv (K3)")
     flash_attention_dkv.launches += 1
     return dk, dv
 

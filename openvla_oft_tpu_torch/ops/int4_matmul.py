@@ -1,0 +1,200 @@
+"""Fused int4 dequant-matmuls: kernels K5 (W4A16) and K6 (W4A8).
+
+Port of `openvla_oft_tpu/ops/int4_matmul.py`. Its four TPU kernels become
+two CUDA kernels in `csrc/int4_matmul.cu`:
+- K5 replaces `_kernel` (:43, `int4_matmul_fused`) and `_kernel_stacked`
+  (:199, `int4_matmul_fused_stacked`);
+- K6 replaces `_kernel_a8` (:432, `int4_matmul_fused_a8`) and
+  `_kernel_stacked_a8` (:527, `int4_matmul_fused_stacked_a8`).
+The stacked TPU variants exist because a custom call cannot read a slice of
+a stacked buffer without a copy. Here layer l of a stacked (L, K/2, N) weight
+is the view `packed[l]`, and each kernel reads its operands through their
+row strides, so the stacked variants are K5 and K6 on a view. Column views
+(the `out_window` layer's q/k/v slices of wqkv) are read the same way.
+
+    y = x @ W,  W[k, n] = nibble(k, n) * scales[k // group, n]     (W4A16)
+    y = sx * sum_g (int32 sum over group g of x8 * nibble) * scales[g]  (W4A8)
+
+x (..., T, K) float, packed (K/2, N) int8, scales (G, N) float (G = K / group)
+-> (..., T, N) fp32. A CUDA tensor goes to the kernel or raises; a CPU tensor
+goes to the plain versions `int4_matmul_ref` and `int4_matmul_a8_ref`. There
+is no fallback between them. `int4_matmul_fused.launches` and
+`int4_matmul_fused_a8.launches` count kernel launches.
+
+The backward of both (training through a frozen int4 base) is the JAX
+package's `_fused_bwd`: the gradient through the bf16-rounded dequantized
+weight; packed bytes and scales get none.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from openvla_oft_tpu_torch.ops.quant import _unpack_int4, dequantize_int4
+
+
+def int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Plain K5 (the JAX `_int4_matmul_xla`): dequantize the whole weight in
+    fp32, round it to x's dtype, and take the product of x's values with it
+    in fp32. On bf16 inputs these are the kernel's bf16 products."""
+    w = dequantize_int4(packed, scales, x.dtype)
+    return torch.matmul(x.float(), w.float())
+
+
+def quantize_act_rows(x2: torch.Tensor):
+    """Per-token symmetric int8 (the JAX `_quantize_act_rows`): sx = absmax /
+    127, round half to even, clip to +-127. Returns (int8 (T, K), fp32 (T, 1))."""
+    xf = x2.float()
+    sx = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    q = torch.clamp(torch.round(xf / torch.clamp(sx, min=1e-12)), -127, 127)
+    return q.to(torch.int8), sx
+
+
+def int4_matmul_a8_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Plain K6: per-token int8 activations; group by group an exact integer
+    product over the group's depth (fp32 holds it exactly: |sum| <= 127 * 7
+    * 128 < 2**24), times the group's scale, summed over the groups in
+    order; then times the token scale."""
+    x8, sx = quantize_act_rows(x.reshape(-1, x.shape[-1]))
+    w8 = _unpack_int4(packed)
+    k_dim, n = w8.shape
+    groups = scales.shape[0]
+    g = k_dim // groups
+    parts = torch.bmm(x8.float().reshape(-1, groups, g).transpose(0, 1),
+                      w8.float().reshape(groups, g, n))              # (G, T, N)
+    acc = torch.zeros((x8.shape[0], n), dtype=torch.float32, device=x8.device)
+    for gi in range(groups):
+        acc = acc + parts[gi] * scales[gi].float()
+    return (acc * sx).reshape(*x.shape[:-1], n)
+
+
+def _check_weight(name: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor):
+    """What the kernels need of the weight; returns (K, N, group)."""
+    k_dim = x.shape[-1]
+    if packed.dtype != torch.int8 or packed.ndim != 2:
+        raise TypeError(f"{name}: packed must be a 2-D int8 tensor, got "
+                        f"{packed.dtype} {tuple(packed.shape)}")
+    if scales.ndim != 2 or not scales.is_floating_point():
+        raise TypeError(f"{name}: scales must be a 2-D float tensor")
+    k2, n = packed.shape
+    groups = scales.shape[0]
+    if k_dim != 2 * k2 or scales.shape[1] != n or groups == 0 or k_dim % groups:
+        raise ValueError(f"{name}: x (..., {k_dim}), packed {tuple(packed.shape)} and "
+                         f"scales {tuple(scales.shape)} do not fit")
+    for t, what in ((packed, "packed"), (scales, "scales")):
+        if t.device != x.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, x on {x.device}")
+        if t.stride(-1) != 1 or t.stride(0) < t.shape[1]:
+            raise ValueError(f"{name}: {what} needs contiguous rows (a row- or "
+                             f"column-slice view is fine), got strides {t.stride()}")
+    return k_dim, n, k_dim // groups
+
+
+def _vec4(packed: torch.Tensor) -> int:
+    """Whether the kernels may read `packed` as 4-byte words."""
+    return int(packed.data_ptr() % 4 == 0 and packed.stride(0) % 4 == 0
+               and packed.shape[1] % 4 == 0)
+
+
+def _launch_w4a16(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    from openvla_oft_tpu_torch import _build
+
+    k_dim, n, group = _check_weight("int4_matmul_fused (K5)", x2, packed, scales)
+    xb = x2.to(torch.bfloat16).contiguous()          # rounded to bf16, as the TPU kernel does
+    sc = scales.float()
+    t = xb.shape[0]
+    out = torch.empty((t, n), dtype=torch.float32, device=x2.device)
+    if t == 0:
+        return out
+    vec8 = int(xb.data_ptr() % 16 == 0 and k_dim % 8 == 0)
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        err = lib.openvla_int4_matmul_w4a16(
+            xb.data_ptr(), packed.data_ptr(), sc.data_ptr(), out.data_ptr(),
+            t, k_dim, n, group, packed.stride(0), sc.stride(0), vec8, _vec4(packed), stream)
+    _build.check_launch(err, "int4_matmul_fused (K5)")
+    int4_matmul_fused.launches += 1
+    return out
+
+
+def _launch_w4a8(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    from openvla_oft_tpu_torch import _build
+
+    k_dim, n, group = _check_weight("int4_matmul_fused_a8 (K6)", x2, packed, scales)
+    if group % 16:
+        raise ValueError(f"int4_matmul_fused_a8 (K6) takes groups that are multiples "
+                         f"of 16, got {group}")
+    x8, sx = quantize_act_rows(x2)
+    sc = scales.float()
+    t = x8.shape[0]
+    out = torch.empty((t, n), dtype=torch.float32, device=x2.device)
+    if t == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        err = lib.openvla_int4_matmul_w4a8(
+            x8.data_ptr(), sx.data_ptr(), packed.data_ptr(), sc.data_ptr(), out.data_ptr(),
+            t, k_dim, n, group, packed.stride(0), sc.stride(0), _vec4(packed), stream)
+    _build.check_launch(err, "int4_matmul_fused_a8 (K6)")
+    int4_matmul_fused_a8.launches += 1
+    return out
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.is_cuda:
+        return False
+    if x.device.type != "cpu":
+        raise ValueError(f"int4 matmul runs on CUDA or CPU, not {x.device}")
+    return True
+
+
+def _forward(x, packed, scales, a8: bool) -> torch.Tensor:
+    if _on_cpu(x):
+        ref = int4_matmul_a8_ref if a8 else int4_matmul_ref
+        return ref(x, packed, scales)
+    launch = _launch_w4a8 if a8 else _launch_w4a16
+    out = launch(x.reshape(-1, x.shape[-1]), packed, scales)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+class _Int4Matmul(torch.autograd.Function):
+    """K5 or K6 forward; the backward is the JAX `_fused_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scales, a8):
+        ctx.save_for_backward(packed, scales)
+        ctx.x_dtype = x.dtype
+        return _forward(x, packed, scales, a8)
+
+    @staticmethod
+    def backward(ctx, g):
+        packed, scales = ctx.saved_tensors
+        w = dequantize_int4(packed, scales, torch.bfloat16)
+        gx = torch.matmul(g.to(torch.bfloat16).float(), w.float().t())
+        return gx.to(ctx.x_dtype), None, None, None
+
+
+def _apply(x, packed, scales, a8: bool) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Int4Matmul.apply(x, packed, scales.detach(), a8)
+    return _forward(x, packed, scales, a8)
+
+
+def int4_matmul_fused(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """W4A16: x @ dequant(packed, scales) in fp32, kernel K5 on CUDA (x
+    rounded to bf16 first), the plain version on the CPU. packed and scales
+    may be layer or column views of larger tensors."""
+    return _apply(x, packed, scales, False)
+
+
+def int4_matmul_fused_a8(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """W4A8: per-token int8 activations (quantized here, as the JAX wrapper
+    does), exact int32 group products, kernel K6 on CUDA, the plain version
+    on the CPU. The same operands as `int4_matmul_fused`."""
+    return _apply(x, packed, scales, True)
+
+
+int4_matmul_fused.launches = 0
+int4_matmul_fused_a8.launches = 0

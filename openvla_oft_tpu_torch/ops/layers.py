@@ -27,10 +27,17 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     (x @ lora_a^T) @ lora_b merge-free, with the JAX version's roundings:
     the down projection rounds to x's dtype, the up projection keeps an fp32
     result on x's-dtype operands, and the sum with y rounds once.
+
+    An int4-packed dict ("kernel_q4", "scale_w4") goes to
+    `ops/quant.py::int4_linear`.
     """
     if "kernel_q4" in p:
-        raise NotImplementedError(
-            "int4 linears are not ported yet (ROADMAP queue 1, item 15)")
+        if "lora_a" in p:
+            raise NotImplementedError("LoRA over an int4 base (QLoRA) is not ported "
+                                      "yet (ROADMAP queue 1, item 14)")
+        from openvla_oft_tpu_torch.ops.quant import int4_linear
+
+        return int4_linear(p, x)
     w = p["kernel"]
     if w.dtype == torch.int8:
         raise NotImplementedError(

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from openvla_oft_tpu.constants import ACTION_TOKEN_BEGIN_IDX, IGNORE_INDEX
+from openvla_oft_tpu_torch.constants import ACTION_TOKEN_BEGIN_IDX, IGNORE_INDEX
 
 
 def _label_counts(token_ids: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,10 @@ Port of `openvla_oft_tpu/policy.py::serve_action_chunk` and
 `OpenVLAPolicy.predict_action_from_frames`: uint8 camera frames -> device
 preprocessing -> prefill with parallel decoding -> L1 head -> device
 un-normalization. Nothing is compiled; the functions run eagerly.
+
+An int4-quantized LLM (`ops/quant.py::quantize_tree`, the `load_in_4bit`
+path) runs W4A16 by default and W4A8 with `int4_a8=True`, chosen here by
+the caller rather than read from the environment.
 """
 
 from __future__ import annotations
@@ -14,10 +18,11 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from openvla_oft_tpu.config import OpenVLAConfig
-from openvla_oft_tpu.constants import NormalizationType, PlatformSpec
+from openvla_oft_tpu_torch.config import OpenVLAConfig
+from openvla_oft_tpu_torch.constants import NormalizationType, PlatformSpec
 from openvla_oft_tpu_torch.models.action_heads import l1_head_predict
 from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden, prepare_prompt_ids
+from openvla_oft_tpu_torch.ops.quant import int4_a8 as int4_a8_mode
 from openvla_oft_tpu_torch.processing.image_processing import device_preprocess
 
 Params = Dict[str, Any]
@@ -47,12 +52,14 @@ def serve_action_chunk(params: Params, cfg: OpenVLAConfig, platform: PlatformSpe
                        proprio_mask: Optional[torch.Tensor] = None,
                        proprio_zero: Optional[torch.Tensor] = None,
                        use_flash="auto", center_crop: bool = True,
-                       resize_size: int = 224, fast_gelu: bool = True) -> torch.Tensor:
+                       resize_size: int = 224, fast_gelu: bool = True,
+                       int4_a8: bool = False) -> torch.Tensor:
     """frames_u8 (B, N, H, W, 3) uint8 -> unnormalized actions
     (B, num_actions_chunk, action_dim) fp32.
 
     fast_gelu (the serving default) swaps exact erf-GELU for `gelu_erf_fast`;
-    False keeps exact GELU.
+    False keeps exact GELU. int4_a8: int4 linears run W4A8 (kernel K6)
+    instead of W4A16 (K5); no effect on a model without int4 weights.
     """
     if fast_gelu and not cfg.fast_gelu:
         cfg = dataclasses.replace(cfg, fast_gelu=True)
@@ -64,9 +71,10 @@ def serve_action_chunk(params: Params, cfg: OpenVLAConfig, platform: PlatformSpe
     if proprio is not None and proprio_low is not None:
         proprio = normalize_proprio(proprio, proprio_low, proprio_high,
                                     proprio_mask, proprio_zero)
-    out = predict_action_hidden(params, cfg, platform, input_ids=input_ids,
-                                prompt_mask=prompt_mask, pixels=pixels,
-                                proprio=proprio, use_flash=use_flash)
+    with int4_a8_mode(int4_a8):
+        out = predict_action_hidden(params, cfg, platform, input_ids=input_ids,
+                                    prompt_mask=prompt_mask, pixels=pixels,
+                                    proprio=proprio, use_flash=use_flash)
     norm = l1_head_predict(params["action_head"], out.actions_hidden.float(), platform)
     un = 0.5 * (norm + 1.0) * (action_high - action_low + 1e-8) + action_low
     return torch.where(action_mask, un, norm)
@@ -93,6 +101,7 @@ class OpenVLAPolicy:
     use_flash: Any = "auto"
     tokenizer: Any = None
     fast_gelu: bool = True
+    int4_a8: bool = False       # int4 LLM linears: W4A8 (K6) instead of W4A16 (K5)
 
     def __post_init__(self):
         if self.head != "l1":
@@ -161,5 +170,5 @@ class OpenVLAPolicy:
             action_low=f32(low), action_high=f32(high), action_mask=mask_t(amask),
             use_flash=self.use_flash, center_crop=center_crop,
             resize_size=self.cfg.vision_configs[0].image_size,
-            fast_gelu=self.fast_gelu, **p_kw)
+            fast_gelu=self.fast_gelu, int4_a8=self.int4_a8, **p_kw)
         return actions[0].cpu().numpy()

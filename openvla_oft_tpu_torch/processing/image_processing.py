@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from openvla_oft_tpu.config import OpenVLAConfig
+from openvla_oft_tpu_torch.config import OpenVLAConfig
 
 _F32 = np.float32
 

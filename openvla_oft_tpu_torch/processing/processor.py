@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import zlib
 
-from openvla_oft_tpu.config import OpenVLAConfig
-from openvla_oft_tpu.constants import EMPTY_TOKEN_ID
+from openvla_oft_tpu_torch.config import OpenVLAConfig
+from openvla_oft_tpu_torch.constants import EMPTY_TOKEN_ID
 from openvla_oft_tpu_torch.processing.image_processing import make_device_transform
 
 PROMPT_TEMPLATE = "In: What action should the robot take to {instruction}?\nOut: "

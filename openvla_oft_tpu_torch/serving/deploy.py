@@ -1,16 +1,19 @@
 """Serve a port policy over HTTP /act (the wire contract of `vla_scripts/deploy.py`).
 
 `build_server(policy)` wraps `OpenVLAPolicy.predict_action_from_frames` as the
-`predict(observation, instruction)` callable that the repo's
-`openvla_oft_tpu.serving.server.ActionServer` takes. The observation carries
+`predict(observation, instruction)` callable that `ActionServer` takes (the
+port's copy of `openvla_oft_tpu/serving/server.py`). The observation carries
 uint8 frames under "full_image" plus any "wrist*" keys, and the proprio state
 under "state".
 
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --port 8777
+    python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-in-4bit [--int4-a8]
 
 Loading a checkpoint is not ported yet, so the CLI serves the flagship model
 (DINOv2+SigLIP, Llama-2-7B, 2 images, LIBERO) with seeded random weights and
-placeholder [-1, 1] statistics.
+placeholder [-1, 1] statistics. `--load-in-4bit` packs every LLM linear to
+int4 (the reference's bitsandbytes `load_in_4bit`); `--int4-a8` serves it
+W4A8 instead of W4A16.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Optional
 
 import numpy as np
 
-from openvla_oft_tpu.serving.server import ActionServer, get_action_from_server
+from openvla_oft_tpu_torch.serving.server import ActionServer, get_action_from_server
 
 __all__ = ["StdlibActionServer", "build_server", "flagship_policy", "get_action_from_server",
            "observation_frames", "placeholder_norm_stats"]
@@ -77,29 +80,49 @@ def placeholder_norm_stats(platform) -> dict:
     }}
 
 
-def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48):
-    """The flagship serving policy with seeded random bf16 weights, fused for
-    serving as the JAX bench does (wqkv/gate_up and ViT folds)."""
-    import torch
-
-    from openvla_oft_tpu.config import OpenVLAConfig
-    from openvla_oft_tpu.constants import LIBERO
-    from openvla_oft_tpu_torch.bridge import init_params
+def serving_params(params: dict, load_in_4bit: bool = False) -> dict:
+    """Fuse (and quantize) a param tree for serving, as the reference
+    loader does (`experiments/robot/openvla_utils.py:173-184,236-239`):
+    wqkv/gate_up with the RMSNorm scales folded in, and the ViT folds. With
+    `load_in_4bit` the norms stay unfolded (a fold would coarsen the int4
+    grids) and every LLM linear with d_in >= 1024 is packed to int4; the
+    ViTs and the projector stay bf16. Consumes `params`."""
     from openvla_oft_tpu_torch.models.llama import fuse_inference_weights
     from openvla_oft_tpu_torch.models.vit import fuse_vit_inference_weights
-    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+    from openvla_oft_tpu_torch.ops.quant import quantize_tree
 
-    cfg = OpenVLAConfig(vision_backbone_id="dinosiglip-vit-so-224px",
-                        llm_backbone_id="llama2-7b-pure", num_images_in_input=2)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_params(cfg, LIBERO, gen, device=device, dtype=torch.bfloat16)
-    params["llm"] = fuse_inference_weights(params["llm"], fold_norms=True)
+    params["llm"] = fuse_inference_weights(params["llm"], fold_norms=not load_in_4bit)
     params["vision_backbone"] = {
         name: fuse_vit_inference_weights(v, fold_norms=True)
         for name, v in params["vision_backbone"].items()}
+    if load_in_4bit:
+        params["llm"] = quantize_tree(params["llm"], min_dim=1024, bits=4)
+    return params
+
+
+def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
+                    load_in_4bit: bool = False, int4_a8: bool = False):
+    """The flagship serving policy with seeded random bf16 weights, fused for
+    serving as the JAX bench does (wqkv/gate_up and ViT folds). With
+    `load_in_4bit` the LLM is int4 (`serving_params`), served W4A16, or W4A8
+    with `int4_a8`."""
+    import torch
+
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.config import OpenVLAConfig
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+
+    if int4_a8 and not load_in_4bit:
+        raise ValueError("int4_a8 needs load_in_4bit")
+    cfg = OpenVLAConfig(vision_backbone_id="dinosiglip-vit-so-224px",
+                        llm_backbone_id="llama2-7b-pure", num_images_in_input=2)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = serving_params(init_params(cfg, LIBERO, gen, device=device, dtype=torch.bfloat16),
+                            load_in_4bit=load_in_4bit)
     return OpenVLAPolicy(cfg=cfg, platform=LIBERO, params=params,
                          norm_stats=placeholder_norm_stats(LIBERO),
-                         prompt_bucket=prompt_bucket)
+                         prompt_bucket=prompt_bucket, int4_a8=int4_a8)
 
 
 def main(argv=None) -> None:
@@ -111,10 +134,18 @@ def main(argv=None) -> None:
     parser.add_argument("--port", type=int, default=8777)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--load-in-4bit", action="store_true",
+                        help="pack every LLM linear to int4 (W4A16, kernel K5)")
+    parser.add_argument("--int4-a8", action="store_true",
+                        help="with --load-in-4bit: W4A8 (per-token int8 activations, "
+                             "kernel K6)")
     args = parser.parse_args(argv)
     if not args.random_weights:
         parser.error("checkpoint loading is not ported yet; pass --random-weights")
-    policy = flagship_policy(args.device, seed=args.seed)
+    if args.int4_a8 and not args.load_in_4bit:
+        parser.error("--int4-a8 needs --load-in-4bit")
+    policy = flagship_policy(args.device, seed=args.seed, load_in_4bit=args.load_in_4bit,
+                             int4_a8=args.int4_a8)
     print(f"[deploy] serving /act on {args.host}:{args.port}")
     build_server(policy).run(args.host, args.port)
 

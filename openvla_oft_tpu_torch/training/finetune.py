@@ -22,14 +22,115 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from vla_scripts.finetune import FinetuneConfig, get_run_id
-
 _Q1 = "ROADMAP queue 1, item"
+
+
+# The flags of `vla_scripts/finetune.py` (FinetuneConfig) and its run id,
+# copied field for field.
+@dataclasses.dataclass
+class FinetuneConfig:
+    # fmt: off
+    vla_path: str = "openvla/openvla-7b"          # checkpoint dir (HF format) or "random:<tiny|7b>" for smoke runs
+
+    # Dataset
+    data_root_dir: Path = Path("datasets/rlds")   # RLDS root (or "dummy")
+    dataset_name: str = "aloha_scoop_x_into_bowl"
+    run_root_dir: Path = Path("runs")
+    shuffle_buffer_size: int = 100_000
+
+    # Algorithm / architecture
+    use_l1_regression: bool = True
+    use_diffusion: bool = False
+    num_diffusion_steps: int = 50
+    use_film: bool = False
+    num_images_in_input: int = 1
+    use_proprio: bool = False
+
+    # Training
+    batch_size: int = 8                           # GLOBAL batch (sharded over mesh)
+    learning_rate: float = 5e-4
+    lr_warmup_steps: int = 0
+    num_steps_before_decay: int = 100_000
+    grad_accumulation_steps: int = 1
+    max_steps: int = 200_000
+    use_val_set: bool = False
+    val_freq: int = 10_000
+    val_time_limit: int = 180
+    save_freq: int = 10_000
+    save_latest_checkpoint_only: bool = False
+    resume: bool = False
+    resume_step: Optional[int] = None
+    image_aug: bool = True
+    diffusion_sample_freq: int = 50
+
+    # LoRA
+    use_lora: bool = True
+    lora_rank: int = 32
+    lora_dropout: float = 0.0
+    merge_lora_during_training: bool = True
+
+    # Logging
+    wandb_entity: str = "your-wandb-entity"
+    wandb_project: str = "your-wandb-project"
+    run_id_note: Optional[str] = None
+    run_id_override: Optional[str] = None
+    wandb_log_freq: int = 10
+
+    # TPU-native additions
+    recipe: Optional[str] = None                  # named recipe (training/recipes.py)
+    multihost: bool = False                       # jax.distributed.initialize()
+    coordinator_address: Optional[str] = None     # explicit cluster wiring for
+    num_processes: Optional[int] = None           # environments without TPU-pod
+    process_id: Optional[int] = None              # metadata (e.g. the 2-process
+                                                  # CPU dryrun, dryrun_multiprocess.py)
+    mesh_dp: int = 1
+    mesh_fsdp: int = 1
+    mesh_tp: int = 1
+    robot_platform: Optional[str] = None          # default: sniff dataset_name
+    seq_bucket: int = 0                           # 0 = auto (pad to multiple of 8)
+    use_flash_attention: str = "auto"             # "auto" | "true" | "false";
+                                                  # auto = Pallas kernel iff the
+                                                  # multimodal S clears
+                                                  # FLASH_SEQ_THRESHOLD (ALOHA
+                                                  # yes, LIBERO no) — same
+                                                  # dispatch the serving path uses
+    quantize_base: bool = False                   # QLoRA-style int8 frozen base
+                                                  # (fits 7B LoRA on one 16 GB chip;
+                                                  # straight-through bwd, ops/quant.py)
+    quantize_base_min_dim: int = 1024             # smallest contraction dim quantized
+    quantize_base_bits: int = 8                   # 8 (int8 MXU) | 4 (packed int4,
+                                                  # max HBM headroom for b>=2)
+    remat_policy: str = "all"                     # "all" | "dots" | "attn_out" | "none"
+                                                  # (activation remat; see
+                                                  # training/train_step.py)
+    # fmt: on
+
+
+def get_run_id(cfg: FinetuneConfig) -> str:
+    """Reference run-ID convention (finetune.py:159-190)."""
+    if cfg.run_id_override is not None:
+        return cfg.run_id_override
+    if cfg.resume:
+        run_id = cfg.vla_path.split("/")[-1]
+        if "chkpt" in run_id.split("--")[-1]:
+            run_id = "--".join(run_id.split("--")[:-1])
+        return run_id
+    run_id = (f"{cfg.vla_path.split('/')[-1]}+{cfg.dataset_name}"
+              f"+b{cfg.batch_size * cfg.grad_accumulation_steps}"
+              f"+lr-{cfg.learning_rate}")
+    if cfg.use_lora:
+        run_id += f"+lora-r{cfg.lora_rank}+dropout-{cfg.lora_dropout}"
+    if cfg.image_aug:
+        run_id += "--image_aug"
+    if cfg.run_id_note is not None:
+        run_id += f"--{cfg.run_id_note}"
+    return run_id
 
 
 @dataclasses.dataclass
@@ -63,14 +164,14 @@ def unported_flags(cfg: FinetuneConfig) -> list:
 
 def parse_config(argv=None) -> TorchFinetuneConfig:
     """The CLI's flags (`--flag value`, as the JAX CLI takes them)."""
-    from openvla_oft_tpu.utils.cli import parse_args
+    from openvla_oft_tpu_torch.utils.cli import parse_args
 
     return parse_args(TorchFinetuneConfig, argv)
 
 
 def model_config(cfg: FinetuneConfig):
     """The OpenVLAConfig of `--vla_path random:tiny|random:7b`."""
-    import openvla_oft_tpu.config as C
+    import openvla_oft_tpu_torch.config as C
 
     size = cfg.vla_path.split(":", 1)[1]
     if size == "tiny":
@@ -98,7 +199,7 @@ def _use_flash(value) -> object:
 def platform_of(cfg: FinetuneConfig):
     """The robot platform of `--robot_platform` (or of the dataset's name);
     only LIBERO is ported."""
-    from openvla_oft_tpu.constants import LIBERO, detect_robot_platform, get_platform
+    from openvla_oft_tpu_torch.constants import LIBERO, detect_robot_platform, get_platform
 
     platform = get_platform(cfg.robot_platform) if cfg.robot_platform else \
         detect_robot_platform(cfg.dataset_name)
@@ -124,8 +225,8 @@ def train_config(cfg: FinetuneConfig):
 def training_data(cfg: FinetuneConfig, model_cfg, platform, num_samples: int):
     """(dataset, collator): the `dummy` dataset through the training
     transform, and the collator that batches it."""
-    from openvla_oft_tpu.data.collator import PaddedCollatorForActionPrediction
-    from openvla_oft_tpu.processing.action_tokenizer import ActionTokenizer
+    from openvla_oft_tpu_torch.data.collator import PaddedCollatorForActionPrediction
+    from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
     from openvla_oft_tpu_torch.data.datasets import DummyDataset, RLDSBatchTransform
     from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
 
@@ -163,15 +264,15 @@ def finetune(cfg: TorchFinetuneConfig,
     micro-step with the step's metrics as floats (and `step_time`, seconds on
     the host clock, ending in a device synchronize).
     """
-    from openvla_oft_tpu.data.collator import batch_iterator
-    from openvla_oft_tpu.data.transforms import save_dataset_statistics
-    from openvla_oft_tpu.training.metrics import JSONLinesTracker, VLAMetrics
+    from openvla_oft_tpu_torch.data.collator import batch_iterator
+    from openvla_oft_tpu_torch.data.transforms import save_dataset_statistics
+    from openvla_oft_tpu_torch.training.metrics import JSONLinesTracker, VLAMetrics
     from openvla_oft_tpu_torch.bridge import init_params, split_base_trainables
     from openvla_oft_tpu_torch.training.checkpoint import save_checkpoint
     from openvla_oft_tpu_torch.training.train_step import create_train_state, train_step
 
     if cfg.recipe:
-        from openvla_oft_tpu.training.recipes import apply_recipe
+        from openvla_oft_tpu_torch.training.recipes import apply_recipe
 
         cfg = apply_recipe(cfg, cfg.recipe)
         print(f"[finetune] applied recipe {cfg.recipe!r}")

@@ -27,8 +27,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from openvla_oft_tpu.config import OpenVLAConfig
-from openvla_oft_tpu.constants import PlatformSpec
+from openvla_oft_tpu_torch.config import OpenVLAConfig
+from openvla_oft_tpu_torch.constants import PlatformSpec
 from openvla_oft_tpu_torch.bridge import tree_leaves
 from openvla_oft_tpu_torch.models.action_heads import l1_head_predict
 from openvla_oft_tpu_torch.models.prismatic import prismatic_forward

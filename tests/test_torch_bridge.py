@@ -12,6 +12,7 @@ from openvla_oft_tpu.config import OpenVLAConfig, TINY_DINOV2, TINY_LLAMA, TINY_
 from openvla_oft_tpu.constants import LIBERO
 from openvla_oft_tpu.policy import init_openvla_params
 from openvla_oft_tpu_torch.bridge import Init, init_params, param_spec, params_from_numpy
+from test_torch_import import port_config, port_platform
 
 C._VISION_REGISTRY.setdefault("tiny-dual", (TINY_DINOV2, TINY_SIGLIP))
 C._LLM_REGISTRY.setdefault("tiny-llama", TINY_LLAMA)
@@ -19,6 +20,8 @@ TINY = OpenVLAConfig(vision_backbone_id="tiny-dual", llm_backbone_id="tiny-llama
                      num_images_in_input=2)
 FLAGSHIP = OpenVLAConfig(vision_backbone_id="dinosiglip-vit-so-224px",
                          llm_backbone_id="llama2-7b-pure", num_images_in_input=2)
+# The same configs and platform on the port's side.
+P_TINY, P_FLAGSHIP, P_LIBERO = port_config(TINY), port_config(FLAGSHIP), port_platform(LIBERO)
 
 
 def _flatten(tree, prefix=()):
@@ -66,13 +69,13 @@ def test_param_spec_matches_jax_eval_shape_at_flagship_size():
                                               with_lm_head=False,
                                               head_dtype=jnp.bfloat16))
     ref = {p: tuple(s.shape) for p, s in _flatten(shapes).items()}
-    got = {p: tuple(i.shape) for p, i in _flatten(param_spec(FLAGSHIP, LIBERO)).items()}
+    got = {p: tuple(i.shape) for p, i in _flatten(param_spec(P_FLAGSHIP, P_LIBERO)).items()}
     assert got == ref
 
 
 def test_init_params_tiny_matches_jax_tree_and_scales():
     gen = torch.Generator().manual_seed(0)
-    params = init_params(TINY, LIBERO, gen, device="cpu", dtype=torch.float32)
+    params = init_params(P_TINY, P_LIBERO, gen, device="cpu", dtype=torch.float32)
     ref = _flatten(_jax_init(TINY, dtype=jnp.float32, with_lm_head=False))
     got = _flatten(params)
     assert set(got) == set(ref)
@@ -84,7 +87,7 @@ def test_init_params_tiny_matches_jax_tree_and_scales():
         elif a.size >= 256:                 # normal draws: same scale
             assert abs(b.std() / a.std() - 1) < 0.35, path
     # Same seed, same draw.
-    again = init_params(TINY, LIBERO, torch.Generator().manual_seed(0),
+    again = init_params(P_TINY, P_LIBERO, torch.Generator().manual_seed(0),
                         device="cpu", dtype=torch.float32)
     assert torch.equal(again["llm"]["embed"]["embedding"],
                        params["llm"]["embed"]["embedding"])

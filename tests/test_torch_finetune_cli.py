@@ -21,12 +21,17 @@ from openvla_oft_tpu.data.datasets import DummyDataset as JaxDummy
 from openvla_oft_tpu.data.datasets import RLDSBatchTransform as JaxTransform
 from openvla_oft_tpu.processing.action_tokenizer import ActionTokenizer
 from openvla_oft_tpu.processing.processor import PrismaticProcessor as JaxProcessor
-from openvla_oft_tpu.training.recipes import apply_recipe
+from openvla_oft_tpu.training import recipes as jax_recipes
+from openvla_oft_tpu_torch.data import collator as port_collator
 from openvla_oft_tpu_torch.data.datasets import DummyDataset, RLDSBatchTransform
+from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer as PortTokenizer
 from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
 from openvla_oft_tpu_torch.training import finetune as FT
 from openvla_oft_tpu_torch.training.checkpoint import latest_step, restore_checkpoint
+from openvla_oft_tpu_torch.training.recipes import RECIPES, apply_recipe
+from test_torch_import import port_config, port_platform
 from test_training import CFG
+from vla_scripts import finetune as jax_finetune
 
 TINY_RUN = ["--device", "cpu", "--vla_path", "random:tiny", "--data_root_dir", "dummy",
             "--robot_platform", "libero", "--use_l1_regression", "True",
@@ -39,11 +44,14 @@ def test_dummy_dataset_matches_jax(num_images):
     cfg = dataclasses.replace(CFG, num_images_in_input=num_images)
     kw = dict(image_size=cfg.vision_configs[0].image_size, num_samples=6,
               num_images=num_images, seed=3)
-    port = DummyDataset(RLDSBatchTransform(PrismaticProcessor(cfg), ActionTokenizer(),
-                                           LIBERO), **kw)
+    port = DummyDataset(RLDSBatchTransform(PrismaticProcessor(port_config(cfg)),
+                                           PortTokenizer(), port_platform(LIBERO)), **kw)
     ref = JaxDummy(JaxTransform(JaxProcessor(cfg), ActionTokenizer(), LIBERO), **kw)
+    # Each side batches with its own collator (the port's pads with NumPy).
+    collate = port_collator.PaddedCollatorForActionPrediction(pad_token_id=cfg.pad_token_id)
     collator = PaddedCollatorForActionPrediction(pad_token_id=cfg.pad_token_id)
-    pairs = list(zip(batch_iterator(port, 2, collator), batch_iterator(ref, 2, collator)))
+    pairs = list(zip(port_collator.batch_iterator(port, 2, collate),
+                     batch_iterator(ref, 2, collator)))
     assert len(pairs) == 3
     for got, want in pairs:
         assert set(got) == set(want)
@@ -124,3 +132,19 @@ def test_libero_recipe_passes_the_startup_checks():
     assert (cfg.use_l1_regression, cfg.use_proprio, cfg.num_images_in_input,
             cfg.lora_rank, cfg.robot_platform) == (True, True, 2, 32, "libero")
     assert FT.unported_flags(cfg) == []
+
+
+def test_finetune_config_and_run_id_match_jax():
+    """The port's copy of FinetuneConfig has the JAX CLI's flags and
+    defaults, and the same run id."""
+    port, ref = FT.FinetuneConfig(), jax_finetune.FinetuneConfig()
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for kw in ({}, {"run_id_note": "x", "image_aug": False, "batch_size": 4,
+                    "grad_accumulation_steps": 2}, {"run_id_override": "mine"},
+               {"resume": True, "vla_path": "runs/a--b--20000_chkpt"}):
+        assert FT.get_run_id(FT.FinetuneConfig(**kw)) == \
+            jax_finetune.get_run_id(jax_finetune.FinetuneConfig(**kw)), kw
+
+
+def test_recipes_match_jax():
+    assert RECIPES == jax_recipes.RECIPES

@@ -2,8 +2,9 @@
 plain versions, and the tiny serving and training paths through them against
 the dense path, on CUDA.
 
-This file imports no JAX (the machine with the card has none), so it runs
-there on its own:  python -m pytest tests/test_torch_gpu.py -q
+This file imports nothing of JAX or the JAX package (the machine with the
+card has no JAX), so it runs there on its own:
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
 Every test is marked `gpu` and skips where torch sees no CUDA device.
 """
 
@@ -95,7 +96,7 @@ def test_attention_auto_takes_the_kernel_on_cuda(cuda):
 
 def _tiny_cfg():
     """TINY vision towers and a 3-layer Llama with head_dim 128 (K1 takes 64 or 128)."""
-    import openvla_oft_tpu.config as C
+    import openvla_oft_tpu_torch.config as C
 
     llm = C.LlamaConfig(vocab_size=32064, hidden_size=256, intermediate_size=512,
                         num_layers=3, num_heads=2, num_kv_heads=2)
@@ -109,7 +110,7 @@ def test_tiny_serving_path_flash_matches_dense(cuda):
     from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats
     from openvla_oft_tpu_torch.policy import OpenVLAPolicy
     from openvla_oft_tpu_torch.bridge import init_params
-    from openvla_oft_tpu.constants import LIBERO
+    from openvla_oft_tpu_torch.constants import LIBERO
 
     cfg = _tiny_cfg()
     params = init_params(cfg, LIBERO, torch.Generator(device=cuda).manual_seed(0),
@@ -218,9 +219,9 @@ def test_tiny_train_step_flash_matches_dense(cuda):
     head's outputs: the L1 gradient is sign(residual), and at these widths
     bf16 noise between the two paths can flip the sign of a residual near 0,
     which alone moves the cosine by 2/112 (measured: 0.983)."""
-    from openvla_oft_tpu.constants import LIBERO
-    from openvla_oft_tpu.data.collator import PaddedCollatorForActionPrediction
-    from openvla_oft_tpu.processing.action_tokenizer import ActionTokenizer
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.data.collator import PaddedCollatorForActionPrediction
+    from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
     from openvla_oft_tpu_torch.bridge import init_params, split_base_trainables, tree_leaves
     from openvla_oft_tpu_torch.data.datasets import DummyDataset, RLDSBatchTransform
     from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
@@ -284,3 +285,112 @@ def test_allheads_is_k1_on_cuda(cuda):
     bidir[:, 140:197] = True
     ref, _ = fa.flash_attention_ref(q, k, v, True, torch.ones_like(bidir), bidir)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+# --- K5 (W4A16) and K6 (W4A8) --------------------------------------------------
+
+def _int4_weight(gen, k, n, device, layers=None, group=128):
+    from openvla_oft_tpu_torch.ops.quant import quantize_weight_int4
+
+    shape = (k, n) if layers is None else (layers, k, n)
+    w = torch.randn(shape, generator=gen, device=device) * 0.02
+    return quantize_weight_int4(w, group=group)
+
+
+# (name, T, K, N, group, how the weight is handed over)
+INT4_CASES = [
+    ("T37", 37, 512, 384, 128, "whole"),
+    ("T1", 1, 512, 256, 128, "whole"),
+    ("N200", 64, 256, 200, 128, "whole"),        # ragged column tile, 4-byte words
+    ("N198", 70, 256, 198, 128, "whole"),        # odd words: byte loads
+    ("group16", 33, 4304, 136, 128, "whole"),    # d_in 4304 -> group 16
+    ("layer_view", 57, 1024, 512, 128, "layer"),
+    ("column_view", 57, 1024, 384, 128, "column"),
+    ("T1024", 1024, 256, 256, 128, "whole"),
+]
+
+
+def _int4_operands(cuda, case):
+    name, t, k, n, group, how = case
+    gen = torch.Generator(device=cuda).manual_seed(t + k + n)
+    x = torch.randn((t, k), generator=gen, device=cuda).bfloat16()
+    if how == "layer":
+        q = _int4_weight(gen, k, n, cuda, layers=2, group=group)
+        return x, q["kernel_q4"][1], q["scale_w4"][1]
+    if how == "column":                            # the q slice of a q|k|v weight
+        q = _int4_weight(gen, k, 3 * n, cuda, group=group)
+        return x, q["kernel_q4"][:, n:2 * n], q["scale_w4"][:, n:2 * n]
+    q = _int4_weight(gen, k, n, cuda, group=group)
+    return x, q["kernel_q4"], q["scale_w4"]
+
+
+@pytest.mark.parametrize("case", INT4_CASES, ids=[c[0] for c in INT4_CASES])
+def test_int4_kernels_match_plain(cuda, case):
+    """K5 within 1e-3 of max|ref| (the same bf16 products, summed in another
+    order) and K6 within 1e-4 (exact int32 group products), at the view
+    layouts the LLM hands them."""
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+
+    x, packed, scales = _int4_operands(cuda, case)
+    for fn, ref_fn, bound in ((M.int4_matmul_fused, M.int4_matmul_ref, 1e-3),
+                              (M.int4_matmul_fused_a8, M.int4_matmul_a8_ref, 1e-4)):
+        before = fn.launches
+        got = fn(x, packed, scales)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref = ref_fn(x, packed, scales)
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= bound, (fn.__name__, _rel_err(got, ref))
+
+
+def test_int4_kernels_reject_what_they_do_not_take(cuda):
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _int4_weight(gen, 256, 128, cuda)
+    x = torch.randn((4, 256), device=cuda)
+    with pytest.raises(ValueError, match="do not fit"):
+        M.int4_matmul_fused(x[:, :128], q["kernel_q4"], q["scale_w4"])
+    with pytest.raises(ValueError, match="contiguous rows"):
+        M.int4_matmul_fused(x, q["kernel_q4"].t().contiguous().t(), q["scale_w4"])
+    w = _int4_weight(gen, 200, 64, cuda)                 # group 100
+    with pytest.raises(ValueError, match="multiples of 16"):
+        M.int4_matmul_fused_a8(torch.randn((4, 200), device=cuda), w["kernel_q4"],
+                               w["scale_w4"])
+
+
+def test_tiny_int4_serving_path_kernel_matches_plain(cuda):
+    """A tiny model with an int4 LLM through the kernels, against the same
+    model through the plain versions (the kernels' wrappers on CPU tensors
+    would take them; here they are swapped in on the card): W4A16 and W4A8,
+    4 launches per layer and 6 in the window layer."""
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops.quant import quantize_tree
+    from openvla_oft_tpu_torch.models.llama import fuse_inference_weights
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+    from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats
+
+    cfg = _tiny_cfg()
+    params = init_params(cfg, LIBERO, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda, dtype=torch.bfloat16)
+    params["llm"] = quantize_tree(fuse_inference_weights(params["llm"], fold_norms=False),
+                                  min_dim=256, bits=4)
+    rng = np.random.default_rng(0)
+    frames = (rng.random((2, 40, 40, 3)) * 255).astype(np.uint8)
+    n = cfg.llm.num_layers
+    for a8, fn, ref_fn in ((False, "int4_matmul_fused", "int4_matmul_ref"),
+                           (True, "int4_matmul_fused_a8", "int4_matmul_a8_ref")):
+        pol = OpenVLAPolicy(cfg=cfg, platform=LIBERO, params=params,
+                            norm_stats=placeholder_norm_stats(LIBERO), prompt_bucket=32,
+                            int4_a8=a8)
+        kernel = getattr(M, fn)
+        before = kernel.launches
+        got = pol.predict_action_from_frames(frames, "open the drawer")
+        assert kernel.launches - before == 4 * (n - 1) + 6
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(M, fn, getattr(M, ref_fn))
+            plain = pol.predict_action_from_frames(frames, "open the drawer")
+        assert np.isfinite(got).all() and np.abs(got - plain).max() < 0.05, (fn, got - plain)

@@ -49,8 +49,12 @@ def test_linear_rejects_unported_formats():
     lora = {"kernel": torch.ones(4, 3), "lora_a": torch.ones(2, 4),
             "lora_b": torch.zeros(2, 3)}
     assert torch.equal(T.linear(lora, x + 1), T.linear({"kernel": torch.ones(4, 3)}, x + 1))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        T.linear({"kernel_q4": torch.zeros(2, 3, dtype=torch.int8)}, x)
+    # int4 weights are ported (item 15, ops/quant.py); LoRA over an int4 base
+    # (QLoRA) is not (item 14).
+    q4 = {"kernel_q4": torch.zeros(2, 3, dtype=torch.int8), "scale_w4": torch.ones(1, 3)}
+    assert torch.equal(T.linear(q4, x), torch.zeros(2, 3))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        T.linear({**q4, "lora_a": torch.ones(2, 4), "lora_b": torch.zeros(2, 3)}, x)
 
 
 @pytest.mark.parametrize("with_scale", [True, False])

@@ -15,6 +15,9 @@ from openvla_oft_tpu.config import TINY_LLAMA
 from openvla_oft_tpu.models import llama as JL
 from openvla_oft_tpu_torch.bridge import params_from_numpy
 from openvla_oft_tpu_torch.models import llama as TL
+from test_torch_import import port_arch
+
+P_LLAMA = port_arch(TINY_LLAMA)       # the port's copy of the same config
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -52,7 +55,7 @@ def test_llama_model_matches_jax(rng, tree, use_flash, window):
         params, TINY_LLAMA, jnp.asarray(x), padding_mask=jnp.asarray(pad),
         bidir_mask=jnp.asarray(bidir), positions=jnp.asarray(positions),
         use_flash=use_flash, **kw))
-    got = TL.llama_model(params_from_numpy(params), TINY_LLAMA, torch.from_numpy(x),
+    got = TL.llama_model(params_from_numpy(params), P_LLAMA, torch.from_numpy(x),
                          padding_mask=torch.from_numpy(pad),
                          bidir_mask=torch.from_numpy(bidir),
                          positions=torch.from_numpy(positions),
@@ -83,7 +86,7 @@ def test_llama_golden():
     x = jax.random.normal(jax.random.PRNGKey(12), (1, 9, TINY_LLAMA.hidden_size))
     bidir = np.zeros((1, 9), bool)
     bidir[:, 5:8] = True
-    out = TL.llama_model(params_from_numpy(params), TINY_LLAMA,
+    out = TL.llama_model(params_from_numpy(params), P_LLAMA,
                          torch.from_numpy(np.array(x)),
                          bidir_mask=torch.from_numpy(bidir)).numpy()
     np.testing.assert_allclose(out[:, -4:, :8], np.load(GOLDEN)["value"],

@@ -16,6 +16,7 @@ from openvla_oft_tpu.serving.server import get_action_from_server
 from openvla_oft_tpu_torch.bridge import params_from_numpy
 from openvla_oft_tpu_torch.policy import OpenVLAPolicy
 from openvla_oft_tpu_torch.serving.deploy import build_server, placeholder_norm_stats
+from test_torch_import import port_config, port_platform
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -35,8 +36,9 @@ def test_action_server_answers_act_requests(rng):
                         num_images_in_input=2)
     params = params_from_numpy(init_openvla_params(
         jax.random.PRNGKey(0), cfg, LIBERO, dtype=jnp.float32, head="l1"))
-    policy = OpenVLAPolicy(cfg=cfg, platform=LIBERO, params=params,
-                           norm_stats=placeholder_norm_stats(LIBERO), prompt_bucket=16)
+    platform = port_platform(LIBERO)
+    policy = OpenVLAPolicy(cfg=port_config(cfg), platform=platform, params=params,
+                           norm_stats=placeholder_norm_stats(platform), prompt_bucket=16)
     server = build_server(policy)
     port = _free_port()
     server.run("127.0.0.1", port, background=True)

@@ -21,6 +21,7 @@ from openvla_oft_tpu_torch.bridge import params_from_numpy
 from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden
 from openvla_oft_tpu_torch.policy import serve_action_chunk
 from openvla_oft_tpu_torch.processing import image_processing as TI
+from test_torch_import import port_config, port_platform
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -28,6 +29,7 @@ torch.backends.cudnn.allow_tf32 = False
 C._VISION_REGISTRY.setdefault("tiny-dual", (TINY_DINOV2, TINY_SIGLIP))
 C._LLM_REGISTRY.setdefault("tiny-llama", TINY_LLAMA)
 CFG = OpenVLAConfig(vision_backbone_id="tiny-dual", llm_backbone_id="tiny-llama")
+P_CFG, P_LIBERO = port_config(CFG), port_platform(LIBERO)     # the port's side
 GOLDEN = Path(__file__).parent / "goldens" / "predict_action_hidden.npz"
 
 
@@ -64,7 +66,7 @@ def test_device_preprocess_matches_jax(rng):
         assert diff.max() <= 1 and n_off <= 1e-3 * diff.size, name
 
     ref = np.asarray(JI.device_preprocess(CFG, jnp.asarray(frames), resize_size=size))
-    got = TI.device_preprocess(CFG, torch.from_numpy(frames), resize_size=size).numpy()
+    got = TI.device_preprocess(P_CFG, torch.from_numpy(frames), resize_size=size).numpy()
     assert got.shape == ref.shape == (3, 2, size, size, 3)
     lsb = 1.0 / 255.0 / min(min(v.std) for v in CFG.vision_configs)
     off = np.abs(got - ref) > 1e-5
@@ -88,7 +90,7 @@ def test_predict_action_hidden_golden():
     tp = params_from_numpy(params)
     golden = np.load(GOLDEN)["value"]
     for use_flash in ("auto", True, False):
-        out = predict_action_hidden(tp, CFG, LIBERO, torch.from_numpy(ids),
+        out = predict_action_hidden(tp, P_CFG, P_LIBERO, torch.from_numpy(ids),
                                     torch.from_numpy(mask), torch.from_numpy(pixels),
                                     proprio=torch.from_numpy(proprio),
                                     use_flash=use_flash)
@@ -125,7 +127,7 @@ def test_serve_action_chunk_matches_jax(rng, use_flash):
     ref = np.asarray(jax_serve(params, CFG, LIBERO,
                                **{k: jnp.asarray(v) for k, v in inputs.items()},
                                use_flash=use_flash, resize_size=size))
-    got = serve_action_chunk(params_from_numpy(params), CFG, LIBERO,
+    got = serve_action_chunk(params_from_numpy(params), P_CFG, P_LIBERO,
                              **{k: torch.from_numpy(v) for k, v in inputs.items()},
                              use_flash=use_flash, resize_size=size).numpy()
     assert got.shape == (1, LIBERO.num_actions_chunk, LIBERO.action_dim)
@@ -150,7 +152,7 @@ def test_predict_action_hidden_matches_jax_with_batch_padding(rng):
     ref = jax_predict(params, cfg, LIBERO, input_ids=jnp.asarray(ids),
                       prompt_mask=jnp.asarray(mask), pixels=jnp.asarray(pixels),
                       proprio=jnp.asarray(proprio), use_flash=True)
-    got = predict_action_hidden(params_from_numpy(params), cfg, LIBERO,
+    got = predict_action_hidden(params_from_numpy(params), port_config(cfg), P_LIBERO,
                                 torch.from_numpy(ids), torch.from_numpy(mask),
                                 torch.from_numpy(pixels), torch.from_numpy(proprio),
                                 use_flash=True)
@@ -179,12 +181,13 @@ def test_prompt_ids_match_jax(instruction, bucket):
 def test_unnormalize_actions_matches_jax(rng, norm_type):
     from openvla_oft_tpu.constants import NormalizationType
     from openvla_oft_tpu.models.prismatic import unnormalize_actions as jax_unnorm
+    from openvla_oft_tpu_torch.constants import NormalizationType as PortNormalizationType
     from openvla_oft_tpu_torch.models.prismatic import unnormalize_actions
 
     d = LIBERO.action_dim
     stats = {"min": -rng.random(d), "max": rng.random(d), "q01": -rng.random(d) / 2,
              "q99": rng.random(d) / 2, "mask": [True] * (d - 1) + [False]}
     x = rng.uniform(-1, 1, (8, d))
-    nt = NormalizationType(norm_type)
-    np.testing.assert_array_equal(unnormalize_actions(x, stats, nt),
-                                  jax_unnorm(x, stats, nt))
+    np.testing.assert_array_equal(
+        unnormalize_actions(x, stats, PortNormalizationType(norm_type)),
+        jax_unnorm(x, stats, NormalizationType(norm_type)))

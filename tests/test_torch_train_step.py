@@ -31,7 +31,10 @@ from openvla_oft_tpu.training.lora import init_lora as jax_init_lora
 from openvla_oft_tpu_torch.bridge import params_from_numpy, tree_leaves
 from openvla_oft_tpu_torch.models.prismatic import prismatic_forward as port_forward
 from openvla_oft_tpu_torch.training import train_step as TT
+from test_torch_import import port_config, port_platform
 from test_training import CFG, _batch
+
+P_CFG, P_LIBERO = port_config(CFG), port_platform(LIBERO)     # the port's side
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -103,7 +106,7 @@ def test_prismatic_forward_matches_jax(use_flash):
     pb = _port_batch()
     with torch.no_grad():
         out = port_forward(TT._merged_params(state.base_params, state.trainables, cfg),
-                           CFG, LIBERO, pb["input_ids"], pb["attention_mask"],
+                           P_CFG, P_LIBERO, pb["input_ids"], pb["attention_mask"],
                            pb["pixel_values"], pb["labels"], proprio=pb["proprio"],
                            use_flash=use_flash)
     np.testing.assert_allclose(out.hidden_states.numpy(), np.asarray(ref.hidden_states),
@@ -137,9 +140,9 @@ def test_train_step_matches_jax(use_flash):
 
     state, cfg = _port_state(_port_cfg())
     loss_t, _ = TT.loss_and_metrics(state.trainables, state.base_params, _port_batch(),
-                                    CFG, LIBERO, cfg, use_flash=use_flash)
+                                    P_CFG, P_LIBERO, cfg, use_flash=use_flash)
     grads_t = torch.autograd.grad(loss_t, tree_leaves(state.trainables))
-    state, metrics = TT.train_step(state, _port_batch(), CFG, LIBERO, cfg,
+    state, metrics = TT.train_step(state, _port_batch(), P_CFG, P_LIBERO, cfg,
                                    use_flash=use_flash)
 
     np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=2e-4)
@@ -207,7 +210,7 @@ def test_remat_all_matches_none():
     for policy in ("all", "none"):
         state, cfg = _port_state(_port_cfg(), remat_policy=policy)
         loss, _ = TT.loss_and_metrics(state.trainables, state.base_params, _port_batch(),
-                                      CFG, LIBERO, cfg, use_flash=True)
+                                      P_CFG, P_LIBERO, cfg, use_flash=True)
         out[policy] = [loss] + list(torch.autograd.grad(loss, tree_leaves(state.trainables)))
     for a, b in zip(out["all"], out["none"]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
@@ -231,18 +234,18 @@ def test_resolve_remat(policy, on):
 def test_unported_remat_policies_and_objectives_raise(policy):
     state, cfg = _port_state(_port_cfg(), remat_policy=policy)
     with pytest.raises(NotImplementedError, match="item 14"):
-        TT.loss_and_metrics(state.trainables, state.base_params, _port_batch(), CFG,
-                            LIBERO, cfg)
+        TT.loss_and_metrics(state.trainables, state.base_params, _port_batch(), P_CFG,
+                            P_LIBERO, cfg)
     with pytest.raises(NotImplementedError, match="item 14"):
-        TT.loss_and_metrics(state.trainables, state.base_params, _port_batch(), CFG,
-                            LIBERO, dataclasses.replace(cfg, objective="diffusion"))
+        TT.loss_and_metrics(state.trainables, state.base_params, _port_batch(), P_CFG,
+                            P_LIBERO, dataclasses.replace(cfg, objective="diffusion"))
 
 
 def test_loss_decreases():
     state, cfg = _port_state(_port_cfg())
     losses = []
     for _ in range(8):
-        state, m = TT.train_step(state, _port_batch(), CFG, LIBERO, cfg)
+        state, m = TT.train_step(state, _port_batch(), P_CFG, P_LIBERO, cfg)
         losses.append(float(m["loss"]))
     assert np.isfinite(losses).all()
     assert losses[-1] < losses[0], losses
@@ -262,11 +265,11 @@ def test_grad_accumulation_matches_larger_batch():
 
     acc, cfg = _port_state(_port_cfg(grad_accumulation_steps=2))
     init = leaf(acc)
-    acc, _ = TT.train_step(acc, _port_batch(slice(0, 1)), CFG, LIBERO, cfg)
+    acc, _ = TT.train_step(acc, _port_batch(slice(0, 1)), P_CFG, P_LIBERO, cfg)
     assert torch.equal(leaf(acc), init)          # no update after the first micro-step
-    acc, _ = TT.train_step(acc, _port_batch(slice(1, 2)), CFG, LIBERO, cfg)
+    acc, _ = TT.train_step(acc, _port_batch(slice(1, 2)), P_CFG, P_LIBERO, cfg)
     full, cfg1 = _port_state(_port_cfg())
-    full, _ = TT.train_step(full, _port_batch(), CFG, LIBERO, cfg1)
+    full, _ = TT.train_step(full, _port_batch(), P_CFG, P_LIBERO, cfg1)
     # The mean of the two micro-batch means equals the batch mean, so the two
     # gradients agree to fp32 noise; Adam's first step maps each to about
     # lr * sign(g), where a near-zero entry may flip (at most 2 lr).

@@ -23,6 +23,7 @@ from openvla_oft_tpu_torch.bridge import params_from_numpy
 from openvla_oft_tpu_torch.models import projector as TP
 from openvla_oft_tpu_torch.models import vision_backbone as TB
 from openvla_oft_tpu_torch.models import vit as TV
+from test_torch_import import port_arch, port_config
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -63,7 +64,7 @@ def test_vit_featurize_matches_jax(rng, vcfg, fused):
                 tp["layers"]["attn"][k]["kernel"].numpy(),
                 np.asarray(folded["layers"]["attn"][k]["kernel"]), rtol=1e-6, atol=1e-6)
         assert tp["layers"]["norm1"] == {} and "ls1" not in tp["layers"]
-    got = TV.vit_featurize(tp, vcfg, torch.from_numpy(x)).numpy()
+    got = TV.vit_featurize(tp, port_arch(vcfg), torch.from_numpy(x)).numpy()
     assert got.shape == (2, vcfg.num_patches, vcfg.width)
     np.testing.assert_allclose(got, ref, **TOL)
 
@@ -74,7 +75,7 @@ def test_dinov2_golden():
     params = JV.init_vit_params(jax.random.PRNGKey(21), TINY_DINOV2, dtype=jnp.float32)
     x = jax.random.uniform(jax.random.PRNGKey(22),
                            (1, TINY_DINOV2.image_size, TINY_DINOV2.image_size, 3))
-    out = TV.vit_featurize(params_from_numpy(params), TINY_DINOV2,
+    out = TV.vit_featurize(params_from_numpy(params), port_arch(TINY_DINOV2),
                            torch.from_numpy(np.array(x))).numpy()
     np.testing.assert_allclose(out[:, :3, :8], np.load(GOLDEN)["value"],
                                atol=2e-5, rtol=1e-4)
@@ -90,7 +91,8 @@ def test_backbone_and_projector_match_jax(rng, fast_gelu):
     pixels = rng.standard_normal((1, 2, 2, hw, hw, 3)).astype(np.float32)
     ref = JP.vision_projector(proj, JB.vision_backbone_forward(vb, cfg, jnp.asarray(pixels)),
                               fast_gelu=fast_gelu)
-    feats = TB.vision_backbone_forward(params_from_numpy(vb), cfg, torch.from_numpy(pixels))
+    feats = TB.vision_backbone_forward(params_from_numpy(vb), port_config(cfg),
+                                       torch.from_numpy(pixels))
     got = TP.vision_projector(params_from_numpy(proj), feats, fast_gelu=fast_gelu)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
@@ -103,6 +105,7 @@ def test_fast_gelu_swaps_only_erf_gelu_in_bf16(rng):
                                                    dtype=jnp.bfloat16))
     hw = TINY_DINOV2.image_size
     pixels = torch.from_numpy(rng.standard_normal((2, 1, 2, hw, hw, 3))).bfloat16()
+    cfg = port_config(cfg)
     exact = TB.vision_backbone_forward(vb, cfg, pixels).float()
     fast = TB.vision_backbone_forward(
         vb, dataclasses.replace(cfg, fast_gelu=True), pixels).float()
