@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: `python3 chip_smoke.py`.
 
-Drives the port's serving path (bf16, then int4) and its training path once
-each, at the full width of the flagship model (DINOv2 + SigLIP -> projector
--> Llama-2-7B, 2 images, LIBERO, seeded random weights made on the card),
-through the entry points a user calls: an HTTP /act server built by
+Drives the port's serving paths (LIBERO bf16, ALOHA bf16 with FiLM and the
+ViTs through K4, LIBERO int4), the K5 timing probe and the training path,
+at the full width of the flagship model (DINOv2 + SigLIP -> projector ->
+Llama-2-7B, seeded random weights made on the card), through the entry
+points a user calls: an HTTP /act server built by
 `openvla_oft_tpu_torch.serving.deploy` (`flagship_policy`, with
-`load_in_4bit` for int4), and the fine-tuning CLI
+`platform="aloha"` and `vit_fused`, or `load_in_4bit`), the probe script
+`openvla_oft_tpu_torch.scripts.exp_int4_probe`, and the fine-tuning CLI
 `openvla_oft_tpu_torch.training.finetune` (LoRA r=32, L1 objective, B=8).
 
 Phases, each of which raises on failure (exit code != 0, no result line):
@@ -14,10 +16,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   2. build: the hand-written kernels from `openvla_oft_tpu_torch/csrc`;
   3. kernel check: K1 (and `flash_attention_allheads`, which is K1) against
      its plain version at the serving path's shapes, timed beside SDPA with
-     the boolean OFT mask and the bound;
+     the boolean OFT mask and the bound; K4 (`ln_matmul`) against its plain
+     version at the 8 ViT serving shapes, timed beside the unfused sequence,
+     `torch.matmul` on the product alone and the bound;
   4. serving: 3 /act requests, K1 launched 31 times per request;
   5. path parity: the K1 path against the dense path on the same inputs;
      one request traced with torch.profiler (device time by kernel class);
+  5a. ALOHA serving: `flagship_policy(platform="aloha", vit_fused=True)`
+     (3 cameras, FiLM, 25 x 14 chunk, S = 1168): 3 /act requests with K1 31
+     and K4 98 launches each, then 3 with vit_fused off (K4 0); the K4 path
+     against the unfused path and the K1 path against the dense path; one
+     request traced each way;
   6. int4 kernel check: K5 (W4A16) and K6 (W4A8) against their plain
      versions at the 7B's int4 shapes (T = 618 and 57), a column view, a
      layer view, T = 1 and group 16, timed beside the library call and the
@@ -27,6 +36,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      request of each traced (the K5 and K6 share of the device time);
   8. int4 path parity: K5 and K6 against their plain versions through
      `predict_action_hidden` on the same int4 weights; int4 against bf16;
+  8a. the K5 probe: the probe script's `main` (T = 112, the 7B's shapes;
+     K5, its three probe modes and K6), each mode against its plain
+     version, timed beside its plain version, `torch.matmul` and the bound;
   9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
      version at the training shape (B=8, per-row pads and windows), the
      ALOHA length, GQA and dead rows, timed beside SDPA's backward;
@@ -54,6 +66,8 @@ import time
 import numpy as np
 import torch
 
+from openvla_oft_tpu_torch.utils.timing import cuda_time_ms, l2_flush_buffer
+
 # Tolerances of the kernel check: bf16 outputs of an fp32-accumulated
 # attention against fp32 math on the same bf16 inputs.
 MAX_ABS_O, MEAN_ABS_O, MAX_ABS_LSE = 2e-2, 2e-3, 1e-2
@@ -77,6 +91,21 @@ INT4_K5_REL, INT4_K6_REL = 1e-3, 1e-4
 # (name, K, N) of the 7B's int4 linears (wqkv and gate_up fused for serving).
 INT4_SHAPES = [("wqkv", 4096, 12288), ("wo", 4096, 4096), ("gate_up", 4096, 22016),
                ("down", 11008, 4096)]
+# K4 and the probe against their plain versions: max|d| / max|ref| (K4 one
+# bf16 rounding, the sums in another order; the probe fp32 sums of the same
+# bf16 products), and K4's cosine.
+K4_REL, K4_COSINE, PROBE_REL = 1e-2, 0.9999, 1e-3
+# (name, M, D, N, act): the ViTs' LN + matmul launches at ALOHA (3 images) and
+# LIBERO (2): DINOv2 rows 3 x 261 and 2 x 261, SigLIP 3 x 256 and 2 x 256;
+# qkv without activation, fc1 with the backbone's GELU.
+K4_SHAPES = [
+    (f"{vit} {proj} {deploy}", m, d, n, act)
+    for deploy, rows in (("ALOHA", (783, 768)), ("LIBERO", (522, 512)))
+    for vit, m, d, projs in (("DINOv2", rows[0], 1024, ((3072, None), (4096, "gelu"))),
+                             ("SigLIP", rows[1], 1152, ((3456, None), (4304, "gelu_tanh"))))
+    for proj, (n, act) in zip(("qkv", "fc1"), projs)]
+K4_EXTRA = [("DINOv2 qkv ALOHA, quick_gelu", 783, 1024, 3072, "quick_gelu"),
+            ("ragged M=37 N=200", 37, 1024, 200, "gelu")]
 # H100 SXM (NVIDIA's data sheet): dense bf16 and int8 tensor-core peaks, HBM3 rate.
 PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
@@ -90,26 +119,6 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
-    """Median of `iters` CUDA-event timings of fn() after `warmup` calls.
-    `flush`, a buffer larger than the 50 MB L2, is zeroed before each timed
-    call, so that fn reads its operands from device memory, as a serving
-    request that streams every weight once does."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def nbytes(*tensors) -> int:
@@ -205,31 +214,94 @@ def kernel_check(card: str) -> dict:
     return results
 
 
+def ln_matmul_check(card: str) -> dict:
+    """K4 against ln_matmul_ref at the ViT serving shapes, timed (L2 flushed)
+    beside its plain version, the port's unfused sequence (layer_norm ->
+    linear -> activation, what the dense ViT path runs, GELU as serving's
+    gelu_erf_fast) and `torch.matmul` on the product alone (no single
+    PyTorch call computes LN + matmul + activation), and the bound."""
+    from openvla_oft_tpu_torch.models import vit as V
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
+
+    dev = torch.device("cuda")
+    flush = l2_flush_buffer(dev)
+    results = {}
+    for name, m, d, n, act in K4_SHAPES + K4_EXTRA:
+        gen = torch.Generator(device=dev).manual_seed(m + d + n)
+        x = (torch.randn((m, d), generator=gen, device=dev) * 1.5 + 0.3).bfloat16()
+        w = (torch.randn((d, n), generator=gen, device=dev) * d ** -0.5).bfloat16()
+        b = (torch.randn((n,), generator=gen, device=dev) * 0.1).bfloat16()
+        y = VF.ln_matmul(x, w, b, act)
+        torch.cuda.synchronize()
+        ref = VF.ln_matmul_ref(x, w, b, act)
+        err, rel, cos = _rel_cos(y, ref)
+        finite = bool(torch.isfinite(y).all())
+        dense_act = "gelu_erf_fast" if act == "gelu" else act
+        ms = cuda_time_ms(lambda: VF.ln_matmul(x, w, b, act), flush=flush)
+        plain_ms = cuda_time_ms(lambda: VF.ln_matmul_ref(x, w, b, act), flush=flush)
+        unfused_ms = cuda_time_ms(lambda: V._ln_linear({}, {"kernel": w, "bias": b}, x,
+                                                       dense_act), flush=flush)
+        library_ms = cuda_time_ms(lambda: torch.matmul(x, w), flush=flush)
+        ops = 2 * m * d * n
+        bound_ms, bound_by = bound(ops, nbytes(x, w, b, y), PEAK_BF16)
+        log(f"[k4] {name}: M={m} D={d} N={n} act={act} | max|d|={err:.3e} rel={rel:.3e} "
+            f"cos={cos:.6f} finite {finite} | K4 {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), "
+            f"plain {plain_ms:.4f}, unfused sequence ({dense_act}) {unfused_ms:.4f}, "
+            f"torch.matmul on the product alone {library_ms:.4f}, bound {bound_ms:.4f} "
+            f"({bound_by}) (median of 20, CUDA events, L2 flushed; {card})")
+        if not (finite and rel <= K4_REL and cos >= K4_COSINE):
+            raise AssertionError(f"K4 disagrees with its plain version at {name}")
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "unfused_ms": unfused_ms, "library_ms": library_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
 def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
 
 
+def observation(policy, rng) -> dict:
+    """One client observation for the policy's deployment: LIBERO's client
+    sends two 256 x 256 frames, ALOHA's three 224 x 224 frames
+    (run_aloha_eval.py:76-86), each with its proprio state."""
+    if policy.cfg.num_images_in_input == 3:
+        cams, size, task = ("full_image", "left_wrist_image", "right_wrist_image"), 224, \
+            "fold the towel"
+    else:
+        cams, size, task = ("full_image", "wrist_image"), 256, "put the bowl on the plate"
+    obs = {cam: rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for cam in cams}
+    obs["state"] = rng.standard_normal(policy.platform.proprio_dim).astype(np.float32)
+    obs["instruction"] = task
+    return obs
+
+
+def frames_of(policy, obs) -> np.ndarray:
+    from openvla_oft_tpu_torch.serving.deploy import observation_frames
+
+    return observation_frames(obs, policy.cfg.num_images_in_input)
+
+
 def serve(policy, card: str, rng, label: str, expect: dict) -> tuple:
     """3 /act requests through the HTTP server. `expect` gives each kernel's
     launches per request; the counts are set to 0 first. Returns
-    (observations, answers, launches in the run)."""
+    (observations, answers, launches in the run, request ms)."""
     from openvla_oft_tpu_torch.serving.deploy import build_server, get_action_from_server
 
     platform = policy.platform
     server = build_server(policy)
     port = free_port()
     server.run("127.0.0.1", port, background=True)
-    observations, answers = [], []
+    observations, answers, latencies = [], [], []
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         for i in range(3):
-            obs = {"full_image": rng.integers(0, 256, (256, 256, 3), dtype=np.uint8),
-                   "wrist_image": rng.integers(0, 256, (256, 256, 3), dtype=np.uint8),
-                   "state": rng.standard_normal(platform.proprio_dim).astype(np.float32),
-                   "instruction": "put the bowl on the plate"}
+            obs = observation(policy, rng)
             before = launch_counts()
             t0 = time.perf_counter()
             action = get_action_from_server(obs, f"http://127.0.0.1:{port}/act")
@@ -250,12 +322,13 @@ def serve(policy, card: str, rng, label: str, expect: dict) -> tuple:
                                      f"expected {expect}")
             observations.append(obs)
             answers.append(action)
+            latencies.append(dt * 1e3)
         launches = launch_counts()
     finally:
         server.shutdown()
     log(f"[serve] {label}: torch.cuda.max_memory_allocated during serving: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
-    return observations, answers, launches
+    return observations, answers, launches, latencies
 
 
 def model_inputs(policy, obs) -> tuple:
@@ -265,8 +338,7 @@ def model_inputs(policy, obs) -> tuple:
     from openvla_oft_tpu_torch.processing.image_processing import device_preprocess
 
     dev = policy.device
-    frames = torch.tensor(np.stack([obs["full_image"], obs["wrist_image"]]),
-                          device=dev)[None]
+    frames = torch.tensor(frames_of(policy, obs), device=dev)[None]
     ids, mask = prepare_prompt_ids(policy.tokenizer, obs["instruction"],
                                    policy.prompt_bucket)
     ids = torch.as_tensor(ids, device=dev)[None]
@@ -278,11 +350,12 @@ def model_inputs(policy, obs) -> tuple:
     return frames, ids, mask, pixels, proprio
 
 
-def actions_hidden(policy, inputs, use_flash=True) -> torch.Tensor:
+def actions_hidden(policy, inputs, use_flash=True, vit_fused=False) -> torch.Tensor:
     from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden
+    from openvla_oft_tpu_torch.ops.vit_fused import vit_fused as vit_fused_mode
 
     _, ids, mask, pixels, proprio = inputs
-    with torch.inference_mode():
+    with torch.inference_mode(), vit_fused_mode(vit_fused):
         return predict_action_hidden(policy.params, policy.cfg, policy.platform, ids, mask,
                                      pixels, proprio=proprio.clamp(-1, 1),
                                      use_flash=use_flash).actions_hidden.float()
@@ -320,7 +393,8 @@ def path_parity(policy, obs, served) -> torch.Tensor:
     cos = cosine(hidden[True], hidden[False])
     d_act = float(np.abs(actions[True] - actions[False]).max())
     d_served = float(np.abs(actions[True] - served).max())
-    log(f"[parity] actions_hidden cosine(K1 path, dense path) = {cos:.6f}; "
+    log(f"[parity] S = {policy.prompt_bucket + policy.cfg.num_images_in_input * 256 + 1}"
+        f" + {platform.chunk_len + 1}: actions_hidden cosine(K1 path, dense path) = {cos:.6f}; "
         f"max|d actions| K1 vs dense = {d_act:.4e}; served /act vs direct K1 call "
         f"max|d| = {d_served:.4e}")
     if not cos >= PARITY_COSINE:
@@ -362,7 +436,7 @@ def int4_check(card: str) -> dict:
               ("wo layer view of a stacked L=2 weight T=618", 618, 4096, 4096, "layer"),
               ("wo T=1", 1, 4096, 4096, "whole"),
               ("group 16 (d_in 4304) T=618", 618, 4304, 1152, "whole")]
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    flush = l2_flush_buffer(dev)
     results = {}
 
     def weight(gen, k, n, how):
@@ -478,11 +552,11 @@ def int4_serving(card: str, rng, obs, bf16_hidden) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     n_layers = policy.cfg.llm.num_layers
     per_request = 4 * (n_layers - 1) + 6          # 4 linears a layer, 6 in the window layer
-    _, _, w4a16 = serve(policy, card, rng, "int4 W4A16",
-                        {"K1": n_layers - 1, "K5": per_request, "K6": 0})
+    _, _, w4a16, _ = serve(policy, card, rng, "int4 W4A16",
+                           {"K1": n_layers - 1, "K4": 0, "K5": per_request, "K6": 0})
     policy.int4_a8 = True
-    _, _, w4a8 = serve(policy, card, rng, "int4 W4A8",
-                       {"K1": n_layers - 1, "K5": 0, "K6": per_request})
+    _, _, w4a8, _ = serve(policy, card, rng, "int4 W4A8",
+                          {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": per_request})
     for a8, label in ((False, "int4 W4A16"), (True, "int4 W4A8")):
         policy.int4_a8 = a8
         profile_request(policy, obs, label, card)
@@ -490,21 +564,144 @@ def int4_serving(card: str, rng, obs, bf16_hidden) -> dict:
     return {"W4A16": w4a16, "W4A8": w4a8}
 
 
-def launch_counts() -> dict:
+def vision_features(policy, inputs, vit_fused: bool) -> torch.Tensor:
+    """The FiLM-conditioned ViT pair's features for one observation, through
+    K4 or the unfused ops."""
+    from openvla_oft_tpu_torch.models.prismatic import _film_language_embedding
+    from openvla_oft_tpu_torch.models.vision_backbone import vision_backbone_forward
+    from openvla_oft_tpu_torch.ops.vit_fused import vit_fused as vit_fused_mode
+
+    _, ids, mask, pixels, _ = inputs
+    params, cfg = policy.params, policy.cfg
+    dtype = params["llm"]["embed"]["embedding"].dtype
+    with torch.inference_mode(), vit_fused_mode(vit_fused):
+        le = _film_language_embedding(params, ids, mask, dtype)
+        return vision_backbone_forward(params["vision_backbone"], cfg, pixels.to(dtype),
+                                       film_params=params["film"],
+                                       language_embedding=le).float()
+
+
+def aloha_serving(card: str, rng) -> dict:
+    """The ALOHA deployment (3 cameras, FiLM, 25 x 14 chunk) with the ViTs
+    through K4: 3 /act requests, then 3 with vit_fused off; K4 path parity,
+    K1 path parity at S = 1168, one traced request each way. Returns the
+    launches and request times of both runs."""
+    from openvla_oft_tpu_torch.serving.deploy import flagship_policy
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy = flagship_policy("cuda", seed=0, platform="aloha", vit_fused=True)
+    torch.cuda.synchronize()
+    log(f"[aloha-init] ALOHA flagship (3 images, FiLM) on the card: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, peak during the build "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_layers = policy.cfg.llm.num_layers
+    k4 = 2 * sum(v.depth - 1 for v in policy.cfg.vision_configs)      # 98
+    runs = {}
+    for vit_fused in (True, False):
+        policy.vit_fused = vit_fused
+        label = f"ALOHA bf16 vit_fused={vit_fused}"
+        obs, answers, launches, ms = serve(
+            policy, card, rng, label,
+            {"K1": n_layers - 1, "K4": k4 if vit_fused else 0, "K5": 0, "K6": 0})
+        runs[vit_fused] = {"obs": obs, "answers": answers, "launches": launches, "ms": ms}
+    obs = runs[False]["obs"][0]
+    inputs = model_inputs(policy, obs)
+    feats = {f: vision_features(policy, inputs, f) for f in (True, False)}
+    hidden = {f: actions_hidden(policy, inputs, vit_fused=f) for f in (True, False)}
+    cos_feats, cos_hidden = cosine(feats[True], feats[False]), cosine(hidden[True],
+                                                                      hidden[False])
+    log(f"[aloha-parity] vision features cosine(K4 path, unfused path) = {cos_feats:.6f}, "
+        f"max|d| {(feats[True] - feats[False]).abs().max().item():.4e}; actions_hidden "
+        f"cosine(K4 path, unfused path) = {cos_hidden:.6f} ({card})")
+    if not (cos_feats >= PARITY_COSINE and cos_hidden >= PARITY_COSINE):
+        raise AssertionError("the K4 path disagrees with the unfused path")
+    del feats
+    path_parity(policy, obs, runs[False]["answers"][0])
+    for vit_fused in (True, False):
+        policy.vit_fused = vit_fused
+        profile_request(policy, obs, f"ALOHA vit_fused={vit_fused}", card)
+    del policy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def probe_phase(card: str) -> dict:
+    """The probe script's main with fewer timed calls (its launches are the
+    probe's main path), then each mode against its plain version at the qkv
+    shape, timed beside its plain version, torch.matmul on the dequantized
+    bf16 weight and the bound."""
+    from openvla_oft_tpu_torch.ops.int4_matmul import int4_matmul_ref
+    from openvla_oft_tpu_torch.ops.int4_probe import MODES, int4_probe, int4_probe_ref
+    from openvla_oft_tpu_torch.ops.quant import dequantize_int4, quantize_weight_int4
+    from openvla_oft_tpu_torch.scripts import exp_int4_probe as P
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = P.main(["--iters", "10"])
+    launches = launch_counts()["probe"]
+    log(f"[probe] exp_int4_probe.main: {time.perf_counter() - t0:.1f} s, {launches} probe "
+        f"launches; group-dots rel error against K5 {out['group_dots_vs_fused']:.3e}, against "
+        f"int4_matmul_ref {out['group_dots_vs_ref']:.3e} ({card})")
+    dev = torch.device("cuda")
+    flush = l2_flush_buffer(dev)
+    name, k, n = P.SHAPES[0]
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    x = torch.randn((P.T, k), generator=gen, device=dev).bfloat16()
+    q = quantize_weight_int4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+    packed, scales = q["kernel_q4"], q["scale_w4"]
+    errs = {}
+    for mode in MODES:
+        got = int4_probe(x, packed, scales, mode)
+        torch.cuda.synchronize()
+        err, rel, _ = _rel_cos(got, int4_probe_ref(x, packed, scales, mode))
+        errs[mode] = err
+        log(f"[probe] {mode} {name} T={P.T}: max|d|={err:.3e} rel={rel:.3e} against its "
+            f"plain version, finite {bool(torch.isfinite(got).all())}")
+        if not (rel <= PROBE_REL and torch.isfinite(got).all()):
+            raise AssertionError(f"the probe's {mode} disagrees with its plain version")
+    y = int4_probe(x, packed, scales, "group-dots")
+    w16 = dequantize_int4(packed, scales, torch.bfloat16)
+    plain_ms = cuda_time_ms(lambda: int4_probe_ref(x, packed, scales, "group-dots"),
+                            flush=flush)
+    deq_ms = cuda_time_ms(lambda: int4_matmul_ref(x, packed, scales), flush=flush)
+    library_ms = cuda_time_ms(lambda: torch.matmul(x, w16), flush=flush)
+    bound_ms, bound_by = bound(2 * P.T * k * n, nbytes(x, packed, scales, y), PEAK_BF16)
+    ms = out["ms"][name]["group-dots"]
+    log(f"[probe] group-dots {name} T={P.T}: {ms:.4f} ms (the script's median of 10), plain "
+        f"{plain_ms:.4f}, int4_matmul_ref {deq_ms:.4f}, torch.matmul on the bf16 weight "
+        f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}) (CUDA events, L2 flushed; {card})")
+    for shape, times in out["ms"].items():
+        log(f"[probe] {shape}: " + ", ".join(f"{v} {t:.4f}" for v, t in times.items())
+            + f" ms; stacked layer view {out['stacked_ms'][shape]:.4f} ms; byte floor "
+            f"{out['floor_ms'][shape]:.4f} ms ({card})")
+    del flush
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def counted_wrappers() -> dict:
+    """Each kernel's wrapper, which counts that kernel's launches."""
     from openvla_oft_tpu_torch.ops import flash_attention as fa
     from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops import int4_probe as IP
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
 
-    return {"K1": fa.flash_attention.launches, "K2": fa.flash_attention_dq.launches,
-            "K3": fa.flash_attention_dkv.launches, "K5": M.int4_matmul_fused.launches,
-            "K6": M.int4_matmul_fused_a8.launches}
+    return {"K1": fa.flash_attention, "K2": fa.flash_attention_dq, "K3": fa.flash_attention_dkv,
+            "K4": VF.ln_matmul, "K5": M.int4_matmul_fused, "K6": M.int4_matmul_fused_a8,
+            "probe": IP.int4_probe}
+
+
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in counted_wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from openvla_oft_tpu_torch.ops import flash_attention as fa
-    from openvla_oft_tpu_torch.ops import int4_matmul as M
-
-    for fn in (fa.flash_attention, fa.flash_attention_dq, fa.flash_attention_dkv,
-               M.int4_matmul_fused, M.int4_matmul_fused_a8):
+    for fn in counted_wrappers().values():
         fn.launches = 0
 
 
@@ -631,7 +828,7 @@ def train(card: str, n_layers: int):
 
     run_root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     expect = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers,   # remat "all"
-              "K5": 0, "K6": 0}
+              "K4": 0, "K5": 0, "K6": 0, "probe": 0}
     seen = {"prev": {k: 0 for k in expect}}
 
     def on_step(step, metrics, state):
@@ -683,7 +880,7 @@ def train(card: str, n_layers: int):
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    for cls, keys in (("K1", ("flash_fwd",)), ("K2", ("flash_bwd_dq",)),
+    for cls, keys in (("K1", ("flash_fwd",)), ("K2", ("flash_bwd_dq",)), ("K4", ("ln_matmul",)),
                       ("K3", ("flash_bwd_dkv",)), ("K5", ("int4_w4a16",)),
                       ("K6", ("int4_w4a8",)),
                       ("fp32 GEMM", ("sgemm", "f32f32", "simt")),
@@ -737,8 +934,8 @@ def log_classes(tag: str, by_class: dict) -> None:
 
 def profile_request(policy, obs, label: str, card: str) -> None:
     """One request of `policy` without HTTP, traced: device time by kernel
-    class and the share of the int4 kernels (K5, K6)."""
-    frames = np.stack([obs["full_image"], obs["wrist_image"]])
+    class and the share of K4 and of the int4 kernels (K5, K6)."""
+    frames = frames_of(policy, obs)
 
     def request():
         policy.predict_action_from_frames(frames, obs["instruction"], proprio=obs["state"])
@@ -746,9 +943,11 @@ def profile_request(policy, obs, label: str, card: str) -> None:
     untraced = [timed(request) for _ in range(3)]
     wall, n, busy, by_class = trace(request)
     int4 = sum(by_class.get(c, (0.0, 0))[0] for c in ("K5", "K6"))
+    k4 = by_class.get("K4", (0.0, 0))[0]
     log(f"[profile] {label} request: untraced {', '.join(f'{t:.1f}' for t in untraced)} ms; "
-        f"traced {wall:.1f} ms with {n} kernels and {busy:.1f} ms of device time; K5+K6 "
-        f"{int4:.1f} ms = {int4 / busy:.3f} of the device time; idle share of the traced "
+        f"traced {wall:.1f} ms with {n} kernels and {busy:.1f} ms of device time; K4 "
+        f"{k4:.1f} ms = {k4 / busy:.3f} and K5+K6 {int4:.1f} ms = {int4 / busy:.3f} of the "
+        f"device time; idle share of the traced "
         f"request {1 - busy / wall:.3f}, estimate for the untraced ones "
         f"{1 - busy / float(np.median(untraced)):.3f} (host clock, ends in "
         f"torch.cuda.synchronize; {card})")
@@ -864,6 +1063,7 @@ def main() -> int:
     log((lib_path.parent / "build.log").read_text().strip())
 
     checks = kernel_check(card)
+    k4 = ln_matmul_check(card)
 
     t0 = time.perf_counter()
     policy = flagship_policy("cuda", seed=0)
@@ -875,18 +1075,22 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     n_layers = policy.cfg.llm.num_layers
-    observations, answers, serve_launches = serve(policy, card, rng, "bf16",
-                                                  {"K1": n_layers - 1, "K5": 0, "K6": 0})
+    observations, answers, serve_launches, _ = serve(
+        policy, card, rng, "bf16", {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": 0})
     bf16_hidden = path_parity(policy, observations[0], answers[0])
     profile_request(policy, observations[0], "bf16", card)
     del policy
     gc.collect()
     torch.cuda.empty_cache()
 
+    aloha = aloha_serving(card, rng)
+    aloha_k4 = aloha[True]["launches"]
+
     int4 = int4_check(card)
     int4_launches = int4_serving(card, rng, observations[0], bf16_hidden)
     gc.collect()
     torch.cuda.empty_cache()
+    probe = probe_phase(card)
 
     cfg, _, _, batch = training_setup()
     s_train = (batch["input_ids"].shape[1] + 1                      # + proprio token
@@ -899,11 +1103,16 @@ def main() -> int:
     training_parity(state, card)
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
-    # training batch, K5/K6 the wqkv projection at T = 618. SDPA computes dq,
-    # dk and dv in one backward, so K2 and K3 share its time.
+    # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
+    # at T = 618, the probe group-dots at qkv T = 112. SDPA computes dq, dk
+    # and dv in one backward, so K2 and K3 share its time; for K4 the library
+    # time is torch.matmul on the product alone.
     libero, tr, wqkv = checks["libero_prefill"], bwd["training"], int4["wqkv T=618"]
+    fc1 = k4["DINOv2 fc1 ALOHA"]
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
-    k1_launches = (serve_launches["K1"] + w4a16["K1"] + w4a8["K1"] + train_launches["K1"])
+    k1_launches = (serve_launches["K1"] + aloha[True]["launches"]["K1"]
+                   + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
+                   + train_launches["K1"])
     kernels = [
         kernel_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:50", k1_launches,
@@ -918,6 +1127,11 @@ def main() -> int:
                      "openvla_oft_tpu/ops/flash_attention.py:207", train_launches["K3"],
                      max(c["dkv_err"] for c in bwd.values()), tr["ms_dkv"], tr["plain_dkv"],
                      *tr["bound_dkv"], tr["library_ms"]),
+        kernel_entry("ln_matmul", "ln_matmul.cu", "openvla_oft_tpu/ops/vit_fused.py:47",
+                     aloha_k4["K4"], max(c["max_abs_err"] for c in k4.values()), fc1["ms"],
+                     fc1["plain_ms"], fc1["bound_ms"], fc1["bound_by"], fc1["library_ms"],
+                     library_call="torch.matmul on the product alone",
+                     unfused_ms=fc1["unfused_ms"]),
         kernel_entry("int4_matmul", "int4_matmul.cu", "openvla_oft_tpu/ops/int4_matmul.py:43",
                      w4a16["K5"], max(c["err5"] for c in int4.values()), wqkv["ms5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["lib5"],
@@ -925,9 +1139,14 @@ def main() -> int:
         kernel_entry("int4_matmul_a8", "int4_matmul.cu", "openvla_oft_tpu/ops/int4_matmul.py:432",
                      w4a8["K6"], max(c["err6"] for c in int4.values()), wqkv["ms6"],
                      wqkv["plain6"], *wqkv["bound6"], wqkv["lib6"],
-                     also_replaces="openvla_oft_tpu/ops/int4_matmul.py:527")]
-    log(f"[launches] bf16 serving run: {serve_launches}; int4 serving runs: W4A16 {w4a16}, "
-        f"W4A8 {w4a8}; training run: {train_launches}")
+                     also_replaces="openvla_oft_tpu/ops/int4_matmul.py:527"),
+        kernel_entry("int4_probe", "int4_probe.cu", "vla_scripts/exp_int4_probe.py:53",
+                     probe["launches"], probe["max_abs_err"], probe["ms"], probe["plain_ms"],
+                     probe["bound_ms"], probe["bound_by"], probe["library_ms"],
+                     library_call="torch.matmul on the dequantized bf16 weight")]
+    log(f"[launches] bf16 serving run: {serve_launches}; ALOHA serving runs: vit_fused "
+        f"{aloha_k4}, unfused {aloha[False]['launches']}; int4 serving runs: W4A16 {w4a16}, "
+        f"W4A8 {w4a8}; probe run: {probe['launches']}; training run: {train_launches}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -106,13 +106,20 @@ def _vit_spec(cfg: ViTConfig) -> Params:
     return p
 
 
+def _film_spec(cfg: ViTConfig, llm_dim: int) -> Params:
+    """models/vit.py::init_film_params: per-block FiLM scale and shift
+    projectors, (L, llm_dim, width) kernels and zero (L, width) biases."""
+    L, d = cfg.depth, cfg.width
+    return {name: {"kernel": Init((L, llm_dim, d), llm_dim ** -0.5), "bias": Init((L, d))}
+            for name in ("scale", "shift")}
+
+
 def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec) -> Params:
-    """The tree of `Init` leaves for an L1-head serving model without lm_head."""
+    """The tree of `Init` leaves for an L1-head serving model without lm_head
+    (with the FiLM projectors when `cfg.use_film`)."""
     llm = cfg.llm
     if isinstance(llm, PhiConfig):
         raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
-    if cfg.use_film:
-        raise NotImplementedError("FiLM is not ported yet (ROADMAP queue 1, item 10)")
     h, kv, d = llm.num_heads, llm.num_kv_heads, llm.hidden_size
     hd, inter, L = llm.head_dim, llm.intermediate_size, llm.num_layers
     names = ("featurizer", "fused_featurizer")[: len(cfg.vision_configs)]
@@ -159,6 +166,9 @@ def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec) -> Params:
             "fc_out": _linear(llm_dim, platform.action_dim),
         }},
     }
+    if cfg.use_film:
+        spec["film"] = {name: _film_spec(v, llm_dim)
+                        for name, v in zip(names, cfg.vision_configs)}
     return spec
 
 
@@ -183,7 +193,7 @@ def materialize(spec, generator: torch.Generator, device, dtype):
     return [materialize(v, generator, device, dtype) for v in spec]
 
 
-_HEAD_KEYS = ("projector", "proprio_projector", "action_head")
+_HEAD_KEYS = ("projector", "proprio_projector", "action_head", "film")
 
 
 def init_params(cfg: OpenVLAConfig, platform: PlatformSpec,
@@ -194,8 +204,9 @@ def init_params(cfg: OpenVLAConfig, platform: PlatformSpec,
     too): the structure, shapes and scales of the JAX init, in the unfused
     layout (serving fuses afterwards; training keeps it).
 
-    head_dtype: dtype of the projector, proprio projector and action head
-    (the JAX init's `head_dtype`, fp32 for training); None = `dtype`.
+    head_dtype: dtype of the projector, proprio projector, action head and
+    FiLM projectors (the JAX init's `head_dtype`, fp32 for training); None =
+    `dtype`.
     """
     head_dtype = dtype if head_dtype is None else head_dtype
     return {k: materialize(v, generator, device,

@@ -46,67 +46,21 @@
 // wgmma, TMA, a ring of staged tiles, and a split over K for the small-T
 // shapes (a 57-row layer fills 32-172 of the 132 SMs) are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "int4_tiles.cuh"
 
 using namespace nvcuda;
+using namespace tiles;
 
 namespace {
 
-constexpr int BM = 64;          // rows of x per CTA
-constexpr int BN = 128;         // output columns per CTA
-constexpr int BK = 64;          // K5 depth per step (32 packed rows)
-constexpr int NTHREADS = 256;   // 8 warps: 2 along rows x 4 along columns
 constexpr int MAX_GROUP = 128;  // ops/quant.py INT4_GROUP: groups never exceed it
 
-constexpr int LDA = BK + 8;     // K5 bf16 x tile row stride (144 B)
-constexpr int LDB = BN + 8;     // K5 bf16 weight tile row stride (272 B)
-constexpr int LDC = BN + 4;     // fp32 / int32 output tile row stride (528 B)
-
-constexpr int K5_SMEM_AB = (BM * LDA + BK * LDB) * 2;
-constexpr int SMEM_C = BM * LDC * 4;
-constexpr int K5_SMEM = K5_SMEM_AB > SMEM_C ? K5_SMEM_AB : SMEM_C;
+constexpr int K5_SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
 constexpr int K6_A_BYTES = BM * MAX_GROUP;      // x8 panels [k/16][row][16]
 constexpr int K6_SMEM_AB = K6_A_BYTES + MAX_GROUP * BN;   // + weight panels [n/16][k][16]
 constexpr int K6_SMEM = K6_SMEM_AB > SMEM_C ? K6_SMEM_AB : SMEM_C;
 
 constexpr int ACC_PER_THREAD = BM * BN / NTHREADS;   // 32 K6 accumulators
-
-__device__ __forceinline__ int byte_of(int word, int j) {
-  // Byte j of a little-endian word, sign-extended.
-  return (int)((unsigned)word << (24 - 8 * j)) >> 24;
-}
-__device__ __forceinline__ int low_nibble(int b) { return (int)((unsigned)b << 28) >> 28; }
-__device__ __forceinline__ int high_nibble(int b) { return b >> 4; }
-
-// Calls f(i, c, b) for every packed byte b at (row p0 + i, column n0 + c),
-// i < rows, c < BN, with b = 0 outside (K/2, N). 4-byte words when vec4.
-template <typename F>
-__device__ __forceinline__ void for_packed_bytes(const int8_t* packed, long long ldp, int K2,
-                                                 int N, int p0, int n0, int rows, bool vec4,
-                                                 F f) {
-  const int tid = threadIdx.x;
-  if (vec4) {
-    // N % 4 == 0, so a word is wholly inside or outside the weight.
-    for (int w = tid; w < rows * (BN / 4); w += NTHREADS) {
-      const int i = w / (BN / 4), c = (w % (BN / 4)) * 4;
-      const int p = p0 + i, n = n0 + c;
-      int word = 0;
-      if (p < K2 && n < N) word = __ldg(reinterpret_cast<const int*>(packed + p * ldp + n));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f(i, c + j, byte_of(word, j));
-    }
-  } else {
-    for (int e = tid; e < rows * BN; e += NTHREADS) {
-      const int i = e / BN, c = e % BN;
-      const int p = p0 + i, n = n0 + c;
-      const int b = (p < K2 && n < N) ? (int)__ldg(packed + p * ldp + n) : 0;
-      f(i, c, b);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K5: W4A16
@@ -123,31 +77,11 @@ int4_w4a16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
   const int tid = threadIdx.x, warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
+  Acc acc[2][2];
+  zero_acc(acc);
   for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile (BM x BK), zeros outside (T, K).
-    if (vec8) {
-      for (int c = tid; c < BM * (BK / 8); c += NTHREADS) {
-        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-        const int m = m0 + r, k = k0 + kc;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m < T && k < K) v = __ldg(reinterpret_cast<const uint4*>(x + (long long)m * K + k));
-        *reinterpret_cast<uint4*>(As + r * LDA + kc) = v;
-      }
-    } else {
-      for (int e = tid; e < BM * BK; e += NTHREADS) {
-        const int r = e / BK, kk = e % BK;
-        const int m = m0 + r, k = k0 + kk;
-        As[r * LDA + kk] = (m < T && k < K) ? x[(long long)m * K + k] : zero;
-      }
-    }
+    stage_x(x, As, T, K, m0, k0, vec8);
     // Weight tile (BK x BN): packed rows k0/2 .. k0/2 + BK/2, dequantized.
     // Rows 2i and 2i+1 share a scale group (group is even).
     for_packed_bytes(packed, ldp, K / 2, N, k0 / 2, n0, BK / 2, vec4 != 0,
@@ -161,36 +95,14 @@ int4_w4a16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict_
                      });
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (32 * wm + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * LDB + 32 * wn + 16 * j, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
+    for (int kk = 0; kk < BK; kk += 16) mma_k16(acc, As, Bs, wm, wn, kk);
     __syncthreads();
   }
 
   // Epilogue: fragments -> shared (over the staging tiles) -> y with bounds.
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (32 * wm + 16 * i) * LDC + 32 * wn + 16 * j, acc[i][j],
-                              LDC, wmma::mem_row_major);
+  store_acc(acc, Cs, wm, wn);
   __syncthreads();
-  const int c = tid % BN, n = n0 + c;
-  for (int r = tid / BN; r < BM; r += NTHREADS / BN) {
-    const int m = m0 + r;
-    if (m < T && n < N) out[(long long)m * N + n] = Cs[r * LDC + c];
-  }
+  write_tile(Cs, out, T, N, m0, n0);
 }
 
 // ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 serving prefill.
 
 Port of `openvla_oft_tpu/models/prismatic.py` (`prismatic_forward`,
-`predict_action_hidden` and their helpers), L1 head, no FiLM.
+`predict_action_hidden` and their helpers), L1 head. FiLM conditions the
+ViTs in serving (`predict_action_hidden`), not yet in training.
 
 Training (`prismatic_forward`): right-padded batches as the collator emits
 them, physical layout [BOS][patches (+proprio)][text rest][PAD], action-token
@@ -43,17 +44,45 @@ Params = Dict[str, Any]
 
 
 def _patch_block(params: Params, cfg: OpenVLAConfig, pixels: torch.Tensor,
+                 language_embedding: Optional[torch.Tensor],
                  proprio: Optional[torch.Tensor], dtype,
                  remat_policy: Optional[str] = None) -> torch.Tensor:
-    """Vision features -> projector (+ one proprio token), in `dtype`."""
-    feats = vision_backbone_forward(params["vision_backbone"], cfg,
-                                    pixels.to(dtype), remat_policy=remat_policy)
+    """Vision features (FiLM-conditioned with `cfg.use_film`) -> projector
+    (+ one proprio token), in `dtype`."""
+    film = params.get("film") if cfg.use_film else None
+    feats = vision_backbone_forward(params["vision_backbone"], cfg, pixels.to(dtype),
+                                    film_params=film, language_embedding=language_embedding,
+                                    remat_policy=remat_policy)
     proj = vision_projector(params["projector"], feats,
                             fast_gelu=cfg.fast_gelu).to(dtype)
     if proprio is None:
         return proj
     p_tok = proprio_projector(params["proprio_projector"], proprio.float())
     return torch.cat([proj, p_tok[:, None, :].to(dtype)], dim=1)
+
+
+def _film_language_embedding(params: Params, input_ids: torch.Tensor,
+                             prompt_mask: torch.Tensor, dtype) -> torch.Tensor:
+    """The FiLM conditioning vector of the serving path: the masked mean of
+    the prompt's token embeddings and one STOP embedding (the reference
+    averages BOS + prompt + STOP at batch-1 inference,
+    film_vit_wrapper.py:241-242). (B, llm_dim) fp32."""
+    b = input_ids.shape[0]
+    prompt_mask = prompt_mask.bool()
+    text_embeds = embed_tokens(params["llm"], input_ids).to(dtype) * prompt_mask[..., None]
+    stop_ids = torch.full((b, 1), STOP_INDEX, dtype=input_ids.dtype, device=input_ids.device)
+    stop_embed = embed_tokens(params["llm"], stop_ids).to(dtype)
+    valid = torch.cat([prompt_mask, torch.ones((b, 1), dtype=torch.bool,
+                                               device=prompt_mask.device)], dim=1)
+    return _masked_mean_language_embedding(torch.cat([text_embeds, stop_embed], dim=1), valid)
+
+
+def _masked_mean_language_embedding(text_embeds: torch.Tensor,
+                                    valid: torch.Tensor) -> torch.Tensor:
+    """Mean of the valid text embeddings in fp32 (pads excluded, as the
+    reference's batch-1 inference has none)."""
+    w = valid.float()[..., None]
+    return (text_embeds.float() * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0)
 
 
 class ForwardOutput(NamedTuple):
@@ -83,7 +112,7 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
     if isinstance(cfg.llm, PhiConfig):
         raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
     if cfg.use_film:
-        raise NotImplementedError("FiLM is not ported yet (ROADMAP queue 1, item 10)")
+        raise NotImplementedError("FiLM in training is not ported yet (ROADMAP queue 1, item 14)")
     if noisy_actions is not None or diffusion_t_emb is not None:
         raise NotImplementedError(
             "the diffusion objective is not ported yet (ROADMAP queue 1, item 14)")
@@ -98,7 +127,7 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
     all_actions_mask = get_all_actions_mask(labels, platform.action_dim)
     text_embeds = embed_tokens(params["llm"], input_ids).to(dtype) \
         * (~all_actions_mask)[..., None]
-    patch_embeds = _patch_block(params, cfg, pixels, proprio, dtype, remat_policy)
+    patch_embeds = _patch_block(params, cfg, pixels, None, proprio, dtype, remat_policy)
     n_patch = patch_embeds.shape[1]
 
     # Physical layout: [BOS][patch block][rest of text] (insertion after BOS,
@@ -176,15 +205,15 @@ def predict_action_hidden(params: Params, cfg: OpenVLAConfig,
     """
     if isinstance(cfg.llm, PhiConfig):
         raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
-    if cfg.use_film:
-        raise NotImplementedError("FiLM is not ported yet (ROADMAP queue 1, item 10)")
     b, p_len = input_ids.shape
     chunk = platform.chunk_len
     dtype = params["llm"]["embed"]["embedding"].dtype
     prompt_mask = prompt_mask.bool()
 
     text_embeds = embed_tokens(params["llm"], input_ids).to(dtype) * prompt_mask[..., None]
-    patch_embeds = _patch_block(params, cfg, pixels, proprio, dtype)
+    lang = _film_language_embedding(params, input_ids, prompt_mask, dtype) \
+        if cfg.use_film else None
+    patch_embeds = _patch_block(params, cfg, pixels, lang, proprio, dtype)
     n_patch = patch_embeds.shape[1]
     action_embeds = torch.zeros((b, chunk, cfg.llm_dim), dtype=dtype,
                                 device=text_embeds.device)

@@ -2,7 +2,8 @@
 
 Port of `openvla_oft_tpu/models/vision_backbone.py::vision_backbone_forward`
 for the per-backbone layout: pixels (B, N, n_backbones, H, W, 3), both ViTs
-over all N images as one batch each, features concatenated per patch.
+over all N images as one batch each, features concatenated per patch, with
+optional FiLM conditioning on a language embedding.
 """
 
 from __future__ import annotations
@@ -25,15 +26,16 @@ def featurizer_names(cfg: OpenVLAConfig) -> Tuple[str, ...]:
 def vision_backbone_forward(params: Params, cfg: OpenVLAConfig,
                             pixels: torch.Tensor,
                             film_params: Optional[Params] = None,
+                            language_embedding: Optional[torch.Tensor] = None,
                             remat_policy: Optional[str] = None) -> torch.Tensor:
     """pixels (B, N, n_backbones, H, W, 3) normalized -> (B, N*patches, vision_dim).
 
     With `cfg.fast_gelu` the exact-erf GELU MLPs (DINOv2) use
     `gelu_erf_fast`; tanh and quick variants are already exp-based.
-    remat_policy: activation remat of each ViT block (training).
+    film_params ({featurizer name: FiLM params}) + language_embedding (B,
+    llm_dim): FiLM in each ViT, the embedding repeated for each of a row's N
+    images. remat_policy: activation remat of each ViT block (training).
     """
-    if film_params is not None:
-        raise NotImplementedError("FiLM is not ported yet (ROADMAP queue 1, item 10)")
     if "joint" in params:
         raise NotImplementedError(
             "the joint ViT-pair layout is not carried over (ROADMAP queue 1, item 18)")
@@ -46,9 +48,12 @@ def vision_backbone_forward(params: Params, cfg: OpenVLAConfig,
         vision_configs = tuple(
             dataclasses.replace(v, act="gelu_erf_fast") if v.act == "gelu" else v
             for v in vision_configs)
+    film = film_params is not None and language_embedding is not None
+    le = language_embedding.repeat_interleave(n, 0) if film else None    # (B*N, llm_dim)
     feats = []
     for i, (name, vcfg) in enumerate(zip(names, vision_configs)):
         imgs = pixels[:, :, i].reshape(b * n, h, w, 3)
-        f = vit_featurize(params[name], vcfg, imgs, remat_policy)
+        f = vit_featurize(params[name], vcfg, imgs, film_params[name] if film else None, le,
+                          remat_policy=remat_policy)
         feats.append(f.reshape(b, n * vcfg.num_patches, vcfg.width))
     return feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)

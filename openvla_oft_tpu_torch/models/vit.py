@@ -2,10 +2,15 @@
 
 Port of `openvla_oft_tpu/models/vit.py` for serving: patchify + matmul patch
 embedding, optional class/register tokens, pre-norm blocks with optional
-LayerScale, and the OpenVLA tap (the second-to-last block's patch tokens, no
-final norm; the last block never runs). Layers stay stacked (L, ...) and run
-as a Python loop over views, each block optionally under activation remat.
-FiLM is not ported yet (ROADMAP queue 1, item 10).
+LayerScale, optional FiLM (x := x * (1 + gamma) + beta between the
+attention and MLP residual branches, gamma and beta linear in the mean
+language embedding), and the OpenVLA tap (the second-to-last block's patch
+tokens, no final norm; the last block never runs). Layers stay stacked (L,
+...) and run as a Python loop over views, each block optionally under
+activation remat.
+
+Inside `ops/vit_fused.py::vit_fused()` the folded LN -> qkv and LN -> fc1
+(+ GELU) run as kernel K4 (`_ln_linear`).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 from openvla_oft_tpu_torch.config import ViTConfig
 from openvla_oft_tpu_torch.bridge import index_layer
 from openvla_oft_tpu_torch.models.llama import resolve_remat, run_block
+from openvla_oft_tpu_torch.ops import vit_fused as VF
 from openvla_oft_tpu_torch.ops.attention import attention
 from openvla_oft_tpu_torch.ops.layers import ACTIVATIONS, layer_norm, linear
 
@@ -79,13 +85,32 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, patch * patch * c)
 
 
+def _use_fused_ln_matmul(norm_p: Params, lin_p: Params) -> bool:
+    """The JAX gate (`models/vit.py::_use_fused_ln_matmul`) without its
+    platform test: the `vit_fused` switch is on, the norm's affine is folded
+    away, and the linear is a plain float kernel (no int8, no int4, no LoRA)."""
+    if not VF.vit_fused_enabled() or "scale" in norm_p or "kernel_q4" in lin_p:
+        return False
+    k = lin_p.get("kernel")
+    return k is not None and k.dtype != torch.int8 and "lora_a" not in lin_p
+
+
 def _ln_linear(norm_p: Params, lin_p: Params, x: torch.Tensor,
                act_name: Optional[str] = None) -> torch.Tensor:
+    """LayerNorm -> linear (-> activation): one `ln_matmul` (K4 on CUDA) where
+    the gate allows, else the separate ops. K4 computes exact-erf GELU in
+    fp32, so it takes "gelu" for `gelu_erf_fast`, as the JAX path does."""
+    if _use_fused_ln_matmul(norm_p, lin_p):
+        act = "gelu" if act_name == "gelu_erf_fast" else act_name
+        return VF.ln_matmul(x, lin_p["kernel"], lin_p.get("bias"), act=act)
     y = linear(lin_p, layer_norm(norm_p, x))
     return y if act_name is None else ACTIVATIONS[act_name](y)
 
 
-def _vit_block(p: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
+def _vit_block(p: Params, cfg: ViTConfig, x: torch.Tensor,
+               film: Optional[tuple] = None) -> torch.Tensor:
+    """One pre-norm ViT block; `film` = (gamma, beta), each (B, width) in x's
+    dtype, or None."""
     b, s, d = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     qkv = _ln_linear(p["norm1"], p["attn"]["qkv"], x).reshape(b, s, 3, nh, hd)
@@ -94,6 +119,10 @@ def _vit_block(p: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
     if "ls1" in p:
         o = o * p["ls1"]["scale_factor"]
     x = x + o
+    if film is not None:
+        gamma, beta = film
+        # In x's dtype: in bf16, 1 + gamma rounds before the multiply, as in JAX.
+        x = x * (1.0 + gamma[:, None, :]) + beta[:, None, :]
     m = _ln_linear(p["norm2"], p["mlp"]["fc1"], x, act_name=cfg.act)
     m = linear(p["mlp"]["fc2"], m)
     if "ls2" in p:
@@ -121,18 +150,34 @@ def vit_frontend(params: Params, cfg: ViTConfig, images: torch.Tensor) -> torch.
     return x
 
 
+def _film(film_params: Params, le: torch.Tensor, i: int, dtype) -> tuple:
+    """Block i's (gamma, beta), (B, width): fp32 products of the fp32
+    language embedding with the layer's FiLM kernels, plus the bias, then one
+    cast to the ViT's dtype (the JAX version computes all layers at once;
+    one layer at a time keeps the fp32 temporary one layer large)."""
+    return tuple((le @ film_params[k]["kernel"][i].float()
+                  + film_params[k]["bias"][i].float()).to(dtype)
+                 for k in ("scale", "shift"))
+
+
 def vit_featurize(params: Params, cfg: ViTConfig, images: torch.Tensor,
+                  film_params: Optional[Params] = None,
+                  language_embedding: Optional[torch.Tensor] = None,
                   remat_policy: Optional[str] = None) -> torch.Tensor:
     """(B, H, W, 3) normalized pixels -> (B, num_patches, width): the patch
     tokens after block depth-2 (blocks 0 .. depth-2 run).
 
-    remat_policy: recompute each block in the backward, like the Llama
+    film_params + language_embedding (B, llm_dim): FiLM in every block that
+    runs. remat_policy: recompute each block in the backward, like the Llama
     blocks (`resolve_remat`).
     Training gradients flow through the ViTs (LoRA targets their kernels).
     """
     checkpointed = resolve_remat(remat_policy)
     x = vit_frontend(params, cfg, images)
+    film = film_params is not None and language_embedding is not None
+    le = language_embedding.float() if film else None
     for i in range(cfg.depth - 1):
+        f = _film(film_params, le, i, x.dtype) if film else None
         x = run_block(_vit_block, checkpointed, index_layer(params["layers"], i),
-                      cfg, x)
+                      cfg, x, f)
     return x[:, cfg.num_prefix_tokens:]

@@ -6,8 +6,9 @@ preprocessing -> prefill with parallel decoding -> L1 head -> device
 un-normalization. Nothing is compiled; the functions run eagerly.
 
 An int4-quantized LLM (`ops/quant.py::quantize_tree`, the `load_in_4bit`
-path) runs W4A16 by default and W4A8 with `int4_a8=True`, chosen here by
-the caller rather than read from the environment.
+path) runs W4A16 by default and W4A8 with `int4_a8=True`; with
+`vit_fused=True` the ViTs' folded LN -> qkv and LN -> fc1 run as kernel K4.
+Both are chosen here by the caller rather than read from the environment.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from openvla_oft_tpu_torch.constants import NormalizationType, PlatformSpec
 from openvla_oft_tpu_torch.models.action_heads import l1_head_predict
 from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden, prepare_prompt_ids
 from openvla_oft_tpu_torch.ops.quant import int4_a8 as int4_a8_mode
+from openvla_oft_tpu_torch.ops.vit_fused import vit_fused as vit_fused_mode
 from openvla_oft_tpu_torch.processing.image_processing import device_preprocess
 
 Params = Dict[str, Any]
@@ -53,13 +55,15 @@ def serve_action_chunk(params: Params, cfg: OpenVLAConfig, platform: PlatformSpe
                        proprio_zero: Optional[torch.Tensor] = None,
                        use_flash="auto", center_crop: bool = True,
                        resize_size: int = 224, fast_gelu: bool = True,
-                       int4_a8: bool = False) -> torch.Tensor:
+                       int4_a8: bool = False, vit_fused: bool = False) -> torch.Tensor:
     """frames_u8 (B, N, H, W, 3) uint8 -> unnormalized actions
     (B, num_actions_chunk, action_dim) fp32.
 
     fast_gelu (the serving default) swaps exact erf-GELU for `gelu_erf_fast`;
     False keeps exact GELU. int4_a8: int4 linears run W4A8 (kernel K6)
     instead of W4A16 (K5); no effect on a model without int4 weights.
+    vit_fused: the ViTs' folded LN + qkv and LN + fc1 (+ GELU, exact erf)
+    run as `ln_matmul` (kernel K4 on CUDA); no effect on unfolded norms.
     """
     if fast_gelu and not cfg.fast_gelu:
         cfg = dataclasses.replace(cfg, fast_gelu=True)
@@ -71,7 +75,7 @@ def serve_action_chunk(params: Params, cfg: OpenVLAConfig, platform: PlatformSpe
     if proprio is not None and proprio_low is not None:
         proprio = normalize_proprio(proprio, proprio_low, proprio_high,
                                     proprio_mask, proprio_zero)
-    with int4_a8_mode(int4_a8):
+    with int4_a8_mode(int4_a8), vit_fused_mode(vit_fused):
         out = predict_action_hidden(params, cfg, platform, input_ids=input_ids,
                                     prompt_mask=prompt_mask, pixels=pixels,
                                     proprio=proprio, use_flash=use_flash)
@@ -102,6 +106,7 @@ class OpenVLAPolicy:
     tokenizer: Any = None
     fast_gelu: bool = True
     int4_a8: bool = False       # int4 LLM linears: W4A8 (K6) instead of W4A16 (K5)
+    vit_fused: bool = False     # the ViTs' folded LN + qkv / fc1 as one K4 launch each
 
     def __post_init__(self):
         if self.head != "l1":
@@ -170,5 +175,6 @@ class OpenVLAPolicy:
             action_low=f32(low), action_high=f32(high), action_mask=mask_t(amask),
             use_flash=self.use_flash, center_crop=center_crop,
             resize_size=self.cfg.vision_configs[0].image_size,
-            fast_gelu=self.fast_gelu, int4_a8=self.int4_a8, **p_kw)
+            fast_gelu=self.fast_gelu, int4_a8=self.int4_a8, vit_fused=self.vit_fused,
+            **p_kw)
         return actions[0].cpu().numpy()

@@ -1,0 +1,124 @@
+"""Where K5's time goes at a decode-like row count: the K5 timing probe.
+
+Port of `vla_scripts/exp_int4_probe.py`. At T = 112 rows and the 7B's int4
+shapes it times K5 beside variants of it that take one part of its work away
+(`ops/int4_probe.py`, kernel `csrc/int4_probe.cu`), and beside K6:
+
+  fused       K5 as shipped (`ops/int4_matmul.py::int4_matmul_fused`)
+  no-scale    the probe without the group-scale multiply (WRONG NUMBERS by
+              design: isolates the scale multiply)
+  no-unpack   the probe on the raw bytes (WRONG NUMBERS by design: isolates
+              the nibble unpack)
+  group-dots  the probe with each scale on its group's fp32 partial instead
+              of on every weight element (a correct W4A16 alternative)
+  a8-fused    K6 (`ops/int4_matmul.py::int4_matmul_fused_a8`)
+  int8-dyn    dynamic int8 is not ported yet (ROADMAP queue 1, item 9):
+              printed, not timed
+
+then the group-dots correctness line against fused (and against the plain
+W4A16, `int4_matmul_ref`), and K5 on layer 7 of a synthetic (32, K/2, N)
+stack, the layer view the serving loop hands it. Times are medians of
+CUDA-event timings with the L2 flushed before each call; the floor is the
+packed weight's bytes at the H100's 3.35 TB/s.
+
+    python -m openvla_oft_tpu_torch.scripts.exp_int4_probe [--iters 100]
+
+It needs a CUDA card: a timing probe of the card's kernels has no CPU form.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from openvla_oft_tpu_torch.ops import int4_matmul as M
+from openvla_oft_tpu_torch.ops.int4_probe import int4_probe
+from openvla_oft_tpu_torch.ops.quant import quantize_weight_int4
+from openvla_oft_tpu_torch.utils.timing import cuda_time_ms, l2_flush_buffer
+
+T = 112
+SHAPES = [("qkv", 4096, 12288), ("gate_up", 4096, 22016), ("down", 11008, 4096)]
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3 (NVIDIA's data sheet)
+STACK_LAYERS, STACK_LAYER = 32, 7
+
+
+def variants() -> dict:
+    """name -> fn(x, packed, scales) of every timed variant."""
+    out = {"fused": M.int4_matmul_fused}
+    for mode in ("no-scale", "no-unpack", "group-dots"):
+        out[mode] = lambda x, p, s, mode=mode: int4_probe(x, p, s, mode)
+    out["a8-fused"] = M.int4_matmul_fused_a8
+    return out
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got - ref).abs().max() / (ref.abs().max() + 1e-9)).item()
+
+
+def main(argv=None) -> dict:
+    """Runs the probe and prints its lines; returns {"ms": {shape: {variant:
+    ms}}, "floor_ms": {shape: ms}, "totals": {variant: ms}, "group_dots_vs_fused",
+    "group_dots_vs_ref", "stacked_ms": {shape: ms}}."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--iters", type=int, default=100,
+                        help="timed calls per variant (the median is kept)")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    dev = torch.device(args.device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError("the int4 probe times the card's kernels and needs a CUDA device")
+    print(f"device: {torch.cuda.get_device_name(dev)}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = l2_flush_buffer(dev)
+    result = {"ms": {}, "floor_ms": {}, "totals": {}, "stacked_ms": {}}
+    for name, k_dim, n in SHAPES:
+        q4 = quantize_weight_int4(torch.randn((k_dim, n), generator=gen, device=dev) * 0.02)
+        x = torch.randn((T, k_dim), generator=gen, device=dev).bfloat16()
+        floor = k_dim * n / 2 / PEAK_BYTES * 1e3
+        result["floor_ms"][name] = floor
+        print(f"== {name} ({k_dim}x{n}) T={T}  int4 byte floor {floor:.4f} ms ==", flush=True)
+        print(f"{name}/int8-dyn: not ported (ROADMAP queue 1, item 9)", flush=True)
+        times = result["ms"][name] = {}
+        for vname, fn in variants().items():
+            ms = cuda_time_ms(lambda: fn(x, q4["kernel_q4"], q4["scale_w4"]), iters=args.iters,
+                              flush=flush)
+            times[vname] = ms
+            result["totals"][vname] = result["totals"].get(vname, 0.0) + ms
+            print(f"{name}/{vname}: {ms:.4f} ms (median of {args.iters}, CUDA events, L2 "
+                  f"flushed)", flush=True)
+        del q4, x
+
+    # Correctness spot check of group-dots (the JAX probe's shape).
+    k_dim, n = 512, 256
+    q4 = quantize_weight_int4(torch.randn((k_dim, n), generator=gen, device=dev) * 0.02)
+    x = torch.randn((T, k_dim), generator=gen, device=dev).bfloat16()
+    got = int4_probe(x, q4["kernel_q4"], q4["scale_w4"], "group-dots")
+    fused = M.int4_matmul_fused(x, q4["kernel_q4"], q4["scale_w4"])
+    ref = M.int4_matmul_ref(x, q4["kernel_q4"], q4["scale_w4"])
+    result["group_dots_vs_fused"] = _rel_err(got, fused)
+    result["group_dots_vs_ref"] = _rel_err(got, ref)
+    print(f"group-dots correctness vs fused: rel-max-err {result['group_dots_vs_fused']:.2e}; "
+          f"vs int4_matmul_ref: {result['group_dots_vs_ref']:.2e}", flush=True)
+
+    # K5 on one layer of a synthetic stack: random bytes and scales (the
+    # kernel's time sees only bytes; quantizing a real stack is not needed).
+    print(f"== stacked (L={STACK_LAYERS}, the serving loop's layer view) per layer ==",
+          flush=True)
+    for name, k_dim, n in SHAPES:
+        kq = torch.randint(-128, 128, (STACK_LAYERS, k_dim // 2, n), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sw = torch.rand((STACK_LAYERS, k_dim // 128, n), generator=gen, device=dev) * 0.01
+        x = torch.randn((T, k_dim), generator=gen, device=dev).bfloat16()
+        ms = cuda_time_ms(lambda: M.int4_matmul_fused(x, kq[STACK_LAYER], sw[STACK_LAYER]),
+                          iters=args.iters, flush=flush)
+        result["stacked_ms"][name] = ms
+        print(f"{name}/stacked (layer {STACK_LAYER}): {ms:.4f} ms", flush=True)
+        del kq, sw
+    print("\nper-layer totals (ms):",
+          {k: round(v, 4) for k, v in result["totals"].items()}, flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

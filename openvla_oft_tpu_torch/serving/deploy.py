@@ -8,12 +8,16 @@ under "state".
 
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --port 8777
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-in-4bit [--int4-a8]
+    python -m openvla_oft_tpu_torch.serving.deploy --random-weights --platform aloha [--vit-fused]
 
 Loading a checkpoint is not ported yet, so the CLI serves the flagship model
-(DINOv2+SigLIP, Llama-2-7B, 2 images, LIBERO) with seeded random weights and
-placeholder [-1, 1] statistics. `--load-in-4bit` packs every LLM linear to
-int4 (the reference's bitsandbytes `load_in_4bit`); `--int4-a8` serves it
-W4A8 instead of W4A16.
+(DINOv2+SigLIP, Llama-2-7B) with seeded random weights and placeholder
+[-1, 1] statistics, at one of the reference's two deployments: LIBERO (2
+images, an 8 x 7 chunk) or ALOHA (3 images with FiLM, a 25 x 14 chunk;
+the reference's `vla_scripts/deploy.py` settings). `--load-in-4bit` packs
+every LLM linear to int4 (the reference's bitsandbytes `load_in_4bit`);
+`--int4-a8` serves it W4A8 instead of W4A16. `--vit-fused` runs the ViTs'
+folded LN + qkv and LN + fc1 as one kernel K4 launch each.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ import numpy as np
 
 from openvla_oft_tpu_torch.serving.server import ActionServer, get_action_from_server
 
-__all__ = ["StdlibActionServer", "build_server", "flagship_policy", "get_action_from_server",
-           "observation_frames", "placeholder_norm_stats"]
+__all__ = ["DEPLOYMENTS", "StdlibActionServer", "build_server", "flagship_policy",
+           "get_action_from_server", "observation_frames", "placeholder_norm_stats"]
 
 
 def observation_frames(observation: dict, num_images: int) -> np.ndarray:
@@ -100,29 +104,41 @@ def serving_params(params: dict, load_in_4bit: bool = False) -> dict:
     return params
 
 
+# The reference's two deployments of the flagship model: (platform, images,
+# FiLM). ALOHA is `vla_scripts/deploy.py:30-31` (use_film, 3 images).
+DEPLOYMENTS = {"libero": ("libero", 2, False), "aloha": ("aloha", 3, True)}
+
+
 def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
-                    load_in_4bit: bool = False, int4_a8: bool = False):
+                    load_in_4bit: bool = False, int4_a8: bool = False,
+                    platform: str = "libero", vit_fused: bool = False):
     """The flagship serving policy with seeded random bf16 weights, fused for
-    serving as the JAX bench does (wqkv/gate_up and ViT folds). With
+    serving as the JAX bench does (wqkv/gate_up and ViT folds), at the
+    `platform` deployment ("libero" or "aloha", `DEPLOYMENTS`). With
     `load_in_4bit` the LLM is int4 (`serving_params`), served W4A16, or W4A8
-    with `int4_a8`."""
+    with `int4_a8`; `vit_fused` runs the ViTs' LN + matmuls as kernel K4."""
     import torch
 
     from openvla_oft_tpu_torch.bridge import init_params
     from openvla_oft_tpu_torch.config import OpenVLAConfig
-    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.constants import get_platform
     from openvla_oft_tpu_torch.policy import OpenVLAPolicy
 
     if int4_a8 and not load_in_4bit:
         raise ValueError("int4_a8 needs load_in_4bit")
+    if platform not in DEPLOYMENTS:
+        raise ValueError(f"platform must be one of {sorted(DEPLOYMENTS)}, got {platform!r}")
+    name, n_images, use_film = DEPLOYMENTS[platform]
+    spec = get_platform(name)
     cfg = OpenVLAConfig(vision_backbone_id="dinosiglip-vit-so-224px",
-                        llm_backbone_id="llama2-7b-pure", num_images_in_input=2)
+                        llm_backbone_id="llama2-7b-pure", num_images_in_input=n_images,
+                        use_film=use_film)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = serving_params(init_params(cfg, LIBERO, gen, device=device, dtype=torch.bfloat16),
+    params = serving_params(init_params(cfg, spec, gen, device=device, dtype=torch.bfloat16),
                             load_in_4bit=load_in_4bit)
-    return OpenVLAPolicy(cfg=cfg, platform=LIBERO, params=params,
-                         norm_stats=placeholder_norm_stats(LIBERO),
-                         prompt_bucket=prompt_bucket, int4_a8=int4_a8)
+    return OpenVLAPolicy(cfg=cfg, platform=spec, params=params,
+                         norm_stats=placeholder_norm_stats(spec), prompt_bucket=prompt_bucket,
+                         int4_a8=int4_a8, vit_fused=vit_fused)
 
 
 def main(argv=None) -> None:
@@ -139,13 +155,19 @@ def main(argv=None) -> None:
     parser.add_argument("--int4-a8", action="store_true",
                         help="with --load-in-4bit: W4A8 (per-token int8 activations, "
                              "kernel K6)")
+    parser.add_argument("--platform", choices=sorted(DEPLOYMENTS), default="libero",
+                        help="libero: 2 images, 8 x 7 chunk; aloha: 3 images, FiLM, "
+                             "25 x 14 chunk")
+    parser.add_argument("--vit-fused", action="store_true",
+                        help="the ViTs' LN + qkv and LN + fc1 as one kernel K4 launch each")
     args = parser.parse_args(argv)
     if not args.random_weights:
         parser.error("checkpoint loading is not ported yet; pass --random-weights")
     if args.int4_a8 and not args.load_in_4bit:
         parser.error("--int4-a8 needs --load-in-4bit")
     policy = flagship_policy(args.device, seed=args.seed, load_in_4bit=args.load_in_4bit,
-                             int4_a8=args.int4_a8)
+                             int4_a8=args.int4_a8, platform=args.platform,
+                             vit_fused=args.vit_fused)
     print(f"[deploy] serving /act on {args.host}:{args.port}")
     build_server(policy).run(args.host, args.port)
 

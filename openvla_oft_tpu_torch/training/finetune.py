@@ -147,7 +147,7 @@ def unported_flags(cfg: FinetuneConfig) -> list:
         (cfg.use_diffusion, "use_diffusion", f"{_Q1} 14 (diffusion objective)"),
         (not cfg.use_l1_regression and not cfg.use_diffusion,
          "use_l1_regression False (discrete objective)", f"{_Q1} 14"),
-        (cfg.use_film, "use_film", f"{_Q1} 10"),
+        (cfg.use_film, "use_film", f"{_Q1} 14 (FiLM in training)"),
         (cfg.use_val_set, "use_val_set", f"{_Q1} 14 (validation)"),
         (cfg.resume, "resume", f"{_Q1} 14 (resume)"),
         (cfg.merge_lora_during_training and cfg.use_lora,

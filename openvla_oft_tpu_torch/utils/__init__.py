@@ -1,1 +1,1 @@
-"""Host utilities: the CLI parser."""
+"""Host utilities: the CLI parser and CUDA-event timing."""

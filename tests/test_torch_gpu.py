@@ -1,6 +1,6 @@
-"""Tests of the port that need the card: kernels K1, K2 and K3 against their
-plain versions, and the tiny serving and training paths through them against
-the dense path, on CUDA.
+"""Tests of the port that need the card: kernels K1-K6 and the K5 timing
+probe against their plain versions, and the tiny serving and training paths
+through them against the dense or plain path, on CUDA.
 
 This file imports nothing of JAX or the JAX package (the machine with the
 card has no JAX), so it runs there on its own:
@@ -394,3 +394,130 @@ def test_tiny_int4_serving_path_kernel_matches_plain(cuda):
             mp.setattr(M, fn, getattr(M, ref_fn))
             plain = pol.predict_action_from_frames(frames, "open the drawer")
         assert np.isfinite(got).all() and np.abs(got - plain).max() < 0.05, (fn, got - plain)
+
+
+# --- K4 (ln_matmul) -----------------------------------------------------------
+
+# (name, M, D, N, act): the 8 ViT serving shapes (DINOv2 rows 783 / 522,
+# SigLIP 768 / 512 at ALOHA / LIBERO) with the activations the ViTs use,
+# then a ragged M and N with each activation, and a D and N off the 8-wide
+# vector loads.
+LN_CASES = [
+    (f"{vit}_{proj}_{deploy}", m, d, n, act)
+    for deploy, rows in (("aloha", (783, 768)), ("libero", (522, 512)))
+    for vit, m, d, projs in (("dinov2", rows[0], 1024, ((3072, None), (4096, "gelu"))),
+                             ("siglip", rows[1], 1152, ((3456, None), (4304, "gelu_tanh"))))
+    for proj, (n, act) in zip(("qkv", "fc1"), projs)
+] + [(f"m37_n200_{act}", 37, 1024, 200, act) for act in (None, "gelu", "gelu_tanh", "quick_gelu")
+     ] + [("d52_n198", 37, 52, 198, "quick_gelu")]
+
+
+def _ln_operands(gen, m, d, n, device, layers=None):
+    x = (torch.randn((m, d), generator=gen, device=device) * 1.5 + 0.3).bfloat16()
+    w = torch.randn((d, n) if layers is None else (layers, d, n), generator=gen, device=device)
+    b = torch.randn((n,), generator=gen, device=device) * 0.1
+    return x, (w * d ** -0.5).bfloat16(), b.bfloat16()
+
+
+def _check_ln(got, ref):
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    # One bf16 rounding; the fp32 sums differ in order.
+    assert _rel_err(got, ref) <= 1e-2 and _cosine(got, ref) >= 0.9999, \
+        (_rel_err(got, ref), _cosine(got, ref))
+
+
+@pytest.mark.parametrize("case", LN_CASES, ids=[c[0] for c in LN_CASES])
+def test_ln_matmul_kernel_matches_plain(cuda, case):
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
+
+    _, m, d, n, act = case
+    x, w, b = _ln_operands(torch.Generator(device=cuda).manual_seed(m + d + n), m, d, n, cuda)
+    before = VF.ln_matmul.launches
+    got = VF.ln_matmul(x, w, b, act)
+    torch.cuda.synchronize()
+    assert VF.ln_matmul.launches == before + 1
+    _check_ln(got, VF.ln_matmul_ref(x, w, b, act))
+
+
+def test_ln_matmul_kernel_on_a_layer_view_without_bias(cuda):
+    """w = layer 1 of a stacked (2, D, N) kernel, x batched (3, 261, D), as a
+    ViT block hands them over."""
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
+
+    x, w, _ = _ln_operands(torch.Generator(device=cuda).manual_seed(5), 783, 1024, 3072,
+                           cuda, layers=2)
+    x = x.view(3, 261, 1024)
+    got = VF.ln_matmul(x, w[1], None, "gelu")
+    torch.cuda.synchronize()
+    assert got.shape == (3, 261, 3072)
+    _check_ln(got, VF.ln_matmul_ref(x, w[1], None, "gelu"))
+
+
+def test_ln_matmul_kernel_rejects_what_it_does_not_take(cuda):
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
+
+    w = torch.zeros((64, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        VF.ln_matmul(torch.zeros((4, 64), device=cuda), w, None)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        VF.ln_matmul(torch.zeros((4, 64), device=cuda, dtype=torch.bfloat16),
+                     w.t().contiguous().t(), None)
+
+
+# --- the K5 timing probe ------------------------------------------------------
+
+# (name, T, K, N): the probe's T, a ragged T and N, and group 16 (d_in 4304).
+PROBE_CASES = [("T112", 112, 1024, 384), ("T37_N200", 37, 512, 200), ("group16", 33, 4304, 136)]
+
+
+@pytest.mark.parametrize("mode", ["no-scale", "no-unpack", "group-dots"])
+@pytest.mark.parametrize("case", PROBE_CASES, ids=[c[0] for c in PROBE_CASES])
+def test_probe_kernel_matches_plain(cuda, case, mode):
+    from openvla_oft_tpu_torch.ops.int4_probe import int4_probe, int4_probe_ref
+
+    _, t, k, n = case
+    gen = torch.Generator(device=cuda).manual_seed(t + k + n)
+    x = torch.randn((t, k), generator=gen, device=cuda).bfloat16()
+    q = _int4_weight(gen, k, n, cuda)
+    before = int4_probe.launches
+    got = int4_probe(x, q["kernel_q4"], q["scale_w4"], mode)
+    torch.cuda.synchronize()
+    assert int4_probe.launches == before + 1
+    ref = int4_probe_ref(x, q["kernel_q4"], q["scale_w4"], mode)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= 1e-3, (mode, _rel_err(got, ref))
+
+
+# --- ALOHA serving (3 images, FiLM) with K4 on the ViTs ------------------------
+
+def test_tiny_aloha_serving_vit_fused_matches_unfused(cuda):
+    """A tiny ALOHA model (3 images, FiLM, 25 x 14 chunk) with folded ViTs:
+    through K4 (two launches per ViT block that runs) against the separate
+    LN, linear and activation."""
+    import dataclasses
+
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import ALOHA
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+    from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats, serving_params
+
+    cfg = dataclasses.replace(_tiny_cfg(), num_images_in_input=3, use_film=True)
+    params = serving_params(init_params(cfg, ALOHA, torch.Generator(device=cuda).manual_seed(0),
+                                        device=cuda, dtype=torch.bfloat16))
+    rng = np.random.default_rng(0)
+    frames = (rng.random((3, 28, 28, 3)) * 255).astype(np.uint8)
+    blocks = sum(v.depth - 1 for v in cfg.vision_configs)
+    out = {}
+    for vit_fused in (True, False):
+        pol = OpenVLAPolicy(cfg=cfg, platform=ALOHA, params=params,
+                            norm_stats=placeholder_norm_stats(ALOHA), prompt_bucket=32,
+                            vit_fused=vit_fused)
+        before = VF.ln_matmul.launches
+        out[vit_fused] = pol.predict_action_from_frames(frames, "fold the towel",
+                                                        proprio=np.zeros(14, np.float32))
+        assert VF.ln_matmul.launches - before == (2 * blocks if vit_fused else 0)
+    assert out[True].shape == (ALOHA.num_actions_chunk, ALOHA.action_dim) == (25, 14)
+    assert np.isfinite(out[True]).all() and np.abs(out[True] - out[False]).max() < 0.1
