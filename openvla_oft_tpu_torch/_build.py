@@ -115,8 +115,8 @@ def library() -> ctypes.CDLL:
     fn = lib.openvla_flash_attention_bwd_dkv
     fn.argtypes = [p] * 10 + [i] * 5 + strides + [i, ctypes.c_float, p]
     fn.restype = ctypes.c_int                    # ... dk dv, then as K2
-    fn = lib.openvla_int4_matmul_w4a16           # K5: x packed scales out
-    fn.argtypes = [p] * 4 + [i] * 4 + [i64, i64, i, i, p]   # T K N group ldp lds vec8 vec4
+    fn = lib.openvla_int4_matmul_w4a16           # K5: x packed scales out work counters
+    fn.argtypes = [p] * 6 + [i] * 4 + [i64, i64, i, i, p]   # T K N group ldp lds t_tile splits
     fn.restype = ctypes.c_int
     fn = lib.openvla_int4_matmul_w4a8            # K6: x8 sx packed scales out
     fn.argtypes = [p] * 5 + [i] * 4 + [i64, i64, i, p]      # T K N group ldp lds vec4

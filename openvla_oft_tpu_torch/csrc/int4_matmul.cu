@@ -1,26 +1,17 @@
-// K5 and K6 on Hopper: int4 dequant-matmuls, W4A16 and W4A8.
+// K6 on Hopper: the int4 W4A8 dequant-matmul.
 //
-// Replace the TPU kernels of openvla_oft_tpu/ops/int4_matmul.py:
-//   K5 (W4A16): _kernel (:43) and _kernel_stacked (:199)
+// Replaces the TPU kernels of openvla_oft_tpu/ops/int4_matmul.py:
 //   K6 (W4A8):  _kernel_a8 (:432) and _kernel_stacked_a8 (:527)
-// The stacked TPU variants read a layer of an (L, K/2, N) buffer without a
-// copy; here every operand is read through its row stride, so a layer view
-// packed[l] and a column view packed[:, lo:hi] need no copy either, and one
-// kernel serves both variants.
+// (K5, W4A16, is csrc/int4_w4a16.cu.) The stacked TPU variant reads a layer
+// of an (L, K/2, N) buffer without a copy; here every operand is read
+// through its row stride, so a layer view packed[l] and a column view
+// packed[:, lo:hi] need no copy either, and one kernel serves both variants.
 //
 // Packing (ops/quant.py::quantize_weight_int4): byte (i, n) of `packed`
 // (K/2, N) int8 holds weight row 2i in its low nibble and row 2i+1 in its
 // high nibble, each a signed 4-bit value in [-7, 7]; scales (G, N) fp32,
-// G = K / group, group even.
+// G = K / group, group a multiple of 16.
 //
-// K5:  y[t, n] = sum_k x[t, k] * bf16(nibble(k, n) * scales[k / group, n])
-//      x (T, K) bf16 contiguous (the wrapper rounds fp32 x to bf16, as the
-//      TPU kernel does), y (T, N) fp32. The nibbles are sign-extended as
-//      (b << 28) >> 28 and b >> 4 on the int32 byte, multiplied by their
-//      group scale in fp32 and rounded to bf16: the same weights as the plain
-//      version's dequantized bf16 weight, so only the fp32 summation order
-//      differs. x is read in its own column order: the TPU wrapper's
-//      even/odd split of x exists only because Mosaic cannot relayout.
 // K6:  y[t, n] = sx[t] * sum_g float(sum_{k in g} x8[t, k] * nibble(k, n)) * scales[g, n]
 //      x8 (T, K) int8 and sx (T) fp32 from the wrapper (per-token absmax
 //      / 127, round half to even). Each group's depth is an exact int32
@@ -29,22 +20,20 @@
 //      roundings of the plain version (no fused multiply-add).
 //
 // Design. One CTA computes a 64 x 128 tile of y with 8 warps (2 x 4), each
-// a 32 x 32 block of 2 x 2 wmma fragments (bf16 m16n16k16 with fp32
-// accumulators for K5, s8 m16n16k16 with int32 accumulators for K6). Per
-// step the CTA stages x's tile and the dequantized weight tile in shared
-// memory: the packed bytes are read as 4-byte words where alignment allows
-// and are unpacked by all 256 threads. K6 steps one scale group at a time:
-// after the group's products its int32 tile goes through shared memory to
-// the threads, which scale it into fp32 accumulators held in registers.
-// K6 stages its int8 tiles as 16-wide panels, so that every wmma pointer is
-// 32-byte aligned.
+// a 32 x 32 block of 2 x 2 s8 m16n16k16 wmma fragments with int32
+// accumulators. K6 steps one scale group at a time: it stages x8's panels
+// and the group's unpacked weight panels in shared memory (the packed bytes
+// read as 4-byte words where alignment allows and unpacked by all 256
+// threads); after the group's products its int32 tile goes through shared
+// memory to the threads, which scale it into fp32 accumulators held in
+// registers. It stages its int8 tiles as 16-wide panels, so that every wmma
+// pointer is 32-byte aligned.
 //
 // Bound. At T = 618 the LLM's linears are compute-bound on the card: a 4096
 // x 12288 weight is 25 MB of int4 and 62 GFLOP, 0.0075 ms of bytes against
-// 0.063 ms of bf16 tensor-core time (0.031 ms in int8). At T = 57 bytes and
-// operations come near balance. This first version has no pipelining:
-// wgmma, TMA, a ring of staged tiles, and a split over K for the small-T
-// shapes (a 57-row layer fills 32-172 of the 132 SMs) are later work.
+// 0.031 ms of int8 tensor-core time. At T = 57 bytes and operations come
+// near balance. This version has no pipelining: the design of K5
+// (csrc/int4_w4a16.cu) on int8 wgmma is later work.
 
 #include "int4_tiles.cuh"
 
@@ -55,55 +44,11 @@ namespace {
 
 constexpr int MAX_GROUP = 128;  // ops/quant.py INT4_GROUP: groups never exceed it
 
-constexpr int K5_SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
 constexpr int K6_A_BYTES = BM * MAX_GROUP;      // x8 panels [k/16][row][16]
 constexpr int K6_SMEM_AB = K6_A_BYTES + MAX_GROUP * BN;   // + weight panels [n/16][k][16]
 constexpr int K6_SMEM = K6_SMEM_AB > SMEM_C ? K6_SMEM_AB : SMEM_C;
 
 constexpr int ACC_PER_THREAD = BM * BN / NTHREADS;   // 32 K6 accumulators
-
-// ---------------------------------------------------------------------------
-// K5: W4A16
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NTHREADS)
-int4_w4a16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
-                  const float* __restrict__ scales, float* __restrict__ out, int T, int K,
-                  int N, int group, long long ldp, long long lds, int vec8, int vec4) {
-  __shared__ __align__(128) unsigned char smem[K5_SMEM];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  Acc acc[2][2];
-  zero_acc(acc);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_x(x, As, T, K, m0, k0, vec8);
-    // Weight tile (BK x BN): packed rows k0/2 .. k0/2 + BK/2, dequantized.
-    // Rows 2i and 2i+1 share a scale group (group is even).
-    for_packed_bytes(packed, ldp, K / 2, N, k0 / 2, n0, BK / 2, vec4 != 0,
-                     [&](int i, int c, int b) {
-                       const int k = k0 + 2 * i, n = n0 + c;
-                       const float s = (k < K && n < N)
-                                           ? __ldg(scales + (long long)(k / group) * lds + n)
-                                           : 0.f;
-                       Bs[(2 * i) * LDB + c] = __float2bfloat16_rn((float)low_nibble(b) * s);
-                       Bs[(2 * i + 1) * LDB + c] = __float2bfloat16_rn((float)high_nibble(b) * s);
-                     });
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) mma_k16(acc, As, Bs, wm, wn, kk);
-    __syncthreads();
-  }
-
-  // Epilogue: fragments -> shared (over the staging tiles) -> y with bounds.
-  store_acc(acc, Cs, wm, wn);
-  __syncthreads();
-  write_tile(Cs, out, T, N, m0, n0);
-}
 
 // ---------------------------------------------------------------------------
 // K6: W4A8
@@ -189,23 +134,6 @@ int4_w4a8_kernel(const int8_t* __restrict__ x8, const float* __restrict__ sx,
 }  // namespace
 
 extern "C" {
-
-// Launch K5 on `stream`; returns the launch's cudaError_t (0 = success).
-// ldp, lds: row strides of packed and scales in elements (their columns are
-// contiguous). vec8: x rows may be read as 16-byte chunks; vec4: packed as
-// 4-byte words. The wrapper checks shapes, dtypes and alignment.
-int openvla_int4_matmul_w4a16(const void* x, const void* packed, const void* scales,
-                              void* out, int T, int K, int N, int group, long long ldp,
-                              long long lds, int vec8, int vec4, void* stream) {
-  if (T <= 0 || N <= 0 || K <= 0 || K % 2 || group <= 0 || group % 2 || K % group)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (T + BM - 1) / BM);
-  int4_w4a16_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<float*>(out), T, K, N, group, ldp, lds,
-      vec8, vec4);
-  return (int)cudaGetLastError();
-}
 
 // Launch K6 on `stream`: x8 (T, K) int8 contiguous, sx (T) fp32, group a
 // multiple of 16 and at most 128. Returns the launch's cudaError_t.

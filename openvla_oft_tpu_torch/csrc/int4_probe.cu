@@ -1,9 +1,12 @@
-// The K5 timing probe on Hopper: K5's tile walk with its dequant step varied.
+// The K5 timing probe on Hopper: the wmma tile walk of the first K5 with its
+// dequant step varied.
 //
 // Replaces the TPU kernel vla_scripts/exp_int4_probe.py::_kernel_probe (:53),
-// called by `_probe_call` (:103). It splits K5's (int4_matmul.cu) time into
-// its parts by taking one part away at a time; the plain versions are in
-// ops/int4_probe.py. One kernel, templated on the mode:
+// called by `_probe_call` (:103). It splits that walk's time into its parts
+// by taking one part away at a time; the plain versions are in
+// ops/int4_probe.py. K5 itself is now the wgmma kernel of int4_w4a16.cu,
+// which the probe script times as its "fused" column. One kernel, templated
+// on the mode:
 //   no-scale   (0): y = sum_k x[t, k] * nibble(k, n)            (no scale;
 //                   WRONG NUMBERS by design: the scale multiply's cost)
 //   no-unpack  (1): y = sum_i (x[t, 2i] + x[t, 2i+1]) * byte(i, n)
@@ -17,7 +20,7 @@
 // 2i+1, as in K5: the TPU wrapper's split of x into even and odd halves exists
 // only because Mosaic cannot relayout, and is not carried over.
 //
-// Design. no-scale and no-unpack are K5 with the weight tile built from the
+// Design. no-scale and no-unpack are the walk with the weight tile built from the
 // unscaled nibbles or from the raw bytes. group-dots also stages unscaled
 // nibbles; after each group's last 16-deep product every warp stores its
 // 32 x 32 block of partials to its own region of shared memory, and each

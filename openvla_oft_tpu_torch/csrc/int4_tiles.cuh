@@ -1,4 +1,4 @@
-// The int4 half of the tile walk (K5 and its timing probe): reading the
+// The int4 half of the tile walk (the K5 timing probe, and K6): reading the
 // packed bytes of a weight tile.
 //
 // Packing (ops/quant.py::quantize_weight_int4): byte (i, n) of `packed`

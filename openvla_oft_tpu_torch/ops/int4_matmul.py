@@ -1,11 +1,15 @@
 """Fused int4 dequant-matmuls: kernels K5 (W4A16) and K6 (W4A8).
 
 Port of `openvla_oft_tpu/ops/int4_matmul.py`. Its four TPU kernels become
-two CUDA kernels in `csrc/int4_matmul.cu`:
-- K5 replaces `_kernel` (:43, `int4_matmul_fused`) and `_kernel_stacked`
-  (:199, `int4_matmul_fused_stacked`);
-- K6 replaces `_kernel_a8` (:432, `int4_matmul_fused_a8`) and
-  `_kernel_stacked_a8` (:527, `int4_matmul_fused_stacked_a8`).
+two CUDA kernels:
+- K5 (`csrc/int4_w4a16.cu`) replaces `_kernel` (:43, `int4_matmul_fused`)
+  and `_kernel_stacked` (:199, `int4_matmul_fused_stacked`). It runs wgmma
+  with the dequantized weight as the register operand, fed by a ring of
+  asynchronous copies; `_k5_plan` picks its tile of x's rows and its split
+  over K;
+- K6 (`csrc/int4_matmul.cu`) replaces `_kernel_a8` (:432,
+  `int4_matmul_fused_a8`) and `_kernel_stacked_a8` (:527,
+  `int4_matmul_fused_stacked_a8`).
 The stacked TPU variants exist because a custom call cannot read a slice of
 a stacked buffer without a copy. Here layer l of a stacked (L, K/2, N) weight
 is the view `packed[l]`, and each kernel reads its operands through their
@@ -27,6 +31,8 @@ weight; packed bytes and scales get none.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -90,6 +96,52 @@ def _check_weight(name: str, x: torch.Tensor, packed: torch.Tensor, scales: torc
     return k_dim, n, k_dim // groups
 
 
+def _check_group(name: str, group: int) -> None:
+    """Both kernels take groups that are multiples of 16: a group then holds
+    whole k16 steps of the tensor cores."""
+    if group % 16:
+        raise ValueError(f"{name} takes groups that are multiples of 16, got {group}")
+
+
+# K5's compiled tiles of x's rows (`csrc/int4_w4a16.cu`, one instance each),
+# the output columns and depth of its CTA, and the card's SM count.
+K5_T_TILES = (64, 128, 192, 256)
+K5_BN, K5_BK, K5_SMS = 128, 64, 132
+
+
+@functools.lru_cache(maxsize=256)
+def _k5_plan(t: int, k: int, n: int, group: int) -> tuple:
+    """K5's launch: (t_tile, splits, grid CTAs) for x (t, k) and a (k, n)
+    weight in groups of `group`.
+
+    Each CTA computes ceil(n / 128) column tiles' 128 columns for t_tile rows
+    of x, over k / splits of the depth. Where the grid is under one wave of
+    the card's SMs, the depth is split: `splits` is the smallest divisor of
+    the number of groups that fills the wave and leaves each split a whole
+    number of 64-deep stages (else the largest such divisor). Of the compiled
+    t_tiles, the plan takes the one with the least estimated time: waves
+    times one CTA's work (its rows, plus about 64 rows' worth of dequant, at
+    the SM's share of the bf16 peak), plus the split's partials written and
+    read at the memory rate; a tie goes to the larger tile."""
+    groups = k // group
+    ntiles = -(-n // K5_BN)
+    valid = [d for d in range(1, groups + 1)
+             if groups % d == 0 and (d == 1 or (k // d) % K5_BK == 0)]
+    best = None
+    for t_tile in sorted(K5_T_TILES, reverse=True):
+        ctas = -(-t // t_tile) * ntiles
+        splits = 1
+        if ctas < K5_SMS:
+            splits = next((d for d in valid if ctas * d >= K5_SMS), valid[-1])
+        waves = -(-ctas * splits // K5_SMS)
+        ns = waves * (k // splits) * (t_tile + 64) * 2 * K5_BN / 7500.0
+        if splits > 1:
+            ns += t * n * splits * 8 / 3350.0
+        if best is None or ns < best[0]:
+            best = (ns, (t_tile, splits, ctas * splits))
+    return best[1]
+
+
 def _vec4(packed: torch.Tensor) -> int:
     """Whether the kernels may read `packed` as 4-byte words."""
     return int(packed.data_ptr() % 4 == 0 and packed.stride(0) % 4 == 0
@@ -99,21 +151,32 @@ def _vec4(packed: torch.Tensor) -> int:
 def _launch_w4a16(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     from openvla_oft_tpu_torch import _build
 
-    k_dim, n, group = _check_weight("int4_matmul_fused (K5)", x2, packed, scales)
+    name = "int4_matmul_fused (K5)"
+    k_dim, n, group = _check_weight(name, x2, packed, scales)
+    _check_group(name, group)
     xb = x2.to(torch.bfloat16).contiguous()          # rounded to bf16, as the TPU kernel does
+    if xb.data_ptr() % 16:                           # the TMA copies need a 16-byte base
+        xb = xb.clone()
     sc = scales.float()
     t = xb.shape[0]
     out = torch.empty((t, n), dtype=torch.float32, device=x2.device)
     if t == 0:
         return out
-    vec8 = int(xb.data_ptr() % 16 == 0 and k_dim % 8 == 0)
+    t_tile, splits, _ = _k5_plan(t, k_dim, n, group)
+    work = counters = None
+    if splits > 1:                                   # partials, and a counter per output tile
+        work = torch.empty((splits, t, n), dtype=torch.float32, device=x2.device)
+        counters = torch.zeros(-(-n // K5_BN) * -(-t // t_tile), dtype=torch.int32,
+                               device=x2.device)
     lib = _build.library()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.openvla_int4_matmul_w4a16(
             xb.data_ptr(), packed.data_ptr(), sc.data_ptr(), out.data_ptr(),
-            t, k_dim, n, group, packed.stride(0), sc.stride(0), vec8, _vec4(packed), stream)
-    _build.check_launch(err, "int4_matmul_fused (K5)")
+            None if work is None else work.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            t, k_dim, n, group, packed.stride(0), sc.stride(0), t_tile, splits, stream)
+    _build.check_launch(err, name)
     int4_matmul_fused.launches += 1
     return out
 
@@ -122,9 +185,7 @@ def _launch_w4a8(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -
     from openvla_oft_tpu_torch import _build
 
     k_dim, n, group = _check_weight("int4_matmul_fused_a8 (K6)", x2, packed, scales)
-    if group % 16:
-        raise ValueError(f"int4_matmul_fused_a8 (K6) takes groups that are multiples "
-                         f"of 16, got {group}")
+    _check_group("int4_matmul_fused_a8 (K6)", group)
     x8, sx = quantize_act_rows(x2)
     sc = scales.float()
     t = x8.shape[0]

@@ -4,7 +4,9 @@ Port of `vla_scripts/exp_int4_probe.py`. At T = 112 rows and the 7B's int4
 shapes it times K5 beside variants of it that take one part of its work away
 (`ops/int4_probe.py`, kernel `csrc/int4_probe.cu`), and beside K6:
 
-  fused       K5 as shipped (`ops/int4_matmul.py::int4_matmul_fused`)
+  fused       K5 as shipped (`ops/int4_matmul.py::int4_matmul_fused`): the
+              wgmma kernel, no longer the wmma walk that the probe's modes
+              vary (the first K5's)
   no-scale    the probe without the group-scale multiply (WRONG NUMBERS by
               design: isolates the scale multiply)
   no-unpack   the probe on the raw bytes (WRONG NUMBERS by design: isolates

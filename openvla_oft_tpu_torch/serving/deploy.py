@@ -17,20 +17,24 @@ images, an 8 x 7 chunk) or ALOHA (3 images with FiLM, a 25 x 14 chunk;
 the reference's `vla_scripts/deploy.py` settings). `--load-in-4bit` packs
 every LLM linear to int4 (the reference's bitsandbytes `load_in_4bit`);
 `--int4-a8` serves it W4A8 instead of W4A16. `--vit-fused` runs the ViTs'
-folded LN + qkv and LN + fc1 as one kernel K4 launch each.
+folded LN + qkv and LN + fc1 as one kernel K4 launch each. Before it binds,
+the CLI runs one synthetic predict at the deployment's geometry (`warmup`,
+as the reference does); `--no-warmup` skips it.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Optional
 
 import numpy as np
 
 from openvla_oft_tpu_torch.serving.server import ActionServer, get_action_from_server
 
-__all__ = ["DEPLOYMENTS", "StdlibActionServer", "build_server", "flagship_policy",
-           "get_action_from_server", "observation_frames", "placeholder_norm_stats"]
+__all__ = ["CLIENT_FRAME_HW", "DEPLOYMENTS", "build_server", "flagship_policy",
+           "get_action_from_server", "observation_frames", "placeholder_norm_stats",
+           "synthetic_observation", "warmup"]
 
 
 def observation_frames(observation: dict, num_images: int) -> np.ndarray:
@@ -45,18 +49,33 @@ def observation_frames(observation: dict, num_images: int) -> np.ndarray:
     return np.stack([np.asarray(im, np.uint8) for im in images[:num_images]])
 
 
-class StdlibActionServer(ActionServer):
-    """`ActionServer` on its stdlib HTTP server, where FastAPI is installed too.
+# The raw frame size each deployment's client sends: LIBERO's 256 x 256
+# renders, ALOHA's 224 x 224 camera frames (run_aloha_eval.py:76-86).
+CLIENT_FRAME_HW = {"libero": (256, 256), "aloha": (224, 224)}
 
-    Its FastAPI route answers every /act with 422: `server.py` postpones
-    annotations (`from __future__ import annotations`) and imports `Request`
-    inside the method, so FastAPI cannot resolve `request: Request` and reads
-    it as a missing query parameter (ROADMAP queue 3). The wire format of the
-    stdlib server is the same.
-    """
 
-    def run(self, host: str = "0.0.0.0", port: int = 8777, background: bool = False):
-        return self._run_stdlib(host, port, background)
+def synthetic_observation(policy) -> dict:
+    """A zero observation at the policy's own geometry: its number of images
+    at its platform's client frame size, and its proprio dim."""
+    h, w = CLIENT_FRAME_HW.get(policy.platform.name, (256, 256))
+    obs = {"full_image": np.zeros((h, w, 3), np.uint8)}
+    for i in range(policy.cfg.num_images_in_input - 1):
+        obs[f"wrist_image_{i}"] = np.zeros((h, w, 3), np.uint8)
+    obs["state"] = np.zeros(policy.platform.proprio_dim, np.float32)
+    obs["instruction"] = "do the task"
+    return obs
+
+
+def warmup(server: ActionServer, policy) -> float:
+    """One synthetic predict at `policy`'s geometry through the server's
+    /act callable, before the server binds (the reference's
+    `OpenVLAServer._warmup`, `vla_scripts/deploy.py:102-121`), so that the
+    first client request does not pay the cold path: kernel builds, library
+    handles, allocator growth. Returns its seconds on the host clock."""
+    obs = synthetic_observation(policy)
+    t0 = time.perf_counter()
+    server.predict(obs, obs["instruction"])
+    return time.perf_counter() - t0
 
 
 def build_server(policy, unnorm_key: Optional[str] = None) -> ActionServer:
@@ -70,7 +89,7 @@ def build_server(policy, unnorm_key: Optional[str] = None) -> ActionServer:
             proprio=None if state is None else np.asarray(state, np.float32),
             unnorm_key=unnorm_key)
 
-    return StdlibActionServer(predict)
+    return ActionServer(predict)
 
 
 def placeholder_norm_stats(platform) -> dict:
@@ -160,6 +179,9 @@ def main(argv=None) -> None:
                              "25 x 14 chunk")
     parser.add_argument("--vit-fused", action="store_true",
                         help="the ViTs' LN + qkv and LN + fc1 as one kernel K4 launch each")
+    parser.add_argument("--no-warmup", action="store_true",
+                        help="bind at once, without one synthetic predict first (the "
+                             "reference's DeployConfig.warmup = False)")
     args = parser.parse_args(argv)
     if not args.random_weights:
         parser.error("checkpoint loading is not ported yet; pass --random-weights")
@@ -168,8 +190,11 @@ def main(argv=None) -> None:
     policy = flagship_policy(args.device, seed=args.seed, load_in_4bit=args.load_in_4bit,
                              int4_a8=args.int4_a8, platform=args.platform,
                              vit_fused=args.vit_fused)
+    server = build_server(policy)
+    if not args.no_warmup:
+        print(f"[deploy] warmup run: {warmup(server, policy):.1f}s")
     print(f"[deploy] serving /act on {args.host}:{args.port}")
-    build_server(policy).run(args.host, args.port)
+    server.run(args.host, args.port)
 
 
 if __name__ == "__main__":

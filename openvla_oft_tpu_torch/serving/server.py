@@ -9,14 +9,19 @@ stdlib ThreadingHTTPServer (no extra dependencies, same endpoints).
 The policy callable is injected, so the server is model-agnostic: anything
 with `predict(observation: dict, instruction: str) -> np.ndarray`
 works (vla_scripts/deploy.py::OpenVLAServer.predict is the OpenVLA one).
-"""
 
-from __future__ import annotations
+Annotations are not postponed in this file: FastAPI resolves the route's
+`request: Request` from the function's annotations, and `Request` is
+imported inside `_run_fastapi`, where a postponed (string) annotation would
+not find it. FastAPI would then read `request` as a missing query parameter
+and answer every /act with 422.
+"""
 
 import http.server
 import json
 import logging
 import threading
+import time
 import traceback
 from typing import Any, Callable, Dict, Optional
 
@@ -110,8 +115,15 @@ class ActionServer:
         server = uvicorn.Server(config)
         self._uvicorn = server
         if background:
-            t = threading.Thread(target=server.run, daemon=True)
-            t.start()
+            self._thread = threading.Thread(target=server.run, daemon=True)
+            self._thread.start()
+            # Bound before returning, as the stdlib server is: a client may
+            # send its first request at once.
+            deadline = time.monotonic() + 60.0
+            while not server.started:
+                if not self._thread.is_alive() or time.monotonic() > deadline:
+                    raise RuntimeError(f"uvicorn did not start on {host}:{port}")
+                time.sleep(0.01)
             return server
         server.run()
 
@@ -129,6 +141,8 @@ class ActionServer:
             self._httpd.shutdown()
         if getattr(self, "_uvicorn", None) is not None:
             self._uvicorn.should_exit = True
+            if getattr(self, "_thread", None) is not None:
+                self._thread.join(timeout=30.0)
 
 
 def get_action_from_server(observation: Dict[str, Any],

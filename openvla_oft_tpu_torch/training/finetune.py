@@ -205,7 +205,7 @@ def platform_of(cfg: FinetuneConfig):
         detect_robot_platform(cfg.dataset_name)
     if platform != LIBERO:
         raise NotImplementedError(f"platform {platform.name!r} is not ported yet "
-                                  f"({_Q1} 10); the port trains on LIBERO")
+                                  f"({_Q1} 14); the port trains on LIBERO")
     return platform
 
 

@@ -307,6 +307,12 @@ INT4_CASES = [
     ("layer_view", 57, 1024, 512, 128, "layer"),
     ("column_view", 57, 1024, 384, 128, "column"),
     ("T1024", 1024, 256, 256, 128, "whole"),
+    ("T57_K4096_N4096", 57, 4096, 4096, 128, "whole"),   # K5 splits K (8 ways)
+    ("T256", 256, 512, 384, 128, "whole"),                # one chunk of x's rows
+    ("T257", 257, 512, 384, 128, "whole"),                # the chunk edge
+    ("T618_K1024", 618, 1024, 1024, 128, "whole"),
+    ("column_view_200_400", 70, 512, 200, 128, "column200"),   # base not 16-byte aligned
+    ("N198_T300", 300, 256, 198, 128, "whole"),           # byte copies of the packed rows
 ]
 
 
@@ -320,6 +326,9 @@ def _int4_operands(cuda, case):
     if how == "column":                            # the q slice of a q|k|v weight
         q = _int4_weight(gen, k, 3 * n, cuda, group=group)
         return x, q["kernel_q4"][:, n:2 * n], q["scale_w4"][:, n:2 * n]
+    if how == "column200":                         # packed[:, 200:400] of a 600-wide weight
+        q = _int4_weight(gen, k, 600, cuda, group=group)
+        return x, q["kernel_q4"][:, 200:400], q["scale_w4"][:, 200:400]
     q = _int4_weight(gen, k, n, cuda, group=group)
     return x, q["kernel_q4"], q["scale_w4"]
 
@@ -355,9 +364,27 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous rows"):
         M.int4_matmul_fused(x, q["kernel_q4"].t().contiguous().t(), q["scale_w4"])
     w = _int4_weight(gen, 200, 64, cuda)                 # group 100
-    with pytest.raises(ValueError, match="multiples of 16"):
-        M.int4_matmul_fused_a8(torch.randn((4, 200), device=cuda), w["kernel_q4"],
-                               w["scale_w4"])
+    for fn in (M.int4_matmul_fused, M.int4_matmul_fused_a8):
+        before = fn.launches
+        with pytest.raises(ValueError, match="multiples of 16"):
+            fn(torch.randn((4, 200), device=cuda), w["kernel_q4"], w["scale_w4"])
+        assert fn.launches == before
+
+
+# K5 at a split-K shape (wo at the out_window layer's 57 rows) and at wqkv's
+# shape at T = 618 (four chunks of x's rows, no split).
+@pytest.mark.parametrize("t,k,n", [(57, 4096, 4096), (618, 4096, 12288)],
+                         ids=["wo_T57_split", "wqkv_T618"])
+def test_int4_k5_is_deterministic(cuda, t, k, n):
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+
+    x, packed, scales = _int4_operands(cuda, ("det", t, k, n, 128, "whole"))
+    t_tile, splits, grid = M._k5_plan(t, k, n, 128)
+    assert (splits > 1) == (t == 57)
+    first = M.int4_matmul_fused(x, packed, scales)
+    second = M.int4_matmul_fused(x, packed, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_tiny_int4_serving_path_kernel_matches_plain(cuda):
