@@ -14,8 +14,9 @@ points a user calls: an HTTP /act server built by
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. environment: the card, torch/CUDA versions, TF32 off;
   2. build: the hand-written kernels from `openvla_oft_tpu_torch/csrc`; K5's
-     registers, spills and shared memory from ptxas, and its wgmma (HGMMA)
-     instructions counted in the library's SASS (none is a failure);
+     and K6's registers, spills and shared memory from ptxas, and their wgmma
+     instructions counted in the library's SASS (HGMMA for K5's bf16, IGMMA
+     for K6's int8; an instance with none is a failure);
   3. kernel check: K1 (and `flash_attention_allheads`, which is K1) against
      its plain version at the serving path's shapes, timed beside SDPA with
      the boolean OFT mask and the bound; K4 (`ln_matmul`) against its plain
@@ -34,14 +35,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      request traced each way;
   6. int4 kernel check: K5 (W4A16) and K6 (W4A8) against their plain
      versions at the 7B's int4 shapes (T = 618 and 57), a column view, a
-     layer view, T = 1 and group 16, timed beside the library call and the
-     bound, with K5's plan (t_tile, splits, CTAs), TFLOP/s and share of the
-     bound; two K5 calls bitwise equal at wo T = 57 (split over K) and wqkv
-     T = 618; K5 and the dequant path at T = 618 and 2048 (the dispatch rule);
+     layer view, T = 1 and group 16, timed beside the library call
+     (`torch.matmul`, `torch._int_mm`) and the bound, device times from
+     torch.profiler, with each kernel's plan (t_tile, splits, CTAs), rate and
+     share of the bound; two K5 calls and two K6 calls bitwise equal at wo
+     T = 57 (split over K) and wqkv T = 618; K5 and the dequant path at
+     T = 618 and 2048 (the dispatch rule);
   7. int4 serving: the policy rebuilt with `load_in_4bit`, 3 /act requests
      W4A16 (130 K5 launches each), then 3 W4A8 (130 K6 launches each); one
      request of each traced (the K5 and K6 share of the device time, and
-     K5's time per request);
+     K5's and K6's time per request);
   8. int4 path parity: K5 and K6 against their plain versions through
      `predict_action_hidden` on the same int4 weights; int4 against bf16;
   8a. the K5 probe: the probe script's `main` (T = 112, the 7B's shapes;
@@ -156,35 +159,51 @@ def sdpa_args(q, k, v, key_valid, bidir):
                  enable_gqa=q.shape[2] != k.shape[2]))
 
 
-def k5_build_report(lib_path) -> dict:
-    """K5's instances in ptxas' report (registers, spills, shared memory) and
-    their wgmma (HGMMA) instructions in the built library's SASS. A K5 with
-    no HGMMA is not the wgmma design: that raises."""
+# The int4 kernels' instances (mangled-name pattern -> label) and the wgmma
+# form their SASS must hold: bf16 wgmma is HGMMA, int8 wgmma IGMMA.
+WGMMA_KERNELS = {"K5": (r"int4_w4a16_wgmma_kernelILi(\d+)E", "HGMMA", "T_TILE={}"),
+                 "K6": (r"int4_w4a8_wgmma_kernelILi(\d+)ELb([01])E", "IGMMA",
+                        "T_TILE={} HALF={}")}
+
+
+def wgmma_build_report(lib_path) -> dict:
+    """K5's and K6's instances in ptxas' report (registers, spills, shared
+    memory, any note that it serialized the wgmmas) and their wgmma
+    instructions in the built library's SASS (HGMMA for K5's bf16, IGMMA
+    for K6's int8). An instance with none is not the
+    wgmma design: that raises. Returns {kernel: {instance: count}}."""
+    def instance(line):
+        for name, (pattern, _, label) in WGMMA_KERNELS.items():
+            m = re.search(pattern, line)
+            if m:
+                return name, label.format(*m.groups())
+        return None
+
     stats, current = {}, None
     for line in (lib_path.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"int4_w4a16_wgmma_kernelILi(\d+)E", line)
-            current = f"T_TILE={m.group(1)}" if m else None
-        elif current and ("spill" in line or "Used" in line):
+            current = instance(line)
+        elif current and ("spill" in line or "Used" in line or "wgmma" in line):
             stats[current] = (stats.get(current, "") + " " + line.split(":")[-1].strip()).strip()
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=600, check=True).stdout
-    hgmma, current = {}, None
+    counts, current = {name: {} for name in WGMMA_KERNELS}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"int4_w4a16_wgmma_kernelILi(\d+)E", line)
-            current = f"T_TILE={m.group(1)}" if m else None
+            current = instance(line)
             if current:
-                hgmma[current] = 0
-        elif current and "HGMMA" in line:
-            hgmma[current] += 1
-    for inst in sorted(set(stats) | set(hgmma)):
-        log(f"[build] K5 {inst}: ptxas {stats.get(inst, 'not reported')}; "
-            f"{hgmma.get(inst, 0)} HGMMA instructions in its SASS")
-    if not hgmma or min(hgmma.values()) == 0:
-        raise AssertionError(f"K5 does not reach wgmma: HGMMA counts {hgmma}")
-    return hgmma
+                counts[current[0]][current[1]] = 0
+        elif current and WGMMA_KERNELS[current[0]][1] in line:
+            counts[current[0]][current[1]] += 1
+    for name, inst in sorted(set(stats) | {(k, i) for k, v in counts.items() for i in v}):
+        log(f"[build] {name} {inst}: ptxas {stats.get((name, inst), 'not reported')}; "
+            f"{counts[name].get(inst, 0)} {WGMMA_KERNELS[name][1]} instructions in its SASS")
+    for name, found in counts.items():
+        if not found or min(found.values()) == 0:
+            raise AssertionError(f"{name} does not reach wgmma: "
+                                 f"{WGMMA_KERNELS[name][1]} counts {found}")
+    return counts
 
 
 def kernel_check(card: str) -> dict:
@@ -472,12 +491,13 @@ def path_parity(policy, obs, served) -> torch.Tensor:
     return hidden[True].cpu()
 
 
-def int_mm_ms(x8: torch.Tensor, w8: torch.Tensor, flush):
+def int_mm_times(x8: torch.Tensor, w8: torch.Tensor, flush) -> tuple:
     """torch._int_mm (int8 x int8 -> int32) on the unpacked int8 weight: K6's
-    products without its group and token scales; the faster of a row-major
-    and a column-major weight. None for T <= 16, which it does not take."""
+    products without its group and token scales, on the faster of a
+    row-major and a column-major weight. (CUDA-event ms, device ms, how the
+    device time was taken); Nones for T <= 16, which it does not take."""
     if x8.shape[0] <= 16:
-        return None
+        return None, None, None
     times = []
     for w in (w8, w8.t().contiguous().t()):
         try:
@@ -486,8 +506,12 @@ def int_mm_ms(x8: torch.Tensor, w8: torch.Tensor, flush):
         except RuntimeError as err:
             log(f"[int4] torch._int_mm refused weight strides {w.stride()}: {err}")
             continue
-        times.append(cuda_time_ms(lambda: torch._int_mm(x8, w), flush=flush))
-    return min(times, default=None)
+        times.append((*device_ms(lambda: torch._int_mm(x8, w), flush),
+                      cuda_time_ms(lambda: torch._int_mm(x8, w), flush=flush)))
+    if not times:
+        return None, None, None
+    dev, how, events = min(times)
+    return events, dev, how
 
 
 def profiled(fn, complete=bool) -> list:
@@ -584,42 +608,55 @@ def int4_check(card: str) -> dict:
         plain5 = cuda_time_ms(lambda: M.int4_matmul_ref(x, packed, scales), flush=flush)
         plain6 = cuda_time_ms(lambda: M.int4_matmul_a8_ref(x, packed, scales), flush=flush)
         lib5 = cuda_time_ms(lambda: torch.matmul(x, w16), flush=flush)
-        lib6 = int_mm_ms(x8, w8, flush)
         dev5, how5 = device_ms(lambda: M.int4_matmul_fused(x, packed, scales), flush)
         dev_lib5, how_lib5 = device_ms(lambda: torch.matmul(x, w16), flush)
+        dev6, how6 = device_ms(lambda: M.int4_matmul_fused_a8(x, packed, scales), flush)
+        lib6, dev_lib6, how_lib6 = int_mm_times(x8, w8, flush)
         ops = 2 * t * k * n
         moved = nbytes(x, packed, scales, y5)             # x in, fp32 y out
         b5, by5 = bound(ops, moved, PEAK_BF16)
         b6, by6 = bound(ops, moved, PEAK_INT8)
-        log(f"[int4] {name}: K={k} N={n} group={k // scales.shape[0]} packed strides "
+        group = k // scales.shape[0]
+        log(f"[int4] {name}: K={k} N={n} group={group} packed strides "
             f"{packed.stride()} | K5 max|d|={err5:.3e} rel={rel5:.3e}; K6 max|d|={err6:.3e} "
             f"rel={rel6:.3e}; finite {finite}")
-        plan = M._k5_plan(t, k, n, k // scales.shape[0])
+        plan = M._k5_plan(t, k, n, group)
         log(f"[int4] {name}: K5 plan (t_tile {plan[0]}, splits {plan[1]}, {plan[2]} CTAs): "
             f"{dev5:.4f} ms ({ops / dev5 / 1e9:.1f} TFLOP/s, {b5 / dev5:.3f} of the "
             f"bound; {how5}), torch.matmul on the bf16 weight {dev_lib5:.4f} ({how_lib5}) "
             f"(K5 / matmul {dev5 / dev_lib5:.2f}) (mean of 10, L2 flushed); CUDA events "
             f"around the calls: K5 {ms5:.4f} ms, torch.matmul {lib5:.4f}; plain {plain5:.4f}, "
-            f"bound {b5:.4f} ({by5}); "
-            f"K6 {ms6:.4f} ms ({ops / ms6 / 1e9:.1f} TOP/s), plain {plain6:.4f}, torch._int_mm "
-            f"without scales {'n/a' if lib6 is None else f'{lib6:.4f}'}, bound {b6:.4f} ({by6}) "
-            f"(median of 20, CUDA events, L2 flushed; {card})")
+            f"bound {b5:.4f} ({by5}) ({card})")
+        plan6 = M._k6_plan(t, k, n, group)
+        vs6 = "n/a" if dev_lib6 is None else f"{dev_lib6:.4f} ({how_lib6})"
+        ratio6 = "" if dev_lib6 is None else f" (K6 / _int_mm {dev6 / dev_lib6:.2f})"
+        log(f"[int4] {name}: K6 plan (t_tile {plan6[0]}, splits {plan6[1]}, {plan6[2]} CTAs"
+            f"{', HALF: a k32 step per 16 k' if group % 32 else ''}): {dev6:.4f} ms "
+            f"({ops / dev6 / 1e9:.1f} TOP/s, {b6 / dev6:.3f} of the bound; {how6}), "
+            f"torch._int_mm without scales {vs6}{ratio6} (mean of 10, L2 flushed); CUDA "
+            f"events around the calls: K6 {ms6:.4f} ms (the wrapper's quantize_act_rows "
+            f"included), torch._int_mm {'n/a' if lib6 is None else f'{lib6:.4f}'}; plain "
+            f"{plain6:.4f}, bound {b6:.4f} ({by6}) ({card})")
         if not (finite and rel5 <= INT4_K5_REL and rel6 <= INT4_K6_REL):
             raise AssertionError(f"K5/K6 disagree with their plain versions at {name}")
         results[name] = {"err5": err5, "err6": err6, "ms5": ms5, "ms6": ms6,
                          "plain5": plain5, "plain6": plain6, "lib5": lib5, "lib6": lib6,
                          "bound5": (b5, by5), "bound6": (b6, by6), "plan5": plan,
-                         "dev5": dev5, "dev_lib5": dev_lib5,
-                         "timing": how5 if how5 == how_lib5 else f"K5 {how5}, library {how_lib5}"}
+                         "plan6": plan6, "dev5": dev5, "dev_lib5": dev_lib5, "dev6": dev6,
+                         "dev_lib6": dev_lib6,
+                         "timing": how5 if how5 == how_lib5 else f"K5 {how5}, library {how_lib5}",
+                         "timing6": how6 if how6 == how_lib6 else f"K6 {how6}, library {how_lib6}"}
         if name in ("wo T=57", "wqkv T=618"):
             # Split-K adds its partials in split order: two calls are bitwise equal.
-            again = M.int4_matmul_fused(x, packed, scales)
-            torch.cuda.synchronize()
-            same = torch.equal(y5, again)
-            log(f"[int4] {name}: two K5 calls bitwise equal: {same} (plan {plan})")
-            if not same:
-                raise AssertionError(f"K5 is not deterministic at {name}")
-            del again
+            for label, fn, first, kplan in (("K5", M.int4_matmul_fused, y5, plan),
+                                            ("K6", M.int4_matmul_fused_a8, y6, plan6)):
+                again = fn(x, packed, scales)
+                torch.cuda.synchronize()
+                same = torch.equal(first, again)
+                log(f"[int4] {name}: two {label} calls bitwise equal: {same} (plan {kplan})")
+                if not same:
+                    raise AssertionError(f"{label} is not deterministic at {name}")
+                del again
         del x, packed, scales, y5, y6, r5, r6, w16, w8, x8
     # The dispatch rule (rows <= 1024 take the kernel) is the TPU's crossover,
     # kept as the reference's shape rule; these are the card's two sides of it.
@@ -697,11 +734,12 @@ def int4_serving(card: str, rng, obs, bf16_hidden) -> dict:
     for a8, label in ((False, "int4 W4A16"), (True, "int4 W4A8")):
         policy.int4_a8 = a8
         busy, by_class = profile_request(policy, obs, label, card)
-        if not a8 and busy is not None:
-            k5_ms, k5_n = by_class.get("K5", (0.0, 0))
-            log(f"[int4-profile] W4A16 request: K5 {k5_ms:.2f} ms over {k5_n} launches, "
-                f"{k5_ms / busy:.3f} of the device time (the first, wmma K5: 211-219 ms, "
-                f"0.86-0.88) ({card})")
+        if busy is not None:
+            kernel, first = ("K6", "159 ms, 0.805") if a8 else ("K5", "211-219 ms, 0.86-0.88")
+            k_ms, k_n = by_class.get(kernel, (0.0, 0))
+            log(f"[int4-profile] {label[5:]} request: {kernel} {k_ms:.2f} ms over {k_n} "
+                f"launches, {k_ms / busy:.3f} of the device time (the first, wmma {kernel}: "
+                f"{first}) ({card})")
     int4_parity(policy, obs, bf16_hidden, card)
     return {"W4A16": w4a16, "W4A8": w4a8}
 
@@ -1212,7 +1250,7 @@ def main() -> int:
     log(f"[build] {lib_path.relative_to(_build.PKG_DIR.parent)} ready in "
         f"{time.perf_counter() - t0:.1f} s")
     log((lib_path.parent / "build.log").read_text().strip())
-    hgmma = k5_build_report(lib_path)
+    wgmma = wgmma_build_report(lib_path)
 
     checks = kernel_check(card)
     k4 = ln_matmul_check(card)
@@ -1257,9 +1295,9 @@ def main() -> int:
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
-    # at T = 618, the probe group-dots at qkv T = 112. K5's time and its
-    # library time are device times: at its speed the wrapper's host time
-    # shows in CUDA events around the call (logged beside them). SDPA computes dq, dk
+    # at T = 618, the probe group-dots at qkv T = 112. K5's and K6's times
+    # and their library times are device times: at their speed the wrapper's
+    # host time shows in CUDA events around the call (logged beside them). SDPA computes dq, dk
     # and dv in one backward, so K2 and K3 share its time; for K4 the library
     # time is torch.matmul on the product alone.
     libero, tr, wqkv = checks["libero_prefill"], bwd["training"], int4["wqkv T=618"]
@@ -1291,12 +1329,15 @@ def main() -> int:
                      w4a16["K5"], max(c["err5"] for c in int4.values()), wqkv["dev5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["dev_lib5"],
                      also_replaces="openvla_oft_tpu/ops/int4_matmul.py:199",
-                     plan=list(wqkv["plan5"]), hgmma=hgmma, timing=wqkv["timing"],
+                     plan=list(wqkv["plan5"]), hgmma=wgmma["K5"], timing=wqkv["timing"],
                      events_ms=wqkv["ms5"], library_events_ms=wqkv["lib5"]),
-        kernel_entry("int4_matmul_a8", "int4_matmul.cu", "openvla_oft_tpu/ops/int4_matmul.py:432",
-                     w4a8["K6"], max(c["err6"] for c in int4.values()), wqkv["ms6"],
-                     wqkv["plain6"], *wqkv["bound6"], wqkv["lib6"],
-                     also_replaces="openvla_oft_tpu/ops/int4_matmul.py:527"),
+        kernel_entry("int4_matmul_a8", "int4_w4a8.cu", "openvla_oft_tpu/ops/int4_matmul.py:432",
+                     w4a8["K6"], max(c["err6"] for c in int4.values()), wqkv["dev6"],
+                     wqkv["plain6"], *wqkv["bound6"], wqkv["dev_lib6"],
+                     also_replaces="openvla_oft_tpu/ops/int4_matmul.py:527",
+                     library_call="torch._int_mm on the unpacked int8 weight, no scales",
+                     plan=list(wqkv["plan6"]), igmma=wgmma["K6"], timing=wqkv["timing6"],
+                     events_ms=wqkv["ms6"], library_events_ms=wqkv["lib6"]),
         kernel_entry("int4_probe", "int4_probe.cu", "vla_scripts/exp_int4_probe.py:53",
                      probe["launches"], probe["max_abs_err"], probe["ms"], probe["plain_ms"],
                      probe["bound_ms"], probe["bound_by"], probe["library_ms"],

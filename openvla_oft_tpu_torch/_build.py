@@ -118,8 +118,8 @@ def library() -> ctypes.CDLL:
     fn = lib.openvla_int4_matmul_w4a16           # K5: x packed scales out work counters
     fn.argtypes = [p] * 6 + [i] * 4 + [i64, i64, i, i, p]   # T K N group ldp lds t_tile splits
     fn.restype = ctypes.c_int
-    fn = lib.openvla_int4_matmul_w4a8            # K6: x8 sx packed scales out
-    fn.argtypes = [p] * 5 + [i] * 4 + [i64, i64, i, p]      # T K N group ldp lds vec4
+    fn = lib.openvla_int4_matmul_w4a8            # K6: x8 sx packed scales out work counters
+    fn.argtypes = [p] * 7 + [i] * 4 + [i64, i64, i, i, p]   # T K N group ldp lds t_tile splits
     fn.restype = ctypes.c_int
     fn = lib.openvla_ln_matmul                   # K4: x w b out M D N ldw act eps vec8 wvec8
     fn.argtypes = [p] * 4 + [i] * 3 + [i64, i, ctypes.c_float, i, i, p]

@@ -1,5 +1,5 @@
-// The int4 half of the tile walk (the K5 timing probe, and K6): reading the
-// packed bytes of a weight tile.
+// The int4 half of the K5 timing probe's tile walk: reading the packed
+// bytes of a weight tile.
 //
 // Packing (ops/quant.py::quantize_weight_int4): byte (i, n) of `packed`
 // (K/2, N) int8 holds weight row 2i in its low nibble and row 2i+1 in its

@@ -7,9 +7,13 @@ two CUDA kernels:
   with the dequantized weight as the register operand, fed by a ring of
   asynchronous copies; `_k5_plan` picks its tile of x's rows and its split
   over K;
-- K6 (`csrc/int4_matmul.cu`) replaces `_kernel_a8` (:432,
+- K6 (`csrc/int4_w4a8.cu`) replaces `_kernel_a8` (:432,
   `int4_matmul_fused_a8`) and `_kernel_stacked_a8` (:527,
-  `int4_matmul_fused_stacked_a8`).
+  `int4_matmul_fused_stacked_a8`). It runs int8 wgmma with the weight
+  unpacked to a K-major int8 tile in shared memory, fed by the same kind of
+  ring, and scales each group's exact int32 partial in fp32 while the next
+  group's products run; `_k6_plan` picks its tile of x's rows and its split
+  over K.
 The stacked TPU variants exist because a custom call cannot read a slice of
 a stacked buffer without a copy. Here layer l of a stacked (L, K/2, N) weight
 is the view `packed[l]`, and each kernel reads its operands through their
@@ -109,32 +113,32 @@ K5_T_TILES = (64, 128, 192, 256)
 K5_BN, K5_BK, K5_SMS = 128, 64, 132
 
 
-@functools.lru_cache(maxsize=256)
-def _k5_plan(t: int, k: int, n: int, group: int) -> tuple:
-    """K5's launch: (t_tile, splits, grid CTAs) for x (t, k) and a (k, n)
-    weight in groups of `group`.
+def _plan(t: int, k: int, n: int, group: int, t_tiles: tuple, bk: int, row_cost: int,
+          rate: float) -> tuple:
+    """A launch (t_tile, splits, grid CTAs) for x (t, k) and a (k, n) weight
+    in groups of `group`, for a kernel whose CTA computes 128 output columns
+    for t_tile rows of x over k / splits of the depth, in stages `bk` deep.
 
-    Each CTA computes ceil(n / 128) column tiles' 128 columns for t_tile rows
-    of x, over k / splits of the depth. Where the grid is under one wave of
-    the card's SMs, the depth is split: `splits` is the smallest divisor of
-    the number of groups that fills the wave and leaves each split a whole
-    number of 64-deep stages (else the largest such divisor). Of the compiled
-    t_tiles, the plan takes the one with the least estimated time: waves
-    times one CTA's work (its rows, plus about 64 rows' worth of dequant, at
-    the SM's share of the bf16 peak), plus the split's partials written and
-    read at the memory rate; a tie goes to the larger tile."""
+    Where the grid is under one wave of the card's SMs, the depth is split:
+    `splits` is the smallest divisor of the number of groups that fills the
+    wave and leaves each split whole stages (else the largest such divisor).
+    Of the compiled t_tiles, the plan takes the one with the least estimated
+    time: waves times one CTA's work (its rows at `row_cost` each, plus about
+    64 rows' worth for the weight tile, at the SM's share of `rate`, in
+    operations per ns), plus the split's partials written and read at the
+    memory rate; a tie goes to the larger tile."""
     groups = k // group
-    ntiles = -(-n // K5_BN)
+    ntiles = -(-n // 128)
     valid = [d for d in range(1, groups + 1)
-             if groups % d == 0 and (d == 1 or (k // d) % K5_BK == 0)]
+             if groups % d == 0 and (d == 1 or (k // d) % bk == 0)]
     best = None
-    for t_tile in sorted(K5_T_TILES, reverse=True):
+    for t_tile in sorted(t_tiles, reverse=True):
         ctas = -(-t // t_tile) * ntiles
         splits = 1
         if ctas < K5_SMS:
             splits = next((d for d in valid if ctas * d >= K5_SMS), valid[-1])
         waves = -(-ctas * splits // K5_SMS)
-        ns = waves * (k // splits) * (t_tile + 64) * 2 * K5_BN / 7500.0
+        ns = waves * (k // splits) * (row_cost * t_tile + 64) * 2 * 128 / rate
         if splits > 1:
             ns += t * n * splits * 8 / 3350.0
         if best is None or ns < best[0]:
@@ -142,8 +146,29 @@ def _k5_plan(t: int, k: int, n: int, group: int) -> tuple:
     return best[1]
 
 
+@functools.lru_cache(maxsize=256)
+def _k5_plan(t: int, k: int, n: int, group: int) -> tuple:
+    """K5's launch (`_plan`): its t_tiles, 64-deep stages, the bf16 rate."""
+    return _plan(t, k, n, group, K5_T_TILES, K5_BK, 1, 7500.0)
+
+
+# K6's compiled tiles of x8's rows (`csrc/int4_w4a8.cu`), and the output
+# columns and depth of its CTA.
+K6_T_TILES = (64, 96)
+K6_BN, K6_BK = 128, 128
+
+
+@functools.lru_cache(maxsize=256)
+def _k6_plan(t: int, k: int, n: int, group: int) -> tuple:
+    """K6's launch (`_plan`): its t_tiles, 128-deep stages, the int8 rate
+    (twice bf16's) with each row costing about as much again for the
+    per-group scaling of its int32 partials. Groups that are not a multiple
+    of 32 take twice the products; that does not change the choice."""
+    return _plan(t, k, n, group, K6_T_TILES, K6_BK, 2, 15000.0)
+
+
 def _vec4(packed: torch.Tensor) -> int:
-    """Whether the kernels may read `packed` as 4-byte words."""
+    """Whether the probe kernel may read `packed` as 4-byte words."""
     return int(packed.data_ptr() % 4 == 0 and packed.stride(0) % 4 == 0
                and packed.shape[1] % 4 == 0)
 
@@ -184,21 +209,35 @@ def _launch_w4a16(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) 
 def _launch_w4a8(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     from openvla_oft_tpu_torch import _build
 
-    k_dim, n, group = _check_weight("int4_matmul_fused_a8 (K6)", x2, packed, scales)
-    _check_group("int4_matmul_fused_a8 (K6)", group)
+    name = "int4_matmul_fused_a8 (K6)"
+    k_dim, n, group = _check_weight(name, x2, packed, scales)
+    _check_group(name, group)
+    if group > K6_BK:
+        raise ValueError(f"{name} takes groups of at most {K6_BK}, got {group}")
     x8, sx = quantize_act_rows(x2)
+    x8 = x8.contiguous()                             # the TMA copies need rows K bytes apart
+    if x8.data_ptr() % 16:                           # and a 16-byte base
+        x8 = x8.clone()
     sc = scales.float()
     t = x8.shape[0]
     out = torch.empty((t, n), dtype=torch.float32, device=x2.device)
     if t == 0:
         return out
+    t_tile, splits, _ = _k6_plan(t, k_dim, n, group)
+    work = counters = None
+    if splits > 1:                                   # partials, and a counter per output tile
+        work = torch.empty((splits, t, n), dtype=torch.float32, device=x2.device)
+        counters = torch.zeros(-(-n // K6_BN) * -(-t // t_tile), dtype=torch.int32,
+                               device=x2.device)
     lib = _build.library()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.openvla_int4_matmul_w4a8(
             x8.data_ptr(), sx.data_ptr(), packed.data_ptr(), sc.data_ptr(), out.data_ptr(),
-            t, k_dim, n, group, packed.stride(0), sc.stride(0), _vec4(packed), stream)
-    _build.check_launch(err, "int4_matmul_fused_a8 (K6)")
+            None if work is None else work.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            t, k_dim, n, group, packed.stride(0), sc.stride(0), t_tile, splits, stream)
+    _build.check_launch(err, name)
     int4_matmul_fused_a8.launches += 1
     return out
 

@@ -371,18 +371,21 @@ def test_int4_kernels_reject_what_they_do_not_take(cuda):
         assert fn.launches == before
 
 
-# K5 at a split-K shape (wo at the out_window layer's 57 rows) and at wqkv's
-# shape at T = 618 (four chunks of x's rows, no split).
+# K5 and K6 at a split-K shape (wo at the out_window layer's 57 rows) and at
+# wqkv's shape at T = 618 (chunks of x's rows, no split).
+@pytest.mark.parametrize("kernel", ["k5", "k6"])
 @pytest.mark.parametrize("t,k,n", [(57, 4096, 4096), (618, 4096, 12288)],
                          ids=["wo_T57_split", "wqkv_T618"])
-def test_int4_k5_is_deterministic(cuda, t, k, n):
+def test_int4_k5_is_deterministic(cuda, t, k, n, kernel):
     from openvla_oft_tpu_torch.ops import int4_matmul as M
 
     x, packed, scales = _int4_operands(cuda, ("det", t, k, n, 128, "whole"))
-    t_tile, splits, grid = M._k5_plan(t, k, n, 128)
+    plan, fn = ((M._k5_plan, M.int4_matmul_fused) if kernel == "k5"
+                else (M._k6_plan, M.int4_matmul_fused_a8))
+    t_tile, splits, grid = plan(t, k, n, 128)
     assert (splits > 1) == (t == 57)
-    first = M.int4_matmul_fused(x, packed, scales)
-    second = M.int4_matmul_fused(x, packed, scales)
+    first = fn(x, packed, scales)
+    second = fn(x, packed, scales)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 

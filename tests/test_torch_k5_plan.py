@@ -1,11 +1,12 @@
-"""K5's launch plan and group rule, on the CPU (the kernel itself is in
-`tests/test_torch_gpu.py`).
+"""K5's and K6's launch plans and group rule, on the CPU (the kernels
+themselves are in `tests/test_torch_gpu.py`).
 
-`_k5_plan(T, K, N, group)` gives (t_tile, splits, grid CTAs): the kernel
-covers x's rows in chunks of t_tile, the output columns in tiles of
-`K5_BN`, and the depth in `splits` ranges of whole groups. Checked here at
-the 7B's int4 shapes and the gpu tests' small shapes, at the row counts the
-serving path and the dispatch edge give.
+`_k5_plan(T, K, N, group)` and `_k6_plan` give (t_tile, splits, grid CTAs):
+the kernel covers x's rows in chunks of t_tile, the output columns in tiles
+of 128, and the depth in `splits` ranges of whole groups, each a whole
+number of the kernel's stages. Checked here at the 7B's int4 shapes and the
+gpu tests' small shapes, at the row counts the serving path and the dispatch
+edge give.
 """
 
 import numpy as np
@@ -29,21 +30,28 @@ def _intervals(size: int, step: int, count: int):
     return [(i * step, min(size, (i + 1) * step)) for i in range(count)]
 
 
+# kernel -> (plan, compiled t_tiles, output columns per CTA, stage depth)
+PLANS = {"k5": (M._k5_plan, M.K5_T_TILES, M.K5_BN, M.K5_BK),
+         "k6": (M._k6_plan, M.K6_T_TILES, M.K6_BN, M.K6_BK)}
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k6"])
 @pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("shape", SHAPES_7B + SHAPES_SMALL, ids=[s[0] for s in SHAPES_7B + SHAPES_SMALL])
-def test_k5_plan_covers_the_output_once(shape, rows):
+def test_k5_plan_covers_the_output_once(shape, rows, kernel):
     _, k, n, group = shape
-    t_tile, splits, grid = M._k5_plan(rows, k, n, group)
-    assert t_tile in M.K5_T_TILES
+    plan, t_tiles, bn, bk = PLANS[kernel]
+    t_tile, splits, grid = plan(rows, k, n, group)
+    assert t_tile in t_tiles
     groups = k // group
     assert groups % splits == 0
-    if splits > 1:                      # each split is whole 64-deep stages
-        assert (k // splits) % M.K5_BK == 0
-    chunks, ntiles = -(-rows // t_tile), -(-n // M.K5_BN)
+    if splits > 1:                      # each split is whole stages
+        assert (k // splits) % bk == 0
+    chunks, ntiles = -(-rows // t_tile), -(-n // bn)
     assert grid == chunks * ntiles * splits
     # Rows, columns and depth are each cut into disjoint, non-empty ranges
     # that cover them, so every (t, n) is one tile's, over all of K once.
-    for size, step, count in ((rows, t_tile, chunks), (n, M.K5_BN, ntiles),
+    for size, step, count in ((rows, t_tile, chunks), (n, bn, ntiles),
                               (k, k // splits, splits)):
         spans = _intervals(size, step, count)
         assert spans[0][0] == 0 and spans[-1][1] == size
@@ -51,12 +59,34 @@ def test_k5_plan_covers_the_output_once(shape, rows):
         assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
 
 
+@pytest.mark.parametrize("kernel", ["k5", "k6"])
+@pytest.mark.parametrize("rows", ROWS)
+@pytest.mark.parametrize("shape", SHAPES_7B + SHAPES_SMALL, ids=[s[0] for s in SHAPES_7B + SHAPES_SMALL])
+def test_plan_splits_only_below_one_wave(shape, rows, kernel):
+    """A plan splits K only where its unsplit grid is under one wave of the
+    card's SMs, and then into the fewest splits that fill the wave (or the
+    most it can make, where none does)."""
+    _, k, n, group = shape
+    plan, _, bn, bk = PLANS[kernel]
+    t_tile, splits, grid = plan(rows, k, n, group)
+    unsplit = -(-rows // t_tile) * -(-n // bn)
+    if unsplit >= M.K5_SMS:
+        assert splits == 1
+        return
+    groups = k // group
+    valid = [d for d in range(1, groups + 1)
+             if groups % d == 0 and (d == 1 or (k // d) % bk == 0)]
+    fill = [d for d in valid if unsplit * d >= M.K5_SMS]
+    assert splits == (fill[0] if fill else valid[-1])
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k6"])
 @pytest.mark.parametrize("shape", SHAPES_7B, ids=[s[0] for s in SHAPES_7B])
-def test_k5_plan_fills_the_card_at_the_action_rows(shape):
+def test_k5_plan_fills_the_card_at_the_action_rows(shape, kernel):
     """At T = 57 (the out_window layer's rows) every 7B shape launches at
     least one wave of the card's 132 SMs."""
     _, k, n, group = shape
-    assert M._k5_plan(57, k, n, group)[2] >= M.K5_SMS
+    assert PLANS[kernel][0](57, k, n, group)[2] >= M.K5_SMS
 
 
 @pytest.mark.parametrize("d_in,group,ok", [(200, 100, False), (4304, 16, True),
