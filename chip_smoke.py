@@ -13,21 +13,28 @@ points a user calls: an HTTP /act server built by
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. environment: the card, torch/CUDA versions, TF32 off;
-  2. build: the hand-written kernels from `openvla_oft_tpu_torch/csrc`; K5's
-     and K6's registers, spills and shared memory from ptxas, and their wgmma
-     instructions counted in the library's SASS (HGMMA for K5's bf16, IGMMA
-     for K6's int8; an instance with none is a failure);
+  2. build: the hand-written kernels from `openvla_oft_tpu_torch/csrc`; K4's,
+     K5's and K6's registers, spills and shared memory from ptxas, and their
+     wgmma instructions counted in the library's SASS (HGMMA for K4's and
+     K5's bf16, IGMMA for K6's int8; an instance with none is a failure);
   3. kernel check: K1 (and `flash_attention_allheads`, which is K1) against
      its plain version at the serving path's shapes, timed beside SDPA with
      the boolean OFT mask and the bound; K4 (`ln_matmul`) against its plain
-     version at the 8 ViT serving shapes, timed beside the unfused sequence,
-     `torch.matmul` on the product alone and the bound;
+     version at the 8 ViT serving shapes and on large-mean rows, with its
+     plan, device times (torch.profiler) beside `torch.matmul` on the
+     product alone and the bound, CUDA-event times beside the unfused
+     sequence; two K4 calls bitwise equal;
+  3a. K4's parts: the script `openvla_oft_tpu_torch.scripts.exp_k4_parts`
+     (K4 without its statistics, its standardizing or its wgmmas, the
+     statistics from a separate pass, the ring alone; every compiled tile at
+     the 8 ViT shapes);
   4. serving: 3 /act requests, K1 launched 31 times per request, the server
      built without its warm-up (the first request is the cold one); one
      request through FastAPI's /act (ActionServer.run) against the stdlib
      server's answer;
   5. path parity: the K1 path against the dense path on the same inputs;
-     one request traced with torch.profiler (device time by kernel class);
+     one request traced with torch.profiler with vit_fused on (K4 98
+     launches) and one with it off (device time by kernel class);
   5a. ALOHA serving: `flagship_policy(platform="aloha", vit_fused=True)`
      (3 cameras, FiLM, 25 x 14 chunk, S = 1168): 3 /act requests with K1 31
      and K4 98 launches each, then 3 with vit_fused off (K4 0); the K4 path
@@ -80,7 +87,8 @@ import time
 import numpy as np
 import torch
 
-from openvla_oft_tpu_torch.utils.timing import cuda_time_ms, l2_flush_buffer
+from openvla_oft_tpu_torch.utils.timing import (cuda_time_ms, device_ms, l2_flush_buffer,
+                                                profiled)
 
 # Tolerances of the kernel check: bf16 outputs of an fp32-accumulated
 # attention against fp32 math on the same bf16 inputs.
@@ -119,12 +127,12 @@ K4_SHAPES = [
                              ("SigLIP", rows[1], 1152, ((3456, None), (4304, "gelu_tanh"))))
     for proj, (n, act) in zip(("qkv", "fc1"), projs)]
 K4_EXTRA = [("DINOv2 qkv ALOHA, quick_gelu", 783, 1024, 3072, "quick_gelu"),
-            ("ragged M=37 N=200", 37, 1024, 200, "gelu")]
+            ("ragged M=37 N=200", 37, 1024, 200, "gelu"),
+            ("DINOv2 fc1 ALOHA, large-mean rows", 783, 1024, 4096, "gelu")]
+# K4_EXTRA cases drawn with rows of mean / std about 20 and high-norm tokens.
+K4_LARGE_MEAN = ("DINOv2 fc1 ALOHA, large-mean rows",)
 # H100 SXM (NVIDIA's data sheet): dense bf16 and int8 tensor-core peaks, HBM3 rate.
 PEAK_BF16, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12
-# torch.profiler windows: idle host time on each side of the traced work (s),
-# and how many windows are tried before a trace counts as not measured.
-PROFILE_PAD_S, PROFILE_TRIES = 0.05, 3
 
 
 def log(*args):
@@ -159,19 +167,20 @@ def sdpa_args(q, k, v, key_valid, bidir):
                  enable_gqa=q.shape[2] != k.shape[2]))
 
 
-# The int4 kernels' instances (mangled-name pattern -> label) and the wgmma
+# The wgmma kernels' instances (mangled-name pattern -> label) and the wgmma
 # form their SASS must hold: bf16 wgmma is HGMMA, int8 wgmma IGMMA.
-WGMMA_KERNELS = {"K5": (r"int4_w4a16_wgmma_kernelILi(\d+)E", "HGMMA", "T_TILE={}"),
+WGMMA_KERNELS = {"K4": (r"ln_matmul_kernelILi(\d+)ELi(\d+)E", "HGMMA", "BM={} BN={}"),
+                 "K5": (r"int4_w4a16_wgmma_kernelILi(\d+)E", "HGMMA", "T_TILE={}"),
                  "K6": (r"int4_w4a8_wgmma_kernelILi(\d+)ELb([01])E", "IGMMA",
                         "T_TILE={} HALF={}")}
 
 
 def wgmma_build_report(lib_path) -> dict:
-    """K5's and K6's instances in ptxas' report (registers, spills, shared
-    memory, any note that it serialized the wgmmas) and their wgmma
-    instructions in the built library's SASS (HGMMA for K5's bf16, IGMMA
-    for K6's int8). An instance with none is not the
-    wgmma design: that raises. Returns {kernel: {instance: count}}."""
+    """K4's, K5's and K6's instances in ptxas' report (registers, spills,
+    shared memory, any note that it serialized the wgmmas) and their wgmma
+    instructions in the built library's SASS (HGMMA for K4's and K5's bf16,
+    IGMMA for K6's int8). An instance with none is not the wgmma design:
+    that raises. Returns {kernel: {instance: count}}."""
     def instance(line):
         for name, (pattern, _, label) in WGMMA_KERNELS.items():
             m = re.search(pattern, line)
@@ -279,22 +288,22 @@ def kernel_check(card: str) -> dict:
 
 
 def ln_matmul_check(card: str) -> dict:
-    """K4 against ln_matmul_ref at the ViT serving shapes, timed (L2 flushed)
-    beside its plain version, the port's unfused sequence (layer_norm ->
-    linear -> activation, what the dense ViT path runs, GELU as serving's
-    gelu_erf_fast) and `torch.matmul` on the product alone (no single
-    PyTorch call computes LN + matmul + activation), and the bound."""
+    """K4 against ln_matmul_ref at the ViT serving shapes and the extra
+    cases, with its plan; device times (torch.profiler, L2 flushed) of K4
+    and of `torch.matmul` on the product alone (no single PyTorch call
+    computes LN + matmul + activation), CUDA-event times beside its plain
+    version and the port's unfused sequence (layer_norm -> linear ->
+    activation, what the dense ViT path runs, GELU as serving's
+    gelu_erf_fast), and the bound; two calls bitwise equal at DINOv2 fc1."""
     from openvla_oft_tpu_torch.models import vit as V
     from openvla_oft_tpu_torch.ops import vit_fused as VF
+    from openvla_oft_tpu_torch.scripts.exp_k4_parts import operands
 
     dev = torch.device("cuda")
     flush = l2_flush_buffer(dev)
     results = {}
     for name, m, d, n, act in K4_SHAPES + K4_EXTRA:
-        gen = torch.Generator(device=dev).manual_seed(m + d + n)
-        x = (torch.randn((m, d), generator=gen, device=dev) * 1.5 + 0.3).bfloat16()
-        w = (torch.randn((d, n), generator=gen, device=dev) * d ** -0.5).bfloat16()
-        b = (torch.randn((n,), generator=gen, device=dev) * 0.1).bfloat16()
+        x, w, b = operands(m, d, n, seed=m + d + n, large_mean=name in K4_LARGE_MEAN)
         y = VF.ln_matmul(x, w, b, act)
         torch.cuda.synchronize()
         ref = VF.ln_matmul_ref(x, w, b, act)
@@ -306,21 +315,52 @@ def ln_matmul_check(card: str) -> dict:
         unfused_ms = cuda_time_ms(lambda: V._ln_linear({}, {"kernel": w, "bias": b}, x,
                                                        dense_act), flush=flush)
         library_ms = cuda_time_ms(lambda: torch.matmul(x, w), flush=flush)
+        dev_ms, how = device_ms(lambda: VF.ln_matmul(x, w, b, act), flush)
+        dev_lib, how_lib = device_ms(lambda: torch.matmul(x, w), flush)
         ops = 2 * m * d * n
         bound_ms, bound_by = bound(ops, nbytes(x, w, b, y), PEAK_BF16)
+        plan = VF._k4_plan(m, d, n)
         log(f"[k4] {name}: M={m} D={d} N={n} act={act} | max|d|={err:.3e} rel={rel:.3e} "
-            f"cos={cos:.6f} finite {finite} | K4 {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), "
-            f"plain {plain_ms:.4f}, unfused sequence ({dense_act}) {unfused_ms:.4f}, "
-            f"torch.matmul on the product alone {library_ms:.4f}, bound {bound_ms:.4f} "
-            f"({bound_by}) (median of 20, CUDA events, L2 flushed; {card})")
+            f"cos={cos:.6f} finite {finite} | plan (BM {plan[0]}, BN {plan[1]}, {plan[2]} "
+            f"CTAs): K4 {dev_ms:.4f} ms ({ops / dev_ms / 1e9:.1f} TFLOP/s, "
+            f"{bound_ms / dev_ms:.3f} of the bound; {how}), torch.matmul on the product "
+            f"alone {dev_lib:.4f} ({how_lib}) (K4 / matmul {dev_ms / dev_lib:.2f}) (mean of 10, "
+            f"L2 flushed); CUDA events around the calls: K4 {ms:.4f}, torch.matmul "
+            f"{library_ms:.4f}, plain {plain_ms:.4f}, unfused sequence ({dense_act}) "
+            f"{unfused_ms:.4f} (median of 20, L2 flushed); bound {bound_ms:.4f} ({bound_by}) "
+            f"({card})")
         if not (finite and rel <= K4_REL and cos >= K4_COSINE):
             raise AssertionError(f"K4 disagrees with its plain version at {name}")
+        if name == "DINOv2 fc1 ALOHA":
+            again = VF.ln_matmul(x, w, b, act)
+            torch.cuda.synchronize()
+            same = torch.equal(y, again)
+            log(f"[k4] {name}: two K4 calls bitwise equal: {same}")
+            if not same:
+                raise AssertionError(f"K4 is not deterministic at {name}")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "unfused_ms": unfused_ms, "library_ms": library_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+                         "bound_ms": bound_ms, "bound_by": bound_by, "dev_ms": dev_ms,
+                         "dev_lib": dev_lib, "plan": plan,
+                         "timing": how if how == how_lib else f"K4 {how}, library {how_lib}"}
     del flush
     torch.cuda.empty_cache()
     return results
+
+
+def k4_parts_phase(card: str) -> dict:
+    """The script exp_k4_parts: K4's variants at DINOv2 fc1 ALOHA, then every
+    compiled tile at the 8 ViT shapes (it prints its own lines)."""
+    from openvla_oft_tpu_torch.scripts import exp_k4_parts
+
+    t0 = time.perf_counter()
+    out = exp_k4_parts.main([])
+    for name, err in out["variants"]["rel_err"].items():
+        if not err <= K4_REL:
+            raise AssertionError(f"K4's {name} variant disagrees with its reference: {err}")
+    log(f"[k4-parts] exp_k4_parts.main: {time.perf_counter() - t0:.1f} s, the variants' and "
+        f"tiles' times above (ms, device time, L2 flushed; {card})")
+    return out
 
 
 def free_port() -> int:
@@ -514,57 +554,6 @@ def int_mm_times(x8: torch.Tensor, w8: torch.Tensor, flush) -> tuple:
     return events, dev, how
 
 
-def profiled(fn, complete=bool) -> list:
-    """The device kernels of fn() under torch.profiler (CUDA activity only),
-    or [] when PROFILE_TRIES windows gave none that `complete` accepts. A
-    window of a few ms has come back with no device activity at all, so each
-    window is padded with idle host time on both sides and tried again."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAD_S)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_PAD_S)
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if kernels and complete(kernels):
-            return kernels
-        log(f"[profile] torch.profiler window recorded {len(kernels)} device kernels, "
-            f"not a complete run: traced again")
-    return []
-
-
-def device_ms(fn, flush, iters: int = 10) -> tuple:
-    """(ms, how): the device time of fn's kernels per call (torch.profiler,
-    the mean of `iters` calls), the L2 flushed before each call. Fills and
-    memsets (the flush, and any zeroing that fn does) are not counted. Beside
-    the CUDA events around the wrapper, this leaves out the host's time in it.
-    A window is complete when every kernel name came `iters` times (or a
-    multiple); where none is, the time is the CUDA events' around the call."""
-    def calls():
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-
-    def timed_kernels(events):
-        return [e for e in events
-                if "fill" not in e.name.lower() and "memset" not in e.name.lower()]
-
-    def complete(events):
-        names = [e.name for e in timed_kernels(events)]
-        return bool(names) and all(names.count(n) % iters == 0 for n in set(names))
-
-    fn()
-    kernels = timed_kernels(profiled(calls, complete))
-    if not kernels:
-        log("[profile] torch.profiler recorded no complete window: CUDA events instead")
-        return cuda_time_ms(fn, flush=flush), "CUDA events (torch.profiler recorded none)"
-    return (sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / iters,
-            "device time (torch.profiler)")
-
-
 def int4_check(card: str) -> dict:
     """K5 and K6 against int4_matmul_ref and int4_matmul_a8_ref at the 7B's
     int4 shapes, timed (L2 flushed before each call) beside the library call
@@ -742,6 +731,30 @@ def int4_serving(card: str, rng, obs, bf16_hidden) -> dict:
                 f"{first}) ({card})")
     int4_parity(policy, obs, bf16_hidden, card)
     return {"W4A16": w4a16, "W4A8": w4a8}
+
+
+def libero_vit_fused(policy, obs, card: str) -> dict:
+    """The LIBERO bf16 policy's request with vit_fused on (K4 98 launches: 2
+    per ViT block that runs, DINOv2 23 and SigLIP 26) and off (none), each
+    counted once, then traced (`profile_request`). vit_fused is off after."""
+    k4 = 2 * sum(v.depth - 1 for v in policy.cfg.vision_configs)
+    frames = frames_of(policy, obs)
+    out = {}
+    try:
+        for fused in (True, False):
+            policy.vit_fused = fused
+            reset_launch_counts()
+            policy.predict_action_from_frames(frames, obs["instruction"], proprio=obs["state"])
+            torch.cuda.synchronize()
+            launched = launch_counts()["K4"]
+            log(f"[libero-k4] LIBERO bf16 request, vit_fused={fused}: {launched} K4 launches")
+            if launched != (k4 if fused else 0):
+                raise AssertionError(f"a LIBERO request with vit_fused={fused} launched K4 "
+                                     f"{launched} times, expected {k4 if fused else 0}")
+            out[fused] = profile_request(policy, obs, f"LIBERO bf16 vit_fused={fused}", card)
+    finally:
+        policy.vit_fused = False
+    return out
 
 
 def vision_features(policy, inputs, vit_fused: bool) -> torch.Tensor:
@@ -1254,6 +1267,7 @@ def main() -> int:
 
     checks = kernel_check(card)
     k4 = ln_matmul_check(card)
+    k4_parts_phase(card)
 
     t0 = time.perf_counter()
     policy = flagship_policy("cuda", seed=0)
@@ -1269,7 +1283,7 @@ def main() -> int:
         policy, card, rng, "bf16", {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": 0},
         warm=False, stdlib_check=True)
     bf16_hidden = path_parity(policy, observations[0], answers[0])
-    profile_request(policy, observations[0], "bf16", card)
+    libero_vit_fused(policy, observations[0], card)
     del policy
     gc.collect()
     torch.cuda.empty_cache()
@@ -1295,11 +1309,12 @@ def main() -> int:
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
-    # at T = 618, the probe group-dots at qkv T = 112. K5's and K6's times
-    # and their library times are device times: at their speed the wrapper's
-    # host time shows in CUDA events around the call (logged beside them). SDPA computes dq, dk
-    # and dv in one backward, so K2 and K3 share its time; for K4 the library
-    # time is torch.matmul on the product alone.
+    # at T = 618, the probe group-dots at qkv T = 112. K4's, K5's and K6's
+    # times and their library times are device times: at their speed the
+    # wrapper's host time shows in CUDA events around the call (logged
+    # beside them). SDPA computes dq, dk and dv in one backward, so K2 and K3
+    # share its time; for K4 the library time is torch.matmul on the product
+    # alone.
     libero, tr, wqkv = checks["libero_prefill"], bwd["training"], int4["wqkv T=618"]
     fc1 = k4["DINOv2 fc1 ALOHA"]
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
@@ -1321,10 +1336,12 @@ def main() -> int:
                      max(c["dkv_err"] for c in bwd.values()), tr["ms_dkv"], tr["plain_dkv"],
                      *tr["bound_dkv"], tr["library_ms"]),
         kernel_entry("ln_matmul", "ln_matmul.cu", "openvla_oft_tpu/ops/vit_fused.py:47",
-                     aloha_k4["K4"], max(c["max_abs_err"] for c in k4.values()), fc1["ms"],
-                     fc1["plain_ms"], fc1["bound_ms"], fc1["bound_by"], fc1["library_ms"],
-                     library_call="torch.matmul on the product alone",
-                     unfused_ms=fc1["unfused_ms"]),
+                     aloha_k4["K4"], max(c["max_abs_err"] for c in k4.values()),
+                     fc1["dev_ms"], fc1["plain_ms"], fc1["bound_ms"], fc1["bound_by"],
+                     fc1["dev_lib"], library_call="torch.matmul on the product alone",
+                     unfused_ms=fc1["unfused_ms"], plan=list(fc1["plan"]), hgmma=wgmma["K4"],
+                     timing=fc1["timing"], events_ms=fc1["ms"],
+                     library_events_ms=fc1["library_ms"]),
         kernel_entry("int4_matmul", "int4_w4a16.cu", "openvla_oft_tpu/ops/int4_matmul.py:43",
                      w4a16["K5"], max(c["err5"] for c in int4.values()), wqkv["dev5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["dev_lib5"],

@@ -121,8 +121,8 @@ def library() -> ctypes.CDLL:
     fn = lib.openvla_int4_matmul_w4a8            # K6: x8 sx packed scales out work counters
     fn.argtypes = [p] * 7 + [i] * 4 + [i64, i64, i, i, p]   # T K N group ldp lds t_tile splits
     fn.restype = ctypes.c_int
-    fn = lib.openvla_ln_matmul                   # K4: x w b out M D N ldw act eps vec8 wvec8
-    fn.argtypes = [p] * 4 + [i] * 3 + [i64, i, ctypes.c_float, i, i, p]
+    fn = lib.openvla_ln_matmul                   # K4: x w b out M D N ldx ldw act eps bm bn
+    fn.argtypes = [p] * 4 + [i] * 3 + [i64, i64, i, ctypes.c_float, i, i, p]
     fn.restype = ctypes.c_int
     fn = lib.openvla_int4_probe                  # K5 probe: as K5, then mode vec8 vec4
     fn.argtypes = [p] * 4 + [i] * 4 + [i64, i64, i, i, i, p]

@@ -1,6 +1,7 @@
 // PTX wrappers for Hopper (sm_90a) kernels: mbarriers, cp.async, TMA
 // tensor-map loads, wgmma shared-memory descriptors and the wgmma fence,
-// commit and wait. Shared by K5 (int4_w4a16.cu) and K6 (int4_w4a8.cu).
+// commit and wait. Shared by K4 (ln_matmul.cu), K5 (int4_w4a16.cu) and K6
+// (int4_w4a8.cu).
 
 #pragma once
 
@@ -90,6 +91,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
          ((uint64_t)1 << 62);
+}
+
+// wgmma shared-memory descriptor of an MN-major tile with the 128-byte swizzle
+// (a bf16 B operand stored (K, N), read with the instruction's transpose bit):
+// each k row holds 64 columns in 128 bytes, 8 k rows make a 1024-byte swizzle
+// atom; SBO = 1024 bytes from one 8-row group of k to the next, LBO = `lbo`
+// bytes from one 64-column atom to the next along N.
+__device__ __forceinline__ uint64_t mn_sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -1,5 +1,5 @@
-// The wmma tile walk shared by K4 (ln_matmul.cu) and the K5 timing probe
-// (int4_probe.cu, the walk of the first K5): one CTA of 8 warps (2 x 4) computes a
+// The wmma tile walk of the K5 timing probe (int4_probe.cu, the walk of the
+// first K5 and of the first K4): one CTA of 8 warps (2 x 4) computes a
 // BM x BN tile of y = x @ W, each warp a 32 x 32 block of 2 x 2 bf16
 // m16n16k16 fragments with fp32 accumulators; per step of BK the CTA stages
 // a bf16 x tile and a bf16 weight tile in shared memory.

@@ -12,21 +12,23 @@ qkv projection (no activation) and the MLP fc1 (the backbone's GELU).
 x (..., M, D), w (D, N) (a layer view of a stacked kernel is fine), b (N,)
 or None -> (..., M, N) in x's dtype. A CUDA tensor goes to K4 (bf16 x, w and
 b only) or raises; a CPU tensor goes to the plain version `ln_matmul_ref`.
-There is no fallback between them. `ln_matmul.launches` counts the launches.
+There is no fallback between them. `ln_matmul.launches` counts the launches;
+`ln_matmul.last_plan` is the (BM, BN, CTAs) of the last one, from `_k4_plan`.
 
 The switch: the JAX package reads `OPENVLA_VIT_FUSED` from the environment at
 trace time. The port reads no environment variable: the caller chooses once
 (`OpenVLAPolicy.vit_fused`, `serve_action_chunk(vit_fused=...)`) and the
 choice reaches `models/vit.py::_ln_linear` through the `vit_fused` context
 below. The default is off, as in the JAX package. The TPU wrapper's block
-knobs (`OPENVLA_VIT_FUSED_BM`, `_BN`) do not carry over: the kernel picks its
-own tiles.
+knobs (`OPENVLA_VIT_FUSED_BM`, `_BN`) do not carry over: `_k4_plan` picks
+the kernel's tile per launch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Optional
 
 import torch
@@ -84,8 +86,55 @@ def ln_matmul_ref(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     return _activate(acc, act).to(x.dtype)
 
 
+# K4's compiled tiles (`csrc/ln_matmul.cu`, one instance each): rows x columns
+# of y per CTA, largest first; the depth of a stage and the card's SM count.
+K4_TILES = ((128, 256), (128, 192), (128, 128), (64, 128))
+K4_BK, K4_SMS = 64, 132
+# A CTA's rate on its tile relative to the 128 x 256 tile's, per SM: a CTA's
+# prologue statistics and its ring's x rows cost the same at every width, so
+# narrower tiles do less per byte (fitted to the tile sweep of
+# scripts/exp_k4_parts.py on the card, PERF.md).
+_K4_RATE = {(128, 256): 1.0, (128, 192): 0.9, (128, 128): 0.65, (64, 128): 0.45}
+
+
+@functools.lru_cache(maxsize=256)
+def _k4_plan(m: int, d: int, n: int) -> tuple:
+    """K4's launch (BM, BN, grid CTAs) for x (m, d) and w (d, n): one CTA per
+    BM x BN tile of y, one wave of the card's SMs at a time, each CTA over
+    all of d. Among the tiles whose grid fills at least 3/4 of a wave (all
+    tiles, where none does), the least estimated time: waves x stages x
+    BM x BN / the tile's rate; a tie goes to the larger tile."""
+    best = None
+    for bm, bn in K4_TILES:
+        ctas = -(-m // bm) * -(-n // bn)
+        est = -(-ctas // K4_SMS) * -(-d // K4_BK) * bm * bn / _K4_RATE[(bm, bn)]
+        key = (ctas < 0.75 * K4_SMS, est)
+        if best is None or key < best[0]:
+            best = (key, (bm, bn, ctas))
+    return best[1]
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether K4's TMA copies can read the 2-D bf16 tensor `t` as it is:
+    contiguous rows, a 16-byte aligned base and a row stride of a multiple
+    of 16 bytes. Otherwise the wrapper hands K4 a padded copy (`_padded`)."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and (t.stride(0) * t.element_size()) % 16 == 0)
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the 2-D `t` whose rows are padded with zeros to a multiple
+    of 16 bytes; K4 reads only its first t.shape[1] columns."""
+    per = 16 // t.element_size()
+    out = t.new_zeros((t.shape[0], -(-t.shape[1] // per) * per))
+    out[:, :t.shape[1]] = t
+    return out
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], act: Optional[str],
-            eps: float) -> torch.Tensor:
+            eps: float, tile: Optional[tuple] = None) -> torch.Tensor:
+    """K4 on x's device, with the plan's tile, or with `tile` (BM, BN), one
+    of K4_TILES (the parts script's tile sweep)."""
     from openvla_oft_tpu_torch import _build
 
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
@@ -105,16 +154,24 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], act: Op
     if m == 0 or n == 0:
         return out
     bias = None if b is None else b.contiguous()
-    vec8 = int(x2.data_ptr() % 16 == 0 and d % 8 == 0)
-    wvec8 = int(w.data_ptr() % 16 == 0 and w.stride(0) % 8 == 0 and n % 8 == 0)
+    if not _tma_ready(x2):
+        x2 = _padded(x2)
+    if not _tma_ready(w):
+        w = _padded(w)
+    plan = _k4_plan(m, d, n)
+    if tile is not None:
+        if tile not in K4_TILES:
+            raise ValueError(f"ln_matmul (K4) compiles the tiles {K4_TILES}, not {tile}")
+        plan = (*tile, -(-m // tile[0]) * -(-n // tile[1]))
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.openvla_ln_matmul(
             x2.data_ptr(), w.data_ptr(), 0 if bias is None else bias.data_ptr(), out.data_ptr(),
-            m, d, n, w.stride(0), ACTS.index(act), eps, vec8, wvec8, stream)
+            m, d, n, x2.stride(0), w.stride(0), ACTS.index(act), eps, plan[0], plan[1], stream)
     _build.check_launch(err, "ln_matmul (K4)")
     ln_matmul.launches += 1
+    ln_matmul.last_plan = plan
     return out
 
 
@@ -135,3 +192,4 @@ def ln_matmul(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None
 
 
 ln_matmul.launches = 0
+ln_matmul.last_plan = None

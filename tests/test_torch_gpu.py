@@ -442,8 +442,18 @@ LN_CASES = [
      ] + [("d52_n198", 37, 52, 198, "quick_gelu")]
 
 
-def _ln_operands(gen, m, d, n, device, layers=None):
-    x = (torch.randn((m, d), generator=gen, device=device) * 1.5 + 0.3).bfloat16()
+def _ln_operands(gen, m, d, n, device, layers=None, large_mean=False):
+    """x, w, b in bf16. large_mean: rows with mean / std about 20, and every
+    97th row a high-norm token with three channels at +-100, as DINOv2's
+    residual stream has them."""
+    if large_mean:
+        x = torch.randn((m, d), generator=gen, device=device) + 20.0
+        rows = torch.arange(5, m, 97, device=device)
+        for ch, v in ((3, 100.0), (250, -100.0), (700, 100.0)):
+            x[rows, ch] = v
+        x = x.bfloat16()
+    else:
+        x = (torch.randn((m, d), generator=gen, device=device) * 1.5 + 0.3).bfloat16()
     w = torch.randn((d, n) if layers is None else (layers, d, n), generator=gen, device=device)
     b = torch.randn((n,), generator=gen, device=device) * 0.1
     return x, (w * d ** -0.5).bfloat16(), b.bfloat16()
@@ -482,6 +492,48 @@ def test_ln_matmul_kernel_on_a_layer_view_without_bias(cuda):
     torch.cuda.synchronize()
     assert got.shape == (3, 261, 3072)
     _check_ln(got, VF.ln_matmul_ref(x, w[1], None, "gelu"))
+
+
+def test_ln_matmul_kernel_on_large_mean_rows(cuda):
+    """DINOv2's fc1 at ALOHA on rows whose mean is about 20 standard
+    deviations, with high-norm tokens: the statistics' E[x^2] - mean^2
+    cancels most of its digits, under the same bounds."""
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
+
+    x, w, b = _ln_operands(torch.Generator(device=cuda).manual_seed(8), 783, 1024, 4096, cuda,
+                           large_mean=True)
+    got = VF.ln_matmul(x, w, b, "gelu")
+    torch.cuda.synchronize()
+    _check_ln(got, VF.ln_matmul_ref(x, w, b, "gelu"))
+
+
+@pytest.mark.parametrize("case", [c for c in LN_CASES if c[0] in
+                                  ("dinov2_fc1_aloha", "siglip_fc1_libero", "m37_n200_gelu")],
+                         ids=lambda c: c[0])
+def test_ln_matmul_kernel_is_deterministic(cuda, case):
+    """Two calls give bitwise-equal outputs (no atomics, fixed sum order)."""
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
+
+    _, m, d, n, act = case
+    x, w, b = _ln_operands(torch.Generator(device=cuda).manual_seed(m + d + n), m, d, n, cuda)
+    first = VF.ln_matmul(x, w, b, act)
+    again = VF.ln_matmul(x, w, b, act)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("case", LN_CASES, ids=[c[0] for c in LN_CASES])
+def test_ln_matmul_launch_takes_the_plan(cuda, case):
+    """The launch runs the tile and grid that `_k4_plan` gives its shape."""
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
+
+    _, m, d, n, act = case
+    x, w, b = _ln_operands(torch.Generator(device=cuda).manual_seed(m + d + n), m, d, n, cuda)
+    VF.ln_matmul(x, w, b, act)
+    torch.cuda.synchronize()
+    assert VF.ln_matmul.last_plan == VF._k4_plan(m, d, n)
+    bm, bn, ctas = VF.ln_matmul.last_plan
+    assert (bm, bn) in VF.K4_TILES and ctas == -(-m // bm) * -(-n // bn)
 
 
 def test_ln_matmul_kernel_rejects_what_it_does_not_take(cuda):
