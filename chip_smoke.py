@@ -13,10 +13,11 @@ points a user calls: an HTTP /act server built by
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. environment: the card, torch/CUDA versions, TF32 off;
-  2. build: the hand-written kernels from `openvla_oft_tpu_torch/csrc`; K4's,
-     K5's and K6's registers, spills and shared memory from ptxas, and their
-     wgmma instructions counted in the library's SASS (HGMMA for K4's and
-     K5's bf16, IGMMA for K6's int8; an instance with none is a failure);
+  2. build: the hand-written kernels from `openvla_oft_tpu_torch/csrc`; K2's,
+     K3's, K4's, K5's and K6's registers, spills and shared memory from
+     ptxas, and their wgmma instructions counted in the library's SASS
+     (HGMMA for the bf16 kernels, IGMMA for K6's int8; an instance with none
+     is a failure);
   3. kernel check: K1 (and `flash_attention_allheads`, which is K1) against
      its plain version at the serving path's shapes, timed beside SDPA with
      the boolean OFT mask and the bound; K4 (`ln_matmul`) against its plain
@@ -59,13 +60,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      version, timed beside its plain version, `torch.matmul` and the bound;
   9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
      version at the training shape (B=8, per-row pads and windows), the
-     ALOHA length, GQA and dead rows, timed beside SDPA's backward;
+     ALOHA length, GQA and dead rows, two calls of each bitwise equal, with
+     their plan; device times (torch.profiler, L2 flushed) beside SDPA's
+     backward kernels alone and the bound, CUDA events beside them; the
+     stats rows K2 writes against the stats pass and the plain LSE, delta;
  10. training: 3 steps of the fine-tuning CLI at B=8 (remat "all": K1 64,
      K2 32 and K3 32 launches per step), loss, grad norm, step time, peak
-     memory;
+     memory, no stats pass (K3 reads K2's stats rows);
  11. step profile: the CLI's train_step on its final state and first batch,
      3 steps timed, then one traced with torch.profiler (device activity
-     only): device time by kernel class and the idle share;
+     only): device time by kernel class, K2 + K3's share, the idle share;
  12. training-path parity: one loss and backward through K1/K2/K3 against
      the dense path on the same 7B weights and batch.
 Every serving phase but the first builds its server with the deploy CLI's
@@ -169,16 +173,18 @@ def sdpa_args(q, k, v, key_valid, bidir):
 
 # The wgmma kernels' instances (mangled-name pattern -> label) and the wgmma
 # form their SASS must hold: bf16 wgmma is HGMMA, int8 wgmma IGMMA.
-WGMMA_KERNELS = {"K4": (r"ln_matmul_kernelILi(\d+)ELi(\d+)E", "HGMMA", "BM={} BN={}"),
+WGMMA_KERNELS = {"K2": (r"flash_bwd_dq_kernelILi(\d+)E", "HGMMA", "D={}"),
+                 "K3": (r"flash_bwd_dkv_kernelILi(\d+)E", "HGMMA", "D={}"),
+                 "K4": (r"ln_matmul_kernelILi(\d+)ELi(\d+)E", "HGMMA", "BM={} BN={}"),
                  "K5": (r"int4_w4a16_wgmma_kernelILi(\d+)E", "HGMMA", "T_TILE={}"),
                  "K6": (r"int4_w4a8_wgmma_kernelILi(\d+)ELb([01])E", "IGMMA",
                         "T_TILE={} HALF={}")}
 
 
 def wgmma_build_report(lib_path) -> dict:
-    """K4's, K5's and K6's instances in ptxas' report (registers, spills,
-    shared memory, any note that it serialized the wgmmas) and their wgmma
-    instructions in the built library's SASS (HGMMA for K4's and K5's bf16,
+    """K2's, K3's, K4's, K5's and K6's instances in ptxas' report (registers,
+    spills, shared memory, any note that it serialized the wgmmas) and their
+    wgmma instructions in the built library's SASS (HGMMA for the bf16 ones,
     IGMMA for K6's int8). An instance with none is not the wgmma design:
     that raises. Returns {kernel: {instance: count}}."""
     def instance(line):
@@ -259,7 +265,7 @@ def kernel_check(card: str) -> dict:
                                                   key_valid=key_valid, bidir_mask=bidir))
         qkv_t, kw = sdpa_args(q, k, v, key_valid, bidir)
         library_ms = cuda_time_ms(lambda: sdpa(*qkv_t, **kw))
-        pairs = live_tile_pairs(key_valid.cpu().numpy(), bidir.cpu().numpy())
+        pairs = fa._live_pairs(True, key_valid, bidir)
         flops = 2 * 2 * 64 * 64 * d * h * pairs      # QK^T and PV per live pair and head
         bound_ms, bound_by = bound(flops, nbytes(q, k, v, key_valid, bidir, o, lse), PEAK_BF16)
         log(f"[kernel] K1 {name}: B={b} S={s} H={h} Hkv={hkv} D={d} pads={pads} "
@@ -908,22 +914,6 @@ def training_setup():
             FT.first_batch(cfg))
 
 
-def live_tile_pairs(key_valid: np.ndarray, bidir: np.ndarray, tile: int = 64) -> int:
-    """(query tile, key tile) pairs that K2 and K3 compute, over the batch:
-    the skip rule of csrc/oft_mask.cuh (causal)."""
-    b, s = key_valid.shape
-    pairs = 0
-    for bi in range(b):
-        for q0 in range(0, s, tile):
-            q_hi = min(q0 + tile, s) - 1
-            q_bid = bidir[bi, q0:q_hi + 1].any()
-            for k0 in range(0, s, tile):
-                valid = key_valid[bi, k0:k0 + tile]
-                k_bid = (valid & bidir[bi, k0:k0 + tile]).any()
-                pairs += bool(valid.any() and (k0 <= q_hi or (q_bid and k_bid)))
-    return pairs
-
-
 def _rel_cos(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     g, r = got.double().flatten(), ref.double().flatten()
     rel = ((g - r).abs().max() / r.abs().max()).item()
@@ -931,10 +921,45 @@ def _rel_cos(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return (g - r).abs().max().item(), rel, cos
 
 
+def stats_check(args, card: str) -> dict:
+    """The stats rows (LSE, delta) that K2 writes on the way against the
+    stats pass that a K3 called alone runs (bitwise: one code path) and
+    against the plain LSE and delta; the pass's device time."""
+    from openvla_oft_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, o, lse, do, causal, key_valid, bidir = args
+    masks = fa._mask_u8(q.shape[0], q.shape[1], key_valid, bidir, q.device)
+    q, k, v, do = fa._bwd_operands(q, k, v, o, lse, do)
+    plan = fa._plan_of(q, k)
+    rows = fa._stats_rows(q, plan)
+    fa._launch_dq(q, k, v, o, lse, do, causal, *masks, plan, rows)
+    passed = fa._launch_stats(o, lse, do, plan)
+    torch.cuda.synchronize()
+    s = q.shape[1]
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    same = bool(torch.equal(rows[:, :, :s], passed[:, :, :s]))
+    lse_exact = bool(torch.equal(rows[:, :, :s, 0], lse))
+    delta_rel = ((rows[:, :, :s, 1] - delta).abs().max() / delta.abs().max()).item()
+    pad_ok = bool(torch.all(rows[:, :, s:, 1] == 0) and torch.all(rows[:, :, s:, 0] == 1e30))
+    flush = l2_flush_buffer()
+    ms, how = device_ms(lambda: fa._launch_stats(o, lse, do, plan), flush)
+    del flush
+    log(f"[bwd] stats rows: K2's equal the stats pass's bitwise: {same}; LSE copied exactly: "
+        f"{lse_exact}; delta max|d|/max|ref| {delta_rel:.3e}; rows past S (1e30, 0): {pad_ok};"
+        f" the stats pass {ms:.4f} ms ({how}; {card})")
+    if not (same and lse_exact and delta_rel <= 1e-5 and pad_ok):
+        raise AssertionError("the stats rows disagree")
+    return {"ms": ms, "timing": how}
+
+
 def backward_check(card: str, s_train: int) -> dict:
-    """K2 and K3 against flash_attention_bwd_ref, timed with CUDA events
-    beside the bound and SDPA's backward with the boolean OFT mask (its
-    forward plus backward less its forward: dq, dk and dv in one call)."""
+    """K2 and K3 against flash_attention_bwd_ref at the training shape, the
+    ALOHA length, GQA and dead rows, with two bitwise-equal calls of each;
+    timed by device time (torch.profiler, L2 flushed) beside the bound and
+    SDPA's backward with the boolean OFT mask (its backward kernels alone:
+    autograd.grad on a retained graph; dq, dk and dv in one call), with the
+    CUDA-event times beside them (SDPA: forward and backward less forward,
+    and the backward alone)."""
     from openvla_oft_tpu_torch.ops import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -952,6 +977,7 @@ def backward_check(card: str, s_train: int) -> dict:
         ("dead_rows", 1, s, 32, 32, 128, [(150, s, s - 57, 57)]),
     ]
     results = {}
+    flush = l2_flush_buffer()
     for name, b, s_len, h, hkv, d, rows in cases:
         gen = torch.Generator(device=dev).manual_seed(s_len + hkv + b)
         qkv = torch.randn((b, s_len, (h + 2 * hkv) * d), generator=gen, device=dev).bfloat16()
@@ -968,13 +994,27 @@ def backward_check(card: str, s_train: int) -> dict:
         args = (q, k, v, o, lse, do, True, key_valid, bidir)
         dq = fa.flash_attention_dq(*args)
         dk, dv = fa.flash_attention_dkv(*args)
+        again = (fa.flash_attention_dq(*args),) + fa.flash_attention_dkv(*args)
         torch.cuda.synchronize()
+        bitwise = all(bool(torch.equal(a, b_)) for a, b_ in zip((dq, dk, dv), again))
+        del again
         refs = fa.flash_attention_bwd_ref(*args)
         errs = {n: _rel_cos(g, r) for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
         dead = ~fa._allow(q, True, key_valid, bidir)[:, 0].any(-1)
         zeros = bool(torch.all(dq[dead] == 0) and torch.all(dk[~key_valid] == 0)
                      and torch.all(dv[~key_valid] == 0))
         finite = all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
+        # K2 and K3 as the op's backward launches them: K2 writes the stats
+        # rows, K3 reads them (no stats pass).
+        masks = fa._mask_u8(b, s_len, key_valid, bidir, dev)
+        ops = fa._bwd_operands(q, k, v, o, lse, do)
+        plan = fa._plan_of(ops[0], ops[1])
+        stats = fa._stats_rows(ops[0], plan)
+        fa._launch_dq(*ops[:3], o, lse, ops[3], True, *masks, plan, stats)
+        dev_dq, how_dq = device_ms(
+            lambda: fa._launch_dq(*ops[:3], o, lse, ops[3], True, *masks, plan, stats), flush)
+        dev_dkv, how_dkv = device_ms(
+            lambda: fa._launch_dkv(*ops, True, *masks, plan, stats), flush)
         ms_dq = cuda_time_ms(lambda: fa.flash_attention_dq(*args))
         ms_dkv = cuda_time_ms(lambda: fa.flash_attention_dkv(*args))
         plain_dq = cuda_time_ms(lambda: fa.flash_attention_dq_ref(*args))
@@ -984,32 +1024,53 @@ def backward_check(card: str, s_train: int) -> dict:
         do_t = do.transpose(1, 2)
         sdpa_fwd = cuda_time_ms(lambda: sdpa(*leaves, **kw))
         sdpa_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(sdpa(*leaves, **kw), leaves, do_t))
-        library_ms = sdpa_fwd_bwd - sdpa_fwd
-        del leaves, kw
-        pairs = live_tile_pairs(key_valid.cpu().numpy(), bidir.cpu().numpy())
+        out_t = sdpa(*leaves, **kw)
+        sdpa_bwd_events = cuda_time_ms(
+            lambda: torch.autograd.grad(out_t, leaves, do_t, retain_graph=True))
+        library_ms, how_lib = device_ms(
+            lambda: torch.autograd.grad(out_t, leaves, do_t, retain_graph=True), flush)
+        del leaves, kw, out_t
+        pairs = fa._live_pairs(True, key_valid, bidir)
         mm = 2 * 64 * 64 * d * h * pairs          # one 64x64xD product per live pair and head
-        tf_dq, tf_dkv = 3 * mm / ms_dq / 1e9, 4 * mm / ms_dkv / 1e9
-        inputs = nbytes(q, k, v, o, lse, do, key_valid, bidir)
-        bound_dq = bound(3 * mm, inputs + nbytes(dq), PEAK_BF16)
-        bound_dkv = bound(4 * mm, inputs + nbytes(dk, dv), PEAK_BF16)
+        tf_dq, tf_dkv = 3 * mm / dev_dq / 1e9, 4 * mm / dev_dkv / 1e9
+        # Each kernel's own traffic: K2 reads q, k, v, O, LSE, dO and the
+        # masks and writes dq and the stats rows; K3 reads q, k, v, dO, the
+        # stats rows and the masks and writes dk and dv.
+        shared = nbytes(q, k, v, do, *masks)
+        bound_dq = bound(3 * mm, shared + nbytes(o, lse, dq, stats), PEAK_BF16)
+        bound_dkv = bound(4 * mm, shared + nbytes(stats, dk, dv), PEAK_BF16)
         log(f"[bwd] {name}: B={b} S={s_len} H={h} Hkv={hkv} D={d} rows={rows[:2]}"
             f"{'...' if len(rows) > 2 else ''} | " + " ".join(
                 f"{n} max|d|={e[0]:.3e} rel={e[1]:.3e} cos={e[2]:.6f}" for n, e in errs.items())
-            + f" | dead rows and invalid keys exactly 0: {zeros}, finite: {finite}")
-        log(f"[bwd] {name}: K2 {ms_dq:.4f} ms ({tf_dq:.1f} TFLOP/s), plain dq {plain_dq:.4f} ms;"
-            f" K3 {ms_dkv:.4f} ms ({tf_dkv:.1f} TFLOP/s), plain dk/dv {plain_dkv:.4f} ms; "
-            f"bounds K2 {bound_dq[0]:.4f} ms ({bound_dq[1]}), K3 {bound_dkv[0]:.4f} ms "
-            f"({bound_dkv[1]}); SDPA with the boolean mask: forward {sdpa_fwd:.4f} ms, forward "
-            f"and backward {sdpa_fwd_bwd:.4f} ms, backward {library_ms:.4f} ms "
-            f"({pairs} live 64x64 tile pairs per head; median of 20, CUDA events; {card})")
-        if not (zeros and finite and all(e[1] <= BWD_REL and e[2] >= BWD_COSINE
-                                         for e in errs.values())):
+            + f" | dead rows and invalid keys exactly 0: {zeros}, finite: {finite}, two calls "
+              f"bitwise equal: {bitwise}")
+        log(f"[bwd] {name}: plan rows={plan['rows']} tile={plan['tile']} stages="
+            f"{plan['stages']} s_pad={plan['s_pad']} K2 grid {plan['dq_grid']} K3 grid "
+            f"{plan['dkv_grid']}; K2 {dev_dq:.4f} ms ({tf_dq:.1f} TFLOP/s, "
+            f"{bound_dq[0] / dev_dq:.3f} of the bound), K3 {dev_dkv:.4f} ms ({tf_dkv:.1f} "
+            f"TFLOP/s, {bound_dkv[0] / dev_dkv:.3f} of the bound), K2 + K3 "
+            f"{dev_dq + dev_dkv:.4f} ms ({how_dq}; {how_dkv}); SDPA's backward {library_ms:.4f}"
+            f" ms ({how_lib}); bounds K2 {bound_dq[0]:.4f} ms ({bound_dq[1]}), K3 "
+            f"{bound_dkv[0]:.4f} ms ({bound_dkv[1]}) ({pairs} live 64x64 tile pairs per head;"
+            f" {card})")
+        log(f"[bwd] {name}, CUDA events (median of 20, wrapper included): K2 {ms_dq:.4f} ms, "
+            f"K3 with its stats pass {ms_dkv:.4f} ms, plain dq {plain_dq:.4f} ms, plain dk/dv "
+            f"{plain_dkv:.4f} ms; SDPA with the boolean mask: forward {sdpa_fwd:.4f} ms, "
+            f"forward and backward {sdpa_fwd_bwd:.4f} ms, their difference "
+            f"{sdpa_fwd_bwd - sdpa_fwd:.4f} ms, the backward alone {sdpa_bwd_events:.4f} ms")
+        if not (zeros and finite and bitwise and all(e[1] <= BWD_REL and e[2] >= BWD_COSINE
+                                                     for e in errs.values())):
             raise AssertionError(f"K2/K3 disagree with their plain version at {name}")
         results[name] = {"dq_err": errs["dq"][0], "dkv_err": max(errs["dk"][0], errs["dv"][0]),
-                         "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_dq": plain_dq,
+                         "ms_dq": dev_dq, "ms_dkv": dev_dkv, "plain_dq": plain_dq,
                          "plain_dkv": plain_dkv, "library_ms": library_ms,
-                         "bound_dq": bound_dq, "bound_dkv": bound_dkv}
-        del q, k, v, qkv, do, o, lse, dq, dk, dv, refs, args
+                         "bound_dq": bound_dq, "bound_dkv": bound_dkv, "plan": plan,
+                         "timing": how_dq, "events_dq": ms_dq, "events_dkv": ms_dkv,
+                         "library_events_ms": sdpa_bwd_events}
+        if name == "training":
+            results["stats"] = stats_check(args, card)
+        del q, k, v, qkv, do, o, lse, dq, dk, dv, refs, args, ops, stats
+    del flush
     torch.cuda.empty_cache()
     return results
 
@@ -1040,12 +1101,18 @@ def train(card: str, n_layers: int):
         if step == 0:
             seen["first"] = [t.detach().clone() for t in tree_leaves(state.trainables)]
 
+    from openvla_oft_tpu_torch.ops import flash_attention as fa
+
     try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         reset_launch_counts()
+        stats_before = fa.flash_attention_dkv.stats_launches
         out = FT.main(TRAIN_FLAGS + ["--run_root_dir", run_root], on_step=on_step)
         launches = launch_counts()
+        if fa.flash_attention_dkv.stats_launches != stats_before:
+            raise AssertionError("the training backward ran the stats pass: K3 did not read "
+                                 "K2's stats rows")
         log(f"[train] finetune: {out['final_step']} steps in {time.perf_counter() - t0:.1f} s "
             f"(weights drawn on the card, checkpoint written); launches {launches}; "
             f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
@@ -1180,7 +1247,10 @@ def profile_step(state, card: str) -> dict:
         f"{1 - busy / float(np.median(untraced)):.3f} (host clock, ends in "
         f"torch.cuda.synchronize; {card})")
     log_classes("profile", by_class)
-    return {"untraced_ms": untraced, "traced_ms": wall, "busy_ms": busy}
+    k23 = sum(by_class.get(c, (0.0, 0))[0] for c in ("K2", "K3"))
+    log(f"[profile] train_step at B=8: K2 + K3 {k23:.1f} ms = {k23 / busy:.3f} of the device "
+        f"time ({card})")
+    return {"untraced_ms": untraced, "traced_ms": wall, "busy_ms": busy, "k23_ms": k23}
 
 
 def training_parity(state, card: str) -> None:
@@ -1309,13 +1379,13 @@ def main() -> int:
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
-    # at T = 618, the probe group-dots at qkv T = 112. K4's, K5's and K6's
-    # times and their library times are device times: at their speed the
-    # wrapper's host time shows in CUDA events around the call (logged
-    # beside them). SDPA computes dq, dk and dv in one backward, so K2 and K3
-    # share its time; for K4 the library time is torch.matmul on the product
-    # alone.
+    # at T = 618, the probe group-dots at qkv T = 112. K2's to K6's times and
+    # their library times are device times: at their speed the wrapper's
+    # host time shows in CUDA events around the call (logged beside them).
+    # SDPA computes dq, dk and dv in one backward, so K2 and K3 share its
+    # time; for K4 the library time is torch.matmul on the product alone.
     libero, tr, wqkv = checks["libero_prefill"], bwd["training"], int4["wqkv T=618"]
+    bwd_cases = {n: c for n, c in bwd.items() if n != "stats"}
     fc1 = k4["DINOv2 fc1 ALOHA"]
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
     k1_launches = (serve_launches["K1"] + aloha[True]["launches"]["K1"]
@@ -1329,12 +1399,19 @@ def main() -> int:
                      libero["library_ms"]),
         kernel_entry("flash_attention_dq", "flash_attention_bwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:181", train_launches["K2"],
-                     max(c["dq_err"] for c in bwd.values()), tr["ms_dq"], tr["plain_dq"],
-                     *tr["bound_dq"], tr["library_ms"]),
+                     max(c["dq_err"] for c in bwd_cases.values()), tr["ms_dq"],
+                     tr["plain_dq"], *tr["bound_dq"], tr["library_ms"],
+                     library_call="SDPA's backward with the boolean OFT mask (dq, dk, dv)",
+                     plan=tr["plan"], hgmma=wgmma["K2"], timing=tr["timing"],
+                     events_ms=tr["events_dq"], library_events_ms=tr["library_events_ms"]),
         kernel_entry("flash_attention_dkv", "flash_attention_bwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:207", train_launches["K3"],
-                     max(c["dkv_err"] for c in bwd.values()), tr["ms_dkv"], tr["plain_dkv"],
-                     *tr["bound_dkv"], tr["library_ms"]),
+                     max(c["dkv_err"] for c in bwd_cases.values()), tr["ms_dkv"],
+                     tr["plain_dkv"], *tr["bound_dkv"], tr["library_ms"],
+                     library_call="SDPA's backward with the boolean OFT mask (dq, dk, dv)",
+                     plan=tr["plan"], hgmma=wgmma["K3"], timing=tr["timing"],
+                     events_ms=tr["events_dkv"], library_events_ms=tr["library_events_ms"],
+                     stats_pass_ms=bwd["stats"]["ms"]),
         kernel_entry("ln_matmul", "ln_matmul.cu", "openvla_oft_tpu/ops/vit_fused.py:47",
                      aloha_k4["K4"], max(c["max_abs_err"] for c in k4.values()),
                      fc1["dev_ms"], fc1["plain_ms"], fc1["bound_ms"], fc1["bound_by"],

@@ -109,12 +109,15 @@ def library() -> ctypes.CDLL:
                    i, ctypes.c_float, p]         # causal scale stream
     fn.restype = ctypes.c_int
     strides = [i64] * 12                         # q, k, v, dO strides (b, s, h)
-    fn = lib.openvla_flash_attention_bwd_dq
-    fn.argtypes = [p] * 9 + [i] * 5 + strides + [i, ctypes.c_float, p]
-    fn.restype = ctypes.c_int                    # q k v o lse dO valid bidir dq
-    fn = lib.openvla_flash_attention_bwd_dkv
-    fn.argtypes = [p] * 10 + [i] * 5 + strides + [i, ctypes.c_float, p]
-    fn.restype = ctypes.c_int                    # ... dk dv, then as K2
+    fn = lib.openvla_flash_attention_bwd_dq      # q k v o lse dO valid bidir dq stats
+    fn.argtypes = [p] * 10 + [i] * 6 + strides + [i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int                    # B S H Hkv D s_pad ... causal scale
+    fn = lib.openvla_flash_attention_bwd_dkv     # q k v stats dO valid bidir dk dv, then as K2
+    fn.argtypes = [p] * 9 + [i] * 6 + strides + [i, ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    fn = lib.openvla_flash_attention_bwd_stats   # o lse dO stats B S H D s_pad dO strides
+    fn.argtypes = [p] * 4 + [i] * 5 + [i64] * 3 + [p]
+    fn.restype = ctypes.c_int
     fn = lib.openvla_int4_matmul_w4a16           # K5: x packed scales out work counters
     fn.argtypes = [p] * 6 + [i] * 4 + [i64, i64, i, i, p]   # T K N group ldp lds t_tile splits
     fn.restype = ctypes.c_int
@@ -133,7 +136,11 @@ def library() -> ctypes.CDLL:
 
 
 def check_launch(err: int, what: str) -> None:
-    """Raise on the cudaError_t that a launch entry of the library returned."""
+    """Raise on the cudaError_t that a launch entry of the library returned
+    (a negative code: minus the CUresult of the tensor-map encoder)."""
+    if err < 0:
+        raise RuntimeError(f"{what} kernel launch failed: the tensor-map encoder "
+                           f"(cuTensorMapEncodeTiled) returned CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
                            f"{library().openvla_cuda_error_string(err).decode()} ({err})")

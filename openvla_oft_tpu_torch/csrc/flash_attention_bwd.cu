@@ -12,598 +12,915 @@
 //   dS[i, j] = P[i, j] * (dP[i, j] - delta[i]) * scale
 //   dq = bf16(dS) . K,   dk = bf16(dS)^T . Q,   dv = bf16(P)^T . dO
 //
-// with scale = D^-1/2 and the mask rule and tile-skip rule of
-// oft_mask.cuh, which K1 uses too. P and dS round to bf16 before their
-// products, as the TPU kernels' astype(v.dtype) / astype(q.dtype) do; every
-// product accumulates in fp32 on the tensor cores (nvcuda::wmma).
+// with scale = D^-1/2 and the mask rule, tile-skip rule and interior rule of
+// oft_mask.cuh (K1 shares the first two). P and dS round to bf16 before
+// their products, as the TPU kernels' astype(v.dtype) / astype(q.dtype) do;
+// every product accumulates in fp32 on the tensor cores (wgmma).
 //
 // Dead rows (no allowed key) carry LSE = -1e30 from K1, so exp(S - LSE)
 // overflows there; P is taken by a select on `allow`, never a multiply, so
-// the overflow never reaches a product.
-//
-// K2: one CTA per (b, h, 64-row query tile); each of 4 warps owns 16 query
-// rows and keeps its dq accumulator in registers across the key tiles, which
-// it walks with K1's skip rule. Scores and dP go through shared memory, where
-// two lanes per row apply the mask and form dS.
-//
-// K3: one CTA per (b, kv head, 64-row key tile); each warp owns 16 key rows.
-// It loops over the query heads of the GQA group and the query tiles, skipping
-// a query tile that lies wholly before the key tile unless one of its
-// bidirectional rows reaches a bidirectional key in it (the same predicate as
-// K1's, read from the key tile's side). The TPU version writes dk/dv per query
-// head and sums the group outside the kernel; here the group is summed inside
-// the CTA in the fp32 accumulators, with one rounding to bf16 at the end. A
-// key tile with no valid key, and every invalid key row, is written as zero.
-//
-// q, k, v and dO are read through their strides (last dim contiguous), O is
-// (B,S,H,D) and LSE (B,H,S) as K1 writes them; dq is (B,S,H,D) and dk/dv
-// (B,S,Hkv,D), contiguous bf16.
+// the overflow never reaches a product. A dead row is never in an interior
+// pair (that pair would allow it a key). Rows past S carry LSE = +1e30 in the
+// stats rows below, so their P is exp(-huge) = 0 without a select.
 //
 // Bound. At the LIBERO training shape (B=8, S=585, H=32, D=128) one layer's
-// backward is about 3 + 4 products of 8*32*585^2*128*2 FLOP before tile
-// skipping, against a few tens of MB of operands: compute-bound once it runs
-// on the tensor cores. This first version keeps the score, dP and (in K3) the
-// dk/dv accumulators in shared memory, which limits it to one CTA per SM;
-// wgmma, TMA and register-resident tiles are later work.
+// backward is 3 (K2) + 4 (K3) products of 2*64*64*128 FLOP per live 64x64
+// tile pair and head against a few tens of MB of operands: compute-bound.
+//
+// Design (both kernels). A CTA of three warpgroups: two consumer warpgroups
+// of 64 rows each, whose accumulators stay in registers, and a loading
+// warpgroup whose first warp keeps a ring of STAGES stages filled by TMA
+// (setmaxnreg moves its registers to the consumers). Every operand tile is
+// 64 rows of D bf16 as D / 64 boxes of 64 rows x 128 bytes with the 128-byte
+// swizzle, read through the tensor's strides by a 4-D tensor map (D, heads,
+// S, B): rows past S arrive as zeros. The same tile serves wgmma as a
+// K-major operand (D contiguous) and, through the transpose bit, as an
+// MN-major B (rows along the product's depth). Per 64 x 64 pair a consumer
+// issues two SS wgmmas for the scores and dP, turns them into P (one
+// ex2.approx per entry) and dS in registers from the accumulator layout
+// (interior pairs without allow()), converts them in place into bf16 A
+// fragments (the accumulator's layout is the A fragment's, as in
+// FlashAttention-3) and issues the RS wgmmas of its products. Nothing of
+// S, dP, P or dS goes to shared memory. The loading warp walks the tiles
+// with the skip rule and writes each stage's header (its row offset, head,
+// flag masks); an empty header ends the walk.
+//
+// K2 (dq): one CTA per (b, h, 128 query rows), longest rows first. Q and dO
+// stay resident; K and V come through the ring as 64-row key tiles. The
+// consumers first compute delta for the CTA's rows from dO and O (two threads
+// per row) and, when asked, write (LSE, delta) as the stats rows (B, H,
+// s_pad) that K3 reads; rows past S get (+1e30, 0).
+//
+// K3 (dk, dv): one CTA per (b, kv head, 128 key rows). K and V stay resident;
+// Q and dO come through the ring as 64-row query tiles of every head of the
+// GQA group, each with its 64 stats rows (one bulk copy). The group is summed
+// in the fp32 accumulators, with one rounding to bf16 at the end. A key tile
+// with no valid key, and every invalid key row, is written as zero.
+// flash_bwd_stats_kernel writes the stats rows when K3 is called alone.
+//
+// Deterministic: every sum runs in a fixed order, no atomics.
+//
+// Built with -DBWD_PARTS, the file also holds the variants that
+// scripts/exp_bwd_parts.py times (the `Part` flags): without delta, P and
+// dS or the wgmmas.
+//
+// q, k, v and dO are read through their strides (last dim contiguous, other
+// strides multiples of 8 elements, 16-byte aligned bases), O is (B,S,H,D)
+// and LSE (B,H,S) as K1 writes them; dq is (B,S,H,D) and dk/dv (B,S,Hkv,D),
+// contiguous bf16.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "hopper_ptx.cuh"
 #include "oft_mask.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-using oft::BK;
-using oft::BQ;
-using oft::NTHREADS;
+using namespace hopper;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int ROWS = 64;                  // a warpgroup's rows (wgmma M); a ring tile's rows
+constexpr int CTA_ROWS = 2 * ROWS;        // K2's query rows, K3's key rows per CTA
+constexpr int CONSUMERS = 256;            // two consumer warpgroups
+constexpr int NTHREADS = CONSUMERS + 128; // + the loading warpgroup
+constexpr int STAGES = 4;
+static_assert(ROWS == 64 && CTA_ROWS == 128 && STAGES == 4,
+              "the plan of ops/flash_attention.py::_bwd_plan (BWD_TILE, BWD_ROWS, BWD_STAGES)");
+// setmaxnreg: the consumers take exactly what the loading warpgroup gives up
+// of the 168 registers a thread of a 384-thread block starts with (a larger
+// request would wait for registers that never come free).
+constexpr int CREGS = 232, LREGS = 168 - 2 * (CREGS - 168);
+static_assert(CONSUMERS * CREGS + 128 * LREGS == NTHREADS * 168, "register split");
+constexpr int BOX = 64 * 128;             // one TMA box: 64 rows x 64 bf16 columns
+constexpr int SMEM_LIMIT = 227 * 1024;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float PAD_LSE = 1e30f;          // stats of rows past S: P = 0
 
-// Every wmma pointer below stays 32-byte aligned: each region size and each
-// 16-row offset is a multiple of 32 bytes.
-template <int D>
-struct DqLayout {
-  static constexpr int LDQ = D + 8;    // bf16 Q, dO, K, V tiles
-  static constexpr int LDS = BK + 4;   // fp32 S and dP tiles
-  static constexpr int LDP = BK + 8;   // bf16 dS tile
-  static constexpr int LDO = D + 4;    // fp32 dq staging (aliases S and dP)
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + size_t(BQ) * LDQ * 2;
-  static constexpr size_t k_off = do_off + size_t(BQ) * LDQ * 2;
-  static constexpr size_t v_off = k_off + size_t(BK) * LDQ * 2;
-  static constexpr size_t s_off = v_off + size_t(BK) * LDQ * 2;
-  static constexpr size_t dp_off = s_off + size_t(BQ) * LDS * 4;
-  static constexpr size_t ds_off = dp_off + size_t(BQ) * LDS * 4;
-  static constexpr size_t row_off = ds_off + size_t(BQ) * LDP * 2;
-  static constexpr size_t flag_off = row_off + 2 * BQ * 4;
-  static constexpr size_t bytes = flag_off + 2 * BK;
-  static_assert(size_t(BQ) * LDO * 4 <= ds_off - s_off, "dq staging fits");
+// What an instance does. The library's kernels are SHIPPED; the other
+// combinations are the variants that scripts/exp_bwd_parts.py times (built
+// with -DBWD_PARTS).
+enum Part {
+  SCORES = 1,     // P and dS from the scores; without: the raw accumulators
+  PRODUCTS = 2,   // the wgmmas
+  DELTA = 4       // K2: delta from dO and O in the prologue; without: delta = 0
 };
+constexpr int SHIPPED = SCORES | PRODUCTS | DELTA;
 
 template <int D>
-struct DkvLayout {
-  static constexpr int LDQ = D + 8;    // bf16 K, V, Q, dO tiles
-  static constexpr int LDS = BQ + 4;   // fp32 S^T and dP^T tiles (key rows)
-  static constexpr int LDP = BQ + 8;   // bf16 P^T and dS^T tiles
-  static constexpr int LDO = D + 4;    // fp32 dk and dv accumulators
-  static constexpr size_t dk_off = 0;
-  static constexpr size_t dv_off = dk_off + size_t(BK) * LDO * 4;
-  static constexpr size_t k_off = dv_off + size_t(BK) * LDO * 4;
-  static constexpr size_t v_off = k_off + size_t(BK) * LDQ * 2;
-  static constexpr size_t q_off = v_off + size_t(BK) * LDQ * 2;
-  static constexpr size_t do_off = q_off + size_t(BQ) * LDQ * 2;
-  static constexpr size_t s_off = do_off + size_t(BQ) * LDQ * 2;
-  static constexpr size_t dp_off = s_off + size_t(BK) * LDS * 4;
-  static constexpr size_t p_off = dp_off + size_t(BK) * LDS * 4;
-  static constexpr size_t ds_off = p_off + size_t(BK) * LDP * 2;
-  static constexpr size_t row_off = ds_off + size_t(BK) * LDP * 2;
-  static constexpr size_t flag_off = row_off + 2 * BQ * 4;
-  static constexpr size_t bytes = flag_off + 3 * 64;
+struct Layout {
+  static_assert(D == 64 || D == 128, "D is 64 or 128");
+  static constexpr int TILE = ROWS * D * 2;          // a 64-row tile: D / 64 boxes
+  static constexpr int RES = 2 * CTA_ROWS * D * 2;   // two resident 128-row tiles
+  static constexpr int STAGE = 2 * TILE;             // two 64-row tiles per stage
+  static constexpr int STATS = ROWS * 8;             // K3: a query tile's (LSE, delta)
+  // [resident tiles][ring][stats rows][headers][full, empty, resident
+  // barriers]: every tile starts on a 1024-byte swizzle atom.
+  static constexpr int STATS_OFF = RES + STAGES * STAGE;
+  static constexpr int HDR_OFF = STATS_OFF + STAGES * STATS;
+  static constexpr int BAR_OFF = HDR_OFF + STAGES * 32;
+  static constexpr int SMEM = 1024 + BAR_OFF + (2 * STAGES + 1) * 8;
+  static_assert(SMEM + CTA_ROWS * 8 <= SMEM_LIMIT, "shared memory");
 };
 
-// lse[r] and delta[r] = sum_d dO[r, d] * O[r, d] for the 64 query rows of a
-// tile (head h), from the dO tile in shared memory and O in device memory.
-// Two threads per row; rows past S get 0 (their P is masked to 0).
-template <int D, int LDQ>
-__device__ __forceinline__ void load_row_stats(
-    float* s_lse, float* s_delta, const __nv_bfloat16* s_do,
-    const __nv_bfloat16* o, const float* lse, int b, int h, int q0, int S,
-    int H) {
-  const int rr = threadIdx.x >> 1, hf = threadIdx.x & 1;
-  const int qi = q0 + rr;
+// A stage's header, written by the loading warp before it arms the stage.
+// r0: the tile's first row (-1: the walk has ended); h: K3's query head;
+// m0, m1: K2's key masks (valid; valid and bidirectional), K3's query mask
+// (bidirectional) in m0.
+struct __align__(16) Header {
+  int r0, h, pad0, pad1;
+  unsigned long long m0, m1;
+};
+
+struct Params {
+  const __nv_bfloat16* o;      // K2 and the stats pass: (B,S,H,D) contiguous
+  const float* lse;            // (B,H,S)
+  const __nv_bfloat16* dout;   // read through d_sb, d_ss, d_sh by the delta pass
+  long long d_sb, d_ss, d_sh;
+  const uint8_t* key_valid;    // (B,S)
+  const uint8_t* bidir;        // (B,S)
+  float2* stats;               // (B,H,s_pad) (LSE, delta): K2 writes (if set), K3 reads
+  __nv_bfloat16* out0;         // dq | dk
+  __nv_bfloat16* out1;         // -  | dv
+  int S, H, Hkv, s_pad, causal;
+  float scale;
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Bit i: row r0 + i exists (< S) and its flag is set (a warp's ballot).
+__device__ __forceinline__ unsigned long long row_mask(const uint8_t* flags, int r0, int S,
+                                                       int lane) {
+  const bool a = r0 + lane < S && flags[r0 + lane] != 0;
+  const bool b = r0 + 32 + lane < S && flags[r0 + 32 + lane] != 0;
+  const unsigned lo = __ballot_sync(0xffffffffu, a), hi = __ballot_sync(0xffffffffu, b);
+  return (unsigned long long)hi << 32 | lo;
+}
+
+// The masks of a 64-key tile: valid, and valid and bidirectional.
+struct Keys {
+  unsigned long long valid, bid;
+};
+__device__ __forceinline__ Keys key_masks(const uint8_t* valid_b, const uint8_t* bidir_b, int k0,
+                                          int S, int lane) {
+  const unsigned long long v = row_mask(valid_b, k0, S, lane);
+  return {v, v & row_mask(bidir_b, k0, S, lane)};
+}
+
+__device__ __forceinline__ bool bit(unsigned long long m, int i) { return (m >> i) & 1ull; }
+
+// (LSE, delta) of query row `row` of head h, delta = sum_d dO * O in fp32:
+// lanes 2r and 2r + 1 take one half of D each. Rows past S get (+1e30, 0).
+template <int D, bool WITH_DELTA = true>
+__device__ __forceinline__ float2 row_stats(const Params& p, int b, int h, int row, int half) {
   float acc = 0.f;
-  if (qi < S) {
-    const __nv_bfloat16* orow =
-        o + (((long long)b * S + qi) * H + h) * D + hf * (D / 2);
-    const __nv_bfloat16* drow = s_do + rr * LDQ + hf * (D / 2);
-#pragma unroll 8
-    for (int c = 0; c < D / 2; ++c)
-      acc += __bfloat162float(orow[c]) * __bfloat162float(drow[c]);
+  if (WITH_DELTA && row < p.S) {
+    const uint4* o4 = reinterpret_cast<const uint4*>(
+        p.o + (((long long)b * p.S + row) * p.H + h) * D + half * (D / 2));
+    const uint4* d4 = reinterpret_cast<const uint4*>(p.dout + b * p.d_sb + row * p.d_ss +
+                                                     h * p.d_sh + half * (D / 2));
+#pragma unroll
+    for (int i = 0; i < D / 16; ++i) {
+      const uint4 x = o4[i], y = d4[i];
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc += bf16_lo(xs[j]) * bf16_lo(ys[j]) + bf16_hi(xs[j]) * bf16_hi(ys[j]);
+    }
   }
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  if (hf == 0) {
-    s_delta[rr] = acc;
-    s_lse[rr] = qi < S ? lse[((long long)b * H + h) * S + qi] : 0.f;
+  return row < p.S ? make_float2(p.lse[((long long)b * p.H + h) * p.S + row], acc)
+                   : make_float2(PAD_LSE, 0.f);
+}
+
+// 2^x: one MUFU.EX2 (ex2.approx.ftz, relative error about 2^-22; P rounds
+// to bf16 before any product).
+__device__ __forceinline__ float exp2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D (64 x N, fp32) += A (64 x 16) * B (16 x N): both K-major bf16 in shared
+// memory; `accumulate` 0 overwrites D.
+template <int N>
+__device__ __forceinline__ void wgmma_kk(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate);
+// D (64 x N, fp32) += A (64 x 16, bf16 registers) * B (16 x N, bf16, MN-major
+// in shared memory, the transpose bit set).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc_b);
+
+
+template <>
+__device__ __forceinline__ void wgmma_kk<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Loads rows r0 .. r0 + 63 of head `head` of batch row b: D / 64 boxes.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int head, int r0, int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * BOX, map, bar, 64 * c, head, r0, b);
+}
+
+// Descriptors of k16 step kk of a 64-row tile at `tile`: K-major (the step's
+// 16 columns of every row), and MN-major (rows 16 kk .. 16 kk + 15 as the
+// depth, the D columns as N; LBO = the next 64-column box).
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * BOX + 32 * (kk & 3));
+}
+__device__ __forceinline__ uint64_t mndesc(uint32_t tile, int kk) {
+  return mn_sw128_desc(tile + 2048 * kk, BOX);
+}
+
+// A 64 x 64 accumulator as the bf16 A fragments of the next product's four
+// k16 steps: registers 8 kk .. 8 kk + 7 hold columns 16 kk .. 16 kk + 15 of
+// the thread's two rows in the order of the A fragment.
+__device__ __forceinline__ void to_frags(const float (&x)[32], uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// Register fences after a wgmma wait: the compiler sees a wgmma's results
+// when it is issued, so without these it may read an accumulator, or reuse
+// an A fragment's registers, before the wait that makes that safe.
+template <int N>
+__device__ __forceinline__ void settle(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f[kk][i])::"memory");
+}
+
+struct Smem {
+  uint8_t *res0, *res1, *ring, *stats;
+  Header* hdr;
+  uint64_t *full, *empty, *res_full;
+};
+
+template <int D>
+__device__ __forceinline__ Smem carve(uint8_t* raw) {
+  using L = Layout<D>;
+  uint8_t* s = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                          ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s + L::BAR_OFF);
+  return {s, s + L::RES / 2, s + L::RES, s + L::STATS_OFF,
+          reinterpret_cast<Header*>(s + L::HDR_OFF), bars, bars + STAGES, bars + 2 * STAGES};
+}
+
+__device__ __forceinline__ void init_barriers(const Smem& sm) {
+  for (int s = 0; s < STAGES; ++s) {
+    mbar_init(smem_u32(sm.full + s), 1);                   // the loading warp's arrive
+    mbar_init(smem_u32(sm.empty + s), CONSUMERS / 32);     // one per consumer warp
+  }
+  mbar_init(smem_u32(sm.res_full), 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Stage `it` of the walk: its slot, once the consumers have released it.
+__device__ __forceinline__ int next_slot(const Smem& sm, int it) {
+  const int s = it % STAGES;
+  if (it >= STAGES) mbar_wait(smem_u32(sm.empty + s), ((it / STAGES) & 1) ^ 1);
+  return s;
+}
+
+// The loading warp's last stage: a header with r0 = -1 and no copies.
+__device__ __forceinline__ void end_walk(const Smem& sm, int it, int lane) {
+  const int s = next_slot(sm, it);
+  if (lane == 0) {
+    sm.hdr[s].r0 = -1;
+    mbar_arrive(smem_u32(sm.full + s));
   }
 }
 
-// ---------------------------------------------------------------- K2 (dq)
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ o,
-                    const float* __restrict__ lse,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const uint8_t* __restrict__ key_valid,
-                    const uint8_t* __restrict__ bidir,
-                    __nv_bfloat16* __restrict__ dq, int S, int H, int Hkv,
-                    long long q_sb, long long q_ss, long long q_sh,
-                    long long k_sb, long long k_ss, long long k_sh,
-                    long long v_sb, long long v_ss, long long v_sh,
-                    long long d_sb, long long d_ss, long long d_sh,
-                    int causal, float scale) {
-  using L = DqLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
-  __nv_bfloat16* sDO = reinterpret_cast<__nv_bfloat16*>(smem + L::do_off);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
-  float* sS = reinterpret_cast<float*>(smem + L::s_off);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp_off);
-  __nv_bfloat16* sDS = reinterpret_cast<__nv_bfloat16*>(smem + L::ds_off);
-  float* sLse = reinterpret_cast<float*>(smem + L::row_off);
-  float* sDelta = sLse + BQ;
-  uint8_t* sValid = smem + L::flag_off;
-  uint8_t* sBid = sValid + BK;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const uint8_t* valid_b = key_valid + (long long)b * S;
-  const uint8_t* bidir_b = bidir + (long long)b * S;
-  const __nv_bfloat16* k_bh = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* v_bh = v + b * v_sb + hk * v_sh;
-  const int q_n = min(BQ, S - q0);
-
-  oft::load_tile<D, L::LDQ>(sQ, q + b * q_sb + (long long)q0 * q_ss + h * q_sh,
-                            q_ss, q_n);
-  oft::load_tile<D, L::LDQ>(
-      sDO, dout + b * d_sb + (long long)q0 * d_ss + h * d_sh, d_ss, q_n);
-  __syncthreads();
-  load_row_stats<D, L::LDQ>(sLse, sDelta, sDO, o, lse, b, h, q0, S, H);
-
-  const int q_hi = min(q0 + BQ, S) - 1;
-  const int q_bid_any =
-      __syncthreads_or(tid < BQ && q0 + tid < S && bidir_b[q0 + tid] != 0);
-
-  // Lanes 2r and 2r+1 of a warp own row r of its 16 (32 columns each).
-  const int r = lane >> 1, half = lane & 1;
-  const int row = warp * 16 + r;
-  const int qi = q0 + row;
-  const bool q_live = qi < S;
-  const bool q_bid = q_live && bidir_b[qi] != 0;
-
-  FragC dq_acc[D / 16];
+__device__ __forceinline__ void prefetch_maps(const CUtensorMap* a, const CUtensorMap* b,
+                                              const CUtensorMap* c, const CUtensorMap* d) {
+  const CUtensorMap* maps[4] = {a, b, c, d};
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.f);
+  for (int i = 0; i < 4; ++i)
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(maps[i])) : "memory");
+}
 
-  const int n_tiles = (S + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    const int kn = min(BK, S - k0);
-    int vf = 0, bf = 0;
-    if (tid < kn) {
-      vf = valid_b[k0 + tid] != 0;
-      bf = bidir_b[k0 + tid] != 0;
-    }
-    const int any_valid = __syncthreads_or(vf);
-    const int any_bid = __syncthreads_or(vf && bf);
-    if (!oft::tile_pair_live(causal, k0, q_hi, q_bid_any, any_valid, any_bid))
-      continue;   // uniform across the CTA
-    if (tid < BK) {
-      sValid[tid] = (uint8_t)vf;
-      sBid[tid] = (uint8_t)bf;
-    }
-    oft::load_tile<D, L::LDQ>(sK, k_bh + (long long)k0 * k_ss, k_ss, kn);
-    oft::load_tile<D, L::LDQ>(sV, v_bh + (long long)k0 * v_ss, v_ss, kn);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows, fp32 accumulate.
-    {
-      FragC acc_s[BK / 16], acc_p[BK / 16];
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::fill_fragment(acc_s[n], 0.f);
-        wmma::fill_fragment(acc_p[n], 0.f);
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        FragA aq, ado;
-        wmma::load_matrix_sync(aq, sQ + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-        wmma::load_matrix_sync(ado, sDO + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          // col_major B: B[d][key] = sK[key * LDQ + d], i.e. K transposed.
-          FragBCol bk, bv;
-          wmma::load_matrix_sync(bk, sK + n * 16 * L::LDQ + kk * 16, L::LDQ);
-          wmma::mma_sync(acc_s[n], aq, bk, acc_s[n]);
-          wmma::load_matrix_sync(bv, sV + n * 16 * L::LDQ + kk * 16, L::LDQ);
-          wmma::mma_sync(acc_p[n], ado, bv, acc_p[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, acc_s[n],
-                                L::LDS, wmma::mem_row_major);
-        wmma::store_matrix_sync(sDP + warp * 16 * L::LDS + n * 16, acc_p[n],
-                                L::LDS, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // dS = P * (dP - delta) * scale under the mask, rounded to bf16.
-    {
-      const float lse_i = sLse[row], delta_i = sDelta[row];
-      const float* srow = sS + row * L::LDS + half * 32;
-      const float* prow = sDP + row * L::LDS + half * 32;
-      __nv_bfloat16* dsrow = sDS + row * L::LDP + half * 32;
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int jj = half * 32 + c;
-        const bool ok =
-            q_live && oft::allow(causal, qi, k0 + jj, sValid[jj], q_bid, sBid[jj]);
-        const float p = ok ? expf(srow[c] * scale - lse_i) : 0.f;
-        dsrow[c] = __float2bfloat16(p * (prow[c] - delta_i) * scale);
-      }
-    }
-    __syncwarp();
-
-    // dq(16 x D) += dS(16 x 64) . K(64 x D).
-    {
-      FragA ads[BK / 16];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(ads[kk], sDS + warp * 16 * L::LDP + kk * 16,
-                               L::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          FragBRow bk;
-          wmma::load_matrix_sync(bk, sK + kk * 16 * L::LDQ + n * 16, L::LDQ);
-          wmma::mma_sync(dq_acc[n], ads[kk], bk, dq_acc[n]);
-        }
-      }
-    }
-    __syncthreads();   // K/V/flags are overwritten by the next tile
-  }
-  __syncthreads();     // the staging below aliases S and dP
-
-  float* sStage = sS;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(sStage + warp * 16 * L::LDO + n * 16, dq_acc[n],
-                            L::LDO, wmma::mem_row_major);
+// A consumer warp gives stage s back to the loading warp.
+__device__ __forceinline__ void release(const Smem& sm, int s, int lane) {
   __syncwarp();
-  if (q_live) {
-    const float* srow = sStage + row * L::LDO + half * (D / 2);
-    __nv_bfloat16* out =
-        dq + (((long long)b * S + qi) * H + h) * D + half * (D / 2);
-#pragma unroll 8
-    for (int c = 0; c < D / 2; ++c) out[c] = __float2bfloat16(srow[c]);
+  if (lane == 0) mbar_arrive(smem_u32(sm.empty + s));
+}
+
+// ---------------------------------------------------------------- K2 (dq)
+template <int D, int V>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap dmap, const Params p) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const Smem sm = carve<D>(smem_raw);      // res0: Q, res1: dO; a stage: K, V
+  __shared__ float2 s_stats[CTA_ROWS];     // (LSE, delta) of the CTA's rows
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int S = p.S;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * CTA_ROWS;   // the longest rows first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (p.H / p.Hkv);
+  const uint8_t* valid_b = p.key_valid + (long long)b * S;
+  const uint8_t* bidir_b = p.bidir + (long long)b * S;
+
+  if (tid == 0) init_barriers(sm);
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- the loading warpgroup: its first warp walks the key tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(LREGS));
+    if (warp != CONSUMERS / 32) return;
+    unsigned long long qb[2];   // each query half's bidirectional rows
+    int q_hi[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      qb[hf] = row_mask(bidir_b, q0 + ROWS * hf, S, lane);
+      q_hi[hf] = min(q0 + ROWS * hf + ROWS, S) - 1;
+    }
+    if (lane == 0) {
+      prefetch_maps(&qmap, &kmap, &vmap, &dmap);
+      const uint32_t bar = smem_u32(sm.res_full);
+      mbar_expect_tx(bar, L::RES);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        load_tile<D>(smem_u32(sm.res0 + hf * L::TILE), &qmap, bar, h, q0 + ROWS * hf, b);
+        load_tile<D>(smem_u32(sm.res1 + hf * L::TILE), &dmap, bar, h, q0 + ROWS * hf, b);
+      }
+    }
+    int it = 0;
+    for (int k0 = 0; k0 < S; k0 += ROWS) {
+      const Keys km = key_masks(valid_b, bidir_b, k0, S, lane);
+      bool live = false;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        live |= q0 + ROWS * hf < S &&
+                oft::tile_pair_live(p.causal, k0, q_hi[hf], qb[hf] != 0, km.valid != 0,
+                                    km.bid != 0);
+      if (!live) continue;   // uniform across the warp
+      const int s = next_slot(sm, it++);
+      if (lane == 0) {
+        sm.hdr[s] = Header{k0, 0, 0, 0, km.valid, km.bid};
+        const uint32_t bar = smem_u32(sm.full + s), dst = smem_u32(sm.ring + s * L::STAGE);
+        mbar_expect_tx(bar, L::STAGE);
+        load_tile<D>(dst, &kmap, bar, hk, k0, b);
+        load_tile<D>(dst + L::TILE, &vmap, bar, hk, k0, b);
+      }
+    }
+    end_walk(sm, it, lane);
+    return;
+  }
+
+  // ---- two consumer warpgroups: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CREGS));
+  {
+    // delta once per query row: two threads per row of the CTA's 128.
+    const int r = tid >> 1;
+    const float2 st = row_stats<D, (V & DELTA) != 0>(p, b, h, q0 + r, tid & 1);
+    if (!(tid & 1)) {
+      s_stats[r] = st;
+      if (p.stats != nullptr)   // s_pad covers every CTA's rows (the entry's check)
+        p.stats[((long long)b * p.H + h) * p.s_pad + q0 + r] = st;
+    }
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+
+  const int wg = warp / 4, w = warp % 4, c = lane % 4;
+  const int q0w = q0 + ROWS * wg, lr = 16 * w + lane / 4;   // rows lr and lr + 8 of 64
+  const int qi0 = q0w + lr, qi1 = qi0 + 8;
+  const float2 st0 = s_stats[ROWS * wg + lr], st1 = s_stats[ROWS * wg + lr + 8];
+  const unsigned long long qbm = row_mask(bidir_b, q0w, S, lane);
+  const bool bid0 = bit(qbm, lr), bid1 = bit(qbm, lr + 8);
+  const bool has_rows = q0w < S;
+  const int q_hi = min(q0w + ROWS, S) - 1;
+  const float scale = p.scale, sl2 = scale * LOG2E;
+  const float nl0 = -st0.x * LOG2E, nl1 = -st1.x * LOG2E;
+  const uint32_t qa = smem_u32(sm.res0 + wg * L::TILE), da = smem_u32(sm.res1 + wg * L::TILE);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(smem_u32(sm.res_full), 0);
+  for (int it = 0;; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(smem_u32(sm.full + s), (it / STAGES) & 1);
+    const Header hd = sm.hdr[s];
+    if (hd.r0 < 0) break;
+    const int k0 = hd.r0;
+    if (has_rows && oft::tile_pair_live(p.causal, k0, q_hi, qbm != 0, hd.m0 != 0, hd.m1 != 0)) {
+      const bool interior =
+          oft::tile_pair_interior(p.causal, k0 + ROWS - 1, q0w, hd.m0 == ~0ull);
+      const uint32_t ka = smem_u32(sm.ring + s * L::STAGE), va = ka + L::TILE;
+      float sc[32], dp[32];
+      if constexpr ((V & PRODUCTS) != 0) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_kk<64>(sc, kdesc(qa, kk), kdesc(ka, kk), kk);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_kk<64>(dp, kdesc(da, kk), kdesc(va, kk), kk);
+        wgmma_commit();
+        wgmma_wait<1>();   // S done
+      }
+      settle(sc);
+      if constexpr ((V & SCORES) != 0) {
+        // P in place while dP runs. Accumulator v holds row lr + 8 ((v >> 1)
+        // & 1) and key column 8 (v >> 2) + 2c + (v & 1) of the tile.
+#pragma unroll
+        for (int v = 0; v < 32; ++v) {
+          const int col = 8 * (v >> 2) + 2 * c + (v & 1);
+          const bool hi = (v >> 1) & 1;
+          float pv = exp2_(fmaf(sc[v], sl2, hi ? nl1 : nl0));
+          if (!interior && !oft::allow(p.causal, hi ? qi1 : qi0, k0 + col, bit(hd.m0, col),
+                                       hi ? bid1 : bid0, bit(hd.m1, col)))
+            pv = 0.f;   // a select: dead rows' exp overflows
+          sc[v] = pv;
+        }
+      }
+      if constexpr ((V & PRODUCTS) != 0) wgmma_wait<0>();
+      settle(dp);
+      if constexpr ((V & SCORES) != 0) {
+#pragma unroll
+        for (int v = 0; v < 32; ++v)
+          dp[v] = sc[v] * (dp[v] - ((v >> 1) & 1 ? st1.y : st0.y)) * scale;
+      }
+      uint32_t f[4][4];
+      to_frags(dp, f);
+      if constexpr ((V & PRODUCTS) != 0) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_t<D>(acc, f[kk], mndesc(ka, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      hold(f);
+    }
+    release(sm, s, lane);
+  }
+
+  settle(acc);
+  // dq: bf16 pairs of the thread's two rows; rows past S are not written.
+#pragma unroll
+  for (int v = 0; v < D / 2; v += 2) {
+    const int col = 8 * (v >> 2) + 2 * c, row = (v >> 1) & 1 ? qi1 : qi0;
+    if (row < S)
+      *reinterpret_cast<__nv_bfloat162*>(p.out0 + (((long long)b * S + row) * p.H + h) * D +
+                                         col) = __floats2bfloat162_rn(acc[v], acc[v + 1]);
   }
 }
 
 // ------------------------------------------------------------- K3 (dk, dv)
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ o,
-                     const float* __restrict__ lse,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const uint8_t* __restrict__ key_valid,
-                     const uint8_t* __restrict__ bidir,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int S, int H, int Hkv,
-                     long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
-                     long long d_sb, long long d_ss, long long d_sh,
-                     int causal, float scale) {
-  using L = DkvLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sDK = reinterpret_cast<float*>(smem + L::dk_off);
-  float* sDV = reinterpret_cast<float*>(smem + L::dv_off);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
-  __nv_bfloat16* sDO = reinterpret_cast<__nv_bfloat16*>(smem + L::do_off);
-  float* sS = reinterpret_cast<float*>(smem + L::s_off);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp_off);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + L::p_off);
-  __nv_bfloat16* sDS = reinterpret_cast<__nv_bfloat16*>(smem + L::ds_off);
-  float* sLse = reinterpret_cast<float*>(smem + L::row_off);
-  float* sDelta = sLse + BQ;
-  uint8_t* sKValid = smem + L::flag_off;
-  uint8_t* sKBid = sKValid + 64;
-  uint8_t* sQBid = sKBid + 64;
+template <int D, int V>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap dmap, const Params p) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const Smem sm = carve<D>(smem_raw);      // res0: K, res1: V; a stage: Q, dO (+ stats rows)
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
-  const int rep = H / Hkv;
-  const int kn = min(BK, S - k0);
-  const uint8_t* valid_b = key_valid + (long long)b * S;
-  const uint8_t* bidir_b = bidir + (long long)b * S;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int S = p.S;
+  const int k0 = blockIdx.x * CTA_ROWS, hk = blockIdx.y, b = blockIdx.z;
+  const int rep = p.H / p.Hkv;
+  const uint8_t* valid_b = p.key_valid + (long long)b * S;
+  const uint8_t* bidir_b = p.bidir + (long long)b * S;
 
-  int vf = 0, bf = 0;
-  if (tid < kn) {
-    vf = valid_b[k0 + tid] != 0;
-    bf = bidir_b[k0 + tid] != 0;
-  }
-  if (tid < BK) {
-    sKValid[tid] = (uint8_t)vf;
-    sKBid[tid] = (uint8_t)bf;
-  }
-  const int any_valid = __syncthreads_or(vf);
-  const int any_bid = __syncthreads_or(vf && bf);
+  if (tid == 0) init_barriers(sm);
+  __syncthreads();
 
-  // Lanes 2r and 2r+1 of a warp own key row r of its 16 (32 columns each).
-  const int r = lane >> 1, half = lane & 1;
-  const int krow = warp * 16 + r;
-  const int kj = k0 + krow;
-  const long long out_off =
-      (((long long)b * S + kj) * Hkv + hk) * D + half * (D / 2);
-
-  if (!any_valid) {   // uniform: no key of the tile is valid
-    if (krow < kn) {
-      for (int c = 0; c < D / 2; ++c) {
-        dk[out_off + c] = __float2bfloat16(0.f);
-        dv[out_off + c] = __float2bfloat16(0.f);
+  if (tid >= CONSUMERS) {
+    // ---- the loading warpgroup: its first warp walks the query tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(LREGS));
+    if (warp != CONSUMERS / 32) return;
+    Keys kh[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) kh[hf] = key_masks(valid_b, bidir_b, k0 + ROWS * hf, S, lane);
+    if ((kh[0].valid | kh[1].valid) == 0) return;   // no valid key: the consumers write zeros
+    if (lane == 0) {
+      prefetch_maps(&qmap, &kmap, &vmap, &dmap);
+      const uint32_t bar = smem_u32(sm.res_full);
+      mbar_expect_tx(bar, L::RES);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        load_tile<D>(smem_u32(sm.res0 + hf * L::TILE), &kmap, bar, hk, k0 + ROWS * hf, b);
+        load_tile<D>(smem_u32(sm.res1 + hf * L::TILE), &vmap, bar, hk, k0 + ROWS * hf, b);
       }
     }
+    int it = 0;
+    for (int q0 = 0; q0 < S; q0 += ROWS) {
+      const unsigned long long qb = row_mask(bidir_b, q0, S, lane);
+      const int q_hi = min(q0 + ROWS, S) - 1;
+      bool live = false;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        live |= oft::tile_pair_live(p.causal, k0 + ROWS * hf, q_hi, qb != 0,
+                                    kh[hf].valid != 0, kh[hf].bid != 0);
+      if (!live) continue;   // uniform across the warp
+      for (int g = 0; g < rep; ++g) {   // the heads of the GQA group
+        const int h = hk * rep + g;
+        const int s = next_slot(sm, it++);
+        if (lane == 0) {
+          sm.hdr[s] = Header{q0, h, 0, 0, qb, 0ull};
+          const uint32_t bar = smem_u32(sm.full + s), dst = smem_u32(sm.ring + s * L::STAGE);
+          mbar_expect_tx(bar, L::STAGE + L::STATS);
+          load_tile<D>(dst, &qmap, bar, h, q0, b);
+          load_tile<D>(dst + L::TILE, &dmap, bar, h, q0, b);
+          bulk_load(smem_u32(sm.stats + s * L::STATS),
+                    p.stats + ((long long)b * p.H + h) * p.s_pad + q0, L::STATS, bar);
+        }
+      }
+    }
+    end_walk(sm, it, lane);
     return;
   }
 
-  for (int i = tid; i < BK * L::LDO; i += NTHREADS) {
-    sDK[i] = 0.f;
-    sDV[i] = 0.f;
-  }
-  oft::load_tile<D, L::LDQ>(sK, k + b * k_sb + (long long)k0 * k_ss + hk * k_sh,
-                            k_ss, kn);
-  oft::load_tile<D, L::LDQ>(sV, v + b * v_sb + (long long)k0 * v_ss + hk * v_sh,
-                            v_ss, kn);
-  __syncthreads();
-  const bool k_valid = sKValid[krow] != 0, k_bid = sKBid[krow] != 0;
+  // ---- two consumer warpgroups: 64 key rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CREGS));
+  const int wg = warp / 4, w = warp % 4, c = lane % 4;
+  const Keys k_lo = key_masks(valid_b, bidir_b, k0, S, lane);
+  const Keys k_up = key_masks(valid_b, bidir_b, k0 + ROWS, S, lane);
+  const Keys km = wg ? k_up : k_lo;
+  const int kw = k0 + ROWS * wg, lr = 16 * w + lane / 4;    // key rows lr and lr + 8 of 64
+  const int kr0 = kw + lr, kr1 = kr0 + 8;
+  const bool kv0 = bit(km.valid, lr), kv1 = bit(km.valid, lr + 8);
+  const bool kb0 = bit(km.bid, lr), kb1 = bit(km.bid, lr + 8);
+  const float scale = p.scale, sl2 = scale * LOG2E;
 
-  const int n_qtiles = (S + BQ - 1) / BQ;
-  for (int g = 0; g < rep; ++g) {
-    const int h = hk * rep + g;
-    for (int qt = 0; qt < n_qtiles; ++qt) {
-      const int q0 = qt * BQ;
-      const int q_n = min(BQ, S - q0);
-      const int qb = tid < q_n && bidir_b[q0 + tid] != 0;
-      const int q_bid_any = __syncthreads_or(qb);
-      if (!oft::tile_pair_live(causal, k0, q0 + q_n - 1, q_bid_any, any_valid,
-                               any_bid))
-        continue;   // uniform across the CTA
-      if (tid < BQ) sQBid[tid] = (uint8_t)qb;
-      oft::load_tile<D, L::LDQ>(
-          sQ, q + b * q_sb + (long long)q0 * q_ss + h * q_sh, q_ss, q_n);
-      oft::load_tile<D, L::LDQ>(
-          sDO, dout + b * d_sb + (long long)q0 * d_ss + h * d_sh, d_ss, q_n);
-      __syncthreads();
-      load_row_stats<D, L::LDQ>(sLse, sDelta, sDO, o, lse, b, h, q0, S, H);
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 key rows.
-      {
-        FragC acc_s[BQ / 16], acc_p[BQ / 16];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-        for (int n = 0; n < BQ / 16; ++n) {
-          wmma::fill_fragment(acc_s[n], 0.f);
-          wmma::fill_fragment(acc_p[n], 0.f);
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  if ((k_lo.valid | k_up.valid) != 0) {
+    const uint32_t ka = smem_u32(sm.res0 + wg * L::TILE), va = smem_u32(sm.res1 + wg * L::TILE);
+    mbar_wait(smem_u32(sm.res_full), 0);
+    for (int it = 0;; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(smem_u32(sm.full + s), (it / STAGES) & 1);
+      const Header hd = sm.hdr[s];
+      if (hd.r0 < 0) break;
+      const int q0 = hd.r0;
+      if (oft::tile_pair_live(p.causal, kw, min(q0 + ROWS, S) - 1, hd.m0 != 0, km.valid != 0,
+                              km.bid != 0)) {
+        const bool interior =
+            oft::tile_pair_interior(p.causal, kw + ROWS - 1, q0, km.valid == ~0ull);
+        const uint32_t qa = smem_u32(sm.ring + s * L::STAGE), da = qa + L::TILE;
+        // (LSE, delta) of query columns 8j + 2c and 8j + 2c + 1 at [4j + c].
+        const float4* st = reinterpret_cast<const float4*>(sm.stats + s * L::STATS);
+        float sc[32], dp[32];
+        if constexpr ((V & PRODUCTS) != 0) {
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_kk<64>(sc, kdesc(ka, kk), kdesc(qa, kk), kk);
+          wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_kk<64>(dp, kdesc(va, kk), kdesc(da, kk), kk);
+          wgmma_commit();
+          wgmma_wait<1>();   // S^T done
         }
+        settle(sc);
+        if constexpr ((V & SCORES) != 0) {
+          // P^T in place while dP^T runs. Accumulator v = 4j + 2hi + e holds
+          // key row lr + 8 hi and query column 8j + 2c + e of the tile.
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          FragA ak, av;
-          wmma::load_matrix_sync(ak, sK + warp * 16 * L::LDQ + kk * 16, L::LDQ);
-          wmma::load_matrix_sync(av, sV + warp * 16 * L::LDQ + kk * 16, L::LDQ);
+          for (int j = 0; j < 8; ++j) {
+            const float4 t = st[4 * j + c];
 #pragma unroll
-          for (int n = 0; n < BQ / 16; ++n) {
-            FragBCol bq, bdo;   // Q^T and dO^T
-            wmma::load_matrix_sync(bq, sQ + n * 16 * L::LDQ + kk * 16, L::LDQ);
-            wmma::mma_sync(acc_s[n], ak, bq, acc_s[n]);
-            wmma::load_matrix_sync(bdo, sDO + n * 16 * L::LDQ + kk * 16, L::LDQ);
-            wmma::mma_sync(acc_p[n], av, bdo, acc_p[n]);
+            for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int v = 4 * j + 2 * hi + e, col = 8 * j + 2 * c + e;
+                float pv = exp2_(fmaf(sc[v], sl2, -(e ? t.z : t.x) * LOG2E));
+                if (!interior && !oft::allow(p.causal, q0 + col, hi ? kr1 : kr0,
+                                             hi ? kv1 : kv0, bit(hd.m0, col), hi ? kb1 : kb0))
+                  pv = 0.f;   // a select: dead rows' exp overflows
+                sc[v] = pv;
+              }
           }
         }
+        if constexpr ((V & PRODUCTS) != 0) wgmma_wait<0>();
+        settle(dp);
+        if constexpr ((V & SCORES) != 0) {
 #pragma unroll
-        for (int n = 0; n < BQ / 16; ++n) {
-          wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, acc_s[n],
-                                  L::LDS, wmma::mem_row_major);
-          wmma::store_matrix_sync(sDP + warp * 16 * L::LDS + n * 16, acc_p[n],
-                                  L::LDS, wmma::mem_row_major);
-        }
-      }
-      __syncthreads();   // sLse/sDelta/sQBid written by other warps
-
-      // P^T and dS^T under the mask, rounded to bf16.
-      {
-        const float* srow = sS + krow * L::LDS + half * 32;
-        const float* prow = sDP + krow * L::LDS + half * 32;
-        __nv_bfloat16* ptrow = sP + krow * L::LDP + half * 32;
-        __nv_bfloat16* dsrow = sDS + krow * L::LDP + half * 32;
+          for (int j = 0; j < 8; ++j) {
+            const float4 t = st[4 * j + c];
 #pragma unroll
-        for (int c = 0; c < 32; ++c) {
-          const int ii = half * 32 + c;
-          const int qi = q0 + ii;
-          const bool ok = qi < S && oft::allow(causal, qi, kj, k_valid,
-                                               sQBid[ii] != 0, k_bid);
-          const float p = ok ? expf(srow[c] * scale - sLse[ii]) : 0.f;
-          ptrow[c] = __float2bfloat16(p);
-          dsrow[c] = __float2bfloat16(p * (prow[c] - sDelta[ii]) * scale);
-        }
-      }
-      __syncwarp();
-
-      // dV(16 x D) += P^T(16 x 64) . dO(64 x D); dK += dS^T . Q.
-      {
-        FragA ap[BQ / 16], ads[BQ / 16];
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          wmma::load_matrix_sync(ap[kk], sP + warp * 16 * L::LDP + kk * 16,
-                                 L::LDP);
-          wmma::load_matrix_sync(ads[kk], sDS + warp * 16 * L::LDP + kk * 16,
-                                 L::LDP);
-        }
-#pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
-          float* dvp = sDV + warp * 16 * L::LDO + n * 16;
-          float* dkp = sDK + warp * 16 * L::LDO + n * 16;
-          FragC acc_v, acc_k;
-          wmma::load_matrix_sync(acc_v, dvp, L::LDO, wmma::mem_row_major);
-          wmma::load_matrix_sync(acc_k, dkp, L::LDO, wmma::mem_row_major);
-#pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk) {
-            FragBRow bdo, bq;
-            wmma::load_matrix_sync(bdo, sDO + kk * 16 * L::LDQ + n * 16, L::LDQ);
-            wmma::mma_sync(acc_v, ap[kk], bdo, acc_v);
-            wmma::load_matrix_sync(bq, sQ + kk * 16 * L::LDQ + n * 16, L::LDQ);
-            wmma::mma_sync(acc_k, ads[kk], bq, acc_k);
+            for (int v = 4 * j; v < 4 * j + 4; ++v)
+              dp[v] = sc[v] * (dp[v] - (v & 1 ? t.w : t.y)) * scale;
           }
-          wmma::store_matrix_sync(dvp, acc_v, L::LDO, wmma::mem_row_major);
-          wmma::store_matrix_sync(dkp, acc_k, L::LDO, wmma::mem_row_major);
         }
+        uint32_t pf[4][4], df[4][4];
+        to_frags(sc, pf);
+        to_frags(dp, df);
+        if constexpr ((V & PRODUCTS) != 0) {
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_rs_t<D>(dv, pf[kk], mndesc(da, kk));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_rs_t<D>(dk, df[kk], mndesc(qa, kk));
+          wgmma_commit();
+          wgmma_wait<0>();
+        }
+        hold(pf);
+        hold(df);
       }
-      __syncthreads();   // Q/dO/row stats are overwritten by the next tile
+      release(sm, s, lane);
     }
   }
-  __syncthreads();
 
-  if (krow < kn) {
-    const float* dkrow = sDK + krow * L::LDO + half * (D / 2);
-    const float* dvrow = sDV + krow * L::LDO + half * (D / 2);
-#pragma unroll 8
-    for (int c = 0; c < D / 2; ++c) {
-      dk[out_off + c] = __float2bfloat16(k_valid ? dkrow[c] : 0.f);
-      dv[out_off + c] = __float2bfloat16(k_valid ? dvrow[c] : 0.f);
-    }
+  settle(dk);
+  settle(dv);
+  // dk, dv: bf16 pairs of the thread's two key rows, zero for invalid keys;
+  // rows past S are not written.
+#pragma unroll
+  for (int v = 0; v < D / 2; v += 2) {
+    const int col = 8 * (v >> 2) + 2 * c;
+    const bool hi = (v >> 1) & 1;
+    const int row = hi ? kr1 : kr0;
+    if (row >= S) continue;
+    const bool ok = hi ? kv1 : kv0;
+    const long long off = (((long long)b * S + row) * p.Hkv + hk) * D + col;
+    *reinterpret_cast<__nv_bfloat162*>(p.out0 + off) =
+        __floats2bfloat162_rn(ok ? dk[v] : 0.f, ok ? dk[v + 1] : 0.f);
+    *reinterpret_cast<__nv_bfloat162*>(p.out1 + off) =
+        __floats2bfloat162_rn(ok ? dv[v] : 0.f, ok ? dv[v + 1] : 0.f);
   }
 }
 
+// ---------------------------------------------- the stats rows for K3 alone
+// (LSE, delta) of every row of (B, H, s_pad), two threads per row: what K2
+// writes on the way, for a K3 called without K2.
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_stats_kernel(const Params p) {
+  const int row = blockIdx.x * ROWS + threadIdx.x / 2, h = blockIdx.y, b = blockIdx.z;
+  const float2 st = row_stats<D>(p, b, h, row, threadIdx.x & 1);
+  if (!(threadIdx.x & 1)) p.stats[((long long)b * p.H + h) * p.s_pad + row] = st;
+}
+
+// ------------------------------------------------------------------- host
 struct Strides {
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss,
-      d_sh;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh;
 };
 
+// The tensor maps of q, k, v and dO: (D, heads, S, B) read through their
+// strides, boxes of 64 columns x 1 head x 64 rows, the 128-byte swizzle. A
+// dimension of extent 1 gets a nominal stride (its stride is never used).
 template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* o, const void* lse, const void* dout,
-                      const void* key_valid, const void* bidir, void* dq,
-                      int B, int S, int H, int Hkv, const Strides& st,
-                      int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = DqLayout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
-      static_cast<const float*>(lse), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const uint8_t*>(key_valid), static_cast<const uint8_t*>(bidir),
-      static_cast<__nv_bfloat16*>(dq), S, H, Hkv, st.q_sb, st.q_ss, st.q_sh,
-      st.k_sb, st.k_ss, st.k_sh, st.v_sb, st.v_ss, st.v_sh, st.d_sb, st.d_ss,
-      st.d_sh, causal, scale);
-  return cudaGetLastError();
+CUresult encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+                     const void* dout, int B, int S, int H, int Hkv, const Strides& st) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const void* ptr[4] = {q, k, v, dout};
+  const int heads[4] = {H, Hkv, Hkv, H};
+  const long long strides[4][3] = {{st.q_sh, st.q_ss, st.q_sb}, {st.k_sh, st.k_ss, st.k_sb},
+                                   {st.v_sh, st.v_ss, st.v_sb}, {st.d_sh, st.d_ss, st.d_sb}};
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)heads[i], (uint64_t)S, (uint64_t)B};
+    uint64_t bytes[3];
+    uint64_t span = (uint64_t)D * 2;
+    for (int j = 0; j < 3; ++j) {
+      bytes[j] = dims[j + 1] == 1 ? span : (uint64_t)strides[i][j] * 2;
+      span = bytes[j] * dims[j + 1];
+    }
+    const uint32_t box[4] = {64, 1, ROWS, 1};
+    const CUresult res = encode_4d(encode, &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr[i],
+                                   dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (res != CUDA_SUCCESS) return res;
+  }
+  return CUDA_SUCCESS;
 }
 
-template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* o, const void* lse, const void* dout,
-                       const void* key_valid, const void* bidir, void* dk,
-                       void* dv, int B, int S, int H, int Hkv,
-                       const Strides& st, int causal, float scale,
-                       cudaStream_t stream) {
-  constexpr size_t smem = DkvLayout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + BK - 1) / BK, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
-      static_cast<const float*>(lse), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const uint8_t*>(key_valid), static_cast<const uint8_t*>(bidir),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H,
-      Hkv, st.q_sb, st.q_ss, st.q_sh, st.k_sb, st.k_ss, st.k_sh, st.v_sb,
-      st.v_ss, st.v_sh, st.d_sb, st.d_ss, st.d_sh, causal, scale);
-  return cudaGetLastError();
+template <int D, bool DQ, int V = SHIPPED>
+int launch(const void* q, const void* k, const void* v, const void* dout, const Params& p,
+           int B, const Strides& st, cudaStream_t stream) {
+  using L = Layout<D>;
+  const cudaError_t bound = bind_device_of(q);
+  if (bound != cudaSuccess) return (int)bound;
+  CUtensorMap m[4];
+  const CUresult encoded = encode_maps<D>(m, q, k, v, dout, B, p.S, p.H, p.Hkv, st);
+  if (encoded != CUDA_SUCCESS) return -(int)encoded;   // the encoder's CUresult, negated
+  auto kernel = DQ ? flash_bwd_dq_kernel<D, V> : flash_bwd_dkv_kernel<D, V>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid((p.S + CTA_ROWS - 1) / CTA_ROWS, DQ ? p.H : p.Hkv, B);
+  kernel<<<grid, NTHREADS, L::SMEM, stream>>>(m[0], m[1], m[2], m[3], p);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// The checks shared by the entries: sizes, the stats rows' padding, alignment.
+bool valid_call(int B, int S, int H, int Hkv, int D, int s_pad, const Strides& st) {
+  const long long all[12] = {st.q_sb, st.q_ss, st.q_sh, st.k_sb, st.k_ss, st.k_sh,
+                             st.v_sb, st.v_ss, st.v_sh, st.d_sb, st.d_ss, st.d_sh};
+  for (long long x : all)
+    if (x % 8) return false;
+  return B > 0 && S > 0 && Hkv > 0 && H % Hkv == 0 && (D == 64 || D == 128) &&
+         s_pad >= S && s_pad % CTA_ROWS == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch K2 on `stream`; returns the launch's cudaError_t (0 = success).
-// Strides (in elements) are (batch, seq, head) of q, k, v and dO; the wrapper
-// checks shapes, dtypes, contiguity and alignment.
+// Launch K2 on `stream`; returns the launch's cudaError_t (0 = success), or
+// minus the CUresult of the tensor-map encoder where it refused an operand.
+// Strides (in elements) are (batch, seq, head) of q, k, v and dO. `stats`
+// (B, H, s_pad) float2, or null: where set, K2 writes (LSE, delta) of every
+// query row there for K3. The wrapper checks shapes and dtypes.
 int openvla_flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* lse, const void* dout, const void* key_valid,
-    const void* bidir, void* dq, int B, int S, int H, int Hkv, int D,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long d_sb, long long d_ss, long long d_sh,
-    int causal, float scale, void* stream) {
-  const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                   v_sb, v_ss, v_sh, d_sb, d_ss, d_sh};
+    const void* q, const void* k, const void* v, const void* o, const void* lse,
+    const void* dout, const void* key_valid, const void* bidir, void* dq, void* stats, int B,
+    int S, int H, int Hkv, int D, int s_pad, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long d_sb, long long d_ss, long long d_sh, int causal,
+    float scale, void* stream) {
+  const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh};
+  if (!valid_call(B, S, H, Hkv, D, s_pad, st) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(dout) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  const Params p{static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse),
+                 static_cast<const __nv_bfloat16*>(dout), d_sb, d_ss, d_sh,
+                 static_cast<const uint8_t*>(key_valid), static_cast<const uint8_t*>(bidir),
+                 static_cast<float2*>(stats), static_cast<__nv_bfloat16*>(dq), nullptr,
+                 S, H, Hkv, s_pad, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch_dq<64>(q, k, v, o, lse, dout, key_valid, bidir, dq, B,
-                              S, H, Hkv, st, causal, scale, s);
-  if (D == 128)
-    return (int)launch_dq<128>(q, k, v, o, lse, dout, key_valid, bidir, dq, B,
-                               S, H, Hkv, st, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return D == 64 ? launch<64, true>(q, k, v, dout, p, B, st, s)
+                 : launch<128, true>(q, k, v, dout, p, B, st, s);
 }
 
-// Launch K3 on `stream`; arguments as for K2, with dk and dv (B,S,Hkv,D).
+// Launch K3 on `stream`; arguments as for K2, with `stats` (B, H, s_pad)
+// float2 as K2 or the stats pass wrote them (K3 reads no O and no LSE), and
+// dk and dv (B,S,Hkv,D).
 int openvla_flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* lse, const void* dout, const void* key_valid,
-    const void* bidir, void* dk, void* dv, int B, int S, int H, int Hkv,
-    int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long d_sb, long long d_ss, long long d_sh,
-    int causal, float scale, void* stream) {
-  const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                   v_sb, v_ss, v_sh, d_sb, d_ss, d_sh};
+    const void* q, const void* k, const void* v, const void* stats, const void* dout,
+    const void* key_valid, const void* bidir, void* dk, void* dv, int B, int S, int H, int Hkv,
+    int D, int s_pad, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long d_sb, long long d_ss, long long d_sh, int causal, float scale,
+    void* stream) {
+  const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh};
+  if (!valid_call(B, S, H, Hkv, D, s_pad, st) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(dout) || !aligned16(stats))
+    return (int)cudaErrorInvalidValue;
+  const Params p{nullptr, nullptr, static_cast<const __nv_bfloat16*>(dout), d_sb, d_ss, d_sh,
+                 static_cast<const uint8_t*>(key_valid), static_cast<const uint8_t*>(bidir),
+                 const_cast<float2*>(static_cast<const float2*>(stats)),
+                 static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+                 S, H, Hkv, s_pad, causal, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch<64, false>(q, k, v, dout, p, B, st, s)
+                 : launch<128, false>(q, k, v, dout, p, B, st, s);
+}
+
+// Launch the stats pass: (LSE, delta) of every row into `stats` (B, H, s_pad)
+// float2, from O (B,S,H,D) contiguous, LSE (B,H,S) and dO through its strides.
+int openvla_flash_attention_bwd_stats(const void* o, const void* lse, const void* dout,
+                                      void* stats, int B, int S, int H, int D, int s_pad,
+                                      long long d_sb, long long d_ss, long long d_sh,
+                                      void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || (D != 64 && D != 128) || s_pad < S ||
+      s_pad % CTA_ROWS || d_sb % 8 || d_ss % 8 || d_sh % 8 || !aligned16(o) || !aligned16(dout))
+    return (int)cudaErrorInvalidValue;
+  const Params p{static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse),
+                 static_cast<const __nv_bfloat16*>(dout), d_sb, d_ss, d_sh, nullptr, nullptr,
+                 static_cast<float2*>(stats), nullptr, nullptr, S, H, 1, s_pad, 0, 0.f};
+  const dim3 grid(s_pad / ROWS, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return (int)launch_dkv<64>(q, k, v, o, lse, dout, key_valid, bidir, dk, dv,
-                               B, S, H, Hkv, st, causal, scale, s);
-  if (D == 128)
-    return (int)launch_dkv<128>(q, k, v, o, lse, dout, key_valid, bidir, dk,
-                                dv, B, S, H, Hkv, st, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+    flash_bwd_stats_kernel<64><<<grid, 128, 0, s>>>(p);
+  else
+    flash_bwd_stats_kernel<128><<<grid, 128, 0, s>>>(p);
+  return (int)cudaGetLastError();
 }
+
+#ifdef BWD_PARTS
+// A variant of K2 (kernel 0: o, lse, stats written, out0 = dq) or K3
+// (kernel 1: stats read, out0 = dk, out1 = dv) at D = 128: `parts` is a
+// combination of Part (SHIPPED is the library's kernel); the other
+// arguments as for the entries above.
+int openvla_flash_attention_bwd_parts(
+    int kernel, int parts, const void* q, const void* k, const void* v, const void* o,
+    const void* lse, void* stats, const void* dout, const void* key_valid, const void* bidir,
+    void* out0, void* out1, int B, int S, int H, int Hkv, int s_pad, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long d_sb, long long d_ss,
+    long long d_sh, int causal, float scale, void* stream) {
+  const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh};
+  if (!valid_call(B, S, H, Hkv, 128, s_pad, st) || stats == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Params p{static_cast<const __nv_bfloat16*>(o), static_cast<const float*>(lse),
+                 static_cast<const __nv_bfloat16*>(dout), d_sb, d_ss, d_sh,
+                 static_cast<const uint8_t*>(key_valid), static_cast<const uint8_t*>(bidir),
+                 static_cast<float2*>(stats), static_cast<__nv_bfloat16*>(out0),
+                 static_cast<__nv_bfloat16*>(out1), S, H, Hkv, s_pad, causal, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kernel * 100 + parts) {
+#define BWD_VARIANT(kern, flags) \
+  case kern * 100 + (flags): return launch<128, kern == 0, (flags)>(q, k, v, dout, p, B, st, s);
+    BWD_VARIANT(0, SHIPPED)
+    BWD_VARIANT(0, SHIPPED & ~DELTA)
+    BWD_VARIANT(0, SHIPPED & ~SCORES)
+    BWD_VARIANT(0, SHIPPED & ~PRODUCTS)
+    BWD_VARIANT(0, 0)
+    BWD_VARIANT(1, SHIPPED)
+    BWD_VARIANT(1, SHIPPED & ~SCORES)
+    BWD_VARIANT(1, SHIPPED & ~PRODUCTS)
+    BWD_VARIANT(1, 0)
+#undef BWD_VARIANT
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif
 
 }  // extern "C"

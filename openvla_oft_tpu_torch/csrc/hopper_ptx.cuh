@@ -1,7 +1,7 @@
 // PTX wrappers for Hopper (sm_90a) kernels: mbarriers, cp.async, TMA
-// tensor-map loads, wgmma shared-memory descriptors and the wgmma fence,
-// commit and wait. Shared by K4 (ln_matmul.cu), K5 (int4_w4a16.cu) and K6
-// (int4_w4a8.cu).
+// tensor-map loads, bulk copies, wgmma shared-memory descriptors and the
+// wgmma fence, commit and wait. Shared by K2 and K3 (flash_attention_bwd.cu),
+// K4 (ln_matmul.cu), K5 (int4_w4a16.cu) and K6 (int4_w4a8.cu).
 
 #pragma once
 
@@ -86,6 +86,27 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// A box of a 4-D tensor map (coordinates innermost first); elements outside
+// the tensor land as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared (both 16-byte aligned, bytes a
+// multiple of 16), completing on `bar` as TMA does.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor of a K-major tile with the 128-byte swizzle:
 // rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), LBO unused (1).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
@@ -136,6 +157,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Makes the device that holds `ptr` current on this host thread, and with it
+// its primary context, before a tensor map is encoded: the encoder returns
+// CUDA_ERROR_INVALID_CONTEXT on a thread with no current context, and
+// autograd's device thread has none when the op's backward is the first
+// work it runs (scripts/exp_tmap_context.py shows both).
+inline cudaError_t bind_device_of(const void* ptr) {
+  cudaPointerAttributes attr;
+  const cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+  return err != cudaSuccess ? err : cudaSetDevice(attr.device);
+}
+
 // A 2-D tensor map: dims and box innermost first, the row stride in bytes.
 inline bool encode_2d(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* base,
                uint64_t inner, uint64_t rows, uint64_t stride_bytes, uint32_t box_inner,
@@ -147,6 +179,21 @@ inline bool encode_2d(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType 
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D tensor map: dims and box innermost first, the strides of dims 1-3 in
+// bytes; returns the encoder's CUresult.
+inline CUresult encode_4d(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, const uint64_t (&dims)[4],
+                      const uint64_t (&stride_bytes)[3], const uint32_t (&box)[4],
+                      CUtensorMapSwizzle swizzle) {
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {stride_bytes[0], stride_bytes[1], stride_bytes[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(base), d, st, bx, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace hopper

@@ -7,6 +7,8 @@
 //
 // A (query tile, key tile) pair is computed only when some allow[i, j] of
 // the pair can be true; every skipped pair has P == 0 for all its entries.
+// The backward kernels further class a live pair as interior (every entry
+// allowed: no element evaluates allow()) or partial.
 
 #pragma once
 
@@ -37,6 +39,16 @@ __device__ __forceinline__ bool tile_pair_live(bool causal, int k0, int q_hi,
                                                bool q_bid_any, bool k_any_valid,
                                                bool k_any_bid) {
   return k_any_valid && (!causal || k0 <= q_hi || (q_bid_any && k_any_bid));
+}
+
+// Whether every entry of the pair (query rows q0.., key rows ..k_hi) is
+// allowed, so that no element needs allow(): every key of the tile exists and
+// is valid (`k_all_valid`) and, under `causal`, the last key is at or below
+// the first query row. Rows past S are not the rule's business: the backward
+// kernels give them P == 0 through their LSE.
+__device__ __forceinline__ bool tile_pair_interior(bool causal, int k_hi, int q0,
+                                                   bool k_all_valid) {
+  return k_all_valid && (!causal || k_hi <= q0);
 }
 
 // Copy 64 rows of D bf16 (row stride `row_stride` elements) into a shared

@@ -14,7 +14,14 @@ raises; a CPU tensor goes to the plain versions `flash_attention_ref`,
 `flash_attention_dq_ref` and `flash_attention_dkv_ref` below (together
 `flash_attention_bwd_ref`). There is no fallback between the two.
 `flash_attention.launches`, `flash_attention_dq.launches` and
-`flash_attention_dkv.launches` count kernel launches.
+`flash_attention_dkv.launches` count kernel launches;
+`flash_attention_dkv.stats_launches` counts the stats pass that a K3 called
+without K2 runs first (`_launch_stats`).
+
+The backward of the autograd op runs K2 first: it computes delta once per
+query row and writes (LSE, delta) as stats rows, which K3 then reads
+instead of O and LSE. `_bwd_plan` gives both kernels' tiles and grids and
+`_tile_class` their rule for a (query tile, key tile) pair.
 """
 
 from __future__ import annotations
@@ -130,6 +137,57 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, is_causal, key_valid, bidir):
     return (flash_attention_dq_ref(*args),) + flash_attention_dkv_ref(*args)
 
 
+# K2's and K3's tiles (csrc/flash_attention_bwd.cu): a CTA holds two consumer
+# warpgroups of BWD_TILE rows each (K2: query rows, K3: key rows) and walks
+# the other side in ring tiles of BWD_TILE rows, BWD_STAGES of them in flight.
+BWD_TILE, BWD_ROWS, BWD_STAGES = 64, 128, 4
+
+
+def _bwd_plan(b: int, s: int, h: int, hkv: int, d: int) -> dict:
+    """K2's and K3's launch plan for q (b, s, h, d) and k, v (b, s, hkv, d):
+    the CTA's rows, the ring's tile rows and stages, each kernel's grid
+    (K2: one CTA per 128 query rows of a head, K3: per 128 key rows of a kv
+    head) and `s_pad`, the row count of the stats rows (b, h, s_pad): a
+    multiple of the CTA's rows, so that every K2 CTA writes whole rows and
+    every ring tile of K3 copies 64 rows at a 512-byte offset. The tiles do
+    not depend on d; `_check_qkv` says which shapes the kernels take."""
+    ctas = -(-s // BWD_ROWS)
+    return {"rows": BWD_ROWS, "tile": BWD_TILE, "stages": BWD_STAGES,
+            "s_pad": ctas * BWD_ROWS, "dq_grid": (ctas, h, b), "dkv_grid": (ctas, hkv, b)}
+
+
+def _tile_class(is_causal: bool, q0: int, k0: int, key_valid, bidir,
+                tile: int = BWD_TILE) -> str:
+    """"empty", "interior" or "partial": what K2 and K3 make of the pair of
+    query rows q0 .. q0 + tile - 1 and keys k0 .. k0 + tile - 1 of one batch
+    row (key_valid, bidir: its (S,) bool vectors). The rules of
+    csrc/oft_mask.cuh: an empty pair (`tile_pair_live` false) is skipped; an
+    interior pair (`tile_pair_interior`: every key exists and is valid and,
+    under causal, the last key is at or below the first query row) computes
+    P without `allow`; a partial pair evaluates `allow` per element."""
+    s = len(key_valid)
+    q_hi = min(q0 + tile, s) - 1
+    valid = [bool(key_valid[j]) for j in range(k0, min(k0 + tile, s))]
+    k_any_bid = any(bool(bidir[j]) and valid[j - k0] for j in range(k0, k0 + len(valid)))
+    q_bid_any = any(bool(bidir[i]) for i in range(q0, q_hi + 1))
+    if not (any(valid) and (not is_causal or k0 <= q_hi or (q_bid_any and k_any_bid))):
+        return "empty"
+    if len(valid) == tile and all(valid) and (not is_causal or k0 + tile - 1 <= q0):
+        return "interior"
+    return "partial"
+
+
+def _live_pairs(is_causal: bool, key_valid: torch.Tensor, bidir: torch.Tensor,
+                tile: int = BWD_TILE) -> int:
+    """The (query tile, key tile) pairs that `_tile_class` does not call
+    empty, summed over the batch rows of key_valid and bidir (B, S): the
+    pairs K1, K2 and K3 compute, per head."""
+    kv, bd = key_valid.tolist(), bidir.tolist()
+    s = len(kv[0])
+    return sum(_tile_class(is_causal, q0, k0, kv[i], bd[i], tile) != "empty"
+               for i in range(len(kv)) for q0 in range(0, s, tile) for k0 in range(0, s, tile))
+
+
 def _kernel_readable(t: torch.Tensor) -> bool:
     """Contiguous last dim, other strides multiples of 8 elements and a
     16-byte aligned start: the kernels load 16-byte chunks of each row."""
@@ -196,10 +254,17 @@ def _mask_u8(b, s, key_valid, bidir, device):
             bidir.to(device=device, dtype=torch.uint8).contiguous())
 
 
-def _bwd_operands(q, k, v, o, lse, do, key_valid, bidir):
-    """Check the backward's operands; returns (u8 masks, dO as the kernels
-    read it). dO from autograd is read through its strides; only a layout the
-    kernels cannot read (last dim not contiguous, misaligned) is copied."""
+def _tma_readable(t: torch.Tensor) -> bool:
+    """K2 and K3 read q, k, v and dO through TMA tensor maps, which take no
+    zero stride on a dimension of extent > 1 (a broadcast)."""
+    return all(st > 0 or n == 1 for st, n in zip(t.stride()[:-1], t.shape[:-1]))
+
+
+def _bwd_operands(q, k, v, o, lse, do):
+    """Check the backward's operands once; returns (q, k, v, dO) as the
+    kernels read them. Each is read through its strides; only a layout the
+    kernels cannot read (dO's last dim not contiguous or misaligned, a
+    broadcast dimension) is copied."""
     _check_qkv(q, k, v)
     b, s, h, d = q.shape
     if not _kernel_readable(do):
@@ -212,26 +277,37 @@ def _bwd_operands(q, k, v, o, lse, do, key_valid, bidir):
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError("flash_attention backward needs LSE (B, H, S) fp32 "
                          "contiguous, as K1 wrote it")
-    return _mask_u8(b, s, key_valid, bidir, q.device) + (do,)
+    return tuple(t if _tma_readable(t) else t.contiguous() for t in (q, k, v, do))
 
 
 def _strides(*ts):
     return [st for t in ts for st in t.stride()[:3]]
 
 
-def _launch_dq(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+def _plan_of(q, k) -> dict:
+    return _bwd_plan(q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3])
+
+
+def _stats_rows(q, plan) -> torch.Tensor:
+    """The (B, H, s_pad, 2) fp32 stats rows: (LSE, delta) of each query row."""
+    return torch.empty((q.shape[0], q.shape[2], plan["s_pad"], 2), dtype=torch.float32,
+                       device=q.device)
+
+
+def _launch_dq(q, k, v, o, lse, do, is_causal, valid_u8, bidir_u8, plan, stats=None):
+    """K2 on checked operands; with `stats`, it also writes the stats rows."""
     from openvla_oft_tpu_torch import _build
 
-    valid_u8, bidir_u8, do = _bwd_operands(q, k, v, o, lse, do, key_valid, bidir)
     b, s, h, d = q.shape
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.openvla_flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), valid_u8.data_ptr(),
-            bidir_u8.data_ptr(), dq.data_ptr(), b, s, h, k.shape[2], d,
+            bidir_u8.data_ptr(), dq.data_ptr(), 0 if stats is None else stats.data_ptr(),
+            b, s, h, k.shape[2], d, plan["s_pad"],
             *_strides(q, k, v, do), int(bool(is_causal)),
             ctypes.c_float(d ** -0.5), stream)
     _build.check_launch(err, "flash_attention dq (K2)")
@@ -239,25 +315,53 @@ def _launch_dq(q, k, v, o, lse, do, is_causal, key_valid, bidir):
     return dq
 
 
-def _launch_dkv(q, k, v, o, lse, do, is_causal, key_valid, bidir):
+def _launch_stats(o, lse, do, plan):
+    """The stats pass: the stats rows from O, LSE and dO, for a K3 called
+    without K2 (counted in `flash_attention_dkv.stats_launches`)."""
     from openvla_oft_tpu_torch import _build
 
-    valid_u8, bidir_u8, do = _bwd_operands(q, k, v, o, lse, do, key_valid, bidir)
+    b, s, h, d = o.shape
+    stats = _stats_rows(o, plan)
+    lib = _build.library()
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = lib.openvla_flash_attention_bwd_stats(
+            o.data_ptr(), lse.data_ptr(), do.data_ptr(), stats.data_ptr(), b, s, h, d,
+            plan["s_pad"], *do.stride()[:3], stream)
+    _build.check_launch(err, "flash_attention stats pass")
+    flash_attention_dkv.stats_launches += 1
+    return stats
+
+
+def _launch_dkv(q, k, v, do, is_causal, valid_u8, bidir_u8, plan, stats):
+    """K3 on checked operands and the stats rows."""
+    from openvla_oft_tpu_torch import _build
+
     b, s, h, d = q.shape
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.openvla_flash_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), valid_u8.data_ptr(),
-            bidir_u8.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h,
-            k.shape[2], d, *_strides(q, k, v, do), int(bool(is_causal)),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), stats.data_ptr(), do.data_ptr(),
+            valid_u8.data_ptr(), bidir_u8.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, h, k.shape[2], d, plan["s_pad"],
+            *_strides(q, k, v, do), int(bool(is_causal)),
             ctypes.c_float(d ** -0.5), stream)
     _build.check_launch(err, "flash_attention dk/dv (K3)")
     flash_attention_dkv.launches += 1
     return dk, dv
+
+
+def _launch_bwd(q, k, v, o, lse, do, is_causal, valid_u8, bidir_u8):
+    """The autograd op's backward on the card: one check of the operands,
+    K2 (dq and the stats rows), then K3 (dk, dv) on those rows."""
+    q, k, v, do = _bwd_operands(q, k, v, o, lse, do)
+    plan = _plan_of(q, k)
+    stats = _stats_rows(q, plan)
+    dq = _launch_dq(q, k, v, o, lse, do, is_causal, valid_u8, bidir_u8, plan, stats)
+    return (dq,) + _launch_dkv(q, k, v, do, is_causal, valid_u8, bidir_u8, plan, stats)
 
 
 def _on_cpu(q: torch.Tensor) -> bool:
@@ -279,22 +383,33 @@ def flash_attention_dq(q, k, v, o, lse, do, is_causal, key_valid, bidir):
     for CPU tensors. o, lse are K1's outputs; do is the gradient of o."""
     if _on_cpu(q):
         return flash_attention_dq_ref(q, k, v, o, lse, do, is_causal, key_valid, bidir)
-    return _launch_dq(q, k, v, o, lse, do, is_causal, key_valid, bidir)
+    masks = _mask_u8(q.shape[0], q.shape[1], key_valid, bidir, q.device)
+    q, k, v, do = _bwd_operands(q, k, v, o, lse, do)
+    return _launch_dq(q, k, v, o, lse, do, is_causal, *masks, _plan_of(q, k))
 
 
 def flash_attention_dkv(q, k, v, o, lse, do, is_causal, key_valid, bidir):
     """(dk, dv) of K1's attention, GQA groups summed: kernel K3 for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors (after the stats pass, which gives it delta), the plain version
+    for CPU tensors."""
     if _on_cpu(q):
         return flash_attention_dkv_ref(q, k, v, o, lse, do, is_causal, key_valid, bidir)
-    return _launch_dkv(q, k, v, o, lse, do, is_causal, key_valid, bidir)
+    masks = _mask_u8(q.shape[0], q.shape[1], key_valid, bidir, q.device)
+    q, k, v, do = _bwd_operands(q, k, v, o, lse, do)
+    plan = _plan_of(q, k)
+    stats = _launch_stats(o, lse, do, plan)
+    return _launch_dkv(q, k, v, do, is_causal, *masks, plan, stats)
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward saving (q, k, v, O, LSE, masks); K2 and K3 backward."""
+    """K1 forward saving (q, k, v, O, LSE, masks); K2 then K3 backward. On
+    the card the masks are converted to uint8 once, in the forward, and the
+    backward checks its operands once for both kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, is_causal, key_valid, bidir):
+        if not _on_cpu(q):
+            key_valid, bidir = _mask_u8(q.shape[0], q.shape[1], key_valid, bidir, q.device)
         o, lse = _forward(q, k, v, is_causal, key_valid, bidir)
         ctx.is_causal = is_causal
         ctx.save_for_backward(q, k, v, o, lse, key_valid, bidir)
@@ -304,8 +419,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse, key_valid, bidir = ctx.saved_tensors
         args = (q, k, v, o, lse, do, ctx.is_causal, key_valid, bidir)
-        dk, dv = flash_attention_dkv(*args)
-        return flash_attention_dq(*args), dk, dv, None, None, None
+        grads = flash_attention_bwd_ref(*args) if _on_cpu(q) else _launch_bwd(*args)
+        return grads + (None, None, None)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -344,6 +459,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+flash_attention_dkv.stats_launches = 0
 
 # Port of the JAX `flash_attention_allheads` (the TPU kernel
 # `_kernel_allheads`): K1's forward read as (B, S, H, D) blocks with all heads

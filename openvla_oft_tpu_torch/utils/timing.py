@@ -12,6 +12,7 @@ L2_FLUSH_BYTES = 64 * 2**20      # more than the H100's 50 MB of L2
 # torch.profiler windows: idle host time on each side of the traced work (s),
 # and how many windows are tried before a trace counts as not measured.
 PROFILE_PAD_S, PROFILE_TRIES = 0.05, 3
+CENSUS_WINDOWS = 2   # the fewest windows whose kernels device_ms takes as a call's
 
 
 def l2_flush_buffer(device="cuda") -> torch.Tensor:
@@ -39,21 +40,27 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
     return float(np.median(times))
 
 
-def profiled(fn, complete=bool) -> list:
-    """The device kernels of fn() under torch.profiler (CUDA activity only),
-    or [] when PROFILE_TRIES windows gave none that `complete` accepts. A
-    window of a few ms has come back with no device activity at all, so each
-    window is padded with idle host time on both sides and tried again."""
+def _window(fn) -> list:
+    """The device kernels of fn() in one torch.profiler window (CUDA activity
+    only), padded with idle host time on both sides: a window of a few ms
+    has come back with no device activity at all, or with some of its
+    kernels missing."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(PROFILE_TRIES):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAD_S)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_PAD_S)
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        time.sleep(PROFILE_PAD_S)
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profiled(fn, complete=bool) -> list:
+    """The device kernels of fn(): the first of PROFILE_TRIES windows that
+    `complete` accepts, or []."""
+    for _ in range(PROFILE_TRIES):
+        kernels = _window(fn)
         if kernels and complete(kernels):
             return kernels
         print(f"[profile] torch.profiler window recorded {len(kernels)} device kernels, "
@@ -66,26 +73,57 @@ def device_ms(fn, flush, iters: int = 10) -> tuple:
     the mean of `iters` calls), the L2 flushed before each call. Fills and
     memsets (the flush, and any zeroing that fn does) are not counted. Beside
     the CUDA events around the wrapper, this leaves out the host's time in it.
-    A window is complete when every kernel name came `iters` times (or a
-    multiple); where none is, the time is the CUDA events' around the call."""
+
+    The profiler can drop kernel records, so at least CENSUS_WINDOWS windows
+    of `iters` calls are traced (at most CENSUS_WINDOWS + PROFILE_TRIES - 1).
+    Their census is every kernel name any of them recorded, with its most
+    instances per call. A window is used only if it holds every kernel of the
+    census: the first complete one (each kernel's instances per call times
+    `iters`), else the last with some instances missing, whose time is each
+    kernel's mean over its recorded instances times its instances per call
+    (`how` says how many were recorded). Where no window holds every kernel,
+    the time is the CUDA events' around the call."""
     def calls():
         for _ in range(iters):
             flush.zero_()
             fn()
 
-    def timed_kernels(events):
-        return [e for e in events
+    def names(window):
+        return [e.name for e in window
                 if "fill" not in e.name.lower() and "memset" not in e.name.lower()]
 
-    def complete(events):
-        names = [e.name for e in timed_kernels(events)]
-        return bool(names) and all(names.count(n) % iters == 0 for n in set(names))
-
     fn()
-    kernels = timed_kernels(profiled(calls, complete))
-    if not kernels:
-        print("[profile] torch.profiler recorded no complete window: CUDA events instead",
+    windows, census = [], {}
+
+    def complete(window):
+        got = names(window)
+        return (bool(census) and set(got) == set(census)
+                and all(got.count(n) == c * iters for n, c in census.items()))
+
+    for tries in range(1, CENSUS_WINDOWS + PROFILE_TRIES):
+        windows.append(_window(calls))
+        got = names(windows[-1])
+        for n in set(got):
+            census[n] = max(census.get(n, 0), round(got.count(n) / iters), 1)
+        if tries >= CENSUS_WINDOWS:
+            if any(complete(w) for w in windows):
+                break
+            print(f"[profile] no complete torch.profiler window among {tries}", flush=True)
+    usable = [w for w in windows if census and set(names(w)) == set(census)]
+    if not usable:
+        print("[profile] no torch.profiler window held every kernel: CUDA events instead",
               flush=True)
-        return cuda_time_ms(fn, flush=flush), "CUDA events (torch.profiler recorded none)"
-    return (sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / iters,
-            "device time (torch.profiler)")
+        return (cuda_time_ms(fn, flush=flush),
+                "CUDA events (no torch.profiler window held every kernel)")
+    whole = [w for w in usable if complete(w)]
+    window = whole[0] if whole else usable[-1]
+    by_name = {}
+    for e in window:
+        if e.name in census:
+            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    ms = sum(float(np.mean(d)) * census[n] for n, d in by_name.items()) / 1e3
+    if whole:
+        return ms, "device time (torch.profiler)"
+    recorded = sum(len(d) for d in by_name.values())
+    return ms, (f"device time (torch.profiler, {recorded} of "
+                f"{iters * sum(census.values())} instances recorded: per-kernel means)")

@@ -8,8 +8,9 @@ K2 (dq) and K3 (dk, dv); on CPU tensors it runs their plain version
     with that file's `_assert_grads_close` (max |Δ| / max |ref| < 2e-3);
   - torch autograd through the dense oracle `attention_dense`;
   - itself under `torch.utils.checkpoint` (bitwise).
-A numpy emulation of the CUDA kernels' tiling and tile-skip rules shows that
-every (query tile, key tile) pair K2 or K3 skips has P == 0, and that the
+A numpy emulation of the CUDA kernels' tiling (`_bwd_plan`) and pair classes
+(`_tile_class`: empty, interior, partial) shows that every pair K2 or K3
+skips has P == 0, that no interior pair holds a masked entry, and that the
 tile-wise sums give the plain version's dq, dk, dv (fp32, 1e-5).
 Inputs are fp32, B = 2 with per-row pads and windows, GQA, and dead rows.
 """
@@ -109,57 +110,74 @@ def test_backward_under_checkpoint(rng):
         np.testing.assert_array_equal(a, b)
 
 
-def _tiled_backward_emulation(q, k, v, do, causal, key_valid, bidir, bq=64, bk=64):
-    """K2's and K3's algorithms in numpy: 64-row tiles, the skip rules of
-    csrc/oft_mask.cuh, fp32 sums, and K3's GQA group summed inside the key
-    tile. Returns (dq, dk, dv, pairs skipped by K2, pairs skipped by K3) and
-    asserts that every skipped pair has no allowed entry."""
+def _tiled_backward_emulation(q, k, v, do, causal, key_valid, bidir, plan=None):
+    """K2's and K3's algorithms in numpy at the plan's tiles (`fa._bwd_plan`):
+    a CTA of `rows` rows as two warpgroups of `tile` rows, the other side
+    walked in `tile`-row ring tiles; each warpgroup's pair classed by
+    `fa._tile_class` (csrc/oft_mask.cuh): an empty pair is skipped and
+    asserted to hold no allowed entry, an interior pair computes P without
+    the mask and is asserted to hold no masked entry, a partial pair selects
+    on the mask. delta once per query row, fp32 sums, K3's GQA group summed
+    inside the key tile (query tiles outer, heads inner). Returns (dq, dk,
+    dv, pairs skipped by K2, pairs skipped by K3)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     rep = h // hkv
     scale = d ** -0.5
-    o, lse, _ = _tiled_emulation(q, k, v, causal, key_valid, bidir, bq, bk)
+    plan = plan or fa._bwd_plan(b, s, h, hkv, d)
+    rows, tile = plan["rows"], plan["tile"]
+    o, lse, _ = _tiled_emulation(q, k, v, causal, key_valid, bidir, 64, 64)
     allow = _dense_mask(key_valid, bidir, s, causal)[:, 0]          # (B, S, S)
     delta = (do * o).sum(-1)                                          # (B, S, H)
 
-    def p_ds(bi, hi, rows, cols):
-        sc = q[bi, rows, hi] @ k[bi, cols, hi // rep].T * scale
-        al = allow[bi][np.ix_(rows, cols)]
-        p = np.where(al, np.exp(np.where(al, sc - lse[bi, hi, rows][:, None], 0.0)), 0.0)
-        dp = do[bi, rows, hi] @ v[bi, cols, hi // rep].T
-        return p, p * (dp - delta[bi, rows, hi][:, None]) * scale
+    def p_ds(bi, hi, qr, kc, cls):
+        al = allow[bi][np.ix_(qr, kc)]
+        sc = q[bi, qr, hi] @ k[bi, kc, hi // rep].T * scale - lse[bi, hi, qr][:, None]
+        if cls == "interior":
+            assert al.all()
+            p = np.exp(sc)
+        else:
+            p = np.where(al, np.exp(np.where(al, sc, 0.0)), 0.0)
+        dp = do[bi, qr, hi] @ v[bi, kc, hi // rep].T
+        return p, p * (dp - delta[bi, qr, hi][:, None]) * scale
 
-    def live(rows, cols, bi):
-        valid = key_valid[bi, cols]
-        return valid.any() and (not causal or cols[0] <= rows[-1] or (
-            bidir[bi, rows].any() and (bidir[bi, cols] & valid).any()))
+    def halves(c0):
+        return [np.arange(r0, min(r0 + tile, s)) for r0 in range(c0, min(c0 + rows, s), tile)]
+
+    def cls_of(bi, qr, kc):
+        c = fa._tile_class(causal, int(qr[0]), int(kc[0]), key_valid[bi], bidir[bi], tile)
+        if c == "empty":
+            assert not allow[bi][np.ix_(qr, kc)].any()
+        return c
 
     dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
     skipped_dq = skipped_dkv = 0
-    tiles = [np.arange(t0, min(t0 + 64, s)) for t0 in range(0, s, 64)]
+    ring = [np.arange(t0, min(t0 + tile, s)) for t0 in range(0, s, tile)]
     for bi in range(b):
-        for hi in range(h):                       # K2: one block per query tile
-            for rows in tiles:
-                for cols in tiles:
-                    if not live(rows, cols, bi):
-                        assert not allow[bi][np.ix_(rows, cols)].any()
-                        skipped_dq += 1
-                        continue
-                    _, ds = p_ds(bi, hi, rows, cols)
-                    dq[bi, rows, hi] += ds @ k[bi, cols, hi // rep]
-        for hk in range(hkv):                     # K3: one block per key tile
-            for cols in tiles:
-                if not key_valid[bi, cols].any():
-                    continue                      # written as zeros
-                for hi in range(hk * rep, (hk + 1) * rep):
-                    for rows in tiles:
-                        if not live(rows, cols, bi):
-                            assert not allow[bi][np.ix_(rows, cols)].any()
-                            skipped_dkv += 1
+        for hi in range(h):                       # K2: a CTA per 128 query rows
+            for c0 in range(0, s, rows):
+                for kc in ring:
+                    for qr in halves(c0):
+                        cls = cls_of(bi, qr, kc)
+                        if cls == "empty":
+                            skipped_dq += 1
                             continue
-                        p, ds = p_ds(bi, hi, rows, cols)
-                        dv[bi, cols, hk] += p.T @ do[bi, rows, hi]
-                        dk[bi, cols, hk] += ds.T @ q[bi, rows, hi]
+                        _, ds = p_ds(bi, hi, qr, kc, cls)
+                        dq[bi, qr, hi] += ds @ k[bi, kc, hi // rep]
+        for hk in range(hkv):                     # K3: a CTA per 128 key rows
+            for c0 in range(0, s, rows):
+                if not key_valid[bi, c0:c0 + rows].any():
+                    continue                      # written as zeros
+                for qr in ring:
+                    for hi in range(hk * rep, (hk + 1) * rep):
+                        for kc in halves(c0):
+                            cls = cls_of(bi, qr, kc)
+                            if cls == "empty":
+                                skipped_dkv += 1
+                                continue
+                            p, ds = p_ds(bi, hi, qr, kc, cls)
+                            dv[bi, kc, hk] += p.T @ do[bi, qr, hi]
+                            dk[bi, kc, hk] += ds.T @ q[bi, qr, hi]
     return dq, dk, dv, skipped_dq, skipped_dkv
 
 

@@ -164,10 +164,8 @@ def _bwd_inputs(case, device):
     return q, k, v, do, causal, key_valid, bidir
 
 
-@pytest.mark.parametrize("case", BWD_CASES,
-                         ids=lambda c: f"b{c[0]}s{c[1]}h{c[2]}kv{c[3]}d{c[4]}")
-def test_backward_kernels_match_plain(cuda, case):
-    q, k, v, do, causal, key_valid, bidir = _bwd_inputs(case, cuda)
+def _check_backward_kernels(q, k, v, do, causal, key_valid, bidir):
+    """K2 then K3 (each launched once) against the plain backward."""
     o, lse = fa.flash_attention_fwd(q, k, v, causal, key_valid, bidir)
     args = (q, k, v, o, lse, do, causal, key_valid, bidir)
     n_dq, n_dkv = fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches
@@ -186,6 +184,100 @@ def test_backward_kernels_match_plain(cuda, case):
     dead = ~allow.any(-1)
     assert torch.all(dq[dead] == 0)
     assert torch.all(dk[~key_valid] == 0) and torch.all(dv[~key_valid] == 0)
+
+
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=lambda c: f"b{c[0]}s{c[1]}h{c[2]}kv{c[3]}d{c[4]}")
+def test_backward_kernels_match_plain(cuda, case):
+    _check_backward_kernels(*_bwd_inputs(case, cuda))
+
+
+# (b, s, h, hkv, d): below one 64-row tile and the training length, at both
+# head dims, with per-row right pads and a window of the last slots.
+BWD_LENGTHS = [(2, 40, 4, 2, 64), (2, 40, 4, 4, 128), (1, 585, 8, 8, 64), (1, 585, 8, 2, 128)]
+
+
+def _length_case(shape):
+    b, s, h, hkv, d = shape
+    wl = min(57, s // 4)
+    rows = [(0, s - 3 * i, s - 3 * i - wl, wl) for i in range(b)]
+    return (b, s, h, hkv, d, True, rows)
+
+
+@pytest.mark.parametrize("shape", BWD_LENGTHS, ids=lambda c: "b{}s{}h{}kv{}d{}".format(*c))
+def test_backward_kernels_match_plain_at_short_and_training_lengths(cuda, shape):
+    _check_backward_kernels(*_bwd_inputs(_length_case(shape), cuda))
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[0], BWD_CASES[2], BWD_CASES[3], BWD_CASES[5]],
+                         ids=lambda c: f"b{c[0]}s{c[1]}h{c[2]}kv{c[3]}d{c[4]}")
+def test_backward_kernels_are_deterministic(cuda, case):
+    """Two calls of K2 and of K3 give bitwise-equal dq, dk and dv: every sum
+    runs in a fixed order, with no atomics."""
+    q, k, v, do, causal, key_valid, bidir = _bwd_inputs(case, cuda)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, key_valid, bidir)
+    args = (q, k, v, o, lse, do, causal, key_valid, bidir)
+    first = (fa.flash_attention_dq(*args),) + fa.flash_attention_dkv(*args)
+    second = (fa.flash_attention_dq(*args),) + fa.flash_attention_dkv(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def _bwd_counts():
+    return (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches,
+            fa.flash_attention_dkv.stats_launches)
+
+
+def test_autograd_backward_launches_k2_then_k3_once(cuda):
+    """The op's backward launches K2 once (dq and the stats rows) and K3 once
+    on those rows, with no stats pass; its gradients are bitwise those of
+    the standalone calls, which run in either order (K3 alone runs the stats
+    pass first). The first autograd test of the file: its backward is the
+    first work of autograd's device thread, where the tensor-map encoder
+    refused K2's operands until the entries bound the tensors' device."""
+    q, k, v, do, causal, key_valid, bidir = _bwd_inputs(BWD_CASES[2], cuda)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, is_causal=causal, key_valid=key_valid, bidir_mask=bidir)
+    before = _bwd_counts()
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_bwd_counts(), before)] == [1, 1, 0]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, key_valid, bidir)
+    args = (q, k, v, o, lse, do, causal, key_valid, bidir)
+    for name, g, r in zip("qkv", grads, fa.flash_attention_bwd_ref(*args)):
+        assert _rel_err(g, r) <= 2e-2 and _cosine(g, r) >= 0.999, name
+    for order in ("dkv first", "dq first"):
+        before = _bwd_counts()
+        if order == "dkv first":
+            dk, dv = fa.flash_attention_dkv(*args)
+            dq = fa.flash_attention_dq(*args)
+        else:
+            dq = fa.flash_attention_dq(*args)
+            dk, dv = fa.flash_attention_dkv(*args)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_bwd_counts(), before)] == [1, 1, 1], order
+        for name, a, b in zip("qkv", (dq, dk, dv), grads):
+            assert torch.equal(a, b), (order, name)
+
+
+def test_autograd_backward_reads_a_transposed_grad(cuda):
+    """dO as autograd hands it through a transpose (strides of a (B, H, S, D)
+    tensor) is read through its strides and gives the plain backward's
+    gradients."""
+    q, k, v, _, causal, key_valid, bidir = _bwd_inputs(BWD_CASES[0], cuda)
+    b, s, h, d = q.shape
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn((b, h, s, d), generator=gen, device=cuda).bfloat16()
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, is_causal=causal, key_valid=key_valid, bidir_mask=bidir)
+    (out.transpose(1, 2) * w).sum().backward()
+    do = w.transpose(1, 2)
+    assert not do.is_contiguous()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, key_valid, bidir)
+    refs = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, key_valid, bidir)
+    for name, t, r in zip("qkv", leaves, refs):
+        assert _rel_err(t.grad, r) <= 2e-2 and _cosine(t.grad, r) >= 0.999, name
 
 
 def test_autograd_op_matches_dense_on_cuda(cuda):
