@@ -13,22 +13,27 @@ points a user calls: an HTTP /act server built by
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. environment: the card, torch/CUDA versions, TF32 off;
-  2. build: the hand-written kernels from `openvla_oft_tpu_torch/csrc`; K2's,
-     K3's, K4's, K5's and K6's registers, spills and shared memory from
-     ptxas, and their wgmma instructions counted in the library's SASS
-     (HGMMA for the bf16 kernels, IGMMA for K6's int8; an instance with none
-     is a failure);
+  2. build: the hand-written kernels from `openvla_oft_tpu_torch/csrc`; K1's
+     to K6's registers, spills and shared memory from ptxas, and their
+     wgmma instructions counted in the library's SASS (HGMMA for the bf16
+     kernels, IGMMA for K6's int8; an instance with none is a failure);
   3. kernel check: K1 (and `flash_attention_allheads`, which is K1) against
-     its plain version at the serving path's shapes, timed beside SDPA with
-     the boolean OFT mask and the bound; K4 (`ln_matmul`) against its plain
-     version at the 8 ViT serving shapes and on large-mean rows, with its
-     plan, device times (torch.profiler) beside `torch.matmul` on the
-     product alone and the bound, CUDA-event times beside the unfused
-     sequence; two K4 calls bitwise equal;
+     its plain version at the serving path's shapes and the training batch
+     (per-row pads and windows), with its plan and two bitwise-equal calls,
+     device times (torch.profiler, L2 flushed) beside SDPA with the boolean
+     OFT mask and the bound, CUDA events beside them; K4 (`ln_matmul`)
+     against its plain version at the 8 ViT serving shapes and on large-mean
+     rows, with its plan, device times (torch.profiler) beside `torch.matmul`
+     on the product alone and the bound, CUDA-event times beside the
+     unfused sequence; two K4 calls bitwise equal;
   3a. K4's parts: the script `openvla_oft_tpu_torch.scripts.exp_k4_parts`
      (K4 without its statistics, its standardizing or its wgmmas, the
      statistics from a separate pass, the ring alone; every compiled tile at
      the 8 ViT shapes);
+  3b. K1's parts: the script `openvla_oft_tpu_torch.scripts.exp_fwd_parts`
+     (K1 without its softmax or its wgmmas, the ring alone, at S = 618, 1168
+     and the training batch; the sweep over masks: cost per live pair and
+     fixed cost);
   4. serving: 3 /act requests, K1 launched 31 times per request, the server
      built without its warm-up (the first request is the cold one); one
      request through FastAPI's /act (ActionServer.run) against the stdlib
@@ -69,7 +74,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      memory, no stats pass (K3 reads K2's stats rows);
  11. step profile: the CLI's train_step on its final state and first batch,
      3 steps timed, then one traced with torch.profiler (device activity
-     only): device time by kernel class, K2 + K3's share, the idle share;
+     only): device time by kernel class, K1's and K2 + K3's shares, the idle
+     share;
  12. training-path parity: one loss and backward through K1/K2/K3 against
      the dense path on the same 7B weights and batch.
 Every serving phase but the first builds its server with the deploy CLI's
@@ -171,9 +177,20 @@ def sdpa_args(q, k, v, key_valid, bidir):
                  enable_gqa=q.shape[2] != k.shape[2]))
 
 
+def allowed_entries(q, key_valid, bidir) -> int:
+    """The (query, key) entries that the OFT rule allows, summed over the
+    batch: per head, the entries whose products a flash kernel needs. Its
+    64x64 tiles also compute the refused entries of partial pairs; a bound
+    does not count that work."""
+    from openvla_oft_tpu_torch.ops import flash_attention as fa
+
+    return int(fa._allow(q, True, key_valid, bidir).sum())
+
+
 # The wgmma kernels' instances (mangled-name pattern -> label) and the wgmma
 # form their SASS must hold: bf16 wgmma is HGMMA, int8 wgmma IGMMA.
-WGMMA_KERNELS = {"K2": (r"flash_bwd_dq_kernelILi(\d+)E", "HGMMA", "D={}"),
+WGMMA_KERNELS = {"K1": (r"flash_fwd_kernelILi(\d+)E", "HGMMA", "D={}"),
+                 "K2": (r"flash_bwd_dq_kernelILi(\d+)E", "HGMMA", "D={}"),
                  "K3": (r"flash_bwd_dkv_kernelILi(\d+)E", "HGMMA", "D={}"),
                  "K4": (r"ln_matmul_kernelILi(\d+)ELi(\d+)E", "HGMMA", "BM={} BN={}"),
                  "K5": (r"int4_w4a16_wgmma_kernelILi(\d+)E", "HGMMA", "T_TILE={}"),
@@ -182,7 +199,7 @@ WGMMA_KERNELS = {"K2": (r"flash_bwd_dq_kernelILi(\d+)E", "HGMMA", "D={}"),
 
 
 def wgmma_build_report(lib_path) -> dict:
-    """K2's, K3's, K4's, K5's and K6's instances in ptxas' report (registers,
+    """K1's to K6's instances in ptxas' report (registers,
     spills, shared memory, any note that it serialized the wgmmas) and their
     wgmma instructions in the built library's SASS (HGMMA for the bf16 ones,
     IGMMA for K6's int8). An instance with none is not the wgmma design:
@@ -221,76 +238,122 @@ def wgmma_build_report(lib_path) -> dict:
     return counts
 
 
-def kernel_check(card: str) -> dict:
-    """K1 against flash_attention_ref at the serving path's shapes, timed
+def kernel_check(card: str, s_train: int) -> dict:
+    """K1 against flash_attention_ref at the serving path's shapes and the
+    training batch (per-row pads and windows), with its plan and two
+    bitwise-equal calls; timed by device time (torch.profiler, L2 flushed)
     beside SDPA with the boolean OFT mask (the library yardstick) and the
-    bound (FLOPs over the live 64x64 tile pairs)."""
+    bound (FLOPs over the allowed entries; K1's own bytes), with CUDA
+    events around the calls beside them."""
     from openvla_oft_tpu_torch.ops import flash_attention as fa
     from openvla_oft_tpu_torch.ops.attention import attention
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     dev = torch.device("cuda")
-    # (name, B, S, H, Hkv, D, left pads, window (start, len))
+    s = s_train
+    train_rows = [(0, s - 5 * i, s - 5 * i - 57, 57) for i in range(8)]   # as phase 9
+    # (name, B, S, H, Hkv, D, [(first valid key, last valid + 1, window start, len)])
     cases = [
-        ("libero_prefill", 1, 618, 32, 32, 128, 24, (561, 57)),
-        ("aloha_length", 1, 1168, 32, 32, 128, 24, (817, 351)),
-        ("gqa", 1, 618, 32, 8, 128, 24, (561, 57)),
-        ("dead_rows", 1, 618, 32, 32, 128, 150, (561, 57)),
+        ("libero_prefill", 1, 618, 32, 32, 128, [(24, 618, 561, 57)]),
+        ("aloha_length", 1, 1168, 32, 32, 128, [(24, 1168, 817, 351)]),
+        ("gqa", 1, 618, 32, 8, 128, [(24, 618, 561, 57)]),
+        ("dead_rows", 1, 618, 32, 32, 128, [(150, 618, 561, 57)]),
+        ("training", 8, s, 32, 32, 128, train_rows),
     ]
     results = {}
-    for name, b, s, h, hkv, d, pads, (w0, wl) in cases:
-        gen = torch.Generator(device=dev).manual_seed(s + hkv)
+    flush = l2_flush_buffer()
+    for name, b, s_len, h, hkv, d, rows in cases:
+        gen = torch.Generator(device=dev).manual_seed(s_len + hkv)
         # q/k/v as views of one fused projection output, as the Llama path has them.
-        qkv = torch.randn((b, s, (h + 2 * hkv) * d), generator=gen, device=dev).bfloat16()
-        q = qkv[..., :h * d].view(b, s, h, d)
-        k = qkv[..., h * d:(h + hkv) * d].view(b, s, hkv, d)
-        v = qkv[..., (h + hkv) * d:].view(b, s, hkv, d)
-        key_valid = torch.ones((b, s), dtype=torch.bool, device=dev)
-        key_valid[:, :pads] = False
-        bidir = torch.zeros((b, s), dtype=torch.bool, device=dev)
-        bidir[:, w0:w0 + wl] = True
+        qkv = torch.randn((b, s_len, (h + 2 * hkv) * d), generator=gen, device=dev).bfloat16()
+        q = qkv[..., :h * d].view(b, s_len, h, d)
+        k = qkv[..., h * d:(h + hkv) * d].view(b, s_len, hkv, d)
+        v = qkv[..., (h + hkv) * d:].view(b, s_len, hkv, d)
+        key_valid = torch.zeros((b, s_len), dtype=torch.bool, device=dev)
+        bidir = torch.zeros((b, s_len), dtype=torch.bool, device=dev)
+        for i, (lo, hi, w0, wl) in enumerate(rows):
+            key_valid[i, lo:hi] = True
+            bidir[i, w0:w0 + wl] = True
         o, lse = fa.flash_attention_fwd(q, k, v, True, key_valid, bidir)
+        again = fa.flash_attention_fwd(q, k, v, True, key_valid, bidir)
         torch.cuda.synchronize()
+        bitwise = bool(torch.equal(o, again[0]) and torch.equal(lse, again[1]))
+        del again
         o_ref, lse_ref = fa.flash_attention_ref(q, k, v, True, key_valid, bidir)
-        live = key_valid[0]
-        err = (o.float() - o_ref.float())[:, live].abs()
+        live = fa._allow(q, True, key_valid, bidir)[:, 0].any(-1)          # (B, S)
+        err = (o.float() - o_ref.float())[live].abs()
         max_err, mean_err = err.max().item(), err.mean().item()
-        lse_err = (lse - lse_ref)[..., live].abs().max().item()
-        dead_zero = bool(torch.all(o[:, ~live] == 0).item())
+        lse_err = (lse - lse_ref).transpose(1, 2)[live].abs().max().item()
+        dead_zero = bool(torch.all(o[~live] == 0).item())
+        finite = bool(torch.isfinite(o).all())
+        masks = fa._mask_u8(b, s_len, key_valid, bidir, dev)
+        dev_ms, how = device_ms(lambda: fa._launch(q, k, v, True, *masks), flush)
+        qkv_t, kw = sdpa_args(q, k, v, key_valid, bidir)
+        library_ms, how_lib = device_ms(lambda: sdpa(*qkv_t, **kw), flush)
         ms = cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, key_valid, bidir))
+        library_events = cuda_time_ms(lambda: sdpa(*qkv_t, **kw))
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_ref(q, k, v, True, key_valid,
                                                                bidir))
         dense_ms = cuda_time_ms(lambda: attention(q, k, v, is_causal=True, use_flash=False,
                                                   key_valid=key_valid, bidir_mask=bidir))
-        qkv_t, kw = sdpa_args(q, k, v, key_valid, bidir)
-        library_ms = cuda_time_ms(lambda: sdpa(*qkv_t, **kw))
         pairs = fa._live_pairs(True, key_valid, bidir)
-        flops = 2 * 2 * 64 * 64 * d * h * pairs      # QK^T and PV per live pair and head
-        bound_ms, bound_by = bound(flops, nbytes(q, k, v, key_valid, bidir, o, lse), PEAK_BF16)
-        log(f"[kernel] K1 {name}: B={b} S={s} H={h} Hkv={hkv} D={d} pads={pads} "
-            f"window=({w0},{wl}) max|dO|={max_err:.3e} mean|dO|={mean_err:.3e} "
-            f"max|dLSE|={lse_err:.3e} dead_rows_zero={dead_zero} | kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, dense path {dense_ms:.4f} ms, SDPA with the boolean "
-            f"mask {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {pairs} live "
-            f"64x64 tile pairs per head, {flops / ms / 1e9:.1f} TFLOP/s) "
-            f"(median of 20, CUDA events; {card})")
-        if not (max_err <= MAX_ABS_O and mean_err <= MEAN_ABS_O
-                and lse_err <= MAX_ABS_LSE and dead_zero):
+        entries = allowed_entries(q, key_valid, bidir)
+        flops = 2 * 2 * d * h * entries      # QK^T and PV over the allowed entries, every head
+        # K1's own traffic: q, k, v and the masks read, O and LSE written.
+        bound_ms, bound_by = bound(flops, nbytes(q, k, v, *masks, o, lse), PEAK_BF16)
+        plan = fa._fwd_plan(b, s_len, h)
+        log(f"[kernel] K1 {name}: B={b} S={s_len} H={h} Hkv={hkv} D={d} rows={rows[:2]}"
+            f"{'...' if len(rows) > 2 else ''} | max|dO|={max_err:.3e} mean|dO|={mean_err:.3e} "
+            f"max|dLSE|={lse_err:.3e} dead_rows_zero={dead_zero} finite={finite} two calls "
+            f"bitwise equal: {bitwise}")
+        log(f"[kernel] K1 {name}: plan rows={plan['rows']} tile={plan['tile']} stages="
+            f"{plan['stages']} grid {plan['grid']} ({plan['grid'][0] * h * b} CTAs, q0 order "
+            f"{plan['q0_order']}); K1 {dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s of "
+            f"allowed work, {bound_ms / dev_ms:.3f} of the bound; {how}), SDPA with the boolean "
+            f"mask {library_ms:.4f} ms ({how_lib}) (K1 / SDPA {dev_ms / library_ms:.2f}); bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {entries} allowed entries and {pairs} live 64x64 "
+            f"tile pairs per head) (device time, mean of 10, L2 flushed; {card})")
+        log(f"[kernel] K1 {name}, CUDA events (median of 20, wrapper included): K1 {ms:.4f} ms,"
+            f" SDPA {library_events:.4f} ms, plain {plain_ms:.4f} ms, dense path "
+            f"{dense_ms:.4f} ms")
+        if not (max_err <= MAX_ABS_O and mean_err <= MEAN_ABS_O and lse_err <= MAX_ABS_LSE
+                and dead_zero and finite and bitwise):
             raise AssertionError(f"K1 disagrees with its plain version at {name}")
-        results[name] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        results[name] = {"max_abs_err": max_err, "ms": dev_ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "plan": plan, "timing": how if how == how_lib else
+                         f"K1 {how}, SDPA {how_lib}", "events_ms": ms,
+                         "library_events_ms": library_events}
         if name == "libero_prefill":
             # flash_attention_allheads (the TPU's all-heads-per-block variant)
             # is K1 reading (B, S, H, D) through its strides.
             o_all = fa.flash_attention_allheads(q, k, v, is_causal=True,
                                                 key_valid=key_valid, bidir_mask=bidir)
             torch.cuda.synchronize()
-            all_err = (o_all.float() - o_ref.float())[:, live].abs().max().item()
+            all_err = (o_all.float() - o_ref.float())[live].abs().max().item()
             log(f"[kernel] flash_attention_allheads (K1) {name}: max|dO|={all_err:.3e}")
             if not all_err <= MAX_ABS_O:
                 raise AssertionError("flash_attention_allheads disagrees with its plain version")
+        del q, k, v, qkv, o, lse, o_ref, lse_ref, masks, qkv_t, kw
+    del flush
+    torch.cuda.empty_cache()
     return results
+
+
+def k1_parts_phase(card: str) -> dict:
+    """The script exp_fwd_parts: K1's variants at S = 618, 1168 and the
+    training batch, and the sweep over masks (it prints its own lines)."""
+    from openvla_oft_tpu_torch.scripts import exp_fwd_parts
+
+    t0 = time.perf_counter()
+    out = exp_fwd_parts.main([])
+    for name, err in out["variants"]["max_abs_err"].items():
+        if not err <= MAX_ABS_O:
+            raise AssertionError(f"K1's parts build disagrees with its reference at {name}: {err}")
+    log(f"[k1-parts] exp_fwd_parts.main: {time.perf_counter() - t0:.1f} s, the variants' and "
+        f"masks' times above (ms, device time, L2 flushed; {card})")
+    return out
 
 
 def ln_matmul_check(card: str) -> dict:
@@ -1031,7 +1094,8 @@ def backward_check(card: str, s_train: int) -> dict:
             lambda: torch.autograd.grad(out_t, leaves, do_t, retain_graph=True), flush)
         del leaves, kw, out_t
         pairs = fa._live_pairs(True, key_valid, bidir)
-        mm = 2 * 64 * 64 * d * h * pairs          # one 64x64xD product per live pair and head
+        entries = allowed_entries(q, key_valid, bidir)
+        mm = 2 * d * h * entries          # one product over the allowed entries, every head
         tf_dq, tf_dkv = 3 * mm / dev_dq / 1e9, 4 * mm / dev_dkv / 1e9
         # Each kernel's own traffic: K2 reads q, k, v, O, LSE, dO and the
         # masks and writes dq and the stats rows; K3 reads q, k, v, dO, the
@@ -1051,8 +1115,8 @@ def backward_check(card: str, s_train: int) -> dict:
             f"TFLOP/s, {bound_dkv[0] / dev_dkv:.3f} of the bound), K2 + K3 "
             f"{dev_dq + dev_dkv:.4f} ms ({how_dq}; {how_dkv}); SDPA's backward {library_ms:.4f}"
             f" ms ({how_lib}); bounds K2 {bound_dq[0]:.4f} ms ({bound_dq[1]}), K3 "
-            f"{bound_dkv[0]:.4f} ms ({bound_dkv[1]}) ({pairs} live 64x64 tile pairs per head;"
-            f" {card})")
+            f"{bound_dkv[0]:.4f} ms ({bound_dkv[1]}) ({entries} allowed entries and {pairs} "
+            f"live 64x64 tile pairs per head; {card})")
         log(f"[bwd] {name}, CUDA events (median of 20, wrapper included): K2 {ms_dq:.4f} ms, "
             f"K3 with its stats pass {ms_dkv:.4f} ms, plain dq {plain_dq:.4f} ms, plain dk/dv "
             f"{plain_dkv:.4f} ms; SDPA with the boolean mask: forward {sdpa_fwd:.4f} ms, "
@@ -1247,10 +1311,12 @@ def profile_step(state, card: str) -> dict:
         f"{1 - busy / float(np.median(untraced)):.3f} (host clock, ends in "
         f"torch.cuda.synchronize; {card})")
     log_classes("profile", by_class)
+    k1 = by_class.get("K1", (0.0, 0))[0]
     k23 = sum(by_class.get(c, (0.0, 0))[0] for c in ("K2", "K3"))
-    log(f"[profile] train_step at B=8: K2 + K3 {k23:.1f} ms = {k23 / busy:.3f} of the device "
-        f"time ({card})")
-    return {"untraced_ms": untraced, "traced_ms": wall, "busy_ms": busy, "k23_ms": k23}
+    log(f"[profile] train_step at B=8: K1 {k1:.1f} ms = {k1 / busy:.3f} and K2 + K3 {k23:.1f} "
+        f"ms = {k23 / busy:.3f} of the device time ({card})")
+    return {"untraced_ms": untraced, "traced_ms": wall, "busy_ms": busy, "k1_ms": k1,
+            "k23_ms": k23}
 
 
 def training_parity(state, card: str) -> None:
@@ -1335,9 +1401,15 @@ def main() -> int:
     log((lib_path.parent / "build.log").read_text().strip())
     wgmma = wgmma_build_report(lib_path)
 
-    checks = kernel_check(card)
+    cfg, _, _, batch = training_setup()
+    s_train = (batch["input_ids"].shape[1] + 1                      # + proprio token
+               + cfg.num_images_in_input * cfg.vision_configs[0].num_patches)
+    log(f"[bwd] training layout: S = {s_train} (text bucket + "
+        f"{cfg.num_images_in_input} x {cfg.vision_configs[0].num_patches} patches + proprio)")
+    checks = kernel_check(card, s_train)
     k4 = ln_matmul_check(card)
     k4_parts_phase(card)
+    k1_parts_phase(card)
 
     t0 = time.perf_counter()
     policy = flagship_policy("cuda", seed=0)
@@ -1367,11 +1439,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe = probe_phase(card)
 
-    cfg, _, _, batch = training_setup()
-    s_train = (batch["input_ids"].shape[1] + 1                      # + proprio token
-               + cfg.num_images_in_input * cfg.vision_configs[0].num_patches)
-    log(f"[bwd] training layout: S = {s_train} (text bucket + "
-        f"{cfg.num_images_in_input} x {cfg.vision_configs[0].num_patches} patches + proprio)")
     bwd = backward_check(card, s_train)
     state, train_launches = train(card, n_layers)
     profile_step(state, card)
@@ -1379,7 +1446,7 @@ def main() -> int:
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
-    # at T = 618, the probe group-dots at qkv T = 112. K2's to K6's times and
+    # at T = 618, the probe group-dots at qkv T = 112. K1's to K6's times and
     # their library times are device times: at their speed the wrapper's
     # host time shows in CUDA events around the call (logged beside them).
     # SDPA computes dq, dk and dv in one backward, so K2 and K3 share its
@@ -1396,7 +1463,14 @@ def main() -> int:
                      "openvla_oft_tpu/ops/flash_attention.py:50", k1_launches,
                      max(c["max_abs_err"] for c in checks.values()), libero["ms"],
                      libero["plain_ms"], libero["bound_ms"], libero["bound_by"],
-                     libero["library_ms"]),
+                     libero["library_ms"],
+                     library_call="SDPA with the boolean OFT mask (forward)",
+                     plan=libero["plan"], hgmma=wgmma["K1"], timing=libero["timing"],
+                     events_ms=libero["events_ms"],
+                     library_events_ms=libero["library_events_ms"],
+                     other_cases={n: {"ms": c["ms"], "library_ms": c["library_ms"],
+                                      "bound_ms": c["bound_ms"], "timing": c["timing"]}
+                                  for n, c in checks.items() if n != "libero_prefill"}),
         kernel_entry("flash_attention_dq", "flash_attention_bwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:181", train_launches["K2"],
                      max(c["dq_err"] for c in bwd_cases.values()), tr["ms_dq"],

@@ -13,7 +13,7 @@
 //   dq = bf16(dS) . K,   dk = bf16(dS)^T . Q,   dv = bf16(P)^T . dO
 //
 // with scale = D^-1/2 and the mask rule, tile-skip rule and interior rule of
-// oft_mask.cuh (K1 shares the first two). P and dS round to bf16 before
+// oft_mask.cuh, which K1 shares. P and dS round to bf16 before
 // their products, as the TPU kernels' astype(v.dtype) / astype(q.dtype) do;
 // every product accumulates in fp32 on the tensor cores (wgmma).
 //
@@ -30,12 +30,9 @@
 // Design (both kernels). A CTA of three warpgroups: two consumer warpgroups
 // of 64 rows each, whose accumulators stay in registers, and a loading
 // warpgroup whose first warp keeps a ring of STAGES stages filled by TMA
-// (setmaxnreg moves its registers to the consumers). Every operand tile is
-// 64 rows of D bf16 as D / 64 boxes of 64 rows x 128 bytes with the 128-byte
-// swizzle, read through the tensor's strides by a 4-D tensor map (D, heads,
-// S, B): rows past S arrive as zeros. The same tile serves wgmma as a
-// K-major operand (D contiguous) and, through the transpose bit, as an
-// MN-major B (rows along the product's depth). Per 64 x 64 pair a consumer
+// (setmaxnreg moves its registers to the consumers); the tiles, tensor maps,
+// wgmma forms and ring helpers are flash_wgmma.cuh's, shared with K1. Per
+// 64 x 64 pair a consumer
 // issues two SS wgmmas for the scores and dP, turns them into P (one
 // ex2.approx per entry) and dS in registers from the accumulator layout
 // (interior pairs without allow()), converts them in place into bf16 A
@@ -72,12 +69,12 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "hopper_ptx.cuh"
+#include "flash_wgmma.cuh"
 #include "oft_mask.cuh"
 
 namespace {
 
-using namespace hopper;
+using namespace flash;
 
 constexpr int ROWS = 64;                  // a warpgroup's rows (wgmma M); a ring tile's rows
 constexpr int CTA_ROWS = 2 * ROWS;        // K2's query rows, K3's key rows per CTA
@@ -91,9 +88,6 @@ static_assert(ROWS == 64 && CTA_ROWS == 128 && STAGES == 4,
 // request would wait for registers that never come free).
 constexpr int CREGS = 232, LREGS = 168 - 2 * (CREGS - 168);
 static_assert(CONSUMERS * CREGS + 128 * LREGS == NTHREADS * 168, "register split");
-constexpr int BOX = 64 * 128;             // one TMA box: 64 rows x 64 bf16 columns
-constexpr int SMEM_LIMIT = 227 * 1024;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float PAD_LSE = 1e30f;          // stats of rows past S: P = 0
 
 // What an instance does. The library's kernels are SHIPPED; the other
@@ -122,15 +116,6 @@ struct Layout {
   static_assert(SMEM + CTA_ROWS * 8 <= SMEM_LIMIT, "shared memory");
 };
 
-// A stage's header, written by the loading warp before it arms the stage.
-// r0: the tile's first row (-1: the walk has ended); h: K3's query head;
-// m0, m1: K2's key masks (valid; valid and bidirectional), K3's query mask
-// (bidirectional) in m0.
-struct __align__(16) Header {
-  int r0, h, pad0, pad1;
-  unsigned long long m0, m1;
-};
-
 struct Params {
   const __nv_bfloat16* o;      // K2 and the stats pass: (B,S,H,D) contiguous
   const float* lse;            // (B,H,S)
@@ -147,32 +132,6 @@ struct Params {
 
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Bit i: row r0 + i exists (< S) and its flag is set (a warp's ballot).
-__device__ __forceinline__ unsigned long long row_mask(const uint8_t* flags, int r0, int S,
-                                                       int lane) {
-  const bool a = r0 + lane < S && flags[r0 + lane] != 0;
-  const bool b = r0 + 32 + lane < S && flags[r0 + 32 + lane] != 0;
-  const unsigned lo = __ballot_sync(0xffffffffu, a), hi = __ballot_sync(0xffffffffu, b);
-  return (unsigned long long)hi << 32 | lo;
-}
-
-// The masks of a 64-key tile: valid, and valid and bidirectional.
-struct Keys {
-  unsigned long long valid, bid;
-};
-__device__ __forceinline__ Keys key_masks(const uint8_t* valid_b, const uint8_t* bidir_b, int k0,
-                                          int S, int lane) {
-  const unsigned long long v = row_mask(valid_b, k0, S, lane);
-  return {v, v & row_mask(bidir_b, k0, S, lane)};
-}
-
-__device__ __forceinline__ bool bit(unsigned long long m, int i) { return (m >> i) & 1ull; }
 
 // (LSE, delta) of query row `row` of head h, delta = sum_d dO * O in fp32:
 // lanes 2r and 2r + 1 take one half of D each. Rows past S get (+1e30, 0).
@@ -198,141 +157,6 @@ __device__ __forceinline__ float2 row_stats(const Params& p, int b, int h, int r
                    : make_float2(PAD_LSE, 0.f);
 }
 
-// 2^x: one MUFU.EX2 (ex2.approx.ftz, relative error about 2^-22; P rounds
-// to bf16 before any product).
-__device__ __forceinline__ float exp2_(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// D (64 x N, fp32) += A (64 x 16) * B (16 x N): both K-major bf16 in shared
-// memory; `accumulate` 0 overwrites D.
-template <int N>
-__device__ __forceinline__ void wgmma_kk(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
-                                         int accumulate);
-// D (64 x N, fp32) += A (64 x 16, bf16 registers) * B (16 x N, bf16, MN-major
-// in shared memory, the transpose bit set).
-template <int N>
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2], const uint32_t (&a)[4],
-                                           uint64_t desc_b);
-
-
-template <>
-__device__ __forceinline__ void wgmma_kk<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                            int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_t<64>(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// Loads rows r0 .. r0 + 63 of head `head` of batch row b: D / 64 boxes.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                          int head, int r0, int b) {
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * BOX, map, bar, 64 * c, head, r0, b);
-}
-
-// Descriptors of k16 step kk of a 64-row tile at `tile`: K-major (the step's
-// 16 columns of every row), and MN-major (rows 16 kk .. 16 kk + 15 as the
-// depth, the D columns as N; LBO = the next 64-column box).
-__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk) {
-  return sw128_desc(tile + (kk >> 2) * BOX + 32 * (kk & 3));
-}
-__device__ __forceinline__ uint64_t mndesc(uint32_t tile, int kk) {
-  return mn_sw128_desc(tile + 2048 * kk, BOX);
-}
-
-// A 64 x 64 accumulator as the bf16 A fragments of the next product's four
-// k16 steps: registers 8 kk .. 8 kk + 7 hold columns 16 kk .. 16 kk + 15 of
-// the thread's two rows in the order of the A fragment.
-__device__ __forceinline__ void to_frags(const float (&x)[32], uint32_t (&f)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
-}
-
-// Register fences after a wgmma wait: the compiler sees a wgmma's results
-// when it is issued, so without these it may read an accumulator, or reuse
-// an A fragment's registers, before the wait that makes that safe.
-template <int N>
-__device__ __forceinline__ void settle(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-__device__ __forceinline__ void hold(uint32_t (&f)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f[kk][i])::"memory");
-}
-
 struct Smem {
   uint8_t *res0, *res1, *ring, *stats;
   Header* hdr;
@@ -347,45 +171,6 @@ __device__ __forceinline__ Smem carve(uint8_t* raw) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(s + L::BAR_OFF);
   return {s, s + L::RES / 2, s + L::RES, s + L::STATS_OFF,
           reinterpret_cast<Header*>(s + L::HDR_OFF), bars, bars + STAGES, bars + 2 * STAGES};
-}
-
-__device__ __forceinline__ void init_barriers(const Smem& sm) {
-  for (int s = 0; s < STAGES; ++s) {
-    mbar_init(smem_u32(sm.full + s), 1);                   // the loading warp's arrive
-    mbar_init(smem_u32(sm.empty + s), CONSUMERS / 32);     // one per consumer warp
-  }
-  mbar_init(smem_u32(sm.res_full), 1);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// Stage `it` of the walk: its slot, once the consumers have released it.
-__device__ __forceinline__ int next_slot(const Smem& sm, int it) {
-  const int s = it % STAGES;
-  if (it >= STAGES) mbar_wait(smem_u32(sm.empty + s), ((it / STAGES) & 1) ^ 1);
-  return s;
-}
-
-// The loading warp's last stage: a header with r0 = -1 and no copies.
-__device__ __forceinline__ void end_walk(const Smem& sm, int it, int lane) {
-  const int s = next_slot(sm, it);
-  if (lane == 0) {
-    sm.hdr[s].r0 = -1;
-    mbar_arrive(smem_u32(sm.full + s));
-  }
-}
-
-__device__ __forceinline__ void prefetch_maps(const CUtensorMap* a, const CUtensorMap* b,
-                                              const CUtensorMap* c, const CUtensorMap* d) {
-  const CUtensorMap* maps[4] = {a, b, c, d};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(maps[i])) : "memory");
-}
-
-// A consumer warp gives stage s back to the loading warp.
-__device__ __forceinline__ void release(const Smem& sm, int s, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(smem_u32(sm.empty + s));
 }
 
 // ---------------------------------------------------------------- K2 (dq)
@@ -407,7 +192,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint8_t* valid_b = p.key_valid + (long long)b * S;
   const uint8_t* bidir_b = p.bidir + (long long)b * S;
 
-  if (tid == 0) init_barriers(sm);
+  if (tid == 0) init_barriers<STAGES, CONSUMERS>(sm);
   __syncthreads();
 
   if (tid >= CONSUMERS) {
@@ -441,7 +226,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                 oft::tile_pair_live(p.causal, k0, q_hi[hf], qb[hf] != 0, km.valid != 0,
                                     km.bid != 0);
       if (!live) continue;   // uniform across the warp
-      const int s = next_slot(sm, it++);
+      const int s = next_slot<STAGES>(sm, it++);
       if (lane == 0) {
         sm.hdr[s] = Header{k0, 0, 0, 0, km.valid, km.bid};
         const uint32_t bar = smem_u32(sm.full + s), dst = smem_u32(sm.ring + s * L::STAGE);
@@ -450,7 +235,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         load_tile<D>(dst + L::TILE, &vmap, bar, hk, k0, b);
       }
     }
-    end_walk(sm, it, lane);
+    end_walk<STAGES>(sm, it, lane);
     return;
   }
 
@@ -570,7 +355,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint8_t* valid_b = p.key_valid + (long long)b * S;
   const uint8_t* bidir_b = p.bidir + (long long)b * S;
 
-  if (tid == 0) init_barriers(sm);
+  if (tid == 0) init_barriers<STAGES, CONSUMERS>(sm);
   __syncthreads();
 
   if (tid >= CONSUMERS) {
@@ -603,7 +388,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
       if (!live) continue;   // uniform across the warp
       for (int g = 0; g < rep; ++g) {   // the heads of the GQA group
         const int h = hk * rep + g;
-        const int s = next_slot(sm, it++);
+        const int s = next_slot<STAGES>(sm, it++);
         if (lane == 0) {
           sm.hdr[s] = Header{q0, h, 0, 0, qb, 0ull};
           const uint32_t bar = smem_u32(sm.full + s), dst = smem_u32(sm.ring + s * L::STAGE);
@@ -615,7 +400,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       }
     }
-    end_walk(sm, it, lane);
+    end_walk<STAGES>(sm, it, lane);
     return;
   }
 
@@ -747,9 +532,7 @@ struct Strides {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d_sb, d_ss, d_sh;
 };
 
-// The tensor maps of q, k, v and dO: (D, heads, S, B) read through their
-// strides, boxes of 64 columns x 1 head x 64 rows, the 128-byte swizzle. A
-// dimension of extent 1 gets a nominal stride (its stride is never used).
+// The tensor maps of q, k, v and dO (flash_wgmma.cuh::encode_operand).
 template <int D>
 CUresult encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
                      const void* dout, int B, int S, int H, int Hkv, const Strides& st) {
@@ -757,19 +540,11 @@ CUresult encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   const void* ptr[4] = {q, k, v, dout};
   const int heads[4] = {H, Hkv, Hkv, H};
-  const long long strides[4][3] = {{st.q_sh, st.q_ss, st.q_sb}, {st.k_sh, st.k_ss, st.k_sb},
-                                   {st.v_sh, st.v_ss, st.v_sb}, {st.d_sh, st.d_ss, st.d_sb}};
+  const long long strides[4][3] = {{st.q_sb, st.q_ss, st.q_sh}, {st.k_sb, st.k_ss, st.k_sh},
+                                   {st.v_sb, st.v_ss, st.v_sh}, {st.d_sb, st.d_ss, st.d_sh}};
   for (int i = 0; i < 4; ++i) {
-    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)heads[i], (uint64_t)S, (uint64_t)B};
-    uint64_t bytes[3];
-    uint64_t span = (uint64_t)D * 2;
-    for (int j = 0; j < 3; ++j) {
-      bytes[j] = dims[j + 1] == 1 ? span : (uint64_t)strides[i][j] * 2;
-      span = bytes[j] * dims[j + 1];
-    }
-    const uint32_t box[4] = {64, 1, ROWS, 1};
-    const CUresult res = encode_4d(encode, &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr[i],
-                                   dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    const CUresult res = encode_operand(encode, &maps[i], ptr[i], D, heads[i], S, B,
+                                        strides[i][0], strides[i][1], strides[i][2]);
     if (res != CUDA_SUCCESS) return res;
   }
   return CUDA_SUCCESS;
@@ -796,8 +571,6 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   kernel<<<grid, NTHREADS, L::SMEM, stream>>>(m[0], m[1], m[2], m[3], p);
   return (int)cudaGetLastError();
 }
-
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 // The checks shared by the entries: sizes, the stats rows' padding, alignment.
 bool valid_call(int B, int S, int H, int Hkv, int D, int s_pad, const Strides& st) {

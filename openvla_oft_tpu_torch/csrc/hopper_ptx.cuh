@@ -1,7 +1,8 @@
 // PTX wrappers for Hopper (sm_90a) kernels: mbarriers, cp.async, TMA
 // tensor-map loads, bulk copies, wgmma shared-memory descriptors and the
-// wgmma fence, commit and wait. Shared by K2 and K3 (flash_attention_bwd.cu),
-// K4 (ln_matmul.cu), K5 (int4_w4a16.cu) and K6 (int4_w4a8.cu).
+// wgmma fence, commit and wait. Shared by K1 (flash_attention_fwd.cu), K2
+// and K3 (flash_attention_bwd.cu), through flash_wgmma.cuh, K4
+// (ln_matmul.cu), K5 (int4_w4a16.cu) and K6 (int4_w4a8.cu).
 
 #pragma once
 

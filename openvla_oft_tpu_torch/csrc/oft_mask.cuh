@@ -7,26 +7,30 @@
 //
 // A (query tile, key tile) pair is computed only when some allow[i, j] of
 // the pair can be true; every skipped pair has P == 0 for all its entries.
-// The backward kernels further class a live pair as interior (every entry
-// allowed: no element evaluates allow()) or partial.
+// The kernels further class a live pair as interior (every entry allowed:
+// no element evaluates allow()) or partial.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <stdint.h>
-
 namespace oft {
-
-constexpr int BQ = 64;                 // query rows per tile
-constexpr int BK = 64;                 // key rows per tile
-constexpr int NWARPS = 4;              // 16 rows per warp
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;      // finite, as in the TPU kernel
 
 // Entry (i, j) of the mask; `valid_j`, `bid_i`, `bid_j` are the 1-D vectors.
 __device__ __forceinline__ bool allow(bool causal, int i, int j, bool valid_j,
                                       bool bid_i, bool bid_j) {
   return valid_j && (!causal || j <= i || (bid_i && bid_j));
+}
+
+// allow() for the 64 keys k0 .. k0 + 63 of row i at once: bit j is
+// allow(causal, i, k0 + j, valid_j, bid_i, bid_j), from the key tile's masks
+// `valid` and `valid_bid` (valid and bidirectional).
+__device__ __forceinline__ unsigned long long row_allowed(bool causal, int i, int k0,
+                                                          unsigned long long valid,
+                                                          bool bid_i,
+                                                          unsigned long long valid_bid) {
+  const int r = i - k0;   // the last key at or below row i
+  const unsigned long long below =
+      !causal || r >= 63 ? ~0ull : r < 0 ? 0ull : (2ull << r) - 1;
+  return (valid & below) | (bid_i ? valid_bid : 0ull);
 }
 
 // Whether the pair (query rows q0..q_hi, key rows k0..) can hold an allowed
@@ -44,28 +48,11 @@ __device__ __forceinline__ bool tile_pair_live(bool causal, int k0, int q_hi,
 // Whether every entry of the pair (query rows q0.., key rows ..k_hi) is
 // allowed, so that no element needs allow(): every key of the tile exists and
 // is valid (`k_all_valid`) and, under `causal`, the last key is at or below
-// the first query row. Rows past S are not the rule's business: the backward
-// kernels give them P == 0 through their LSE.
+// the first query row. Rows past S are not the rule's business: K1 never
+// writes them, and the backward kernels give them P == 0 through their LSE.
 __device__ __forceinline__ bool tile_pair_interior(bool causal, int k_hi, int q0,
                                                    bool k_all_valid) {
   return k_all_valid && (!causal || k_hi <= q0);
-}
-
-// Copy 64 rows of D bf16 (row stride `row_stride` elements) into a shared
-// tile with row stride LD, 16 bytes per thread per step; rows >= n_valid are
-// zero-filled so padding rows can never inject NaN.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int n_valid) {
-  constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += NTHREADS) {
-    const int r = idx / CHUNKS, c = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid)
-      val = *reinterpret_cast<const uint4*>(src + r * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
 }
 
 }  // namespace oft

@@ -18,10 +18,13 @@ raises; a CPU tensor goes to the plain versions `flash_attention_ref`,
 `flash_attention_dkv.stats_launches` counts the stats pass that a K3 called
 without K2 runs first (`_launch_stats`).
 
-The backward of the autograd op runs K2 first: it computes delta once per
-query row and writes (LSE, delta) as stats rows, which K3 then reads
-instead of O and LSE. `_bwd_plan` gives both kernels' tiles and grids and
-`_tile_class` their rule for a (query tile, key tile) pair.
+All three kernels read q, k and v through their strides by TMA tensor maps.
+K1 streams 64-row (K, V) tiles past 128 resident query rows with an online
+softmax (`_fwd_plan`). The backward of the autograd op runs K2 first: it
+computes delta once per query row and writes (LSE, delta) as stats rows,
+which K3 then reads instead of O and LSE. `_bwd_plan` gives both kernels'
+tiles and grids and `_tile_class` the three kernels' rule for a (query
+tile, key tile) pair.
 """
 
 from __future__ import annotations
@@ -223,10 +226,29 @@ def _check_qkv(q, k, v) -> None:
     _check_operand("v", v, (b, s, hkv, d), q.device)
 
 
+# K1's tiles (csrc/flash_attention_fwd.cu): a CTA holds FWD_ROWS query rows as
+# two consumer warpgroups of FWD_TILE rows and walks the key tiles in ring
+# tiles of FWD_TILE rows, FWD_STAGES (K, V) pairs in flight.
+FWD_TILE, FWD_ROWS, FWD_STAGES = 64, 128, 4
+
+
+def _fwd_plan(b: int, s: int, h: int) -> dict:
+    """K1's launch plan for B = b, S = s and H = h query heads: the CTA's
+    query rows, the ring's tile rows and stages, the grid (one CTA per 128
+    query rows of a head) and `q0_order`, the first query row of the CTAs
+    in the order blockIdx.x starts them: the last rows first, which under
+    `causal` have the most key tiles to walk. The kernel works out the same
+    grid itself; `_check_qkv` says which head dims and kv heads it takes."""
+    ctas = -(-s // FWD_ROWS)
+    return {"rows": FWD_ROWS, "tile": FWD_TILE, "stages": FWD_STAGES, "grid": (ctas, h, b),
+            "q0_order": tuple(FWD_ROWS * (ctas - 1 - x) for x in range(ctas))}
+
+
 def _launch(q, k, v, is_causal, key_valid, bidir):
     from openvla_oft_tpu_torch import _build
 
     _check_qkv(q, k, v)
+    q, k, v = (t if _tma_readable(t) else t.contiguous() for t in (q, k, v))
     b, s, h, d = q.shape
     hkv = k.shape[2]
     valid_u8, bidir_u8 = _mask_u8(b, s, key_valid, bidir, q.device)
@@ -255,8 +277,8 @@ def _mask_u8(b, s, key_valid, bidir, device):
 
 
 def _tma_readable(t: torch.Tensor) -> bool:
-    """K2 and K3 read q, k, v and dO through TMA tensor maps, which take no
-    zero stride on a dimension of extent > 1 (a broadcast)."""
+    """K1, K2 and K3 read q, k, v (and dO) through TMA tensor maps, which take
+    no zero stride on a dimension of extent > 1 (a broadcast)."""
     return all(st > 0 or n == 1 for st, n in zip(t.stride()[:-1], t.shape[:-1]))
 
 

@@ -13,6 +13,14 @@ L2_FLUSH_BYTES = 64 * 2**20      # more than the H100's 50 MB of L2
 # and how many windows are tried before a trace counts as not measured.
 PROFILE_PAD_S, PROFILE_TRIES = 0.05, 3
 CENSUS_WINDOWS = 2   # the fewest windows whose kernels device_ms takes as a call's
+# device_ms holds the profiler's reading against CUDA events around the same
+# calls queued behind a spin kernel of SPIN_CYCLES (about 10 ms at the H100's
+# 1.98 GHz, longer than the host takes to queue them): the card then runs
+# them back to back, so the events' time per call is at least the device
+# time. A reading that, with GAP_MS for each kernel of a call (the gap
+# between two kernels on a full queue), stays below QUEUED_FLOOR of them is
+# traced again, then replaced.
+SPIN_CYCLES, QUEUED_FLOOR, GAP_MS = 20_000_000, 0.75, 0.002
 
 
 def l2_flush_buffer(device="cuda") -> torch.Tensor:
@@ -68,6 +76,31 @@ def profiled(fn, complete=bool) -> list:
     return []
 
 
+def queued_ms(fn, flush, iters: int = 10):
+    """fn's time per call from CUDA events around `iters` calls, each after
+    zeroing `flush`, queued behind a spin kernel so that no call waits on
+    the host, less the same span for the flushes alone: the device time
+    plus the gaps between kernels. None when the spin ended before the host
+    had queued every call, or with no card."""
+    def span(body):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(iters):
+            flush.zero_()
+            body()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        return start.elapsed_time(end) if queued else None
+
+    if not (hasattr(torch.cuda, "_sleep") and torch.cuda.is_available()):
+        return None
+    fn()
+    spans = span(fn), span(lambda: None)
+    return None if None in spans else (spans[0] - spans[1]) / iters
+
+
 def device_ms(fn, flush, iters: int = 10) -> tuple:
     """(ms, how): the device time of fn's kernels per call (torch.profiler,
     the mean of `iters` calls), the L2 flushed before each call. Fills and
@@ -78,11 +111,18 @@ def device_ms(fn, flush, iters: int = 10) -> tuple:
     of `iters` calls are traced (at most CENSUS_WINDOWS + PROFILE_TRIES - 1).
     Their census is every kernel name any of them recorded, with its most
     instances per call. A window is used only if it holds every kernel of the
-    census: the first complete one (each kernel's instances per call times
-    `iters`), else the last with some instances missing, whose time is each
-    kernel's mean over its recorded instances times its instances per call
-    (`how` says how many were recorded). Where no window holds every kernel,
-    the time is the CUDA events' around the call."""
+    census: the median over the complete ones (each kernel's instances per
+    call times `iters`), else the last with some instances missing, whose
+    time is each kernel's mean over its recorded instances times its
+    instances per call (`how` says how many were recorded). Where no window
+    holds every kernel, the time is the CUDA events' around the call.
+
+    A window taken as complete has read a kernel at half the time of every
+    other reading. So the reading is held against `queued_ms`: where it
+    stays below QUEUED_FLOOR of it even with GAP_MS for each kernel of a
+    call, PROFILE_TRIES more windows are traced and the median over all
+    complete windows is taken; if that is still below, the time is
+    `queued_ms`'s and `how` says so. Otherwise `how` ends with the ratio."""
     def calls():
         for _ in range(iters):
             flush.zero_()
@@ -100,30 +140,58 @@ def device_ms(fn, flush, iters: int = 10) -> tuple:
         return (bool(census) and set(got) == set(census)
                 and all(got.count(n) == c * iters for n, c in census.items()))
 
-    for tries in range(1, CENSUS_WINDOWS + PROFILE_TRIES):
-        windows.append(_window(calls))
-        got = names(windows[-1])
-        for n in set(got):
-            census[n] = max(census.get(n, 0), round(got.count(n) / iters), 1)
-        if tries >= CENSUS_WINDOWS:
-            if any(complete(w) for w in windows):
-                break
-            print(f"[profile] no complete torch.profiler window among {tries}", flush=True)
-    usable = [w for w in windows if census and set(names(w)) == set(census)]
-    if not usable:
+    def trace(first, last, settle=True):
+        for tries in range(first, last):
+            windows.append(_window(calls))
+            got = names(windows[-1])
+            for n in set(got):
+                census[n] = max(census.get(n, 0), round(got.count(n) / iters), 1)
+            if settle and tries >= CENSUS_WINDOWS:
+                if any(complete(w) for w in windows):
+                    break
+                print(f"[profile] no complete torch.profiler window among {tries}", flush=True)
+
+    def per_call(window):
+        by_name = {}
+        for e in window:
+            if e.name in census:
+                by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+        return (sum(float(np.mean(d)) * census[n] for n, d in by_name.items()) / 1e3,
+                sum(len(d) for d in by_name.values()))
+
+    def reading():
+        usable = [w for w in windows if census and set(names(w)) == set(census)]
+        if not usable:
+            return None, ""
+        whole = [w for w in usable if complete(w)]
+        if whole:
+            return (float(np.median([per_call(w)[0] for w in whole])),
+                    "device time (torch.profiler)")
+        ms, recorded = per_call(usable[-1])
+        return ms, (f"device time (torch.profiler, {recorded} of "
+                    f"{iters * sum(census.values())} instances recorded: per-kernel means)")
+
+    trace(1, CENSUS_WINDOWS + PROFILE_TRIES)
+    ms, how = reading()
+    if ms is None:
         print("[profile] no torch.profiler window held every kernel: CUDA events instead",
               flush=True)
         return (cuda_time_ms(fn, flush=flush),
                 "CUDA events (no torch.profiler window held every kernel)")
-    whole = [w for w in usable if complete(w)]
-    window = whole[0] if whole else usable[-1]
-    by_name = {}
-    for e in window:
-        if e.name in census:
-            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
-    ms = sum(float(np.mean(d)) * census[n] for n, d in by_name.items()) / 1e3
-    if whole:
-        return ms, "device time (torch.profiler)"
-    recorded = sum(len(d) for d in by_name.values())
-    return ms, (f"device time (torch.profiler, {recorded} of "
-                f"{iters * sum(census.values())} instances recorded: per-kernel means)")
+    queued = queued_ms(fn, flush, iters)
+    if queued is None:
+        return ms, f"{how}, not held against CUDA events on a full queue"
+    # fn's kernels per call, its fills and memsets included (less the flush).
+    gaps = GAP_MS * max(1, round(max(len(w) for w in windows) / iters) - 1)
+    if ms + gaps < QUEUED_FLOOR * queued:
+        print(f"[profile] torch.profiler read {ms:.4f} ms, below {QUEUED_FLOOR} of the "
+              f"{queued:.4f} ms of CUDA events on a full queue: traced again", flush=True)
+        first = len(windows) + 1
+        trace(first, first + PROFILE_TRIES, settle=False)
+        ms, how = reading()
+        if ms is None or ms + gaps < QUEUED_FLOOR * queued:
+            print(f"[profile] torch.profiler read {ms} ms again: CUDA events on a full queue "
+                  f"instead", flush=True)
+            return queued, (f"CUDA events on a full queue (torch.profiler read {ms} ms, below "
+                            f"{QUEUED_FLOOR} of them)")
+    return ms, f"{how}, {ms / queued:.2f} of CUDA events on a full queue"

@@ -48,6 +48,36 @@ CASES = [
 ]
 
 
+def _fwd_masks(b, s, rows, device):
+    """key_valid, bidir (B, S) from one (first valid, last valid + 1, window
+    start, len) per batch row."""
+    key_valid = torch.zeros((b, s), dtype=torch.bool, device=device)
+    bidir = torch.zeros((b, s), dtype=torch.bool, device=device)
+    for i, (lo, hi, w0, wl) in enumerate(rows):
+        key_valid[i, lo:hi] = True
+        bidir[i, w0:w0 + wl] = True
+    return key_valid, bidir
+
+
+def _check_forward(q, k, v, causal, key_valid, bidir):
+    """K1 (launched once) against its plain version: O within 2e-2 max and
+    2e-3 mean, LSE within 1e-2 on rows with an allowed key; rows with none
+    exactly 0."""
+    before = fa.flash_attention.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, key_valid, bidir)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, key_valid, bidir)
+    # Live rows: the query has at least one allowed key.
+    live = fa._allow(q, causal, key_valid, bidir)[:, 0].any(-1)
+    err = (o.float() - o_ref.float())[live].abs()
+    assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+    assert (lse - lse_ref).transpose(1, 2)[live].abs().max().item() <= 1e-2
+    assert torch.all(o[~live] == 0)
+    assert torch.isfinite(o).all()
+    return o, lse
+
+
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"s{c[1]}h{c[2]}kv{c[3]}d{c[4]}")
 def test_kernel_matches_plain(cuda, case):
     b, s, h, hkv, d, pads, window, causal = case
@@ -58,20 +88,78 @@ def test_kernel_matches_plain(cuda, case):
     bidir = torch.zeros((b, s), dtype=torch.bool, device=cuda)
     if window is not None:
         bidir[:, window[0]:window[0] + window[1]] = True
-    before = fa.flash_attention.launches
-    o, lse = fa.flash_attention_fwd(q, k, v, causal, key_valid, bidir)
+    _check_forward(q, k, v, causal, key_valid, bidir)
+
+
+# (b, s, h, hkv, d, [(first valid, last valid + 1, window start, len)] per row):
+# the training batch's per-row right pads and windows at both head dims, and
+# S = 40, below one 64-row tile (the CTA's second warpgroup has no rows).
+FWD_CASES = [
+    (8, 585, 32, 32, 128, [(0, 585 - 5 * i, 528 - 5 * i, 57) for i in range(8)]),
+    (8, 585, 32, 8, 64, [(0, 585 - 5 * i, 528 - 5 * i, 57) for i in range(8)]),
+    (2, 40, 4, 2, 128, [(0, 40, 30, 10), (3, 37, 27, 10)]),
+]
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=lambda c: "b{}s{}h{}kv{}d{}".format(*c[:5]))
+def test_kernel_matches_plain_at_training_and_short_lengths(cuda, case):
+    b, s, h, hkv, d, rows = case
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = _strided_qkv(gen, b, s, h, hkv, d, cuda)
+    _check_forward(q, k, v, True, *_fwd_masks(b, s, rows, cuda))
+
+
+@pytest.mark.parametrize("case", [CASES[0], CASES[3], CASES[5]],
+                         ids=lambda c: f"s{c[1]}h{c[2]}kv{c[3]}d{c[4]}")
+def test_kernel_is_deterministic(cuda, case):
+    """Two K1 calls give bitwise-equal O and LSE: every sum runs in a fixed
+    order, with no atomics."""
+    b, s, h, hkv, d, pads, window, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = _strided_qkv(gen, b, s, h, hkv, d, cuda)
+    rows = [(pads, s) + (window or (0, 0))] * b
+    key_valid, bidir = _fwd_masks(b, s, rows, cuda)
+    first = fa.flash_attention_fwd(q, k, v, causal, key_valid, bidir)
+    second = fa.flash_attention_fwd(q, k, v, causal, key_valid, bidir)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
-    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, key_valid, bidir)
-    # Live rows: the query has at least one allowed key.
-    live = key_valid[0].clone()
-    if not causal:
-        live[:] = True
-    err = (o.float() - o_ref.float())[:, live].abs()
-    assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
-    assert (lse - lse_ref)[..., live].abs().max().item() <= 1e-2
-    assert torch.all(o[:, ~live] == 0)
-    assert torch.isfinite(o).all()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_kernel_first_called_on_a_fresh_thread(cuda):
+    """K1 launched from a new host thread, as autograd's device thread runs
+    it when remat recomputes the forward inside the backward: the entry binds
+    the operands' device before it encodes its tensor maps."""
+    import threading
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = _strided_qkv(gen, 1, 130, 4, 4, 128, cuda)
+    key_valid, bidir = _fwd_masks(1, 130, [(0, 130, 20, 100)], cuda)
+    want = fa.flash_attention_fwd(q, k, v, True, key_valid, bidir)
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(fa.flash_attention_fwd(q, k, v, True, key_valid, bidir))
+            torch.cuda.synchronize()
+        except Exception as e:   # surfaced below, on the test's thread
+            errors.append(e)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    assert torch.equal(got[0][0], want[0]) and torch.equal(got[0][1], want[1])
+
+
+def test_kernel_copies_a_broadcast_operand(cuda):
+    """A k broadcast over the sequence (a zero stride, which a TMA tensor map
+    cannot take) is copied by the wrapper, and K1 gives the plain version's
+    answer on it."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, _, v = _strided_qkv(gen, 1, 96, 4, 2, 64, cuda)
+    k = torch.randn((1, 1, 2, 64), generator=gen, device=cuda).bfloat16().expand(1, 96, 2, 64)
+    assert k.stride(1) == 0
+    _check_forward(q, k, v, True, *_fwd_masks(1, 96, [(0, 96, 60, 30)], cuda))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

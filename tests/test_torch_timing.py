@@ -6,7 +6,10 @@ and uses a window only if it holds every kernel of the census: a complete
 window gives the plain mean, a window with some instances missing gives
 per-kernel means times each kernel's instances per call, and a window that
 lost a kernel altogether is never used (with none left, the CUDA events'
-time is taken instead).
+time is taken instead). The reading is then held against `queued_ms`, the
+CUDA events around the same calls queued behind a spin kernel: a reading
+below QUEUED_FLOOR of them, with a gap allowed for each kernel of a call, is
+traced again and, if it stays below, replaced by them.
 """
 
 from types import SimpleNamespace
@@ -88,4 +91,28 @@ def test_device_ms_windows(scripted, case):
     got, got_how = _measure()
     assert got == pytest.approx(ms)
     assert got_how.startswith(how)
+    assert len(windows) - len(queue) == traced
+
+
+@pytest.mark.parametrize("case", [
+    # (windows, queued_ms, ms, how contains, windows traced)
+    ([{"A": (10, 40.0)}] * 2, 0.042, 0.040, "device time (torch.profiler), 0.95 of CUDA events", 2),
+    # Both first windows read A at half its time: traced again, the median
+    # over the five complete windows is A's own time.
+    ([{"A": (10, 15.0)}] * 2 + [{"A": (10, 30.0)}] * 3, 0.031, 0.030,
+     "device time (torch.profiler), 0.97 of CUDA events", 5),
+    # Every window reads half: the events' time is taken.
+    ([{"A": (10, 15.0)}] * 5, 0.031, 0.031, "CUDA events on a full queue (torch.profiler read", 5),
+    # Ten short kernels a call: the gaps between them on a full queue (2 µs
+    # each) keep a reading at 0.70 of the events.
+    ([{f"K{i}": (10, 3.5) for i in range(10)}] * 2, 0.050, 0.035,
+     "device time (torch.profiler), 0.70 of CUDA events", 2),
+], ids=["agrees", "half_then_traced_again", "half_always", "many_short_kernels"])
+def test_device_ms_held_against_queued_events(scripted, monkeypatch, case):
+    windows, queued, ms, how, traced = case
+    queue = scripted(windows)
+    monkeypatch.setattr(timing, "queued_ms", lambda fn, flush, iters: queued)
+    got, got_how = _measure()
+    assert got == pytest.approx(ms)
+    assert how in got_how
     assert len(windows) - len(queue) == traced
