@@ -34,6 +34,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (K1 without its softmax or its wgmmas, the ring alone, at S = 618, 1168
      and the training batch; the sweep over masks: cost per live pair and
      fixed cost);
+  3c. use_flash="auto" where K1 does not take the call (run right after
+     phase 3): one request of a policy at the stock TINY_LLAMA (head_dim 16)
+     goes through the dense path (no K1 launch) and answers as
+     use_flash=False;
   4. serving: 3 /act requests, K1 launched 31 times per request, the server
      built without its warm-up (the first request is the cold one); one
      request through FastAPI's /act (ActionServer.run) against the stdlib
@@ -61,8 +65,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   8. int4 path parity: K5 and K6 against their plain versions through
      `predict_action_hidden` on the same int4 weights; int4 against bf16;
   8a. the K5 probe: the probe script's `main` (T = 112, the 7B's shapes;
-     K5, its three probe modes and K6), each mode against its plain
-     version, timed beside its plain version, `torch.matmul` and the bound;
+     K5, its kernel with the three probe dequant policies, K6 and
+     `torch.matmul` on the dequantized weight, by device time, and the split
+     of K5's time), each mode against its plain version at each shape, with
+     the bound; group-dots' plain version timed at qkv;
   9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
      version at the training shape (B=8, per-row pads and windows), the
      ALOHA length, GQA and dead rows, two calls of each bitwise equal, with
@@ -193,7 +199,10 @@ WGMMA_KERNELS = {"K1": (r"flash_fwd_kernelILi(\d+)E", "HGMMA", "D={}"),
                  "K2": (r"flash_bwd_dq_kernelILi(\d+)E", "HGMMA", "D={}"),
                  "K3": (r"flash_bwd_dkv_kernelILi(\d+)E", "HGMMA", "D={}"),
                  "K4": (r"ln_matmul_kernelILi(\d+)ELi(\d+)E", "HGMMA", "BM={} BN={}"),
-                 "K5": (r"int4_w4a16_wgmma_kernelILi(\d+)E", "HGMMA", "T_TILE={}"),
+                 "K5": (r"int4_w4a16_wgmma_kernelILi(\d+)E\w*?DequantILi3E", "HGMMA",
+                        "T_TILE={}"),
+                 "probe": (r"int4_w4a16_wgmma_kernelILi(\d+)E\w*?DequantILi([012])E", "HGMMA",
+                           "T_TILE={} mode={}"),
                  "K6": (r"int4_w4a8_wgmma_kernelILi(\d+)ELb([01])E", "IGMMA",
                         "T_TILE={} HALF={}")}
 
@@ -891,13 +900,13 @@ def aloha_serving(card: str, rng) -> dict:
 
 
 def probe_phase(card: str) -> dict:
-    """The probe script's main with fewer timed calls (its launches are the
-    probe's main path), then each mode against its plain version at the qkv
-    shape, timed beside its plain version, torch.matmul on the dequantized
-    bf16 weight and the bound."""
-    from openvla_oft_tpu_torch.ops.int4_matmul import int4_matmul_ref
-    from openvla_oft_tpu_torch.ops.int4_probe import MODES, int4_probe, int4_probe_ref
-    from openvla_oft_tpu_torch.ops.quant import dequantize_int4, quantize_weight_int4
+    """The probe script's main (its launches are the probe's main path: K5,
+    the three probe modes, K6 and torch.matmul by device time at T = 112 and
+    the 7B's three shapes, and the split of K5's time); then, at each shape,
+    each mode against its plain version and the bound; group-dots' plain
+    version timed at qkv."""
+    from openvla_oft_tpu_torch.ops.int4_probe import MODES, _probe_plan, int4_probe, int4_probe_ref
+    from openvla_oft_tpu_torch.ops.quant import quantize_weight_int4
     from openvla_oft_tpu_torch.scripts import exp_int4_probe as P
 
     reset_launch_counts()
@@ -909,41 +918,83 @@ def probe_phase(card: str) -> dict:
         f"int4_matmul_ref {out['group_dots_vs_ref']:.3e} ({card})")
     dev = torch.device("cuda")
     flush = l2_flush_buffer(dev)
-    name, k, n = P.SHAPES[0]
-    gen = torch.Generator(device=dev).manual_seed(k + n)
-    x = torch.randn((P.T, k), generator=gen, device=dev).bfloat16()
-    q = quantize_weight_int4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
-    packed, scales = q["kernel_q4"], q["scale_w4"]
-    errs = {}
-    for mode in MODES:
-        got = int4_probe(x, packed, scales, mode)
-        torch.cuda.synchronize()
-        err, rel, _ = _rel_cos(got, int4_probe_ref(x, packed, scales, mode))
-        errs[mode] = err
-        log(f"[probe] {mode} {name} T={P.T}: max|d|={err:.3e} rel={rel:.3e} against its "
-            f"plain version, finite {bool(torch.isfinite(got).all())}")
-        if not (rel <= PROBE_REL and torch.isfinite(got).all()):
-            raise AssertionError(f"the probe's {mode} disagrees with its plain version")
-    y = int4_probe(x, packed, scales, "group-dots")
-    w16 = dequantize_int4(packed, scales, torch.bfloat16)
-    plain_ms = cuda_time_ms(lambda: int4_probe_ref(x, packed, scales, "group-dots"),
-                            flush=flush)
-    deq_ms = cuda_time_ms(lambda: int4_matmul_ref(x, packed, scales), flush=flush)
-    library_ms = cuda_time_ms(lambda: torch.matmul(x, w16), flush=flush)
-    bound_ms, bound_by = bound(2 * P.T * k * n, nbytes(x, packed, scales, y), PEAK_BF16)
+    errs, bounds = {}, {}
+    for name, k, n in P.SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(k + n)
+        x = torch.randn((P.T, k), generator=gen, device=dev).bfloat16()
+        q = quantize_weight_int4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        packed, scales = q["kernel_q4"], q["scale_w4"]
+        for mode in MODES:
+            got = int4_probe(x, packed, scales, mode)
+            torch.cuda.synchronize()
+            err, rel, _ = _rel_cos(got, int4_probe_ref(x, packed, scales, mode))
+            errs[(name, mode)] = err
+            finite = bool(torch.isfinite(got).all())
+            log(f"[probe] {mode} {name} T={P.T}: plan {_probe_plan(P.T, k, n, 128, mode)}, "
+                f"max|d|={err:.3e} rel={rel:.3e} against its plain version, finite {finite}")
+            if not (rel <= PROBE_REL and finite):
+                raise AssertionError(f"the probe's {mode} disagrees with its plain version at "
+                                     f"{name}")
+        bounds[name] = bound(2 * P.T * k * n, nbytes(x, packed, scales, got), PEAK_BF16)
+        times, split = out["ms"][name], out["split"][name]
+        log(f"[probe] {name} T={P.T}: " + ", ".join(f"{v} {ms:.4f}" for v, ms in times.items())
+            + f" ms (device time, mean of 10, L2 flushed); bound {bounds[name][0]:.4f} "
+            f"({bounds[name][1]}); split: " + ", ".join(f"{d} {v:.4f}" for d, v in split.items())
+            + f" ms; stacked layer view K5 {out['stacked_ms'][name]:.4f} ms; byte floor "
+            f"{out['floor_ms'][name]:.4f} ms ({card})")
+        if name == "qkv":
+            plain_ms = cuda_time_ms(lambda: int4_probe_ref(x, packed, scales, "group-dots"),
+                                    flush=flush)
+        del x, q, packed, scales, got
+    name = P.SHAPES[0][0]
     ms = out["ms"][name]["group-dots"]
-    log(f"[probe] group-dots {name} T={P.T}: {ms:.4f} ms (the script's median of 10), plain "
-        f"{plain_ms:.4f}, int4_matmul_ref {deq_ms:.4f}, torch.matmul on the bf16 weight "
-        f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}) (CUDA events, L2 flushed; {card})")
-    for shape, times in out["ms"].items():
-        log(f"[probe] {shape}: " + ", ".join(f"{v} {t:.4f}" for v, t in times.items())
-            + f" ms; stacked layer view {out['stacked_ms'][shape]:.4f} ms; byte floor "
-            f"{out['floor_ms'][shape]:.4f} ms ({card})")
+    log(f"[probe] group-dots {name} T={P.T}: {ms:.4f} ms ({out['how'][name]['group-dots']}), "
+        f"plain {plain_ms:.4f} (CUDA events), torch.matmul on the bf16 weight "
+        f"{out['ms'][name]['torch.matmul']:.4f}, bound {bounds[name][0]:.4f} ({card})")
     del flush
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": max(errs.values()), "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "plain_ms": plain_ms, "library_ms": out["ms"][name]["torch.matmul"],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "modes": {s: {"ms": out["ms"][s], "split": out["split"][s],
+                          "bound_ms": bounds[s][0]} for s, _, _ in P.SHAPES}}
+
+
+def tiny_auto_request(card: str) -> dict:
+    """One request of a policy at the stock TINY_LLAMA (head_dim 16, which K1
+    does not take; the `--vla_path random:tiny` model) under use_flash="auto":
+    it must take the dense path, with no K1 launch, and answer as
+    use_flash=False does. Returns the auto request's launches."""
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+    from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats
+    from openvla_oft_tpu_torch.training.finetune import model_config, parse_config
+
+    cfg = model_config(parse_config(["--vla_path", "random:tiny"]))
+    dev = torch.device("cuda")
+    params = init_params(cfg, LIBERO, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=torch.bfloat16)
+    frames = (np.random.default_rng(0).random((2, 40, 40, 3)) * 255).astype(np.uint8)
+    actions, launches = {}, {}
+    for use_flash in ("auto", False):
+        policy = OpenVLAPolicy(cfg=cfg, platform=LIBERO, params=params,
+                               norm_stats=placeholder_norm_stats(LIBERO), prompt_bucket=32,
+                               use_flash=use_flash)
+        reset_launch_counts()
+        actions[use_flash] = policy.predict_action_from_frames(frames, "open the drawer")
+        torch.cuda.synchronize()
+        launches[use_flash] = launch_counts()
+    d = float(np.abs(actions["auto"] - actions[False]).max())
+    log(f"[auto] TINY_LLAMA policy (head_dim {cfg.llm.head_dim}) under use_flash=\"auto\": "
+        f"{actions['auto'].shape} finite {bool(np.isfinite(actions['auto']).all())}, launches "
+        f"{launches['auto']}; max|d| against use_flash=False {d:.3e} ({card})")
+    if launches["auto"]["K1"] != 0 or not np.isfinite(actions["auto"]).all() or d > 1e-5:
+        raise AssertionError("use_flash=\"auto\" did not serve the head_dim-16 policy through "
+                             "the dense path")
+    del params
+    torch.cuda.empty_cache()
+    return launches["auto"]
 
 
 def counted_wrappers() -> dict:
@@ -1407,6 +1458,7 @@ def main() -> int:
     log(f"[bwd] training layout: S = {s_train} (text bucket + "
         f"{cfg.num_images_in_input} x {cfg.vision_configs[0].num_patches} patches + proprio)")
     checks = kernel_check(card, s_train)
+    tiny_launches = tiny_auto_request(card)
     k4 = ln_matmul_check(card)
     k4_parts_phase(card)
     k1_parts_phase(card)
@@ -1509,10 +1561,13 @@ def main() -> int:
         kernel_entry("int4_probe", "int4_probe.cu", "vla_scripts/exp_int4_probe.py:53",
                      probe["launches"], probe["max_abs_err"], probe["ms"], probe["plain_ms"],
                      probe["bound_ms"], probe["bound_by"], probe["library_ms"],
-                     library_call="torch.matmul on the dequantized bf16 weight")]
+                     library_call="torch.matmul on the dequantized bf16 weight",
+                     hgmma=wgmma["probe"], timing="device time (torch.profiler)",
+                     shapes_t112=probe["modes"])]
     log(f"[launches] bf16 serving run: {serve_launches}; ALOHA serving runs: vit_fused "
         f"{aloha_k4}, unfused {aloha[False]['launches']}; int4 serving runs: W4A16 {w4a16}, "
-        f"W4A8 {w4a8}; probe run: {probe['launches']}; training run: {train_launches}")
+        f"W4A8 {w4a8}; probe run: {probe['launches']}; training run: {train_launches}; "
+        f"TINY_LLAMA request under auto: {tiny_launches}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -127,8 +127,8 @@ def library() -> ctypes.CDLL:
     fn = lib.openvla_ln_matmul                   # K4: x w b out M D N ldx ldw act eps bm bn
     fn.argtypes = [p] * 4 + [i] * 3 + [i64, i64, i, ctypes.c_float, i, i, p]
     fn.restype = ctypes.c_int
-    fn = lib.openvla_int4_probe                  # K5 probe: as K5, then mode vec8 vec4
-    fn.argtypes = [p] * 4 + [i] * 4 + [i64, i64, i, i, i, p]
+    fn = lib.openvla_int4_probe                  # K5 probe: as K5, then mode
+    fn.argtypes = [p] * 6 + [i] * 4 + [i64, i64, i, i, i, p]
     fn.restype = ctypes.c_int
     lib.openvla_cuda_error_string.argtypes = [ctypes.c_int]
     lib.openvla_cuda_error_string.restype = ctypes.c_char_p

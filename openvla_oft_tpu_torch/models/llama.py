@@ -170,12 +170,16 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     or with `out_window=(start, len)` only those rows of the last layer
     (B, len, D) — every earlier layer still computes all rows as keys.
 
-    use_flash: True | False | "auto" (K1 on CUDA, see ops/attention.py).
+    use_flash: True | False | "auto" (K1 where it takes the call, see
+    ops/attention.py::resolve_use_flash).
     remat_policy: activation remat of each block (`resolve_remat`).
     """
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
-    use_flash = resolve_use_flash(use_flash, inputs_embeds)
+    # Every attention below but the out_window layer's is self-attention with the
+    # 1-D mask vectors, on q of inputs_embeds' dtype.
+    use_flash = resolve_use_flash(use_flash, (b, s, cfg.num_heads, cfg.head_dim),
+                                  inputs_embeds.dtype, device, s)
     if positions is None:
         positions = torch.arange(s, device=device).expand(b, s)
     sin, cos = rope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)

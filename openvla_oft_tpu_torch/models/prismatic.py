@@ -107,7 +107,7 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
 
     input_ids / attention_mask / labels (B, S_txt) right-padded; pixels
     (B, N, n_backbones, H, W, 3). use_flash: True | False | "auto" (K1/K2/K3
-    on CUDA, see ops/attention.py::resolve_use_flash).
+    where K1 takes the call, see ops/attention.py::resolve_use_flash).
     """
     if isinstance(cfg.llm, PhiConfig):
         raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
@@ -201,7 +201,8 @@ def predict_action_hidden(params: Params, cfg: OpenVLAConfig,
     states (the rows whose NEXT token is an action slot).
 
     input_ids / prompt_mask (B, P) left-padded; pixels (B, N, n_backbones,
-    H, W, 3). use_flash: True | False | "auto" (kernel K1 on CUDA).
+    H, W, 3). use_flash: True | False | "auto" (kernel K1 where it takes the
+    call, see ops/attention.py::resolve_use_flash).
     """
     if isinstance(cfg.llm, PhiConfig):
         raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")

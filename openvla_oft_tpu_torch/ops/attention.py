@@ -11,21 +11,33 @@ from typing import Optional
 
 import torch
 
-from openvla_oft_tpu_torch.ops.flash_attention import flash_attention
+from openvla_oft_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 
-def resolve_use_flash(use_flash, x: torch.Tensor) -> bool:
-    """`use_flash="auto"` takes kernel K1 whenever the tensors are on CUDA.
+def resolve_use_flash(use_flash, q_shape, dtype: torch.dtype, device, s_kv: int,
+                      dense_mask: bool = False) -> bool:
+    """Whether an attention with queries q (B, S, H, D) of `dtype` on `device`
+    over `s_kv` keys goes to kernel K1.
 
-    The JAX package resolves "auto" by sequence length against
-    FLASH_SEQ_THRESHOLD=1024, a crossover measured on a TPU v5e. It is not
-    carried over: the H100 dispatch rule waits for H100 measurements.
+    A dense mask (`dense_mask`) always takes the dense path: K1 reads only
+    the 1-D mask vectors (key_valid and the bidirectional block). Otherwise
+    use_flash True asks for K1, which then raises on a shape it does not
+    take, and False for the dense path. "auto" takes K1 exactly where K1
+    takes the call: on CUDA, in bfloat16, with head_dim 64 or 128 and
+    self-attention (S == s_kv); anything else goes to the dense path. K1 has
+    no length threshold on the card: it is 0.41-0.63x SDPA's forward at the
+    serving and training shapes (PERF.md section 6). The JAX package's
+    threshold (FLASH_SEQ_THRESHOLD = 1024 rows) is a crossover measured on a
+    TPU v5e and is not carried over.
     """
-    if use_flash == "auto":
-        return x.is_cuda
-    return bool(use_flash)
+    if dense_mask:
+        return False
+    if use_flash != "auto":
+        return bool(use_flash)
+    return (torch.device(device).type == "cuda" and dtype == torch.bfloat16
+            and q_shape[-1] in HEAD_DIMS and q_shape[1] == s_kv)
 
 
 def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,9 +87,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (masking from the 1-D `key_valid` / `bidir_mask` vectors).
 
     use_flash: True -> K1 (its plain version on CPU); False -> dense;
-    "auto" -> K1 on CUDA, dense otherwise.
+    "auto" -> K1 where K1 takes the call, else dense; a dense `mask` is
+    always dense (`resolve_use_flash`).
     """
-    if resolve_use_flash(use_flash, q) and mask is None:
+    if resolve_use_flash(use_flash, q.shape, q.dtype, q.device, k.shape[1],
+                         dense_mask=mask is not None):
         return flash_attention(q, k, v, is_causal=is_causal, key_valid=key_valid,
                                bidir_mask=bidir_mask, bidir_block=bidir_block)
     if bidir_mask is None and bidir_block is not None:

@@ -213,11 +213,15 @@ def _check_operand(name: str, t: torch.Tensor, shape: tuple, device) -> None:
             f"strides {t.stride()}")
 
 
+# The head widths K1, K2 and K3 are compiled for.
+HEAD_DIMS = (64, 128)
+
+
 def _check_qkv(q, k, v) -> None:
     """What every kernel needs of q (B,S,H,D) and k/v (B,S,Hkv,D)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    if d not in (64, 128):
+    if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim 64 or 128, got {d}")
     if hkv == 0 or h % hkv:
         raise ValueError(f"flash_attention: {h} query heads over {hkv} kv heads")

@@ -147,9 +147,10 @@ def _plan(t: int, k: int, n: int, group: int, t_tiles: tuple, bk: int, row_cost:
 
 
 @functools.lru_cache(maxsize=256)
-def _k5_plan(t: int, k: int, n: int, group: int) -> tuple:
-    """K5's launch (`_plan`): its t_tiles, 64-deep stages, the bf16 rate."""
-    return _plan(t, k, n, group, K5_T_TILES, K5_BK, 1, 7500.0)
+def _k5_plan(t: int, k: int, n: int, group: int, t_tiles: tuple = K5_T_TILES) -> tuple:
+    """K5's launch (`_plan`): its t_tiles (or those of a probe mode), 64-deep
+    stages, the bf16 rate."""
+    return _plan(t, k, n, group, t_tiles, K5_BK, 1, 7500.0)
 
 
 # K6's compiled tiles of x8's rows (`csrc/int4_w4a8.cu`), and the output
@@ -167,16 +168,16 @@ def _k6_plan(t: int, k: int, n: int, group: int) -> tuple:
     return _plan(t, k, n, group, K6_T_TILES, K6_BK, 2, 15000.0)
 
 
-def _vec4(packed: torch.Tensor) -> int:
-    """Whether the probe kernel may read `packed` as 4-byte words."""
-    return int(packed.data_ptr() % 4 == 0 and packed.stride(0) % 4 == 0
-               and packed.shape[1] % 4 == 0)
-
-
-def _launch_w4a16(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def _launch_machine(counted, name: str, x2: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor, plan, entry: str, *extra: int) -> torch.Tensor:
+    """One launch of K5's machine (`csrc/int4_w4a16.cuh`) through the C entry
+    `entry` of the kernel library: x2 (T, K) rounded to bf16 with a 16-byte
+    base, the launch `plan(t, k, n, group)` -> (t_tile, splits, CTAs), the
+    split's partials and counters, then `extra` (the probe's mode) before the
+    stream. K5 and the K5 timing probe (`ops/int4_probe.py`) launch through
+    it; a launch adds one to `counted.launches`."""
     from openvla_oft_tpu_torch import _build
 
-    name = "int4_matmul_fused (K5)"
     k_dim, n, group = _check_weight(name, x2, packed, scales)
     _check_group(name, group)
     xb = x2.to(torch.bfloat16).contiguous()          # rounded to bf16, as the TPU kernel does
@@ -187,7 +188,7 @@ def _launch_w4a16(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) 
     out = torch.empty((t, n), dtype=torch.float32, device=x2.device)
     if t == 0:
         return out
-    t_tile, splits, _ = _k5_plan(t, k_dim, n, group)
+    t_tile, splits, _ = plan(t, k_dim, n, group)
     work = counters = None
     if splits > 1:                                   # partials, and a counter per output tile
         work = torch.empty((splits, t, n), dtype=torch.float32, device=x2.device)
@@ -196,14 +197,19 @@ def _launch_w4a16(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) 
     lib = _build.library()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = lib.openvla_int4_matmul_w4a16(
+        err = getattr(lib, entry)(
             xb.data_ptr(), packed.data_ptr(), sc.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr(),
             None if counters is None else counters.data_ptr(),
-            t, k_dim, n, group, packed.stride(0), sc.stride(0), t_tile, splits, stream)
+            t, k_dim, n, group, packed.stride(0), sc.stride(0), t_tile, splits, *extra, stream)
     _build.check_launch(err, name)
-    int4_matmul_fused.launches += 1
+    counted.launches += 1
     return out
+
+
+def _launch_w4a16(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    return _launch_machine(int4_matmul_fused, "int4_matmul_fused (K5)", x2, packed, scales,
+                           _k5_plan, "openvla_int4_matmul_w4a16")
 
 
 def _launch_w4a8(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

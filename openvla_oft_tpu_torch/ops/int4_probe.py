@@ -1,10 +1,12 @@
-"""The K5 timing probe: K5's operands with its dequant step varied.
+"""The K5 timing probe: K5's kernel with its dequant step varied.
 
 Port of `vla_scripts/exp_int4_probe.py::_kernel_probe` (:53). The CUDA kernel
-is `csrc/int4_probe.cu`; `scripts/exp_int4_probe.py` times it beside K5 and
-K6 to split K5's time into nibble unpack, scale multiply and product. Modes,
-with x_e = x[:, 0::2] and x_o = x[:, 1::2] in bf16 and lo, hi the
-sign-extended low and high nibbles of each packed byte:
+is K5's own (`csrc/int4_w4a16.cuh`) with its dequant step varied, launched
+through `csrc/int4_probe.cu` with K5's operands, workspace and a plan from
+`_probe_plan`; `scripts/exp_int4_probe.py` times it beside K5 and K6 to split
+K5's time into scale multiply, nibble unpack and product. Modes, with
+x_e = x[:, 0::2] and x_o = x[:, 1::2] in bf16 and lo, hi the sign-extended
+low and high nibbles of each packed byte:
 
     no-scale    x_e @ lo + x_o @ hi                   (no scale: WRONG NUMBERS
                                                        by design)
@@ -15,16 +17,18 @@ sign-extended low and high nibbles of each packed byte:
                                                        partial of each group)
 
 x (T, K) float, packed (K/2, N) int8, scales (G, N) fp32 (K5's operand
-contract) -> (T, N) fp32. A CUDA tensor goes to the kernel or raises; a CPU
-tensor goes to the plain version `int4_probe_ref`. `int4_probe.launches`
-counts the launches.
+contract; groups that are multiples of 16 on CUDA) -> (T, N) fp32. A CUDA
+tensor goes to the kernel or raises; a CPU tensor goes to the plain version
+`int4_probe_ref`. `int4_probe.launches` counts the launches.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from openvla_oft_tpu_torch.ops.int4_matmul import _check_weight, _vec4
+from openvla_oft_tpu_torch.ops import int4_matmul as M
 from openvla_oft_tpu_torch.ops.quant import _unpack_int4
 
 MODES = ("no-scale", "no-unpack", "group-dots")
@@ -61,29 +65,19 @@ def int4_probe_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-def _launch(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, mode: str) -> torch.Tensor:
-    from openvla_oft_tpu_torch import _build
+# group-dots keeps each group's partial beside the sum, twice K5's accumulator
+# registers: its compiled tiles of x's rows stop at 128 (`csrc/int4_probe.cu`).
+GROUP_DOTS_T_TILES = (64, 128)
 
-    k_dim, n, group = _check_weight("int4_probe", x, packed, scales)
-    if mode == "group-dots" and group % 16:
-        raise ValueError(f"int4_probe group-dots takes groups that are multiples of 16, "
-                         f"got {group}")
-    xb = x.to(torch.bfloat16).contiguous()
-    sc = scales.float()
-    t = xb.shape[0]
-    out = torch.empty((t, n), dtype=torch.float32, device=x.device)
-    if t == 0:
-        return out
-    vec8 = int(xb.data_ptr() % 16 == 0 and k_dim % 8 == 0)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.openvla_int4_probe(
-            xb.data_ptr(), packed.data_ptr(), sc.data_ptr(), out.data_ptr(), t, k_dim, n, group,
-            packed.stride(0), sc.stride(0), MODES.index(mode), vec8, _vec4(packed), stream)
-    _build.check_launch(err, f"int4_probe {mode}")
-    int4_probe.launches += 1
-    return out
+
+@functools.lru_cache(maxsize=256)
+def _probe_plan(t: int, k: int, n: int, group: int, mode: str) -> tuple:
+    """The probe's launch (t_tile, splits, grid CTAs): K5's plan
+    (`int4_matmul._k5_plan`) in no-scale and no-unpack, and in group-dots the
+    same rule over its tiles of at most 128 rows."""
+    if mode == "group-dots":
+        return M._k5_plan(t, k, n, group, GROUP_DOTS_T_TILES)
+    return M._k5_plan(t, k, n, group)
 
 
 def int4_probe(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -97,7 +91,9 @@ def int4_probe(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         if x.device.type != "cpu":
             raise ValueError(f"int4_probe runs on CUDA or CPU, not {x.device}")
         return int4_probe_ref(x, packed, scales, mode)
-    return _launch(x, packed, scales, mode)
+    return M._launch_machine(int4_probe, f"int4_probe {mode}", x, packed, scales,
+                             functools.partial(_probe_plan, mode=mode), "openvla_int4_probe",
+                             MODES.index(mode))
 
 
 int4_probe.launches = 0

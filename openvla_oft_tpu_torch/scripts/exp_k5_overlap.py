@@ -3,9 +3,10 @@
 K5 (`csrc/int4_w4a16.cu`) runs three things per 64-deep stage: the ring of
 asynchronous copies that brings x's tile, the packed bytes and the scales
 (the "pipe"), the consumers' dequant arithmetic into wgmma's register A
-operand, and the wgmmas. This script builds variants of K5's own source, each
-a text substitution that the script checks applies, and times them at the
-7B's int4 shapes with the plan that K5 takes (`ops/int4_matmul.py::_k5_plan`):
+operand, and the wgmmas. This script builds variants of K5's own source (its
+kernel header `csrc/int4_w4a16.cuh` inlined), each a text substitution that
+the script checks applies, and times them at the 7B's int4 shapes with the
+plan that K5 takes (`ops/int4_matmul.py::_k5_plan`):
 
   k5          K5 as shipped
   no-dequant  A is a constant (no shared-memory reads of the packed bytes, no
@@ -45,10 +46,11 @@ SHAPES = [("wqkv", 4096, 12288), ("gate_up", 4096, 22016), ("wo", 4096, 4096),
           ("down", 11008, 4096)]
 ROWS = (618, 57)
 SOURCE = _build.CSRC_DIR / "int4_w4a16.cu"
+HEADER = _build.CSRC_DIR / "int4_w4a16.cuh"   # K5's kernel, shared with the probe
 OUT_DIR = _build.BUILD_DIR / "exp_k5_overlap"
 
 _WGMMA = "wgmma_rs<TT>(acc, a[P][j], sw128_desc(xbase + j * 32));"
-_DEQUANT = "  uint32_t b[BK / 16][4];\n"
+_DEQUANT = "    uint32_t b[BK / 16][4];\n"
 _CONST_A = ("  if (gsteps >= 0) {\n    for (int j = 0; j < BK / 16; ++j)\n"
             "      for (int i = 0; i < 4; ++i) r[j][i] = 0x3F803F80u;\n    return;\n  }\n")
 _NO_MMA = "{ hold(a[P][j]); acc[0] += __uint_as_float(a[P][j][0] ^ a[P][j][3]); }"
@@ -70,13 +72,20 @@ def _ss_wgmma(n: int) -> str:
 def _replace(text: str, old: str, new: str) -> str:
     if text.count(old) != 1:
         raise RuntimeError(f"K5's source no longer holds {old.strip()!r} once: update "
-                           "exp_k5_overlap's substitutions")
+                           "the parts script's substitutions")
     return text.replace(old, new)
+
+
+def k5_source() -> str:
+    """K5's translation unit with its kernel's header inlined: one text that
+    holds the whole machine, for the substitutions."""
+    header = HEADER.read_text().replace("#pragma once\n", "")
+    return _replace(SOURCE.read_text(), '#include "int4_w4a16.cuh"\n', header)
 
 
 def variant_sources() -> dict:
     """name -> CUDA source of every timed variant."""
-    src = SOURCE.read_text()
+    src = k5_source()
     no_dequant = _replace(src, _DEQUANT, _CONST_A + _DEQUANT)
     ss_decl = ("template <int N>\n__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], "
                "uint64_t da, uint64_t db);\n" + "".join(_ss_wgmma(n) for n in M.K5_T_TILES))

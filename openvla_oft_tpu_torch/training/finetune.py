@@ -95,11 +95,10 @@ class FinetuneConfig:
     robot_platform: Optional[str] = None          # default: sniff dataset_name
     seq_bucket: int = 0                           # 0 = auto (pad to multiple of 8)
     use_flash_attention: str = "auto"             # "auto" | "true" | "false";
-                                                  # auto = Pallas kernel iff the
-                                                  # multimodal S clears
-                                                  # FLASH_SEQ_THRESHOLD (ALOHA
-                                                  # yes, LIBERO no) — same
-                                                  # dispatch the serving path uses
+                                                  # auto = K1 where it takes the
+                                                  # call, the dense path elsewhere
+                                                  # (ops/attention.py::
+                                                  # resolve_use_flash)
     quantize_base: bool = False                   # QLoRA-style int8 frozen base
                                                   # (fits 7B LoRA on one 16 GB chip;
                                                   # straight-through bwd, ops/quant.py)

@@ -729,8 +729,11 @@ def test_ln_matmul_kernel_rejects_what_it_does_not_take(cuda):
 
 # --- the K5 timing probe ------------------------------------------------------
 
-# (name, T, K, N): the probe's T, a ragged T and N, and group 16 (d_in 4304).
-PROBE_CASES = [("T112", 112, 1024, 384), ("T37_N200", 37, 512, 200), ("group16", 33, 4304, 136)]
+# (name, T, K, N): the probe's T, a ragged T and N, group 16 with K not a
+# multiple of 64 (d_in 4304), and qkv's width at T = 57, where the plan splits
+# K (2 ways).
+PROBE_CASES = [("T112", 112, 1024, 384), ("T37_N200", 37, 512, 200), ("group16", 33, 4304, 136),
+               ("T57_qkv_split", 57, 4096, 12288)]
 
 
 @pytest.mark.parametrize("mode", ["no-scale", "no-unpack", "group-dots"])
@@ -750,6 +753,96 @@ def test_probe_kernel_matches_plain(cuda, case, mode):
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert torch.isfinite(got).all()
     assert _rel_err(got, ref) <= 1e-3, (mode, _rel_err(got, ref))
+
+
+def test_probe_rejects_groups_that_are_not_multiples_of_16(cuda):
+    """Every mode runs K5's machine, which takes groups of whole k16 steps."""
+    from openvla_oft_tpu_torch.ops.int4_probe import MODES, int4_probe
+
+    w = _int4_weight(torch.Generator(device=cuda).manual_seed(0), 200, 64, cuda)   # group 100
+    for mode in MODES:
+        before = int4_probe.launches
+        with pytest.raises(ValueError, match="multiples of 16"):
+            int4_probe(torch.randn((4, 200), device=cuda), w["kernel_q4"], w["scale_w4"], mode)
+        assert int4_probe.launches == before
+
+
+# K5 at the 7B's int4 shapes and the probe's T, through the dequant policy
+# that K5 now shares with the probe (`csrc/int4_w4a16.cuh`, Dequant<SCALED>).
+@pytest.mark.parametrize("t", [57, 112])
+@pytest.mark.parametrize("k,n", [(4096, 12288), (11008, 4096)], ids=["qkv", "down"])
+def test_k5_scaled_policy_matches_plain_and_repeats(cuda, t, k, n):
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+
+    x, packed, scales = _int4_operands(cuda, ("k5", t, k, n, 128, "whole"))
+    first = M.int4_matmul_fused(x, packed, scales)
+    again = M.int4_matmul_fused(x, packed, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.isfinite(first).all()
+    assert _rel_err(first, M.int4_matmul_ref(x, packed, scales)) <= 1e-3
+
+
+# --- "auto" where K1 does not take the call -----------------------------------
+
+def _stock_tiny_cfg():
+    """The configuration of `--vla_path random:tiny`: the stock TINY_LLAMA,
+    head_dim 16, which K1 does not take."""
+    from openvla_oft_tpu_torch.training.finetune import model_config, parse_config
+
+    return model_config(parse_config(["--vla_path", "random:tiny"]))
+
+
+def test_auto_serves_a_head_dim_16_policy_through_the_dense_path(cuda):
+    """A TINY_LLAMA policy on the card under "auto" launches no K1 and gives
+    the use_flash=False actions; use_flash=True asks for K1, which raises."""
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+    from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats
+
+    cfg = _stock_tiny_cfg()
+    assert cfg.llm.head_dim == 16
+    params = init_params(cfg, LIBERO, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda, dtype=torch.bfloat16)
+    frames = (np.random.default_rng(0).random((2, 40, 40, 3)) * 255).astype(np.uint8)
+    out = {}
+    for use_flash in ("auto", False, True):
+        pol = OpenVLAPolicy(cfg=cfg, platform=LIBERO, params=params,
+                            norm_stats=placeholder_norm_stats(LIBERO), prompt_bucket=32,
+                            use_flash=use_flash)
+        before = fa.flash_attention.launches
+        if use_flash is True:
+            with pytest.raises(ValueError, match="head_dim"):
+                pol.predict_action_from_frames(frames, "open the drawer")
+            continue
+        out[use_flash] = pol.predict_action_from_frames(frames, "open the drawer")
+        assert fa.flash_attention.launches == before
+    assert np.isfinite(out["auto"]).all()
+    np.testing.assert_allclose(out["auto"], out[False], rtol=0, atol=1e-5)
+
+
+def test_auto_trains_a_random_tiny_step_through_the_dense_path(cuda, tmp_path):
+    """One step of the fine-tuning CLI at `--vla_path random:tiny` on the card:
+    under "auto" no K1, K2 or K3 launches, and the loss is use_flash=False's."""
+    from openvla_oft_tpu_torch.training import finetune as FT
+
+    losses = {}
+    for flag in ("auto", "false"):
+        seen = []
+        before = _launch_counts()
+        FT.main(["--vla_path", "random:tiny", "--data_root_dir", "dummy",
+                 "--robot_platform", "libero", "--use_l1_regression", "True",
+                 "--use_proprio", "True", "--num_images_in_input", "2", "--lora_rank", "4",
+                 "--batch_size", "2", "--max_steps", "1", "--merge_lora_during_training",
+                 "False", "--device", "cuda", "--use_flash_attention", flag,
+                 "--run_root_dir", str(tmp_path / flag)],
+                on_step=lambda step, m, state: seen.append(m["loss"]))
+        torch.cuda.synchronize()
+        assert _launch_counts() == before
+        losses[flag] = seen
+    assert len(losses["auto"]) == 1 and np.isfinite(losses["auto"][0])
+    assert losses["auto"][0] == pytest.approx(losses["false"][0], rel=1e-6)
 
 
 # --- ALOHA serving (3 images, FiLM) with K4 on the ViTs ------------------------

@@ -114,3 +114,33 @@ def test_cpu_path_is_the_plain_version(t, k, n):
     got = M.int4_matmul_fused(x, q["kernel_q4"], q["scale_w4"])
     assert M.int4_matmul_fused.launches == before      # no kernel on the CPU
     assert torch.equal(got, M.int4_matmul_ref(x, q["kernel_q4"], q["scale_w4"]))
+
+
+# The K5 timing probe's plan (`ops/int4_probe.py::_probe_plan`): K5's machine,
+# so K5's plan in no-scale and no-unpack; group-dots keeps a second
+# accumulator set and compiles tiles of at most 128 rows.
+PROBE_SHAPES = [("qkv", 4096, 12288, 128), ("gate_up", 4096, 22016, 128),
+                ("down", 11008, 4096, 128), ("k4304_n136", 4304, 136, 16)]
+
+
+@pytest.mark.parametrize("mode", ["no-scale", "no-unpack", "group-dots"])
+@pytest.mark.parametrize("rows", [1, 33, 57, 112, 618])
+@pytest.mark.parametrize("shape", PROBE_SHAPES, ids=[s[0] for s in PROBE_SHAPES])
+def test_probe_plan(shape, rows, mode):
+    """Tiles of at most 128 rows in group-dots (the same rule over them),
+    K5's plan in the other modes, and whole groups in every split, each a
+    whole number of 64-deep stages."""
+    from openvla_oft_tpu_torch.ops.int4_probe import GROUP_DOTS_T_TILES, _probe_plan
+
+    _, k, n, group = shape
+    t_tile, splits, grid = _probe_plan(rows, k, n, group, mode)
+    if mode == "group-dots":
+        assert t_tile in GROUP_DOTS_T_TILES and max(GROUP_DOTS_T_TILES) == 128
+        assert (t_tile, splits, grid) == M._k5_plan(rows, k, n, group, GROUP_DOTS_T_TILES)
+    else:
+        assert (t_tile, splits, grid) == M._k5_plan(rows, k, n, group)
+    groups = k // group
+    assert groups % splits == 0
+    if splits > 1:
+        assert (k // splits) % M.K5_BK == 0 and (k // splits) % group == 0
+    assert grid == -(-rows // t_tile) * -(-n // M.K5_BN) * splits
