@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch port on one CUDA card: `python3 chip_smoke.py`.
 
 Drives the port's serving paths (LIBERO bf16, ALOHA bf16 with FiLM and the
-ViTs through K4, LIBERO int4), the K5 timing probe and the training path,
+ViTs through K4, LIBERO int4, LIBERO int8), the K5 timing probe and the
+training path,
 at the full width of the flagship model (DINOv2 + SigLIP -> projector ->
 Llama-2-7B, seeded random weights made on the card), through the entry
 points a user calls: an HTTP /act server built by
 `openvla_oft_tpu_torch.serving.deploy` (`flagship_policy`, with
-`platform="aloha"` and `vit_fused`, or `load_in_4bit`), the probe script
+`platform="aloha"` and `vit_fused`, `load_in_4bit`, `load_in_8bit` or
+`load_vision_in_8bit`), the probe script
 `openvla_oft_tpu_torch.scripts.exp_int4_probe`, and the fine-tuning CLI
 `openvla_oft_tpu_torch.training.finetune` (LoRA r=32, L1 objective, B=8).
 
@@ -67,8 +69,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   8a. the K5 probe: the probe script's `main` (T = 112, the 7B's shapes;
      K5, its kernel with the three probe dequant policies, K6 and
      `torch.matmul` on the dequantized weight, by device time, and the split
-     of K5's time), each mode against its plain version at each shape, with
-     the bound; group-dots' plain version timed at qkv;
+     of K5's time, and the int8-dyn row: `int8_linear` on the int8 weight),
+     each mode against its plain version at each shape, with the bound;
+     group-dots' plain version timed at qkv;
+  8b. int8 serving: one int8_linear at wqkv T = 618 and its q column view
+     at T = 57, dynamic and static, traced (kernels per linear, the GEMM,
+     which must be one kernel of the `int8 GEMM` class, against the
+     quantize and the epilogue); the policy rebuilt
+     with `load_in_8bit` (the LLM, the ViTs and the projector int8; build
+     time, memory and its peak), 3 /act requests (K1 31, K4/K5/K6 0, 329
+     int8 products each: 130 in the LLM, 196 in the ViTs, 3 in the
+     projector), one traced (device time by class, the int8 share, kernels,
+     idle share); actions_hidden through torch._int_mm against the float64
+     product (max|d| <= 1e-6 of max|ref|), the K1 path against the dense
+     path, int8 against bf16 (logged); static activation scales from 2
+     random_observations (`attach_static_act_scales`), 3 requests and a
+     traced one, static against dynamic (logged); `load_vision_in_8bit`, 3
+     requests (199 int8 products each) and a traced one;
   9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
      version at the training shape (B=8, per-row pads and windows), the
      ALOHA length, GQA and dead rows, two calls of each bitwise equal, with
@@ -110,6 +127,9 @@ from openvla_oft_tpu_torch.utils.timing import (cuda_time_ms, device_ms, l2_flus
 # attention against fp32 math on the same bf16 inputs.
 MAX_ABS_O, MEAN_ABS_O, MAX_ABS_LSE = 2e-2, 2e-3, 1e-2
 PARITY_COSINE = 0.99
+# The int8 path through torch._int_mm against its float64 product: both are
+# exact int32 sums, so only a nondeterministic float op elsewhere could differ.
+INT8_REL = 1e-6
 # K2/K3 against fp32 math on the same bf16 inputs: max|Δ| / max|ref| and cosine.
 BWD_REL, BWD_COSINE = 2e-2, 0.999
 # The fine-tuning CLI's flags: the oft-libero-spatial recipe's (recipes.py:24-33)
@@ -794,10 +814,12 @@ def int4_serving(card: str, rng, obs, bf16_hidden) -> dict:
     n_layers = policy.cfg.llm.num_layers
     per_request = 4 * (n_layers - 1) + 6          # 4 linears a layer, 6 in the window layer
     _, _, w4a16, _ = serve(policy, card, rng, "int4 W4A16",
-                           {"K1": n_layers - 1, "K4": 0, "K5": per_request, "K6": 0})
+                           {"K1": n_layers - 1, "K4": 0, "K5": per_request, "K6": 0,
+                            "int8": 0})
     policy.int4_a8 = True
     _, _, w4a8, _ = serve(policy, card, rng, "int4 W4A8",
-                          {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": per_request})
+                          {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": per_request,
+                           "int8": 0})
     for a8, label in ((False, "int4 W4A16"), (True, "int4 W4A8")):
         policy.int4_a8 = a8
         busy, by_class = profile_request(policy, obs, label, card)
@@ -809,6 +831,176 @@ def int4_serving(card: str, rng, obs, bf16_hidden) -> dict:
                 f"{first}) ({card})")
     int4_parity(policy, obs, bf16_hidden, card)
     return {"W4A16": w4a16, "W4A8": w4a8}
+
+
+def int8_linear_parts(card: str) -> None:
+    """One int8_linear at the LLM's wqkv (T = 618, layer view) and its
+    out_window q column view (T = 57), dynamic and static, traced: the
+    kernels a linear launches and their device time by class (the int8 GEMM
+    against the activation quantize and the epilogue), beside the int8
+    product's bound. Each trace must hold one `int8 GEMM` kernel: the check
+    of the class's name tags."""
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stacked = Q.quantize_weight(torch.randn((2, 4096, 12288), generator=gen, device=dev) * 0.02)
+    # The stored layout: torch._int_mm on the column-major weight that
+    # quantize_weight stores, against the same weight row-major.
+    flush = l2_flush_buffer(dev)
+    x8 = torch.randint(-127, 128, (618, 4096), generator=gen, device=dev, dtype=torch.int8)
+    col = stacked["kernel"][1]
+    row = col.contiguous()
+    times = {name: device_ms(lambda: torch._int_mm(x8, w), flush)
+             for name, w in (("column-major", col), ("row-major", row))}
+    log(f"[int8] torch._int_mm at wqkv T=618: " + ", ".join(
+        f"{name} weight (strides {w.stride()}) {ms:.4f} ms ({how})"
+        for (name, (ms, how)), w in zip(times.items(), (col, row)))
+        + f" (device time, mean of 10, L2 flushed; {card})")
+    del x8, row, flush
+    for name, t, lo, hi in (("wqkv layer view", 618, 0, 12288),
+                            ("q column view of wqkv", 57, 0, 4096)):
+        layer = {k: v[1][..., lo:hi] for k, v in stacked.items()}
+        x = torch.randn((t, 4096), generator=gen, device=dev).bfloat16()
+        for static in (False, True):
+            p = {**layer, "scale_x": torch.tensor(0.02, device=dev)} if static else layer
+            Q.int8_linear(p, x)
+            wall, n, busy, by_class = trace(lambda: Q.int8_linear(p, x))
+            gemm = by_class.get("int8 GEMM", (0.0, 0))
+            b_ms, b_by = bound(2 * t * 4096 * (hi - lo), nbytes(x, layer["kernel"],
+                                                              layer["scale_w"]) + t * (hi - lo) * 2,
+                               PEAK_INT8)
+            if busy is None:
+                log(f"[int8] {name} T={t} {'static' if static else 'dynamic'}: not measured")
+                continue
+            if gemm[1] != 1:
+                raise AssertionError(f"the int8 GEMM class found {gemm[1]} kernels in one "
+                                     f"int8_linear: {by_class}")
+            log(f"[int8] {name} T={t} {'static' if static else 'dynamic'}: {n} kernels, "
+                f"{busy:.4f} ms of device time, the int8 GEMM {gemm[0]:.4f} ms over {gemm[1]} "
+                f"(the rest: activation quantize, padding and epilogue, "
+                f"{busy - gemm[0]:.4f} ms over {n - gemm[1]}); bound of the product "
+                f"{b_ms:.4f} ms ({b_by}); host wall {wall:.3f} ms ({card})")
+            log_classes("int8", by_class)
+    del stacked
+    torch.cuda.empty_cache()
+
+
+def int8_per_request(cfg, llm_int8: bool) -> int:
+    """The int8 products of one request, from the model's structure: 4 per
+    LLM layer and 6 in the out_window layer (q, k, v column views, wo,
+    gate_up, down), 4 per ViT block that runs (qkv, proj, fc1, fc2; the
+    patch embeddings' d_in 588 is under min_dim), 3 in the projector."""
+    vit = 4 * sum(v.depth - 1 for v in cfg.vision_configs) + 3
+    return vit + (4 * (cfg.llm.num_layers - 1) + 6 if llm_int8 else 0)
+
+
+def int8_parity(policy, obs, bf16_hidden, card: str) -> torch.Tensor:
+    """actions_hidden on the int8 weights through torch._int_mm against the
+    same call with the product swapped for its plain version (float64,
+    exact), the K1 path against the dense path, and int8 against bf16 (no
+    bound). Returns the int8 path's actions_hidden."""
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    inputs = model_inputs(policy, obs)
+    before = launch_counts()["int8"]
+    hidden = actions_hidden(policy, inputs)
+    used = launch_counts()["int8"] - before
+    product = Q.int8_mm
+    Q.int8_mm = Q.int8_mm_ref
+    try:
+        plain = actions_hidden(policy, inputs)
+    finally:
+        Q.int8_mm = product
+    d = (hidden - plain).abs().max().item()
+    rel = d / plain.abs().max().item()
+    dense = actions_hidden(policy, inputs, use_flash=False)
+    cos_dense = cosine(hidden, dense)
+    log(f"[int8-parity] actions_hidden through torch._int_mm against the float64 product: "
+        f"max|d| = {d:.4e}, {rel:.3e} of max|ref|, bitwise equal {torch.equal(hidden, plain)}; "
+        f"{used} int8 products; cosine(K1 path, dense path) = {cos_dense:.6f}; cosine(int8, "
+        f"bf16) = {cosine(hidden.cpu(), bf16_hidden):.6f} (random weights: no bound) ({card})")
+    if not (rel <= INT8_REL and cos_dense >= PARITY_COSINE and torch.isfinite(hidden).all()
+            and used == int8_per_request(policy.cfg, True)):
+        raise AssertionError("the int8 path disagrees with its plain product or the dense path")
+    return hidden
+
+
+def int8_profile(policy, obs, label: str, card: str) -> dict:
+    busy, by_class = profile_request(policy, obs, label, card)
+    if busy is None:
+        return {"busy_ms": None}
+    gemm_ms, gemm_n = by_class.get("int8 GEMM", (0.0, 0))
+    n = sum(k for _, k in by_class.values())
+    log(f"[int8-profile] {label} request: {n} kernels, {busy:.1f} ms of device time; the int8 "
+        f"GEMMs {gemm_ms:.2f} ms over {gemm_n} = {gemm_ms / busy:.3f} of it ({card})")
+    return {"busy_ms": busy, "kernels": n, "int8_ms": gemm_ms}
+
+
+def int8_serving(card: str, rng, obs, bf16_hidden) -> dict:
+    """The flagship rebuilt with load_in_8bit (the LLM, the ViTs and the
+    projector in int8): build memory, 3 /act requests, a traced request,
+    parity; then static activation scales (attach_static_act_scales on 2
+    random_observations), 3 requests and a traced one; then
+    load_vision_in_8bit: 3 requests and a traced one. Returns the launches
+    of each serving run."""
+    from openvla_oft_tpu_torch.ops.quant_calibrate import (attach_static_act_scales,
+                                                           random_observations)
+    from openvla_oft_tpu_torch.serving.deploy import flagship_policy
+
+    int8_linear_parts(card)
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy = flagship_policy("cuda", seed=0, load_in_8bit=True)
+    torch.cuda.synchronize()
+    log(f"[int8-init] load_in_8bit flagship on the card: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, peak during the build "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, built in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    n_layers = policy.cfg.llm.num_layers
+    per_request = int8_per_request(policy.cfg, True)
+    log(f"[int8] products per load_in_8bit request from the model's structure: {per_request}")
+    expect = {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": 0, "int8": per_request}
+    _, _, runs["dynamic"], _ = serve(policy, card, rng, "int8 load_in_8bit", expect)
+    dyn = int8_profile(policy, obs, "int8 dynamic", card)
+    hidden = int8_parity(policy, obs, bf16_hidden, card)
+
+    cal = random_observations(policy.cfg, policy.platform, n=2, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    policy.params = attach_static_act_scales(policy.params, policy.cfg, policy.platform, cal)
+    torch.cuda.synchronize()
+    log(f"[int8-static] attach_static_act_scales over 2 random_observations: "
+        f"{time.perf_counter() - t0:.1f} s (host clock; {card})")
+    _, _, runs["static"], _ = serve(policy, card, rng, "int8 static scales", expect)
+    stat = int8_profile(policy, obs, "int8 static", card)
+    static_hidden = actions_hidden(policy, model_inputs(policy, obs))
+    log(f"[int8-static] actions_hidden cosine(static, dynamic) = "
+        f"{cosine(static_hidden, hidden):.6f} (random weights: no bound); device time per "
+        f"request static {stat['busy_ms']} ms over {stat.get('kernels')} kernels, dynamic "
+        f"{dyn['busy_ms']} ms over {dyn.get('kernels')} ({card})")
+    if not torch.isfinite(static_hidden).all():
+        raise AssertionError("the static int8 path gives non-finite hidden states")
+    del policy, hidden, static_hidden
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy = flagship_policy("cuda", seed=0, load_vision_in_8bit=True)
+    torch.cuda.synchronize()
+    log(f"[int8-init] load_vision_in_8bit flagship on the card: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, peak during the build "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, built in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    expect = {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": 0,
+              "int8": int8_per_request(policy.cfg, False)}
+    _, _, runs["vision"], _ = serve(policy, card, rng, "int8 load_vision_in_8bit", expect)
+    int8_profile(policy, obs, "int8 vision", card)
+    del policy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
 
 
 def libero_vit_fused(policy, obs, card: str) -> dict:
@@ -875,7 +1067,8 @@ def aloha_serving(card: str, rng) -> dict:
         label = f"ALOHA bf16 vit_fused={vit_fused}"
         obs, answers, launches, ms = serve(
             policy, card, rng, label,
-            {"K1": n_layers - 1, "K4": k4 if vit_fused else 0, "K5": 0, "K6": 0})
+            {"K1": n_layers - 1, "K4": k4 if vit_fused else 0, "K5": 0, "K6": 0,
+             "int8": 0})
         runs[vit_fused] = {"obs": obs, "answers": answers, "launches": launches, "ms": ms}
     obs = runs[False]["obs"][0]
     inputs = model_inputs(policy, obs)
@@ -998,15 +1191,17 @@ def tiny_auto_request(card: str) -> dict:
 
 
 def counted_wrappers() -> dict:
-    """Each kernel's wrapper, which counts that kernel's launches."""
+    """Each kernel's wrapper, which counts that kernel's launches, and the
+    int8 product's (`ops/quant.py::int8_mm`, the library's torch._int_mm)."""
     from openvla_oft_tpu_torch.ops import flash_attention as fa
     from openvla_oft_tpu_torch.ops import int4_matmul as M
     from openvla_oft_tpu_torch.ops import int4_probe as IP
+    from openvla_oft_tpu_torch.ops import quant as Q
     from openvla_oft_tpu_torch.ops import vit_fused as VF
 
     return {"K1": fa.flash_attention, "K2": fa.flash_attention_dq, "K3": fa.flash_attention_dkv,
             "K4": VF.ln_matmul, "K5": M.int4_matmul_fused, "K6": M.int4_matmul_fused_a8,
-            "probe": IP.int4_probe}
+            "probe": IP.int4_probe, "int8": Q.int8_mm}
 
 
 def launch_counts() -> dict:
@@ -1197,7 +1392,7 @@ def train(card: str, n_layers: int):
 
     run_root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     expect = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers,   # remat "all"
-              "K4": 0, "K5": 0, "K6": 0, "probe": 0}
+              "K4": 0, "K5": 0, "K6": 0, "probe": 0, "int8": 0}
     seen = {"prev": {k: 0 for k in expect}}
 
     def on_step(step, metrics, state):
@@ -1253,11 +1448,18 @@ def train(card: str, n_layers: int):
         shutil.rmtree(run_root, ignore_errors=True)
 
 
+# The int8 GEMM class of a trace: torch._int_mm's device kernels, by the
+# int8 operand tag of the one kernel seen on the H100
+# (`cutlass_80_tensorop_i16832gemm_s8_*`). `int8_linear_parts` fails the run
+# where a traced int8_linear holds no such kernel, so a new tag shows there.
+INT8_GEMM_TAGS = ("gemm_s8",)
+
+
 def kernel_class(name: str) -> str:
     n = name.lower()
     for cls, keys in (("K1", ("flash_fwd",)), ("K2", ("flash_bwd_dq",)), ("K4", ("ln_matmul",)),
                       ("K3", ("flash_bwd_dkv",)), ("K5", ("int4_w4a16",)),
-                      ("K6", ("int4_w4a8",)),
+                      ("K6", ("int4_w4a8",)), ("int8 GEMM", INT8_GEMM_TAGS),
                       ("fp32 GEMM", ("sgemm", "f32f32", "simt")),
                       ("bf16 GEMM", ("gemm", "cutlass", "xmma", "nvjet", "sm90")),
                       ("AdamW", ("multi_tensor", "adam")),
@@ -1474,7 +1676,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     n_layers = policy.cfg.llm.num_layers
     observations, answers, serve_launches, _ = serve(
-        policy, card, rng, "bf16", {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": 0},
+        policy, card, rng, "bf16", {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": 0, "int8": 0},
         warm=False, stdlib_check=True)
     bf16_hidden = path_parity(policy, observations[0], answers[0])
     libero_vit_fused(policy, observations[0], card)
@@ -1490,6 +1692,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     probe = probe_phase(card)
+    int8_launches = int8_serving(card, rng, observations[0], bf16_hidden)
 
     bwd = backward_check(card, s_train)
     state, train_launches = train(card, n_layers)
@@ -1509,7 +1712,7 @@ def main() -> int:
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
     k1_launches = (serve_launches["K1"] + aloha[True]["launches"]["K1"]
                    + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
-                   + train_launches["K1"])
+                   + sum(run["K1"] for run in int8_launches.values()) + train_launches["K1"])
     kernels = [
         kernel_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:50", k1_launches,
@@ -1568,6 +1771,9 @@ def main() -> int:
         f"{aloha_k4}, unfused {aloha[False]['launches']}; int4 serving runs: W4A16 {w4a16}, "
         f"W4A8 {w4a8}; probe run: {probe['launches']}; training run: {train_launches}; "
         f"TINY_LLAMA request under auto: {tiny_launches}")
+    log(f"[int8] launches of the int8 serving runs (3 requests each): load_in_8bit "
+        f"{int8_launches['dynamic']}, with static scales {int8_launches['static']}, "
+        f"load_vision_in_8bit {int8_launches['vision']}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -32,14 +32,19 @@ def _to_tensor(leaf, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+# Leaves that keep their own dtype under `params_from_numpy(dtype=...)`.
+_OWN_DTYPE = frozenset({"scale_w", "scale_x", "scale_w4"})
+
+
 def params_from_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     """JAX pytree (arrays or numpy) -> the same tree of torch tensors.
 
-    dtype: cast floating leaves to it (None keeps each leaf's dtype). int4
-    group scales ("scale_w4") stay fp32, as the JAX package keeps them.
+    dtype: cast floating leaves to it (None keeps each leaf's dtype). The
+    quantization scales ("scale_w", "scale_x", "scale_w4") keep their own
+    dtype (fp32), as the JAX package keeps them; int8 leaves are never cast.
     """
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, None if k == "scale_w4" else dtype)
+        return {k: params_from_numpy(v, device, None if k in _OWN_DTYPE else dtype)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype) for v in tree)

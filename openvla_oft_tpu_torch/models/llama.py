@@ -8,7 +8,9 @@ final RMSNorm. Layers stay stacked (L, ...) and run as a Python loop over
 per-layer views (`bridge.index_layer`). That covers int4 layers too: the
 JAX package's `_has_int4`/`_index_layer` keep the stacked int4 leaves and
 pass a layer index to its stacked kernels, while here `kernel_q4[l]` and
-`scale_w4[l]` are views that the int4 kernels read without a copy.
+`scale_w4[l]` are views that the int4 kernels read without a copy; int8
+layers likewise (`kernel[l]`, `scale_w[l]`, and a static `scale_x[l]`, 0-d).
+`collect_act_stats` is the static-quant calibration forward.
 
 On the flash path every layer but a sliced `out_window` last layer runs its
 attention through kernel K1 (`ops/flash_attention.py`); the window layer has
@@ -28,6 +30,7 @@ from openvla_oft_tpu_torch.bridge import index_layer, tree_leaves
 from openvla_oft_tpu_torch.ops.attention import attention, resolve_use_flash
 from openvla_oft_tpu_torch.ops.layers import linear, rms_norm
 from openvla_oft_tpu_torch.ops.masks import make_block_bidirectional_mask
+from openvla_oft_tpu_torch.ops.quant import empty_int8_kernel
 from openvla_oft_tpu_torch.ops.rotary import apply_rope, rope_sin_cos
 
 Params = Dict[str, Any]
@@ -64,12 +67,20 @@ def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def fuse_inference_weights(llm_params: Params, fold_norms: bool = True) -> Params:
-    """wq|wk|wv -> wqkv and gate|up -> gate_up (concatenated on the output
-    dim), and with `fold_norms` the RMSNorm scales folded into them
-    ((standardize(x) * g) @ W = standardize(x) @ (diag(g) W)); the folded
-    norms become empty dicts, which `rms_norm` reads as standardize-only.
-    Folds compute in fp32 one layer at a time, then cast, as the JAX version
-    does for the whole stack, so fp32 temporaries stay one layer large.
+    """wq|wk|wv -> wqkv and gate|up -> gate_up (every leaf concatenated on
+    its last, output, axis), and with `fold_norms` the RMSNorm scales folded
+    into the float kernels ((standardize(x) * g) @ W = standardize(x) @
+    (diag(g) W)); the folded norms become empty dicts, which `rms_norm` reads
+    as standardize-only. Folds compute in fp32 one layer at a time, then
+    cast, as the JAX version does for the whole stack, so fp32 temporaries
+    stay one layer large.
+
+    The concatenation also takes quantized projections (int8 kernel and
+    scale_w, or kernel_q4 and scale_w4): each output column quantizes on its
+    own, so quantizing first and concatenating after gives the tree that the
+    JAX loader's fuse-then-quantize gives, bit for bit, without a float copy
+    of wqkv and gate_up (`serving/deploy.py::serving_params`). Quantized
+    kernels take no fold, and static activation scales attach after fusing.
     """
     layers = llm_params["layers"]
     attn, mlp = layers["attn"], layers["mlp"]
@@ -78,30 +89,40 @@ def fuse_inference_weights(llm_params: Params, fold_norms: bool = True) -> Param
     if any("lora" in key for sub in (attn, mlp) for leaf in sub.values()
            for key in leaf):
         raise ValueError("fuse_inference_weights after LoRA merge, not before")
+    if any("scale_x" in leaf for sub in (attn, mlp) for leaf in sub.values()):
+        raise ValueError("attach static activation scales after fuse_inference_weights")
 
-    def concat_fold(norm, kernels):
-        ref = kernels[0]
-        out = torch.empty(ref.shape[:-1] + (sum(k.shape[-1] for k in kernels),),
-                          dtype=ref.dtype, device=ref.device)
-        for i in range(ref.shape[0]):
-            cat = torch.cat([k[i] for k in kernels], dim=-1)
-            if fold_norms:
-                cat = (cat.float() * norm["scale"][i].float()[:, None]).to(ref.dtype)
-            out[i] = cat
+    def concat_fold(norm, nodes):
+        out = {}
+        for name, ref in nodes[0].items():
+            parts = [node[name] for node in nodes]
+            shape = ref.shape[:-1] + (sum(t.shape[-1] for t in parts),)
+            fold = fold_norms and name == "kernel"
+            if fold and not ref.is_floating_point():
+                raise ValueError("fold_norms needs float kernels: fold before quantizing")
+            # Only W8A8's int8 kernel takes the column-major serving layout;
+            # int4's packed bytes (kernel_q4, also int8) stay row-major for K5/K6.
+            dst = empty_int8_kernel(shape, ref.device) \
+                if name == "kernel" and ref.dtype == torch.int8 \
+                else torch.empty(shape, dtype=ref.dtype, device=ref.device)
+            for i in range(ref.shape[0]):
+                cat = torch.cat([t[i] for t in parts], dim=-1)
+                if fold:
+                    cat = (cat.float() * norm["scale"][i].float()[:, None]).to(ref.dtype)
+                dst[i] = cat
+            out[name] = dst
         return out
 
     new_attn, new_mlp = dict(attn), dict(mlp)
     attn_norm, mlp_norm = layers["attn_norm"], layers["mlp_norm"]
     if "wq" in attn and "bias" not in attn["wq"]:
-        new_attn = {"wqkv": {"kernel": concat_fold(
-            attn_norm, [attn[n]["kernel"] for n in ("wq", "wk", "wv")])},
-            "wo": attn["wo"]}
+        new_attn = {"wqkv": concat_fold(attn_norm, [attn[n] for n in ("wq", "wk", "wv")]),
+                    "wo": attn["wo"]}
         if fold_norms:
             attn_norm = {}
     if "gate" in mlp and "bias" not in mlp["gate"]:
-        new_mlp = {"gate_up": {"kernel": concat_fold(
-            mlp_norm, [mlp["gate"]["kernel"], mlp["up"]["kernel"]])},
-            "down": mlp["down"]}
+        new_mlp = {"gate_up": concat_fold(mlp_norm, [mlp["gate"], mlp["up"]]),
+                   "down": mlp["down"]}
         if fold_norms:
             mlp_norm = {}
     return {**llm_params,
@@ -124,20 +145,33 @@ def _qkv_proj(attn: Params, cfg: LlamaConfig, xa: torch.Tensor):
             linear(attn["wv"], xa).reshape(b, s, kv, hd))
 
 
-def _mlp(mlp: Params, xm: torch.Tensor) -> torch.Tensor:
-    """SwiGLU, handling the fused gate_up layout."""
+def _mlp(mlp: Params, xm: torch.Tensor, collect_act: bool = False):
+    """SwiGLU, handling the fused gate_up layout. collect_act: also return
+    the absmax of the down projection's input (the one linear input that
+    `_block` does not see)."""
     if "gate_up" in mlp:
         gu = linear(mlp["gate_up"], xm)
         inter = gu.shape[-1] // 2
         act = F.silu(gu[..., :inter]) * gu[..., inter:]
     else:
         act = F.silu(linear(mlp["gate"], xm)) * linear(mlp["up"], xm)
-    return linear(mlp["down"], act)
+    y = linear(mlp["down"], act)
+    if collect_act:
+        return y, _absmax(act)
+    return y
+
+
+def _absmax(a: torch.Tensor) -> torch.Tensor:
+    return a.float().abs().amax()
 
 
 def _block(p: Params, cfg: LlamaConfig, x: torch.Tensor, sin, cos, mask,
            is_causal: bool, use_flash: bool, bidir_block, key_valid=None,
-           bidir_1d=None) -> torch.Tensor:
+           bidir_1d=None, collect_act_stats: bool = False):
+    """One decoder block. collect_act_stats (static-quant calibration): also
+    return each linear's input absmax (0-d fp32), keyed by the param tree's
+    paths, so that stacked over the layers they attach as "scale_x" leaves
+    (`ops/quant_calibrate.py::attach_static_act_scales`)."""
     b, s, _ = x.shape
     xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
     q, k, v = _qkv_proj(p["attn"], cfg, xa)
@@ -146,9 +180,20 @@ def _block(p: Params, cfg: LlamaConfig, x: torch.Tensor, sin, cos, mask,
     o = attention(q, k, v, mask=mask, is_causal=is_causal, use_flash=use_flash,
                   key_valid=key_valid, bidir_mask=bidir_1d,
                   bidir_block=bidir_block)
-    x = x + linear(p["attn"]["wo"], o.reshape(b, s, cfg.num_heads * cfg.head_dim))
+    o_flat = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    x = x + linear(p["attn"]["wo"], o_flat)
     xm = rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps)
-    return x + _mlp(p["mlp"], xm)
+    if not collect_act_stats:
+        return x + _mlp(p["mlp"], xm)
+    y_mlp, am_act = _mlp(p["mlp"], xm, collect_act=True)
+    am_xa, am_xm = _absmax(xa), _absmax(xm)
+    attn_stats = ({"wqkv": am_xa} if "wqkv" in p["attn"]
+                  else {"wq": am_xa, "wk": am_xa, "wv": am_xa})
+    attn_stats["wo"] = _absmax(o_flat)
+    mlp_stats = ({"gate_up": am_xm} if "gate_up" in p["mlp"]
+                 else {"gate": am_xm, "up": am_xm})
+    mlp_stats["down"] = am_act
+    return x + y_mlp, {"attn": attn_stats, "mlp": mlp_stats}
 
 
 def _window(b: int, s: int, start_len: Tuple[int, int], device) -> torch.Tensor:
@@ -165,7 +210,8 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                 use_flash=False,
                 bidir_block: Optional[tuple] = None,
                 out_window: Optional[Tuple[int, int]] = None,
-                remat_policy: Optional[str] = None) -> torch.Tensor:
+                remat_policy: Optional[str] = None,
+                collect_act_stats: bool = False):
     """Run the decoder stack; returns post-final-norm hidden states (B, S, D),
     or with `out_window=(start, len)` only those rows of the last layer
     (B, len, D) — every earlier layer still computes all rows as keys.
@@ -173,6 +219,11 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     use_flash: True | False | "auto" (K1 where it takes the call, see
     ops/attention.py::resolve_use_flash).
     remat_policy: activation remat of each block (`resolve_remat`).
+    collect_act_stats: the static-quant calibration forward (full width, no
+    out_window, no remat); returns (hidden, stats), stats the per-layer input
+    absmaxes of every linear stacked to (L,) fp32 leaves that mirror the
+    layer tree ({"attn": {"wqkv" | "wq", "wk", "wv", "wo"}, "mlp":
+    {"gate_up" | "gate", "up", "down"}}).
     """
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
@@ -209,6 +260,20 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     n_full = n_layers if out_window is None else n_layers - 1
     checkpointed = resolve_remat(remat_policy)
     x = inputs_embeds
+    if collect_act_stats:
+        if out_window is not None or checkpointed:
+            raise ValueError("collect_act_stats is a calibration-only forward: no "
+                             "out_window, no remat")
+        per_layer = []
+        for i in range(n_layers):
+            x, stats = _block(index_layer(layers, i), cfg, x, sin, cos, mask, is_causal,
+                              use_flash, bidir_block, key_valid, bidir_1d,
+                              collect_act_stats=True)
+            per_layer.append(stats)
+        stacked = {group: {key: torch.stack([st[group][key] for st in per_layer])
+                           for key in group_stats}
+                   for group, group_stats in per_layer[0].items()}
+        return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), stacked
     for i in range(n_full):
         x = run_block(_block, checkpointed, index_layer(layers, i), cfg, x, sin,
                       cos, mask, is_causal, use_flash, bidir_block, key_valid,
@@ -245,10 +310,15 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         wqkv = last["attn"]["wqkv"]
 
         # Every leaf's last axis is `out`, so these are column views: of the
-        # bf16 kernel, or of kernel_q4 and scale_w4, whose row stride is then
-        # larger than their width (the int4 kernels read it).
+        # bf16 kernel, of kernel_q4 and scale_w4, whose row stride is then
+        # larger than their width (the int4 kernels read it), or of the int8
+        # kernel and scale_w (the kernel's column-major storage makes a column
+        # view a block of whole rows in memory). A 0-d leaf, the static
+        # scale_x, is the whole projection's and passes unsliced (the JAX
+        # version slices it too and raises there).
         def col_slice(lo, hi):
-            return {name: leaf[..., lo:hi] for name, leaf in wqkv.items()}
+            return {name: leaf if leaf.ndim == 0 else leaf[..., lo:hi]
+                    for name, leaf in wqkv.items()}
 
         q = linear(col_slice(0, h * hd), xa_w).reshape(b, wl, h, hd)
         k = linear(col_slice(h * hd, (h + kv) * hd), xa).reshape(b, s, kv, hd)

@@ -196,13 +196,17 @@ def predict_action_hidden(params: Params, cfg: OpenVLAConfig,
                           platform: PlatformSpec, input_ids: torch.Tensor,
                           prompt_mask: torch.Tensor, pixels: torch.Tensor,
                           proprio: Optional[torch.Tensor] = None,
-                          use_flash="auto") -> PredictOutput:
+                          use_flash="auto", collect_act_stats: bool = False):
     """One prefill with parallel decoding; returns the action-slot hidden
     states (the rows whose NEXT token is an action slot).
 
     input_ids / prompt_mask (B, P) left-padded; pixels (B, N, n_backbones,
     H, W, 3). use_flash: True | False | "auto" (kernel K1 where it takes the
     call, see ops/attention.py::resolve_use_flash).
+    collect_act_stats: static-quant calibration (`ops/quant_calibrate.py::
+    attach_static_act_scales`): the full-width forward on the dense path,
+    as the JAX version runs it, returning (PredictOutput, stats) with the
+    LLM linears' per-layer input absmaxes (`llama_model`).
     """
     if isinstance(cfg.llm, PhiConfig):
         raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
@@ -231,6 +235,12 @@ def predict_action_hidden(params: Params, cfg: OpenVLAConfig,
     bidir[:, window[0]:window[0] + chunk + 1] = True
     # Predictor rows: the last prompt token through the second-to-last slot.
     start = p_len + n_patch - 1
+    if collect_act_stats:
+        hidden, stats = llama_model(params["llm"], cfg.llm, embeds, positions=positions,
+                                    padding_mask=key_valid, bidir_mask=bidir,
+                                    use_flash=False, bidir_block=window,
+                                    collect_act_stats=True)
+        return PredictOutput(hidden[:, start:start + chunk]), stats
     actions_hidden = llama_model(params["llm"], cfg.llm, embeds,
                                  positions=positions, padding_mask=key_valid,
                                  bidir_mask=bidir, use_flash=use_flash,

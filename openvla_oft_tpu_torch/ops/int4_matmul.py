@@ -40,7 +40,7 @@ import functools
 
 import torch
 
-from openvla_oft_tpu_torch.ops.quant import _unpack_int4, dequantize_int4
+from openvla_oft_tpu_torch.ops.quant import _unpack_int4, dequantize_int4, quantize_act_rows
 
 
 def int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -49,15 +49,6 @@ def int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor)
     in fp32. On bf16 inputs these are the kernel's bf16 products."""
     w = dequantize_int4(packed, scales, x.dtype)
     return torch.matmul(x.float(), w.float())
-
-
-def quantize_act_rows(x2: torch.Tensor):
-    """Per-token symmetric int8 (the JAX `_quantize_act_rows`): sx = absmax /
-    127, round half to even, clip to +-127. Returns (int8 (T, K), fp32 (T, 1))."""
-    xf = x2.float()
-    sx = xf.abs().amax(dim=-1, keepdim=True) / 127.0
-    q = torch.clamp(torch.round(xf / torch.clamp(sx, min=1e-12)), -127, 127)
-    return q.to(torch.int8), sx
 
 
 def int4_matmul_a8_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,8 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     result on x's-dtype operands, and the sum with y rounds once.
 
     An int4-packed dict ("kernel_q4", "scale_w4") goes to
-    `ops/quant.py::int4_linear`.
+    `ops/quant.py::int4_linear`, an int8 one ("kernel" int8, "scale_w") to
+    `ops/quant.py::int8_linear`.
     """
     if "kernel_q4" in p:
         if "lora_a" in p:
@@ -40,8 +41,12 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
         return int4_linear(p, x)
     w = p["kernel"]
     if w.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 linears are not ported yet (ROADMAP queue 1, item 9)")
+        if "lora_a" in p:
+            raise NotImplementedError("LoRA over an int8 base (QLoRA) is not ported "
+                                      "yet (ROADMAP queue 1, item 14)")
+        from openvla_oft_tpu_torch.ops.quant import int8_linear
+
+        return int8_linear(p, x)
     dt = torch.promote_types(x.dtype, w.dtype)
     if "bias" not in p:
         y = torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)

@@ -9,6 +9,9 @@ An int4-quantized LLM (`ops/quant.py::quantize_tree`, the `load_in_4bit`
 path) runs W4A16 by default and W4A8 with `int4_a8=True`; with
 `vit_fused=True` the ViTs' folded LN -> qkv and LN -> fc1 run as kernel K4.
 Both are chosen here by the caller rather than read from the environment.
+int8 weights (`load_in_8bit`, `load_vision_in_8bit`) need no switch: each
+int8 linear runs W8A8 (`ops/quant.py::int8_linear`), static where the tree
+carries calibrated `scale_x` leaves.
 """
 
 from __future__ import annotations

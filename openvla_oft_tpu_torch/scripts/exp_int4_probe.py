@@ -15,8 +15,10 @@ dequantized bf16 weight:
                 every weight element (a correct W4A16 alternative)
   a8-fused      K6 (`ops/int4_matmul.py::int4_matmul_fused_a8`)
   torch.matmul  on the dequantized bf16 weight: the library's product
-  int8-dyn      dynamic int8 is not ported yet (ROADMAP queue 1, item 9):
-                printed, not timed
+  int8-dyn      the W8A8 linear with per-token activations
+                (`ops/quant.py::int8_linear`: the activation quantize, the
+                library's `torch._int_mm` on the int8 weight of the same
+                matrix, the epilogue), as the JAX probe's int8-dyn row
 
 and, per shape, the split of K5's time: K5 - no-scale (the scale multiply),
 K5 - no-unpack (the unpack and the scale), no-unpack - torch.matmul (the
@@ -41,7 +43,8 @@ import torch
 
 from openvla_oft_tpu_torch.ops import int4_matmul as M
 from openvla_oft_tpu_torch.ops.int4_probe import int4_probe
-from openvla_oft_tpu_torch.ops.quant import dequantize_int4, quantize_weight_int4
+from openvla_oft_tpu_torch.ops.quant import (dequantize_int4, int8_linear, quantize_weight,
+                                             quantize_weight_int4)
 from openvla_oft_tpu_torch.utils.timing import device_ms, l2_flush_buffer
 
 T = 112
@@ -81,16 +84,18 @@ def main(argv=None) -> dict:
     flush = l2_flush_buffer(dev)
     result = {"ms": {}, "how": {}, "split": {}, "floor_ms": {}, "totals": {}, "stacked_ms": {}}
     for name, k_dim, n in SHAPES:
-        q4 = quantize_weight_int4(torch.randn((k_dim, n), generator=gen, device=dev) * 0.02)
+        w = torch.randn((k_dim, n), generator=gen, device=dev) * 0.02
+        q4, q8 = quantize_weight_int4(w), quantize_weight(w)
+        del w
         x = torch.randn((T, k_dim), generator=gen, device=dev).bfloat16()
         w16 = dequantize_int4(q4["kernel_q4"], q4["scale_w4"], torch.bfloat16)
         floor = k_dim * n / 2 / PEAK_BYTES * 1e3
         result["floor_ms"][name] = floor
         print(f"== {name} ({k_dim}x{n}) T={T}  int4 byte floor {floor:.4f} ms ==", flush=True)
-        print(f"{name}/int8-dyn: not ported (ROADMAP queue 1, item 9)", flush=True)
         times = result["ms"][name] = {}
         hows = result["how"][name] = {}
-        fns = dict(variants(), **{"torch.matmul": lambda x, p, s: torch.matmul(x, w16)})
+        fns = dict(variants(), **{"torch.matmul": lambda x, p, s: torch.matmul(x, w16),
+                                  "int8-dyn": lambda x, p, s: int8_linear(q8, x)})
         for vname, fn in fns.items():
             ms, how = device_ms(lambda: fn(x, q4["kernel_q4"], q4["scale_w4"]), flush,
                                 iters=args.iters)
@@ -104,7 +109,7 @@ def main(argv=None) -> dict:
             "no-unpack - torch.matmul": times["no-unpack"] - times["torch.matmul"]}
         print(f"{name}/split: " + ", ".join(f"{d} {v:.4f}" for d, v in split.items()) + " ms",
               flush=True)
-        del q4, x, w16
+        del q4, q8, x, w16
 
     # Correctness spot check of group-dots (the JAX probe's shape).
     k_dim, n = 512, 256

@@ -8,6 +8,8 @@ under "state".
 
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --port 8777
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-in-4bit [--int4-a8]
+    python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-in-8bit
+    python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-vision-in-8bit
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --platform aloha [--vit-fused]
 
 Loading a checkpoint is not ported yet, so the CLI serves the flagship model
@@ -16,7 +18,10 @@ Loading a checkpoint is not ported yet, so the CLI serves the flagship model
 images, an 8 x 7 chunk) or ALOHA (3 images with FiLM, a 25 x 14 chunk;
 the reference's `vla_scripts/deploy.py` settings). `--load-in-4bit` packs
 every LLM linear to int4 (the reference's bitsandbytes `load_in_4bit`);
-`--int4-a8` serves it W4A8 instead of W4A16. `--vit-fused` runs the ViTs'
+`--int4-a8` serves it W4A8 instead of W4A16. `--load-in-8bit` serves the
+LLM, the ViTs and the projector in int8 (`load_in_8bit`: int8 weights and
+per-token int8 activations through `torch._int_mm`), `--load-vision-in-8bit`
+only the ViTs and the projector; at most one of the three quant flags. `--vit-fused` runs the ViTs'
 folded LN + qkv and LN + fc1 as one kernel K4 launch each. Before it binds,
 the CLI runs one synthetic predict at the deployment's geometry (`warmup`,
 as the reference does); `--no-warmup` skips it.
@@ -103,23 +108,56 @@ def placeholder_norm_stats(platform) -> dict:
     }}
 
 
-def serving_params(params: dict, load_in_4bit: bool = False) -> dict:
+# The reference loader's quantization rule: kernels with d_in >= 1024.
+QUANT_MIN_DIM = 1024
+
+
+def serving_params(params: dict, load_in_4bit: bool = False, load_in_8bit: bool = False,
+                   load_vision_in_8bit: bool = False) -> dict:
     """Fuse (and quantize) a param tree for serving, as the reference
-    loader does (`experiments/robot/openvla_utils.py:173-184,236-239`):
-    wqkv/gate_up with the RMSNorm scales folded in, and the ViT folds. With
-    `load_in_4bit` the norms stay unfolded (a fold would coarsen the int4
-    grids) and every LLM linear with d_in >= 1024 is packed to int4; the
-    ViTs and the projector stay bf16. Consumes `params`."""
+    loader does (`experiments/robot/openvla_utils.py:181-194, 230-249`):
+    wqkv/gate_up, and the ViT folds. Consumes `params`.
+
+    - The LLM's RMSNorm scales fold into wqkv/gate_up only when neither
+      `load_in_8bit` nor `load_in_4bit` is set (a fold would coarsen the
+      quantization grids); the ViTs' LayerNorm affines fold only when neither
+      8-bit flag is set (an int8 ViT keeps its norms, so K4's gate stays
+      shut), their LayerScales always.
+    - `load_in_8bit`: the LLM, the ViTs and the projector to int8 W8A8
+      (`quantize_tree_lowmem`: every kernel with d_in >= QUANT_MIN_DIM, lm_head
+      and the proprio projector excepted). The LLM is quantized before its
+      projections are concatenated, which gives the same int8 tree bit for
+      bit (each output column quantizes on its own) without a bf16 copy of
+      wqkv and gate_up: the build's peak is the bf16 tree plus one int8 leaf
+      and one layer's fp32 temporaries.
+    - `load_vision_in_8bit`: the ViTs and the projector to int8, the LLM
+      bf16 (with its folds).
+    - `load_in_4bit`: every LLM linear with d_in >= QUANT_MIN_DIM packed to
+      int4; the ViTs and the projector stay bf16.
+
+    At most one of the three flags may be set (as in the reference's eval
+    config, `experiments/robot/libero/run_libero_eval.py:137`).
+    """
     from openvla_oft_tpu_torch.models.llama import fuse_inference_weights
     from openvla_oft_tpu_torch.models.vit import fuse_vit_inference_weights
-    from openvla_oft_tpu_torch.ops.quant import quantize_tree
+    from openvla_oft_tpu_torch.ops.quant import quantize_tree_lowmem
 
-    params["llm"] = fuse_inference_weights(params["llm"], fold_norms=not load_in_4bit)
+    if load_in_4bit + load_in_8bit + load_vision_in_8bit > 1:
+        raise ValueError("load_in_4bit, load_in_8bit and load_vision_in_8bit exclude "
+                         "each other")
+    vit_int8 = load_in_8bit or load_vision_in_8bit
+    if load_in_8bit:
+        params["llm"] = quantize_tree_lowmem(params["llm"], min_dim=QUANT_MIN_DIM, bits=8)
+    params["llm"] = fuse_inference_weights(params["llm"],
+                                           fold_norms=not (load_in_8bit or load_in_4bit))
     params["vision_backbone"] = {
-        name: fuse_vit_inference_weights(v, fold_norms=True)
+        name: fuse_vit_inference_weights(v, fold_norms=not vit_int8)
         for name, v in params["vision_backbone"].items()}
     if load_in_4bit:
-        params["llm"] = quantize_tree(params["llm"], min_dim=1024, bits=4)
+        params["llm"] = quantize_tree_lowmem(params["llm"], min_dim=QUANT_MIN_DIM, bits=4)
+    if vit_int8:
+        for mod in ("vision_backbone", "projector"):
+            params[mod] = quantize_tree_lowmem(params[mod], min_dim=QUANT_MIN_DIM, bits=8)
     return params
 
 
@@ -130,12 +168,16 @@ DEPLOYMENTS = {"libero": ("libero", 2, False), "aloha": ("aloha", 3, True)}
 
 def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
                     load_in_4bit: bool = False, int4_a8: bool = False,
-                    platform: str = "libero", vit_fused: bool = False):
+                    platform: str = "libero", vit_fused: bool = False,
+                    load_in_8bit: bool = False, load_vision_in_8bit: bool = False):
     """The flagship serving policy with seeded random bf16 weights, fused for
     serving as the JAX bench does (wqkv/gate_up and ViT folds), at the
     `platform` deployment ("libero" or "aloha", `DEPLOYMENTS`). With
     `load_in_4bit` the LLM is int4 (`serving_params`), served W4A16, or W4A8
-    with `int4_a8`; `vit_fused` runs the ViTs' LN + matmuls as kernel K4."""
+    with `int4_a8`; with `load_in_8bit` the LLM, the ViTs and the projector
+    are int8 (W8A8), with `load_vision_in_8bit` the ViTs and the projector
+    only; `vit_fused` runs the ViTs' folded LN + matmuls as kernel K4 (an
+    int8 ViT has none)."""
     import torch
 
     from openvla_oft_tpu_torch.bridge import init_params
@@ -154,7 +196,8 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
                         use_film=use_film)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = serving_params(init_params(cfg, spec, gen, device=device, dtype=torch.bfloat16),
-                            load_in_4bit=load_in_4bit)
+                            load_in_4bit=load_in_4bit, load_in_8bit=load_in_8bit,
+                            load_vision_in_8bit=load_vision_in_8bit)
     return OpenVLAPolicy(cfg=cfg, platform=spec, params=params,
                          norm_stats=placeholder_norm_stats(spec), prompt_bucket=prompt_bucket,
                          int4_a8=int4_a8, vit_fused=vit_fused)
@@ -174,6 +217,11 @@ def main(argv=None) -> None:
     parser.add_argument("--int4-a8", action="store_true",
                         help="with --load-in-4bit: W4A8 (per-token int8 activations, "
                              "kernel K6)")
+    parser.add_argument("--load-in-8bit", action="store_true",
+                        help="the LLM, the ViTs and the projector in int8 (W8A8, "
+                             "torch._int_mm)")
+    parser.add_argument("--load-vision-in-8bit", action="store_true",
+                        help="the ViTs and the projector in int8, the LLM in bf16")
     parser.add_argument("--platform", choices=sorted(DEPLOYMENTS), default="libero",
                         help="libero: 2 images, 8 x 7 chunk; aloha: 3 images, FiLM, "
                              "25 x 14 chunk")
@@ -187,9 +235,13 @@ def main(argv=None) -> None:
         parser.error("checkpoint loading is not ported yet; pass --random-weights")
     if args.int4_a8 and not args.load_in_4bit:
         parser.error("--int4-a8 needs --load-in-4bit")
+    if args.load_in_4bit + args.load_in_8bit + args.load_vision_in_8bit > 1:
+        parser.error("at most one of --load-in-4bit, --load-in-8bit and "
+                     "--load-vision-in-8bit")
     policy = flagship_policy(args.device, seed=args.seed, load_in_4bit=args.load_in_4bit,
                              int4_a8=args.int4_a8, platform=args.platform,
-                             vit_fused=args.vit_fused)
+                             vit_fused=args.vit_fused, load_in_8bit=args.load_in_8bit,
+                             load_vision_in_8bit=args.load_vision_in_8bit)
     server = build_server(policy)
     if not args.no_warmup:
         print(f"[deploy] warmup run: {warmup(server, policy):.1f}s")

@@ -876,3 +876,129 @@ def test_tiny_aloha_serving_vit_fused_matches_unfused(cuda):
         assert VF.ln_matmul.launches - before == (2 * blocks if vit_fused else 0)
     assert out[True].shape == (ALOHA.num_actions_chunk, ALOHA.action_dim) == (25, 14)
     assert np.isfinite(out[True]).all() and np.abs(out[True] - out[False]).max() < 0.1
+
+
+# --- int8 W8A8 (torch._int_mm) ------------------------------------------------
+
+# (name, K, N): every int8 linear of the flagship under load_in_8bit.
+INT8_SHAPES = [("llm wqkv", 4096, 12288), ("llm wo", 4096, 4096), ("llm gate_up", 4096, 22016),
+               ("llm down", 11008, 4096), ("dinov2 qkv", 1024, 3072), ("dinov2 fc1", 1024, 4096),
+               ("dinov2 fc2", 4096, 1024), ("siglip qkv", 1152, 3456),
+               ("siglip fc1", 1152, 4304), ("siglip fc2", 4304, 1152),
+               ("projector fc1", 2176, 8704), ("projector fc2", 8704, 4096),
+               ("projector fc3", 4096, 4096)]
+
+
+@pytest.mark.parametrize("t", [618, 57, 5], ids=["T618", "T57", "T5-padded"])
+@pytest.mark.parametrize("name,k,n", INT8_SHAPES, ids=[s[0] for s in INT8_SHAPES])
+def test_int8_linear_card_matches_cpu(cuda, name, k, n, t):
+    """The same weights and bf16 inputs through int8_linear on the card and
+    on the CPU: the weight codes and scales quantized on the card equal the
+    CPU's, the int32 products are equal (exact on both), and the outputs
+    agree within 1e-6 relative (one fp32 epilogue on equal sums)."""
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator().manual_seed(k + n + t)
+    w = torch.randn((k, n), generator=gen) * 0.02
+    x = torch.randn((t, k), generator=gen).bfloat16()
+    q_cpu = Q.quantize_weight(w)
+    q_card = Q.quantize_weight(w.to(cuda))
+    assert q_card["kernel"].stride() == (1, k)
+    assert torch.equal(q_card["kernel"].cpu(), q_cpu["kernel"])
+    assert torch.equal(q_card["scale_w"].cpu(), q_cpu["scale_w"])
+    x8, _ = Q.quantize_act_rows(x)
+    x8_card, _ = Q.quantize_act_rows(x.to(cuda))
+    assert torch.equal(x8_card.cpu(), x8)
+    before = Q.int8_mm.launches
+    acc = Q.int8_mm(x8_card, q_card["kernel"])
+    torch.cuda.synchronize()
+    assert Q.int8_mm.launches == before + 1
+    assert torch.equal(acc.cpu(), Q.int8_mm(x8, q_cpu["kernel"]))
+    got, ref = Q.int8_linear(q_card, x.to(cuda)), Q.int8_linear(q_cpu, x)
+    assert got.dtype == torch.bfloat16 and got.shape == (t, n)
+    d = (got.float().cpu() - ref.float()).abs().max()
+    assert d <= 1e-6 * ref.float().abs().max()
+
+
+def test_int8_layer_and_column_views_on_card(cuda):
+    """A layer view of a stacked int8 weight and the out_window layer's
+    column views of wqkv (row stride 12288 in the logical layout, width
+    4096) reach torch._int_mm as views, without a copy, and give the CPU's
+    products; a static 0-d scale_x passes the column slices unsliced."""
+    from openvla_oft_tpu_torch.bridge import index_layer
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator().manual_seed(0)
+    stacked = Q.quantize_weight(torch.randn((2, 4096, 12288), generator=gen) * 0.02)
+    x = torch.randn((57, 4096), generator=gen).bfloat16()
+    card = {k: v.to(cuda) for k, v in stacked.items()}
+    for key in ("kernel", "scale_w"):
+        assert card[key].stride() == stacked[key].stride()
+    for layer in range(2):
+        lp_cpu, lp_card = index_layer(stacked, layer), index_layer(card, layer)
+        for static in (False, True):
+            extra = {"scale_x": torch.tensor(0.03)} if static else {}
+            for lo in (0, 4096, 8192):
+                view_cpu = {n_: v[..., lo:lo + 4096] for n_, v in lp_cpu.items()}
+                view_card = {n_: v[..., lo:lo + 4096] for n_, v in lp_card.items()}
+                assert view_card["kernel"].data_ptr() == \
+                    card["kernel"].data_ptr() + layer * 4096 * 12288 + lo * 4096
+                ref = Q.int8_linear({**view_cpu, **extra}, x)
+                got = Q.int8_linear({**view_card, **{k: v.to(cuda) for k, v in extra.items()}},
+                                    x.to(cuda))
+                d = (got.float().cpu() - ref.float()).abs().max()
+                assert d <= 1e-6 * ref.float().abs().max(), (layer, lo, static)
+
+
+def test_int8_mm_refuses_widths_off_8(cuda):
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    x8 = torch.zeros((32, 588), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        Q.int8_mm(x8, torch.zeros((588, 64), dtype=torch.int8, device=cuda))
+
+
+def _int8_tiny_cfg():
+    """`_tiny_cfg` with 8-pixel patches on 32-pixel images, so that every
+    int8 width, the patch embeddings' 192 included, is a multiple of 8 (CUDA
+    torch._int_mm's rule; the stock TINY patch embedding is 588 wide)."""
+    import dataclasses
+
+    import openvla_oft_tpu_torch.config as C
+
+    cfg = _tiny_cfg()
+    C._VISION_REGISTRY.setdefault("gpu-int8-dual", tuple(
+        dataclasses.replace(v, patch_size=8, image_size=32) for v in cfg.vision_configs))
+    return dataclasses.replace(cfg, vision_backbone_id="gpu-int8-dual")
+
+
+@pytest.mark.parametrize("flag", ["load_in_8bit", "load_vision_in_8bit"])
+def test_tiny_int8_policy_card_matches_plain_product(cuda, flag, monkeypatch):
+    """The tiny policy quantized by `serving_params` on the card, served
+    through torch._int_mm, against the same policy with the product swapped
+    for its plain version (float64, exact): equal within 1e-6 relative; the
+    products launched per request are those the code gives."""
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.ops import quant as Q
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+    from openvla_oft_tpu_torch.serving import deploy
+
+    monkeypatch.setattr(deploy, "QUANT_MIN_DIM", 32)            # every tiny linear
+    cfg = _int8_tiny_cfg()
+    params = deploy.serving_params(
+        init_params(cfg, LIBERO, torch.Generator(device=cuda).manual_seed(0), device=cuda,
+                    dtype=torch.bfloat16), **{flag: True})
+    pol = OpenVLAPolicy(cfg=cfg, platform=LIBERO, params=params,
+                        norm_stats=deploy.placeholder_norm_stats(LIBERO), prompt_bucket=32)
+    frames = (np.random.default_rng(0).random((2, 40, 40, 3)) * 255).astype(np.uint8)
+    vit = sum(1 + 4 * (v.depth - 1) for v in cfg.vision_configs) + 3
+    expect = vit + (4 * (cfg.llm.num_layers - 1) + 6 if flag == "load_in_8bit" else 0)
+    before = Q.int8_mm.launches
+    got = pol.predict_action_from_frames(frames, "open the drawer")
+    assert Q.int8_mm.launches - before == expect
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Q, "int8_mm", Q.int8_mm_ref)
+        plain = pol.predict_action_from_frames(frames, "open the drawer")
+    assert np.isfinite(got).all()
+    assert np.abs(got - plain).max() <= 1e-6 * np.abs(plain).max()

@@ -75,7 +75,8 @@ print(" ".join(names))
 # Modules that must be among those imported under the ban.
 _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "utils.timing",
                 "ops.int4_matmul", "ops.flash_attention", "serving.deploy", "training.finetune",
-                "scripts.exp_k5_overlap", "scripts.exp_probe_parts")
+                "scripts.exp_k5_overlap", "scripts.exp_probe_parts", "ops.quant_calibrate",
+                "scripts.calibrate_quant")
 
 
 def test_every_module_imports_without_jax():

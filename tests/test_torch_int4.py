@@ -274,18 +274,21 @@ def _tiny_llm():
                                head="l1")["llm"]
 
 
+def _flat(tree, prefix=()):
+    """[(key path, leaf)] of a nested dict (and list) tree, in insertion order."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in _flat(v, prefix + (k,))]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree) for kv in _flat(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
 def test_quantize_tree_matches_jax():
     """Same keys, same bytes and scales; the embedding, norms and lm_head stay."""
     llm = jax_fuse(_tiny_llm(), fold_norms=False)
     ref = JQ.quantize_tree(llm, min_dim=64, bits=4)
     got = Q.quantize_tree(params_from_numpy(llm), min_dim=64, bits=4)
-
-    def flat(tree, prefix=()):
-        if isinstance(tree, dict):
-            return [kv for k, v in tree.items() for kv in flat(v, prefix + (k,))]
-        return [(prefix, tree)]
-
-    ref_leaves, got_leaves = flat(ref), flat(got)
+    ref_leaves, got_leaves = _flat(ref), _flat(got)
     assert [p for p, _ in got_leaves] == [p for p, _ in ref_leaves]
     assert sum("kernel_q4" in p for p, _ in got_leaves) == 4      # wqkv wo gate_up down
     for (path, r), (_, g) in zip(ref_leaves, got_leaves):
@@ -293,9 +296,20 @@ def test_quantize_tree_matches_jax():
     assert "lm_head" in got and "kernel" in got["lm_head"]
 
 
-def test_quantize_tree_bits8_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Q.quantize_tree({"w": {"kernel": torch.zeros((1024, 8))}}, bits=8)
+def test_quantize_tree_bits8_matches_jax():
+    """bits=8 (ported since item 9): the same keys, int8 codes and fp32
+    scales as the JAX package's int8 tree; lm_head, the embedding and the
+    norms stay float."""
+    llm = jax_fuse(_tiny_llm(), fold_norms=False)
+    ref = JQ.quantize_tree(llm, min_dim=64, bits=8)
+    got = Q.quantize_tree(params_from_numpy(llm), min_dim=64, bits=8)
+    ref_leaves, got_leaves = _flat(ref), _flat(got)
+    assert [p for p, _ in got_leaves] == [p for p, _ in ref_leaves]
+    assert sum(p[-1] == "scale_w" for p, _ in got_leaves) == 4     # wqkv wo gate_up down
+    for (path, r), (_, g) in zip(ref_leaves, got_leaves):
+        assert g.dtype == params_from_numpy(r).dtype, path
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=str(path))
+    assert got["lm_head"]["kernel"].is_floating_point()
 
 
 def test_index_layer_gives_int4_views(rng):

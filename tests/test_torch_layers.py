@@ -43,8 +43,6 @@ def test_linear(rng, bias):
 
 def test_linear_rejects_unported_formats():
     x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.linear({"kernel": torch.zeros(4, 3, dtype=torch.int8)}, x)
     # LoRA factors are ported (item 14): a zero B leaves the base product.
     lora = {"kernel": torch.ones(4, 3), "lora_a": torch.ones(2, 4),
             "lora_b": torch.zeros(2, 3)}
@@ -55,6 +53,27 @@ def test_linear_rejects_unported_formats():
     assert torch.equal(T.linear(q4, x), torch.zeros(2, 3))
     with pytest.raises(NotImplementedError, match="item 14"):
         T.linear({**q4, "lora_a": torch.ones(2, 4), "lora_b": torch.zeros(2, 3)}, x)
+    # int8 weights are ported (item 9); LoRA over an int8 base is not (item 14).
+    q8 = {"kernel": torch.zeros(4, 3, dtype=torch.int8), "scale_w": torch.ones(3)}
+    with pytest.raises(NotImplementedError, match="item 14"):
+        T.linear({**q8, "lora_a": torch.ones(2, 4), "lora_b": torch.zeros(2, 3)}, x)
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+def test_linear_int8_goes_to_int8_linear(rng, static):
+    """An int8 dict (kernel int8, scale_w, optionally scale_x and bias) goes
+    to `ops/quant.py::int8_linear` and gives exactly its answer."""
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    w = rng.standard_normal((32, 24)).astype(np.float32) * 0.1
+    p = {**Q.quantize_weight(_t(w)), "bias": _t(rng.standard_normal(24).astype(np.float32))}
+    if static:
+        p["scale_x"] = torch.tensor(0.02)
+    x = _t(rng.standard_normal((2, 5, 32)).astype(np.float32))
+    before = Q.int8_mm.launches
+    got = T.linear(p, x)
+    assert Q.int8_mm.launches == before + 1
+    assert got.dtype == x.dtype and torch.equal(got, Q.int8_linear(p, x))
 
 
 @pytest.mark.parametrize("with_scale", [True, False])
