@@ -2,14 +2,15 @@
 """Smoke run of the PyTorch port on one CUDA card: `python3 chip_smoke.py`.
 
 Drives the port's serving paths (LIBERO bf16, ALOHA bf16 with FiLM and the
-ViTs through K4, LIBERO int4, LIBERO int8), the K5 timing probe and the
-training path,
+ViTs through K4, LIBERO int4, LIBERO int8, the LIBERO diffusion head in bf16
+and int4), the K5 timing probe and the training path,
 at the full width of the flagship model (DINOv2 + SigLIP -> projector ->
 Llama-2-7B, seeded random weights made on the card), through the entry
 points a user calls: an HTTP /act server built by
 `openvla_oft_tpu_torch.serving.deploy` (`flagship_policy`, with
 `platform="aloha"` and `vit_fused`, `load_in_4bit`, `load_in_8bit` or
-`load_vision_in_8bit`), the probe script
+`load_vision_in_8bit`, and `head="diffusion"` through the staged
+`OpenVLAPolicy.predict_action`), the probe script
 `openvla_oft_tpu_torch.scripts.exp_int4_probe`, and the fine-tuning CLI
 `openvla_oft_tpu_torch.training.finetune` (LoRA r=32, L1 objective, B=8).
 
@@ -20,7 +21,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      wgmma instructions counted in the library's SASS (HGMMA for the bf16
      kernels, IGMMA for K6's int8; an instance with none is a failure);
   3. kernel check: K1 (and `flash_attention_allheads`, which is K1) against
-     its plain version at the serving path's shapes and the training batch
+     its plain version at the serving path's shapes (the diffusion prefix,
+     S = 514 causal with no window, among them) and the training batch
      (per-row pads and windows), with its plan and two bitwise-equal calls,
      device times (torch.profiler, L2 flushed) beside SDPA with the boolean
      OFT mask and the bound, CUDA events beside them; K4 (`ln_matmul`)
@@ -53,7 +55,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      against the unfused path and the K1 path against the dense path; one
      request traced each way;
   6. int4 kernel check: K5 (W4A16) and K6 (W4A8) against their plain
-     versions at the 7B's int4 shapes (T = 618 and 57), a column view, a
+     versions at the 7B's int4 shapes (T = 618, 514 and 57), a column view, a
      layer view, T = 1 and group 16, timed beside the library call
      (`torch.matmul`, `torch._int_mm`) and the bound, device times from
      torch.profiler, with each kernel's plan (t_tile, splits, CTAs), rate and
@@ -86,6 +88,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      random_observations (`attach_static_act_scales`), 3 requests and a
      traced one, static against dynamic (logged); `load_vision_in_8bit`, 3
      requests (199 int8 products each) and a traced one;
+  8c. diffusion serving: `flagship_policy(head="diffusion")` (LIBERO, 50
+     DDIM steps, the [BOS][patches][proprio] prefix K/V computed once, each
+     step a 105-row suffix forward against 514 + 105 keys): build memory, 3
+     `predict_action` requests on pixels from `device_preprocess` (K1 32
+     each, the prefix prefill; K4/K5/K6 0), one traced (device time by
+     class, idle share), wall and device time per chunk and per step; on
+     the card the prefix K/V through K1 against the dense path, one suffix
+     step against `predict_action_hidden`, the loop at 5 steps prefix-KV
+     against full prefill and split-KV against concatenation (cosine >=
+     0.99 each); then rebuilt with `load_in_4bit`: 2 requests (K5 128 +
+     50 x 32 x 4 = 6,528 each), one traced, the prefix (T = 514) and one
+     step (T = 105) through K5 against K5's plain version (cosine >= 0.99);
   9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
      version at the training shape (B=8, per-row pads and windows), the
      ALOHA length, GQA and dead rows, two calls of each bitwise equal, with
@@ -288,6 +302,8 @@ def kernel_check(card: str, s_train: int) -> dict:
         ("aloha_length", 1, 1168, 32, 32, 128, [(24, 1168, 817, 351)]),
         ("gqa", 1, 618, 32, 8, 128, [(24, 618, 561, 57)]),
         ("dead_rows", 1, 618, 32, 32, 128, [(150, 618, 561, 57)]),
+        # the diffusion head's prefix prefill: causal, every key valid, no window
+        ("diffusion_prefix", 1, 514, 32, 32, 128, [(0, 514, 0, 0)]),
         ("training", 8, s, 32, 32, 128, train_rows),
     ]
     results = {}
@@ -661,7 +677,8 @@ def int4_check(card: str) -> dict:
 
     dev = torch.device("cuda")
     # (name, T, K, N, how the weight is handed over)
-    cases = [(f"{name} T={t}", t, k, n, "whole") for t in (618, 57) for name, k, n in INT4_SHAPES]
+    cases = [(f"{name} T={t}", t, k, n, "whole") for t in (618, 514, 57)
+             for name, k, n in INT4_SHAPES]
     cases += [("q column view of wqkv T=57", 57, 4096, 4096, "column"),
               ("wo layer view of a stacked L=2 weight T=618", 618, 4096, 4096, "layer"),
               ("wo T=1", 1, 4096, 4096, "whole"),
@@ -1092,6 +1109,207 @@ def aloha_serving(card: str, rng) -> dict:
     return runs
 
 
+def diffusion_requests(policy, rng, n: int, label: str, expect: dict, card: str) -> dict:
+    """n requests of the staged `predict_action` on pixels from the port's
+    `device_preprocess` of random frames, each checked (shape, finite,
+    launches per request = `expect`); the counts are set to 0 before the
+    first and read after the last. Returns those launches."""
+    platform = policy.platform
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i in range(n):
+        obs = observation(policy, rng)
+        _, _, _, pixels, proprio = model_inputs(policy, obs)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        action = policy.predict_action(pixels[0], obs["instruction"],
+                                       proprio=proprio[0].clamp(-1, 1))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        per_request = {k: c - before[k] for k, c in launch_counts().items() if k in expect}
+        log(f"[diffusion] {label} request {i} ({'first' if i == 0 else 'warm'}): "
+            f"predict_action -> {action.shape} finite={bool(np.isfinite(action).all())}, "
+            f"launches {per_request}, {dt * 1e3:.1f} ms a chunk, "
+            f"{dt * 1e3 / policy.num_diffusion_steps:.2f} ms a step (host clock, ends in "
+            f"torch.cuda.synchronize; {card})")
+        if action.shape != (platform.num_actions_chunk, platform.action_dim) \
+                or not np.isfinite(action).all():
+            raise AssertionError("bad diffusion action chunk")
+        if per_request != expect:
+            raise AssertionError(f"one {label} request launched {per_request}, expected {expect}")
+    launches = launch_counts()
+    log(f"[diffusion] {label}: torch.cuda.max_memory_allocated during the requests "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
+    return launches
+
+
+def diffusion_profile(policy, rng, label: str, card: str) -> None:
+    obs = observation(policy, rng)
+    _, _, _, pixels, proprio = model_inputs(policy, obs)
+
+    def request():
+        policy.predict_action(pixels[0], obs["instruction"], proprio=proprio[0].clamp(-1, 1))
+
+    busy, by_class = profile_request(policy, obs, label, card, request=request, runs=1)
+    if busy is not None:
+        for kernel in ("K1", "K5"):
+            ms, count = by_class.get(kernel, (0.0, 0))
+            log(f"[diffusion-profile] {label}: {kernel} {ms:.2f} ms over {count} launches, "
+                f"{ms / busy:.3f} of the request's {busy:.1f} ms of device time, "
+                f"{busy / policy.num_diffusion_steps:.2f} ms of device time a step ({card})")
+
+
+def diffusion_parity(policy, rng, card: str) -> None:
+    """On the card: the prefix K/V through K1 against the dense path; one
+    suffix step against `predict_action_hidden` with the same noisy actions
+    and t; the loop at 5 steps, prefix-KV against full prefill and split-KV
+    against concatenation, from the same starting noise. Cosine >= 0.99."""
+    from openvla_oft_tpu_torch.models.action_heads import sinusoidal_time_encoding
+    from openvla_oft_tpu_torch.models.prismatic import (build_diffusion_prefix,
+                                                       diffusion_suffix_step,
+                                                       predict_action_hidden)
+
+    params, cfg, platform, dev = policy.params, policy.cfg, policy.platform, policy.device
+    obs = observation(policy, rng)
+    _, ids, mask, pixels, proprio = model_inputs(policy, obs)
+    proprio = proprio.clamp(-1, 1)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x_t = torch.randn((1, platform.num_actions_chunk, platform.action_dim), generator=gen,
+                      device=dev)
+    t_emb = sinusoidal_time_encoding(torch.tensor([27], device=dev), cfg.llm_dim)[:, None]
+
+    def check(name, got, ref, note=""):
+        cos = cosine(got, ref)
+        d = (got.float() - ref.float()).abs().max().item()
+        log(f"[diffusion-parity] {name}: cosine {cos:.6f}, max|d| {d:.4e}{note} ({card})")
+        if not (cos >= PARITY_COSINE and torch.isfinite(got).all()):
+            raise AssertionError(f"diffusion parity failed: {name}")
+
+    with torch.inference_mode():
+        before = launch_counts()["K1"]
+        k1 = build_diffusion_prefix(params, cfg, ids, mask, pixels, proprio,
+                                    use_flash=policy.use_flash)
+        used = launch_counts()["K1"] - before
+        dense = build_diffusion_prefix(params, cfg, ids, mask, pixels, proprio, use_flash=False)
+        if used != cfg.llm.num_layers:
+            raise AssertionError(f"the prefix prefill launched K1 {used} times")
+        n_pre = k1.prefix_k.shape[2]
+        check(f"prefix K through K1 against dense (T = {n_pre})", k1.prefix_k, dense.prefix_k,
+              f", K1 launches {used}")
+        check(f"prefix V through K1 against dense (T = {n_pre})", k1.prefix_v, dense.prefix_v)
+        step = diffusion_suffix_step(params, cfg, platform, k1, t_emb, x_t)
+        full = predict_action_hidden(params, cfg, platform, ids, mask, pixels, proprio=proprio,
+                                     use_flash=policy.use_flash, noisy_actions=x_t,
+                                     diffusion_t_emb=t_emb).actions_hidden
+        s_suf = k1.text_rest.shape[1] + 1 + platform.chunk_len + 1
+        check(f"one step's actions_hidden, suffix (S = {s_suf} against {n_pre} + {s_suf} "
+              f"keys) against predict_action_hidden", step, full)
+    noise = torch.randn((1, platform.num_actions_chunk, platform.action_dim), generator=gen,
+                        device=dev)
+    saved = (policy.num_diffusion_steps_inference, policy.diffusion_prefix_kv, policy.split_kv)
+    actions = {}
+    try:
+        policy.num_diffusion_steps_inference = 5
+        for name, prefix_kv, split in (("prefix-kv", True, False), ("full-prefill", False, False),
+                                       ("split-kv", True, True)):
+            policy.diffusion_prefix_kv, policy.split_kv = prefix_kv, split
+            actions[name] = torch.from_numpy(policy.predict_action(
+                pixels[0], obs["instruction"], proprio=proprio[0], noise=noise))
+    finally:
+        policy.num_diffusion_steps_inference, policy.diffusion_prefix_kv, policy.split_kv = saved
+    check("the loop at 5 steps, prefix-KV against full prefill", actions["prefix-kv"],
+          actions["full-prefill"])
+    check("the loop at 5 steps, split-KV against concatenation", actions["split-kv"],
+          actions["prefix-kv"])
+
+
+def diffusion_k5_parity(policy, rng, card: str) -> None:
+    """On the int4 LLM, the prefix (T = 514, 4 K5 launches a layer) and one
+    suffix step's actions_hidden (T = 105) through K5 against the same calls
+    with K5's plain version swapped in: the prefix K/V, the step on each
+    side's own prefix, and the step through K5 on the plain prefix."""
+    from openvla_oft_tpu_torch.models.action_heads import sinusoidal_time_encoding
+    from openvla_oft_tpu_torch.models.prismatic import (build_diffusion_prefix,
+                                                       diffusion_suffix_step)
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+
+    params, cfg, platform, dev = policy.params, policy.cfg, policy.platform, policy.device
+    obs = observation(policy, rng)
+    _, ids, mask, pixels, proprio = model_inputs(policy, obs)
+    proprio = proprio.clamp(-1, 1)
+    x_t = torch.randn((1, platform.num_actions_chunk, platform.action_dim), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(8))
+    t_emb = sinusoidal_time_encoding(torch.tensor([27], device=dev), cfg.llm_dim)[:, None]
+    linears = 4 * cfg.llm.num_layers
+    fused = M.int4_matmul_fused
+    with torch.inference_mode():
+        before = launch_counts()["K5"]
+        prefix = build_diffusion_prefix(params, cfg, ids, mask, pixels, proprio)
+        used_prefix = launch_counts()["K5"] - before
+        got = diffusion_suffix_step(params, cfg, platform, prefix, t_emb, x_t)
+        used_step = launch_counts()["K5"] - before - used_prefix
+        M.int4_matmul_fused = M.int4_matmul_ref
+        try:
+            plain_prefix = build_diffusion_prefix(params, cfg, ids, mask, pixels, proprio)
+            ref = diffusion_suffix_step(params, cfg, platform, plain_prefix, t_emb, x_t)
+        finally:
+            M.int4_matmul_fused = fused
+        on_plain = diffusion_suffix_step(params, cfg, platform, plain_prefix, t_emb, x_t)
+    n_pre = prefix.prefix_k.shape[2]
+    ok = used_prefix == linears and used_step == linears
+    for name, a, b in ((f"prefix K (T = {n_pre}, {used_prefix} K5 launches)", prefix.prefix_k,
+                        plain_prefix.prefix_k),
+                       (f"prefix V (T = {n_pre})", prefix.prefix_v, plain_prefix.prefix_v),
+                       (f"one step's actions_hidden on its own prefix ({used_step} K5 launches "
+                        f"in the step)", got, ref),
+                       ("one step's actions_hidden through K5 on the plain prefix", on_plain,
+                        ref)):
+        cos = cosine(a, b)
+        log(f"[diffusion-int4-parity] {name} against K5's plain version: cosine {cos:.6f}, "
+            f"max|d| {(a.float() - b.float()).abs().max().item():.4e} ({card})")
+        ok = ok and cos >= PARITY_COSINE and bool(torch.isfinite(a).all())
+    if not ok:
+        raise AssertionError(f"the diffusion path through K5 disagrees with the plain path "
+                             f"(K5 launches: prefix {used_prefix}, step {used_step}, expected "
+                             f"{linears} each)")
+
+
+def diffusion_serving(card: str, rng) -> dict:
+    """The flagship with the diffusion head (LIBERO, 50 DDIM steps, the
+    prefix-KV loop) in bf16: build memory, 3 requests (K1 32 each, the
+    prefix prefill), a traced one, parity on the card; then rebuilt with
+    load_in_4bit: 2 requests (K5 128 + 50 x 32 x 4 each), a traced one, the
+    prefix and one step through K5 against its plain version. Returns the
+    launches of each run of requests."""
+    from openvla_oft_tpu_torch.serving.deploy import flagship_policy
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for label, quant in (("bf16", {}), ("int4 W4A16", {"load_in_4bit": True})):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        policy = flagship_policy("cuda", seed=0, head="diffusion", **quant)
+        torch.cuda.synchronize()
+        log(f"[diffusion-init] {label} flagship, diffusion head, "
+            f"{policy.num_diffusion_steps} steps: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+            f"allocated, peak during the build {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+            f"GiB, built in {time.perf_counter() - t0:.1f} s ({card})")
+        n_layers = policy.cfg.llm.num_layers
+        k5 = 4 * n_layers * (1 + policy.num_diffusion_steps) if quant else 0
+        expect = {"K1": n_layers, "K4": 0, "K5": k5, "K6": 0, "int8": 0}
+        runs[label] = diffusion_requests(policy, rng, 2 if quant else 3, label, expect, card)
+        diffusion_profile(policy, rng, f"diffusion {label}", card)
+        if quant:
+            diffusion_k5_parity(policy, rng, card)
+        else:
+            diffusion_parity(policy, rng, card)
+        del policy
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[diffusion] phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return runs
+
+
 def probe_phase(card: str) -> dict:
     """The probe script's main (its launches are the probe's main path: K5,
     the three probe modes, K6 and torch.matmul by device time at T = 112 and
@@ -1509,15 +1727,18 @@ def log_classes(tag: str, by_class: dict) -> None:
         log(f"[{tag}]   {cls}: {ms:.1f} ms, {n} kernels")
 
 
-def profile_request(policy, obs, label: str, card: str) -> tuple:
-    """One request of `policy` without HTTP, traced: device time by kernel
-    class and the share of K4 and of the int4 kernels (K5, K6)."""
-    frames = frames_of(policy, obs)
+def profile_request(policy, obs, label: str, card: str, request=None, runs: int = 3) -> tuple:
+    """One request of `policy` without HTTP (`predict_action_from_frames`
+    on `obs`, or the given `request`), timed `runs` times untraced and then
+    traced: device time by kernel class and the share of K1, of K4 and of
+    the int4 kernels (K5, K6)."""
+    if request is None:
+        frames = frames_of(policy, obs)
 
-    def request():
-        policy.predict_action_from_frames(frames, obs["instruction"], proprio=obs["state"])
+        def request():
+            policy.predict_action_from_frames(frames, obs["instruction"], proprio=obs["state"])
 
-    untraced = [timed(request) for _ in range(3)]
+    untraced = [timed(request) for _ in range(runs)]
     wall, n, busy, by_class = trace(request)
     if busy is None:
         log(f"[profile] {label} request: untraced {', '.join(f'{t:.1f}' for t in untraced)} "
@@ -1525,8 +1746,10 @@ def profile_request(policy, obs, label: str, card: str) -> tuple:
         return None, {}
     int4 = sum(by_class.get(c, (0.0, 0))[0] for c in ("K5", "K6"))
     k4 = by_class.get("K4", (0.0, 0))[0]
+    k1 = by_class.get("K1", (0.0, 0))[0]
     log(f"[profile] {label} request: untraced {', '.join(f'{t:.1f}' for t in untraced)} ms; "
-        f"traced {wall:.1f} ms with {n} kernels and {busy:.1f} ms of device time; K4 "
+        f"traced {wall:.1f} ms with {n} kernels and {busy:.1f} ms of device time; K1 "
+        f"{k1:.1f} ms = {k1 / busy:.3f}, K4 "
         f"{k4:.1f} ms = {k4 / busy:.3f} and K5+K6 {int4:.1f} ms = {int4 / busy:.3f} of the "
         f"device time; idle share of the traced "
         f"request {1 - busy / wall:.3f}, estimate for the untraced ones "
@@ -1693,6 +1916,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe = probe_phase(card)
     int8_launches = int8_serving(card, rng, observations[0], bf16_hidden)
+    diffusion = diffusion_serving(card, rng)
 
     bwd = backward_check(card, s_train)
     state, train_launches = train(card, n_layers)
@@ -1712,7 +1936,8 @@ def main() -> int:
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
     k1_launches = (serve_launches["K1"] + aloha[True]["launches"]["K1"]
                    + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
-                   + sum(run["K1"] for run in int8_launches.values()) + train_launches["K1"])
+                   + sum(run["K1"] for run in int8_launches.values())
+                   + sum(run["K1"] for run in diffusion.values()) + train_launches["K1"])
     kernels = [
         kernel_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:50", k1_launches,
@@ -1749,7 +1974,8 @@ def main() -> int:
                      timing=fc1["timing"], events_ms=fc1["ms"],
                      library_events_ms=fc1["library_ms"]),
         kernel_entry("int4_matmul", "int4_w4a16.cu", "openvla_oft_tpu/ops/int4_matmul.py:43",
-                     w4a16["K5"], max(c["err5"] for c in int4.values()), wqkv["dev5"],
+                     w4a16["K5"] + diffusion["int4 W4A16"]["K5"],
+                     max(c["err5"] for c in int4.values()), wqkv["dev5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["dev_lib5"],
                      also_replaces="openvla_oft_tpu/ops/int4_matmul.py:199",
                      plan=list(wqkv["plan5"]), hgmma=wgmma["K5"], timing=wqkv["timing"],
@@ -1774,6 +2000,8 @@ def main() -> int:
     log(f"[int8] launches of the int8 serving runs (3 requests each): load_in_8bit "
         f"{int8_launches['dynamic']}, with static scales {int8_launches['static']}, "
         f"load_vision_in_8bit {int8_launches['vision']}")
+    log(f"[diffusion] launches of the diffusion runs: bf16 (3 requests) "
+        f"{diffusion['bf16']}, int4 W4A16 (2 requests) {diffusion['int4 W4A16']}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@
 `params_from_numpy` converts a JAX pytree (nested dicts and lists of arrays)
 leaf for leaf, keeping the JAX layout: (in, out) kernels, layers stacked
 (L, ...). `init_params` draws the tree `openvla_oft_tpu.policy.
-init_openvla_params(..., head="l1", with_lm_head=False, head_dtype=dtype)`
-builds, with the same shapes and scales, directly on the device from a
-`torch.Generator` (the numbers differ from JAX's: the generators differ).
+init_openvla_params(..., head=head, with_lm_head=False, head_dtype=dtype)`
+builds for head "l1" or "diffusion", with the same shapes and scales,
+directly on the device from a `torch.Generator` (the numbers differ from
+JAX's: the generators differ).
 """
 
 from __future__ import annotations
@@ -119,9 +120,28 @@ def _film_spec(cfg: ViTConfig, llm_dim: int) -> Params:
             for name in ("scale", "shift")}
 
 
-def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec) -> Params:
-    """The tree of `Init` leaves for an L1-head serving model without lm_head
-    (with the FiLM projectors when `cfg.use_film`)."""
+def _mlp_resnet(d_in: int, hidden: int, d_out: int) -> Params:
+    """models/action_heads.py::init_mlp_resnet, 2 blocks."""
+    return {"ln_in": _layer_norm(d_in), "fc_in": _linear(d_in, hidden),
+            "blocks": [{"ln": _layer_norm(hidden), "fc": _linear(hidden, hidden)}
+                       for _ in range(2)],
+            "ln_out": _layer_norm(hidden), "fc_out": _linear(hidden, d_out)}
+
+
+HEADS = ("l1", "diffusion")
+
+
+def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec, head: str = "l1") -> Params:
+    """The tree of `Init` leaves for a serving model without lm_head (with
+    the FiLM projectors when `cfg.use_film`). head "l1": the L1 MLPResNet
+    under action_head["model"]; "diffusion": the noise predictor under
+    action_head["noise_predictor"] and the noisy-action projector (JAX
+    `init_diffusion_head`, `init_noisy_action_projector`)."""
+    if head == "discrete":
+        raise NotImplementedError("head='discrete' is not ported yet (ROADMAP queue 1, "
+                                  "item 12)")
+    if head not in HEADS:
+        raise ValueError(f"head must be one of {HEADS}, got {head!r}")
     llm = cfg.llm
     if isinstance(llm, PhiConfig):
         raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
@@ -162,15 +182,14 @@ def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec) -> Params:
         "projector": projector,
         "proprio_projector": {"fc1": _linear(platform.proprio_dim, llm_dim),
                               "fc2": _linear(llm_dim, llm_dim)},
-        "action_head": {"model": {
-            "ln_in": _layer_norm(head_in),
-            "fc_in": _linear(head_in, llm_dim),
-            "blocks": [{"ln": _layer_norm(llm_dim), "fc": _linear(llm_dim, llm_dim)}
-                       for _ in range(2)],
-            "ln_out": _layer_norm(llm_dim),
-            "fc_out": _linear(llm_dim, platform.action_dim),
-        }},
     }
+    trunk = _mlp_resnet(head_in, llm_dim, platform.action_dim)
+    if head == "l1":
+        spec["action_head"] = {"model": trunk}
+    else:
+        spec["action_head"] = {"noise_predictor": trunk}
+        spec["noisy_action_projector"] = {"fc1": _linear(1, llm_dim),
+                                          "fc2": _linear(llm_dim, llm_dim)}
     if cfg.use_film:
         spec["film"] = {name: _film_spec(v, llm_dim)
                         for name, v in zip(names, cfg.vision_configs)}
@@ -198,25 +217,27 @@ def materialize(spec, generator: torch.Generator, device, dtype):
     return [materialize(v, generator, device, dtype) for v in spec]
 
 
-_HEAD_KEYS = ("projector", "proprio_projector", "action_head", "film")
+_HEAD_KEYS = ("projector", "proprio_projector", "action_head", "film",
+              "noisy_action_projector")
 
 
 def init_params(cfg: OpenVLAConfig, platform: PlatformSpec,
                 generator: torch.Generator, device="cpu",
                 dtype: torch.dtype = torch.bfloat16,
-                head_dtype: Optional[torch.dtype] = None) -> Params:
-    """Random L1-head params drawn on `device` (the generator must live there
-    too): the structure, shapes and scales of the JAX init, in the unfused
-    layout (serving fuses afterwards; training keeps it).
+                head_dtype: Optional[torch.dtype] = None, head: str = "l1") -> Params:
+    """Random params for `head` ("l1" or "diffusion", `param_spec`) drawn on
+    `device` (the generator must live there too): the structure, shapes and
+    scales of the JAX init, in the unfused layout (serving fuses afterwards;
+    training keeps it).
 
-    head_dtype: dtype of the projector, proprio projector, action head and
-    FiLM projectors (the JAX init's `head_dtype`, fp32 for training); None =
-    `dtype`.
+    head_dtype: dtype of the projector, proprio projector, action head,
+    noisy-action projector and FiLM projectors (the JAX init's
+    `head_dtype`, fp32 for training); None = `dtype`.
     """
     head_dtype = dtype if head_dtype is None else head_dtype
     return {k: materialize(v, generator, device,
                            head_dtype if k in _HEAD_KEYS else dtype)
-            for k, v in param_spec(cfg, platform).items()}
+            for k, v in param_spec(cfg, platform, head).items()}
 
 
 def split_base_trainables(params: Params, lora_generator: torch.Generator,

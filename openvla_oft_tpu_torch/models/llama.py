@@ -15,10 +15,16 @@ layers likewise (`kernel[l]`, `scale_w[l]`, and a static `scale_x[l]`, 0-d).
 On the flash path every layer but a sliced `out_window` last layer runs its
 attention through kernel K1 (`ops/flash_attention.py`); the window layer has
 fewer query rows than keys and always takes the dense path.
+
+The diffusion head's serving path adds `KVCache`, `llama_prefill` (a causal
+prefill that fills the cache, through K1 where K1 takes the call) and
+`llama_suffix_forward` (suffix rows against the cached prefix K/V plus
+their own: the dense path with a 4-D mask, or `attention_split_kv`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -27,7 +33,8 @@ import torch.utils.checkpoint
 
 from openvla_oft_tpu_torch.config import LlamaConfig
 from openvla_oft_tpu_torch.bridge import index_layer, tree_leaves
-from openvla_oft_tpu_torch.ops.attention import attention, resolve_use_flash
+from openvla_oft_tpu_torch.ops.attention import (attention, attention_split_kv,
+                                                 resolve_use_flash)
 from openvla_oft_tpu_torch.ops.layers import linear, rms_norm
 from openvla_oft_tpu_torch.ops.masks import make_block_bidirectional_mask
 from openvla_oft_tpu_torch.ops.quant import empty_int8_kernel
@@ -336,3 +343,96 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     x_w = x_w + _mlp(last["mlp"], xm)
     return rms_norm(params["final_norm"], x_w, cfg.rms_norm_eps)
 
+
+@dataclasses.dataclass
+class KVCache:
+    """Static-shape K/V cache: k/v (L, B, T_max, Hkv, Dh) post-RoPE. The
+    JAX version's filled length and valid mask wait for the first reader of
+    them, the discrete head's decode (ROADMAP queue 1, item 12)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, device="cpu") -> "KVCache":
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def llama_prefill(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
+                  cache: KVCache, positions: Optional[torch.Tensor] = None,
+                  key_valid: Optional[torch.Tensor] = None,
+                  use_flash="auto") -> Tuple[torch.Tensor, KVCache]:
+    """Causal prefill that fills `cache` from row 0; returns (post-final-norm
+    hidden (B, S, D), cache). The cache is written in place (the JAX version
+    returns a new one), so that no second copy of it is made.
+
+    key_valid: (B, S) bool, False for (left-)padded positions, which are
+    then excluded as keys. use_flash: as in `llama_model`; on the card "auto"
+    gives K1 every layer's attention (self-attention, the 1-D mask: causal
+    and key padding, no bidirectional window).
+    """
+    b, s, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    h, hd = cfg.num_heads, cfg.head_dim
+    use_flash = resolve_use_flash(use_flash, (b, s, h, hd), inputs_embeds.dtype, device, s)
+    if positions is None:
+        positions = torch.arange(s, device=device).expand(b, s)
+    sin, cos = rope_sin_cos(positions, hd, cfg.rope_theta)
+    if key_valid is None:
+        key_valid = torch.ones((b, s), dtype=torch.bool, device=device)
+    key_valid = key_valid.bool()
+    layers = params["layers"]
+    x = inputs_embeds
+    for i in range(tree_leaves(layers)[0].shape[0]):
+        p = index_layer(layers, i)
+        xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
+        q, k, v = _qkv_proj(p["attn"], cfg, xa)
+        q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+        o = attention(q, k, v, is_causal=True, use_flash=use_flash, key_valid=key_valid)
+        x = x + linear(p["attn"]["wo"], o.reshape(b, s, h * hd))
+        x = x + _mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps))
+        cache.k[i, :, :s] = k
+        cache.v[i, :, :s] = v
+    return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
+
+
+def llama_suffix_forward(params: Params, cfg: LlamaConfig, suffix_embeds: torch.Tensor,
+                         prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                         positions: torch.Tensor, attn_mask: torch.Tensor,
+                         split_kv: bool = False) -> torch.Tensor:
+    """Suffix rows (B, S_suf, D) through every layer, attending to the cached
+    prefix K/V (L, B, T_pre, Hkv, Dh, post-RoPE) and to themselves under
+    `attn_mask` (B, 1, S_suf, T_pre + S_suf) bool; `positions` (B, S_suf)
+    are their logical RoPE positions. Returns post-final-norm hidden states
+    (B, S_suf, D).
+
+    The attention is the dense path on the concatenated keys (S != T, so K1
+    never takes it), or with `split_kv` the two-block merge
+    `attention_split_kv`, which writes no concatenated copy. The JAX version
+    reads that switch from OPENVLA_SPLIT_KV while it traces; here the
+    caller chooses it.
+    """
+    b, s, _ = suffix_embeds.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    sin, cos = rope_sin_cos(positions, hd, cfg.rope_theta)
+    t_pre = prefix_k.shape[2]
+    layers = params["layers"]
+    x = suffix_embeds
+    for i in range(tree_leaves(layers)[0].shape[0]):
+        p = index_layer(layers, i)
+        xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
+        q, k, v = _qkv_proj(p["attn"], cfg, xa)
+        q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+        pk, pv = prefix_k[i].to(k.dtype), prefix_v[i].to(v.dtype)
+        if split_kv:
+            o = attention_split_kv(q, pk, pv, k, v, mask_pre=attn_mask[..., :t_pre],
+                                   mask_suf=attn_mask[..., t_pre:])
+        else:
+            o = attention(q, torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1),
+                          mask=attn_mask)
+        x = x + linear(p["attn"]["wo"], o.reshape(b, s, h * hd))
+        x = x + _mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps))
+    return rms_norm(params["final_norm"], x, cfg.rms_norm_eps)

@@ -1,7 +1,7 @@
-"""Projector MLPs: vision -> LLM and proprio -> LLM.
+"""Projector MLPs: vision -> LLM, proprio -> LLM and noisy action -> LLM.
 
-Port of `openvla_oft_tpu/models/projector.py::vision_projector` and
-`proprio_projector`.
+Port of `openvla_oft_tpu/models/projector.py::vision_projector`,
+`proprio_projector` and `noisy_action_projector`.
 """
 
 from __future__ import annotations
@@ -28,3 +28,9 @@ def vision_projector(p: Params, patches: torch.Tensor,
 def proprio_projector(p: Params, proprio: torch.Tensor) -> torch.Tensor:
     """(B, proprio_dim) -> (B, llm_dim)."""
     return linear(p["fc2"], gelu(linear(p["fc1"], proprio)))
+
+
+def noisy_action_projector(p: Params, noisy_actions: torch.Tensor) -> torch.Tensor:
+    """(B, chunk_len*action_dim, 1) -> (B, chunk_len*action_dim, llm_dim): each
+    scalar action is a token of its own (fc1 1 -> D, GELU, fc2)."""
+    return linear(p["fc2"], gelu(linear(p["fc1"], noisy_actions)))

@@ -1,8 +1,9 @@
 """Attention entry point: the dense oracle and the dispatch to kernel K1.
 
 Port of `openvla_oft_tpu/ops/attention.py::attention_xla` (here
-`attention_dense`) and `attention`. The dense path is the semantic reference:
-fp32 scores and softmax, an arbitrary boolean mask, GQA by repeating kv heads.
+`attention_dense`), `attention` and `attention_split_kv`. The dense path is
+the semantic reference: fp32 scores and softmax, an arbitrary boolean mask,
+GQA by repeating kv heads.
 """
 
 from __future__ import annotations
@@ -114,3 +115,50 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             allow = allow | (bm[:, :, None] & bm[:, None, :] & kv[:, None, :])
         mask = allow[:, None]
     return attention_dense(q, k, v, mask=mask, is_causal=is_causal)
+
+
+def attention_split_kv(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor,
+                       mask_pre: Optional[torch.Tensor] = None,
+                       mask_suf: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of q (B, S, H, D) over the cached prefix keys pk/pv (B, Tp,
+    Hkv, D) and the suffix's own k/v (B, Ss, Hkv, D) as two online-softmax
+    blocks, without the concatenated K/V; masks broadcast to (B, H, S, Tp)
+    and (B, H, S, Ss), True = attend. Returns (B, S, H, D) in q's dtype.
+
+    Each block gives its row max m, sum s and weighted values o; then
+    m = max(m_p, m_s) and out = (o_p e^(m_p-m) + o_s e^(m_s-m)) /
+    (s_p e^(m_p-m) + s_s e^(m_s-m)). A block with every key of a row masked
+    (a dead row) has weight 0 and its max is replaced by the other block's,
+    so that it cannot win the max. Scores and softmax in fp32, as in
+    `attention_dense`; the probabilities round to v's dtype before the
+    product, as the JAX version's do.
+    """
+    h, d = q.shape[2], q.shape[3]
+    hkv = pk.shape[2]
+    if hkv != h:
+        pk, pv, k, v = (t.repeat_interleave(h // hkv, dim=2) for t in (pk, pv, k, v))
+    scale = d ** -0.5
+    qf = q.float()
+
+    def block(keys, vals, mask):
+        logits = torch.einsum("bshd,bthd->bhst", qf, keys.float()) * scale
+        if mask is not None:
+            logits = torch.where(mask, logits, _NEG_INF)
+        m = logits.amax(dim=-1, keepdim=True)
+        dead = m <= _NEG_INF * 0.5
+        m = torch.where(dead, 0.0, m)
+        p = torch.where(dead, 0.0, torch.exp(logits - m))
+        o = torch.einsum("bhst,bthd->bhsd", p.to(vals.dtype).float(), vals.float())
+        return m[..., 0], p.sum(dim=-1), o, dead[..., 0]
+
+    m_p, s_p, o_p, dead_p = block(pk, pv, mask_pre)
+    m_s, s_s, o_s, dead_s = block(k, v, mask_suf)
+    m_p = torch.where(dead_p, m_s, m_p)
+    m_s = torch.where(dead_s, m_p, m_s)
+    m = torch.maximum(m_p, m_s)
+    a_p = torch.where(dead_p, 0.0, torch.exp(m_p - m))
+    a_s = torch.where(dead_s, 0.0, torch.exp(m_s - m))
+    denom = torch.clamp(s_p * a_p + s_s * a_s, min=1e-30)
+    out = (o_p * a_p[..., None] + o_s * a_s[..., None]) / denom[..., None]
+    return out.transpose(1, 2).to(q.dtype)

@@ -164,12 +164,16 @@ def serving_params(params: dict, load_in_4bit: bool = False, load_in_8bit: bool 
 # The reference's two deployments of the flagship model: (platform, images,
 # FiLM). ALOHA is `vla_scripts/deploy.py:30-31` (use_film, 3 images).
 DEPLOYMENTS = {"libero": ("libero", 2, False), "aloha": ("aloha", 3, True)}
+# (vision backbone id, LLM id) of the flagship.
+FLAGSHIP_IDS = ("dinosiglip-vit-so-224px", "llama2-7b-pure")
 
 
 def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
                     load_in_4bit: bool = False, int4_a8: bool = False,
                     platform: str = "libero", vit_fused: bool = False,
-                    load_in_8bit: bool = False, load_vision_in_8bit: bool = False):
+                    load_in_8bit: bool = False, load_vision_in_8bit: bool = False,
+                    head: str = "l1", num_diffusion_steps: int = 50,
+                    use_film: Optional[bool] = None):
     """The flagship serving policy with seeded random bf16 weights, fused for
     serving as the JAX bench does (wqkv/gate_up and ViT folds), at the
     `platform` deployment ("libero" or "aloha", `DEPLOYMENTS`). With
@@ -177,7 +181,11 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
     with `int4_a8`; with `load_in_8bit` the LLM, the ViTs and the projector
     are int8 (W8A8), with `load_vision_in_8bit` the ViTs and the projector
     only; `vit_fused` runs the ViTs' folded LN + matmuls as kernel K4 (an
-    int8 ViT has none)."""
+    int8 ViT has none). head "diffusion" gives the DDIM head with
+    `num_diffusion_steps` steps (the prefix-KV loop, noise from a generator
+    seeded with `seed`); its noise predictor and noisy-action projector stay
+    bf16 under every quant flag, as `vla_scripts/bench_diffusion.py` keeps
+    them. `use_film` overrides the deployment's FiLM setting."""
     import torch
 
     from openvla_oft_tpu_torch.bridge import init_params
@@ -189,18 +197,22 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
         raise ValueError("int4_a8 needs load_in_4bit")
     if platform not in DEPLOYMENTS:
         raise ValueError(f"platform must be one of {sorted(DEPLOYMENTS)}, got {platform!r}")
-    name, n_images, use_film = DEPLOYMENTS[platform]
+    name, n_images, film = DEPLOYMENTS[platform]
+    use_film = film if use_film is None else use_film
     spec = get_platform(name)
-    cfg = OpenVLAConfig(vision_backbone_id="dinosiglip-vit-so-224px",
-                        llm_backbone_id="llama2-7b-pure", num_images_in_input=n_images,
-                        use_film=use_film)
+    cfg = OpenVLAConfig(vision_backbone_id=FLAGSHIP_IDS[0], llm_backbone_id=FLAGSHIP_IDS[1],
+                        num_images_in_input=n_images, use_film=use_film)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = serving_params(init_params(cfg, spec, gen, device=device, dtype=torch.bfloat16),
+    params = serving_params(init_params(cfg, spec, gen, device=device, dtype=torch.bfloat16,
+                                        head=head),
                             load_in_4bit=load_in_4bit, load_in_8bit=load_in_8bit,
                             load_vision_in_8bit=load_vision_in_8bit)
     return OpenVLAPolicy(cfg=cfg, platform=spec, params=params,
                          norm_stats=placeholder_norm_stats(spec), prompt_bucket=prompt_bucket,
-                         int4_a8=int4_a8, vit_fused=vit_fused)
+                         int4_a8=int4_a8, vit_fused=vit_fused, head=head,
+                         num_diffusion_steps=num_diffusion_steps,
+                         generator=torch.Generator(device=device).manual_seed(seed)
+                         if head == "diffusion" else None)
 
 
 def main(argv=None) -> None:

@@ -1002,3 +1002,98 @@ def test_tiny_int8_policy_card_matches_plain_product(cuda, flag, monkeypatch):
         plain = pol.predict_action_from_frames(frames, "open the drawer")
     assert np.isfinite(got).all()
     assert np.abs(got - plain).max() <= 1e-6 * np.abs(plain).max()
+
+
+# --- the diffusion head ---------------------------------------------------------
+
+def _tiny_diffusion_inputs(cfg, device):
+    """A left-padded prompt, normalized pixels and proprio for the tiny LIBERO model."""
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.models.prismatic import prepare_prompt_ids
+    from openvla_oft_tpu_torch.processing.processor import FakeLlamaTokenizer
+
+    ids, mask = prepare_prompt_ids(FakeLlamaTokenizer(), "open the drawer", 32)
+    gen = torch.Generator(device=device).manual_seed(1)
+    h = cfg.vision_configs[0].image_size
+    pixels = torch.rand((1, cfg.num_images_in_input, 2, h, h, 3), generator=gen, device=device)
+    proprio = torch.rand((1, LIBERO.proprio_dim), generator=gen, device=device) * 2 - 1
+    return (torch.as_tensor(ids, device=device)[None], torch.as_tensor(mask, device=device)[None],
+            pixels, proprio)
+
+
+def test_tiny_diffusion_prefix_k1_matches_dense(cuda):
+    """The prefix prefill through K1 (one launch per layer under "auto")
+    against the dense path: the cached K/V, cosine >= 0.99; then the whole
+    loop from the same noise, K1 once per layer per request, cosine >= 0.99
+    against the dense policy's actions."""
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.models.prismatic import build_diffusion_prefix
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+
+    cfg = _tiny_cfg()
+    params = init_params(cfg, LIBERO, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda, dtype=torch.bfloat16, head="diffusion")
+    ids, mask, pixels, proprio = _tiny_diffusion_inputs(cfg, cuda)
+    n = cfg.llm.num_layers
+    with torch.inference_mode():
+        before = fa.flash_attention.launches
+        k1 = build_diffusion_prefix(params, cfg, ids, mask, pixels, proprio, use_flash="auto")
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches - before == n
+        dense = build_diffusion_prefix(params, cfg, ids, mask, pixels, proprio, use_flash=False)
+    for got, ref in ((k1.prefix_k, dense.prefix_k), (k1.prefix_v, dense.prefix_v)):
+        assert torch.isfinite(got).all() and _cosine(got, ref) >= 0.99
+    actions = {}
+    noise = torch.randn((1, LIBERO.num_actions_chunk, LIBERO.action_dim), device=cuda)
+    for use_flash in ("auto", False):
+        pol = OpenVLAPolicy(cfg=cfg, platform=LIBERO, params=params, head="diffusion",
+                            prompt_bucket=32, num_diffusion_steps_inference=5,
+                            use_flash=use_flash)
+        before = fa.flash_attention.launches
+        actions[use_flash] = pol.predict_action(pixels[0], "open the drawer",
+                                                proprio=proprio[0], noise=noise)
+        assert fa.flash_attention.launches - before == (n if use_flash else 0)
+    assert np.isfinite(actions["auto"]).all()
+    assert _cosine(torch.from_numpy(actions["auto"]), torch.from_numpy(actions[False])) >= 0.99
+
+
+def test_tiny_diffusion_suffix_step_k5_matches_plain(cuda):
+    """The prefix and one suffix step on an int4 LLM through K5 (4 launches
+    per layer each) against the same calls with K5's plain version swapped
+    in: the prefix K/V, then the step on each side's own prefix."""
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.models.action_heads import sinusoidal_time_encoding
+    from openvla_oft_tpu_torch.models.llama import fuse_inference_weights
+    from openvla_oft_tpu_torch.models.prismatic import (build_diffusion_prefix,
+                                                       diffusion_suffix_step)
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops.quant import quantize_tree
+
+    cfg = _tiny_cfg()
+    params = init_params(cfg, LIBERO, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda, dtype=torch.bfloat16, head="diffusion")
+    params["llm"] = quantize_tree(fuse_inference_weights(params["llm"], fold_norms=False),
+                                  min_dim=256, bits=4)
+    ids, mask, pixels, proprio = _tiny_diffusion_inputs(cfg, cuda)
+    x_t = torch.randn((1, LIBERO.num_actions_chunk, LIBERO.action_dim), device=cuda)
+    t_emb = sinusoidal_time_encoding(torch.tensor([17], device=cuda), cfg.llm_dim)[:, None]
+    linears = 4 * cfg.llm.num_layers
+    with torch.inference_mode():
+        before = M.int4_matmul_fused.launches
+        prefix = build_diffusion_prefix(params, cfg, ids, mask, pixels, proprio)
+        torch.cuda.synchronize()
+        assert M.int4_matmul_fused.launches - before == linears
+        got = diffusion_suffix_step(params, cfg, LIBERO, prefix, t_emb, x_t)
+        torch.cuda.synchronize()
+        assert M.int4_matmul_fused.launches - before == 2 * linears
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(M, "int4_matmul_fused", M.int4_matmul_ref)
+            plain_prefix = build_diffusion_prefix(params, cfg, ids, mask, pixels, proprio)
+            plain = diffusion_suffix_step(params, cfg, LIBERO, plain_prefix, t_emb, x_t)
+    for a, b in ((prefix.prefix_k, plain_prefix.prefix_k),
+                 (prefix.prefix_v, plain_prefix.prefix_v)):
+        assert torch.isfinite(a).all() and _cosine(a, b) >= 0.99 and _rel_err(a, b) <= 2e-2
+    assert torch.isfinite(got).all()
+    assert _cosine(got, plain) >= 0.99 and _rel_err(got, plain) <= 2e-2
