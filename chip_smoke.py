@@ -3,14 +3,16 @@
 
 Drives the port's serving paths (LIBERO bf16, ALOHA bf16 with FiLM and the
 ViTs through K4, LIBERO int4, LIBERO int8, the LIBERO diffusion head in bf16
-and int4), the K5 timing probe and the training path,
+and int4, the discrete head and base OpenVLA's autoregressive decode in
+bf16, int4 and int8), the K5 timing probe and the training path,
 at the full width of the flagship model (DINOv2 + SigLIP -> projector ->
 Llama-2-7B, seeded random weights made on the card), through the entry
 points a user calls: an HTTP /act server built by
 `openvla_oft_tpu_torch.serving.deploy` (`flagship_policy`, with
 `platform="aloha"` and `vit_fused`, `load_in_4bit`, `load_in_8bit` or
-`load_vision_in_8bit`, and `head="diffusion"` through the staged
-`OpenVLAPolicy.predict_action`), the probe script
+`load_vision_in_8bit`, and `head="diffusion"` or `head="discrete"` through
+the staged `OpenVLAPolicy.predict_action`), `predict_action_autoregressive`
+and its bench script `openvla_oft_tpu_torch.scripts.bench_ar`, the probe script
 `openvla_oft_tpu_torch.scripts.exp_int4_probe`, and the fine-tuning CLI
 `openvla_oft_tpu_torch.training.finetune` (LoRA r=32, L1 objective, B=8).
 
@@ -22,7 +24,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      kernels, IGMMA for K6's int8; an instance with none is a failure);
   3. kernel check: K1 (and `flash_attention_allheads`, which is K1) against
      its plain version at the serving path's shapes (the diffusion prefix,
-     S = 514 causal with no window, among them) and the training batch
+     S = 514 causal with no window, and the AR prefill, S = 304 causal with
+     24 left pads, among them) and the training batch
      (per-row pads and windows), with its plan and two bitwise-equal calls,
      device times (torch.profiler, L2 flushed) beside SDPA with the boolean
      OFT mask and the bound, CUDA events beside them; K4 (`ln_matmul`)
@@ -55,8 +58,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      against the unfused path and the K1 path against the dense path; one
      request traced each way;
   6. int4 kernel check: K5 (W4A16) and K6 (W4A8) against their plain
-     versions at the 7B's int4 shapes (T = 618, 514 and 57), a column view, a
-     layer view, T = 1 and group 16, timed beside the library call
+     versions at the 7B's int4 shapes (T = 618, 514, 304, 57 and 1), a column
+     view, a layer view and group 16, timed beside the library call
      (`torch.matmul`, `torch._int_mm`) and the bound, device times from
      torch.profiler, with each kernel's plan (t_tile, splits, CTAs), rate and
      share of the bound; two K5 calls and two K6 calls bitwise equal at wo
@@ -100,6 +103,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      0.99 each); then rebuilt with `load_in_4bit`: 2 requests (K5 128 +
      50 x 32 x 4 = 6,528 each), one traced, the prefix (T = 514) and one
      step (T = 105) through K5 against K5's plain version (cosine >= 0.99);
+  8d. discrete decoding: `flagship_policy(head="discrete")` (LIBERO): 3
+     `predict_action` requests (K1 31 each; K4/K5/K6 0), the action-row
+     logits through K1 against dense (cosine >= 0.99, argmax agreement
+     logged), the lm_head product (`torch.mm(..., out_dtype=float32)`)
+     against the fp32 product of the same bf16 values (max|d| <= 1e-4 of
+     max|ref|); base OpenVLA on the same tree at 1 image (bucket 48, 24
+     real tokens, S = 304): `predict_action_autoregressive`, 3 requests of 7
+     tokens and 2 of 56 (K1 32 each, the prefill), the cached decode against
+     a no-cache forward over the same tokens (dense both, cosine >= 0.999),
+     the prefill through K1 against dense (cosine >= 0.99), one request
+     traced (device time by class, kernels a token, idle share); rebuilt
+     with `load_in_4bit`: 2 requests of 7 tokens (K5 128 + 6 x 128 = 896
+     each), one traced, one decode step through K5 against its plain version
+     (cosine >= 0.99); with `load_in_8bit`: one request (1,095 int8
+     products, one padded row per product in each step); `bench_ar` in bf16
+     and with `--quant int4` (its 7-token, 56-token and parallel rows);
   9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
      version at the training shape (B=8, per-row pads and windows), the
      ALOHA length, GQA and dead rows, two calls of each bitwise equal, with
@@ -304,6 +323,8 @@ def kernel_check(card: str, s_train: int) -> dict:
         ("dead_rows", 1, 618, 32, 32, 128, [(150, 618, 561, 57)]),
         # the diffusion head's prefix prefill: causal, every key valid, no window
         ("diffusion_prefix", 1, 514, 32, 32, 128, [(0, 514, 0, 0)]),
+        # the autoregressive decode's prefill: causal, 24 left pads, no window
+        ("ar_prefill", 1, 304, 32, 32, 128, [(24, 304, 0, 0)]),
         ("training", 8, s, 32, 32, 128, train_rows),
     ]
     results = {}
@@ -677,11 +698,12 @@ def int4_check(card: str) -> dict:
 
     dev = torch.device("cuda")
     # (name, T, K, N, how the weight is handed over)
-    cases = [(f"{name} T={t}", t, k, n, "whole") for t in (618, 514, 57)
+    # T: the L1 prefill (618), the diffusion prefix (514), the AR prefill
+    # (304), the out_window layer (57) and one AR decode step (1).
+    cases = [(f"{name} T={t}", t, k, n, "whole") for t in (618, 514, 304, 57, 1)
              for name, k, n in INT4_SHAPES]
     cases += [("q column view of wqkv T=57", 57, 4096, 4096, "column"),
               ("wo layer view of a stacked L=2 weight T=618", 618, 4096, 4096, "layer"),
-              ("wo T=1", 1, 4096, 4096, "whole"),
               ("group 16 (d_in 4304) T=618", 618, 4304, 1152, "whole")]
     flush = l2_flush_buffer(dev)
     results = {}
@@ -1109,11 +1131,13 @@ def aloha_serving(card: str, rng) -> dict:
     return runs
 
 
-def diffusion_requests(policy, rng, n: int, label: str, expect: dict, card: str) -> dict:
-    """n requests of the staged `predict_action` on pixels from the port's
-    `device_preprocess` of random frames, each checked (shape, finite,
-    launches per request = `expect`); the counts are set to 0 before the
-    first and read after the last. Returns those launches."""
+def staged_requests(policy, rng, n: int, label: str, expect: dict, card: str) -> dict:
+    """n requests of the staged `predict_action` (the diffusion or the
+    discrete head) on pixels from the port's `device_preprocess` of random
+    frames, each checked (shape, finite, launches per request = `expect`);
+    the counts are set to 0 before the first and read after the last.
+    Returns those launches."""
+    tag = policy.head
     platform = policy.platform
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1127,18 +1151,19 @@ def diffusion_requests(policy, rng, n: int, label: str, expect: dict, card: str)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         per_request = {k: c - before[k] for k, c in launch_counts().items() if k in expect}
-        log(f"[diffusion] {label} request {i} ({'first' if i == 0 else 'warm'}): "
+        step = (f", {dt * 1e3 / policy.num_diffusion_steps:.2f} ms a step"
+                if tag == "diffusion" else "")
+        log(f"[{tag}] {label} request {i} ({'first' if i == 0 else 'warm'}): "
             f"predict_action -> {action.shape} finite={bool(np.isfinite(action).all())}, "
-            f"launches {per_request}, {dt * 1e3:.1f} ms a chunk, "
-            f"{dt * 1e3 / policy.num_diffusion_steps:.2f} ms a step (host clock, ends in "
+            f"launches {per_request}, {dt * 1e3:.1f} ms a chunk{step} (host clock, ends in "
             f"torch.cuda.synchronize; {card})")
         if action.shape != (platform.num_actions_chunk, platform.action_dim) \
                 or not np.isfinite(action).all():
-            raise AssertionError("bad diffusion action chunk")
+            raise AssertionError(f"bad {tag} action chunk")
         if per_request != expect:
             raise AssertionError(f"one {label} request launched {per_request}, expected {expect}")
     launches = launch_counts()
-    log(f"[diffusion] {label}: torch.cuda.max_memory_allocated during the requests "
+    log(f"[{tag}] {label}: torch.cuda.max_memory_allocated during the requests "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
     return launches
 
@@ -1297,7 +1322,7 @@ def diffusion_serving(card: str, rng) -> dict:
         n_layers = policy.cfg.llm.num_layers
         k5 = 4 * n_layers * (1 + policy.num_diffusion_steps) if quant else 0
         expect = {"K1": n_layers, "K4": 0, "K5": k5, "K6": 0, "int8": 0}
-        runs[label] = diffusion_requests(policy, rng, 2 if quant else 3, label, expect, card)
+        runs[label] = staged_requests(policy, rng, 2 if quant else 3, label, expect, card)
         diffusion_profile(policy, rng, f"diffusion {label}", card)
         if quant:
             diffusion_k5_parity(policy, rng, card)
@@ -1307,6 +1332,303 @@ def diffusion_serving(card: str, rng) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     log(f"[diffusion] phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return runs
+
+
+def build_policy(label: str, card: str, **kw):
+    """flagship_policy("cuda", seed=0, **kw), its build time and memory logged."""
+    from openvla_oft_tpu_torch.serving.deploy import flagship_policy
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    policy = flagship_policy("cuda", seed=0, **kw)
+    torch.cuda.synchronize()
+    log(f"[{policy.head}-init] {label}: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated, peak during the build {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+        f"built in {time.perf_counter() - t0:.1f} s ({card})")
+    return policy
+
+
+def discrete_parity(policy, rng, card: str) -> None:
+    """On the card: the discrete head's action-row logits through K1 against
+    the dense path (cosine >= 0.99, argmax agreement logged); the lm_head
+    product (`lm_logits`, fp32 out of bf16 operands) against the plain fp32
+    product of the same bf16 values (max|d| <= 1e-4 * max|ref|), timed
+    beside the plain product and its bound, and the argmax flips that a
+    bf16-rounded product would make."""
+    from openvla_oft_tpu_torch.models.llama import lm_logits
+    from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden
+
+    params, cfg, platform = policy.params, policy.cfg, policy.platform
+    _, ids, mask, pixels, proprio = model_inputs(policy, observation(policy, rng))
+    out = {}
+    with torch.inference_mode():
+        for use_flash in (True, False):
+            before = launch_counts()["K1"]
+            out[use_flash] = predict_action_hidden(params, cfg, platform, ids, mask, pixels,
+                                                   proprio=proprio.clamp(-1, 1),
+                                                   use_flash=use_flash, compute_logits=True)
+            used = launch_counts()["K1"] - before
+            if used != (cfg.llm.num_layers - 1 if use_flash else 0):
+                raise AssertionError(f"use_flash={use_flash} launched K1 {used} times")
+    logits = {k: o.action_logits for k, o in out.items()}
+    cos = cosine(logits[True], logits[False])
+    agree = (logits[True].argmax(-1) == logits[False].argmax(-1)).float().mean().item()
+    log(f"[discrete-parity] action-row logits (1, {logits[True].shape[1]}, "
+        f"{logits[True].shape[2]}) fp32, cosine(K1 path, dense path) = {cos:.6f}, argmax "
+        f"agreement {agree:.3f} ({card})")
+    if not (cos >= PARITY_COSINE and torch.isfinite(logits[True]).all()):
+        raise AssertionError("the discrete head's logits through K1 disagree with the dense path")
+    hidden, w = out[True].actions_hidden, params["llm"]["lm_head"]["kernel"]
+    with torch.inference_mode():
+        got = lm_logits(params["llm"], hidden)
+        ref = hidden.float() @ w.float()
+        rounded = torch.matmul(hidden, w)
+    rel = (got - ref).abs().max().item() / ref.abs().max().item()
+    flips = (rounded.argmax(-1) != ref.argmax(-1)).sum().item()
+    ms = cuda_time_ms(lambda: lm_logits(params["llm"], hidden))
+    plain_ms = cuda_time_ms(lambda: hidden.float() @ w.float())
+    b_ms, b_by = bound(2 * hidden[0].numel() * w.shape[1], nbytes(hidden, w, got), PEAK_BF16)
+    log(f"[discrete-parity] lm_head product at M = {hidden.shape[1]}: torch.mm(out_dtype="
+        f"float32) against the fp32 product of the same bf16 values max|d| = "
+        f"{(got - ref).abs().max().item():.3e} ({rel:.3e} of max|ref|), dtype {got.dtype}; a "
+        f"bf16-rounded product flips {flips} of {ref.shape[1]} argmaxes; {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) (CUDA events; {card})")
+    if not rel <= 1e-4 or got.dtype != torch.float32:
+        raise AssertionError("the lm_head product disagrees with its fp32 plain product")
+
+
+def ar_inputs(cfg, dev) -> tuple:
+    """The base-OpenVLA request of `scripts/bench_ar.py`: 24 real prompt
+    tokens in a 48-token bucket, and one camera's pixels from
+    `device_preprocess` of a random 256 x 256 frame."""
+    from openvla_oft_tpu_torch.processing.image_processing import device_preprocess
+    from openvla_oft_tpu_torch.scripts.bench_ar import prompt
+
+    frame = torch.randint(0, 256, (1, 256, 256, 3), dtype=torch.uint8, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+    with torch.inference_mode():
+        pixels = device_preprocess(cfg, frame, cfg.vision_configs[0].image_size)[None]
+    return (*prompt(dev), pixels)
+
+
+def ar_requests(params, cfg, platform, lengths, label: str, expect: dict, card: str) -> dict:
+    """One `predict_action_autoregressive` request per entry of `lengths`
+    (new tokens), each checked (shape, launches per request = `expect`, the
+    K5 count scaled by the request's length) and timed; the counts are set
+    to 0 before the first and read after the last. Returns those launches."""
+    from openvla_oft_tpu_torch.models.prismatic import predict_action_autoregressive
+
+    inputs = ar_inputs(cfg, params["llm"]["embed"]["embedding"].device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for i, n in enumerate(lengths):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            tokens = predict_action_autoregressive(params, cfg, platform, *inputs,
+                                                   num_new_tokens=n)
+        tokens = tokens.cpu()
+        dt = (time.perf_counter() - t0) * 1e3
+        per_request = {k: c - before[k] for k, c in launch_counts().items() if k in expect}
+        want = {k: v(n) if callable(v) else v for k, v in expect.items()}
+        log(f"[discrete-ar] {label} request {i} ({n} tokens{', first' if i == 0 else ''}): "
+            f"tokens {tokens.tolist()[0][:8]}{'...' if n > 8 else ''}, launches {per_request}, "
+            f"{dt:.1f} ms, {dt / n:.2f} ms a token (host clock, ends in the tokens' copy to "
+            f"the host; {card})")
+        if tokens.shape != (1, n) or per_request != want:
+            raise AssertionError(f"one {label} request of {n} tokens launched {per_request}, "
+                                 f"expected {want}")
+    launches = launch_counts()
+    log(f"[discrete-ar] {label}: torch.cuda.max_memory_allocated during the requests "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
+    return launches
+
+
+def ar_parity(params, cfg, platform, card: str) -> None:
+    """On the card, bf16: the cached decode's hidden states (the prefill's
+    last row, then 6 decode steps fed the generated tokens) against one
+    no-cache `llama_model` forward over the prefix and the same tokens
+    (dense both, teacher-forced), cosine >= 0.999; the prefill through K1
+    against the dense path at the valid rows (hidden states and cached K/V),
+    cosine >= 0.99."""
+    from openvla_oft_tpu_torch.models.llama import (KVCache, embed_tokens, llama_decode_step,
+                                                   llama_model, llama_prefill)
+    from openvla_oft_tpu_torch.models.prismatic import (autoregressive_layout,
+                                                       predict_action_autoregressive)
+
+    llm, dev = params["llm"], params["llm"]["embed"]["embedding"].device
+    ids, mask, pixels = ar_inputs(cfg, dev)
+    n = platform.action_dim
+    with torch.inference_mode():
+        tokens = predict_action_autoregressive(params, cfg, platform, ids, mask, pixels, n,
+                                               use_flash=False)
+        embeds, positions, key_valid, pads = autoregressive_layout(params, cfg, ids, mask,
+                                                                   pixels)
+        s = embeds.shape[1]
+        caches, hidden = {}, {}
+        for use_flash in ("auto", False):
+            caches[use_flash] = KVCache.create(cfg.llm, 1, s + n - 1, device=dev)
+            before = launch_counts()["K1"]
+            hidden[use_flash], _ = llama_prefill(llm, cfg.llm, embeds, caches[use_flash],
+                                                 positions=positions, key_valid=key_valid,
+                                                 use_flash=use_flash)
+            used = launch_counts()["K1"] - before
+            if used != (cfg.llm.num_layers if use_flash else 0):
+                raise AssertionError(f"the AR prefill (use_flash={use_flash}) launched K1 "
+                                     f"{used} times")
+        cache = caches[False]
+        cached = [hidden[False][:, -1]]
+        for j in range(n - 1):
+            step, cache = llama_decode_step(llm, cfg.llm, embed_tokens(llm, tokens[:, j:j + 1]),
+                                            cache, positions=(cache.index - pads)[:, None])
+            cached.append(step[:, 0])
+        gen = embed_tokens(llm, tokens[:, :n - 1]).to(embeds.dtype)
+        steps = torch.arange(1, n, device=dev)[None]
+        full_valid = torch.cat([key_valid, torch.ones_like(steps, dtype=torch.bool)], dim=1)
+        full = llama_model(llm, cfg.llm, torch.cat([embeds, gen], dim=1),
+                           padding_mask=full_valid,
+                           positions=torch.cat([positions, positions[:, -1:] + steps], dim=1),
+                           use_flash=False)[:, s - 1:]
+    cached = torch.stack(cached, dim=1)
+    valid = key_valid[0]
+    checks = [(f"the cached decode's hidden states ({n} tokens, the prefill's last row and "
+               f"{n - 1} steps) against the no-cache forward over S = {s} + {n - 1}", cached,
+               full, 0.999),
+              (f"the prefill's hidden states through K1 against dense (S = T = {s}, "
+               f"{int((~valid).sum())} left pads; valid rows)", hidden["auto"][:, valid],
+               hidden[False][:, valid], PARITY_COSINE),
+              ("the prefill's cached K through K1 against dense (valid rows)",
+               caches["auto"].k[:, :, :s][:, :, valid], cache.k[:, :, :s][:, :, valid],
+               PARITY_COSINE)]
+    for name, got, ref, floor in checks:
+        cos = cosine(got, ref)
+        log(f"[discrete-ar-parity] {name}: cosine {cos:.6f}, max|d| "
+            f"{(got.float() - ref.float()).abs().max().item():.4e} ({card})")
+        if not (cos >= floor and torch.isfinite(got).all()):
+            raise AssertionError(f"AR parity failed: {name}")
+
+
+def ar_profile(params, cfg, platform, policy, label: str, card: str) -> None:
+    """One 7-token AR request traced: device time by class, kernels per
+    token, idle share (`profile_request`)."""
+    from openvla_oft_tpu_torch.models.prismatic import predict_action_autoregressive
+
+    inputs = ar_inputs(cfg, params["llm"]["embed"]["embedding"].device)
+    n = platform.action_dim
+
+    def request():
+        with torch.inference_mode():
+            predict_action_autoregressive(params, cfg, platform, *inputs, n).cpu()
+
+    busy, by_class = profile_request(policy, None, label, card, request=request, runs=1)
+    if busy is not None:
+        kernels = sum(c for _, c in by_class.values())
+        log(f"[discrete-ar-profile] {label}: {kernels} kernels, {kernels / n:.0f} a token; "
+            f"{busy:.1f} ms of device time, {busy / n:.2f} ms a token ({card})")
+
+
+def ar_k5_parity(params, cfg, platform, card: str) -> None:
+    """On the int4 LLM: one decode step (T = 1 in every linear, 128 K5
+    launches) against the same step with K5's plain version swapped in, on
+    a copy of the same cache (filled by a prefill through K5)."""
+    from openvla_oft_tpu_torch.models.llama import (KVCache, embed_tokens, llama_decode_step,
+                                                   llama_prefill)
+    from openvla_oft_tpu_torch.models.prismatic import autoregressive_layout
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+
+    llm, dev = params["llm"], params["llm"]["embed"]["embedding"].device
+    fused = M.int4_matmul_fused
+    with torch.inference_mode():
+        embeds, positions, key_valid, pads = autoregressive_layout(params, cfg, *ar_inputs(cfg,
+                                                                                          dev))
+        cache = KVCache.create(cfg.llm, 1, embeds.shape[1] + 1, device=dev)
+        _, cache = llama_prefill(llm, cfg.llm, embeds, cache, positions=positions,
+                                 key_valid=key_valid)
+        copy = KVCache(cache.k.clone(), cache.v.clone(), cache.valid.clone(), cache.index)
+        token = embed_tokens(llm, torch.tensor([[31900]], device=dev))
+        pos = (cache.index - pads)[:, None]
+        before = launch_counts()["K5"]
+        got, _ = llama_decode_step(llm, cfg.llm, token, cache, positions=pos)
+        used = launch_counts()["K5"] - before
+        M.int4_matmul_fused = M.int4_matmul_ref
+        try:
+            ref, _ = llama_decode_step(llm, cfg.llm, token, copy, positions=pos)
+        finally:
+            M.int4_matmul_fused = fused
+    cos = cosine(got, ref)
+    log(f"[discrete-ar-int4-parity] one decode step through K5 ({used} launches at T = 1) "
+        f"against K5's plain version: cosine {cos:.6f}, max|d| "
+        f"{(got.float() - ref.float()).abs().max().item():.4e} ({card})")
+    if not (cos >= PARITY_COSINE and used == 4 * cfg.llm.num_layers
+            and torch.isfinite(got).all()):
+        raise AssertionError("the int4 decode step through K5 disagrees with the plain path")
+
+
+def discrete_serving(card: str, rng) -> dict:
+    """Phase 8d. (a) `flagship_policy(head="discrete")` at LIBERO: 3
+    `predict_action` requests (K1 31 each), the logits through K1 against
+    dense and the lm_head product against its plain version; (b) base
+    OpenVLA on the same tree at 1 image (the tree does not depend on the
+    image count): 3 AR requests of 7 tokens and 2 of 56 in bf16 (K1 32
+    each, the prefill), the cached decode and the K1 prefill against dense,
+    one traced request; (c) `load_in_4bit`, 2 requests of 7 tokens (K5 128
+    for the prefill + 128 a step), one traced, one step through K5 against
+    its plain version; (d) `load_in_8bit`, one request of 7 tokens (199
+    int8 products in the ViTs and the projector, 128 a pass in the LLM);
+    (e) `scripts/bench_ar.py` in bf16 and with `--quant int4`. Returns the
+    launches of each run of requests."""
+    import dataclasses
+
+    from openvla_oft_tpu_torch.scripts import bench_ar
+
+    t_phase = time.perf_counter()
+    runs = {}
+    none = {"K4": 0, "K5": 0, "K6": 0, "int8": 0}
+    policy = build_policy("bf16 flagship, discrete head, LIBERO", card, head="discrete")
+    n_layers, platform = policy.cfg.llm.num_layers, policy.platform
+    runs["parallel bf16"] = staged_requests(policy, rng, 3, "discrete bf16",
+                                            {"K1": n_layers - 1, **none}, card)
+    discrete_parity(policy, rng, card)
+    ar_cfg = dataclasses.replace(policy.cfg, num_images_in_input=1)
+    runs["AR bf16"] = ar_requests(policy.params, ar_cfg, platform, [7, 7, 7, 56, 56],
+                                  "AR bf16", {"K1": n_layers, **none}, card)
+    ar_parity(policy.params, ar_cfg, platform, card)
+    ar_profile(policy.params, ar_cfg, platform, policy, "AR bf16 7 tokens", card)
+    del policy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    linears = 4 * n_layers
+    for label, quant in (("AR int4 W4A16", {"load_in_4bit": True}),
+                         ("AR int8", {"load_in_8bit": True})):
+        policy = build_policy(f"{label[3:]} flagship, discrete head, 1 image", card,
+                              head="discrete", num_images=1, **quant)
+        if "load_in_4bit" in quant:
+            expect = {"K1": n_layers, **none, "K5": lambda n: linears * n}
+            runs[label] = ar_requests(policy.params, policy.cfg, platform, [7, 7], label,
+                                      expect, card)
+            ar_profile(policy.params, policy.cfg, platform, policy, f"{label} 7 tokens", card)
+            ar_k5_parity(policy.params, policy.cfg, platform, card)
+        else:
+            vit = int8_per_request(policy.cfg, False)
+            expect = {"K1": n_layers, **none, "int8": lambda n: vit + linears * n}
+            runs[label] = ar_requests(policy.params, policy.cfg, platform, [7], label, expect,
+                                      card)
+        del policy
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for flags in ([], ["--quant", "int4"]):
+        t0 = time.perf_counter()
+        out = bench_ar.main(["--k", "3", *flags])
+        log(f"[bench_ar] {out['tag']}: " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                                     out["ms"].items())
+            + f"; AR 56 / parallel {out['ratio']:.2f}x; peak {out['peak_bytes'] / 2**30:.3f} "
+            f"GiB; {time.perf_counter() - t0:.1f} s with its build (host clock; {card})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[discrete] phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return runs
 
 
@@ -1917,6 +2239,7 @@ def main() -> int:
     probe = probe_phase(card)
     int8_launches = int8_serving(card, rng, observations[0], bf16_hidden)
     diffusion = diffusion_serving(card, rng)
+    discrete = discrete_serving(card, rng)
 
     bwd = backward_check(card, s_train)
     state, train_launches = train(card, n_layers)
@@ -1937,7 +2260,8 @@ def main() -> int:
     k1_launches = (serve_launches["K1"] + aloha[True]["launches"]["K1"]
                    + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
                    + sum(run["K1"] for run in int8_launches.values())
-                   + sum(run["K1"] for run in diffusion.values()) + train_launches["K1"])
+                   + sum(run["K1"] for run in diffusion.values())
+                   + sum(run["K1"] for run in discrete.values()) + train_launches["K1"])
     kernels = [
         kernel_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:50", k1_launches,
@@ -1974,7 +2298,8 @@ def main() -> int:
                      timing=fc1["timing"], events_ms=fc1["ms"],
                      library_events_ms=fc1["library_ms"]),
         kernel_entry("int4_matmul", "int4_w4a16.cu", "openvla_oft_tpu/ops/int4_matmul.py:43",
-                     w4a16["K5"] + diffusion["int4 W4A16"]["K5"],
+                     w4a16["K5"] + diffusion["int4 W4A16"]["K5"]
+                     + discrete["AR int4 W4A16"]["K5"],
                      max(c["err5"] for c in int4.values()), wqkv["dev5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["dev_lib5"],
                      also_replaces="openvla_oft_tpu/ops/int4_matmul.py:199",
@@ -2002,6 +2327,10 @@ def main() -> int:
         f"load_vision_in_8bit {int8_launches['vision']}")
     log(f"[diffusion] launches of the diffusion runs: bf16 (3 requests) "
         f"{diffusion['bf16']}, int4 W4A16 (2 requests) {diffusion['int4 W4A16']}")
+    log(f"[discrete] launches of the discrete runs: parallel bf16 (3 requests) "
+        f"{discrete['parallel bf16']}, AR bf16 (3 x 7 and 2 x 56 tokens) {discrete['AR bf16']}, "
+        f"AR int4 W4A16 (2 x 7) {discrete['AR int4 W4A16']}, AR int8 (1 x 7) "
+        f"{discrete['AR int8']}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,11 @@
 `params_from_numpy` converts a JAX pytree (nested dicts and lists of arrays)
 leaf for leaf, keeping the JAX layout: (in, out) kernels, layers stacked
 (L, ...). `init_params` draws the tree `openvla_oft_tpu.policy.
-init_openvla_params(..., head=head, with_lm_head=False, head_dtype=dtype)`
-builds for head "l1" or "diffusion", with the same shapes and scales,
-directly on the device from a `torch.Generator` (the numbers differ from
-JAX's: the generators differ).
+init_openvla_params(..., head_dtype=dtype)` builds for head "l1" or
+"diffusion" (`head=head, with_lm_head=False`) or "discrete" (`head=None,
+with_lm_head=True`), with the same shapes and scales, directly on the
+device from a `torch.Generator` (the numbers differ from JAX's: the
+generators differ).
 """
 
 from __future__ import annotations
@@ -128,18 +129,16 @@ def _mlp_resnet(d_in: int, hidden: int, d_out: int) -> Params:
             "ln_out": _layer_norm(hidden), "fc_out": _linear(hidden, d_out)}
 
 
-HEADS = ("l1", "diffusion")
+HEADS = ("l1", "diffusion", "discrete")
 
 
 def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec, head: str = "l1") -> Params:
-    """The tree of `Init` leaves for a serving model without lm_head (with
-    the FiLM projectors when `cfg.use_film`). head "l1": the L1 MLPResNet
-    under action_head["model"]; "diffusion": the noise predictor under
+    """The tree of `Init` leaves for a serving model (with the FiLM
+    projectors when `cfg.use_film`). head "l1": the L1 MLPResNet under
+    action_head["model"], no lm_head; "diffusion": the noise predictor under
     action_head["noise_predictor"] and the noisy-action projector (JAX
-    `init_diffusion_head`, `init_noisy_action_projector`)."""
-    if head == "discrete":
-        raise NotImplementedError("head='discrete' is not ported yet (ROADMAP queue 1, "
-                                  "item 12)")
+    `init_diffusion_head`, `init_noisy_action_projector`), no lm_head;
+    "discrete": llm["lm_head"] (D, vocab) and no action head."""
     if head not in HEADS:
         raise ValueError(f"head must be one of {HEADS}, got {head!r}")
     llm = cfg.llm
@@ -184,7 +183,9 @@ def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec, head: str = "l1") -> 
                               "fc2": _linear(llm_dim, llm_dim)},
     }
     trunk = _mlp_resnet(head_in, llm_dim, platform.action_dim)
-    if head == "l1":
+    if head == "discrete":
+        spec["llm"]["lm_head"] = {"kernel": Init((d, llm.vocab_size), d ** -0.5)}
+    elif head == "l1":
         spec["action_head"] = {"model": trunk}
     else:
         spec["action_head"] = {"noise_predictor": trunk}
@@ -225,7 +226,7 @@ def init_params(cfg: OpenVLAConfig, platform: PlatformSpec,
                 generator: torch.Generator, device="cpu",
                 dtype: torch.dtype = torch.bfloat16,
                 head_dtype: Optional[torch.dtype] = None, head: str = "l1") -> Params:
-    """Random params for `head` ("l1" or "diffusion", `param_spec`) drawn on
+    """Random params for `head` ("l1", "diffusion" or "discrete", `param_spec`) drawn on
     `device` (the generator must live there too): the structure, shapes and
     scales of the JAX init, in the unfused layout (serving fuses afterwards;
     training keeps it).

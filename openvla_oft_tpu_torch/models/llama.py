@@ -19,7 +19,9 @@ fewer query rows than keys and always takes the dense path.
 The diffusion head's serving path adds `KVCache`, `llama_prefill` (a causal
 prefill that fills the cache, through K1 where K1 takes the call) and
 `llama_suffix_forward` (suffix rows against the cached prefix K/V plus
-their own: the dense path with a 4-D mask, or `attention_split_kv`).
+their own: the dense path with a 4-D mask, or `attention_split_kv`). The
+discrete head adds `lm_logits` (fp32 logits from bf16 operands) and the
+autoregressive decode's `llama_decode_step` (one row against the cache).
 """
 
 from __future__ import annotations
@@ -344,21 +346,44 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     return rms_norm(params["final_norm"], x_w, cfg.rms_norm_eps)
 
 
+def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """Post-norm hidden states (..., D) -> vocab logits (..., V) in fp32,
+    the JAX `jnp.dot(hidden, lm_head, preferred_element_type=float32)`.
+
+    A bf16 product rounded to bf16 ties and flips the argmax over 32,064
+    logits, so bf16 operands give fp32 products without an fp32 copy of the
+    kernel: on CUDA the library's `torch.mm(..., out_dtype=torch.float32)`;
+    on the CPU, which has no such op, both operands upcast (bf16 values are
+    exact in fp32), the plain version. An fp32 tree computes in fp32.
+    """
+    w = params["lm_head"]["kernel"]
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    if h2.is_cuda and h2.dtype == w.dtype == torch.bfloat16:
+        out = torch.mm(h2, w, out_dtype=torch.float32)
+    else:
+        out = h2.float() @ w.float()
+    return out.reshape(*hidden.shape[:-1], w.shape[-1])
+
+
 @dataclasses.dataclass
 class KVCache:
-    """Static-shape K/V cache: k/v (L, B, T_max, Hkv, Dh) post-RoPE. The
-    JAX version's filled length and valid mask wait for the first reader of
-    them, the discrete head's decode (ROADMAP queue 1, item 12)."""
+    """Static-shape K/V cache: k/v (L, B, T_max, Hkv, Dh) post-RoPE, written
+    in place; `index` the filled length, a Python int, so that a decode loop
+    reads it without a device sync; `valid` (B, T_max) bool on the device,
+    the real (non-pad) cached positions."""
 
     k: torch.Tensor
     v: torch.Tensor
+    valid: torch.Tensor
+    index: int = 0
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device="cpu") -> "KVCache":
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((batch, max_len), dtype=torch.bool, device=device))
 
 
 def llama_prefill(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
@@ -366,13 +391,15 @@ def llama_prefill(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                   key_valid: Optional[torch.Tensor] = None,
                   use_flash="auto") -> Tuple[torch.Tensor, KVCache]:
     """Causal prefill that fills `cache` from row 0; returns (post-final-norm
-    hidden (B, S, D), cache). The cache is written in place (the JAX version
-    returns a new one), so that no second copy of it is made.
+    hidden (B, S, D), cache), with `cache.index` = S and `cache.valid`'s
+    first S columns = key_valid. The cache is written in place (the JAX
+    version returns a new one), so that no second copy of it is made.
 
     key_valid: (B, S) bool, False for (left-)padded positions, which are
-    then excluded as keys. use_flash: as in `llama_model`; on the card "auto"
-    gives K1 every layer's attention (self-attention, the 1-D mask: causal
-    and key padding, no bidirectional window).
+    then excluded as keys, here and in later decode steps. use_flash: as in
+    `llama_model`; on the card "auto" gives K1 every layer's attention
+    (self-attention, the 1-D mask: causal and key padding, no bidirectional
+    window).
     """
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
@@ -396,6 +423,48 @@ def llama_prefill(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         x = x + _mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps))
         cache.k[i, :, :s] = k
         cache.v[i, :, :s] = v
+    cache.valid[:, :s] = key_valid
+    cache.index = s
+    return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
+
+
+def llama_decode_step(params: Params, cfg: LlamaConfig, token_embed: torch.Tensor,
+                      cache: KVCache, positions: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, KVCache]:
+    """One cached decode step: token_embed (B, 1, D) at row `cache.index`;
+    returns (post-final-norm hidden (B, 1, D), cache), the cache written in
+    place (each layer's new K/V row, the row marked valid, index + 1).
+
+    positions (B, 1): the RoPE position; by default the count of valid
+    cached keys per row, not the write index, which overstates it by each
+    row's left pads. The new row is marked valid before the attention,
+    which is the dense path over the whole cache (one query row against
+    T_max keys: K1 never takes it). Stacked int4 and int8 layers are read
+    through their per-layer views, as in `llama_prefill`.
+    """
+    b = token_embed.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    idx = cache.index
+    if idx >= cache.k.shape[2]:
+        raise ValueError(f"the cache is full: {idx} of {cache.k.shape[2]} rows")
+    if positions is None:
+        positions = cache.valid.sum(dim=1, keepdim=True)
+    sin, cos = rope_sin_cos(positions, hd, cfg.rope_theta)
+    cache.valid[:, idx] = True
+    mask = cache.valid[:, None, None, :]
+    layers = params["layers"]
+    x = token_embed
+    for i in range(tree_leaves(layers)[0].shape[0]):
+        p = index_layer(layers, i)
+        xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
+        q, k, v = _qkv_proj(p["attn"], cfg, xa)
+        q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+        cache.k[i, :, idx] = k[:, 0]
+        cache.v[i, :, idx] = v[:, 0]
+        o = attention(q, cache.k[i], cache.v[i], mask=mask)
+        x = x + linear(p["attn"]["wo"], o.reshape(b, 1, h * hd))
+        x = x + _mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps))
+    cache.index = idx + 1
     return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
 
 

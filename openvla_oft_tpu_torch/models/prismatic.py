@@ -2,10 +2,12 @@
 serving prefill.
 
 Port of `openvla_oft_tpu/models/prismatic.py` (`prismatic_forward`,
-`predict_action_hidden` and their helpers, and the diffusion head's serving
+`predict_action_hidden` and their helpers, the diffusion head's serving
 path: `compute_patch_features`, `DiffusionPrefix`, `build_diffusion_prefix`,
-`diffusion_suffix_step`). FiLM conditions the ViTs in serving, not yet in
-training.
+`diffusion_suffix_step`, and the discrete head's: `lm_logits`, the
+KV-cached greedy decode `predict_action_autoregressive`,
+`detokenize_discrete_actions`). FiLM conditions the ViTs in serving, not
+yet in training.
 
 Training (`prismatic_forward`): right-padded batches as the collator emits
 them, physical layout [BOS][patches (+proprio)][text rest][PAD], action-token
@@ -21,7 +23,8 @@ so attention is causal + key padding + a static bidirectional window over the
 action slots and STOP, and the action-slot hidden states are a static tail
 slice. RoPE positions are (physical index - pad count). The diffusion
 head's steps put the timestep token after the patch block and the projected
-noisy actions in the action slots.
+noisy actions in the action slots. The autoregressive decode (vanilla
+OpenVLA) uses the same layout without the action slots and STOP.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ from openvla_oft_tpu_torch.constants import (
     NormalizationType,
     PlatformSpec,
 )
-from openvla_oft_tpu_torch.models.llama import (KVCache, embed_tokens, llama_model,
-                                               llama_prefill, llama_suffix_forward)
+from openvla_oft_tpu_torch.models.llama import (KVCache, embed_tokens, llama_decode_step,
+                                               llama_model, llama_prefill,
+                                               llama_suffix_forward)
+from openvla_oft_tpu_torch.models.llama import lm_logits as llama_lm_logits
 from openvla_oft_tpu_torch.models.projector import (noisy_action_projector,
                                                    proprio_projector, vision_projector)
 from openvla_oft_tpu_torch.models.vision_backbone import vision_backbone_forward
@@ -48,6 +53,15 @@ from openvla_oft_tpu_torch.ops.masks import (get_all_actions_mask,
                                             make_block_bidirectional_mask)
 
 Params = Dict[str, Any]
+
+
+def lm_logits(llm_params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """fp32 vocab logits of post-norm hidden states (`models/llama.py::
+    lm_logits`). A biased lm_head is Phi-2's, which is not ported."""
+    if "bias" in llm_params["lm_head"]:
+        raise NotImplementedError("Phi-2's biased lm_head is not ported yet (ROADMAP "
+                                  "queue 1, item 16)")
+    return llama_lm_logits(llm_params, hidden)
 
 
 def _patch_block(params: Params, cfg: OpenVLAConfig, pixels: torch.Tensor,
@@ -112,7 +126,7 @@ def _masked_mean_language_embedding(text_embeds: torch.Tensor,
 
 class ForwardOutput(NamedTuple):
     hidden_states: torch.Tensor            # (B, S_mm, D) post-final-norm
-    logits: Optional[torch.Tensor]         # always None: lm_head is not ported
+    logits: Optional[torch.Tensor]         # (B, S_mm, V) fp32 with compute_logits, else None
     multimodal_labels: torch.Tensor        # (B, S_mm)
     actions_hidden: torch.Tensor           # (B, chunk_len, D) at action slots
     all_actions_mask: torch.Tensor         # (B, S_txt) action positions
@@ -133,6 +147,8 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
     input_ids / attention_mask / labels (B, S_txt) right-padded; pixels
     (B, N, n_backbones, H, W, 3). use_flash: True | False | "auto" (K1/K2/K3
     where K1 takes the call, see ops/attention.py::resolve_use_flash).
+    compute_logits: also the fp32 logits over every row (the discrete
+    objective's input; the objective itself is ROADMAP queue 1, item 14).
     """
     if isinstance(cfg.llm, PhiConfig):
         raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
@@ -141,9 +157,6 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
     if noisy_actions is not None or diffusion_t_emb is not None:
         raise NotImplementedError(
             "the diffusion objective is not ported yet (ROADMAP queue 1, item 14)")
-    if compute_logits:
-        raise NotImplementedError(
-            "logits (the discrete objective) are not ported yet (ROADMAP queue 1, item 14)")
     b = input_ids.shape[0]
     dtype = params["llm"]["embed"]["embedding"].dtype
     device = input_ids.device
@@ -177,7 +190,8 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
     # multimodal action mask shifted left by one.
     predictor = torch.cat([mm_actions[:, 1:], none[:, :1]], dim=1)
     actions_hidden = _gather_mask_rows(hidden, predictor, platform.chunk_len)
-    return ForwardOutput(hidden, None, mm_labels, actions_hidden, all_actions_mask)
+    logits = lm_logits(params["llm"], hidden) if compute_logits else None
+    return ForwardOutput(hidden, logits, mm_labels, actions_hidden, all_actions_mask)
 
 
 def _gather_mask_rows(x: torch.Tensor, mask: torch.Tensor, count: int) -> torch.Tensor:
@@ -214,7 +228,8 @@ def _left_padded_layout(text_embeds: torch.Tensor, patch_embeds: torch.Tensor,
 
 
 class PredictOutput(NamedTuple):
-    actions_hidden: torch.Tensor          # (B, chunk_len, D)
+    actions_hidden: torch.Tensor                    # (B, chunk_len, D)
+    action_logits: Optional[torch.Tensor] = None    # (B, chunk_len, V) fp32 if asked for
 
 
 def compute_patch_features(params: Params, cfg: OpenVLAConfig, input_ids: torch.Tensor,
@@ -236,9 +251,11 @@ def predict_action_hidden(params: Params, cfg: OpenVLAConfig,
                           use_flash="auto", collect_act_stats: bool = False,
                           noisy_actions: Optional[torch.Tensor] = None,
                           diffusion_t_emb: Optional[torch.Tensor] = None,
-                          precomputed_patches: Optional[torch.Tensor] = None):
+                          precomputed_patches: Optional[torch.Tensor] = None,
+                          compute_logits: bool = False):
     """One prefill with parallel decoding; returns the action-slot hidden
-    states (the rows whose NEXT token is an action slot).
+    states (the rows whose NEXT token is an action slot), and with
+    `compute_logits` their fp32 logits (the discrete head's).
 
     input_ids / prompt_mask (B, P) left-padded; pixels (B, N, n_backbones,
     H, W, 3). use_flash: True | False | "auto" (kernel K1 where it takes the
@@ -294,7 +311,8 @@ def predict_action_hidden(params: Params, cfg: OpenVLAConfig,
                                  positions=positions, padding_mask=key_valid,
                                  bidir_mask=bidir, use_flash=use_flash,
                                  bidir_block=window, out_window=(start, chunk))
-    return PredictOutput(actions_hidden)
+    logits = lm_logits(params["llm"], actions_hidden) if compute_logits else None
+    return PredictOutput(actions_hidden, logits)
 
 
 class DiffusionPrefix(NamedTuple):
@@ -401,6 +419,82 @@ def diffusion_suffix_step(params: Params, cfg: OpenVLAConfig, platform: Platform
     # Predictor rows: the last prompt token through the second-to-last action
     # slot, suffix rows [p_len - 1, p_len - 1 + chunk).
     return hidden[:, p_len - 1:p_len - 1 + chunk]
+
+
+def autoregressive_layout(params: Params, cfg: OpenVLAConfig, input_ids: torch.Tensor,
+                          prompt_mask: torch.Tensor, pixels: torch.Tensor):
+    """The autoregressive decode's prefill rows, [pads][BOS][patches][prompt
+    rest] (no proprio, action slots or STOP; FiLM off, as in the JAX
+    version): (embeds (B, S, D), positions, key_valid, pad_counts), S = P +
+    patches."""
+    dtype = params["llm"]["embed"]["embedding"].dtype
+    prompt_mask = prompt_mask.bool()
+    text_embeds = embed_tokens(params["llm"], input_ids).to(dtype) * prompt_mask[..., None]
+    patch_embeds = _patch_block(params, cfg, pixels, None, None, dtype)
+    return _left_padded_layout(text_embeds, patch_embeds, prompt_mask)
+
+
+def predict_action_autoregressive(params: Params, cfg: OpenVLAConfig,
+                                  platform: PlatformSpec, input_ids: torch.Tensor,
+                                  prompt_mask: torch.Tensor, pixels: torch.Tensor,
+                                  num_new_tokens: int, use_flash="auto",
+                                  return_logits: bool = False):
+    """Greedy KV-cached decode of `num_new_tokens` tokens, the vanilla
+    OpenVLA path (reference `prismatic/models/vlas/openvla.py:36-103`):
+    one causal prefill (`llama_prefill`, through K1 on the card under
+    "auto") fills the cache, then each token is the argmax of the fp32
+    logits of the last hidden state, and all but the last go through one
+    `llama_decode_step` at RoPE position index - pad count. The JAX
+    version's scan runs one decode step more, whose output nothing reads;
+    the tokens are the same. The tokens stay on the device until the caller
+    reads them. Returns (B, num_new_tokens) int64 token ids, and with
+    `return_logits` also each step's logits (B, num_new_tokens, V) fp32.
+
+    input_ids / prompt_mask (B, P) left-padded; pixels (B, N, n_backbones,
+    H, W, 3). `platform` is unused, as in the JAX version's signature.
+    """
+    if isinstance(cfg.llm, PhiConfig):
+        raise NotImplementedError("Phi-2's decode is not ported yet (ROADMAP queue 1, item 16)")
+    if num_new_tokens < 1:
+        raise ValueError(f"num_new_tokens must be at least 1, got {num_new_tokens}")
+    llm = params["llm"]
+    embeds, positions, key_valid, pad_counts = autoregressive_layout(
+        params, cfg, input_ids, prompt_mask, pixels)
+    b, s, _ = embeds.shape
+    cache = KVCache.create(cfg.llm, b, s + num_new_tokens - 1, dtype=embeds.dtype,
+                           device=embeds.device)
+    hidden, cache = llama_prefill(llm, cfg.llm, embeds, cache, positions=positions,
+                                  key_valid=key_valid, use_flash=use_flash)
+    last = hidden[:, -1:]
+    tokens = torch.empty((b, num_new_tokens), dtype=torch.long, device=embeds.device)
+    all_logits = []
+    for step in range(num_new_tokens):
+        logits = lm_logits(llm, last)[:, 0]                          # (B, V) fp32
+        tokens[:, step] = logits.argmax(dim=-1)
+        if return_logits:
+            all_logits.append(logits)
+        if step + 1 < num_new_tokens:
+            emb = embed_tokens(llm, tokens[:, step:step + 1]).to(embeds.dtype)
+            last, cache = llama_decode_step(llm, cfg.llm, emb, cache,
+                                            positions=(cache.index - pad_counts)[:, None])
+    if return_logits:
+        return tokens, torch.stack(all_logits, dim=1)
+    return tokens
+
+
+def detokenize_discrete_actions(action_token_ids: np.ndarray, cfg: OpenVLAConfig,
+                                platform: PlatformSpec) -> np.ndarray:
+    """Argmax token ids (..., chunk_len) -> normalized actions (...,
+    num_actions_chunk, action_dim), on the host (reference
+    modeling_prismatic.py:929-942, action_tokenizer.py:56-72): the id's
+    distance below the true vocab size picks one of the 255 bin centres,
+    clipped at both ends."""
+    bins = np.linspace(-1, 1, cfg.n_action_bins)
+    bin_centers = (bins[:-1] + bins[1:]) / 2.0
+    disc = cfg.true_vocab_size - np.asarray(action_token_ids)
+    disc = np.clip(disc - 1, 0, bin_centers.shape[0] - 1)
+    return bin_centers[disc].reshape(*np.shape(action_token_ids)[:-1],
+                                     platform.num_actions_chunk, platform.action_dim)
 
 
 def prepare_prompt_ids(tokenizer, instruction: str, bucket: int,

@@ -1,4 +1,4 @@
-"""The serving hot path and a policy object for the L1 and diffusion heads.
+"""The serving hot path and a policy object for the L1, diffusion and discrete heads.
 
 Port of `openvla_oft_tpu/policy.py::serve_action_chunk` and
 `OpenVLAPolicy` (`predict_action_from_frames`, the staged `predict_action`,
@@ -7,8 +7,11 @@ with parallel decoding -> L1 head -> device un-normalization; or, with
 `head="diffusion"`, normalized pixels -> the reverse DDIM loop (the
 [BOS][patches][proprio] prefix K/V computed once, each step a suffix
 forward, the noise predictor and `DDIMScheduler.step`) -> host
-un-normalization. Nothing is compiled; the functions run eagerly, and the
-JAX version's `lax.scan` over the DDIM steps is a Python loop.
+un-normalization; or, with `head="discrete"`, the same prefill with
+parallel decoding -> fp32 logits of the action rows -> argmax on the
+device -> host de-tokenization and un-normalization. Nothing is compiled;
+the functions run eagerly, and the JAX version's `lax.scan` over the DDIM
+steps is a Python loop.
 
 An int4-quantized LLM (`ops/quant.py::quantize_tree`, the `load_in_4bit`
 path) runs W4A16 by default and W4A8 with `int4_a8=True`; with
@@ -34,6 +37,7 @@ from openvla_oft_tpu_torch.models.action_heads import (diffusion_predict_noise,
                                                      sinusoidal_time_encoding)
 from openvla_oft_tpu_torch.models.prismatic import (build_diffusion_prefix,
                                                    compute_patch_features,
+                                                   detokenize_discrete_actions,
                                                    diffusion_suffix_layout,
                                                    diffusion_suffix_step,
                                                    predict_action_hidden, prepare_prompt_ids,
@@ -110,7 +114,8 @@ def _first_key(stats: dict, *keys):
 @dataclasses.dataclass
 class OpenVLAPolicy:
     """Owns the params (on their device) and the un-normalization stats;
-    head "l1" or "diffusion" (the discrete head: ROADMAP queue 1, item 12).
+    head "l1", "diffusion" or "discrete" (the action rows' logits, argmax,
+    de-tokenized; the params carry llm["lm_head"]).
 
     Diffusion: `num_diffusion_steps` is the scheduler's training T, and
     every one of its steps runs unless `num_diffusion_steps_inference`
@@ -145,11 +150,11 @@ class OpenVLAPolicy:
                                                            repr=False)
 
     def __post_init__(self):
-        if self.head == "discrete":
-            raise NotImplementedError(
-                "head='discrete' is not ported yet (ROADMAP queue 1, item 12)")
-        if self.head not in ("l1", "diffusion"):
-            raise ValueError(f"head must be 'l1' or 'diffusion', got {self.head!r}")
+        if self.head not in ("l1", "diffusion", "discrete"):
+            raise ValueError(f"head must be 'l1', 'diffusion' or 'discrete', got {self.head!r}")
+        if self.head == "discrete" and "lm_head" not in self.params["llm"]:
+            raise ValueError("head='discrete' needs llm['lm_head'] in the params "
+                             "(bridge.init_params(..., head='discrete'))")
         if self.fast_gelu and not self.cfg.fast_gelu:
             self.cfg = dataclasses.replace(self.cfg, fast_gelu=True)
         if self.tokenizer is None:
@@ -211,7 +216,8 @@ class OpenVLAPolicy:
         3), as the processor gives them (numpy, or a tensor already on the
         device) -> the action chunk (chunk, action_dim), un-normalized on the
         host where the policy has stats. proprio (numpy or a tensor) goes in
-        as given (normalized). noise: the diffusion head's
+        as given (normalized). The discrete head's argmax token ids stay on
+        the device until one copy to the host. noise: the diffusion head's
         starting noise (1, chunk, action_dim); None draws it from
         `generator`."""
         dev = self.device
@@ -227,10 +233,14 @@ class OpenVLAPolicy:
             else:
                 out = predict_action_hidden(self.params, self.cfg, self.platform, ids, mask,
                                             pixels, proprio=proprio_t,
-                                            use_flash=self.use_flash)
-                actions = l1_head_predict(self.params["action_head"],
-                                          out.actions_hidden.float(), self.platform)
+                                            use_flash=self.use_flash,
+                                            compute_logits=self.head == "discrete")
+                actions = out.action_logits.argmax(dim=-1) if self.head == "discrete" else \
+                    l1_head_predict(self.params["action_head"], out.actions_hidden.float(),
+                                    self.platform)
         normalized = actions[0].cpu().numpy()
+        if self.head == "discrete":
+            normalized = detokenize_discrete_actions(normalized, self.cfg, self.platform)
         if self.norm_stats is None:
             return normalized
         return unnormalize_actions(normalized, self._action_stats(unnorm_key),
@@ -252,8 +262,8 @@ class OpenVLAPolicy:
                                    center_crop: bool = True) -> np.ndarray:
         """RAW uint8 frames (N, H, W, 3) -> unnormalized action chunk
         (num_actions_chunk, action_dim), through `serve_action_chunk`; the
-        L1 head only, as in the JAX version (the diffusion head serves
-        through `predict_action`)."""
+        L1 head only, as in the JAX version (the diffusion and discrete
+        heads serve through `predict_action`)."""
         if self.head != "l1":
             raise ValueError(f"predict_action_from_frames serves the L1 head; use "
                              f"predict_action for head={self.head!r}")

@@ -133,7 +133,7 @@ def serving_params(params: dict, load_in_4bit: bool = False, load_in_8bit: bool 
     - `load_vision_in_8bit`: the ViTs and the projector to int8, the LLM
       bf16 (with its folds).
     - `load_in_4bit`: every LLM linear with d_in >= QUANT_MIN_DIM packed to
-      int4; the ViTs and the projector stay bf16.
+      int4, lm_head excepted; the ViTs and the projector stay bf16.
 
     At most one of the three flags may be set (as in the reference's eval
     config, `experiments/robot/libero/run_libero_eval.py:137`).
@@ -173,7 +173,7 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
                     platform: str = "libero", vit_fused: bool = False,
                     load_in_8bit: bool = False, load_vision_in_8bit: bool = False,
                     head: str = "l1", num_diffusion_steps: int = 50,
-                    use_film: Optional[bool] = None):
+                    use_film: Optional[bool] = None, num_images: Optional[int] = None):
     """The flagship serving policy with seeded random bf16 weights, fused for
     serving as the JAX bench does (wqkv/gate_up and ViT folds), at the
     `platform` deployment ("libero" or "aloha", `DEPLOYMENTS`). With
@@ -185,7 +185,10 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
     `num_diffusion_steps` steps (the prefix-KV loop, noise from a generator
     seeded with `seed`); its noise predictor and noisy-action projector stay
     bf16 under every quant flag, as `vla_scripts/bench_diffusion.py` keeps
-    them. `use_film` overrides the deployment's FiLM setting."""
+    them. head "discrete" gives the lm_head (D, vocab), which stays bf16
+    under every quant flag, and no action head. `use_film` and `num_images`
+    override the deployment's FiLM setting and image count (base OpenVLA
+    takes one image; the param tree does not depend on the count)."""
     import torch
 
     from openvla_oft_tpu_torch.bridge import init_params
@@ -199,6 +202,7 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
         raise ValueError(f"platform must be one of {sorted(DEPLOYMENTS)}, got {platform!r}")
     name, n_images, film = DEPLOYMENTS[platform]
     use_film = film if use_film is None else use_film
+    n_images = n_images if num_images is None else num_images
     spec = get_platform(name)
     cfg = OpenVLAConfig(vision_backbone_id=FLAGSHIP_IDS[0], llm_backbone_id=FLAGSHIP_IDS[1],
                         num_images_in_input=n_images, use_film=use_film)

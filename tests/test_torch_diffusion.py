@@ -185,8 +185,11 @@ def test_diffusion_param_spec_matches_jax_at_flagship_size():
                                     head="diffusion")).items()}
     assert got == {p: tuple(s.shape) for p, s in _paths(shapes).items()}
     assert ("noisy_action_projector", "fc1", "kernel") in got
-    with pytest.raises(NotImplementedError, match="item 12"):
-        bridge.param_spec(port_config(flagship), port_platform(LIBERO), head="discrete")
+    assert ("llm", "lm_head", "kernel") not in got
+    discrete = _paths(bridge.param_spec(port_config(flagship), port_platform(LIBERO),
+                                        head="discrete"))
+    assert ("llm", "lm_head", "kernel") in discrete and ("action_head",) not in {
+        p[:1] for p in discrete}
 
 
 def test_diffusion_params_bridge_and_init_leaf_for_leaf(libero_params):
@@ -233,7 +236,8 @@ def test_llama_prefill_and_kv_cache_match_jax(use_flash):
     got_h, got_c = L.llama_prefill(params_from_numpy(lp), p_cfg, torch.from_numpy(x), cache,
                                    positions=torch.from_numpy(pos).long(),
                                    key_valid=torch.from_numpy(valid), use_flash=use_flash)
-    assert got_c is cache and int(want_c.index) == s
+    assert got_c is cache and got_c.index == int(want_c.index) == s
+    np.testing.assert_array_equal(got_c.valid.numpy(), np.asarray(want_c.valid))
     np.testing.assert_allclose(got_h.numpy()[valid], np.asarray(want_h)[valid], **TIGHT)
     kv_rows = np.zeros((b, t_max), bool)
     kv_rows[:, :s] = valid
@@ -494,9 +498,17 @@ def test_predict_action_l1_matches_jax(rng):
 
 
 def test_discrete_head_raises_and_cites_item_12(libero_params):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """The discrete head is ported: on this diffusion tree without its
+    lm_head it refuses, naming the leaf it needs, and an unknown head is
+    refused."""
+    params = params_from_numpy(libero_params)
+    del params["llm"]["lm_head"]
+    with pytest.raises(ValueError, match="lm_head"):
+        OpenVLAPolicy(cfg=port_config(CFG), platform=port_platform(LIBERO), params=params,
+                      head="discrete")
+    with pytest.raises(ValueError, match="head must be"):
         OpenVLAPolicy(cfg=port_config(CFG), platform=port_platform(LIBERO),
-                      params=params_from_numpy(libero_params), head="discrete")
+                      params=params_from_numpy(libero_params), head="mixture")
 
 
 # --- int8 and int4 suffix steps -----------------------------------------------------

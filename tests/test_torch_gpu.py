@@ -1097,3 +1097,131 @@ def test_tiny_diffusion_suffix_step_k5_matches_plain(cuda):
         assert torch.isfinite(a).all() and _cosine(a, b) >= 0.99 and _rel_err(a, b) <= 2e-2
     assert torch.isfinite(got).all()
     assert _cosine(got, plain) >= 0.99 and _rel_err(got, plain) <= 2e-2
+
+
+# --- the discrete head ----------------------------------------------------------
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_lm_logits_out_dtype_matches_plain_upcast(cuda):
+    """The lm_head product on bf16 operands (CUDA `torch.mm(...,
+    out_dtype=torch.float32)`) against the plain fp32 product of the same
+    bf16 values: fp32 out, max|d| <= 1e-4 * max|ref|."""
+    from openvla_oft_tpu_torch.models.llama import lm_logits
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = (torch.randn((512, 32064), generator=gen, device=cuda) * 512 ** -0.5).bfloat16()
+    h = torch.randn((2, 9, 512), generator=gen, device=cuda).bfloat16()
+    got = lm_logits({"lm_head": {"kernel": w}}, h)
+    ref = h.float() @ w.float()
+    assert got.dtype == torch.float32 and got.shape == (2, 9, 32064)
+    assert _rel_err(got, ref) <= 1e-4
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+
+
+def test_tiny_autoregressive_card_matches_cpu(cuda):
+    """The tiny discrete model's greedy decode (prefill + 6 decode steps):
+    in fp32 the card's tokens equal the CPU's and its logits agree within
+    1e-4 of max|ref|; in bf16 the prefill runs through K1 (once per layer)
+    and the logits stay within cosine 0.99 of the bf16 dense path's at
+    every step whose prefix both runs share (a bf16 near-tie may pick
+    another token, and the steps after it then see another prefix)."""
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.models.prismatic import predict_action_autoregressive
+
+    cfg = _tiny_cfg()
+    params = init_params(cfg, LIBERO, torch.Generator().manual_seed(0), dtype=torch.float32,
+                         head="discrete")
+    inputs = _tiny_diffusion_inputs(cfg, torch.device("cpu"))[:3]
+    out = {}
+    for dev in ("cpu", cuda):
+        with torch.inference_mode():
+            out[str(dev)] = predict_action_autoregressive(
+                _tree_to(params, dev), cfg, LIBERO, *[t.to(dev) for t in inputs],
+                num_new_tokens=7, return_logits=True)
+    (tok_cpu, log_cpu), (tok_card, log_card) = out["cpu"], out[str(cuda)]
+    assert torch.equal(tok_card.cpu(), tok_cpu)
+    assert _rel_err(log_card.cpu(), log_cpu) <= 1e-4
+    bf16 = _tree_to({k: _tree_to(v, torch.bfloat16) for k, v in params.items()}, cuda)
+    tokens, logits = {}, {}
+    for use_flash in ("auto", False):
+        before = fa.flash_attention.launches
+        with torch.inference_mode():
+            tokens[use_flash], logits[use_flash] = predict_action_autoregressive(
+                bf16, cfg, LIBERO, *[t.to(cuda) for t in inputs], num_new_tokens=7,
+                use_flash=use_flash, return_logits=True)
+        assert fa.flash_attention.launches - before == (cfg.llm.num_layers if use_flash else 0)
+        assert tokens[use_flash].shape == (1, 7) and torch.isfinite(logits[use_flash]).all()
+    same = (tokens["auto"] == tokens[False])[0].long().cumprod(0).sum().item()
+    shared = min(same + 1, 7)
+    assert _cosine(logits["auto"][:, :shared], logits[False][:, :shared]) >= 0.99
+
+
+def _quantized_decode_step(cuda, bits, swap):
+    """The tiny LLM fused (no folds) and quantized (`bits`), a prefill of
+    the tiny layout, then one decode step at one row (B = 1). Returns the
+    step's hidden state and the launches of the step's quantized products,
+    then the same step with `swap` = (module, name, plain) swapped in, on a
+    copy of the same cache."""
+    import dataclasses
+
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.models.llama import (embed_tokens, fuse_inference_weights,
+                                                   llama_decode_step)
+    from openvla_oft_tpu_torch.models.prismatic import autoregressive_layout
+    from openvla_oft_tpu_torch.ops.quant import quantize_tree
+    from openvla_oft_tpu_torch.models.llama import KVCache, llama_prefill
+
+    cfg = _tiny_cfg()
+    params = init_params(cfg, LIBERO, torch.Generator(device=cuda).manual_seed(0), device=cuda,
+                         dtype=torch.bfloat16, head="discrete")
+    params["llm"] = quantize_tree(fuse_inference_weights(params["llm"], fold_norms=False),
+                                  min_dim=256, bits=bits)
+    ids, mask, pixels, _ = _tiny_diffusion_inputs(cfg, cuda)
+    module, name, plain = swap
+    with torch.inference_mode():
+        embeds, positions, key_valid, pads = autoregressive_layout(params, cfg, ids, mask, pixels)
+        cache = KVCache.create(cfg.llm, 1, embeds.shape[1] + 1, device=cuda)
+        _, cache = llama_prefill(params["llm"], cfg.llm, embeds, cache, positions=positions,
+                                 key_valid=key_valid)
+        token = embed_tokens(params["llm"], torch.tensor([[7]], device=cuda))
+        copy = dataclasses.replace(cache, k=cache.k.clone(), v=cache.v.clone(),
+                                   valid=cache.valid.clone())
+        pos = (cache.index - pads)[:, None]
+        counter = getattr(module, name)
+        before = counter.launches
+        got, _ = llama_decode_step(params["llm"], cfg.llm, token, cache, positions=pos)
+        torch.cuda.synchronize()
+        used = counter.launches - before
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(module, name, plain)
+            ref, _ = llama_decode_step(params["llm"], cfg.llm, token, copy, positions=pos)
+    return got, ref, used, 4 * cfg.llm.num_layers
+
+
+def test_decode_step_k5_at_one_row_matches_plain(cuda):
+    """One decode step of an int4 LLM: each linear runs K5 at T = 1 (4
+    launches a layer), against `int4_matmul_ref` swapped in."""
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+
+    got, ref, used, linears = _quantized_decode_step(
+        cuda, 4, (M, "int4_matmul_fused", M.int4_matmul_ref))
+    assert used == linears and torch.isfinite(got).all()
+    assert _cosine(got, ref) >= 0.99 and _rel_err(got, ref) <= 2e-2
+
+
+def test_int8_decode_step_pads_one_row(cuda):
+    """One decode step of an int8 LLM: each product takes one row of x,
+    padded for CUDA torch._int_mm, against the float64 product (exact):
+    within 1e-6 of max|ref|."""
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    got, ref, used, linears = _quantized_decode_step(cuda, 8, (Q, "int8_mm", Q.int8_mm_ref))
+    assert used == linears and torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= 1e-6

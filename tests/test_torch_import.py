@@ -76,7 +76,8 @@ print(" ".join(names))
 _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "utils.timing",
                 "ops.int4_matmul", "ops.flash_attention", "serving.deploy", "training.finetune",
                 "scripts.exp_k5_overlap", "scripts.exp_probe_parts", "ops.quant_calibrate",
-                "scripts.calibrate_quant", "ops.ddim", "scripts.bench_diffusion")
+                "scripts.calibrate_quant", "ops.ddim", "scripts.bench_diffusion",
+                "scripts.bench_ar")
 
 
 def test_every_module_imports_without_jax():
