@@ -119,6 +119,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (cosine >= 0.99); with `load_in_8bit`: one request (1,095 int8
      products, one padded row per product in each step); `bench_ar` in bf16
      and with `--quant int4` (its 7-token, 56-token and parallel rows);
+  8e. checkpoint: the flagship's widths with its Llama cut to 4 of 32 layers
+     (registered as "llama2-7b-pure-4l"; both ViTs at full depth), seeded
+     bf16 weights exported by `utils/hf_import.py::export_openvla_checkpoint`
+     into a temporary dir with `dataset_statistics.json`, the L1 head's and
+     the proprio projector's `.pt` files and a synthetic Llama-like
+     `tokenizer.model` (32,000 pieces, BPE, byte fallback); the dir loaded
+     on the card by `load_openvla_checkpoint` (leaf for leaf bitwise equal
+     to the exported tree; the host's resident set sampled during the load)
+     and served by the deploy CLI's `OpenVLAServer` (`get_vla`,
+     `device_preprocess`, LIBERO, bucket 64, S = 634): 3 /act requests (K1
+     3 each), bitwise equal to an in-memory policy built from the same seed
+     with `serving_params`; one request to the deploy CLI (`python -m
+     openvla_oft_tpu_torch.serving.deploy --pretrained-checkpoint DIR
+     --unnorm-key K --device-preprocess`) in a process of its own, stopped
+     after it; the device peak of the build from disk against
+     the build from seeded weights; then `load_in_4bit`, one request (K5
+     18); bytes, write and load seconds, load GB/s, host and device peaks,
+     the warm-up and each request's time; the dir removed;
   9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
      version at the training shape (B=8, per-row pads and windows), the
      ALOHA length, GQA and dead rows, two calls of each bitwise equal, with
@@ -140,9 +158,12 @@ and the first request after it. The line before the last is a JSON object
 with one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import gc
 import json
+import os
 import re
+import threading
 import shutil
 import socket
 import subprocess
@@ -318,6 +339,8 @@ def kernel_check(card: str, s_train: int) -> dict:
     # (name, B, S, H, Hkv, D, [(first valid key, last valid + 1, window start, len)])
     cases = [
         ("libero_prefill", 1, 618, 32, 32, 128, [(24, 618, 561, 57)]),
+        # a checkpoint served through get_vla: the reference's bucket of 64
+        ("checkpoint_prefill", 1, 634, 32, 32, 128, [(34, 634, 577, 57)]),
         ("aloha_length", 1, 1168, 32, 32, 128, [(24, 1168, 817, 351)]),
         ("gqa", 1, 618, 32, 8, 128, [(24, 618, 561, 57)]),
         ("dead_rows", 1, 618, 32, 32, 128, [(150, 618, 561, 57)]),
@@ -698,9 +721,10 @@ def int4_check(card: str) -> dict:
 
     dev = torch.device("cuda")
     # (name, T, K, N, how the weight is handed over)
-    # T: the L1 prefill (618), the diffusion prefix (514), the AR prefill
-    # (304), the out_window layer (57) and one AR decode step (1).
-    cases = [(f"{name} T={t}", t, k, n, "whole") for t in (618, 514, 304, 57, 1)
+    # T: the L1 prefill (618; 634 at the bucket of 64 a loaded checkpoint
+    # serves with), the diffusion prefix (514), the AR prefill (304), the
+    # out_window layer (57) and one AR decode step (1).
+    cases = [(f"{name} T={t}", t, k, n, "whole") for t in (634, 618, 514, 304, 57, 1)
              for name, k, n in INT4_SHAPES]
     cases += [("q column view of wqkv T=57", 57, 4096, 4096, "column"),
               ("wo layer view of a stacked L=2 weight T=618", 618, 4096, 4096, "layer"),
@@ -1632,6 +1656,402 @@ def discrete_serving(card: str, rng) -> dict:
     return runs
 
 
+# === Phase 8e: a checkpoint dir through get_vla and OpenVLAServer ===
+CKPT_LLM_ID, CKPT_LAYERS = "llama2-7b-pure-4l", 4
+CKPT_UNNORM_KEY = "libero_spatial_no_noops"
+CKPT_WORDS = ("in", "what", "action", "should", "the", "robot", "take", "to", "put", "bowl",
+              "on", "plate", "out", "do", "task")
+
+
+def _varint(n: int) -> bytes:
+    out = b""
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out += bytes([b | (0x80 if n else 0)])
+        if not n:
+            return out
+
+
+def _ld(field: int, payload: bytes) -> bytes:
+    return _varint((field << 3) | 2) + _varint(len(payload)) + payload
+
+
+def _vi(field: int, value: int) -> bytes:
+    return _varint(field << 3) + _varint(value)
+
+
+def llama_like_tokenizer(n_pieces: int = 32000) -> bytes:
+    """A synthetic Llama-like `tokenizer.model` (a SentencePiece ModelProto):
+    <unk>, <s>, </s>, the 256 byte pieces, "▁", the letters, every prefix of
+    "▁" + each word of CKPT_WORDS (so BPE merges reach the words), and filler
+    pieces up to `n_pieces`; BPE, byte fallback, dummy prefix."""
+    import struct
+
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(f"<0x{i:02X}>", 0.0, 6) for i in range(256)]
+    normal = ["\u2581"] + list("abcdefghijklmnopqrstuvwxyzIOW")
+    for w in CKPT_WORDS:
+        normal += ["\u2581" + w[:k] for k in range(1, len(w) + 1)
+                   if "\u2581" + w[:k] not in normal]
+    normal += [f"\u2581f{i}" for i in range(n_pieces - len(pieces) - len(normal))]
+    pieces += [(p, -float(i) / 64, 1) for i, p in enumerate(normal)]
+    body = b""
+    for text, score, ptype in pieces:
+        piece = _ld(1, text.encode()) + _varint((2 << 3) | 5) + struct.pack("<f", score)
+        body += _ld(1, piece + (_vi(3, ptype) if ptype != 1 else b""))
+    return body + _ld(2, _vi(3, 2) + _vi(35, 1)) + _ld(3, _vi(3, 1))
+
+
+def module_state_dicts(params: dict) -> dict:
+    """The reference's per-module `.pt` state dicts of the L1 head and the
+    proprio projector (DDP "module." prefixes, (out, in) weights), on the host."""
+    def lin(sd, name, p):
+        sd[f"module.{name}.weight"] = p["kernel"].T.contiguous().cpu()
+        sd[f"module.{name}.bias"] = p["bias"].cpu()
+
+    def ln(sd, name, p):
+        sd[f"module.{name}.weight"] = p["scale"].cpu()
+        sd[f"module.{name}.bias"] = p["bias"].cpu()
+
+    head, sd_head = params["action_head"]["model"], {}
+    ln(sd_head, "model.layer_norm1", head["ln_in"])
+    lin(sd_head, "model.fc1", head["fc_in"])
+    for i, blk in enumerate(head["blocks"]):
+        ln(sd_head, f"model.mlp_resnet_blocks.{i}.ffn.0", blk["ln"])
+        lin(sd_head, f"model.mlp_resnet_blocks.{i}.ffn.1", blk["fc"])
+    ln(sd_head, "model.layer_norm2", head["ln_out"])
+    lin(sd_head, "model.fc2", head["fc_out"])
+    sd_proprio = {}
+    for fc in ("fc1", "fc2"):
+        lin(sd_proprio, fc, params["proprio_projector"][fc])
+    return {"action_head": sd_head, "proprio_projector": sd_proprio}
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class RssPeak:
+    """The process's resident set, sampled every 2 ms on a thread while the
+    block runs: `base` before it, `peak` the largest sample."""
+
+    def __enter__(self):
+        self.base = self.peak = rss_bytes()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, rss_bytes())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+def checkpoint_dir(need: int) -> str:
+    """A fresh directory with room for `need` bytes: under TMPDIR, else in
+    the checkout's git-ignored build directory."""
+    from openvla_oft_tpu_torch import _build
+
+    for root in (tempfile.gettempdir(), str(_build.PKG_DIR / "_build")):
+        os.makedirs(root, exist_ok=True)
+        free = shutil.disk_usage(root).free
+        log(f"[checkpoint] {root}: {free / 1e9:.1f} GB free, {need / 1e9:.1f} GB needed")
+        if free >= need:
+            return tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root)
+    raise AssertionError("no directory with room for the checkpoint")
+
+
+def trees_bitwise_equal(a, b, path="") -> int:
+    """Every leaf of `a` equal to `b`'s bit for bit (same keys, dtype and
+    shape); returns the number of leaves."""
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"{path}: keys {sorted(a)} != {sorted(b)}")
+        return sum(trees_bitwise_equal(a[k], b[k], f"{path}/{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        return sum(trees_bitwise_equal(x, y, f"{path}/{i}") for i, (x, y) in
+                   enumerate(zip(a, b, strict=True)))
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        raise AssertionError(f"{path}: {a.dtype} {tuple(a.shape)} {a.device} against "
+                             f"{b.dtype} {tuple(b.shape)} {b.device}")
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    if not torch.equal(a.view(bits), b.view(bits)):
+        raise AssertionError(f"{path}: the loaded leaf differs from the exported one")
+    return 1
+
+
+def deploy_cli(ckpt: str, device: str, obs: dict, want: np.ndarray, card: str) -> None:
+    """`python -m openvla_oft_tpu_torch.serving.deploy --pretrained-checkpoint
+    DIR --unnorm-key K --device-preprocess` in a process of its own: waits
+    for it to bind, sends `obs` to its /act, holds the answer against `want`
+    (the in-process server's, on the same observation), and stops it."""
+    from openvla_oft_tpu_torch.serving.deploy import get_action_from_server
+
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "openvla_oft_tpu_torch.serving.deploy",
+           "--pretrained-checkpoint", ckpt, "--unnorm-key", CKPT_UNNORM_KEY,
+           "--device-preprocess", "--num-images-in-input", "2", "--num-open-loop-steps", "8",
+           "--host", "127.0.0.1", "--port", str(port), "--device", device]
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        bound = threading.Event()
+
+        def read():
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if "serving /act on" in line:
+                    bound.set()
+
+        threading.Thread(target=read, daemon=True).start()
+        while not bound.wait(1.0):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError("the deploy CLI did not bind: " + " | ".join(lines[-20:]))
+        t_bind = time.perf_counter() - t0
+        time.sleep(0.5)                    # the server thread starts after the line
+        got = None
+        for _ in range(20):
+            try:
+                got = get_action_from_server(obs, f"http://127.0.0.1:{port}/act")
+                break
+            except OSError:
+                time.sleep(0.5)
+        if not isinstance(got, np.ndarray):
+            raise AssertionError(f"the deploy CLI's /act answered {got!r}")
+        d = float(np.abs(got - want).max())
+        log(f"[checkpoint] deploy CLI ({' '.join(cmd[1:5])} ... --device-preprocess): bound "
+            f"after {t_bind:.1f} s (process start, load, warm-up; host clock), /act answered "
+            f"{got.shape}, max|d| = {d:.3e} from the in-process server's answer ({card}); its "
+            f"log: " + " | ".join(line for line in lines if line.startswith("[deploy]")))
+        if not d <= 1e-3:
+            raise AssertionError("the deploy CLI's answer differs from the in-process server's")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def checkpoint_serving(card: str, rng, device: str = "cuda") -> dict:
+    """Phase 8e. Returns the launches of the bf16 and the int4 run of requests."""
+    from openvla_oft_tpu_torch import config as C
+    from openvla_oft_tpu_torch.bridge import init_params, tree_leaves
+    from openvla_oft_tpu_torch.constants import get_platform
+    from openvla_oft_tpu_torch.data.transforms import save_dataset_statistics
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+    from openvla_oft_tpu_torch.processing.sentencepiece import (SentencePieceTokenizer,
+                                                                parse_model_proto)
+    from openvla_oft_tpu_torch.serving.deploy import (FLAGSHIP_IDS, DeployConfig,
+                                                      OpenVLAServer, get_action_from_server,
+                                                      serving_params)
+    from openvla_oft_tpu_torch.training.checkpoint import (import_action_head_pt,
+                                                           import_projector_pt)
+    from openvla_oft_tpu_torch.utils.hf_import import export_openvla_checkpoint, \
+        load_openvla_checkpoint
+    from openvla_oft_tpu_torch.utils.safetensors_io import SafetensorsIndex
+
+    t_phase = time.perf_counter()
+    C._LLM_REGISTRY[CKPT_LLM_ID] = dataclasses.replace(C.LLAMA2_7B, num_layers=CKPT_LAYERS)
+    cfg = C.OpenVLAConfig(vision_backbone_id=FLAGSHIP_IDS[0], llm_backbone_id=CKPT_LLM_ID,
+                          num_images_in_input=2)
+    platform = get_platform("libero")
+    log(f"[checkpoint] the flagship at full width ({FLAGSHIP_IDS[0]}, Llama 4096 wide, 32 "
+        f"heads, 11008, vocab 32064), its Llama cut to {CKPT_LAYERS} of 32 layers (registered "
+        f"as {CKPT_LLM_ID!r}; both ViTs at full depth): the serving code does not depend on "
+        f"the depth, and the cut writes about 3.3 GB to disk instead of 14 GB")
+    d, pd = platform.action_dim, platform.proprio_dim
+    stats = {CKPT_UNNORM_KEY: {
+        "action": {"q01": [-0.9] * d, "q99": [0.9] * d, "min": [-1.0] * d, "max": [1.0] * d,
+                   "mask": [True] * (d - 1) + [False]},
+        "proprio": {"q01": [-0.8] * pd, "q99": [0.8] * pd, "min": [-1.0] * pd,
+                    "max": [1.0] * pd}}}
+    tok_bytes = llama_like_tokenizer()
+
+    def draw():
+        return init_params(cfg, platform, torch.Generator(device=device).manual_seed(0),
+                           device=device, dtype=torch.bfloat16, head="l1")
+
+    # (a) the build from seeded weights, as flagship_policy builds: its peak.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    memory_policy = OpenVLAPolicy(
+        cfg=cfg, platform=platform, params=serving_params(draw()), norm_stats=stats,
+        tokenizer=SentencePieceTokenizer(parse_model_proto(tok_bytes)))
+    torch.cuda.synchronize()
+    seed_build = (torch.cuda.memory_allocated() - base, torch.cuda.max_memory_allocated() - base)
+    log(f"[checkpoint] build from seeded weights (init_params + serving_params): "
+        f"{seed_build[0] / 2**30:.3f} GiB after it, {seed_build[1] / 2**30:.3f} GiB at its peak "
+        f"(torch.cuda.max_memory_allocated above the {base / 2**30:.3f} GiB before it), "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+
+    # (b) the same weights drawn again and exported.
+    params = draw()
+    sizes = [t.numel() * t.element_size() for t in tree_leaves(params)]
+    largest_layer = max(t[0].numel() * t.element_size() for t in
+                        tree_leaves(params["llm"]["layers"]))
+    ckpt = checkpoint_dir(sum(sizes) + 2**30)
+    server = None
+    try:
+        t0 = time.perf_counter()
+        export_openvla_checkpoint(cfg, {k: params[k] for k in ("llm", "vision_backbone",
+                                                               "projector")},
+                                  ckpt, norm_stats=stats)
+        save_dataset_statistics(stats, ckpt)
+        for name, sd in module_state_dicts(params).items():
+            torch.save(sd, os.path.join(ckpt, f"{name}--0_checkpoint.pt"))
+        with open(os.path.join(ckpt, "tokenizer.model"), "wb") as f:
+            f.write(tok_bytes)
+        os.sync()
+        t_write = time.perf_counter() - t0
+        st_bytes = SafetensorsIndex(ckpt).nbytes
+        files = {f: os.path.getsize(os.path.join(ckpt, f)) for f in sorted(os.listdir(ckpt))}
+        log(f"[checkpoint] exported in {t_write:.1f} s (host clock, synced to disk): "
+            + ", ".join(f"{f} {n:,} B" for f, n in files.items())
+            + f"; {sum(files.values()) / 1e9:.3f} GB in all, tensors {st_bytes / 1e9:.3f} GB "
+            f"({card})")
+
+        # (c) loaded on the card, leaf for leaf against the exported tree.
+        gc.collect()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            _, loaded, loaded_stats = load_openvla_checkpoint(ckpt, dtype=torch.bfloat16,
+                                                              device=device, head="l1")
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+        n_leaves = trees_bitwise_equal({k: params[k] for k in loaded}, loaded)
+        modules = {"action_head": import_action_head_pt(
+                       os.path.join(ckpt, "action_head--0_checkpoint.pt"), device=device),
+                   "proprio_projector": import_projector_pt(
+                       os.path.join(ckpt, "proprio_projector--0_checkpoint.pt"),
+                       device=device)}
+        n_leaves += trees_bitwise_equal({k: params[k] for k in modules}, modules)
+        if loaded_stats != stats:
+            raise AssertionError("the loaded statistics differ from the exported ones")
+        log(f"[checkpoint] load_openvla_checkpoint onto the card: {t_load:.2f} s, "
+            f"{st_bytes / t_load / 1e9:.2f} GB/s of tensors (host clock; the file just written, "
+            f"so likely from the page cache); {n_leaves} leaves bitwise equal to the exported "
+            f"tree (the .pt modules included); host resident set {rss.base / 2**30:.3f} GiB "
+            f"before, peak {rss.peak / 2**30:.3f} GiB during the load "
+            f"(+{(rss.peak - rss.base) / 2**20:.0f} MiB; the largest stacked leaf is {max(sizes) / 2**20:.0f} MiB, its "
+            f"largest layer {largest_layer / 2**20:.0f} MiB, the tree {sum(sizes) / 2**30:.3f} "
+            f"GiB) ({card})")
+        del params, loaded, modules
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the build from disk: OpenVLAServer (get_vla + the .pt modules).
+        deploy_cfg = DeployConfig(pretrained_checkpoint=ckpt, device=device,
+                                  unnorm_key=CKPT_UNNORM_KEY, num_images_in_input=2,
+                                  device_preprocess=True, num_open_loop_steps=8, warmup=False,
+                                  host="127.0.0.1", port=free_port())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        server = OpenVLAServer(deploy_cfg)
+        torch.cuda.synchronize()
+        disk_build = (torch.cuda.memory_allocated() - base,
+                      torch.cuda.max_memory_allocated() - base)
+        log(f"[checkpoint] build from disk (OpenVLAServer: get_vla, serving_params, the .pt "
+            f"modules): {disk_build[0] / 2**30:.3f} GiB after it, {disk_build[1] / 2**30:.3f} "
+            f"GiB at its peak (seeded: {seed_build[0] / 2**30:.3f}, {seed_build[1] / 2**30:.3f}),"
+            f" {time.perf_counter() - t0:.1f} s (host clock; {card})")
+        if disk_build[1] > seed_build[1]:
+            raise AssertionError("the build from disk peaks higher than the seeded build")
+        log(f"[checkpoint] warm-up (one synthetic predict at {deploy_cfg.warmup_image_hw}): "
+            f"{server._warmup() * 1e3:.1f} ms (host clock; {card})")
+        server.run(background=True)
+
+        runs = {}
+        none = {"K4": 0, "K6": 0, "int8": 0}
+        n_layers = CKPT_LAYERS
+        url = f"http://127.0.0.1:{deploy_cfg.port}/act"
+        observations, answers = [], []
+        reset_launch_counts()
+        for i in range(3):
+            obs = observation(memory_policy, rng)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            action = get_action_from_server(obs, url)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            per_request = {k: n - before[k] for k, n in launch_counts().items()
+                           if k in ("K1", "K5", *none)}
+            log(f"[checkpoint] /act request {i}: {np.asarray(action).shape}, launches "
+                f"{per_request}, {dt * 1e3:.2f} ms (host wall clock around the HTTP round "
+                f"trip; {card})")
+            if per_request != {"K1": n_layers - 1, "K5": 0, **none}:
+                raise AssertionError(f"a checkpoint request launched {per_request}")
+            observations.append(obs)
+            answers.append(np.asarray(action))
+        runs["checkpoint bf16"] = launch_counts()
+        server.shutdown()
+        for i, (obs, action) in enumerate(zip(observations, answers)):
+            want = memory_policy.predict_action_from_frames(
+                frames_of(memory_policy, obs), obs["instruction"], proprio=obs["state"],
+                unnorm_key=CKPT_UNNORM_KEY)
+            if action.shape != want.shape or not np.array_equal(action, want) \
+                    or not np.isfinite(action).all():
+                raise AssertionError(f"request {i}: /act answered max|d| = "
+                                     f"{np.abs(action - want).max():.3e} from the in-memory "
+                                     "policy")
+        log("[checkpoint] the 3 /act answers are bitwise equal to the in-memory policy's on "
+            "the same observations")
+        deploy_cli(ckpt, device, observations[0], answers[0], card)
+        del server, memory_policy
+        server = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) load_in_4bit from the same dir: one request through K5.
+        t0 = time.perf_counter()
+        server = OpenVLAServer(dataclasses.replace(deploy_cfg, load_in_4bit=True,
+                                                   port=free_port()))
+        torch.cuda.synchronize()
+        log(f"[checkpoint] load_in_4bit build from disk: {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated ({card})")
+        server.run(background=True)
+        reset_launch_counts()
+        obs = observation(server.vla, rng)
+        t0 = time.perf_counter()
+        action = get_action_from_server(obs, f"http://127.0.0.1:{server.cfg.port}/act")
+        torch.cuda.synchronize()
+        runs["checkpoint int4 W4A16"] = launch_counts()
+        expect_k5 = 4 * (n_layers - 1) + 6
+        log(f"[checkpoint] load_in_4bit /act request: {np.asarray(action).shape}, launches "
+            f"{runs['checkpoint int4 W4A16']}, {(time.perf_counter() - t0) * 1e3:.2f} ms "
+            f"(host clock, the first request: no warm-up; {card})")
+        if runs["checkpoint int4 W4A16"]["K5"] != expect_k5 \
+                or not np.isfinite(np.asarray(action)).all():
+            raise AssertionError(f"the load_in_4bit request launched K5 "
+                                 f"{runs['checkpoint int4 W4A16']['K5']} times, not {expect_k5}")
+    finally:
+        if server is not None:
+            server.shutdown()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        C._LLM_REGISTRY.pop(CKPT_LLM_ID, None)
+    log(f"[checkpoint] the dir is removed; phase took {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 def probe_phase(card: str) -> dict:
     """The probe script's main (its launches are the probe's main path: K5,
     the three probe modes, K6 and torch.matmul by device time at T = 112 and
@@ -2240,6 +2660,7 @@ def main() -> int:
     int8_launches = int8_serving(card, rng, observations[0], bf16_hidden)
     diffusion = diffusion_serving(card, rng)
     discrete = discrete_serving(card, rng)
+    checkpoint = checkpoint_serving(card, rng)
 
     bwd = backward_check(card, s_train)
     state, train_launches = train(card, n_layers)
@@ -2261,7 +2682,8 @@ def main() -> int:
                    + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
                    + sum(run["K1"] for run in int8_launches.values())
                    + sum(run["K1"] for run in diffusion.values())
-                   + sum(run["K1"] for run in discrete.values()) + train_launches["K1"])
+                   + sum(run["K1"] for run in discrete.values())
+                   + sum(run["K1"] for run in checkpoint.values()) + train_launches["K1"])
     kernels = [
         kernel_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:50", k1_launches,
@@ -2299,7 +2721,7 @@ def main() -> int:
                      library_events_ms=fc1["library_ms"]),
         kernel_entry("int4_matmul", "int4_w4a16.cu", "openvla_oft_tpu/ops/int4_matmul.py:43",
                      w4a16["K5"] + diffusion["int4 W4A16"]["K5"]
-                     + discrete["AR int4 W4A16"]["K5"],
+                     + discrete["AR int4 W4A16"]["K5"] + checkpoint["checkpoint int4 W4A16"]["K5"],
                      max(c["err5"] for c in int4.values()), wqkv["dev5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["dev_lib5"],
                      also_replaces="openvla_oft_tpu/ops/int4_matmul.py:199",
@@ -2331,6 +2753,9 @@ def main() -> int:
         f"{discrete['parallel bf16']}, AR bf16 (3 x 7 and 2 x 56 tokens) {discrete['AR bf16']}, "
         f"AR int4 W4A16 (2 x 7) {discrete['AR int4 W4A16']}, AR int8 (1 x 7) "
         f"{discrete['AR int8']}")
+    log(f"[checkpoint] launches of the checkpoint runs: bf16 (3 requests) "
+        f"{checkpoint['checkpoint bf16']}, int4 W4A16 (1 request) "
+        f"{checkpoint['checkpoint int4 W4A16']}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

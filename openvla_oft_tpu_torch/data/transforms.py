@@ -1,6 +1,7 @@
-"""Dataset statistics with their JSON sidecar: the port's copy of the
-statistics functions of `openvla_oft_tpu/data/transforms.py` (reference
-`prismatic/vla/datasets/rlds/utils/data_utils.py:176-284`).
+"""Dataset statistics with their JSON sidecar, and the statistics
+normalizer: the port's copy of those functions of
+`openvla_oft_tpu/data/transforms.py` (reference
+`prismatic/vla/datasets/rlds/utils/data_utils.py:97-153, 176-284`).
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ import os
 from typing import Dict, Optional
 
 import numpy as np
+
+from openvla_oft_tpu_torch.constants import NormalizationType
 
 
 def compute_dataset_statistics(actions: np.ndarray,
@@ -34,6 +37,40 @@ def compute_dataset_statistics(actions: np.ndarray,
     if proprios is not None:
         out["proprio"] = stats(proprios)
     return out
+
+
+def normalize(x: np.ndarray, metadata: Dict,
+              norm_type: NormalizationType) -> np.ndarray:
+    """Normalize actions or proprio by the reference's rules
+    (data_utils.py:97-153): the bounds map [low, high] to [-1, 1] with
+    clipping; masked-out dims pass through; degenerate dims (min == max)
+    map to 0."""
+    x = np.asarray(x, np.float32)
+    if "mask" in metadata:
+        mask = np.asarray(metadata["mask"])
+    else:
+        # sized off whichever bounds the stats carry (partial stats, e.g.
+        # proprio dicts with only q01/q99, are legal)
+        key = next(k for k in ("min", "q01", "mean") if k in metadata)
+        mask = np.ones_like(np.asarray(metadata[key]), dtype=bool)
+    if norm_type == NormalizationType.NORMAL:
+        mean = np.asarray(metadata["mean"], np.float32)
+        std = np.asarray(metadata["std"], np.float32)
+        return np.where(mask, (x - mean) / (std + 1e-8), x)
+    if norm_type == NormalizationType.BOUNDS:
+        low = np.asarray(metadata["min"], np.float32)
+        high = np.asarray(metadata["max"], np.float32)
+    elif norm_type == NormalizationType.BOUNDS_Q99:
+        low = np.asarray(metadata["q01"], np.float32)
+        high = np.asarray(metadata["q99"], np.float32)
+    else:
+        raise ValueError(f"Unknown normalization type {norm_type}")
+    out = np.where(mask, np.clip(2 * (x - low) / (high - low + 1e-8) - 1, -1, 1), x)
+    if "min" in metadata and "max" in metadata:
+        zeros = np.asarray(metadata["min"]) == np.asarray(metadata["max"])
+    else:  # partial stats: degenerate dims judged by the active bounds
+        zeros = low == high
+    return np.where(zeros, 0.0, out)
 
 
 def save_dataset_statistics(stats: Dict[str, Dict], run_dir: str) -> str:

@@ -1,22 +1,27 @@
-"""Device image preprocessing for the serving and training paths.
+"""Image preprocessing for the serving and training paths.
 
-Port of `openvla_oft_tpu/processing/image_processing.py::device_preprocess`,
-`center_crop_resize`, `normalize_and_stack` and (for frames already at the
-backbone's size) `make_device_transform`. Serving: uint8 camera frames ->
-lanczos3 antialiased resize -> round to uint8 -> 0.9-area center crop
-(bilinear, the reference's floor(v*255.5) uint8 rule) -> [0, 1] -> per-backbone
-normalize -> backbone stack.
+Port of `openvla_oft_tpu/processing/image_processing.py`: `device_preprocess`,
+`center_crop_resize`, `normalize_and_stack`, `make_device_transform` (the
+processor transform: "resize-naive", "resize-crop" and "letterbox"),
+`jpeg_roundtrip` and the staged host pipeline `prepare_images_for_policy`.
+Serving: uint8 camera frames -> lanczos3 antialiased resize -> round to
+uint8 -> 0.9-area center crop (bilinear, the reference's floor(v*255.5)
+uint8 rule) -> [0, 1] -> the processor transform (bicubic antialiased
+resize where the size differs, per-backbone normalize, backbone stack).
 
-torch has no lanczos mode, so the separable (in, out) weight matrices are
-built in numpy from the formula `jax.image.resize(..., "lanczos3",
-antialias=True)` uses (kernel widened by 1/scale when downsampling,
-normalised by its column sums, zero where the sample falls outside the input)
-and applied as two fp32 matmuls.
+torch has no lanczos mode, and its bicubic antialiased resize is not
+`jax.image.resize`'s, so the separable (in, out) weight matrices are built
+in numpy from the formula `jax.image.resize(..., antialias=True)` uses (the
+kernel widened by 1/scale when downsampling, normalised by its column sums,
+zero where the sample falls outside the input) with the lanczos3 kernel or
+Keys' cubic kernel (a = -0.5), and applied as fp32 matmuls.
 """
 
 from __future__ import annotations
 
 import functools
+import io
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -26,21 +31,37 @@ from openvla_oft_tpu_torch.config import OpenVLAConfig
 _F32 = np.float32
 
 
-@functools.lru_cache(maxsize=16)
-def lanczos3_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(in_size, out_size) fp32 weights of an antialiased lanczos3 resize."""
+def _lanczos3_kernel(x: np.ndarray) -> np.ndarray:
     radius = _F32(3.0)
-    inv_scale = _F32(1.0 / (out_size / in_size))
-    kernel_scale = max(inv_scale, _F32(1.0))
-    sample_f = (np.arange(out_size, dtype=_F32) + _F32(0.5)) * inv_scale - _F32(0.5)
-    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=_F32)[:, None]) / kernel_scale
     pi = _F32(np.pi)
     y = radius * np.sin(pi * x) * np.sin(pi * x / radius)
     with np.errstate(divide="ignore", invalid="ignore"):
         out = np.where(x > _F32(1e-3),
                        y / np.where(x != 0, _F32(np.pi ** 2) * (x * x), _F32(1.0)),
                        _F32(1.0))
-    weights = np.where(x > radius, _F32(0.0), out).astype(_F32)
+    return np.where(x > radius, _F32(0.0), out)
+
+
+def _keys_cubic_kernel(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5 (jax.image's "cubic")."""
+    out = ((_F32(1.5) * x - _F32(2.5)) * x) * x + _F32(1.0)
+    out = np.where(x >= _F32(1.0),
+                   ((_F32(-0.5) * x + _F32(2.5)) * x - _F32(4.0)) * x + _F32(2.0), out)
+    return np.where(x >= _F32(2.0), _F32(0.0), out)
+
+
+_KERNELS = {"lanczos3": _lanczos3_kernel, "cubic": _keys_cubic_kernel}
+
+
+@functools.lru_cache(maxsize=32)
+def resize_weights(in_size: int, out_size: int, method: str) -> np.ndarray:
+    """(in_size, out_size) fp32 weights of an antialiased resize, `method`
+    "lanczos3" or "cubic" (jax.image's scale_and_translate weights)."""
+    inv_scale = _F32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, _F32(1.0))
+    sample_f = (np.arange(out_size, dtype=_F32) + _F32(0.5)) * inv_scale - _F32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=_F32)[:, None]) / kernel_scale
+    weights = _KERNELS[method](x.astype(_F32)).astype(_F32)
     total = weights.sum(axis=0, keepdims=True, dtype=_F32)
     weights = np.where(np.abs(total) > _F32(1000.0 * np.finfo(np.float32).eps),
                        weights / np.where(total != 0, total, _F32(1.0)), _F32(0.0))
@@ -48,17 +69,27 @@ def lanczos3_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], weights, _F32(0.0)).astype(_F32)
 
 
-def resize_lanczos3(x: torch.Tensor, size: int) -> torch.Tensor:
-    """Float (M, H, W, C) -> (M, size, size, C); an axis already at `size`
-    is left as it is, as in jax.image.resize."""
+def lanczos3_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) fp32 weights of an antialiased lanczos3 resize."""
+    return resize_weights(in_size, out_size, "lanczos3")
+
+
+def resize(x: torch.Tensor, height: int, width: int, method: str) -> torch.Tensor:
+    """Float (M, H, W, C) -> (M, height, width, C), antialiased; an axis
+    already at its size is left as it is, as in jax.image.resize."""
     _, h, w, _ = x.shape
-    if h != size:
-        wh = torch.from_numpy(lanczos3_weights(h, size)).to(x.device)
+    if h != height:
+        wh = torch.from_numpy(resize_weights(h, height, method)).to(x.device)
         x = torch.einsum("mhwc,hi->miwc", x, wh)
-    if w != size:
-        ww = torch.from_numpy(lanczos3_weights(w, size)).to(x.device)
+    if w != width:
+        ww = torch.from_numpy(resize_weights(w, width, method)).to(x.device)
         x = torch.einsum("mhwc,wj->mhjc", x, ww)
     return x
+
+
+def resize_lanczos3(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Float (M, H, W, C) -> (M, size, size, C), lanczos3 antialiased."""
+    return resize(x, size, size, "lanczos3")
 
 
 def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
@@ -123,27 +154,49 @@ def normalize_and_stack(cfg: OpenVLAConfig, x01: torch.Tensor) -> torch.Tensor:
 
 
 def make_device_transform(cfg: OpenVLAConfig):
-    """The training image transform (JAX `make_device_transform`): uint8
-    (N, H, W, 3) -> (N, n_backbones, S, S, 3) fp32, normalized.
-
-    Ported for "resize-naive" on frames already at the backbone's size
-    (what the dummy dataset and RLDS frames resized by the loader give):
-    [0, 1] -> per-backbone normalize. Resizing and the other strategies
-    raise (ROADMAP queue 1, item 7).
+    """The processor transform (JAX `make_device_transform`): uint8
+    (N, H, W, 3) -> (N, n_backbones, S, S, 3) fp32, normalized, keyed off
+    `cfg.image_resize_strategy` (reference `processing_prismatic.py:115-123`):
+      - "resize-naive": squash-resize to (S, S), bicubic and antialiased;
+      - "resize-crop": the shorter side to S (aspect kept), then a center crop;
+      - "letterbox": pad to a square (fill = the last backbone's mean * 255,
+        as the reference's loop leaves it), then as "resize-crop";
+    then [0, 1] -> per-backbone mean/std. Frames already at S are not
+    resampled. Other strategies raise, as the reference does (`:122-123`).
     """
     size = cfg.vision_configs[0].image_size
     strategy = getattr(cfg, "image_resize_strategy", "resize-naive")
-    if strategy != "resize-naive":
-        raise NotImplementedError(f"image_resize_strategy {strategy!r} is not "
-                                  "ported yet (ROADMAP queue 1, item 7)")
+    if strategy not in ("resize-naive", "resize-crop", "letterbox"):
+        raise ValueError(f"image_resize_strategy {strategy!r} is not supported! expected "
+                         "'resize-naive', 'resize-crop', or 'letterbox' (reference "
+                         "processing_prismatic.py:116-123)")
+    fill = torch.tensor([int(m * 255) for m in cfg.vision_configs[-1].mean],
+                        dtype=torch.float32) / 255.0
 
     def transform(images_u8) -> torch.Tensor:
-        x = torch.as_tensor(images_u8)
-        if tuple(x.shape[1:3]) != (size, size):
-            raise NotImplementedError(
-                f"frames of {tuple(x.shape[1:3])} need a resize to {size}, which "
-                "the training transform does not port yet (ROADMAP queue 1, item 7)")
-        return normalize_and_stack(cfg, x.float() / 255.0)
+        x = torch.as_tensor(images_u8).float() / 255.0
+        n, h, w = x.shape[:3]
+        if strategy == "letterbox" and h != w:
+            # Symmetric constant border to a (near-)square: torchvision's
+            # TVF.pad with int((max - d) / 2) a side; an odd difference leaves
+            # the long side 1 px longer, as the reference does.
+            hp, vp = (max(h, w) - w) // 2, (max(h, w) - h) // 2
+            canvas = fill.to(x.device).expand(n, h + 2 * vp, w + 2 * hp, 3).clone()
+            canvas[:, vp:vp + h, hp:hp + w] = x
+            x, h, w = canvas, h + 2 * vp, w + 2 * hp
+        if h != size or w != size:
+            if strategy == "resize-naive":
+                nh = nw = size
+            else:
+                # torchvision Resize(int): the shorter side -> S, the long
+                # side truncated in proportion.
+                nh, nw = (size, int(size * w / h)) if h <= w else (int(size * h / w), size)
+            x = torch.clamp(resize(x, nh, nw, "cubic"), 0.0, 1.0)
+            if (nh, nw) != (size, size):
+                # torchvision center_crop: top = round((H - S) / 2)
+                top, left = int(round((nh - size) / 2.0)), int(round((nw - size) / 2.0))
+                x = x[:, top:top + size, left:left + size, :]
+        return normalize_and_stack(cfg, x)
 
     return transform
 
@@ -157,3 +210,55 @@ def device_preprocess(cfg: OpenVLAConfig, images_u8: torch.Tensor,
     if center_crop:
         x = center_crop_resize(x.to(torch.uint8), 0.9)
     return normalize_and_stack(cfg, x.float() / 255.0)
+
+
+def jpeg_roundtrip(image: np.ndarray, quality: int = 95) -> np.ndarray:
+    """Host JPEG encode and decode of one uint8 (H, W, 3) frame, the
+    artifact the reference's eval conditioning adds (openvla_utils.py:516-539).
+
+    TF's libjpeg wrapper first, as the reference (tf.image.encode_jpeg,
+    tf.io.decode_image), then PIL (its encoder rounds differently by a
+    pixel level here and there). With neither installed it raises: skipping
+    the round trip would change the policy's inputs without a word; serve
+    with `device_preprocess=True` instead, which has no round trip."""
+    try:
+        import tensorflow as tf
+    except ImportError:
+        tf = None
+    if tf is not None:
+        enc = tf.io.encode_jpeg(tf.constant(image), quality=quality)
+        return tf.io.decode_image(enc, expand_animations=False, dtype=tf.uint8).numpy()
+    try:
+        from PIL import Image
+    except ImportError as err:
+        raise ImportError("the staged path's JPEG round trip needs tensorflow or PIL, and "
+                          "neither is installed; serve with device_preprocess=True (the "
+                          "one-pass path, no JPEG round trip)") from err
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="JPEG", quality=quality)
+    buf.seek(0)
+    return np.asarray(Image.open(buf).convert("RGB"))
+
+
+def prepare_images_for_policy(images: Sequence[np.ndarray], cfg: OpenVLAConfig,
+                              center_crop: bool = True, use_jpeg_roundtrip: bool = True,
+                              resize_size: int = 224, device="cpu") -> torch.Tensor:
+    """The staged eval-side pipeline (reference `prepare_images_for_vla`,
+    openvla_utils.py:678-708): each frame through the JPEG round trip, the
+    lanczos3 resize to `resize_size` (rounded to uint8) and the optional 0.9
+    center crop, then the processor transform. (N, n_backbones, S, S, 3)
+    fp32 normalized pixels on `device`."""
+    conditioned = []
+    for img in images:
+        img = np.asarray(img)
+        if img.dtype != np.uint8:
+            img = np.clip(img, 0, 255).astype(np.uint8)
+        if use_jpeg_roundtrip:
+            img = jpeg_roundtrip(img)
+        x = resize_lanczos3(torch.from_numpy(np.ascontiguousarray(img)).to(device)
+                            .float()[None], resize_size)
+        x = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+        if center_crop:
+            x = center_crop_resize(x, 0.9)
+        conditioned.append(x[0])
+    return make_device_transform(cfg)(torch.stack(conditioned))

@@ -1,45 +1,58 @@
-"""Serve a port policy over HTTP /act (the wire contract of `vla_scripts/deploy.py`).
+"""Serve a policy over HTTP /act (the port of `vla_scripts/deploy.py`).
 
-`build_server(policy)` wraps `OpenVLAPolicy.predict_action_from_frames` as the
-`predict(observation, instruction)` callable that `ActionServer` takes (the
-port's copy of `openvla_oft_tpu/serving/server.py`). The observation carries
-uint8 frames under "full_image" plus any "wrist*" keys, and the proprio state
-under "state".
-
+    python -m openvla_oft_tpu_torch.serving.deploy --pretrained-checkpoint DIR \
+        --unnorm-key KEY --num-images-in-input 2 --device-preprocess
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --port 8777
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-in-4bit [--int4-a8]
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-in-8bit
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-vision-in-8bit
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --platform aloha [--vit-fused]
 
-Loading a checkpoint is not ported yet, so the CLI serves the flagship model
-(DINOv2+SigLIP, Llama-2-7B) with seeded random weights and placeholder
-[-1, 1] statistics, at one of the reference's two deployments: LIBERO (2
-images, an 8 x 7 chunk) or ALOHA (3 images with FiLM, a 25 x 14 chunk;
-the reference's `vla_scripts/deploy.py` settings). `--load-in-4bit` packs
-every LLM linear to int4 (the reference's bitsandbytes `load_in_4bit`);
-`--int4-a8` serves it W4A8 instead of W4A16. `--load-in-8bit` serves the
-LLM, the ViTs and the projector in int8 (`load_in_8bit`: int8 weights and
-per-token int8 activations through `torch._int_mm`), `--load-vision-in-8bit`
-only the ViTs and the projector; at most one of the three quant flags. `--vit-fused` runs the ViTs'
-folded LN + qkv and LN + fc1 as one kernel K4 launch each. Before it binds,
-the CLI runs one synthetic predict at the deployment's geometry (`warmup`,
-as the reference does); `--no-warmup` skips it.
+The flags are the fields of `DeployConfig` (`utils/cli.py::parse_args`:
+`--name value`, a bare `--name` for a true bool, `--no-name` for a false
+one): the reference's `DeployConfig` fields and the port's own.
+
+`--pretrained-checkpoint DIR` serves an HF-format checkpoint dir through
+`OpenVLAServer` (the reference's): `serving/openvla_utils.py::get_vla`
+loads it onto `--device` (cuda by default) in bf16, fused and quantized
+(`--load-in-8bit`, `--load-in-4bit` or `--load-vision-in-8bit`), with its
+tokenizer and statistics, and the per-module `action_head--*.pt`,
+`proprio_projector--*.pt` (and `noisy_action_projector--*.pt`) files beside
+it; `--unnorm-key` must name one of its statistics. `/act` runs
+`get_vla_action`: with `--device-preprocess`, the raw frames through the
+one-pass path on the device (the L1 head); without it, the staged path,
+whose JPEG round trip needs tensorflow or PIL on the host.
+
+`--random-weights` serves the flagship model (DINOv2+SigLIP, Llama-2-7B)
+with seeded random weights and placeholder [-1, 1] statistics, at one of
+the reference's two deployments (`--platform`): LIBERO (2 images, an 8 x 7
+chunk) or ALOHA (3 images with FiLM, a 25 x 14 chunk). `--load-in-4bit`
+packs every LLM linear to int4 (the reference's bitsandbytes
+`load_in_4bit`); `--int4-a8` serves it W4A8 instead of W4A16.
+`--load-in-8bit` serves the LLM, the ViTs and the projector in int8 (int8
+weights and per-token int8 activations through `torch._int_mm`),
+`--load-vision-in-8bit` only the ViTs and the projector; at most one of
+the three quant flags. `--vit-fused` runs the ViTs' folded LN + qkv and
+LN + fc1 as one kernel K4 launch each. Before it binds, the CLI runs one
+synthetic predict at the deployment's geometry (`warmup`, as the reference
+does); `--no-warmup` skips it.
 """
 
 from __future__ import annotations
 
-import argparse
+import dataclasses
+import sys
 import time
-from typing import Optional
+from pathlib import Path
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
 from openvla_oft_tpu_torch.serving.server import ActionServer, get_action_from_server
 
-__all__ = ["CLIENT_FRAME_HW", "DEPLOYMENTS", "build_server", "flagship_policy",
-           "get_action_from_server", "observation_frames", "placeholder_norm_stats",
-           "synthetic_observation", "warmup"]
+__all__ = ["CLIENT_FRAME_HW", "DEPLOYMENTS", "DeployConfig", "OpenVLAServer", "build_server",
+           "flagship_policy", "get_action_from_server", "observation_frames",
+           "placeholder_norm_stats", "synthetic_observation", "warmup"]
 
 
 def observation_frames(observation: dict, num_images: int) -> np.ndarray:
@@ -59,10 +72,11 @@ def observation_frames(observation: dict, num_images: int) -> np.ndarray:
 CLIENT_FRAME_HW = {"libero": (256, 256), "aloha": (224, 224)}
 
 
-def synthetic_observation(policy) -> dict:
+def synthetic_observation(policy, hw: Optional[Tuple[int, int]] = None) -> dict:
     """A zero observation at the policy's own geometry: its number of images
-    at its platform's client frame size, and its proprio dim."""
-    h, w = CLIENT_FRAME_HW.get(policy.platform.name, (256, 256))
+    at frames of `hw` (None: its platform's client frame size), and its
+    proprio dim."""
+    h, w = hw or CLIENT_FRAME_HW.get(policy.platform.name, (256, 256))
     obs = {"full_image": np.zeros((h, w, 3), np.uint8)}
     for i in range(policy.cfg.num_images_in_input - 1):
         obs[f"wrist_image_{i}"] = np.zeros((h, w, 3), np.uint8)
@@ -219,50 +233,167 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
                          if head == "diffusion" else None)
 
 
+@dataclasses.dataclass
+class DeployConfig:
+    """The reference's `DeployConfig` (`vla_scripts/deploy.py:18-57`) and the
+    port's own fields (from `device` on)."""
+
+    host: str = "0.0.0.0"
+    port: int = 8777
+
+    model_family: str = "openvla"
+    pretrained_checkpoint: Union[str, Path] = ""
+
+    use_l1_regression: bool = True
+    use_diffusion: bool = False
+    num_diffusion_steps: int = 50
+    use_film: bool = False
+    num_images_in_input: int = 3
+    use_proprio: bool = True
+
+    center_crop: bool = True
+    # Preprocess, normalize the proprio and un-normalize on the device
+    # (predict_action_from_frames; the L1 head, no host JPEG round trip).
+    device_preprocess: bool = False
+    num_open_loop_steps: int = 25
+
+    unnorm_key: Union[str, Path] = ""
+    use_relative_actions: bool = False
+
+    load_in_8bit: bool = False
+    load_in_4bit: bool = False
+
+    # One synthetic predict at the serving geometry before the server binds,
+    # so that the first client request does not pay the cold path.
+    warmup: bool = True
+    # The raw frame size (H, W) of the warm-up observation: what clients send.
+    warmup_image_hw: Tuple[int, int] = (256, 256)
+
+    seed: int = 0
+
+    # The port's own fields.
+    device: str = "cuda"
+    # Serve the flagship with seeded random weights (no checkpoint), at the
+    # `platform` deployment of DEPLOYMENTS.
+    random_weights: bool = False
+    platform: str = "libero"
+    load_vision_in_8bit: bool = False
+    int4_a8: bool = False           # with load_in_4bit: W4A8 (kernel K6) instead of W4A16
+    vit_fused: bool = False         # the ViTs' LN + qkv / LN + fc1 as one K4 launch each
+    num_diffusion_steps_inference: Optional[int] = None
+    # The switches the JAX loader reads from the environment.
+    allow_fake_tokenizer: bool = False
+    hf_tokenizer: bool = False
+    zero_init: bool = False
+    fake_norm_stats: bool = False
+
+
+class OpenVLAServer:
+    """The reference's `OpenVLAServer` (`vla_scripts/deploy.py:60-140`) on the
+    port: `get_vla` and the per-module files of `cfg.pretrained_checkpoint`,
+    served by `ActionServer`, whose /act runs `get_vla_action`."""
+
+    def __init__(self, cfg: DeployConfig):
+        from openvla_oft_tpu_torch.serving.openvla_utils import (get_action_head,
+                                                                 get_noisy_action_projector,
+                                                                 get_processor,
+                                                                 get_proprio_projector,
+                                                                 get_vla, get_vla_action)
+
+        self.cfg = cfg
+        self.vla = get_vla(cfg)
+        llm_dim = self.vla.cfg.llm_dim
+        self.proprio_projector = self.action_head = self.noisy_action_projector = None
+        # A module missing from the directory may already be in the
+        # checkpoint's tree (a random: one).
+        if cfg.use_proprio:
+            self.proprio_projector = _optional(get_proprio_projector, cfg, llm_dim,
+                                               self.vla.platform.proprio_dim)
+        if cfg.use_l1_regression or cfg.use_diffusion:
+            self.action_head = _optional(get_action_head, cfg, llm_dim)
+        if self.vla.head == "diffusion":
+            self.noisy_action_projector = _optional(get_noisy_action_projector, cfg, llm_dim)
+        if self.vla.norm_stats:
+            # At startup, as the reference (deploy.py:92-95): a wrong key
+            # would otherwise fail every /act request.
+            if not cfg.unnorm_key:
+                raise ValueError("unnorm_key must be set when the checkpoint carries "
+                                 f"norm_stats (one of {sorted(self.vla.norm_stats)})")
+            if str(cfg.unnorm_key) not in self.vla.norm_stats:
+                raise ValueError(f"Action un-norm key {cfg.unnorm_key} not found in "
+                                 f"norm_stats {sorted(self.vla.norm_stats)}")
+        self.processor = get_processor(cfg)
+        self._get_vla_action = get_vla_action
+        print(f"[deploy] platform={self.vla.platform.name} head={self.vla.head} "
+              f"proprio_dim={self.vla.platform.proprio_dim} "
+              f"norm_stats={list(self.vla.norm_stats or {})}")
+        self._server = ActionServer(self.predict)
+        self.warmup_seconds = self._warmup() if cfg.warmup else None
+
+    def _warmup(self) -> float:
+        """One synthetic predict at `warmup_image_hw`, before the server binds."""
+        obs = synthetic_observation(self.vla, tuple(self.cfg.warmup_image_hw))
+        t0 = time.perf_counter()
+        self.predict(obs, obs["instruction"])
+        seconds = time.perf_counter() - t0
+        print(f"[deploy] warmup run: {seconds:.1f}s")
+        return seconds
+
+    def predict(self, observation: dict, instruction: str) -> np.ndarray:
+        return np.stack(self._get_vla_action(
+            self.cfg, self.vla, self.processor, observation, instruction,
+            action_head=self.action_head, proprio_projector=self.proprio_projector,
+            noisy_action_projector=self.noisy_action_projector, use_film=self.cfg.use_film))
+
+    def run(self, host: Optional[str] = None, port: Optional[int] = None,
+            background: bool = False):
+        return self._server.run(host or self.cfg.host, port or self.cfg.port,
+                                background=background)
+
+    def shutdown(self) -> None:
+        self._server.shutdown()
+
+
+def _optional(load, *args):
+    try:
+        return load(*args)
+    except FileNotFoundError:
+        return None
+
+
+def _check(cfg: DeployConfig) -> None:
+    """Refuse flags that exclude each other: the message on stderr, exit 2."""
+    error = None
+    if cfg.int4_a8 and not cfg.load_in_4bit:
+        error = "--int4-a8 needs --load-in-4bit"
+    elif cfg.load_in_4bit + cfg.load_in_8bit + cfg.load_vision_in_8bit > 1:
+        error = "at most one of --load-in-4bit, --load-in-8bit and --load-vision-in-8bit"
+    elif cfg.random_weights == bool(str(cfg.pretrained_checkpoint)):
+        error = "pass exactly one of --pretrained-checkpoint DIR and --random-weights"
+    elif cfg.random_weights and cfg.platform not in DEPLOYMENTS:
+        error = f"--platform must be one of {sorted(DEPLOYMENTS)}, got {cfg.platform!r}"
+    if error:
+        print(f"deploy: error: {error}", file=sys.stderr)
+        raise SystemExit(2)
+
+
 def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--random-weights", action="store_true",
-                        help="serve seeded random weights (required: checkpoint "
-                             "loading is not ported yet)")
-    parser.add_argument("--host", default="0.0.0.0")
-    parser.add_argument("--port", type=int, default=8777)
-    parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--device", default="cuda")
-    parser.add_argument("--load-in-4bit", action="store_true",
-                        help="pack every LLM linear to int4 (W4A16, kernel K5)")
-    parser.add_argument("--int4-a8", action="store_true",
-                        help="with --load-in-4bit: W4A8 (per-token int8 activations, "
-                             "kernel K6)")
-    parser.add_argument("--load-in-8bit", action="store_true",
-                        help="the LLM, the ViTs and the projector in int8 (W8A8, "
-                             "torch._int_mm)")
-    parser.add_argument("--load-vision-in-8bit", action="store_true",
-                        help="the ViTs and the projector in int8, the LLM in bf16")
-    parser.add_argument("--platform", choices=sorted(DEPLOYMENTS), default="libero",
-                        help="libero: 2 images, 8 x 7 chunk; aloha: 3 images, FiLM, "
-                             "25 x 14 chunk")
-    parser.add_argument("--vit-fused", action="store_true",
-                        help="the ViTs' LN + qkv and LN + fc1 as one kernel K4 launch each")
-    parser.add_argument("--no-warmup", action="store_true",
-                        help="bind at once, without one synthetic predict first (the "
-                             "reference's DeployConfig.warmup = False)")
-    args = parser.parse_args(argv)
-    if not args.random_weights:
-        parser.error("checkpoint loading is not ported yet; pass --random-weights")
-    if args.int4_a8 and not args.load_in_4bit:
-        parser.error("--int4-a8 needs --load-in-4bit")
-    if args.load_in_4bit + args.load_in_8bit + args.load_vision_in_8bit > 1:
-        parser.error("at most one of --load-in-4bit, --load-in-8bit and "
-                     "--load-vision-in-8bit")
-    policy = flagship_policy(args.device, seed=args.seed, load_in_4bit=args.load_in_4bit,
-                             int4_a8=args.int4_a8, platform=args.platform,
-                             vit_fused=args.vit_fused, load_in_8bit=args.load_in_8bit,
-                             load_vision_in_8bit=args.load_vision_in_8bit)
-    server = build_server(policy)
-    if not args.no_warmup:
-        print(f"[deploy] warmup run: {warmup(server, policy):.1f}s")
-    print(f"[deploy] serving /act on {args.host}:{args.port}")
-    server.run(args.host, args.port)
+    from openvla_oft_tpu_torch.utils.cli import parse_args
+
+    cfg = parse_args(DeployConfig, argv)
+    _check(cfg)
+    if cfg.random_weights:
+        policy = flagship_policy(cfg.device, seed=cfg.seed, load_in_4bit=cfg.load_in_4bit,
+                                 int4_a8=cfg.int4_a8, platform=cfg.platform,
+                                 vit_fused=cfg.vit_fused, load_in_8bit=cfg.load_in_8bit,
+                                 load_vision_in_8bit=cfg.load_vision_in_8bit)
+        server = build_server(policy)
+        if cfg.warmup:
+            print(f"[deploy] warmup run: {warmup(server, policy):.1f}s")
+    else:
+        server = OpenVLAServer(cfg)
+    print(f"[deploy] serving /act on {cfg.host}:{cfg.port}")
+    server.run(cfg.host, cfg.port)
 
 
 if __name__ == "__main__":

@@ -50,7 +50,16 @@ def _coerce(value: str, ty: Any) -> Any:
     return value
 
 
+def _is_bool(ty: Any) -> bool:
+    if typing.get_origin(ty) is typing.Union:
+        args = [a for a in typing.get_args(ty) if a is not type(None)]
+        return len(args) == 1 and _is_bool(args[0])
+    return ty is bool or ty == "bool"
+
+
 def parse_args(config_cls: Type[T], argv: Optional[Sequence[str]] = None) -> T:
+    """`--name value` (or `--name=value`) per field, dashes or underscores.
+    A bool field also takes a bare `--name` (True) and `--no-name` (False)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     fields = {f.name: f for f in dataclasses.fields(config_cls)}
     hints = typing.get_type_hints(config_cls)
@@ -62,17 +71,26 @@ def parse_args(config_cls: Type[T], argv: Optional[Sequence[str]] = None) -> T:
             raise SystemExit(f"unexpected positional argument {arg!r}")
         if "=" in arg:
             name, value = arg[2:].split("=", 1)
+            name = name.replace("-", "_")
             i += 1
         else:
-            name = arg[2:]
-            if name.replace("-", "_") in ("help", "h"):
+            name = arg[2:].replace("-", "_")
+            if name in ("help", "h"):
                 _print_help(config_cls)
                 raise SystemExit(0)
-            if i + 1 >= len(argv):
+            bare = i + 1 >= len(argv) or argv[i + 1].startswith("--")
+            if bare and name in fields and _is_bool(hints.get(name)):
+                value = "true"
+                i += 1
+            elif bare and name.startswith("no_") and name not in fields \
+                    and _is_bool(hints.get(name[3:])):
+                name, value = name[3:], "false"
+                i += 1
+            elif i + 1 >= len(argv):
                 raise SystemExit(f"missing value for --{name}")
-            value = argv[i + 1]
-            i += 2
-        name = name.replace("-", "_")
+            else:
+                value = argv[i + 1]
+                i += 2
         if name in ("help", "h"):
             _print_help(config_cls)
             raise SystemExit(0)

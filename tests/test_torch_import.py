@@ -1,5 +1,9 @@
 """The port imports neither JAX nor the JAX package, and its copies of the
-JAX package's configs and platforms do not drift from the originals.
+JAX package's configs and platforms do not drift from the originals. No
+port module imports `experiments`, or at its top `safetensors`,
+`transformers`, `tensorflow` or `PIL`, which the card's machine lacks (the
+functions that may use the last four import them inside, and raise a clear
+error where they are missing).
 
 `port_config` and `port_platform` are how the other parity tests hand the
 same model and platform to both sides: each side's objects go only to its
@@ -58,26 +62,31 @@ def port_platform(platform: JK.PlatformSpec) -> PK.PlatformSpec:
     return PK.get_platform(platform.name)
 
 
+_BANNED = ("jax", "openvla_oft_tpu", "vla_scripts", "experiments", "safetensors",
+           "transformers", "tensorflow", "PIL")
 _IMPORT_ALL_WITHOUT_JAX = """
 import importlib, pkgutil, sys
-# any `import jax`, `import openvla_oft_tpu...` or `import vla_scripts...` now raises
-for banned in ("jax", "openvla_oft_tpu", "vla_scripts"):
-    sys.modules[banned] = None
+banned = %r
+# any `import jax`, `import openvla_oft_tpu...`, `import safetensors`, ... now raises
+for name in banned:
+    sys.modules[name] = None
 import openvla_oft_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
-assert not any(m.split(".")[0] in ("jax", "openvla_oft_tpu", "vla_scripts") for m in loaded)
+assert not any(m.split(".")[0] in banned for m in loaded)
 print(" ".join(names))
-"""
+""" % (_BANNED,)
 
 # Modules that must be among those imported under the ban.
 _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "utils.timing",
                 "ops.int4_matmul", "ops.flash_attention", "serving.deploy", "training.finetune",
                 "scripts.exp_k5_overlap", "scripts.exp_probe_parts", "ops.quant_calibrate",
                 "scripts.calibrate_quant", "ops.ddim", "scripts.bench_diffusion",
-                "scripts.bench_ar")
+                "scripts.bench_ar", "utils.safetensors_io", "utils.weights", "utils.hf_import",
+                "processing.sentencepiece", "processing.prompting", "serving.openvla_utils",
+                "scripts.convert_weights")
 
 
 def test_every_module_imports_without_jax():
@@ -85,7 +94,7 @@ def test_every_module_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 44
+    assert len(names) >= 51
     assert {f"openvla_oft_tpu_torch.{m}" for m in _MUST_IMPORT} <= set(names)
 
 
@@ -96,6 +105,13 @@ def test_no_jax_import_in_the_source():
                  if pattern.search(p.read_text())]
     assert offenders == []
     assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+    # anywhere: the eval scripts; at the top of a module: the packages the
+    # card's machine lacks
+    anywhere = re.compile(r"^\s*(import|from)\s+experiments\b", re.M)
+    top = re.compile(r"^(import|from)\s+(safetensors|transformers|tensorflow|PIL)\b", re.M)
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        text = path.read_text()
+        assert not anywhere.search(text) and not top.search(text), path
 
 
 # Run in a fresh interpreter: other test files of the same worker register

@@ -621,7 +621,8 @@ def test_calibrate_script_runs_tiny(tmp_path, capsys):
                                    "--n_observations", "1", "--out", str(out)])
     assert json.loads(out.read_text()) == json.loads(json.dumps(report))
     assert report["bits"] == 8 and np.isfinite(report["action_l1"]["mean"])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a checkpoint dir loads (tests/test_torch_checkpoint.py); a hub id is refused
+    with pytest.raises(FileNotFoundError, match="local checkpoint directory"):
         calibrate_quant.main(["--vla_path", "some/checkpoint", "--device", "cpu"])
 
 
