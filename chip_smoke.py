@@ -133,10 +133,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      with `serving_params`; one request to the deploy CLI (`python -m
      openvla_oft_tpu_torch.serving.deploy --pretrained-checkpoint DIR
      --unnorm-key K --device-preprocess`) in a process of its own, stopped
-     after it; the device peak of the build from disk against
+     after it, then one without `--device-preprocess` (the CLI's default,
+     the staged path; phase 8f (c)); the device peak of the build from disk against
      the build from seeded weights; then `load_in_4bit`, one request (K5
      18); bytes, write and load seconds, load GB/s, host and device peaks,
      the warm-up and each request's time; the dir removed;
+  8f. staged serving, the reference's eval conditioning on the card (run
+     inside phases 5, 8c, 8d and 8e, on their policies): (a) after phase 5,
+     the JPEG round trip (`processing/jpeg.py`) on every frame of
+     `tests/goldens/jpeg_tf_q95.npz`, bitwise equal to TF's stored round
+     trips and to its CPU run, two CUDA calls bitwise equal, its kernels and
+     time per 256 x 256 frame, LIBERO request and ALOHA request; (b) the
+     flagship L1 (after phase 5), diffusion (8c, bf16) and discrete (8d)
+     policies through `get_vla_action` with `device_preprocess=False`: 2
+     requests each (K1 31 / 32 / 31), one /act through an `ActionServer`
+     whose predict makes that call, bitwise equal to the in-process answer
+     (the diffusion generator reseeded); for L1 the same observations
+     through the `device_preprocess` route, and each route's conditioning
+     alone, timed; (c) in phase 8e, the deploy CLI without
+     `--device-preprocess`, bitwise equal to `OpenVLAServer.predict` in
+     process;
   9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
      version at the training shape (B=8, per-row pads and windows), the
      ALOHA length, GQA and dead rows, two calls of each bitwise equal, with
@@ -1347,6 +1363,8 @@ def diffusion_serving(card: str, rng) -> dict:
         k5 = 4 * n_layers * (1 + policy.num_diffusion_steps) if quant else 0
         expect = {"K1": n_layers, "K4": 0, "K5": k5, "K6": 0, "int8": 0}
         runs[label] = staged_requests(policy, rng, 2 if quant else 3, label, expect, card)
+        if not quant:
+            runs["staged bf16"] = staged_serving(policy, card, rng, expect)
         diffusion_profile(policy, rng, f"diffusion {label}", card)
         if quant:
             diffusion_k5_parity(policy, rng, card)
@@ -1357,6 +1375,146 @@ def diffusion_serving(card: str, rng) -> dict:
         torch.cuda.empty_cache()
     log(f"[diffusion] phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return runs
+
+
+# === Phase 8f: the staged eval conditioning on the card ===
+JPEG_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                           "jpeg_tf_q95.npz")
+
+
+def jpeg_check(card: str) -> None:
+    """Phase 8f (a): the JPEG round trip (`processing/jpeg.py`) on the card.
+    Every frame of `tests/goldens/jpeg_tf_q95.npz` through the codec on CUDA
+    bitwise equal to TF's stored round trip and to the codec's CPU run, two
+    CUDA calls bitwise equal; then its kernels and time per 256 x 256 frame,
+    per LIBERO request (2 x 256 x 256) and per ALOHA request (3 x 224 x
+    224): CUDA events around the call (host launches included: the card
+    waits on them), the device time of its kernels (torch.profiler) and
+    the host clock."""
+    from openvla_oft_tpu_torch.processing.jpeg import jpeg_roundtrip
+
+    stored = np.load(JPEG_GOLDEN)
+    names = [k[len("frame_"):] for k in stored.files if k.startswith("frame_")]
+    for name in names:
+        frame = torch.from_numpy(stored["frame_" + name])[None]
+        got, again = jpeg_roundtrip(frame.cuda()), jpeg_roundtrip(frame.cuda())
+        if not np.array_equal(got[0].cpu().numpy(), stored["tf_" + name]):
+            raise AssertionError(f"the codec on the card differs from TF's round trip of {name}")
+        if not torch.equal(got.cpu(), jpeg_roundtrip(frame)) or not torch.equal(got, again):
+            raise AssertionError(f"the codec's CUDA runs of {name} differ from its CPU run "
+                                 "or from each other")
+    log(f"[jpeg] the codec on the card: {len(names)} golden frames ({', '.join(names)}) "
+        "bitwise equal to TF's stored round trips (quality 95) and to the codec's CPU run; "
+        "two CUDA calls bitwise equal")
+    rng = np.random.default_rng(0)
+    for label, n, hw in (("one 256x256 frame", 1, (256, 256)),
+                         ("LIBERO request, 2 x 256x256", 2, (256, 256)),
+                         ("ALOHA request, 3 x 224x224", 3, (224, 224))):
+        x = torch.from_numpy(rng.integers(0, 256, (n, *hw, 3), dtype=np.uint8)).cuda()
+        ms = cuda_time_ms(lambda: jpeg_roundtrip(x), iters=20, warmup=3)
+        host = float(np.median([timed(lambda: jpeg_roundtrip(x)) for _ in range(5)]))
+        _, kernels, busy, _ = trace(lambda: jpeg_roundtrip(x))
+        dev = "not measured" if busy is None else f"{busy:.4f} ms"
+        log(f"[jpeg] {label}: {kernels} kernels a call; {ms:.3f} ms by CUDA events "
+            f"({ms / n:.3f} ms a frame), host clock {host:.3f} ms, device time of its "
+            f"kernels {dev} ({card})")
+
+
+def staged_serving(policy, card: str, rng, expect: dict) -> dict:
+    """Phase 8f (b): `policy` through `get_vla_action` on the staged path
+    (`device_preprocess=False`: the JPEG round trip, lanczos3 resize and
+    crop on the card, then `predict_action`), as `OpenVLAServer.predict`
+    calls it: 2 requests in process, then one over HTTP /act through an
+    `ActionServer` whose predict makes that call, bitwise equal to the
+    in-process answer on the same observation (the diffusion head's
+    generator reseeded before each of the two). Each request launches
+    `expect`. For the L1 head, the same 2 observations also through the
+    one-pass `device_preprocess` route, and the conditioning alone on each
+    route. The counts are set to 0 before the first request and read after
+    the last; returns them."""
+    from openvla_oft_tpu_torch.processing.image_processing import (device_preprocess,
+                                                                   prepare_images_for_policy)
+    from openvla_oft_tpu_torch.serving.deploy import DeployConfig, get_action_from_server
+    from openvla_oft_tpu_torch.serving.openvla_utils import get_vla_action
+    from openvla_oft_tpu_torch.serving.server import ActionServer
+
+    head, platform = policy.head, policy.platform
+    cfg = DeployConfig(use_l1_regression=head == "l1", use_diffusion=head == "diffusion",
+                       num_images_in_input=policy.cfg.num_images_in_input,
+                       num_open_loop_steps=platform.num_actions_chunk, unnorm_key="random",
+                       device_preprocess=False)
+
+    def predict(observation: dict, instruction: str, route=cfg) -> np.ndarray:
+        return np.stack(get_vla_action(route, policy, None, observation, instruction))
+
+    def request(obs: dict, route=cfg) -> tuple:
+        before = launch_counts()
+        t0 = time.perf_counter()
+        action = predict(dict(obs), obs["instruction"], route)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        per_request = {k: n - before[k] for k, n in launch_counts().items() if k in expect}
+        if action.shape != (platform.num_actions_chunk, platform.action_dim) \
+                or not np.isfinite(action).all():
+            raise AssertionError(f"bad staged {head} action chunk")
+        return action, per_request, dt
+
+    reset_launch_counts()
+    observations, walls = [observation(policy, rng) for _ in range(2)], []
+    for i, obs in enumerate(observations):
+        _, per_request, dt = request(obs)
+        walls.append(dt)
+        log(f"[staged] {head} request {i} through get_vla_action (device_preprocess=False): "
+            f"launches {per_request}, {dt:.1f} ms (host clock, ends in "
+            f"torch.cuda.synchronize; {card})")
+        if per_request != expect:
+            raise AssertionError(f"a staged {head} request launched {per_request}, "
+                                 f"expected {expect}")
+    server = ActionServer(predict)
+    port = free_port()
+    server.run("127.0.0.1", port, background=True)
+    obs = observation(policy, rng)
+    try:
+        if policy.generator is not None:
+            policy.generator.manual_seed(1234)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        served = get_action_from_server(obs, f"http://127.0.0.1:{port}/act")
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        per_request = {k: n - before[k] for k, n in launch_counts().items() if k in expect}
+    finally:
+        server.shutdown()
+    if policy.generator is not None:
+        policy.generator.manual_seed(1234)
+    want, _, _ = request(obs)
+    if not isinstance(served, np.ndarray) or served.shape != want.shape:
+        raise AssertionError(f"the staged {head} /act answered {served!r}")
+    if not np.array_equal(served, want) or per_request != expect:
+        raise AssertionError(f"the staged {head} /act launched {per_request} (expected "
+                             f"{expect}), max|d| = {np.abs(served - want).max():.3e} from the "
+                             "in-process answer")
+    launches = launch_counts()
+    log(f"[staged] {head} /act (ActionServer, get_vla_action, staged): {served.shape}, launches "
+        f"{per_request}, {dt:.1f} ms (host wall clock around the HTTP round trip); bitwise "
+        f"equal to the in-process answer on the same observation ({card})")
+    if head == "l1":
+        one_pass = dataclasses.replace(cfg, device_preprocess=True)
+        direct = [request(o, one_pass)[2] for o in observations]
+        images = [[o["full_image"], o["wrist_image"]] for o in observations]
+        staged_ms = [timed(lambda: prepare_images_for_policy(im, policy.cfg, device="cuda"))
+                     for im in images]
+        size = policy.cfg.vision_configs[0].image_size
+        frames = [torch.from_numpy(np.stack(im)).cuda() for im in images]
+        direct_ms = [timed(lambda: device_preprocess(policy.cfg, f, size)) for f in frames]
+        log(f"[staged] L1 at LIBERO, the same 2 observations through get_vla_action: staged "
+            f"{', '.join(f'{t:.1f}' for t in walls)} ms, device_preprocess "
+            f"{', '.join(f'{t:.1f}' for t in direct)} ms; the conditioning alone: "
+            f"prepare_images_for_policy (JPEG, resize, crop, transform) "
+            f"{', '.join(f'{t:.2f}' for t in staged_ms)} ms, device_preprocess "
+            f"{', '.join(f'{t:.2f}' for t in direct_ms)} ms (host clock, ends in "
+            f"torch.cuda.synchronize; {card})")
+    return launches
 
 
 def build_policy(label: str, card: str, **kw):
@@ -1613,6 +1771,7 @@ def discrete_serving(card: str, rng) -> dict:
     n_layers, platform = policy.cfg.llm.num_layers, policy.platform
     runs["parallel bf16"] = staged_requests(policy, rng, 3, "discrete bf16",
                                             {"K1": n_layers - 1, **none}, card)
+    runs["staged bf16"] = staged_serving(policy, card, rng, {"K1": n_layers - 1, **none})
     discrete_parity(policy, rng, card)
     ar_cfg = dataclasses.replace(policy.cfg, num_images_in_input=1)
     runs["AR bf16"] = ar_requests(policy.params, ar_cfg, platform, [7, 7, 7, 56, 56],
@@ -1787,18 +1946,21 @@ def trees_bitwise_equal(a, b, path="") -> int:
     return 1
 
 
-def deploy_cli(ckpt: str, device: str, obs: dict, want: np.ndarray, card: str) -> None:
+def deploy_cli(ckpt: str, device: str, obs: dict, want: np.ndarray, card: str,
+               device_preprocess: bool = True, max_d: float = 1e-3) -> None:
     """`python -m openvla_oft_tpu_torch.serving.deploy --pretrained-checkpoint
-    DIR --unnorm-key K --device-preprocess` in a process of its own: waits
+    DIR --unnorm-key K [--device-preprocess]` in a process of its own: waits
     for it to bind, sends `obs` to its /act, holds the answer against `want`
-    (the in-process server's, on the same observation), and stops it."""
+    (the in-process server's, on the same observation) within `max_d`, and
+    stops it."""
     from openvla_oft_tpu_torch.serving.deploy import get_action_from_server
 
     port = free_port()
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "openvla_oft_tpu_torch.serving.deploy",
            "--pretrained-checkpoint", ckpt, "--unnorm-key", CKPT_UNNORM_KEY,
-           "--device-preprocess", "--num-images-in-input", "2", "--num-open-loop-steps", "8",
+           *(["--device-preprocess"] if device_preprocess else []),
+           "--num-images-in-input", "2", "--num-open-loop-steps", "8",
            "--host", "127.0.0.1", "--port", str(port), "--device", device]
     env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
     t0 = time.perf_counter()
@@ -1830,11 +1992,12 @@ def deploy_cli(ckpt: str, device: str, obs: dict, want: np.ndarray, card: str) -
         if not isinstance(got, np.ndarray):
             raise AssertionError(f"the deploy CLI's /act answered {got!r}")
         d = float(np.abs(got - want).max())
-        log(f"[checkpoint] deploy CLI ({' '.join(cmd[1:5])} ... --device-preprocess): bound "
+        route = "--device-preprocess" if device_preprocess else "no --device-preprocess: staged"
+        log(f"[checkpoint] deploy CLI ({' '.join(cmd[1:5])} ... {route}): bound "
             f"after {t_bind:.1f} s (process start, load, warm-up; host clock), /act answered "
             f"{got.shape}, max|d| = {d:.3e} from the in-process server's answer ({card}); its "
             f"log: " + " | ".join(line for line in lines if line.startswith("[deploy]")))
-        if not d <= 1e-3:
+        if not d <= max_d:
             raise AssertionError("the deploy CLI's answer differs from the in-process server's")
     finally:
         proc.terminate()
@@ -2013,6 +2176,12 @@ def checkpoint_serving(card: str, rng, device: str = "cuda") -> dict:
         log("[checkpoint] the 3 /act answers are bitwise equal to the in-memory policy's on "
             "the same observations")
         deploy_cli(ckpt, device, observations[0], answers[0], card)
+        # Phase 8f (c): the CLI's default, the staged path, against
+        # OpenVLAServer.predict in process on the same observation.
+        server.cfg = dataclasses.replace(deploy_cfg, device_preprocess=False)
+        staged = server.predict(dict(observations[0]), observations[0]["instruction"])
+        deploy_cli(ckpt, device, observations[0], staged, card, device_preprocess=False,
+                   max_d=0.0)
         del server, memory_policy
         server = None
         gc.collect()
@@ -2645,6 +2814,9 @@ def main() -> int:
         warm=False, stdlib_check=True)
     bf16_hidden = path_parity(policy, observations[0], answers[0])
     libero_vit_fused(policy, observations[0], card)
+    jpeg_check(card)
+    staged_l1 = staged_serving(policy, card, rng,
+                               {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": 0, "int8": 0})
     del policy
     gc.collect()
     torch.cuda.empty_cache()
@@ -2678,7 +2850,7 @@ def main() -> int:
     bwd_cases = {n: c for n, c in bwd.items() if n != "stats"}
     fc1 = k4["DINOv2 fc1 ALOHA"]
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
-    k1_launches = (serve_launches["K1"] + aloha[True]["launches"]["K1"]
+    k1_launches = (serve_launches["K1"] + staged_l1["K1"] + aloha[True]["launches"]["K1"]
                    + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
                    + sum(run["K1"] for run in int8_launches.values())
                    + sum(run["K1"] for run in diffusion.values())
@@ -2740,7 +2912,8 @@ def main() -> int:
                      library_call="torch.matmul on the dequantized bf16 weight",
                      hgmma=wgmma["probe"], timing="device time (torch.profiler)",
                      shapes_t112=probe["modes"])]
-    log(f"[launches] bf16 serving run: {serve_launches}; ALOHA serving runs: vit_fused "
+    log(f"[launches] bf16 serving run: {serve_launches}; staged L1 run (4 requests: 2, one "
+        f"over /act and its in-process twin): {staged_l1}; ALOHA serving runs: vit_fused "
         f"{aloha_k4}, unfused {aloha[False]['launches']}; int4 serving runs: W4A16 {w4a16}, "
         f"W4A8 {w4a8}; probe run: {probe['launches']}; training run: {train_launches}; "
         f"TINY_LLAMA request under auto: {tiny_launches}")
@@ -2748,9 +2921,10 @@ def main() -> int:
         f"{int8_launches['dynamic']}, with static scales {int8_launches['static']}, "
         f"load_vision_in_8bit {int8_launches['vision']}")
     log(f"[diffusion] launches of the diffusion runs: bf16 (3 requests) "
-        f"{diffusion['bf16']}, int4 W4A16 (2 requests) {diffusion['int4 W4A16']}")
+        f"{diffusion['bf16']}, staged bf16 (4 requests) {diffusion['staged bf16']}, int4 "
+        f"W4A16 (2 requests) {diffusion['int4 W4A16']}")
     log(f"[discrete] launches of the discrete runs: parallel bf16 (3 requests) "
-        f"{discrete['parallel bf16']}, AR bf16 (3 x 7 and 2 x 56 tokens) {discrete['AR bf16']}, "
+        f"{discrete['parallel bf16']}, staged bf16 (4 requests) {discrete['staged bf16']}, AR bf16 (3 x 7 and 2 x 56 tokens) {discrete['AR bf16']}, "
         f"AR int4 W4A16 (2 x 7) {discrete['AR int4 W4A16']}, AR int8 (1 x 7) "
         f"{discrete['AR int8']}")
     log(f"[checkpoint] launches of the checkpoint runs: bf16 (3 requests) "

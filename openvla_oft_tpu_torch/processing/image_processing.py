@@ -3,11 +3,14 @@
 Port of `openvla_oft_tpu/processing/image_processing.py`: `device_preprocess`,
 `center_crop_resize`, `normalize_and_stack`, `make_device_transform` (the
 processor transform: "resize-naive", "resize-crop" and "letterbox"),
-`jpeg_roundtrip` and the staged host pipeline `prepare_images_for_policy`.
-Serving: uint8 camera frames -> lanczos3 antialiased resize -> round to
-uint8 -> 0.9-area center crop (bilinear, the reference's floor(v*255.5)
-uint8 rule) -> [0, 1] -> the processor transform (bicubic antialiased
-resize where the size differs, per-backbone normalize, backbone stack).
+`jpeg_roundtrip` and the staged pipeline `prepare_images_for_policy`, which
+runs on the policy's device. The reference's eval conditioning: uint8
+camera frames -> the JPEG round trip at quality 95 (`processing/jpeg.py`,
+libjpeg's integer pipeline as TF runs it) -> lanczos3 antialiased resize
+-> round to uint8 -> 0.9-area center crop (bilinear, the reference's
+floor(v*255.5) uint8 rule) -> [0, 1] -> the processor transform (bicubic
+antialiased resize where the size differs, per-backbone normalize,
+backbone stack).
 
 torch has no lanczos mode, and its bicubic antialiased resize is not
 `jax.image.resize`'s, so the separable (in, out) weight matrices are built
@@ -20,13 +23,13 @@ Keys' cubic kernel (a = -0.5), and applied as fp32 matmuls.
 from __future__ import annotations
 
 import functools
-import io
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from openvla_oft_tpu_torch.config import OpenVLAConfig
+from openvla_oft_tpu_torch.processing import jpeg as _jpeg
 
 _F32 = np.float32
 
@@ -213,52 +216,43 @@ def device_preprocess(cfg: OpenVLAConfig, images_u8: torch.Tensor,
 
 
 def jpeg_roundtrip(image: np.ndarray, quality: int = 95) -> np.ndarray:
-    """Host JPEG encode and decode of one uint8 (H, W, 3) frame, the
-    artifact the reference's eval conditioning adds (openvla_utils.py:516-539).
+    """JPEG encode and decode of one uint8 (H, W, 3) frame, the artifact the
+    reference's eval conditioning adds (openvla_utils.py:516-539), as
+    `tf.io.decode_image(tf.io.encode_jpeg(image, quality))` gives it, bit
+    for bit: the port's own codec (`processing/jpeg.py`), on the CPU.
 
-    TF's libjpeg wrapper first, as the reference (tf.image.encode_jpeg,
-    tf.io.decode_image), then PIL (its encoder rounds differently by a
-    pixel level here and there). With neither installed it raises: skipping
-    the round trip would change the policy's inputs without a word; serve
-    with `device_preprocess=True` instead, which has no round trip."""
-    try:
-        import tensorflow as tf
-    except ImportError:
-        tf = None
-    if tf is not None:
-        enc = tf.io.encode_jpeg(tf.constant(image), quality=quality)
-        return tf.io.decode_image(enc, expand_animations=False, dtype=tf.uint8).numpy()
-    try:
-        from PIL import Image
-    except ImportError as err:
-        raise ImportError("the staged path's JPEG round trip needs tensorflow or PIL, and "
-                          "neither is installed; serve with device_preprocess=True (the "
-                          "one-pass path, no JPEG round trip)") from err
-    buf = io.BytesIO()
-    Image.fromarray(image).save(buf, format="JPEG", quality=quality)
-    buf.seek(0)
-    return np.asarray(Image.open(buf).convert("RGB"))
+    TF's and PIL's encoders write the same coefficients; their decoders
+    differ (TF's inverse DCT is libjpeg's IFAST, PIL's the accurate ISLOW,
+    up to 5 levels apart), so PIL's round trip is not the reference's."""
+    return _jpeg.jpeg_roundtrip(torch.from_numpy(np.ascontiguousarray(image))[None],
+                                quality)[0].numpy()
 
 
 def prepare_images_for_policy(images: Sequence[np.ndarray], cfg: OpenVLAConfig,
                               center_crop: bool = True, use_jpeg_roundtrip: bool = True,
                               resize_size: int = 224, device="cpu") -> torch.Tensor:
     """The staged eval-side pipeline (reference `prepare_images_for_vla`,
-    openvla_utils.py:678-708): each frame through the JPEG round trip, the
-    lanczos3 resize to `resize_size` (rounded to uint8) and the optional 0.9
-    center crop, then the processor transform. (N, n_backbones, S, S, 3)
-    fp32 normalized pixels on `device`."""
-    conditioned = []
+    openvla_utils.py:678-708): each frame through the JPEG round trip at
+    quality 95, the lanczos3 resize to `resize_size` (rounded to uint8) and
+    the optional 0.9 center crop, then the processor transform, all on
+    `device`; frames of one shape go through as one batch.
+    (N, n_backbones, S, S, 3) fp32 normalized pixels on `device`."""
+    frames = []
     for img in images:
         img = np.asarray(img)
         if img.dtype != np.uint8:
             img = np.clip(img, 0, 255).astype(np.uint8)
+        frames.append(img)
+    conditioned = [None] * len(frames)
+    for shape in dict.fromkeys(f.shape for f in frames):
+        idx = [i for i, f in enumerate(frames) if f.shape == shape]
+        x = torch.from_numpy(np.stack([frames[i] for i in idx])).to(device)
         if use_jpeg_roundtrip:
-            img = jpeg_roundtrip(img)
-        x = resize_lanczos3(torch.from_numpy(np.ascontiguousarray(img)).to(device)
-                            .float()[None], resize_size)
-        x = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+            x = _jpeg.jpeg_roundtrip(x)
+        x = torch.clamp(torch.round(resize_lanczos3(x.float(), resize_size)), 0, 255)
+        x = x.to(torch.uint8)
         if center_crop:
             x = center_crop_resize(x, 0.9)
-        conditioned.append(x[0])
+        for i, xi in zip(idx, x):
+            conditioned[i] = xi
     return make_device_transform(cfg)(torch.stack(conditioned))

@@ -1,0 +1,324 @@
+"""The baseline JPEG round trip of libjpeg(-turbo) under TF's settings, in torch.
+
+`tf.io.decode_image(tf.io.encode_jpeg(x, quality=q))` on an RGB frame is
+libjpeg's baseline codec with 4:2:0 chroma, the ISLOW forward DCT, the IJG
+standard tables scaled by `q`, the IFAST inverse DCT (`JDCT_IFAST`, TF's
+decode default) and fancy upsampling. Entropy coding is lossless, so the
+round trip is the integer pipeline below with no bitstream. Every stage is
+a plain function over a batch, vectorised over every 8 x 8 block, on the
+frames' own device; each cites the libjpeg source it follows:
+
+    rgb_to_ycbcr       jccolor.c   rgb_ycc_convert
+    pad_edge,          jcsample.c  expand_right_edge, h2v2_downsample;
+    downsample_h2v2    jcprepct.c  expand_bottom_edge
+    forward_dct        jfdctint.c  jpeg_fdct_islow (jcdctmgr.c: samples - 128)
+    quant_table        jcparam.c   jpeg_quality_scaling, jpeg_add_quant_table
+    quantize           jcdctmgr.c  quantize (divisor 8 q, rounded)
+    dequantize         jddctmgr.c  the IFAST multipliers
+    inverse_dct        jidctfst.c  jpeg_idct_ifast
+    upsample_h2v2      jdsample.c  h2v2_fancy_upsample, h2v2_upsample
+    ycbcr_to_rgb       jdcolor.c   ycc_rgb_convert
+
+Where the libraries differ: TF's and PIL's encoders write the same
+coefficients at a given quality; their decoders differ. TF decodes with the
+IFAST inverse DCT, PIL with ISLOW, and the two disagree by up to 5 levels on
+most pixels of a random frame. This module is TF's.
+
+Integer width: int32 everywhere. The widest values are in the forward DCT's
+second pass: its inputs are the first pass's outputs, |v| <= 2^12 (an 8-point
+DCT of samples in [-128, 127], scaled by sqrt(8) and 2^2), so its sums of two
+to four inputs stay below 2^15 and its sums of three products by constants
+below 25,172 stay below 1.2e9 < 2^31. Every other stage is smaller. Right
+shifts of negative values are arithmetic (floor), as `>>` is on torch
+integers and in libjpeg's RIGHT_SHIFT.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+_I32 = torch.int32
+
+# jcparam.c: the IJG standard tables (JPEG spec, Annex K), natural order.
+STD_LUMINANCE = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61,
+    12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77,
+    24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101,
+    72, 92, 95, 98, 112, 100, 103, 99], np.int64).reshape(8, 8)
+STD_CHROMINANCE = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99,
+    18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99,
+    47, 66, 99, 99, 99, 99, 99, 99,
+    *[99] * 32], np.int64).reshape(8, 8)
+
+# jddctmgr.c: the AA&N scale factors of the IFAST multipliers, scaled by 2^14.
+AANSCALES = np.array([
+    16384, 22725, 21407, 19266, 16384, 12873, 8867, 4520,
+    22725, 31521, 29692, 26722, 22725, 17855, 12299, 6270,
+    21407, 29692, 27969, 25172, 21407, 16819, 11585, 5906,
+    19266, 26722, 25172, 22654, 19266, 15137, 10426, 5315,
+    16384, 22725, 21407, 19266, 16384, 12873, 8867, 4520,
+    12873, 17855, 16819, 15137, 12873, 10114, 6967, 3552,
+    8867, 12299, 11585, 10426, 8867, 6967, 4799, 2446,
+    4520, 6270, 5906, 5315, 4520, 3552, 2446, 1247], np.int64).reshape(8, 8)
+
+
+def _fix(x: float) -> int:
+    """jccolor.c / jdcolor.c FIX(x) at SCALEBITS = 16."""
+    return int(x * 65536 + 0.5)
+
+
+_HALF = 1 << 15
+_CBCR_OFFSET = 128 << 16
+
+
+def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
+    """jccolor.c rgb_ycc_convert: int32 (..., 3) RGB -> int32 (..., 3)
+    YCbCr. Cb and Cr round with 0.5 - epsilon, so 255 stays 255."""
+    r, g, b = rgb.unbind(-1)
+    y = (_fix(0.299) * r + _fix(0.587) * g + _fix(0.114) * b + _HALF) >> 16
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b
+          + _CBCR_OFFSET + _HALF - 1) >> 16
+    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b
+          + _CBCR_OFFSET + _HALF - 1) >> 16
+    return torch.stack([y, cb, cr], -1)
+
+
+def ycbcr_to_rgb(ycc: torch.Tensor) -> torch.Tensor:
+    """jdcolor.c ycc_rgb_convert: int32 (..., 3) YCbCr -> int32 (..., 3) RGB
+    in [0, 255] (the range-limit table clamps)."""
+    y, cb, cr = ycc.unbind(-1)
+    cb, cr = cb - 128, cr - 128
+    r = y + ((_fix(1.40200) * cr + _HALF) >> 16)
+    g = y + ((-_fix(0.34414) * cb + _HALF - _fix(0.71414) * cr) >> 16)
+    b = y + ((_fix(1.77200) * cb + _HALF) >> 16)
+    return torch.stack([r, g, b], -1).clamp_(0, 255)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pad_edge(plane: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(N, h, w) -> (N, height, width), the last row and column replicated
+    (jcsample.c expand_right_edge, jcprepct.c expand_bottom_edge)."""
+    _, h, w = plane.shape
+    if height > h:
+        plane = torch.cat([plane, plane[:, -1:].expand(-1, height - h, -1)], 1)
+    if width > w:
+        plane = torch.cat([plane, plane[:, :, -1:].expand(-1, -1, width - w)], 2)
+    return plane
+
+
+def downsample_h2v2(plane: torch.Tensor) -> torch.Tensor:
+    """jcsample.c h2v2_downsample with jcprepct.c's padding: full-size
+    chroma (N, H, W) -> (N, 8 ceil(ceil(H/2)/8), 8 ceil(ceil(W/2)/8)).
+
+    The rows are replicated to an even count and the columns to 16 per
+    output block; each output is the 2 x 2 sum plus a bias of 1, 2, 1, 2...
+    along the row, >> 2; the subsampled rows are then replicated to a
+    multiple of 8 (the iMCU's dummy rows)."""
+    _, h, w = plane.shape
+    out_w = 8 * _ceil(_ceil(w, 2), 8)
+    p = pad_edge(plane, 2 * _ceil(h, 2), 2 * out_w)
+    s = p[:, 0::2, 0::2] + p[:, 0::2, 1::2] + p[:, 1::2, 0::2] + p[:, 1::2, 1::2]
+    bias = torch.arange(out_w, device=plane.device, dtype=_I32) % 2 + 1
+    s = (s + bias) >> 2
+    return pad_edge(s, 8 * _ceil(s.shape[1], 8), out_w)
+
+
+def to_blocks(plane: torch.Tensor) -> torch.Tensor:
+    """(N, 8a, 8b) -> (N, a, b, 8, 8)."""
+    n, h, w = plane.shape
+    return plane.reshape(n, h // 8, 8, w // 8, 8).transpose(2, 3)
+
+
+def from_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """(N, a, b, 8, 8) -> (N, 8a, 8b)."""
+    n, a, b = blocks.shape[:3]
+    return blocks.transpose(2, 3).reshape(n, 8 * a, 8 * b)
+
+
+# jfdctint.c (8-bit samples): CONST_BITS 13, PASS1_BITS 2, FIX_* at 2^13.
+_FDCT_CONST_BITS, _PASS1_BITS = 13, 2
+
+
+def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
+    """jdct.h DESCALE: a right shift that rounds half up."""
+    return (x + (1 << (n - 1))) >> n
+
+
+def _fdct_1d(d: torch.Tensor, first_pass: bool) -> torch.Tensor:
+    """One pass of jpeg_fdct_islow along the last axis (LL&M)."""
+    d0, d1, d2, d3, d4, d5, d6, d7 = d.unbind(-1)
+    tmp0, tmp7 = d0 + d7, d0 - d7
+    tmp1, tmp6 = d1 + d6, d1 - d6
+    tmp2, tmp5 = d2 + d5, d2 - d5
+    tmp3, tmp4 = d3 + d4, d3 - d4
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    if first_pass:
+        out0 = (tmp10 + tmp11) << _PASS1_BITS
+        out4 = (tmp10 - tmp11) << _PASS1_BITS
+        n = _FDCT_CONST_BITS - _PASS1_BITS
+    else:
+        out0 = _descale(tmp10 + tmp11, _PASS1_BITS)
+        out4 = _descale(tmp10 - tmp11, _PASS1_BITS)
+        n = _FDCT_CONST_BITS + _PASS1_BITS
+    z1 = (tmp12 + tmp13) * 4433                               # FIX_0_541196100
+    out2 = _descale(z1 + tmp13 * 6270, n)                     # FIX_0_765366865
+    out6 = _descale(z1 + tmp12 * -15137, n)                   # FIX_1_847759065
+    z1, z2 = tmp4 + tmp7, tmp5 + tmp6
+    z3, z4 = tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * 9633                                     # FIX_1_175875602
+    tmp4 = tmp4 * 2446                                        # FIX_0_298631336
+    tmp5 = tmp5 * 16819                                       # FIX_2_053119869
+    tmp6 = tmp6 * 25172                                       # FIX_3_072711026
+    tmp7 = tmp7 * 12299                                       # FIX_1_501321110
+    z1 = z1 * -7373                                           # FIX_0_899976223
+    z2 = z2 * -20995                                          # FIX_2_562915447
+    z3 = z3 * -16069 + z5                                     # FIX_1_961570560
+    z4 = z4 * -3196 + z5                                      # FIX_0_390180644
+    out7 = _descale(tmp4 + z1 + z3, n)
+    out5 = _descale(tmp5 + z2 + z4, n)
+    out3 = _descale(tmp6 + z2 + z3, n)
+    out1 = _descale(tmp7 + z1 + z4, n)
+    return torch.stack([out0, out1, out2, out3, out4, out5, out6, out7], -1)
+
+
+def forward_dct(blocks: torch.Tensor) -> torch.Tensor:
+    """jcdctmgr.c + jfdctint.c: int32 samples (..., 8, 8) in [0, 255] ->
+    the ISLOW DCT of samples - 128, rows then columns, scaled by 8;
+    [..., u, v] is vertical frequency u, horizontal v."""
+    x = _fdct_1d(blocks - 128, first_pass=True)
+    return _fdct_1d(x.transpose(-1, -2), first_pass=False).transpose(-1, -2)
+
+
+@functools.lru_cache(maxsize=16)
+def quant_table(quality: int, chroma: bool) -> np.ndarray:
+    """jcparam.c: the standard table scaled by jpeg_quality_scaling(quality)
+    (5000 / q below 50, else 200 - 2q), each entry (t s + 50) // 100
+    clipped to [1, 255] (baseline). int64 (8, 8), natural order."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    base = STD_CHROMINANCE if chroma else STD_LUMINANCE
+    table = np.clip((base * scale + 50) // 100, 1, 255)
+    table.flags.writeable = False
+    return table
+
+
+def quantize(coef: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+    """jcdctmgr.c quantize: divisor d = 8 q (the DCT's scale folded in),
+    sign(c) ((|c| + d // 2) // d). libjpeg-turbo's reciprocal form gives
+    the same quotient for every |c| < 2^15 and d = 8 q, q in [1, 255]."""
+    d = torch.as_tensor(8 * table, dtype=_I32, device=coef.device)
+    q = (coef.abs() + d // 2) // d
+    return torch.where(coef < 0, -q, q)
+
+
+def _ifast_mul(v: torch.Tensor, c: int) -> torch.Tensor:
+    """jidctfst.c MULTIPLY at CONST_BITS 8: DESCALE is a bare right shift."""
+    return (v * c) >> 8
+
+
+def _idct_1d(t: torch.Tensor) -> torch.Tensor:
+    """One pass of jpeg_idct_ifast along the last axis (AA&N)."""
+    c0, c1, c2, c3, c4, c5, c6, c7 = t.unbind(-1)
+    tmp10, tmp11 = c0 + c4, c0 - c4                           # even part
+    tmp13 = c2 + c6
+    tmp12 = _ifast_mul(c2 - c6, 362) - tmp13                  # FIX_1_414213562
+    tmp0, tmp3 = tmp10 + tmp13, tmp10 - tmp13
+    tmp1, tmp2 = tmp11 + tmp12, tmp11 - tmp12
+    z13, z10 = c5 + c3, c5 - c3                               # odd part
+    z11, z12 = c1 + c7, c1 - c7
+    tmp7 = z11 + z13
+    tmp11 = _ifast_mul(z11 - z13, 362)                        # FIX_1_414213562
+    z5 = _ifast_mul(z10 + z12, 473)                           # FIX_1_847759065
+    tmp10 = _ifast_mul(z12, 277) - z5                         # FIX_1_082392200
+    tmp12 = _ifast_mul(z10, -669) + z5                        # FIX_2_613125930
+    tmp6 = tmp12 - tmp7
+    tmp5 = tmp11 - tmp6
+    tmp4 = tmp10 + tmp5
+    return torch.stack([tmp0 + tmp7, tmp1 + tmp6, tmp2 + tmp5, tmp3 - tmp4,
+                        tmp3 + tmp4, tmp2 - tmp5, tmp1 - tmp6, tmp0 - tmp7], -1)
+
+
+def ifast_multipliers(table: np.ndarray) -> np.ndarray:
+    """jddctmgr.c (JDCT_IFAST): (q aanscales + 2^11) >> 12, the
+    dequantization multipliers at IFAST_SCALE_BITS 2."""
+    return (table * AANSCALES + (1 << 11)) >> 12
+
+
+def dequantize(qcoef: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+    """jddctmgr.c (JDCT_IFAST): quantized int32 (..., 8, 8) times the IFAST
+    multipliers of `table`."""
+    return qcoef * torch.as_tensor(ifast_multipliers(table), dtype=_I32, device=qcoef.device)
+
+
+def inverse_dct(coef: torch.Tensor) -> torch.Tensor:
+    """jidctfst.c: dequantized int32 (..., 8, 8) -> samples in [0, 255]:
+    columns then rows, then (x >> 5) + 128 clamped (PASS1_BITS + 3; the
+    SIMD decoder saturates, the C range-limit table agrees for
+    |x >> 5| <= 512)."""
+    x = _idct_1d(_idct_1d(coef.transpose(-1, -2)).transpose(-1, -2))
+    return ((x >> (_PASS1_BITS + 3)) + 128).clamp_(0, 255)
+
+
+def upsample_h2v2(plane: torch.Tensor) -> torch.Tensor:
+    """jdsample.c: decoded chroma (N, h, w) at its real size (ceil(H/2),
+    ceil(W/2)) -> (N, 2h, 2w).
+
+    w > 2 (jinit_upsampler's do_fancy rule): h2v2_fancy_upsample, a
+    triangle filter. Each output row's column sums are 3 x its nearest
+    input row + the next nearest (the row above for even output rows, below
+    for odd; the edge rows replicated); then along the row
+    (3 this + left + 8) >> 4 and (3 this + right + 7) >> 4, the edge
+    columns replicated, which gives the first and last outputs' (4 this +
+    8) >> 4 and (4 this + 7) >> 4. Otherwise h2v2_upsample: each sample
+    replicated 2 x 2."""
+    n, h, w = plane.shape
+    if w <= 2:
+        return plane.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    up = torch.cat([plane[:, :1], plane[:, :-1]], 1)
+    down = torch.cat([plane[:, 1:], plane[:, -1:]], 1)
+    cols = torch.stack([3 * plane + up, 3 * plane + down], 2).reshape(n, 2 * h, w)
+    left = torch.cat([cols[:, :, :1], cols[:, :, :-1]], 2)
+    right = torch.cat([cols[:, :, 1:], cols[:, :, -1:]], 2)
+    even = (3 * cols + left + 8) >> 4
+    odd = (3 * cols + right + 7) >> 4
+    return torch.stack([even, odd], 3).reshape(n, 2 * h, 2 * w)
+
+
+def jpeg_roundtrip(frames: torch.Tensor, quality: int = 95) -> torch.Tensor:
+    """uint8 (N, H, W, 3) RGB -> uint8 (N, H, W, 3): what
+    `tf.io.decode_image(tf.io.encode_jpeg(frame, quality=quality))` gives
+    for each frame (baseline, 4:2:0, ISLOW forward, IFAST inverse, fancy
+    upsampling), on the frames' device. Bit for bit the same on every
+    device: each stage is integer arithmetic."""
+    if frames.dtype != torch.uint8 or frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"expected uint8 (N, H, W, 3) frames, got {frames.dtype} "
+                         f"{tuple(frames.shape)}")
+    n, h, w, _ = frames.shape
+    ycc = rgb_to_ycbcr(frames.to(_I32))
+    luma = to_blocks(pad_edge(ycc[..., 0], 8 * _ceil(h, 8), 8 * _ceil(w, 8)))
+    # Cb and Cr share a table and a geometry: one batch of 2N planes.
+    chroma = to_blocks(downsample_h2v2(ycc[..., 1:].permute(3, 0, 1, 2).reshape(2 * n, h, w)))
+    # Every block of the batch through one forward and one inverse DCT.
+    n_luma = luma.numel() // 64
+    coef = forward_dct(torch.cat([luma.reshape(-1, 8, 8), chroma.reshape(-1, 8, 8)]))
+    coef = torch.cat([dequantize(quantize(part, table), table) for part, table in (
+        (coef[:n_luma], quant_table(quality, chroma=False)),
+        (coef[n_luma:], quant_table(quality, chroma=True)))])
+    samples = inverse_dct(coef)
+    y = from_blocks(samples[:n_luma].reshape(luma.shape))[:, :h, :w]
+    chroma = from_blocks(samples[n_luma:].reshape(chroma.shape))
+    chroma = upsample_h2v2(chroma[:, :_ceil(h, 2), :_ceil(w, 2)])[:, :h, :w]
+    return ycbcr_to_rgb(torch.stack([y, chroma[:n], chroma[n:]], -1)).to(torch.uint8)

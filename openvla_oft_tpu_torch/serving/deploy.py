@@ -1,7 +1,7 @@
 """Serve a policy over HTTP /act (the port of `vla_scripts/deploy.py`).
 
     python -m openvla_oft_tpu_torch.serving.deploy --pretrained-checkpoint DIR \
-        --unnorm-key KEY --num-images-in-input 2 --device-preprocess
+        --unnorm-key KEY --num-images-in-input 2 [--device-preprocess]
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --port 8777
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-in-4bit [--int4-a8]
     python -m openvla_oft_tpu_torch.serving.deploy --random-weights --load-in-8bit
@@ -19,9 +19,11 @@ loads it onto `--device` (cuda by default) in bf16, fused and quantized
 tokenizer and statistics, and the per-module `action_head--*.pt`,
 `proprio_projector--*.pt` (and `noisy_action_projector--*.pt`) files beside
 it; `--unnorm-key` must name one of its statistics. `/act` runs
-`get_vla_action`: with `--device-preprocess`, the raw frames through the
-one-pass path on the device (the L1 head); without it, the staged path,
-whose JPEG round trip needs tensorflow or PIL on the host.
+`get_vla_action`: by default the staged path of the reference's eval
+conditioning (the JPEG round trip, resize and crop on the device), for the
+L1, diffusion (`--no-use-l1-regression --use-diffusion`) and discrete
+(`--no-use-l1-regression`) heads; with `--device-preprocess`, the L1 head
+takes the one-pass path (no JPEG round trip).
 
 `--random-weights` serves the flagship model (DINOv2+SigLIP, Llama-2-7B)
 with seeded random weights and placeholder [-1, 1] statistics, at one of
@@ -252,8 +254,8 @@ class DeployConfig:
     use_proprio: bool = True
 
     center_crop: bool = True
-    # Preprocess, normalize the proprio and un-normalize on the device
-    # (predict_action_from_frames; the L1 head, no host JPEG round trip).
+    # The L1 head: preprocess, normalize the proprio and un-normalize in one
+    # pass (predict_action_from_frames; no JPEG round trip).
     device_preprocess: bool = False
     num_open_loop_steps: int = 25
 

@@ -8,9 +8,10 @@ weights) into an `OpenVLAPolicy` on the card, fused and quantized for
 serving by `serving/deploy.py::serving_params`; the `get_*` loaders import
 the reference's per-module `{name}--{step}_checkpoint.pt` files;
 `get_vla_action` prepares one observation (the staged path: JPEG round
-trip, lanczos3 resize, 0.9 crop and the processor transform on the host;
-or, with `device_preprocess`, the one-pass `predict_action_from_frames`)
-and returns the open-loop slice of the action chunk.
+trip, lanczos3 resize, 0.9 crop and the processor transform, on the
+policy's device; or, with `device_preprocess` and the L1 head, the one-pass
+`predict_action_from_frames`) and returns the open-loop slice of the action
+chunk.
 
 Every switch is a field of the config the caller passes (`device`,
 `zero_init`, `fake_norm_stats`, `allow_fake_tokenizer`, `hf_tokenizer`,
@@ -248,10 +249,11 @@ def get_vla_action(cfg: Any, vla: OpenVLAPolicy, processor: Any, obs: Dict[str, 
     `device_preprocess` with the L1 head: the raw frames go through
     `predict_action_from_frames` (resize, crop, normalize, proprio
     normalization and un-normalization on the device; no JPEG round trip).
-    Otherwise the staged path: `prepare_images_for_policy` (the JPEG round
-    trip on the host, which needs tensorflow or PIL), the proprio normalized
-    on the host (written back into `obs["state"]`, as the reference does),
-    then `predict_action`."""
+    Otherwise, for every head, the staged path the reference's eval
+    conditioning takes: `prepare_images_for_policy` on the policy's device
+    (the JPEG round trip at quality 95, TF's libjpeg bit for bit, then the
+    resize and crop), the proprio normalized on the host (written back into
+    `obs["state"]`, as the reference does), then `predict_action`."""
     all_images = [obs["full_image"]]
     if getattr(cfg, "num_images_in_input", 1) > 1:
         all_images.extend([obs[k] for k in obs.keys()

@@ -195,6 +195,20 @@ def test_jax_export_loads_equal_through_both_loaders(tmp_path, jax_params):
     assert_trees_equal(j_params, stored)
 
 
+def test_an_empty_config_norm_stats_reads_the_sidecar(tmp_path, jax_params):
+    """JAX's exporter writes `"norm_stats": {}` when it has none; a
+    `dataset_statistics.json` beside it is the checkpoint's statistics. The
+    port reads the sidecar (`utils/hf_import.py::_read_norm_stats`); the JAX
+    loader reads it only when the key is missing, and keeps the `{}`."""
+    d = JH.export_openvla_checkpoint(CFG, jax_params, str(tmp_path / "ckpt"))
+    with open(os.path.join(d, "config.json")) as f:
+        assert json.load(f)["norm_stats"] == {}
+    with open(os.path.join(d, "dataset_statistics.json"), "w") as f:
+        json.dump(STATS, f)
+    assert PH.load_openvla_checkpoint(d, dtype=torch.float32)[2] == STATS
+    assert JH.load_openvla_checkpoint(d)[2] == {}
+
+
 @pytest.mark.parametrize("max_shard_bytes", [None, 64 * 1024], ids=["one-file", "sharded"])
 def test_port_bf16_export_reads_back_in_jax(tmp_path, jax_params, max_shard_bytes):
     tree = params_from_numpy(jax_params, dtype=torch.bfloat16)

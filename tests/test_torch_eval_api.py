@@ -3,9 +3,10 @@
 The mirror of `tests/test_eval_api.py`: a tiny checkpoint dir written by
 JAX's exporter (with a SentencePiece `tokenizer.model` and the per-module
 `.pt` files) goes through JAX's `get_vla` / `get_vla_action` and the port's,
-for the l1, diffusion and discrete heads, on the staged path (the TF JPEG
-round trip on the host) and the `device_preprocess` path. Both sides run in
-fp32 (JAX's `get_vla` loads in bf16, so its loader is pinned to fp32 here);
+for the l1, diffusion and discrete heads, on the staged path (the JAX side's
+TF JPEG round trip against the port's own codec) and the `device_preprocess`
+path. Both sides run in fp32 (JAX's `get_vla` loads in bf16, so its loader
+is pinned to fp32 here);
 the actions agree within rtol = atol = 1e-4, the bound of
 `tests/test_torch_serve.py`. The diffusion head starts both loops from JAX's
 first noise draw. The `device_preprocess` case sends frames at the model's
@@ -19,9 +20,9 @@ Also: the resize strategies of the processor transform ("resize-crop",
 JAX's `make_device_transform` (atol 1e-5 on normalized pixels: the same
 fp32 weights, summed in another order), the staged image pipeline, the
 loud failures (a missing tokenizer, a missing lm_head, a hub id,
-`joint_vit`, the JPEG round trip without TF and PIL, a wrong unnorm_key),
-the FiLM backbone from its `.pt`, and the deploy CLI serving a checkpoint
-dir over the stdlib server.
+`joint_vit`, a wrong unnorm_key), the JPEG round trip with TF and PIL
+hidden, the FiLM backbone from its `.pt`, and the deploy CLI serving a
+checkpoint dir over the stdlib server.
 """
 
 import builtins
@@ -280,28 +281,35 @@ def test_hub_ids_and_joint_vit_raise(ckpts):
 
 
 def test_jpeg_roundtrip_raises_without_tf_and_pil(monkeypatch, rng):
-    from openvla_oft_tpu.processing.image_processing import jpeg_roundtrip as j_jpeg
+    """The name is older than the port's codec: with `tensorflow` and `PIL`
+    hidden from `__import__` (importing either raises, as on the card), the
+    port's round trip gives JAX's TF answer, and its staged pipeline the
+    same pixels as on TF's round-tripped frames."""
+    import openvla_oft_tpu.processing.image_processing as JI
     from openvla_oft_tpu_torch.processing import image_processing as PI
 
-    img = rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)
-    np.testing.assert_array_equal(PI.jpeg_roundtrip(img), j_jpeg(img))     # TF on both sides
+    pytest.importorskip("tensorflow")
+    frames = [rng.integers(0, 256, (32, 48, 3), dtype=np.uint8),
+              rng.integers(0, 256, (24, 40, 3), dtype=np.uint8),
+              rng.integers(0, 256, (32, 48, 3), dtype=np.uint8)]
+    want = [JI.jpeg_roundtrip(f) for f in frames]                      # TF
+    want_pixels = PI.prepare_images_for_policy(want, P_CFG, use_jpeg_roundtrip=False,
+                                               resize_size=28)
     real_import = builtins.__import__
-    hidden = {"tensorflow"}
 
     def hide(name, *args, **kw):
-        if name.split(".")[0] in hidden:
+        if name.split(".")[0] in ("tensorflow", "PIL"):
             raise ImportError(f"No module named {name!r}")
         return real_import(name, *args, **kw)
 
     monkeypatch.setattr(builtins, "__import__", hide)
-    pytest.importorskip("PIL")
-    pil = PI.jpeg_roundtrip(img)                    # PIL, where TF is missing
-    assert pil.shape == img.shape and pil.dtype == np.uint8
-    hidden.add("PIL")
-    with pytest.raises(ImportError, match="device_preprocess=True"):
-        PI.jpeg_roundtrip(img)
-    with pytest.raises(ImportError, match="device_preprocess=True"):
-        PI.prepare_images_for_policy([img], P_CFG)
+    for name in ("tensorflow", "PIL"):
+        with pytest.raises(ImportError):
+            __import__(name)
+    for f, w in zip(frames, want):
+        np.testing.assert_array_equal(PI.jpeg_roundtrip(f), w)
+    got = PI.prepare_images_for_policy(frames, P_CFG, resize_size=28)
+    torch.testing.assert_close(got, want_pixels, rtol=0, atol=0)
 
 
 # === the processor transform and the staged pipeline against JAX ===
