@@ -14,7 +14,9 @@ points a user calls: an HTTP /act server built by
 the staged `OpenVLAPolicy.predict_action`), `predict_action_autoregressive`
 and its bench script `openvla_oft_tpu_torch.scripts.bench_ar`, the probe script
 `openvla_oft_tpu_torch.scripts.exp_int4_probe`, and the fine-tuning CLI
-`openvla_oft_tpu_torch.training.finetune` (LoRA r=32, L1 objective, B=8).
+`openvla_oft_tpu_torch.training.finetune` (LoRA r=32: the L1 objective at
+B=8, the diffusion and discrete objectives at B=8, OFT+ ALOHA with FiLM at
+B=4, and L1 from a checkpoint dir).
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. environment: the card, torch/CUDA versions, TF32 off;
@@ -154,8 +156,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      `--device-preprocess`, bitwise equal to `OpenVLAServer.predict` in
      process;
   9. backward kernel check: K2 (dq) and K3 (dk, dv) against their plain
-     version at the training shape (B=8, per-row pads and windows), the
-     ALOHA length, GQA and dead rows, two calls of each bitwise equal, with
+     version at the training shape (B=8, per-row pads and windows), ALOHA's
+     training shape (B=4, S=1137, 351-slot windows), the ALOHA length, GQA
+     and dead rows, two calls of each bitwise equal, with
      their plan; device times (torch.profiler, L2 flushed) beside SDPA's
      backward kernels alone and the bound, CUDA events beside them; the
      stats rows K2 writes against the stats pass and the plain LSE, delta;
@@ -167,7 +170,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      only): device time by kernel class, K1's and K2 + K3's shares, the idle
      share;
  12. training-path parity: one loss and backward through K1/K2/K3 against
-     the dense path on the same 7B weights and batch.
+     the dense path on the same 7B weights and batch;
+ 11b. (run after 12, which needs phase 10's state) the other objectives
+     through the same CLI at random:7b, 3 steps each, every step K1 64, K2
+     32, K3 32, each run's step times, peak memory and every trainable
+     group moving, then its K1/K2/K3 path against the dense path on the same
+     weights, batch and draws (phase 12's bounds): (a) diffusion, B=8,
+     S=586, 50 DDIM steps, the sampling metric at step 3 (K1 1,600 more, no
+     K2/K3, finite); (b) discrete, B=8, and the lm_head product's backward
+     on the card against its float64 product; (c) OFT+ ALOHA (FiLM, 3
+     images, B=4, S=1137; the parity with every target at 10, so that the
+     L1 gradient's signs do not flip with bf16 noise); (d) inside phase 8e,
+     before its dir is removed: L1 from the dir (K1 8, K2 4, K3 4 a step),
+     the trained base bitwise equal to the exported tree, and a discrete
+     run from the dir, which has no lm_head, raising on its name before any
+     step.
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
@@ -212,6 +229,21 @@ TRAIN_FLAGS = ["--vla_path", "random:7b", "--data_root_dir", "dummy",
                "--max_steps", "3", "--merge_lora_during_training", "False",
                "--wandb_log_freq", "1", "--device", "cuda"]
 TRAIN_LOSS_REL, TRAIN_GRAD_COSINE = 1e-2, 0.99
+# Phase 11b's runs of the same CLI (later flags override earlier ones): the
+# diffusion objective (the oft-libero-spatial-diffusion recipe's flags, 50
+# DDIM steps, the sampling metric at the third step), the discrete CE, and
+# OFT+ ALOHA (the oft-plus recipes' flags with their per-GPU batch, 4).
+DIFFUSION_STEPS = 50
+OBJECTIVE_RUNS = {
+    "diffusion": TRAIN_FLAGS + ["--use_l1_regression", "False", "--use_diffusion", "True",
+                                "--num_diffusion_steps", str(DIFFUSION_STEPS),
+                                "--diffusion_sample_freq", "3"],
+    "discrete": TRAIN_FLAGS + ["--use_l1_regression", "False"],
+    "aloha_film": TRAIN_FLAGS + ["--dataset_name", "aloha_scoop_x_into_bowl",
+                                 "--robot_platform", "aloha", "--use_film", "True",
+                                 "--num_images_in_input", "3", "--batch_size", "4",
+                                 "--num_steps_before_decay", "50000"],
+}
 # K5 and K6 against their plain versions, max|d| / max|ref|: K5 sums the same
 # bf16 products in another order; K6's group products are exact int32 sums,
 # so only the fp32 sum over the groups can differ.
@@ -2209,6 +2241,13 @@ def checkpoint_serving(card: str, rng, device: str = "cuda") -> dict:
                 or not np.isfinite(np.asarray(action)).all():
             raise AssertionError(f"the load_in_4bit request launched K5 "
                                  f"{runs['checkpoint int4 W4A16']['K5']} times, not {expect_k5}")
+        server.shutdown()
+        server = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (f) phase 11b (d): fine-tuning from the dir, before it is removed.
+        runs["checkpoint training"] = checkpoint_training(ckpt, draw(), n_layers, card)
     finally:
         if server is not None:
             server.shutdown()
@@ -2342,14 +2381,22 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def training_setup():
+def training_setup(flags=TRAIN_FLAGS):
     """The fine-tuning CLI's flags parsed, its model config, platform,
     TrainConfig and first batch (numpy), all as the CLI builds them."""
     from openvla_oft_tpu_torch.training import finetune as FT
 
-    cfg = FT.parse_config(TRAIN_FLAGS)
+    cfg = FT.parse_config(flags)
     return (FT.model_config(cfg), FT.platform_of(cfg), FT.train_config(cfg),
             FT.first_batch(cfg))
+
+
+def training_length(cfg, batch, tcfg) -> int:
+    """S of the training layout: the text bucket, the patches of every
+    image, the proprio token and, for diffusion, the timestep token."""
+    return (batch["input_ids"].shape[1] + int(tcfg.use_proprio)
+            + int(tcfg.objective == "diffusion")
+            + cfg.num_images_in_input * cfg.vision_configs[0].num_patches)
 
 
 def _rel_cos(got: torch.Tensor, ref: torch.Tensor) -> tuple:
@@ -2390,9 +2437,11 @@ def stats_check(args, card: str) -> dict:
     return {"ms": ms, "timing": how}
 
 
-def backward_check(card: str, s_train: int) -> dict:
+def backward_check(card: str, s_train: int, s_aloha: int) -> dict:
     """K2 and K3 against flash_attention_bwd_ref at the training shape, the
-    ALOHA length, GQA and dead rows, with two bitwise-equal calls of each;
+    ALOHA length, the ALOHA training shape (B = 4, S = s_aloha, a 351-slot
+    window: 350 actions + STOP), GQA and dead rows, with two bitwise-equal
+    calls of each;
     timed by device time (torch.profiler, L2 flushed) beside the bound and
     SDPA's backward with the boolean OFT mask (its backward kernels alone:
     autograd.grad on a retained graph; dq, dk and dv in one call), with the
@@ -2408,8 +2457,10 @@ def backward_check(card: str, s_train: int) -> dict:
     # as in a training batch whose prompts differ in length.
     train_rows = [(0, s - 5 * i, s - 5 * i - 57, 57) for i in range(8)]
     # (name, B, S, H, Hkv, D, [(first valid key, last valid + 1, window start, len)])
+    aloha_rows = [(0, s_aloha - 5 * i, s_aloha - 5 * i - 351, 351) for i in range(4)]
     cases = [
         ("training", 8, s, 32, 32, 128, train_rows),
+        ("aloha_training", 4, s_aloha, 32, 32, 128, aloha_rows),
         ("aloha_length", 1, 1168, 32, 32, 128, [(0, 1168, 817, 351)]),
         ("gqa", 2, s, 32, 8, 128, train_rows[::4]),
         ("dead_rows", 1, s, 32, 32, 128, [(150, s, s - 57, 57)]),
@@ -2514,29 +2565,46 @@ def backward_check(card: str, s_train: int) -> dict:
     return results
 
 
-def train(card: str, n_layers: int):
-    """3 steps of the fine-tuning CLI (in process); returns (state, launches)."""
+def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
+          steps: int = 3, sample_freq: int = 0) -> tuple:
+    """`steps` steps of the fine-tuning CLI with `flags` (in process), the
+    launch counts reset just before it and read just after. Each step must
+    launch K1 2 x n_layers (remat "all": the forward and its recompute) and
+    K2, K3 n_layers each, and nothing else; a step that runs the diffusion
+    sampling metric (every `sample_freq`) adds K1 n_layers for each of its
+    forwards. Every trainable group must move between the first step and
+    the last. Returns (state, launches, info)."""
     from openvla_oft_tpu_torch.bridge import tree_leaves
     from openvla_oft_tpu_torch.training import finetune as FT
 
     run_root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     expect = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers,   # remat "all"
               "K4": 0, "K5": 0, "K6": 0, "probe": 0, "int8": 0}
-    seen = {"prev": {k: 0 for k in expect}}
+    sample_k1 = n_layers * FT.parse_config(flags).num_diffusion_steps
+    seen = {"prev": {k: 0 for k in expect}, "times": [], "samples": []}
 
     def on_step(step, metrics, state):
         counts = launch_counts()
         per_step = {k: counts[k] - seen["prev"][k] for k in counts}
         seen["prev"], seen["state"] = counts, state
-        log(f"[train] step {step}: loss={metrics['loss']:.6f} grad_norm={metrics['grad_norm']:.6f}"
-            f" curr_action_l1={metrics['curr_action_l1_loss']:.6f} step_time="
-            f"{metrics['step_time']:.4f} s (host clock, ends in torch.cuda.synchronize) "
-            f"launches {per_step} ({card})")
+        want = dict(expect)
+        if "sampled_actions_l1_loss" in metrics:
+            want["K1"] += sample_k1
+            seen["samples"].append({k: metrics[k] for k in metrics if "sampled" in k
+                                    or k == "sample_time"})
+        seen["times"].append(metrics["step_time"])
+        log(f"[{label}] step {step}: " + " ".join(
+            f"{k}={v:.6f}" for k, v in sorted(metrics.items()) if k != "step_time")
+            + f" step_time={metrics['step_time']:.4f} s (host clock, ends in "
+            f"torch.cuda.synchronize) launches {per_step} ({card})")
         if not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"])
                 and metrics["grad_norm"] > 0):
             raise AssertionError(f"bad training step {step}: {metrics}")
-        if per_step != expect:
-            raise AssertionError(f"step {step} launched {per_step}, expected {expect}")
+        if "sampled_actions_l1_loss" in metrics and not all(
+                np.isfinite(v) for v in seen["samples"][-1].values()):
+            raise AssertionError(f"a non-finite sampling metric at step {step}: {metrics}")
+        if per_step != want:
+            raise AssertionError(f"step {step} launched {per_step}, expected {want}")
         if step == 0:
             seen["first"] = [t.detach().clone() for t in tree_leaves(state.trainables)]
 
@@ -2547,32 +2615,39 @@ def train(card: str, n_layers: int):
         t0 = time.perf_counter()
         reset_launch_counts()
         stats_before = fa.flash_attention_dkv.stats_launches
-        out = FT.main(TRAIN_FLAGS + ["--run_root_dir", run_root], on_step=on_step)
+        out = FT.main(flags + ["--max_steps", str(steps), "--run_root_dir", run_root],
+                      on_step=on_step)
         launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
         if fa.flash_attention_dkv.stats_launches != stats_before:
             raise AssertionError("the training backward ran the stats pass: K3 did not read "
                                  "K2's stats rows")
-        log(f"[train] finetune: {out['final_step']} steps in {time.perf_counter() - t0:.1f} s "
-            f"(weights drawn on the card, checkpoint written); launches {launches}; "
-            f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
-            f" ({card})")
+        log(f"[{label}] finetune: {out['final_step']} steps in {time.perf_counter() - t0:.1f} s "
+            f"(weights made on the card, checkpoint written); launches {launches}; "
+            f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB ({card})")
         state = seen["state"]
-        if out["final_step"] != 3 or out["ckpt"] is None:
+        if out["final_step"] != steps or out["ckpt"] is None:
             raise AssertionError(f"the training run ended at {out}")
-        if launches != {k: 3 * n for k, n in expect.items()}:
-            raise AssertionError(f"training launched {launches}")
+        n_samples = steps // sample_freq if sample_freq else 0
+        total = {k: steps * n for k, n in expect.items()}
+        total["K1"] += n_samples * sample_k1
+        if launches != total or len(seen["samples"]) != n_samples:
+            raise AssertionError(f"training launched {launches} with {len(seen['samples'])} "
+                                 f"sampling runs, expected {total} and {n_samples}")
         leaves = tree_leaves(state.trainables)
         start = 0
         for group, tree in state.trainables.items():
             stop = start + len(tree_leaves(tree))
             moved = max((a.detach() - b).abs().max().item()
                         for a, b in zip(leaves[start:stop], seen["first"][start:stop]))
-            log(f"[train] {group}: max |change| between step 0 and step 2 = {moved:.3e}")
+            log(f"[{label}] {group}: max |change| between step 0 and step {steps - 1} = "
+                f"{moved:.3e}")
             if not moved > 0:
                 raise AssertionError(f"trainables {group} did not change")
             start = stop
         del seen["first"]
-        return state, launches
+        return state, launches, {"step_times": seen["times"], "peak": peak,
+                                 "samples": seen["samples"]}
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
 
@@ -2706,15 +2781,22 @@ def profile_step(state, card: str) -> dict:
             "k23_ms": k23}
 
 
-def training_parity(state, card: str) -> None:
+def training_parity(state, card: str, flags=TRAIN_FLAGS, label: str = "train-parity",
+                    far_targets: bool = False) -> None:
     """One loss and backward through K1/K2/K3 and through the dense path on
-    the same 7B weights and batch, LoRA B drawn with std 1e-3."""
+    the same 7B weights, batch (the CLI's first) and draws (each path's
+    diffusion draws from a generator seeded alike), LoRA B drawn with std
+    1e-3. far_targets: every target action 10, above the head's outputs, so
+    that the L1 gradient, sign(residual), does not flip with the paths'
+    bf16 noise at residuals near 0."""
     from openvla_oft_tpu_torch.bridge import tree_leaves
     from openvla_oft_tpu_torch.training import train_step as TT
 
     dev = state.base_params["llm"]["embed"]["embedding"].device
-    cfg, platform, tcfg, batch = training_setup()
+    cfg, platform, tcfg, batch = training_setup(flags)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    if far_targets:
+        batch["actions"] = torch.full_like(batch["actions"], 10.0)
     gen = torch.Generator(device=dev).manual_seed(7)
 
     def lora_b(tree):
@@ -2732,14 +2814,15 @@ def training_parity(state, card: str) -> None:
     for use_flash in (True, False):
         before = launch_counts()
         l, _ = TT.loss_and_metrics(state.trainables, state.base_params, batch, cfg,
-                                   platform, tcfg, use_flash=use_flash)
+                                   platform, tcfg, torch.Generator(device=dev).manual_seed(11),
+                                   use_flash=use_flash)
         g = torch.autograd.grad(l, leaves)
         loss[use_flash] = l.item()
         grads[use_flash] = g
         used = {k: v - before[k] for k, v in launch_counts().items()}
-        log(f"[train-parity] use_flash={use_flash}: loss={loss[use_flash]:.6f} launches {used}")
+        log(f"[{label}] use_flash={use_flash}: loss={loss[use_flash]:.6f} launches {used}")
     rel = abs(loss[True] - loss[False]) / abs(loss[False])
-    log(f"[train-parity] loss K1/K2/K3 path {loss[True]:.6f}, dense path {loss[False]:.6f}, "
+    log(f"[{label}] loss K1/K2/K3 path {loss[True]:.6f}, dense path {loss[False]:.6f}, "
         f"relative difference {rel:.3e} ({card})")
     ok = np.isfinite(loss[True]) and rel <= TRAIN_LOSS_REL
     start = 0
@@ -2748,11 +2831,103 @@ def training_parity(state, card: str) -> None:
         flat = [torch.cat([x.float().flatten() for x in grads[f][start:stop]])
                 for f in (True, False)]
         cos = torch.nn.functional.cosine_similarity(flat[0], flat[1], dim=0).item()
-        log(f"[train-parity] {group}: gradient cosine(K1/K2/K3 path, dense path) = {cos:.6f}")
+        log(f"[{label}] {group}: gradient cosine(K1/K2/K3 path, dense path) = {cos:.6f}")
         ok = ok and cos >= TRAIN_GRAD_COSINE
         start = stop
     if not ok:
         raise AssertionError("the training path through K1/K2/K3 disagrees with the dense path")
+
+
+def lm_head_backward_check(state, s_rows: int, card: str) -> None:
+    """The lm_head product's backward on the card (`models/llama.py::
+    _LmHeadProduct`, the discrete objective's): dh = g . w^T of the 7B's
+    bf16 lm_head for B x S rows against the float64 product, and its time."""
+    from openvla_oft_tpu_torch.models.llama import lm_logits
+
+    w = state.base_params["llm"]["lm_head"]["kernel"]
+    gen = torch.Generator(device=w.device).manual_seed(3)
+    h = torch.randn((s_rows, w.shape[0]), generator=gen, device=w.device).bfloat16()
+    h.requires_grad_()
+    out = lm_logits({"lm_head": {"kernel": w}}, h)
+    g = torch.randn(out.shape, generator=gen, device=w.device) * 1e-3
+    (dh,) = torch.autograd.grad(out, h, g, retain_graph=True)
+    ref = g.double() @ w.double().t()
+    err = ((dh.double() - ref).abs().max() / ref.abs().max()).item()
+    ms = cuda_time_ms(lambda: torch.autograd.grad(out, h, g, retain_graph=True))
+    bound_ms = bound(2.0 * s_rows * w.shape[0] * w.shape[1],
+                     nbytes(g, w, dh), PEAK_BF16)
+    log(f"[lm_head] backward of lm_logits on the card: dh {tuple(dh.shape)} {dh.dtype} "
+        f"{dh.device}, max|d| / max|ref| {err:.3e} against the float64 product; "
+        f"{ms:.4f} ms by CUDA events (its fp32 product on an fp32 copy of the lm_head; bound "
+        f"{bound_ms[0]:.4f} ms by {bound_ms[1]}) ({card})")
+    if dh.dtype != torch.bfloat16 or not dh.is_cuda or not err <= 1e-2:
+        raise AssertionError("the lm_head backward on the card disagrees with its product")
+
+
+def objectives_phase(card: str, n_layers: int) -> dict:
+    """Phase 11b: the diffusion and discrete objectives and OFT+ ALOHA with
+    FiLM through the fine-tuning CLI at random:7b, each with its launches,
+    step times, peak, every trainable group moving, and the K1/K2/K3 path
+    against the dense path. Returns each run's launches."""
+    runs = {}
+    t_phase = time.perf_counter()
+    for name, flags in OBJECTIVE_RUNS.items():
+        cfg, _, tcfg, batch = training_setup(flags)
+        s = training_length(cfg, batch, tcfg)
+        log(f"[objectives] {name}: objective {tcfg.objective}, FiLM {tcfg.use_film}, batch "
+            f"{batch['input_ids'].shape[0]}, {cfg.num_images_in_input} images, text bucket "
+            f"{batch['input_ids'].shape[1]}, S = {s}")
+        sample_freq = 3 if name == "diffusion" else 0
+        state, launches, info = train(card, n_layers, flags, f"train-{name}",
+                                      sample_freq=sample_freq)
+        runs[name] = launches
+        times = info["step_times"]
+        log(f"[objectives] {name}: step times {', '.join(f'{t:.4f}' for t in times)} s, "
+            f"peak {info['peak'] / 2**30:.3f} GiB, S = {s}"
+            + "".join(f"; sampling metric ({DIFFUSION_STEPS} DDIM steps) "
+                      + ", ".join(f"{k}={v:.6f}" for k, v in sorted(m.items()))
+                      for m in info["samples"]) + f" ({card})")
+        if name == "discrete":
+            lm_head_backward_check(state, batch["input_ids"].shape[0] * s, card)
+        training_parity(state, card, flags, f"parity-{name}",
+                        far_targets=tcfg.objective == "l1")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[objectives] phase 11b took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return runs
+
+
+def checkpoint_training(ckpt: str, ref: dict, n_layers: int, card: str) -> dict:
+    """Phase 11b (d): L1 fine-tuning from phase 8e's checkpoint dir through
+    the CLI (K1 2 x n_layers, K2 and K3 n_layers a step), its loaded base
+    bitwise equal to the exported tree `ref`; a discrete run from the same
+    dir, which has no lm_head, raises naming it before any step."""
+    from openvla_oft_tpu_torch.training import finetune as FT
+
+    flags = TRAIN_FLAGS + ["--vla_path", ckpt]
+    state, launches, info = train(card, n_layers, flags, "train-checkpoint")
+    n = trees_bitwise_equal({k: ref[k] for k in state.base_params}, state.base_params)
+    log(f"[train-checkpoint] the trained base: {n} leaves bitwise equal to the exported tree; "
+        f"step times {', '.join(f'{t:.4f}' for t in info['step_times'])} s, peak "
+        f"{info['peak'] / 2**30:.3f} GiB ({card})")
+    del state
+    steps, run_root = [], tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        FT.main(flags + ["--use_l1_regression", "False", "--max_steps", "1", "--run_root_dir",
+                         run_root], on_step=lambda *a: steps.append(a[0]))
+    except KeyError as e:
+        if "language_model.lm_head.weight" not in str(e) or steps:
+            raise AssertionError(f"the discrete run raised {e!r} after {len(steps)} steps")
+        log(f"[train-checkpoint] a discrete run from the dir without an lm_head raised before "
+            f"any step: {e}")
+    else:
+        raise AssertionError("a discrete run from a dir without an lm_head did not raise")
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
@@ -2788,11 +2963,16 @@ def main() -> int:
     log((lib_path.parent / "build.log").read_text().strip())
     wgmma = wgmma_build_report(lib_path)
 
-    cfg, _, _, batch = training_setup()
-    s_train = (batch["input_ids"].shape[1] + 1                      # + proprio token
-               + cfg.num_images_in_input * cfg.vision_configs[0].num_patches)
+    cfg, _, tcfg, batch = training_setup()
+    s_train = training_length(cfg, batch, tcfg)
     log(f"[bwd] training layout: S = {s_train} (text bucket + "
         f"{cfg.num_images_in_input} x {cfg.vision_configs[0].num_patches} patches + proprio)")
+    a_cfg, _, a_tcfg, a_batch = training_setup(OBJECTIVE_RUNS["aloha_film"])
+    s_aloha = training_length(a_cfg, a_batch, a_tcfg)
+    log(f"[bwd] ALOHA training layout: S = {s_aloha} (text bucket "
+        f"{a_batch['input_ids'].shape[1]} + {a_cfg.num_images_in_input} x "
+        f"{a_cfg.vision_configs[0].num_patches} patches + proprio), batch "
+        f"{a_batch['input_ids'].shape[0]}")
     checks = kernel_check(card, s_train)
     tiny_launches = tiny_auto_request(card)
     k4 = ln_matmul_check(card)
@@ -2834,10 +3014,14 @@ def main() -> int:
     discrete = discrete_serving(card, rng)
     checkpoint = checkpoint_serving(card, rng)
 
-    bwd = backward_check(card, s_train)
-    state, train_launches = train(card, n_layers)
+    bwd = backward_check(card, s_train, s_aloha)
+    state, train_launches, _ = train(card, n_layers)
     profile_step(state, card)
     training_parity(state, card)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    objectives = objectives_phase(card, n_layers)
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -2855,7 +3039,17 @@ def main() -> int:
                    + sum(run["K1"] for run in int8_launches.values())
                    + sum(run["K1"] for run in diffusion.values())
                    + sum(run["K1"] for run in discrete.values())
-                   + sum(run["K1"] for run in checkpoint.values()) + train_launches["K1"])
+                   + sum(run["K1"] for run in checkpoint.values()) + train_launches["K1"]
+                   + sum(run["K1"] for run in objectives.values()))
+    # K2 and K3 launch in the training runs: phase 10, phase 11b's three and
+    # the run from phase 8e's checkpoint dir.
+    bwd_runs = [train_launches, checkpoint["checkpoint training"], *objectives.values()]
+    k2_launches = sum(run["K2"] for run in bwd_runs)
+    k3_launches = sum(run["K3"] for run in bwd_runs)
+    bwd_others = {n: {"ms_dq": c["ms_dq"], "ms_dkv": c["ms_dkv"], "library_ms": c["library_ms"],
+                      "bound_dq_ms": c["bound_dq"][0], "bound_dkv_ms": c["bound_dkv"][0],
+                      "timing": c["timing"]}
+                  for n, c in bwd_cases.items() if n != "training"}
     kernels = [
         kernel_entry("flash_attention_fwd", "flash_attention_fwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:50", k1_launches,
@@ -2870,20 +3064,21 @@ def main() -> int:
                                       "bound_ms": c["bound_ms"], "timing": c["timing"]}
                                   for n, c in checks.items() if n != "libero_prefill"}),
         kernel_entry("flash_attention_dq", "flash_attention_bwd.cu",
-                     "openvla_oft_tpu/ops/flash_attention.py:181", train_launches["K2"],
+                     "openvla_oft_tpu/ops/flash_attention.py:181", k2_launches,
                      max(c["dq_err"] for c in bwd_cases.values()), tr["ms_dq"],
                      tr["plain_dq"], *tr["bound_dq"], tr["library_ms"],
                      library_call="SDPA's backward with the boolean OFT mask (dq, dk, dv)",
                      plan=tr["plan"], hgmma=wgmma["K2"], timing=tr["timing"],
-                     events_ms=tr["events_dq"], library_events_ms=tr["library_events_ms"]),
+                     events_ms=tr["events_dq"], library_events_ms=tr["library_events_ms"],
+                     other_cases=bwd_others),
         kernel_entry("flash_attention_dkv", "flash_attention_bwd.cu",
-                     "openvla_oft_tpu/ops/flash_attention.py:207", train_launches["K3"],
+                     "openvla_oft_tpu/ops/flash_attention.py:207", k3_launches,
                      max(c["dkv_err"] for c in bwd_cases.values()), tr["ms_dkv"],
                      tr["plain_dkv"], *tr["bound_dkv"], tr["library_ms"],
                      library_call="SDPA's backward with the boolean OFT mask (dq, dk, dv)",
                      plan=tr["plan"], hgmma=wgmma["K3"], timing=tr["timing"],
                      events_ms=tr["events_dkv"], library_events_ms=tr["library_events_ms"],
-                     stats_pass_ms=bwd["stats"]["ms"]),
+                     stats_pass_ms=bwd["stats"]["ms"], other_cases=bwd_others),
         kernel_entry("ln_matmul", "ln_matmul.cu", "openvla_oft_tpu/ops/vit_fused.py:47",
                      aloha_k4["K4"], max(c["max_abs_err"] for c in k4.values()),
                      fc1["dev_ms"], fc1["plain_ms"], fc1["bound_ms"], fc1["bound_by"],
@@ -2929,7 +3124,10 @@ def main() -> int:
         f"{discrete['AR int8']}")
     log(f"[checkpoint] launches of the checkpoint runs: bf16 (3 requests) "
         f"{checkpoint['checkpoint bf16']}, int4 W4A16 (1 request) "
-        f"{checkpoint['checkpoint int4 W4A16']}")
+        f"{checkpoint['checkpoint int4 W4A16']}, fine-tuning from the dir (3 steps) "
+        f"{checkpoint['checkpoint training']}")
+    log(f"[objectives] launches of phase 11b's runs (3 steps each): " + ", ".join(
+        f"{name} {run}" for name, run in objectives.items()))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@ generators differ).
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -225,7 +225,8 @@ _HEAD_KEYS = ("projector", "proprio_projector", "action_head", "film",
 def init_params(cfg: OpenVLAConfig, platform: PlatformSpec,
                 generator: torch.Generator, device="cpu",
                 dtype: torch.dtype = torch.bfloat16,
-                head_dtype: Optional[torch.dtype] = None, head: str = "l1") -> Params:
+                head_dtype: Optional[torch.dtype] = None, head: str = "l1",
+                keys: Optional[Sequence[str]] = None) -> Params:
     """Random params for `head` ("l1", "diffusion" or "discrete", `param_spec`) drawn on
     `device` (the generator must live there too): the structure, shapes and
     scales of the JAX init, in the unfused layout (serving fuses afterwards;
@@ -234,26 +235,33 @@ def init_params(cfg: OpenVLAConfig, platform: PlatformSpec,
     head_dtype: dtype of the projector, proprio projector, action head,
     noisy-action projector and FiLM projectors (the JAX init's
     `head_dtype`, fp32 for training); None = `dtype`.
+    keys: draw only these top-level groups (None: all), in the spec's order.
     """
     head_dtype = dtype if head_dtype is None else head_dtype
     return {k: materialize(v, generator, device,
                            head_dtype if k in _HEAD_KEYS else dtype)
-            for k, v in param_spec(cfg, platform, head).items()}
+            for k, v in param_spec(cfg, platform, head).items()
+            if keys is None or k in keys}
+
+
+TRAINABLE_GROUPS = ("action_head", "proprio_projector", "noisy_action_projector", "film")
 
 
 def split_base_trainables(params: Params, lora_generator: torch.Generator,
                           lora_rank: int = 32, use_proprio: bool = True):
-    """(frozen base, trainables), the split of `vla_scripts/finetune.py`:
-    the base is the LLM, the vision backbone and the projector; trainables
-    are LoRA factors over the base's linears (`training/lora.py::init_lora`,
-    drawn from `lora_generator`), the action head and, with `use_proprio`,
-    the proprio projector. The base is set to requires_grad=False and the
-    trainables to True, in place."""
+    """(frozen base, trainables), the split of `vla_scripts/finetune.py`
+    (:268-271): the base is the LLM, the vision backbone and the projector;
+    trainables are LoRA factors over the base's linears
+    (`training/lora.py::init_lora`, drawn from `lora_generator`) and, where
+    `params` has them, the action head, the proprio projector (with
+    `use_proprio`), the noisy-action projector and the FiLM projectors. The
+    base is set to requires_grad=False and the trainables to True, in
+    place."""
     from openvla_oft_tpu_torch.training.lora import init_lora
 
     base = {k: params[k] for k in ("llm", "vision_backbone", "projector")}
     trainables = {"lora": init_lora(lora_generator, base, rank=lora_rank)}
-    for k in ("action_head", "proprio_projector"):
+    for k in TRAINABLE_GROUPS:
         if k in params and (k != "proprio_projector" or use_proprio):
             trainables[k] = params[k]
     for t in tree_leaves(base):

@@ -2,16 +2,19 @@
 
 Port of `openvla_oft_tpu/models/action_heads.py::mlp_resnet`,
 `_regroup_hidden`, `l1_head_predict`, `sinusoidal_time_encoding`,
-`diffusion_scheduler` and `diffusion_predict_noise`: LayerNorm -> Linear ->
-ReLU -> 2 pre-LN residual blocks -> LayerNorm -> Linear, over hidden states
-regrouped per time step. The training-side `diffusion_sample_noisy_actions`
-is not ported yet (ROADMAP queue 1, item 14).
+`diffusion_scheduler`, `diffusion_predict_noise` and the training-side
+`diffusion_sample_noisy_actions`: LayerNorm -> Linear -> ReLU -> 2 pre-LN
+residual blocks -> LayerNorm -> Linear, over hidden states regrouped per
+time step.
+
+Random draws come from an explicit `torch.Generator` on the actions'
+device, never the global RNG, through `draw_noise` and `draw_timesteps`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import torch
 
@@ -61,3 +64,35 @@ def diffusion_predict_noise(p: Params, actions_hidden: torch.Tensor,
                             platform: PlatformSpec) -> torch.Tensor:
     """(B, chunk*dim, llm_dim) -> predicted noise (B, chunk, dim)."""
     return mlp_resnet(p["noise_predictor"], _regroup_hidden(actions_hidden, platform))
+
+
+def draw_noise(generator: torch.Generator, shape: Sequence[int], device) -> torch.Tensor:
+    """Standard normal draws of `shape` in fp32 on `device` from `generator`."""
+    return torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
+
+
+def draw_timesteps(generator: torch.Generator, batch: int, num_diffusion_steps: int,
+                   device) -> torch.Tensor:
+    """(batch,) int64 timesteps drawn uniformly from [0, num_diffusion_steps)."""
+    return torch.randint(0, num_diffusion_steps, (batch,), generator=generator, device=device)
+
+
+def diffusion_sample_noisy_actions(p: Params, generator: torch.Generator,
+                                   gt_actions: torch.Tensor, platform: PlatformSpec,
+                                   llm_dim: int = 4096,
+                                   num_diffusion_steps: int = 100) -> Dict[str, torch.Tensor]:
+    """Training-side forward diffusion (reference action_heads.py:166-196):
+    noise (B, chunk, dim) drawn in fp32 and cast to the actions' dtype, a
+    timestep per example, the noisy actions `DDIMScheduler.add_noise` gives
+    and the timesteps' sinusoidal embeddings (B, 1, llm_dim). `p` (the head's
+    params) is unused, as in the JAX version."""
+    del p
+    b, device = gt_actions.shape[0], gt_actions.device
+    noise = draw_noise(generator, (b, platform.num_actions_chunk, platform.action_dim),
+                       device).to(gt_actions.dtype)
+    timesteps = draw_timesteps(generator, b, num_diffusion_steps, device)
+    sched = diffusion_scheduler(num_diffusion_steps, device=device)
+    noisy = sched.add_noise(gt_actions, noise, timesteps)
+    t_emb = sinusoidal_time_encoding(timesteps, llm_dim).to(gt_actions.dtype)
+    return {"noise": noise, "noisy_actions": noisy,
+            "diffusion_timestep_embeddings": t_emb[:, None, :]}

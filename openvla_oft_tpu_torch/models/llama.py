@@ -59,7 +59,7 @@ def resolve_remat(remat_policy: Optional[str]) -> bool:
         return True
     if remat_policy in ("dots", "attn_out"):
         raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported "
-                                  "yet (ROADMAP queue 1, item 14)")
+                                  "yet (ROADMAP queue 1, item 14c)")
     raise ValueError(f"Unknown remat policy {remat_policy!r} (use 'all', 'dots', "
                      "'attn_out' or 'none')")
 
@@ -346,20 +346,45 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     return rms_norm(params["final_norm"], x_w, cfg.rms_norm_eps)
 
 
+class _LmHeadProduct(torch.autograd.Function):
+    """bf16 (N, D) x bf16 (D, V) -> fp32 (N, V) with fp32 products. Forward:
+    on CUDA the library's `torch.mm(..., out_dtype=torch.float32)`, on the
+    CPU both operands upcast (bf16 values are exact in fp32). Backward, the
+    transpose of the JAX product: dh = g . w^T in fp32, cast to h's dtype
+    (and dw = h^T . g likewise, where w takes a gradient)."""
+
+    @staticmethod
+    def forward(ctx, h2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(h2, w)
+        if h2.is_cuda:
+            return torch.mm(h2, w, out_dtype=torch.float32)
+        return h2.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h2, w = ctx.saved_tensors
+        g = g.float()
+        dh = (g @ w.float().t()).to(h2.dtype) if ctx.needs_input_grad[0] else None
+        dw = (h2.float().t() @ g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dh, dw
+
+
 def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """Post-norm hidden states (..., D) -> vocab logits (..., V) in fp32,
     the JAX `jnp.dot(hidden, lm_head, preferred_element_type=float32)`.
 
     A bf16 product rounded to bf16 ties and flips the argmax over 32,064
     logits, so bf16 operands give fp32 products without an fp32 copy of the
-    kernel: on CUDA the library's `torch.mm(..., out_dtype=torch.float32)`;
-    on the CPU, which has no such op, both operands upcast (bf16 values are
-    exact in fp32), the plain version. An fp32 tree computes in fp32.
+    kernel in the forward (`_LmHeadProduct`: on CUDA the library's
+    `torch.mm(..., out_dtype=torch.float32)`, which the discrete objective
+    differentiates through the Function's own backward; on the CPU, which
+    has no such op, both operands upcast, the plain version). An fp32 tree
+    computes in fp32.
     """
     w = params["lm_head"]["kernel"]
     h2 = hidden.reshape(-1, hidden.shape[-1])
-    if h2.is_cuda and h2.dtype == w.dtype == torch.bfloat16:
-        out = torch.mm(h2, w, out_dtype=torch.float32)
+    if h2.dtype == w.dtype == torch.bfloat16:
+        out = _LmHeadProduct.apply(h2, w)
     else:
         out = h2.float() @ w.float()
     return out.reshape(*hidden.shape[:-1], w.shape[-1])

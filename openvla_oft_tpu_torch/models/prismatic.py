@@ -6,13 +6,14 @@ Port of `openvla_oft_tpu/models/prismatic.py` (`prismatic_forward`,
 path: `compute_patch_features`, `DiffusionPrefix`, `build_diffusion_prefix`,
 `diffusion_suffix_step`, and the discrete head's: `lm_logits`, the
 KV-cached greedy decode `predict_action_autoregressive`,
-`detokenize_discrete_actions`). FiLM conditions the ViTs in serving, not
-yet in training.
+`detokenize_discrete_actions`). FiLM conditions the ViTs in serving and in
+training.
 
 Training (`prismatic_forward`): right-padded batches as the collator emits
-them, physical layout [BOS][patches (+proprio)][text rest][PAD], action-token
-embeddings zeroed, and a per-row bidirectional window over the action slots
-and the STOP that follows them.
+them, physical layout [BOS][patches (+proprio)(+diffusion t)][text rest][PAD],
+action-token embeddings zeroed (L1, discrete) or replaced by the projected
+noisy actions (diffusion), and a per-row bidirectional window over the
+action slots and the STOP that follows them.
 
 Serving (`predict_action_hidden`): the prompt is LEFT-padded into a static
 bucket and a per-row gather places the tokens in their logical order:
@@ -128,7 +129,7 @@ class ForwardOutput(NamedTuple):
     hidden_states: torch.Tensor            # (B, S_mm, D) post-final-norm
     logits: Optional[torch.Tensor]         # (B, S_mm, V) fp32 with compute_logits, else None
     multimodal_labels: torch.Tensor        # (B, S_mm)
-    actions_hidden: torch.Tensor           # (B, chunk_len, D) at action slots
+    actions_hidden: Optional[torch.Tensor]  # (B, chunk_len, D) at action slots, or None
     all_actions_mask: torch.Tensor         # (B, S_txt) action positions
 
 
@@ -139,7 +140,8 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
                       noisy_actions: Optional[torch.Tensor] = None,
                       diffusion_t_emb: Optional[torch.Tensor] = None,
                       use_flash="auto", compute_logits: bool = False,
-                      remat_policy: Optional[str] = None) -> ForwardOutput:
+                      remat_policy: Optional[str] = None,
+                      gather_actions: bool = True) -> ForwardOutput:
     """The training forward (reference `PrismaticForConditionalGeneration.
     forward`, modeling_prismatic.py:575-675, plus the fine-tune hidden-state
     gather, vla-scripts/finetune.py:384-394).
@@ -147,26 +149,38 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
     input_ids / attention_mask / labels (B, S_txt) right-padded; pixels
     (B, N, n_backbones, H, W, 3). use_flash: True | False | "auto" (K1/K2/K3
     where K1 takes the call, see ops/attention.py::resolve_use_flash).
+    noisy_actions (B, chunk, action_dim) and diffusion_t_emb (B, 1, D): the
+    diffusion objective's projected noisy actions in the action slots and
+    its timestep token after the patch block (and the proprio token).
+    With `cfg.use_film` the ViTs are conditioned on the mean of the
+    non-action, non-pad text embeddings of the batch as it comes.
     compute_logits: also the fp32 logits over every row (the discrete
-    objective's input; the objective itself is ROADMAP queue 1, item 14).
+    objective's input). gather_actions: the action-slot hidden states
+    (actions_hidden is None without it).
     """
     if isinstance(cfg.llm, PhiConfig):
         raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
-    if cfg.use_film:
-        raise NotImplementedError("FiLM in training is not ported yet (ROADMAP queue 1, item 14)")
-    if noisy_actions is not None or diffusion_t_emb is not None:
-        raise NotImplementedError(
-            "the diffusion objective is not ported yet (ROADMAP queue 1, item 14)")
     b = input_ids.shape[0]
     dtype = params["llm"]["embed"]["embedding"].dtype
     device = input_ids.device
     pad_mask = attention_mask.bool()
 
     all_actions_mask = get_all_actions_mask(labels, platform.action_dim)
-    text_embeds = embed_tokens(params["llm"], input_ids).to(dtype) \
-        * (~all_actions_mask)[..., None]
-    patch_embeds = _patch_block(params, cfg, pixels, None, proprio, dtype, remat_policy)
+    text_embeds = embed_tokens(params["llm"], input_ids).to(dtype)
+    # FiLM's language vector, taken before the action slots are overwritten
+    # (training semantics; the serving paths use `_film_language_embedding`).
+    lang = _masked_mean_language_embedding(text_embeds, ~all_actions_mask & pad_mask) \
+        if cfg.use_film else None
+    patch_embeds = _patch_block(params, cfg, pixels, lang, proprio, dtype, remat_policy,
+                                diffusion_t_emb=diffusion_t_emb)
     n_patch = patch_embeds.shape[1]
+    if noisy_actions is not None:
+        # Diffusion: projected noisy-action tokens in the action slots
+        # (reference `_replace_input_embeddings`, modeling_prismatic.py:399-430).
+        text_embeds = _scatter_into_mask(text_embeds, all_actions_mask,
+                                         _noisy_action_tokens(params, noisy_actions, dtype))
+    else:
+        text_embeds = text_embeds * (~all_actions_mask)[..., None]
 
     # Physical layout: [BOS][patch block][rest of text] (insertion after BOS,
     # reference `_build_multimodal_attention`, modeling_prismatic.py:462-486).
@@ -188,8 +202,10 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
 
     # Hidden states at positions whose NEXT token is an action token: the
     # multimodal action mask shifted left by one.
-    predictor = torch.cat([mm_actions[:, 1:], none[:, :1]], dim=1)
-    actions_hidden = _gather_mask_rows(hidden, predictor, platform.chunk_len)
+    actions_hidden = None
+    if gather_actions:
+        predictor = torch.cat([mm_actions[:, 1:], none[:, :1]], dim=1)
+        actions_hidden = _gather_mask_rows(hidden, predictor, platform.chunk_len)
     logits = lm_logits(params["llm"], hidden) if compute_logits else None
     return ForwardOutput(hidden, logits, mm_labels, actions_hidden, all_actions_mask)
 
@@ -199,6 +215,17 @@ def _gather_mask_rows(x: torch.Tensor, mask: torch.Tensor, count: int) -> torch.
     (B, count, D). Rows must hold at least `count` Trues."""
     idx = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :count]
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _scatter_into_mask(x: torch.Tensor, mask: torch.Tensor,
+                       values: torch.Tensor) -> torch.Tensor:
+    """x with values[b, k] at the k-th True position of mask[b] (B, S, D);
+    rows must hold at least K Trues, and positions past the K-th keep x."""
+    k = values.shape[1]
+    idx = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)[:, :k]
+    placed = torch.zeros_like(x).scatter(1, idx[..., None].expand(-1, -1, x.shape[-1]),
+                                         values.to(x.dtype))
+    return torch.where(mask[..., None], placed, x)
 
 
 def _left_padded_layout(text_embeds: torch.Tensor, patch_embeds: torch.Tensor,

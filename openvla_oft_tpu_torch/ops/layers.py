@@ -35,7 +35,7 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "kernel_q4" in p:
         if "lora_a" in p:
             raise NotImplementedError("LoRA over an int4 base (QLoRA) is not ported "
-                                      "yet (ROADMAP queue 1, item 14)")
+                                      "yet (ROADMAP queue 1, item 14c)")
         from openvla_oft_tpu_torch.ops.quant import int4_linear
 
         return int4_linear(p, x)
@@ -43,7 +43,7 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     if w.dtype == torch.int8:
         if "lora_a" in p:
             raise NotImplementedError("LoRA over an int8 base (QLoRA) is not ported "
-                                      "yet (ROADMAP queue 1, item 14)")
+                                      "yet (ROADMAP queue 1, item 14c)")
         from openvla_oft_tpu_torch.ops.quant import int8_linear
 
         return int8_linear(p, x)

@@ -6,7 +6,9 @@ gradient step, `{ckpt_dir}/{step:06d}.pt`, holding the trainables and the
 optimizer's state dict. The importers of the reference's per-module fine-tune
 files `{name}--{step}_checkpoint.pt` (action heads, projectors, the FiLMed
 vision backbone) are ported; the `.pt` exporters and the merged-model export
-are not (ROADMAP queue 1, item 14).
+are not (ROADMAP queue 1, item 14b). A checkpoint holds every trainable group
+the run has (LoRA, the action head, the proprio and noisy-action projectors,
+FiLM).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Fine-tune OpenVLA-OFT with LoRA and the L1 objective, in PyTorch.
+"""Fine-tune OpenVLA-OFT with LoRA, in PyTorch.
 
 The counterpart of `vla_scripts/finetune.py::finetune`, with the same flags
 (its `FinetuneConfig`) plus `--device`:
@@ -10,11 +10,16 @@ The counterpart of `vla_scripts/finetune.py::finetune`, with the same flags
       --merge_lora_during_training False --run_root_dir /tmp/runs
 
 Ported: random weights (`random:tiny` or `random:7b`, drawn on the device
-from a seeded generator), the `dummy` dataset, `--recipe`, the L1 objective
-on the LIBERO platform, remat "all"/"none", gradient accumulation, metrics
-through `VLAMetrics` (JSONL), and a checkpoint at every `save_freq` gradient
-steps and at the last. Flags for what is not ported raise at startup,
-naming their ROADMAP item. `--device cuda` never falls back to the CPU.
+from a seeded generator) or a checkpoint dir (its LLM, vision backbone and
+projector loaded onto the device; the heads, FiLM and LoRA drawn as for
+`random:`), the `dummy` dataset, `--recipe`, the three objectives (L1,
+`--use_diffusion` with the periodic sampling metric, and the discrete CE of
+`--use_l1_regression False`), FiLM (`--use_film`) on every registered
+platform, remat "all"/"none", gradient accumulation, metrics through
+`VLAMetrics` (JSONL), and a checkpoint at every `save_freq` gradient steps
+and at the last. Flags for what is not ported raise at startup, naming their
+ROADMAP item. `--device cuda` never falls back to the CPU, and nothing is
+downloaded: a `vla_path` that is neither `random:` nor a dir raises.
 """
 
 from __future__ import annotations
@@ -142,23 +147,23 @@ def unported_flags(cfg: FinetuneConfig) -> list:
     checks = [
         (cfg.multihost, "multihost", f"{_Q1} 17"),
         ((cfg.mesh_dp, cfg.mesh_fsdp, cfg.mesh_tp) != (1, 1, 1), "mesh_*", f"{_Q1} 17"),
-        (cfg.quantize_base, "quantize_base", f"{_Q1} 14 (QLoRA base)"),
-        (cfg.use_diffusion, "use_diffusion", f"{_Q1} 14 (diffusion objective)"),
-        (not cfg.use_l1_regression and not cfg.use_diffusion,
-         "use_l1_regression False (discrete objective)", f"{_Q1} 14"),
-        (cfg.use_film, "use_film", f"{_Q1} 14 (FiLM in training)"),
-        (cfg.use_val_set, "use_val_set", f"{_Q1} 14 (validation)"),
-        (cfg.resume, "resume", f"{_Q1} 14 (resume)"),
+        (cfg.quantize_base, "quantize_base", f"{_Q1} 14c (QLoRA base)"),
+        (cfg.use_val_set, "use_val_set", f"{_Q1} 14b (validation)"),
+        (cfg.resume, "resume", f"{_Q1} 14b (resume)"),
         (cfg.merge_lora_during_training and cfg.use_lora,
-         "merge_lora_during_training True", f"{_Q1} 14 (merged export)"),
+         "merge_lora_during_training True", f"{_Q1} 14b (merged export)"),
         (cfg.remat_policy in ("dots", "attn_out"), f"remat_policy {cfg.remat_policy}",
-         f"{_Q1} 14"),
+         f"{_Q1} 14c"),
         (str(cfg.data_root_dir) != "dummy", "data_root_dir other than dummy (RLDS)",
-         f"{_Q1} 14 (data path)"),
-        (not cfg.vla_path.startswith("random:"), "vla_path of a checkpoint",
-         f"{_Q1} 14 (checkpoint loading)"),
+         f"{_Q1} 14b (data path)"),
     ]
     return [(flag, item) for bad, flag, item in checks if bad]
+
+
+def objective_of(cfg: FinetuneConfig) -> str:
+    """"l1", "diffusion" or "discrete", from the flags (JAX finetune.py:191-192)."""
+    return "l1" if cfg.use_l1_regression else "diffusion" if cfg.use_diffusion \
+        else "discrete"
 
 
 def parse_config(argv=None) -> TorchFinetuneConfig:
@@ -169,21 +174,30 @@ def parse_config(argv=None) -> TorchFinetuneConfig:
 
 
 def model_config(cfg: FinetuneConfig):
-    """The OpenVLAConfig of `--vla_path random:tiny|random:7b`."""
+    """The OpenVLAConfig of `--vla_path`: `random:tiny`, `random:7b`, or a
+    checkpoint dir's config.json, with `num_images_in_input` and `use_film`
+    from the flags. Anything else (a hub id) raises: nothing is downloaded."""
     import openvla_oft_tpu_torch.config as C
 
-    size = cfg.vla_path.split(":", 1)[1]
-    if size == "tiny":
-        C._VISION_REGISTRY.setdefault("tiny-dual", (C.TINY_DINOV2, C.TINY_SIGLIP))
-        C._LLM_REGISTRY.setdefault("tiny-llama", C.TINY_LLAMA)
-        return C.OpenVLAConfig(vision_backbone_id="tiny-dual",
-                               llm_backbone_id="tiny-llama",
-                               num_images_in_input=cfg.num_images_in_input)
-    if size == "7b":
-        return C.OpenVLAConfig(vision_backbone_id="dinosiglip-vit-so-224px",
-                               llm_backbone_id="llama2-7b-pure",
-                               num_images_in_input=cfg.num_images_in_input)
-    raise ValueError(f"vla_path random:{size}: use random:tiny or random:7b")
+    kw = dict(num_images_in_input=cfg.num_images_in_input, use_film=cfg.use_film)
+    if cfg.vla_path.startswith("random:"):
+        size = cfg.vla_path.split(":", 1)[1]
+        if size == "tiny":
+            C._VISION_REGISTRY.setdefault("tiny-dual", (C.TINY_DINOV2, C.TINY_SIGLIP))
+            C._LLM_REGISTRY.setdefault("tiny-llama", C.TINY_LLAMA)
+            return C.OpenVLAConfig(vision_backbone_id="tiny-dual",
+                                   llm_backbone_id="tiny-llama", **kw)
+        if size == "7b":
+            return C.OpenVLAConfig(vision_backbone_id="dinosiglip-vit-so-224px",
+                                   llm_backbone_id="llama2-7b-pure", **kw)
+        raise ValueError(f"vla_path random:{size}: use random:tiny or random:7b")
+    if os.path.isdir(cfg.vla_path):
+        model_cfg, _ = C.OpenVLAConfig.from_json_file(os.path.join(cfg.vla_path,
+                                                                   "config.json"))
+        return dataclasses.replace(model_cfg, **kw)
+    raise ValueError(f"--vla_path {cfg.vla_path!r} is neither random:<tiny|7b> nor a "
+                     "checkpoint dir: the port downloads nothing, so a hub id needs a "
+                     "local copy of its checkpoint dir")
 
 
 def _use_flash(value) -> object:
@@ -196,27 +210,23 @@ def _use_flash(value) -> object:
 
 
 def platform_of(cfg: FinetuneConfig):
-    """The robot platform of `--robot_platform` (or of the dataset's name);
-    only LIBERO is ported."""
-    from openvla_oft_tpu_torch.constants import LIBERO, detect_robot_platform, get_platform
+    """The robot platform of `--robot_platform` (or of the dataset's name)."""
+    from openvla_oft_tpu_torch.constants import detect_robot_platform, get_platform
 
-    platform = get_platform(cfg.robot_platform) if cfg.robot_platform else \
+    return get_platform(cfg.robot_platform) if cfg.robot_platform else \
         detect_robot_platform(cfg.dataset_name)
-    if platform != LIBERO:
-        raise NotImplementedError(f"platform {platform.name!r} is not ported yet "
-                                  f"({_Q1} 14); the port trains on LIBERO")
-    return platform
 
 
 def train_config(cfg: FinetuneConfig):
     """The TrainConfig the CLI's flags give."""
     from openvla_oft_tpu_torch.training.train_step import TrainConfig
 
-    return TrainConfig(learning_rate=cfg.learning_rate,
+    return TrainConfig(objective=objective_of(cfg), learning_rate=cfg.learning_rate,
                        num_steps_before_decay=cfg.num_steps_before_decay,
                        warmup_steps=cfg.lr_warmup_steps, lora_rank=cfg.lora_rank,
                        lora_alpha=float(min(cfg.lora_rank, 16)),
-                       use_proprio=cfg.use_proprio,
+                       use_proprio=cfg.use_proprio, use_film=cfg.use_film,
+                       num_diffusion_steps=cfg.num_diffusion_steps,
                        grad_accumulation_steps=cfg.grad_accumulation_steps,
                        remat_policy=cfg.remat_policy)
 
@@ -255,20 +265,51 @@ def _device(name: str) -> torch.device:
     return device
 
 
+_BASE = ("llm", "vision_backbone", "projector")
+
+
+def build_model(cfg: FinetuneConfig, model_cfg, platform, device: torch.device):
+    """(frozen base, trainables): a bf16 base and fp32 heads, FiLM and LoRA.
+    `random:` draws the whole tree from a generator seeded 0 on the device;
+    a checkpoint dir's LLM, vision backbone and projector are loaded onto the
+    device leaf by leaf (with the lm_head for the discrete objective, which
+    raises naming `language_model.lm_head.weight` where the dir has none)
+    and the rest is drawn from the same generator. LoRA comes from a
+    generator seeded 1 (`bridge.py::split_base_trainables`)."""
+    from openvla_oft_tpu_torch.bridge import init_params, param_spec, split_base_trainables
+
+    head = objective_of(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    kw = dict(device=device, dtype=torch.bfloat16, head_dtype=torch.float32, head=head)
+    if cfg.vla_path.startswith("random:"):
+        params = init_params(model_cfg, platform, gen, **kw)
+    else:
+        from openvla_oft_tpu_torch.utils.hf_import import load_openvla_checkpoint
+
+        _, params, _ = load_openvla_checkpoint(cfg.vla_path, dtype=torch.bfloat16,
+                                               device=device, head=head)
+        heads = [k for k in param_spec(model_cfg, platform, head) if k not in _BASE]
+        params.update(init_params(model_cfg, platform, gen, keys=heads, **kw))
+    return split_base_trainables(params, torch.Generator(device=device).manual_seed(1),
+                                 cfg.lora_rank, cfg.use_proprio)
+
+
 def finetune(cfg: TorchFinetuneConfig,
              on_step: Optional[Callable[[int, dict, object], None]] = None) -> dict:
     """Run the fine-tuning loop; returns {"final_step", "run_dir", "ckpt"}.
 
     on_step(grad_step, metrics, state), if given, runs after every
     micro-step with the step's metrics as floats (and `step_time`, seconds on
-    the host clock, ending in a device synchronize).
+    the host clock, ending in a device synchronize). On a step that ran the
+    diffusion sampling metric they hold its metrics and `sample_time` too.
     """
     from openvla_oft_tpu_torch.data.collator import batch_iterator
     from openvla_oft_tpu_torch.data.transforms import save_dataset_statistics
     from openvla_oft_tpu_torch.training.metrics import JSONLinesTracker, VLAMetrics
-    from openvla_oft_tpu_torch.bridge import init_params, split_base_trainables
     from openvla_oft_tpu_torch.training.checkpoint import save_checkpoint
-    from openvla_oft_tpu_torch.training.train_step import create_train_state, train_step
+    from openvla_oft_tpu_torch.training.train_step import (create_train_state,
+                                                           diffusion_sampling_metrics,
+                                                           train_step)
 
     if cfg.recipe:
         from openvla_oft_tpu_torch.training.recipes import apply_recipe
@@ -288,24 +329,20 @@ def finetune(cfg: TorchFinetuneConfig,
     platform = platform_of(cfg)
     use_flash = _use_flash(cfg.use_flash_attention)
     device = _device(cfg.device)
+    model_cfg = model_config(cfg)
+    objective = objective_of(cfg)
 
     run_id = get_run_id(cfg)
     run_dir = os.path.join(str(cfg.run_root_dir), run_id)
     os.makedirs(run_dir, exist_ok=True)
-    print(f"[finetune] run_id={run_id} objective=l1 platform={platform.name} "
-          f"device={device}")
+    print(f"[finetune] run_id={run_id} objective={objective} platform={platform.name} "
+          f"film={model_cfg.use_film} device={device}")
 
-    # === Model: bf16 base, fp32 heads and LoRA, drawn on the device ===
-    model_cfg = model_config(cfg)
-    params = init_params(model_cfg, platform,
-                         torch.Generator(device=device).manual_seed(0),
-                         device=device, dtype=torch.bfloat16, head_dtype=torch.float32)
-    base, trainables = split_base_trainables(
-        params, torch.Generator(device=device).manual_seed(1), cfg.lora_rank,
-        cfg.use_proprio)
-    del params
+    # === Model: bf16 base, fp32 heads, FiLM and LoRA, on the device ===
+    base, trainables = build_model(cfg, model_cfg, platform, device)
     tcfg = train_config(cfg)
-    state = create_train_state(base, trainables, tcfg)
+    state = create_train_state(base, trainables, tcfg,
+                               torch.Generator(device=device).manual_seed(2))
 
     # === Data ===
     g = max(cfg.grad_accumulation_steps, 1)
@@ -337,6 +374,17 @@ def finetune(cfg: TorchFinetuneConfig,
             raise FloatingPointError(f"non-finite loss at micro-step {micro}: {m}")
         metrics.commit(**{k: v for k, v in m.items() if k != "step_time"})
         at_boundary = (micro + 1) % g == 0
+        if cfg.use_diffusion and at_boundary \
+                and (grad_step + 1) % cfg.diffusion_sample_freq == 0:
+            # Reverse diffusion on the step's batch, its generator seeded
+            # from the step (the JAX CLI's PRNGKey(grad_step)).
+            t0 = time.perf_counter()
+            dm = diffusion_sampling_metrics(
+                state.trainables, state.base_params, batch, model_cfg, platform, tcfg,
+                torch.Generator(device=device).manual_seed(grad_step), use_flash)
+            dm = {k: float(v) for k, v in dm.items()}
+            metrics.commit(**dm)
+            m.update(dm, sample_time=time.perf_counter() - t0)
         if grad_step % cfg.wandb_log_freq == 0 and at_boundary:
             smoothed = metrics.push(grad_step)
             print(f"[step {grad_step}] " + " ".join(

@@ -1,12 +1,18 @@
-"""The LoRA fine-tuning step for the L1 objective.
+"""The LoRA fine-tuning step for the three OFT objectives.
 
 Port of `openvla_oft_tpu/training/train_step.py` (reference
 `vla-scripts/finetune.py` training loop and `run_forward_pass`):
-
-  loss = mean |gt_actions - l1_head(actions_hidden)|   (finetune.py:396-400)
+  - "l1":        mean |gt_actions - l1_head(actions_hidden)|   (finetune.py:396-400)
+  - "diffusion": MSE(predicted noise, sampled noise)          (finetune.py:402-407)
+  - "discrete":  next-token CE over the labels that are not IGNORE (HF loss
+                 semantics), with token and action accuracies and the L1 of
+                 the decoded bin centres as metrics.
+`diffusion_sampling_metrics` runs the reverse diffusion on a training batch
+(reference `run_diffusion_sampling`, finetune.py:454-540).
 
 The base VLA is frozen (requires_grad=False); the trainables are
-{lora, action_head, proprio_projector}. LoRA enters merge-free
+{lora, action_head, proprio_projector, noisy_action_projector, film}, as far
+as the model has them. LoRA enters merge-free
 (`training/lora.py::inject_lora`), so the base is never copied. The
 optimizer is torch AdamW with the JAX chain's semantics: optional global-norm
 clipping (optax `clip_by_global_norm`), the warmup + step-decay schedule
@@ -15,9 +21,9 @@ at lr(0)), and gradient accumulation that averages `grad_accumulation_steps`
 micro-batch gradients before one update (`optax.MultiSteps`).
 
 Unlike the JAX step, which returns a new state, `train_step` updates the
-trainables and the optimizer state in place and returns the same state.
-The diffusion and discrete objectives are not ported (ROADMAP queue 1,
-item 14).
+trainables and the optimizer state in place and returns the same state. The
+state carries a `torch.Generator` (the JAX state's `rng`) that the diffusion
+objective draws its noise and timesteps from.
 """
 
 from __future__ import annotations
@@ -28,10 +34,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from openvla_oft_tpu_torch.config import OpenVLAConfig
-from openvla_oft_tpu_torch.constants import PlatformSpec
+from openvla_oft_tpu_torch.constants import (IGNORE_INDEX, LLAMA2_VOCAB_SIZE, N_ACTION_BINS,
+                                            PlatformSpec)
 from openvla_oft_tpu_torch.bridge import tree_leaves
-from openvla_oft_tpu_torch.models.action_heads import l1_head_predict
+from openvla_oft_tpu_torch.models import action_heads as AH
 from openvla_oft_tpu_torch.models.prismatic import prismatic_forward
+from openvla_oft_tpu_torch.ops.masks import get_current_action_mask, get_next_actions_mask
+from openvla_oft_tpu_torch.processing.image_processing import _linspace_f32
 from openvla_oft_tpu_torch.training.lora import inject_lora
 
 Params = Dict[str, Any]
@@ -41,7 +50,7 @@ Params = Dict[str, Any]
 class TrainConfig:
     """The fields of the JAX `TrainConfig` that the ported step reads."""
 
-    objective: str = "l1"
+    objective: str = "l1"                 # "l1" | "diffusion" | "discrete"
     learning_rate: float = 5e-4
     num_steps_before_decay: int = 100_000
     lr_decay_factor: float = 0.1          # MultiStepLR gamma (finetune.py:955-962)
@@ -50,6 +59,8 @@ class TrainConfig:
     lora_alpha: float = 16.0
     max_grad_norm: float = 0.0            # 0 = no clipping (reference default)
     use_proprio: bool = True
+    use_film: bool = False
+    num_diffusion_steps: int = 100
     weight_decay: float = 0.01            # torch AdamW default
     grad_accumulation_steps: int = 1
     remat_policy: str = "all"             # "all" | "none" ("dots", "attn_out" raise)
@@ -129,52 +140,134 @@ def make_optimizer(cfg: TrainConfig, trainables: Params) -> Optimizer:
     return Optimizer(cfg, tree_leaves(trainables))
 
 
+OBJECTIVES = ("l1", "diffusion", "discrete")
+
+
 @dataclasses.dataclass
 class TrainState:
     base_params: Params     # frozen VLA (llm + vision_backbone + projector)
-    trainables: Params      # {lora, action_head, proprio_projector}
+    trainables: Params      # {lora, action_head, proprio_projector, ...}
     optimizer: Optimizer
+    generator: torch.Generator   # the step's random draws (the JAX state's rng)
     step: int = 0           # micro-steps taken
 
 
-def create_train_state(base_params: Params, trainables: Params,
-                       cfg: TrainConfig) -> TrainState:
-    return TrainState(base_params, trainables, make_optimizer(cfg, trainables))
+def create_train_state(base_params: Params, trainables: Params, cfg: TrainConfig,
+                       generator: Optional[torch.Generator] = None) -> TrainState:
+    """The state of a run. generator: the draws of the diffusion objective;
+    None seeds one with 2 (the JAX CLI's PRNGKey(2)) on the trainables'
+    device."""
+    if generator is None:
+        device = tree_leaves(trainables)[0].device
+        generator = torch.Generator(device=device).manual_seed(2)
+    return TrainState(base_params, trainables, make_optimizer(cfg, trainables), generator)
+
+
+_SHADOWED = ("proprio_projector", "noisy_action_projector", "film")
 
 
 def _merged_params(base: Params, trainables: Params, cfg: TrainConfig) -> Params:
-    """The base with LoRA injected and the trainable proprio projector."""
+    """The base with LoRA injected, and the trainable projectors and FiLM
+    projectors in their places."""
     params = inject_lora(base, trainables["lora"], cfg.lora_rank, cfg.lora_alpha) \
         if "lora" in trainables else dict(base)
-    if "proprio_projector" in trainables:
-        params["proprio_projector"] = trainables["proprio_projector"]
+    for k in _SHADOWED:
+        if k in trainables:
+            params[k] = trainables[k]
     return params
+
+
+def _forward(params: Params, batch: Dict[str, torch.Tensor], model_cfg: OpenVLAConfig,
+             platform: PlatformSpec, cfg: TrainConfig, use_flash, **kw):
+    return prismatic_forward(
+        params, model_cfg, platform, input_ids=batch["input_ids"],
+        attention_mask=batch["attention_mask"], pixels=batch["pixel_values"],
+        labels=batch["labels"], proprio=batch.get("proprio") if cfg.use_proprio else None,
+        use_flash=use_flash, remat_policy=cfg.remat_policy, **kw)
+
+
+def _bin_centers(device) -> torch.Tensor:
+    """The 255 centres of the uniform action bins on [-1, 1], from the fp32
+    values XLA gives `jnp.linspace(-1, 1, 256)` (one ulp matters here)."""
+    bins = torch.from_numpy(_linspace_f32(-1.0, 1.0, N_ACTION_BINS)).to(device)
+    return (bins[:-1] + bins[1:]) / 2.0
+
+
+def discrete_metrics(logits: torch.Tensor, labels: torch.Tensor,
+                     platform: PlatformSpec) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics) of the discrete objective: logits (B, S, V) fp32 and
+    the multimodal labels (B, S). HF CausalLM CE: logits shifted left and
+    labels right, the mean NLL over labels that are not IGNORE (the label's
+    log-prob gathered, never a one-hot); token accuracy, the current and
+    next actions' accuracies and the L1 of their decoded bin centres
+    (reference finetune.py:363-377, train_utils.py:42-56)."""
+    logits, labels = logits[:, :-1], labels[:, 1:]
+    valid = labels != IGNORE_INDEX
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, safe[..., None])[..., 0]
+
+    def masked_mean(x, mask):
+        return (x * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+    loss = masked_mean(nll, valid)
+    with torch.no_grad():
+        preds = torch.argmax(logits, dim=-1)
+        hit = preds == labels
+        cur = get_current_action_mask(labels, platform.action_dim)
+        nxt = get_next_actions_mask(labels, platform.action_dim)
+        centers = _bin_centers(logits.device)
+
+        def decode(ids):
+            return centers[torch.clamp(LLAMA2_VOCAB_SIZE - ids - 1, 0, N_ACTION_BINS - 2)]
+
+        dist = (decode(preds) - decode(labels)).abs()
+        metrics = {"token_accuracy": masked_mean(hit & valid, valid),
+                   "curr_action_accuracy": masked_mean(hit & cur, cur),
+                   "next_actions_accuracy": masked_mean(hit & nxt, nxt),
+                   "curr_action_l1_loss": masked_mean(dist, cur),
+                   "next_actions_l1_loss": masked_mean(dist, nxt)}
+    return loss, metrics
 
 
 def loss_and_metrics(trainables: Params, base_params: Params,
                      batch: Dict[str, torch.Tensor], model_cfg: OpenVLAConfig,
                      platform: PlatformSpec, cfg: TrainConfig,
+                     generator: Optional[torch.Generator] = None,
                      use_flash="auto") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, metrics) of one batch: the differentiable L1 loss, and the
-    detached `loss`, `curr_action_l1_loss` and `next_actions_l1_loss`."""
-    if cfg.objective != "l1":
-        raise NotImplementedError(f"objective {cfg.objective!r} is not ported yet "
-                                  "(ROADMAP queue 1, item 14)")
+    """(loss, metrics) of one batch: the differentiable loss of
+    `cfg.objective` and its detached metrics, `loss` among them. The
+    diffusion objective draws its noise and timesteps from `generator`."""
+    if cfg.objective not in OBJECTIVES:
+        raise ValueError(f"Unknown objective {cfg.objective!r}")
     params = _merged_params(base_params, trainables, cfg)
-    out = prismatic_forward(
-        params, model_cfg, platform, input_ids=batch["input_ids"],
-        attention_mask=batch["attention_mask"], pixels=batch["pixel_values"],
-        labels=batch["labels"],
-        proprio=batch.get("proprio") if cfg.use_proprio else None,
-        use_flash=use_flash, remat_policy=cfg.remat_policy)
-    gt = batch["actions"].float()
-    pred = l1_head_predict(trainables["action_head"],
-                           out.actions_hidden.to(torch.bfloat16), platform).float()
-    loss = (gt - pred).abs().mean()
-    with torch.no_grad():
-        metrics = {"loss": loss.detach(),
-                   "curr_action_l1_loss": (gt[:, 0] - pred[:, 0]).abs().mean(),
-                   "next_actions_l1_loss": (gt[:, 1:] - pred[:, 1:]).abs().mean()}
+    gt = batch.get("actions")
+    if cfg.objective == "discrete":
+        out = _forward(params, batch, model_cfg, platform, cfg, use_flash,
+                       compute_logits=True, gather_actions=False)
+        loss, metrics = discrete_metrics(out.logits, out.multimodal_labels, platform)
+    elif cfg.objective == "diffusion":
+        if generator is None:
+            raise ValueError("the diffusion objective draws from a torch.Generator")
+        nd = AH.diffusion_sample_noisy_actions(
+            trainables["action_head"], generator, gt, platform, llm_dim=model_cfg.llm_dim,
+            num_diffusion_steps=cfg.num_diffusion_steps)
+        out = _forward(params, batch, model_cfg, platform, cfg, use_flash,
+                       noisy_actions=nd["noisy_actions"],
+                       diffusion_t_emb=nd["diffusion_timestep_embeddings"])
+        pred_noise = AH.diffusion_predict_noise(
+            trainables["action_head"], out.actions_hidden.to(torch.bfloat16), platform)
+        loss = (pred_noise.float() - nd["noise"].float()).square().mean()
+        metrics = {}
+    else:
+        out = _forward(params, batch, model_cfg, platform, cfg, use_flash)
+        gt = gt.float()
+        pred = AH.l1_head_predict(trainables["action_head"],
+                                  out.actions_hidden.to(torch.bfloat16), platform).float()
+        loss = (gt - pred).abs().mean()
+        with torch.no_grad():
+            metrics = {"curr_action_l1_loss": (gt[:, 0] - pred[:, 0]).abs().mean(),
+                       "next_actions_l1_loss": (gt[:, 1:] - pred[:, 1:]).abs().mean()}
+    metrics["loss"] = loss.detach()
     return loss, metrics
 
 
@@ -186,9 +279,40 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     this micro-batch's gradients."""
     leaves = state.optimizer.params
     loss, metrics = loss_and_metrics(state.trainables, state.base_params, batch,
-                                     model_cfg, platform, cfg, use_flash)
+                                     model_cfg, platform, cfg, state.generator, use_flash)
     grads = torch.autograd.grad(loss, leaves)
     metrics["grad_norm"] = global_norm(grads).detach()
     state.optimizer.update(grads)
     state.step += 1
     return state, metrics
+
+
+@torch.no_grad()
+def diffusion_sampling_metrics(trainables: Params, base_params: Params,
+                               batch: Dict[str, torch.Tensor], model_cfg: OpenVLAConfig,
+                               platform: PlatformSpec, cfg: TrainConfig,
+                               generator: torch.Generator,
+                               use_flash="auto") -> Dict[str, torch.Tensor]:
+    """Reverse diffusion on a TRAINING batch -> the action L1 metrics
+    (reference `run_diffusion_sampling`, finetune.py:454-540, run every
+    `diffusion_sample_freq` steps): noise drawn from `generator`, then, for
+    each t of `timesteps(num_diffusion_steps)`, the whole training-layout
+    forward (ViTs included, as the JAX `lax.scan` runs it), the predicted
+    noise and one DDIM step."""
+    params = _merged_params(base_params, trainables, cfg)
+    gt = batch["actions"]
+    b, device = gt.shape[0], gt.device
+    sched = AH.diffusion_scheduler(cfg.num_diffusion_steps, device=device)
+    x_t = AH.draw_noise(generator, gt.shape, device)
+    for t in sched.timesteps(cfg.num_diffusion_steps):
+        t_emb = AH.sinusoidal_time_encoding(
+            torch.full((b,), int(t), dtype=torch.int64, device=device), model_cfg.llm_dim)
+        out = _forward(params, batch, model_cfg, platform, cfg, use_flash,
+                       noisy_actions=x_t, diffusion_t_emb=t_emb[:, None, :])
+        eps = AH.diffusion_predict_noise(trainables["action_head"],
+                                         out.actions_hidden.to(torch.bfloat16), platform)
+        x_t = sched.step(eps.float(), int(t), x_t, cfg.num_diffusion_steps)
+    l1 = (gt.float() - x_t).abs()
+    return {"sampled_actions_l1_loss": l1.mean(),
+            "curr_action_l1_loss_sampled": l1[:, 0].mean(),
+            "next_actions_l1_loss_sampled": l1[:, 1:].mean()}

@@ -138,6 +138,12 @@ def test_fastapi_act_route_answers_200():
 
 @pytest.mark.parametrize("platform", ["aloha", "bridge"])
 def test_unported_training_platform_names_item_14(platform):
-    with pytest.raises(NotImplementedError, match=r"queue 1, item 14\)"):
-        FT.platform_of(FT.FinetuneConfig(robot_platform=platform))
+    """The training CLI once refused every platform but LIBERO (item 14);
+    it now takes each registered one, by name or sniffed from the dataset
+    name, as the JAX CLI does."""
+    from openvla_oft_tpu_torch.constants import PLATFORMS
+
+    assert FT.platform_of(FT.FinetuneConfig(robot_platform=platform)) == PLATFORMS[platform]
+    assert FT.platform_of(FT.FinetuneConfig(dataset_name=f"{platform}_demo")) \
+        == PLATFORMS[platform]
     assert FT.platform_of(FT.FinetuneConfig(robot_platform="libero")) == LIBERO

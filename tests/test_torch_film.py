@@ -24,7 +24,7 @@ from openvla_oft_tpu.policy import init_openvla_params
 from openvla_oft_tpu.policy import serve_action_chunk as jax_serve
 from openvla_oft_tpu_torch.bridge import param_spec, params_from_numpy
 from openvla_oft_tpu_torch.models import vit as TV
-from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden, prismatic_forward
+from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden
 from openvla_oft_tpu_torch.ops import vit_fused as VF
 from openvla_oft_tpu_torch.policy import serve_action_chunk
 from test_torch_bridge import _flatten
@@ -225,11 +225,3 @@ def test_flagship_policy_names_its_deployments():
     assert DEPLOYMENTS["aloha"] == ("aloha", 3, True)
     with pytest.raises(ValueError, match="platform"):
         flagship_policy("cpu", platform="bridge")
-
-
-def test_film_in_training_still_raises(rng):
-    params = params_from_numpy(init_openvla_params(jax.random.PRNGKey(0), ALOHA_CFG, LIBERO,
-                                                   dtype=jnp.float32, head="l1"))
-    z = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        prismatic_forward(params, P_ALOHA_CFG, port_platform(LIBERO), z, z, torch.zeros(1), z)

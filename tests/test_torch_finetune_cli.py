@@ -2,9 +2,11 @@
 
 Its data path is held against the JAX package's (`DummyDataset` and
 `RLDSBatchTransform` with the JAX processor): the same seed gives the same
-arrays, token ids exactly and pixels to 1e-6. A 2-step `random:tiny` run on
-the CPU writes its metrics JSONL and its checkpoint, and every flag for a
-feature that is not ported raises at startup.
+arrays, token ids exactly and pixels to 1e-6. 2-step `random:tiny` runs on
+the CPU write their metrics JSONL and checkpoint for each objective (L1,
+diffusion with its sampling metric, discrete), for ALOHA with FiLM and from
+a checkpoint dir; every flag for a feature that is not ported raises at
+startup, and so does a hub id.
 """
 
 import dataclasses
@@ -28,6 +30,7 @@ from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer as
 from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
 from openvla_oft_tpu_torch.training import finetune as FT
 from openvla_oft_tpu_torch.training.checkpoint import latest_step, restore_checkpoint
+from openvla_oft_tpu_torch.bridge import tree_leaves
 from openvla_oft_tpu_torch.training.recipes import RECIPES, apply_recipe
 from test_torch_import import port_config, port_platform
 from test_training import CFG
@@ -87,9 +90,6 @@ def test_tiny_run_writes_metrics_and_checkpoint(tmp_path):
 
 
 UNPORTED = [
-    (["--use_diffusion", "True", "--use_l1_regression", "False"], "diffusion"),
-    (["--use_l1_regression", "False"], "discrete"),
-    (["--use_film", "True"], "use_film"),
     (["--quantize_base", "True"], "quantize_base"),
     (["--use_val_set", "True"], "use_val_set"),
     (["--resume", "True"], "resume"),
@@ -98,8 +98,6 @@ UNPORTED = [
     (["--mesh_fsdp", "2"], "mesh"),
     (["--remat_policy", "dots"], "remat_policy dots"),
     (["--data_root_dir", "datasets/rlds"], "RLDS"),
-    (["--vla_path", "openvla/openvla-7b"], "checkpoint"),
-    (["--robot_platform", "aloha"], "aloha"),
 ]
 
 
@@ -148,3 +146,146 @@ def test_finetune_config_and_run_id_match_jax():
 
 def test_recipes_match_jax():
     assert RECIPES == jax_recipes.RECIPES
+
+
+def _rows(out) -> list:
+    return [json.loads(line) for f in Path(out["run_dir"]).glob("*-metrics.jsonl")
+            for line in f.read_text().splitlines()]
+
+
+def test_diffusion_run_logs_the_sampling_metric(tmp_path):
+    """Mirrors tests/test_finetune_cli.py::test_finetune_diffusion_with_sampling_metric."""
+    out = FT.main(TINY_RUN + ["--use_l1_regression", "False", "--use_diffusion", "True",
+                              "--num_diffusion_steps", "4", "--diffusion_sample_freq", "1",
+                              "--batch_size", "2", "--max_steps", "2",
+                              "--run_root_dir", str(tmp_path)])
+    assert out["final_step"] == 2
+    rows = _rows(out)
+    assert [r["step"] for r in rows] == [0, 1]
+    for r in rows:
+        for key in ("loss", "sampled_actions_l1_loss", "curr_action_l1_loss_sampled",
+                    "next_actions_l1_loss_sampled"):
+            assert np.isfinite(r[key]), (key, r)
+    state = restore_checkpoint(str(Path(out["run_dir"]) / "ckpt"))
+    assert set(state["trainables"]) == {"lora", "action_head", "proprio_projector",
+                                        "noisy_action_projector"}
+    assert "noise_predictor" in state["trainables"]["action_head"]
+
+
+def test_discrete_run_logs_token_accuracy(tmp_path):
+    out = FT.main(TINY_RUN + ["--use_l1_regression", "False", "--batch_size", "2",
+                              "--max_steps", "2", "--run_root_dir", str(tmp_path)])
+    rows = _rows(out)
+    assert [r["step"] for r in rows] == [0, 1]
+    for r in rows:
+        for key in ("loss", "token_accuracy", "curr_action_accuracy", "next_actions_accuracy",
+                    "curr_action_l1_loss", "next_actions_l1_loss"):
+            assert np.isfinite(r[key]), (key, r)
+        assert 0 <= r["token_accuracy"] <= 1
+    state = restore_checkpoint(str(Path(out["run_dir"]) / "ckpt"))
+    assert set(state["trainables"]) == {"lora", "proprio_projector"}
+
+
+ALOHA_RUN = ["--robot_platform", "aloha", "--use_film", "True", "--num_images_in_input", "3",
+             "--batch_size", "2", "--max_steps", "2"]
+
+
+def test_aloha_film_run_moves_the_film_group(tmp_path):
+    """OFT+ ALOHA (3 images, FiLM, a 25 x 14 chunk): the checkpoint holds the
+    FiLM projectors, moved from their draw."""
+    from openvla_oft_tpu_torch.constants import ALOHA as PORT_ALOHA
+
+    argv = TINY_RUN + ALOHA_RUN + ["--run_root_dir", str(tmp_path)]
+    out = FT.main(argv)
+    assert out["final_step"] == 2
+    state = restore_checkpoint(str(Path(out["run_dir"]) / "ckpt"))
+    assert set(state["trainables"]) == {"lora", "action_head", "proprio_projector", "film"}
+    cfg = FT.parse_config(argv)
+    _, drawn = FT.build_model(cfg, FT.model_config(cfg), PORT_ALOHA, torch.device("cpu"))
+    moved = [(a - b).abs().max().item() for a, b in zip(
+        tree_leaves(state["trainables"]["film"]), tree_leaves(drawn["film"]))]
+    assert len(moved) == 2 * 2 * 2 and min(moved) > 0      # 2 ViTs x scale/shift x W/b
+    head = state["trainables"]["action_head"]["model"]["fc_out"]["kernel"]
+    assert head.shape[-1] == PORT_ALOHA.action_dim == 14
+
+
+def _tiny_checkpoint(tmp_path, head):
+    """A tiny bf16 checkpoint dir written with the port's exporter, and the
+    tree it holds."""
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.constants import LIBERO as PORT_LIBERO
+    from openvla_oft_tpu_torch.utils.hf_import import export_openvla_checkpoint
+
+    cfg = FT.model_config(FT.parse_config(TINY_RUN))
+    params = init_params(cfg, PORT_LIBERO, torch.Generator().manual_seed(5),
+                         dtype=torch.bfloat16, head=head)
+    base = {k: params[k] for k in ("llm", "vision_backbone", "projector")}
+    ckpt = tmp_path / f"ckpt-{head}"
+    export_openvla_checkpoint(cfg, base, str(ckpt))
+    return str(ckpt), base
+
+
+def _assert_bitwise(a, b, path=""):
+    """Same keys, dtypes, shapes and bits."""
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), path
+        for k in a:
+            _assert_bitwise(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_bitwise(x, y, f"{path}/{i}")
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), path
+
+
+@pytest.mark.parametrize("objective", ["l1", "discrete"])
+def test_run_from_a_checkpoint_dir_loads_its_base_bitwise(tmp_path, objective):
+    """The frozen base that trains is the dir's, bit for bit (with the
+    lm_head for the discrete objective), and stays so."""
+    ckpt, base = _tiny_checkpoint(tmp_path, objective)
+    seen = []
+    flags = ["--use_l1_regression", "False"] if objective == "discrete" else []
+    out = FT.main(TINY_RUN + flags + ["--vla_path", ckpt, "--batch_size", "2",
+                                      "--max_steps", "2", "--run_root_dir",
+                                      str(tmp_path / "runs")],
+                  on_step=lambda step, m, state: seen.append(state.base_params))
+    assert out["final_step"] == 2 and len(seen) == 2
+    assert ("lm_head" in seen[-1]["llm"]) == (objective == "discrete")
+    _assert_bitwise(seen[-1], base)
+    assert all(not t.requires_grad for t in tree_leaves(seen[-1]))
+
+
+def test_discrete_run_from_a_dir_without_lm_head_names_the_key(tmp_path):
+    ckpt, _ = _tiny_checkpoint(tmp_path, "l1")
+    steps = []
+    with pytest.raises(KeyError, match="language_model.lm_head.weight"):
+        FT.main(TINY_RUN + ["--use_l1_regression", "False", "--vla_path", ckpt,
+                            "--max_steps", "1", "--run_root_dir", str(tmp_path / "runs")],
+                on_step=lambda *a: steps.append(a))
+    assert steps == []
+
+
+@pytest.mark.parametrize("vla_path", ["openvla/openvla-7b", "random:13b"])
+def test_hub_id_raises_before_any_work(tmp_path, vla_path):
+    """Nothing is downloaded: a vla_path that is neither random:<tiny|7b> nor
+    a dir raises before the run dir is made."""
+    with pytest.raises(ValueError, match="random:"):
+        FT.main(TINY_RUN + ["--vla_path", vla_path, "--max_steps", "1",
+                            "--run_root_dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+
+
+def test_l1_objective_and_start_line(tmp_path, capsys):
+    """The objective comes from the flags as in the JAX CLI (finetune.py:191-192),
+    and the start line names it."""
+    for flags, objective in ((["--use_l1_regression", "True"], "l1"),
+                             (["--use_l1_regression", "False", "--use_diffusion", "True"],
+                              "diffusion"),
+                             (["--use_l1_regression", "False"], "discrete")):
+        cfg = FT.parse_config(TINY_RUN + flags)
+        assert FT.objective_of(cfg) == FT.train_config(cfg).objective == objective
+    FT.main(TINY_RUN + ["--use_l1_regression", "False", "--max_steps", "1",
+                        "--batch_size", "1", "--run_root_dir", str(tmp_path)])
+    assert "objective=discrete platform=libero" in capsys.readouterr().out

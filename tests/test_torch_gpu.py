@@ -454,6 +454,93 @@ def _lora_b(tree):
             yield from _lora_b(node)
 
 
+@pytest.mark.parametrize("objective,platform_name", [("diffusion", "libero"),
+                                                     ("discrete", "libero"),
+                                                     ("l1", "aloha")])
+def test_tiny_objectives_flash_match_dense(cuda, objective, platform_name):
+    """The diffusion and discrete objectives and ALOHA with FiLM (L1), on a
+    tiny bf16 model: the loss through K1/K2/K3 and through the dense path
+    within 1e-2 relative, on the same draws (generators seeded alike); the
+    backward launches K1 2 x layers, K2 and K3 once a layer; every trainable
+    group's gradient reaches cosine >= 0.99 (ALOHA's with every target
+    action 10, as test_tiny_train_step_flash_matches_dense says why)."""
+    import dataclasses
+
+    from openvla_oft_tpu_torch.bridge import init_params, split_base_trainables, tree_leaves
+    from openvla_oft_tpu_torch.constants import get_platform
+    from openvla_oft_tpu_torch.data.collator import PaddedCollatorForActionPrediction
+    from openvla_oft_tpu_torch.data.datasets import DummyDataset, RLDSBatchTransform
+    from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
+    from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
+    from openvla_oft_tpu_torch.training import train_step as TT
+
+    platform = get_platform(platform_name)
+    film = platform_name == "aloha"
+    cfg = dataclasses.replace(_tiny_cfg(), num_images_in_input=3 if film else 2,
+                              use_film=film)
+    params = init_params(cfg, platform, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda, dtype=torch.bfloat16, head_dtype=torch.float32,
+                         head=objective)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    base, trainables = split_base_trainables(params, gen, lora_rank=4)
+    with torch.no_grad():
+        for b in _lora_b(trainables["lora"]):
+            b.normal_(0.0, 0.02, generator=gen)
+    data = DummyDataset(RLDSBatchTransform(PrismaticProcessor(cfg), ActionTokenizer(),
+                                           platform),
+                        image_size=cfg.vision_configs[0].image_size, num_samples=2,
+                        num_images=cfg.num_images_in_input)
+    batch = PaddedCollatorForActionPrediction(pad_token_id=cfg.pad_token_id)(list(data))
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()
+             if isinstance(v, np.ndarray)}
+    if objective == "l1":
+        batch["actions"] = torch.full_like(batch["actions"], 10.0)
+    tcfg = TT.TrainConfig(objective=objective, lora_rank=4, lora_alpha=4.0, use_film=film,
+                          num_diffusion_steps=50)
+    n = cfg.llm.num_layers
+    loss, grads = {}, {}
+    for use_flash in (True, False):
+        before = _launch_counts()
+        value, _ = TT.loss_and_metrics(trainables, base, batch, cfg, platform, tcfg,
+                                       torch.Generator(device=cuda).manual_seed(5),
+                                       use_flash=use_flash)
+        grads[use_flash] = torch.autograd.grad(value, tree_leaves(trainables))
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(_launch_counts(), before)]
+        assert launched == ([2 * n, n, n] if use_flash else [0, 0, 0])
+        loss[use_flash] = value.item()
+    assert np.isfinite(loss[True])
+    assert abs(loss[True] - loss[False]) <= 1e-2 * abs(loss[False])
+    start = 0
+    for group in trainables.values():
+        stop = start + len(tree_leaves(group))
+        flat = [torch.cat([g.float().flatten() for g in grads[f][start:stop]])
+                for f in (True, False)]
+        assert _cosine(*flat) >= 0.99
+        start = stop
+
+
+def test_lm_logits_backward_on_cuda(cuda):
+    """The lm_head product (`torch.mm(..., out_dtype=torch.float32)`) and its
+    backward through `_LmHeadProduct` on CUDA: the fp32 logits equal the
+    product of the upcast operands to fp32 rounding, and dh = g . w^T (fp32,
+    cast to bf16) matches the float64 product within one bf16 rounding."""
+    from openvla_oft_tpu_torch.models.llama import lm_logits
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    h = torch.randn((3, 37, 256), generator=gen, device=cuda).bfloat16().requires_grad_()
+    w = torch.randn((256, 32064), generator=gen, device=cuda).bfloat16()
+    out = lm_logits({"lm_head": {"kernel": w}}, h)
+    assert out.dtype == torch.float32 and out.shape == (3, 37, 32064)
+    ref = h.detach().double().reshape(-1, 256) @ w.double()
+    assert (out.double().reshape(-1, 32064) - ref).abs().max() <= 1e-4 * ref.abs().max()
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    (dh,) = torch.autograd.grad(out, h, g)
+    want = (g.double().reshape(-1, 32064) @ w.double().t()).reshape(h.shape)
+    assert dh.dtype == torch.bfloat16 and dh.is_cuda
+    assert (dh.double() - want).abs().max() <= 1e-2 * want.abs().max()
+
+
 def test_allheads_is_k1_on_cuda(cuda):
     gen = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = _strided_qkv(gen, 2, 200, 4, 2, 128, cuda)
