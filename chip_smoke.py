@@ -185,6 +185,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the trained base bitwise equal to the exported tree, and a discrete
      run from the dir, which has no lm_head, raising on its name before any
      step.
+ 13. the episode data path (after 11b): (a) the host library (the JPEG
+     decoder, augmentation and CRC-32C, `hostsrc/`) built with the host's
+     C++ compiler;
+     (b) both JPEG decoders, the host library's and the plain one, bitwise
+     against TF's pixels on every entry of `tests/goldens/jpeg_decode_tf.npz`,
+     and the library's augmentation against its numpy plain version;
+     (c) a raw LIBERO dataset written in RLDS shards by the port's writer
+     (`libero_spatial_no_noops`, 24 episodes of 40-60 steps, two cameras of
+     the golden's 256 x 256 frames); (d) the loader alone, image_aug off and
+     on: frames/s, decode and augmentation ms a frame, the resident set with
+     a 10,000-frame buffer; (e) the CLI at random:7b on it (B=8, 2 images,
+     proprio, L1, image_aug, 4 steps, validation every 2): K1 64, K2 32, K3
+     32 a step and K1 32 a validation batch with no K2/K3, the step times
+     beside phase 10's, val_loss finite, peak memory, the run dir's
+     statistics the pipeline's; one step traced fed by the prefetcher, with
+     its idle share; (f) the dataset removed.
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
@@ -2929,6 +2945,256 @@ def checkpoint_training(ckpt: str, ref: dict, n_layers: int, card: str) -> dict:
     torch.cuda.empty_cache()
     return launches
 
+# Phase 13: the episode data path. A raw LIBERO dataset in its RLDS shards
+# (the port's writer): 24 episodes of 40 to 60 steps, two cameras at 256 x
+# 256 (the decode golden's frames), gripper -1..1 and an 8-dim state, so
+# that "auto" standardization (the gripper clipped and inverted) and the
+# gripper's normalization mask apply. The CLI's flags: phase 10's with the
+# dataset, image augmentation, 4 steps and validation every 2.
+EPISODE_FLAGS = TRAIN_FLAGS + ["--image_aug", "True", "--max_steps", "4",
+                               "--shuffle_buffer_size", "2000", "--use_val_set", "True",
+                               "--val_freq", "2", "--val_time_limit", "4"]
+EPISODE_SHUFFLE = 10_000            # frames in the loader-alone runs' buffer
+
+
+def decode_golden(card: str) -> list:
+    """Phase 13 (a), (b): the host library built with the host's C++
+    compiler, then both decoders bitwise against TF's pixels on every entry
+    of the golden, and the library's augmentation against its plain
+    version on those frames. Returns the golden's 256 x 256 JPEG bytes."""
+    from openvla_oft_tpu_torch import _host_build
+    from openvla_oft_tpu_torch.processing.jpeg_decode import decode_jpeg, decode_jpeg_plain
+
+    t0 = time.perf_counter()
+    lib = _host_build.build()
+    log(f"[episodes] host library {lib.relative_to(_host_build.PKG_DIR.parent)} ready in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + (lib.parent / "build.log").read_text().strip().replace("\n", " | "))
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                          "jpeg_decode_tf.npz")
+    with np.load(golden) as z:
+        entries = [(str(n), z[f"data_{i}"].tobytes(), z[f"pixels_{i}"])
+                   for i, n in enumerate(z["names"])]
+    for name, data, pixels in entries:
+        for label, decoder in (("host library", decode_jpeg), ("plain", decode_jpeg_plain)):
+            got = decoder(data)
+            if got.shape != pixels.shape or not np.array_equal(got, pixels):
+                raise AssertionError(f"the {label} JPEG decoder differs from TF on {name}")
+    from openvla_oft_tpu_torch.data.rlds.augment import (augment_image, augment_image_plain,
+                                                         draw_augmentation)
+
+    rng = np.random.default_rng(0)
+    for name, _, pixels in entries:
+        for _ in range(2 if min(pixels.shape[:2]) > 1 else 0):   # 1 x 1 has no crop
+            draws = draw_augmentation(rng, *pixels.shape[:2])
+            if not np.array_equal(augment_image(pixels, draws),
+                                  augment_image_plain(pixels, draws)):
+                raise AssertionError(f"the host library's augmentation differs from its "
+                                     f"plain version on {name}, {draws}")
+    frames = [d for n, d, _ in entries if n.startswith("libero_")]
+    log(f"[episodes] augmentation, host library and plain, bitwise equal on the "
+        f"{len(entries)} golden frames, 2 draws each")
+    log(f"[episodes] JPEG decoders, host library and plain, bitwise equal to "
+        f"tf.io.decode_jpeg on all {len(entries)} golden entries "
+        f"({', '.join(n for n, _, _ in entries)}); {len(frames)} frames of 256 x 256, "
+        f"{', '.join(str(len(d)) for d in frames)} B")
+    return frames
+
+
+def write_episodes(frames: list, root: str) -> int:
+    """Phase 13 (c): the raw LIBERO dataset; returns its number of steps."""
+    from openvla_oft_tpu_torch.data.rlds.pipeline import write_episode_tfrecords
+
+    rng = np.random.default_rng(13)
+    episodes, steps = [], 0
+    for e in range(24):
+        t = int(rng.integers(40, 61))
+        actions = rng.uniform(-0.5, 0.5, (t, 7))
+        actions[:, -1] = np.where(rng.random(t) < 0.5, -1.0, 1.0)
+        episodes.append({"images": [frames[(e + i) % len(frames)] for i in range(t)],
+                         "wrist_images": [frames[(e + 2 * i + 1) % len(frames)]
+                                          for i in range(t)],
+                         "actions": actions, "proprio": rng.standard_normal((t, 8)),
+                         "language_instruction": f"put the black bowl on plate {e % 6}"})
+        steps += t
+    t0 = time.perf_counter()
+    paths = write_episode_tfrecords(os.path.join(root, "libero_spatial_no_noops"), episodes)
+    size = sum(os.path.getsize(p) for p in paths)
+    log(f"[episodes] wrote 24 episodes, {steps} steps, 2 cameras, {size / 1e6:.1f} MB in "
+        f"{len(paths)} shard(s) in {time.perf_counter() - t0:.2f} s (host clock)")
+    return steps
+
+
+def loader_alone(root: str, platform, card: str) -> dict:
+    """Phase 13 (d): the loader without the model or the batch transform,
+    image_aug off and on: frames/s (each frame two cameras), the decode and
+    augmentation ms of a frame on one thread, the threads, and the resident
+    set with a shuffle buffer of EPISODE_SHUFFLE encoded frames."""
+    from openvla_oft_tpu_torch.data.rlds.augment import augment_image, draw_augmentation
+    from openvla_oft_tpu_torch.data.rlds.pipeline import (_files, _parse_episode,
+                                                          make_rlds_iterator)
+    from openvla_oft_tpu_torch.data.rlds.tfrecord import read_tfrecords
+    from openvla_oft_tpu_torch.processing.jpeg_decode import decode_jpeg
+
+    ep = _parse_episode(next(read_tfrecords(_files(root, "libero_spatial_no_noops")[0])),
+                        platform, True)
+    jpegs = list(ep["images"][:20])
+    t0 = time.perf_counter()
+    imgs = [decode_jpeg(d) for d in jpegs]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(jpegs)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for img in imgs:
+        augment_image(img, draw_augmentation(rng, *img.shape[:2]))
+    aug_ms = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    log(f"[episodes] one thread: decode {decode_ms:.3f} ms a 256 x 256 image (host library), "
+        f"augmentation {aug_ms:.3f} ms an image (host clock, {card}'s host)")
+    out = {"decode_ms": decode_ms, "aug_ms": aug_ms}
+    threads = min(os.cpu_count() or 1, 8)
+    for aug in (False, True):
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            it, _ = make_rlds_iterator(root, "libero_spatial_no_noops", lambda b: b, platform,
+                                       shuffle_buffer_size=EPISODE_SHUFFLE, image_aug=aug,
+                                       train=True, num_images=2)
+            next(it)
+            first = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            for _ in range(320):
+                frame = next(it)
+            rate = 320 / (time.perf_counter() - t1)
+            if frame["observation"]["image_wrist"].shape != (256, 256, 3):
+                raise AssertionError("the loader's frames are not 256 x 256 x 3")
+            del it
+        out[aug] = rate
+        log(f"[episodes] loader alone, image_aug {aug}: {rate:.1f} frames/s (2 images a "
+            f"frame, {threads} decode threads, {os.cpu_count()} CPUs), first frame after "
+            f"{first:.2f} s (a buffer of {EPISODE_SHUFFLE} encoded frames); resident set "
+            f"{rss.base / 2**20:.0f} MiB before, {rss.peak / 2**20:.0f} MiB at its peak "
+            f"(host clock)")
+    return out
+
+
+def episode_phase(card: str, n_layers: int, dummy_times: list) -> dict:
+    """Phase 13: the episode data path end to end (see EPISODE_FLAGS): the
+    decoders on the golden, the dataset written, the loader alone, then the
+    CLI at random:7b on it with validation, every step K1 2 x n_layers and
+    K2, K3 n_layers, every validation batch K1 n_layers and nothing else;
+    one step traced fed by the prefetcher. Removes the dataset. Returns the
+    launches of the run."""
+    from openvla_oft_tpu_torch.data.collator import batch_iterator
+    from openvla_oft_tpu_torch.data.prefetch import DevicePrefetcher
+    from openvla_oft_tpu_torch.training import finetune as FT
+    from openvla_oft_tpu_torch.training.train_step import train_step
+
+    t_phase = time.perf_counter()
+    frames = decode_golden(card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_episodes_")
+    run_root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        write_episodes(frames, root)
+        flags = EPISODE_FLAGS + ["--data_root_dir", root, "--run_root_dir", run_root]
+        cfg = FT.parse_config(flags)
+        platform = FT.platform_of(cfg)
+        loader_alone(root, platform, card)
+
+        step_want = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers, "K4": 0, "K5": 0,
+                     "K6": 0, "probe": 0, "int8": 0}
+        seen = {"prev": launch_counts(), "times": [], "data": [], "val": []}
+
+        def on_step(step, metrics, state):
+            counts = launch_counts()
+            per_step = {k: counts[k] - seen["prev"][k] for k in counts}
+            seen["prev"], seen["state"] = counts, state
+            seen["times"].append(metrics["step_time"])
+            seen["data"].append(metrics["data_time"])
+            log(f"[train-episodes] step {step}: loss={metrics['loss']:.6f} "
+                f"grad_norm={metrics['grad_norm']:.6f} step_time={metrics['step_time']:.4f} s "
+                f"data_time={metrics['data_time']:.4f} s (host clock) launches {per_step}")
+            if not (np.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0):
+                raise AssertionError(f"bad training step {step}: {metrics}")
+            if per_step != step_want:
+                raise AssertionError(f"step {step} launched {per_step}, expected {step_want}")
+
+        def on_validation(step, val, n):
+            counts = launch_counts()
+            per = {k: counts[k] - seen["prev"][k] for k in counts}
+            seen["prev"] = counts
+            want = {k: 0 for k in counts}
+            want["K1"] = n * n_layers
+            log(f"[train-episodes] validation after step {step}: {n} batches, "
+                + " ".join(f"{k}={v:.6f}" for k, v in sorted(val.items()))
+                + f", launches {per}")
+            if n < 1 or not np.isfinite(val.get("val_loss", np.nan)) or per != want:
+                raise AssertionError(f"validation after step {step}: {n} batches, {val}, "
+                                     f"launches {per}, expected {want}")
+            seen["val"].append(n)
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        seen["prev"] = launch_counts()
+        t0 = time.perf_counter()
+        out = FT.main(flags, on_step=on_step, on_validation=on_validation)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n_val = sum(seen["val"])
+        total = {k: 4 * n for k, n in step_want.items()}
+        total["K1"] += n_val * n_layers
+        if out["final_step"] != 4 or len(seen["val"]) != 2 or launches != total:
+            raise AssertionError(f"the episode run ended at {out} with {seen['val']} "
+                                 f"validation batches and launches {launches}, expected {total}")
+        with open(os.path.join(out["run_dir"], "dataset_statistics.json")) as f:
+            saved = json.load(f)
+        with open(os.path.join(root, "libero_spatial_no_noops", "dataset_statistics.json")) as f:
+            written = json.load(f)
+        if saved != {"libero_spatial_no_noops": written} or \
+                written.get("transform") != "libero_dataset_transform" or \
+                written["action"].get("mask") != [True] * 6 + [False]:
+            raise AssertionError("the run dir's dataset_statistics.json is not the pipeline's")
+        times = seen["times"]
+        log(f"[train-episodes] finetune on the episodes: 4 steps and {n_val} validation "
+            f"batches in {time.perf_counter() - t0:.1f} s; step times "
+            f"{', '.join(f'{t:.4f}' for t in times)} s (median of the last 3 "
+            f"{float(np.median(times[1:])):.4f}) against phase 10's dummy-data steps "
+            f"{', '.join(f'{t:.4f}' for t in dummy_times)} s (median of the last 2 "
+            f"{float(np.median(dummy_times[1:])):.4f}); waits for the prefetched batch "
+            f"{', '.join(f'{t:.4f}' for t in seen['data'])} s; launches {launches}; "
+            f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB; the run dir's "
+            f"dataset_statistics.json equal to the pipeline's ({card})")
+
+        # One step traced, fed by the prefetcher: the wait for the batch and
+        # the step, as the CLI's loop runs them.
+        state = seen.pop("state")
+        model_cfg, tcfg = FT.model_config(cfg), FT.train_config(cfg)
+        dataset, collator, _ = FT.training_data(cfg, model_cfg, platform, 8)
+        prefetched = DevicePrefetcher(batch_iterator(dataset, cfg.batch_size, collator),
+                                      torch.device(cfg.device))
+        try:
+            step = lambda: train_step(state, next(prefetched), model_cfg, platform, tcfg)  # noqa
+            untraced = [timed(step) for _ in range(2)]
+            wall, n, busy, by_class = trace(step)
+        finally:
+            prefetched.close()
+        if busy is None:
+            log(f"[profile] episode-fed step: untraced {untraced} ms; device time not measured")
+        else:
+            log(f"[profile] episode-fed step (prefetcher, B=8): untraced "
+                f"{', '.join(f'{t:.1f}' for t in untraced)} ms; traced {wall:.1f} ms with {n} "
+                f"kernels and {busy:.1f} ms of device time; idle share of the traced step "
+                f"{1 - busy / wall:.3f}, estimate for the untraced ones "
+                f"{1 - busy / float(np.median(untraced)):.3f} (host clock, ends in "
+                f"torch.cuda.synchronize; {card})")
+            log_classes("profile", by_class)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(run_root, ignore_errors=True)
+        log(f"[episodes] the dataset is removed; phase 13 took "
+            f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+
 
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
                  bound_by, library_ms, **extra) -> dict:
@@ -3015,13 +3281,14 @@ def main() -> int:
     checkpoint = checkpoint_serving(card, rng)
 
     bwd = backward_check(card, s_train, s_aloha)
-    state, train_launches, _ = train(card, n_layers)
+    state, train_launches, train_info = train(card, n_layers)
     profile_step(state, card)
     training_parity(state, card)
     del state
     gc.collect()
     torch.cuda.empty_cache()
     objectives = objectives_phase(card, n_layers)
+    episodes = episode_phase(card, n_layers, train_info["step_times"])
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -3040,10 +3307,11 @@ def main() -> int:
                    + sum(run["K1"] for run in diffusion.values())
                    + sum(run["K1"] for run in discrete.values())
                    + sum(run["K1"] for run in checkpoint.values()) + train_launches["K1"]
-                   + sum(run["K1"] for run in objectives.values()))
-    # K2 and K3 launch in the training runs: phase 10, phase 11b's three and
-    # the run from phase 8e's checkpoint dir.
-    bwd_runs = [train_launches, checkpoint["checkpoint training"], *objectives.values()]
+                   + sum(run["K1"] for run in objectives.values()) + episodes["K1"])
+    # K2 and K3 launch in the training runs: phase 10, phase 11b's three,
+    # the run from phase 8e's checkpoint dir and phase 13's.
+    bwd_runs = [train_launches, checkpoint["checkpoint training"], *objectives.values(),
+                episodes]
     k2_launches = sum(run["K2"] for run in bwd_runs)
     k3_launches = sum(run["K3"] for run in bwd_runs)
     bwd_others = {n: {"ms_dq": c["ms_dq"], "ms_dkv": c["ms_dkv"], "library_ms": c["library_ms"],
@@ -3128,6 +3396,7 @@ def main() -> int:
         f"{checkpoint['checkpoint training']}")
     log(f"[objectives] launches of phase 11b's runs (3 steps each): " + ", ".join(
         f"{name} {run}" for name, run in objectives.items()))
+    log(f"[episodes] launches of phase 13's run (4 steps and its validation): {episodes}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
-"""Dataset statistics with their JSON sidecar, and the statistics
-normalizer: the port's copy of those functions of
-`openvla_oft_tpu/data/transforms.py` (reference
-`prismatic/vla/datasets/rlds/utils/data_utils.py:97-153, 176-284`).
+"""Trajectory and action transforms and dataset statistics (NumPy): the
+port's copy of `openvla_oft_tpu/data/transforms.py` (reference
+`prismatic/vla/datasets/rlds/traj_transforms.py:14-58` for the action
+chunks, `.../utils/data_utils.py:97-153` for the normalizer and the gripper
+relabels, `:176-284` for the statistics and their JSON sidecar).
 """
 
 from __future__ import annotations
@@ -13,6 +14,29 @@ from typing import Dict, Optional
 import numpy as np
 
 from openvla_oft_tpu_torch.constants import NormalizationType
+
+
+def chunk_actions(actions: np.ndarray, window_size: int = 1,
+                  future_action_window_size: int = 0) -> np.ndarray:
+    """(T, D) -> (T - future, window + future, D).
+
+    Past indices floor at 0; future indices cap at the last frame (the final
+    action repeats), matching `chunk_act_obs`.
+    """
+    t = actions.shape[0]
+    eff = t - future_action_window_size
+    offs = np.arange(-window_size + 1, 1 + future_action_window_size)
+    idx = offs[None, :] + np.arange(eff)[:, None]
+    idx = np.clip(idx, 0, t - 1)
+    return actions[idx]
+
+
+def chunk_obs_pad_mask(traj_len: int, window_size: int,
+                       future_action_window_size: int = 0) -> np.ndarray:
+    eff = traj_len - future_action_window_size
+    offs = np.arange(-window_size + 1, 1)
+    idx = offs[None, :] + np.arange(eff)[:, None]
+    return idx >= 0
 
 
 def compute_dataset_statistics(actions: np.ndarray,
@@ -71,6 +95,52 @@ def normalize(x: np.ndarray, metadata: Dict,
     else:  # partial stats: degenerate dims judged by the active bounds
         zeros = low == high
     return np.where(zeros, 0.0, out)
+
+
+def normalize_proprio(proprio: np.ndarray, norm_stats: Dict,
+                      norm_type: NormalizationType) -> np.ndarray:
+    """Eval-side proprio normalization (openvla_utils.py:645-675)."""
+    return normalize(proprio, norm_stats["proprio"], norm_type)
+
+
+def binarize_gripper_actions(actions: np.ndarray) -> np.ndarray:
+    """Continuous [0,1] gripper -> binary, relabeling in-between values with
+    the state reached after them (data_utils.py:155+ reverse scan)."""
+    open_mask = actions > 0.95
+    closed_mask = actions < 0.05
+    in_between = ~(open_mask | closed_mask)
+    out = np.empty_like(actions, dtype=np.float32)
+    carry = float(actions[-1])
+    for i in reversed(range(len(actions))):
+        if not in_between[i]:
+            carry = float(open_mask[i])
+        out[i] = carry
+    return out
+
+
+def invert_gripper_actions(actions: np.ndarray) -> np.ndarray:
+    return 1.0 - actions
+
+
+def rel2abs_gripper_actions(actions: np.ndarray) -> np.ndarray:
+    """Relative gripper commands (input: +1 = closing, -1 = opening, 0 = no
+    change) -> absolute state in [0, 1] with **1 = open, 0 = closed**
+    (reference data_utils.py:132-153: `opening_mask = actions < -0.1` maps to
+    state +1, and `new_actions/2 + 0.5` makes open = 1)."""
+    opening = actions < -0.1
+    closing = actions > 0.1
+    # state intent: +1 = open after an opening command, -1 = closed
+    thresholded = np.where(opening, 1.0, np.where(closing, -1.0, 0.0))
+    out = np.empty_like(actions, dtype=np.float32)
+    # carry latest nonzero intent; before the first intent the state is its
+    # opposite (you only close an open gripper); no intents at all = open.
+    nonzero = np.nonzero(thresholded)[0]
+    carry = -thresholded[nonzero[0]] if len(nonzero) else 1.0
+    for i in range(len(actions)):
+        if thresholded[i] != 0.0:
+            carry = thresholded[i]
+        out[i] = carry
+    return (out + 1.0) / 2.0
 
 
 def save_dataset_statistics(stats: Dict[str, Dict], run_dir: str) -> str:

@@ -12,7 +12,11 @@ The counterpart of `vla_scripts/finetune.py::finetune`, with the same flags
 Ported: random weights (`random:tiny` or `random:7b`, drawn on the device
 from a seeded generator) or a checkpoint dir (its LLM, vision backbone and
 projector loaded onto the device; the heads, FiLM and LoRA drawn as for
-`random:`), the `dummy` dataset, `--recipe`, the three objectives (L1,
+`random:`), the `dummy` dataset or RLDS episode shards under
+`--data_root_dir` (`data/rlds/pipeline.py::make_rlds_iterator`, no
+TensorFlow; its statistics saved to the run dir), the batches moved to the
+device by `data/prefetch.py::DevicePrefetcher` on a side stream, validation
+on a held-out stream (`--use_val_set`), `--recipe`, the three objectives (L1,
 `--use_diffusion` with the periodic sampling metric, and the discrete CE of
 `--use_l1_regression False`), FiLM (`--use_film`) on every registered
 platform, remat "all"/"none", gradient accumulation, metrics through
@@ -148,14 +152,11 @@ def unported_flags(cfg: FinetuneConfig) -> list:
         (cfg.multihost, "multihost", f"{_Q1} 17"),
         ((cfg.mesh_dp, cfg.mesh_fsdp, cfg.mesh_tp) != (1, 1, 1), "mesh_*", f"{_Q1} 17"),
         (cfg.quantize_base, "quantize_base", f"{_Q1} 14c (QLoRA base)"),
-        (cfg.use_val_set, "use_val_set", f"{_Q1} 14b (validation)"),
         (cfg.resume, "resume", f"{_Q1} 14b (resume)"),
         (cfg.merge_lora_during_training and cfg.use_lora,
          "merge_lora_during_training True", f"{_Q1} 14b (merged export)"),
         (cfg.remat_policy in ("dots", "attn_out"), f"remat_policy {cfg.remat_policy}",
          f"{_Q1} 14c"),
-        (str(cfg.data_root_dir) != "dummy", "data_root_dir other than dummy (RLDS)",
-         f"{_Q1} 14b (data path)"),
     ]
     return [(flag, item) for bad, flag, item in checks if bad]
 
@@ -231,9 +232,14 @@ def train_config(cfg: FinetuneConfig):
                        remat_policy=cfg.remat_policy)
 
 
-def training_data(cfg: FinetuneConfig, model_cfg, platform, num_samples: int):
-    """(dataset, collator): the `dummy` dataset through the training
-    transform, and the collator that batches it."""
+def training_data(cfg: FinetuneConfig, model_cfg, platform, num_samples: int,
+                  train: bool = True):
+    """(dataset, collator, stats): the examples through the training
+    transform, the collator that batches them, and {dataset_name: stats}.
+    `dummy`: `num_samples` random examples (seed 0, or 999 for the
+    validation stream); else the RLDS episodes under `data_root_dir`, train
+    mode shuffled over `shuffle_buffer_size` frames and repeated, the
+    validation stream (`train=False`) one pass in order."""
     from openvla_oft_tpu_torch.data.collator import PaddedCollatorForActionPrediction
     from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
     from openvla_oft_tpu_torch.data.datasets import DummyDataset, RLDSBatchTransform
@@ -241,18 +247,33 @@ def training_data(cfg: FinetuneConfig, model_cfg, platform, num_samples: int):
 
     transform = RLDSBatchTransform(PrismaticProcessor(model_cfg), ActionTokenizer(),
                                    platform)
-    dataset = DummyDataset(transform, image_size=model_cfg.vision_configs[0].image_size,
-                           num_samples=num_samples, num_images=cfg.num_images_in_input)
+    if str(cfg.data_root_dir) == "dummy":
+        dataset = DummyDataset(transform, image_size=model_cfg.vision_configs[0].image_size,
+                               num_samples=num_samples, num_images=cfg.num_images_in_input,
+                               seed=0 if train else 999)
+        stats = {cfg.dataset_name: {
+            "action": {"min": [-1.0] * platform.action_dim, "max": [1.0] * platform.action_dim,
+                       "q01": [-1.0] * platform.action_dim, "q99": [1.0] * platform.action_dim},
+            "num_transitions": len(dataset), "num_trajectories": 1}}
+    else:
+        from openvla_oft_tpu_torch.data.rlds.pipeline import make_rlds_iterator
+
+        dataset, stats = make_rlds_iterator(
+            str(cfg.data_root_dir), cfg.dataset_name, transform, platform,
+            shuffle_buffer_size=cfg.shuffle_buffer_size if train else 1000,
+            image_aug=cfg.image_aug, train=train, num_images=cfg.num_images_in_input)
     collator = PaddedCollatorForActionPrediction(pad_token_id=model_cfg.pad_token_id,
                                                  max_length=cfg.seq_bucket or None)
-    return dataset, collator
+    return dataset, collator, stats
 
 
 def first_batch(cfg: FinetuneConfig) -> dict:
     """The first batch the CLI trains on, as numpy arrays."""
-    dataset, collator = training_data(cfg, model_config(cfg), platform_of(cfg),
-                                      cfg.batch_size)
-    batch = collator(list(dataset))
+    from openvla_oft_tpu_torch.data.collator import batch_iterator
+
+    dataset, collator, _ = training_data(cfg, model_config(cfg), platform_of(cfg),
+                                         cfg.batch_size)
+    batch = next(batch_iterator(dataset, cfg.batch_size, collator))
     return {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
@@ -294,16 +315,45 @@ def build_model(cfg: FinetuneConfig, model_cfg, platform, device: torch.device):
                                  cfg.lora_rank, cfg.use_proprio)
 
 
+def run_validation(state, val_batches, model_cfg, platform, tcfg, device: torch.device,
+                   time_limit: float, use_flash="auto") -> tuple:
+    """The validation loss and metrics over `val_batches` (host batches) as
+    long as `time_limit` seconds allow, without gradients (reference
+    `run_validation`, finetune.py:678-760): ({f"val_{name}": mean}, batches
+    run). The diffusion draws come from a generator seeded 4242."""
+    from openvla_oft_tpu_torch.training.train_step import loss_and_metrics
+
+    gen = torch.Generator(device=device).manual_seed(4242)
+    agg: dict = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for vb in val_batches:
+            if time.perf_counter() - t0 > time_limit:
+                break
+            vb = {k: torch.as_tensor(v).to(device) for k, v in vb.items()
+                  if isinstance(v, np.ndarray)}
+            _, m = loss_and_metrics(state.trainables, state.base_params, vb, model_cfg,
+                                    platform, tcfg, gen, use_flash)
+            for k, v in m.items():
+                agg.setdefault(k, []).append(float(v))
+    return {f"val_{k}": float(np.mean(v)) for k, v in agg.items()}, len(agg.get("loss", []))
+
+
 def finetune(cfg: TorchFinetuneConfig,
-             on_step: Optional[Callable[[int, dict, object], None]] = None) -> dict:
+             on_step: Optional[Callable[[int, dict, object], None]] = None,
+             on_validation: Optional[Callable[[int, dict, int], None]] = None) -> dict:
     """Run the fine-tuning loop; returns {"final_step", "run_dir", "ckpt"}.
 
     on_step(grad_step, metrics, state), if given, runs after every
     micro-step with the step's metrics as floats (and `step_time`, seconds on
-    the host clock, ending in a device synchronize). On a step that ran the
+    the host clock around the step, ending in a device synchronize, and
+    `data_time`, the wait for the prefetched batch). On a step that ran the
     diffusion sampling metric they hold its metrics and `sample_time` too.
+    on_validation(grad_step, val_metrics, n_batches) runs after each
+    validation pass (`--use_val_set`, every `val_freq` gradient steps).
     """
     from openvla_oft_tpu_torch.data.collator import batch_iterator
+    from openvla_oft_tpu_torch.data.prefetch import DevicePrefetcher
     from openvla_oft_tpu_torch.data.transforms import save_dataset_statistics
     from openvla_oft_tpu_torch.training.metrics import JSONLinesTracker, VLAMetrics
     from openvla_oft_tpu_torch.training.checkpoint import save_checkpoint
@@ -346,66 +396,84 @@ def finetune(cfg: TorchFinetuneConfig,
 
     # === Data ===
     g = max(cfg.grad_accumulation_steps, 1)
-    dataset, collator = training_data(cfg, model_cfg, platform,
-                                      max(cfg.max_steps, 1) * cfg.batch_size * g)
-    stats = {cfg.dataset_name: {
-        "action": {"min": [-1.0] * platform.action_dim, "max": [1.0] * platform.action_dim,
-                   "q01": [-1.0] * platform.action_dim, "q99": [1.0] * platform.action_dim},
-        "num_transitions": len(dataset), "num_trajectories": 1}}
+    dataset, collator, stats = training_data(cfg, model_cfg, platform,
+                                             max(cfg.max_steps, 1) * cfg.batch_size * g)
     save_dataset_statistics(stats, run_dir)
     metrics = VLAMetrics([JSONLinesTracker(run_dir, run_id)], window=g)
+    val_batches = None        # the validation stream, built once, at its first use
 
     ckpt_dir = os.path.join(run_dir, "ckpt")
     ckpt = None
     t_start = time.time()
-    for micro, batch in enumerate(batch_iterator(dataset, cfg.batch_size, collator)):
-        grad_step = micro // g
-        if grad_step >= cfg.max_steps:
-            break
-        batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
-                 for k, v in batch.items() if isinstance(v, np.ndarray)}
-        t0 = time.perf_counter()
-        state, m = train_step(state, batch, model_cfg, platform, tcfg, use_flash)
-        m = {k: float(v) for k, v in m.items()}     # waits for the device
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        m["step_time"] = time.perf_counter() - t0
-        if not np.isfinite(m["loss"]):
-            raise FloatingPointError(f"non-finite loss at micro-step {micro}: {m}")
-        metrics.commit(**{k: v for k, v in m.items() if k != "step_time"})
-        at_boundary = (micro + 1) % g == 0
-        if cfg.use_diffusion and at_boundary \
-                and (grad_step + 1) % cfg.diffusion_sample_freq == 0:
-            # Reverse diffusion on the step's batch, its generator seeded
-            # from the step (the JAX CLI's PRNGKey(grad_step)).
+    prefetched = DevicePrefetcher(batch_iterator(dataset, cfg.batch_size, collator), device)
+    try:
+        micro = -1
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(prefetched, None)
+            if batch is None or (micro + 1) // g >= cfg.max_steps:
+                break
+            micro += 1
+            grad_step = micro // g
             t0 = time.perf_counter()
-            dm = diffusion_sampling_metrics(
-                state.trainables, state.base_params, batch, model_cfg, platform, tcfg,
-                torch.Generator(device=device).manual_seed(grad_step), use_flash)
-            dm = {k: float(v) for k, v in dm.items()}
-            metrics.commit(**dm)
-            m.update(dm, sample_time=time.perf_counter() - t0)
-        if grad_step % cfg.wandb_log_freq == 0 and at_boundary:
-            smoothed = metrics.push(grad_step)
-            print(f"[step {grad_step}] " + " ".join(
-                f"{k}={v:.4f}" for k, v in sorted(smoothed.items())), flush=True)
-        if on_step is not None:
-            on_step(grad_step, m, state)
-        if at_boundary and ((grad_step + 1) % cfg.save_freq == 0
-                            or grad_step + 1 == cfg.max_steps):
-            ckpt = save_checkpoint(ckpt_dir, grad_step + 1, {
-                "trainables": state.trainables,
-                "optimizer": state.optimizer.state_dict()})
-            print(f"[finetune] saved checkpoint for step {grad_step + 1}: {ckpt}")
+            state, m = train_step(state, batch, model_cfg, platform, tcfg, use_flash)
+            m = {k: float(v) for k, v in m.items()}     # waits for the device
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            m["step_time"] = time.perf_counter() - t0
+            m["data_time"] = t0 - t_wait
+            if not np.isfinite(m["loss"]):
+                raise FloatingPointError(f"non-finite loss at micro-step {micro}: {m}")
+            metrics.commit(**{k: v for k, v in m.items() if k not in ("step_time", "data_time")})
+            at_boundary = (micro + 1) % g == 0
+            if cfg.use_diffusion and at_boundary \
+                    and (grad_step + 1) % cfg.diffusion_sample_freq == 0:
+                # Reverse diffusion on the step's batch, its generator seeded
+                # from the step (the JAX CLI's PRNGKey(grad_step)).
+                t0 = time.perf_counter()
+                dm = diffusion_sampling_metrics(
+                    state.trainables, state.base_params, batch, model_cfg, platform, tcfg,
+                    torch.Generator(device=device).manual_seed(grad_step), use_flash)
+                dm = {k: float(v) for k, v in dm.items()}
+                metrics.commit(**dm)
+                m.update(dm, sample_time=time.perf_counter() - t0)
+            if grad_step % cfg.wandb_log_freq == 0 and at_boundary:
+                smoothed = metrics.push(grad_step)
+                print(f"[step {grad_step}] " + " ".join(
+                    f"{k}={v:.4f}" for k, v in sorted(smoothed.items())), flush=True)
+            if on_step is not None:
+                on_step(grad_step, m, state)
+            if cfg.use_val_set and at_boundary and (grad_step + 1) % cfg.val_freq == 0:
+                if val_batches is None:
+                    val_set, _, _ = training_data(cfg, model_cfg, platform, 8 * cfg.batch_size,
+                                                  train=False)
+                    val_batches = batch_iterator(val_set, cfg.batch_size, collator)
+                extra, n_val = run_validation(state, val_batches, model_cfg, platform, tcfg,
+                                              device, cfg.val_time_limit, use_flash)
+                if n_val:
+                    metrics.push(grad_step, extra=extra)
+                    print(f"[finetune] val_loss={extra['val_loss']:.4f} ({n_val} batches)",
+                          flush=True)
+                if on_validation is not None:
+                    on_validation(grad_step, extra, n_val)
+            if at_boundary and ((grad_step + 1) % cfg.save_freq == 0
+                                or grad_step + 1 == cfg.max_steps):
+                ckpt = save_checkpoint(ckpt_dir, grad_step + 1, {
+                    "trainables": state.trainables,
+                    "optimizer": state.optimizer.state_dict()})
+                print(f"[finetune] saved checkpoint for step {grad_step + 1}: {ckpt}")
+    finally:
+        prefetched.close()      # the worker and its buffered device batches
     metrics.finalize()
     print(f"[finetune] done: {state.step} micro-steps in {time.time() - t_start:.1f} s")
     return {"final_step": state.step, "run_dir": run_dir, "ckpt": ckpt}
 
 
 def main(argv=None,
-         on_step: Optional[Callable[[int, dict, object], None]] = None) -> dict:
+         on_step: Optional[Callable[[int, dict, object], None]] = None,
+         on_validation: Optional[Callable[[int, dict, int], None]] = None) -> dict:
     """Parse `argv` (sys.argv[1:] when None) and run `finetune`."""
-    return finetune(parse_config(argv), on_step=on_step)
+    return finetune(parse_config(argv), on_step=on_step, on_validation=on_validation)
 
 
 if __name__ == "__main__":

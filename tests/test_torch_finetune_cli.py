@@ -5,7 +5,9 @@ Its data path is held against the JAX package's (`DummyDataset` and
 arrays, token ids exactly and pixels to 1e-6. 2-step `random:tiny` runs on
 the CPU write their metrics JSONL and checkpoint for each objective (L1,
 diffusion with its sampling metric, discrete), for ALOHA with FiLM and from
-a checkpoint dir; every flag for a feature that is not ported raises at
+a checkpoint dir; on RLDS episode shards written by the port's writer (L1
+with image augmentation, discrete with two cameras, and validation logging
+its `val_*` metrics); every flag for a feature that is not ported raises at
 startup, and so does a hub id.
 """
 
@@ -91,13 +93,11 @@ def test_tiny_run_writes_metrics_and_checkpoint(tmp_path):
 
 UNPORTED = [
     (["--quantize_base", "True"], "quantize_base"),
-    (["--use_val_set", "True"], "use_val_set"),
     (["--resume", "True"], "resume"),
     (["--merge_lora_during_training", "True"], "merge_lora"),
     (["--multihost", "True"], "multihost"),
     (["--mesh_fsdp", "2"], "mesh"),
     (["--remat_policy", "dots"], "remat_policy dots"),
-    (["--data_root_dir", "datasets/rlds"], "RLDS"),
 ]
 
 
@@ -289,3 +289,71 @@ def test_l1_objective_and_start_line(tmp_path, capsys):
     FT.main(TINY_RUN + ["--use_l1_regression", "False", "--max_steps", "1",
                         "--batch_size", "1", "--run_root_dir", str(tmp_path)])
     assert "objective=discrete platform=libero" in capsys.readouterr().out
+
+
+@pytest.fixture(scope="module")
+def episode_root(tmp_path_factory):
+    """Raw LIBERO episodes (gripper -1..1, 8-dim state, two cameras) written
+    by the port's writer, the golden's JPEG bytes as frames."""
+    from openvla_oft_tpu_torch.data.rlds.pipeline import write_episode_tfrecords
+    from test_torch_jpeg_decode import load_golden
+
+    frames = [d for n, d, _ in load_golden() if n.endswith("48x64") and "grey" not in n]
+    rng = np.random.default_rng(0)
+    root = tmp_path_factory.mktemp("episodes")
+    episodes = []
+    for e in range(4):
+        t = 10 + 2 * e
+        actions = rng.uniform(-0.5, 0.5, (t, LIBERO.action_dim))
+        actions[:, -1] = np.where(np.arange(t) % 3 == 0, -1.0, 1.0)
+        episodes.append({"images": [frames[(e + i) % len(frames)] for i in range(t)],
+                         "wrist_images": [frames[(e + 2 * i) % len(frames)] for i in range(t)],
+                         "actions": actions, "proprio": rng.standard_normal((t, 8)),
+                         "language_instruction": f"put the bowl on plate {e}"})
+    write_episode_tfrecords(str(root / "libero_spatial_no_noops"), episodes)
+    return str(root)
+
+
+def _episode_run(root, tmp_path, *flags, on_validation=None):
+    out = FT.main(TINY_RUN + ["--data_root_dir", root, "--dataset_name",
+                              "libero_spatial_no_noops", "--batch_size", "2", "--max_steps",
+                              "3", "--shuffle_buffer_size", "16", "--run_root_dir",
+                              str(tmp_path), *flags], on_validation=on_validation)
+    assert out["final_step"] == 3
+    with open(Path(root) / "libero_spatial_no_noops" / "dataset_statistics.json") as f:
+        written = json.load(f)
+    with open(Path(out["run_dir"]) / "dataset_statistics.json") as f:
+        assert json.load(f) == {"libero_spatial_no_noops": written}
+    assert written["transform"] == "libero_dataset_transform"
+    return out
+
+
+def test_l1_run_on_episode_shards_with_image_aug(episode_root, tmp_path):
+    out = _episode_run(episode_root, tmp_path, "--image_aug", "True")
+    rows = _rows(out)
+    assert [r["step"] for r in rows] == [0, 1, 2]
+    for r in rows:
+        for key in ("loss", "grad_norm", "curr_action_l1_loss"):
+            assert np.isfinite(r[key]) and r[key] > 0, (key, r)
+    assert out["run_dir"].endswith("--image_aug")
+
+
+def test_discrete_run_on_episode_shards_two_cameras(episode_root, tmp_path):
+    out = _episode_run(episode_root, tmp_path, "--use_l1_regression", "False",
+                       "--num_images_in_input", "2", "--image_aug", "False")
+    for r in _rows(out):
+        assert np.isfinite(r["loss"]) and 0 <= r["token_accuracy"] <= 1
+
+
+def test_validation_logs_val_metrics(episode_root, tmp_path):
+    seen = []
+    out = _episode_run(episode_root, tmp_path, "--use_val_set", "True", "--val_freq", "2",
+                       "--val_time_limit", "60",
+                       on_validation=lambda step, m, n: seen.append((step, m, n)))
+    assert [s for s, _, _ in seen] == [1] and seen[0][2] > 0
+    rows = _rows(out)
+    val = [r for r in rows if "val_loss" in r]
+    assert len(val) == 1 and val[0]["step"] == 1
+    for key in ("val_loss", "val_curr_action_l1_loss", "val_next_actions_l1_loss"):
+        assert np.isfinite(val[0][key]), key
+    assert val[0]["val_loss"] == pytest.approx(seen[0][1]["val_loss"])

@@ -1312,3 +1312,55 @@ def test_int8_decode_step_pads_one_row(cuda):
     got, ref, used, linears = _quantized_decode_step(cuda, 8, (Q, "int8_mm", Q.int8_mm_ref))
     assert used == linears and torch.isfinite(got).all()
     assert _rel_err(got, ref) <= 1e-6
+
+
+# === The training data path on the card's machine ===
+def test_host_jpeg_decoder_matches_plain_on_the_golden(cuda):
+    """The host library, built there with its C++ compiler, against the plain
+    decoder and TF's pixels of `tests/goldens/jpeg_decode_tf.npz`, bitwise;
+    and its augmentation against the numpy plain version on the golden's
+    frames."""
+    from pathlib import Path
+
+    from openvla_oft_tpu_torch.data.rlds.augment import (augment_image, augment_image_plain,
+                                                         draw_augmentation)
+    from openvla_oft_tpu_torch.processing.jpeg_decode import decode_jpeg, decode_jpeg_plain
+
+    with np.load(Path(__file__).parent / "goldens" / "jpeg_decode_tf.npz") as z:
+        entries = [(str(n), z[f"data_{i}"].tobytes(), z[f"pixels_{i}"])
+                   for i, n in enumerate(z["names"])]
+    assert len(entries) == 15
+    rng = np.random.default_rng(0)
+    for name, data, pixels in entries:
+        np.testing.assert_array_equal(decode_jpeg(data), pixels, err_msg=name)
+        np.testing.assert_array_equal(decode_jpeg_plain(data), pixels, err_msg=name)
+        if min(pixels.shape[:2]) < 2:
+            continue                              # 1 x 1 has no crop to augment
+        draws = draw_augmentation(rng, *pixels.shape[:2])
+        np.testing.assert_array_equal(augment_image(pixels, draws),
+                                      augment_image_plain(pixels, draws), err_msg=name)
+
+
+def test_stream_prefetcher_matches_plain_copies(cuda):
+    """Batches through the side-stream prefetcher, used on the default
+    stream, are bitwise the host arrays moved with a plain .to(device)."""
+    from openvla_oft_tpu_torch.data.prefetch import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    host = [{"pixel_values": rng.standard_normal((8, 2, 2, 224, 224, 3)).astype(np.float32),
+             "input_ids": rng.integers(0, 32000, (8, 48)).astype(np.int32),
+             "actions": rng.standard_normal((8, 8, 7)).astype(np.float32),
+             "dataset_name": "d"} for _ in range(5)]
+    pf = DevicePrefetcher(iter(host), device=cuda, depth=2)
+    try:
+        for i, batch in enumerate(pf):
+            assert set(batch) == {"pixel_values", "input_ids", "actions"}
+            for key, t in batch.items():
+                assert t.device.type == "cuda"
+                # consume on the default stream, as the training step does
+                got = (t * 1).cpu() if t.is_floating_point() else t.cpu()
+                want = torch.as_tensor(host[i][key]).to(cuda).cpu()
+                assert torch.equal(got, want), key
+        assert i == 4
+    finally:
+        pf.close()

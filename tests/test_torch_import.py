@@ -86,7 +86,12 @@ _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "ut
                 "scripts.calibrate_quant", "ops.ddim", "scripts.bench_diffusion",
                 "scripts.bench_ar", "utils.safetensors_io", "utils.weights", "utils.hf_import",
                 "processing.sentencepiece", "processing.prompting", "serving.openvla_utils",
-                "scripts.convert_weights", "processing.jpeg", "serving.robot_utils")
+                "scripts.convert_weights", "processing.jpeg", "serving.robot_utils",
+                "processing.jpeg_decode", "data.rlds.pipeline", "data.rlds.tfrecord",
+                "data.rlds.augment", "data.rlds.goal_task_aug", "data.rlds.oxe.configs",
+                "data.rlds.oxe.transforms", "data.rlds.oxe.droid_utils",
+                "data.rlds.oxe.materialize", "data.rlds.oxe.mixtures", "data.npz_dataset",
+                "data.prefetch", "_host_build")
 
 
 def test_every_module_imports_without_jax():
@@ -94,7 +99,7 @@ def test_every_module_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 51
+    assert len(names) >= 65
     assert {f"openvla_oft_tpu_torch.{m}" for m in _MUST_IMPORT} <= set(names)
 
 
@@ -113,6 +118,23 @@ def test_no_jax_import_in_the_source():
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         text = path.read_text()
         assert not anywhere.search(text) and not top.search(text), path
+
+
+def test_host_library_sources_are_the_ports_own():
+    """The host library (the JPEG decoder, augmentation and CRC-32C of the data path) is
+    built from sources under the port's own directory, nothing else: not
+    the JAX package's `native/` sources."""
+    from openvla_oft_tpu_torch import _host_build as H
+
+    sources = H.sources()
+    assert {p.name for p in sources} == {"augment.cc", "crc32c.cc", "jpeg_decode.cc"}
+    for path in sources:
+        assert not path.is_symlink() and path.resolve().is_relative_to(PKG / "hostsrc")
+        assert "#include \"" not in path.read_text()      # no header from elsewhere
+    lib = H.build()
+    assert lib.resolve().is_relative_to(PKG / "_build")
+    log = (lib.parent / "build.log").read_text()
+    assert all(str(p) in log for p in sources) and "native" not in log.split("\n")[0]
 
 
 # Run in a fresh interpreter: other test files of the same worker register
