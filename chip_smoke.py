@@ -201,12 +201,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      beside phase 10's, val_loss finite, peak memory, the run dir's
      statistics the pipeline's; one step traced fed by the prefetcher, with
      its idle share; (f) the dataset removed.
+ 14. (after 13) the rest of the fine-tuning CLI: (a) QLoRA int8 (B=8, remat
+     "all", 3 steps): the int8 products a step against the count from the
+     widths (the forward's and its recompute's), K1/K2/K3 as phase 10, the
+     step times, the peak beside phase 10's, and one loss and backward
+     against the plain int8 product (float64) within phase 12's bounds; (b)
+     QLoRA int4 at B=1 (K5 in every int4 linear, counted alike) against
+     `int4_matmul_ref`, then B=8 (the dequant path, 2 steps), K5 at the
+     LLM's training shapes (T = 585) beside torch.matmul, and the dequant
+     products' share of the B=8 step; (c) the remat policies "all",
+     "dots", "attn_out", "none" at B=8 from the same weights and batch: the
+     loss and gradients bitwise those of "all", the launches, median time
+     and peak of each; (d) (inside phase 8e, on its 4-layer dir) the CLI
+     with the merged export every 2 steps: the `--2_chkpt` and `--3_chkpt`
+     dirs, the re-imported `.pt` files bitwise the trained state, `/act` on
+     the merged dir (get_vla) bitwise the in-memory merge, a resume from
+     step 2 to 4 with the restored state bitwise the saved one, the save's
+     host snapshot and background write; (e) SIGTERM at the third
+     micro-step: a checkpoint at 3, final_step 3, the handler restored, a
+     resumed run to step 6.
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
 with one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2264,6 +2284,8 @@ def checkpoint_serving(card: str, rng, device: str = "cuda") -> dict:
 
         # (f) phase 11b (d): fine-tuning from the dir, before it is removed.
         runs["checkpoint training"] = checkpoint_training(ckpt, draw(), n_layers, card)
+        # (g) phase 14 (d), (e): run management from the same dir.
+        runs.update(run_management(ckpt, card, rng, n_layers))
     finally:
         if server is not None:
             server.shutdown()
@@ -2582,11 +2604,12 @@ def backward_check(card: str, s_train: int, s_aloha: int) -> dict:
 
 
 def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
-          steps: int = 3, sample_freq: int = 0) -> tuple:
+          steps: int = 3, sample_freq: int = 0, expect_extra: dict = None) -> tuple:
     """`steps` steps of the fine-tuning CLI with `flags` (in process), the
     launch counts reset just before it and read just after. Each step must
     launch K1 2 x n_layers (remat "all": the forward and its recompute) and
-    K2, K3 n_layers each, and nothing else; a step that runs the diffusion
+    K2, K3 n_layers each, and nothing else but `expect_extra` (a QLoRA
+    base's int8 products or K5 launches a step); a step that runs the diffusion
     sampling metric (every `sample_freq`) adds K1 n_layers for each of its
     forwards. Every trainable group must move between the first step and
     the last. Returns (state, launches, info)."""
@@ -2595,7 +2618,7 @@ def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
 
     run_root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     expect = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers,   # remat "all"
-              "K4": 0, "K5": 0, "K6": 0, "probe": 0, "int8": 0}
+              "K4": 0, "K5": 0, "K6": 0, "probe": 0, "int8": 0, **(expect_extra or {})}
     sample_k1 = n_layers * FT.parse_config(flags).num_diffusion_steps
     seen = {"prev": {k: 0 for k in expect}, "times": [], "samples": []}
 
@@ -2623,6 +2646,9 @@ def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
             raise AssertionError(f"step {step} launched {per_step}, expected {want}")
         if step == 0:
             seen["first"] = [t.detach().clone() for t in tree_leaves(state.trainables)]
+            # The build's and the first step's peak; the later steps' from here.
+            seen["peak0"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
 
     from openvla_oft_tpu_torch.ops import flash_attention as fa
 
@@ -2634,7 +2660,8 @@ def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
         out = FT.main(flags + ["--max_steps", str(steps), "--run_root_dir", run_root],
                       on_step=on_step)
         launches = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
+        step_peak = torch.cuda.max_memory_allocated()
+        peak = max(seen["peak0"], step_peak)
         if fa.flash_attention_dkv.stats_launches != stats_before:
             raise AssertionError("the training backward ran the stats pass: K3 did not read "
                                  "K2's stats rows")
@@ -2663,6 +2690,7 @@ def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
             start = stop
         del seen["first"]
         return state, launches, {"step_times": seen["times"], "peak": peak,
+                                 "step_peak": step_peak,
                                  "samples": seen["samples"]}
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
@@ -2814,16 +2842,8 @@ def training_parity(state, card: str, flags=TRAIN_FLAGS, label: str = "train-par
     if far_targets:
         batch["actions"] = torch.full_like(batch["actions"], 10.0)
     gen = torch.Generator(device=dev).manual_seed(7)
-
-    def lora_b(tree):
-        for key, node in tree.items():
-            if key == "b":
-                yield node
-            elif isinstance(node, dict):
-                yield from lora_b(node)
-
     with torch.no_grad():
-        for b in lora_b(state.trainables["lora"]):
+        for b in _lora_b(state.trainables["lora"]):
             b.normal_(0.0, 1e-3, generator=gen)
     leaves = tree_leaves(state.trainables)
     loss, grads = {}, {}
@@ -3196,6 +3216,491 @@ def episode_phase(card: str, n_layers: int, dummy_times: list) -> dict:
             f"{time.perf_counter() - t_phase:.1f} s (host clock)")
 
 
+# === Phase 14: QLoRA, the remat policies, run management (PR 19) ===
+# The fine-tuning CLI's QLoRA runs: phase 10's flags on an int8 base (B = 8)
+# and on an int4 base at B = 1, where every int4 linear takes K5 (at most
+# FUSED_MAX_ROWS rows), and at B = 8, where none does.
+QLORA_INT8_FLAGS = TRAIN_FLAGS + ["--quantize_base", "True"]
+QLORA_INT4_FLAGS = QLORA_INT8_FLAGS + ["--quantize_base_bits", "4", "--batch_size", "1"]
+QLORA_INT4_B8_FLAGS = QLORA_INT8_FLAGS + ["--quantize_base_bits", "4"]
+REMAT_POLICIES = ("all", "dots", "attn_out", "none")
+# The 7B's LLM linears at the training length T = 585 rows (B = 1):
+# (names, K, N); wq, wk, wv and wo share a shape, and so do gate and up.
+TRAIN_INT4_SHAPES = [("wq wk wv wo", 4096, 4096), ("gate up", 4096, 11008),
+                     ("down", 11008, 4096)]
+
+
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """module.name = value inside the block (the plain path of a parity check)."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def quantized_linear_calls(cfg, min_dim: int) -> tuple:
+    """(LLM, ViT, projector) quantized linear calls in one training forward,
+    from the model's widths and `quantize_base_min_dim`: each linear whose
+    contraction dim is at least min_dim (`ops/quant.py::_is_quantizable`;
+    every one of them is even, as int4 needs). The LLM's 7 linears in each
+    of its layers, each ViT's qkv, proj, fc1 and fc2 in its depth - 1 blocks
+    that run (the tap skips the last), the projector's fc1-fc3 once."""
+    llm = cfg.llm
+    n_llm = llm.num_layers * sum(k >= min_dim for k in [llm.hidden_size] * 6
+                                 + [llm.intermediate_size])
+    n_vit = sum((v.depth - 1) * sum(k >= min_dim for k in (v.width, v.width, v.width,
+                                                            v.mlp_dim))
+                for v in cfg.vision_configs)
+    proj_in = ([cfg.vision_dim, 4 * cfg.vision_dim, cfg.llm_dim]
+               if cfg.use_fused_vision_backbone else [cfg.vision_dim, cfg.llm_dim])
+    return n_llm, n_vit, sum(k >= min_dim for k in proj_in)
+
+
+def path_vs_plain(state, flags, label: str, plain, card: str) -> None:
+    """One loss and backward from `state` and the CLI's first batch through
+    the card's path and inside `plain` (a context that swaps the plain
+    version in); phase 12's bounds: loss within TRAIN_LOSS_REL, gradient
+    cosine >= TRAIN_GRAD_COSINE per group."""
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.training import train_step as TT
+
+    dev = state.base_params["llm"]["embed"]["embedding"].device
+    cfg, platform, tcfg, batch = training_setup(flags)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    leaves = tree_leaves(state.trainables)
+    loss, grads = {}, {}
+    for name, ctx in (("card", contextlib.nullcontext()), ("plain", plain())):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with ctx:
+            l, _ = TT.loss_and_metrics(state.trainables, state.base_params, batch, cfg,
+                                       platform, tcfg,
+                                       torch.Generator(device=dev).manual_seed(11))
+            grads[name] = torch.autograd.grad(l, leaves)
+        torch.cuda.synchronize()
+        loss[name] = l.item()
+        used = {k: v - before[k] for k, v in launch_counts().items()}
+        log(f"[{label}] {name} path: loss={loss[name]:.6f} launches {used}, "
+            f"{time.perf_counter() - t0:.2f} s (host clock)")
+    rel = abs(loss["card"] - loss["plain"]) / abs(loss["plain"])
+    ok = np.isfinite(loss["card"]) and rel <= TRAIN_LOSS_REL
+    start = 0
+    for group, tree in state.trainables.items():
+        stop = start + len(tree_leaves(tree))
+        flat = [torch.cat([x.float().flatten() for x in grads[n][start:stop]])
+                for n in ("card", "plain")]
+        cos = torch.nn.functional.cosine_similarity(flat[0], flat[1], dim=0).item()
+        same = all(torch.equal(a, b) for a, b in zip(grads["card"][start:stop],
+                                                      grads["plain"][start:stop]))
+        log(f"[{label}] {group}: gradient cosine(card, plain) = {cos:.6f}, bitwise equal "
+            f"{same}")
+        ok = ok and cos >= TRAIN_GRAD_COSINE
+        start = stop
+    log(f"[{label}] loss relative difference {rel:.3e} (bound {TRAIN_LOSS_REL}) ({card})")
+    if not ok:
+        raise AssertionError(f"{label}: the card's path disagrees with the plain one")
+
+
+def int4_training_times(card: str, b1_step_s: float, b8_step_s: float) -> dict:
+    """K5 at the LLM's training shapes (T = 585, B = 1) beside torch.matmul
+    on the bf16 weight (device times, L2 flushed), and at B = 8 (T = 4,680)
+    the dequant product that the int4 linears take (`int4_matmul_ref`: an
+    fp32 product of bf16 values) beside `torch.mm(..., out_dtype=float32)`
+    on bf16 operands (CUDA events), with the share of the B = 8 step that
+    32 layers x 3 passes of the former come to (the forward, its recompute
+    and the product of the backward)."""
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops.quant import dequantize_int4, quantize_weight_int4
+
+    dev = torch.device("cuda")
+    flush = l2_flush_buffer(dev)
+    out = {}
+    per_layer_ref = per_layer_mm = 0.0
+    for names, k, n in TRAIN_INT4_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(k + n)
+        q = quantize_weight_int4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        packed, scales = q["kernel_q4"], q["scale_w4"]
+        w16 = dequantize_int4(packed, scales, torch.bfloat16)
+        x = torch.randn((585, k), generator=gen, device=dev).bfloat16()
+        dev5, how5 = device_ms(lambda: M.int4_matmul_fused(x, packed, scales), flush)
+        dev_lib, how_lib = device_ms(lambda: torch.matmul(x, w16), flush)
+        b5 = bound(2 * 585 * k * n, nbytes(x, packed, scales) + 585 * n * 4, PEAK_BF16)
+        x8 = torch.randn((4680, k), generator=gen, device=dev).bfloat16()
+        ref = cuda_time_ms(lambda: M.int4_matmul_ref(x8, packed, scales), flush=flush)
+        try:
+            mm = cuda_time_ms(lambda: torch.mm(x8, w16, out_dtype=torch.float32), flush=flush)
+        except (RuntimeError, TypeError, NotImplementedError) as e:
+            mm = None
+            log(f"[qlora-int4] torch.mm(..., out_dtype=float32) is not at hand: {e}")
+        count = len(names.split())
+        per_layer_ref += count * ref
+        per_layer_mm += count * (mm or 0.0)
+        out[names] = {"k5": dev5, "matmul": dev_lib, "bound": b5, "ref_b8": ref, "mm_b8": mm}
+        log(f"[qlora-int4] {names} ({k} -> {n}) at T = 585: K5 {dev5:.4f} ms ({how5}), "
+            f"torch.matmul on the bf16 weight {dev_lib:.4f} ({how_lib}), K5 / matmul "
+            f"{dev5 / dev_lib:.2f}, bound {b5[0]:.4f} ({b5[1]}); at T = 4,680: "
+            f"int4_matmul_ref {ref:.4f} ms, torch.mm(bf16, bf16, out_dtype=float32) "
+            f"{'n/a' if mm is None else f'{mm:.4f}'} ms (CUDA events, L2 flushed) ({card})")
+        del q, packed, scales, w16, x, x8
+    layers = 32
+    share = 3 * layers * per_layer_ref / 1e3 / b8_step_s
+    log(f"[qlora-int4] the LLM's dequant products at B = 8: {3 * layers * per_layer_ref:.1f} "
+        f"ms a step (32 layers x 3 passes), {share:.3f} of the median B = 8 step "
+        f"({b8_step_s:.3f} s); with torch.mm(out_dtype=float32) "
+        f"{3 * layers * per_layer_mm:.1f} ms; the B = 1 step {b1_step_s:.3f} s ({card})")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def qlora_phase(card: str, n_layers: int, bf16_peak: int) -> dict:
+    """Phase 14 (a), (b): QLoRA int8 at B = 8 and int4 at B = 1 (K5) and
+    B = 8 (the dequant path) through the fine-tuning CLI, each with its
+    launches a step against the count from the widths, its step times and
+    peak, and the card's path against the plain one. Returns the launches."""
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    runs = {}
+    t_phase = time.perf_counter()
+    cfg = training_setup(QLORA_INT8_FLAGS)[0]
+    n_llm, n_vit, n_proj = quantized_linear_calls(cfg, 1024)
+    per_step = 2 * (n_llm + n_vit) + n_proj          # remat "all": forward and recompute
+    log(f"[qlora] quantized linears a forward: LLM {n_llm}, ViTs {n_vit}, projector "
+        f"{n_proj}; a step under remat \"all\" launches 2 x ({n_llm} + {n_vit}) + {n_proj} = "
+        f"{per_step} products (the backward's are dequantized bf16 products)")
+    # (a) int8 at B = 8.
+    state, runs["QLoRA int8"], info = train(card, n_layers, QLORA_INT8_FLAGS, "qlora-int8",
+                                            expect_extra={"int8": per_step})
+    log(f"[qlora-int8] step times {', '.join(f'{t:.4f}' for t in info['step_times'])} s; "
+        f"peak of steps 1-2 {info['step_peak'] / 2**30:.3f} GiB, of the run (build "
+        f"included) {info['peak'] / 2**30:.3f} GiB, against phase 10's bf16 run "
+        f"{bf16_peak / 2**30:.3f} GiB ({card})")
+    path_vs_plain(state, QLORA_INT8_FLAGS, "qlora-int8-parity",
+                  lambda: patched(Q, "int8_mm", Q.int8_mm_ref), card)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) int4 at B = 1: every int4 linear takes K5.
+    state, runs["QLoRA int4 B=1"], info1 = train(card, n_layers, QLORA_INT4_FLAGS,
+                                                 "qlora-int4", expect_extra={"K5": per_step})
+    log(f"[qlora-int4] B = 1: step times {', '.join(f'{t:.4f}' for t in info1['step_times'])}"
+        f" s; peak of steps 1-2 {info1['step_peak'] / 2**30:.3f} GiB, of the run (build "
+        f"included) {info1['peak'] / 2**30:.3f} GiB ({card})")
+    path_vs_plain(state, QLORA_INT4_FLAGS, "qlora-int4-parity",
+                  lambda: patched(Q, "FUSED_MAX_ROWS", 0), card)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # int4 at B = 8: above FUSED_MAX_ROWS every int4 linear takes the dequant path.
+    state, runs["QLoRA int4 B=8"], info8 = train(card, n_layers, QLORA_INT4_B8_FLAGS,
+                                                 "qlora-int4-b8", steps=2)
+    log(f"[qlora-int4] B = 8: step times {', '.join(f'{t:.4f}' for t in info8['step_times'])}"
+        f" s; peak of step 1 {info8['step_peak'] / 2**30:.3f} GiB, of the run (build "
+        f"included) {info8['peak'] / 2**30:.3f} GiB ({card})")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["int4 times"] = int4_training_times(card, float(np.median(info1["step_times"][1:])),
+                                             float(np.median(info8["step_times"])))
+    log(f"[qlora] phase 14 (a), (b) took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return runs
+
+
+def remat_phase(card: str, n_layers: int) -> dict:
+    """Phase 14 (c): the remat policies on the CLI's bf16 model at B = 8,
+    from the same weights (LoRA B drawn with std 1e-3) and batch: 3 losses
+    and backwards each, the first's loss and gradients bitwise those of
+    "all" (or, where two runs of "all" differ, cosine >= 0.9999 per group),
+    the median time, the peak, and the launches a step (K1 twice the layers
+    except under "none"). Returns the launches."""
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.training import finetune as FT
+    from openvla_oft_tpu_torch.training import train_step as TT
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = FT.parse_config(TRAIN_FLAGS)
+    model_cfg, platform = FT.model_config(cfg), FT.platform_of(cfg)
+    base, trainables = FT.build_model(cfg, model_cfg, platform, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        for b in _lora_b(trainables["lora"]):
+            b.normal_(0.0, 1e-3, generator=gen)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in FT.first_batch(cfg).items()}
+    leaves = tree_leaves(trainables)
+    groups = [(g, len(tree_leaves(t))) for g, t in trainables.items()]
+    ref, runs, deterministic = None, {}, True
+    for policy in REMAT_POLICIES:
+        tcfg = dataclasses.replace(FT.train_config(cfg), remat_policy=policy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times, first = [], None
+        for i in range(3):
+            t0 = time.perf_counter()
+            loss, _ = TT.loss_and_metrics(trainables, base, batch, model_cfg, platform, tcfg,
+                                          torch.Generator(device=dev).manual_seed(11))
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                first = (loss.detach(), grads)
+            elif i == 1 and policy == "all":
+                deterministic = torch.equal(loss, first[0]) and all(
+                    torch.equal(a, b) for a, b in zip(grads, first[1]))
+                log(f"[remat] two runs of \"all\" bitwise equal: {deterministic}")
+            del loss, grads
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v // 3 for k, v in launch_counts().items()}
+        runs[policy] = launch_counts()
+        want = {"K1": (1 if policy == "none" else 2) * n_layers, "K2": n_layers,
+                "K3": n_layers, "K4": 0, "K5": 0, "K6": 0, "probe": 0, "int8": 0}
+        log(f"[remat] {policy}: loss {first[0].item():.6f}; times "
+            f"{', '.join(f'{t:.4f}' for t in times)} s, median {float(np.median(times)):.4f} "
+            f"s (host clock around loss and backward, ends in torch.cuda.synchronize); "
+            f"peak {peak / 2**30:.3f} GiB; launches a step {launches} ({card})")
+        if launches != want:
+            raise AssertionError(f"remat {policy}: launched {launches} a step, expected {want}")
+        if ref is None:
+            ref = first
+            continue
+        same_loss = torch.equal(first[0], ref[0])
+        start, ok = 0, same_loss or not deterministic
+        for group, n in groups:
+            a, b = first[1][start:start + n], ref[1][start:start + n]
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            cos = torch.nn.functional.cosine_similarity(
+                torch.cat([x.float().flatten() for x in a]),
+                torch.cat([y.float().flatten() for y in b]), dim=0).item()
+            log(f"[remat] {policy} against \"all\": {group} gradients bitwise equal {same}, "
+                f"cosine {cos:.8f}")
+            ok = ok and (same if deterministic else cos >= 0.9999)
+            start += n
+        log(f"[remat] {policy} against \"all\": loss bitwise equal {same_loss}")
+        if not ok:
+            raise AssertionError(f"remat {policy} changed the loss or the gradients")
+        del first
+    del base, trainables, ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[remat] phase 14 (c) took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return runs
+
+
+def _lora_b(tree):
+    """The LoRA B factors of a tree."""
+    for key, node in tree.items():
+        if key == "b":
+            yield node
+        elif isinstance(node, dict):
+            yield from _lora_b(node)
+
+
+def states_bitwise_equal(a, b, path="") -> int:
+    """`trees_bitwise_equal` over a state dict: tensors bit for bit, other
+    leaves (numbers, None, strings) equal; returns the number of tensors."""
+    if isinstance(a, torch.Tensor):
+        return trees_bitwise_equal(a.detach(), b.detach(), path)
+    if isinstance(a, dict):
+        if sorted(a, key=str) != sorted(b, key=str):
+            raise AssertionError(f"{path}: keys {sorted(a, key=str)} != {sorted(b, key=str)}")
+        return sum(states_bitwise_equal(a[k], b[k], f"{path}/{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        return sum(states_bitwise_equal(x, y, f"{path}/{i}")
+                   for i, (x, y) in enumerate(zip(a, b, strict=True)))
+    if a != b:
+        raise AssertionError(f"{path}: {a!r} != {b!r}")
+    return 0
+
+
+def run_management(ckpt: str, card: str, rng, n_layers: int) -> dict:
+    """Phase 14 (d), (e), inside phase 8e on its 4-layer dir: the CLI with
+    the merged export every 2 steps (its dirs, the .pt files re-imported
+    bitwise, the merged dir served bitwise as the in-memory merge), a resume
+    from step 2 (the restored state bitwise the saved one), the save's times,
+    and a SIGTERM at the third micro-step (a checkpoint at 3, final_step 3,
+    the handler restored, a resumed run to the end). Returns the launches."""
+    import signal
+
+    from openvla_oft_tpu_torch import config as C
+    from openvla_oft_tpu_torch.constants import get_platform
+    from openvla_oft_tpu_torch.policy import OpenVLAPolicy
+    from openvla_oft_tpu_torch.processing.sentencepiece import (SentencePieceTokenizer,
+                                                                parse_model_proto)
+    from openvla_oft_tpu_torch.serving.deploy import (DeployConfig, OpenVLAServer,
+                                                      get_action_from_server, serving_params)
+    from openvla_oft_tpu_torch.training import checkpoint as CK
+    from openvla_oft_tpu_torch.training import finetune as FT
+    from openvla_oft_tpu_torch.training.lora import apply_lora
+
+    t_phase = time.perf_counter()
+    root = checkpoint_dir(int(3 * sum(os.path.getsize(os.path.join(ckpt, f))
+                                      for f in os.listdir(ckpt))))
+    flags = TRAIN_FLAGS + ["--vla_path", ckpt, "--save_freq", "2", "--run_root_dir", root]
+    per_step = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers, "K4": 0, "K5": 0,
+                "K6": 0, "probe": 0, "int8": 0}
+    runs, server = {}, None
+
+    def run(label, extra, steps, on_step=None):
+        reset_launch_counts()
+        CK.SAVE_LOG.clear()
+        t0 = time.perf_counter()
+        out = FT.main(flags + extra, on_step=on_step)
+        launches = launch_counts()
+        log(f"[{label}] finetune: final_step {out['final_step']} in "
+            f"{time.perf_counter() - t0:.1f} s; launches {launches}; saves " + "; ".join(
+                f"{os.path.basename(r['path'])}: {r['bytes'] / 2**20:.1f} MiB, host snapshot "
+                f"{r['snapshot_s'] * 1e3:.1f} ms, background write "
+                f"{r.get('write_s', float('nan')) * 1e3:.1f} ms" for r in CK.SAVE_LOG)
+            + f" (host clock; {card})")
+        want = {k: steps * v for k, v in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"{label}: launched {launches}, expected {want}")
+        runs[label] = launches
+        return out
+
+    try:
+        # (d) the merged export every 2 steps.
+        seen = {"times": []}
+
+        def on_step(step, metrics, state):
+            seen["times"].append(metrics["step_time"])
+            seen["state"] = state
+            if step == 1:
+                seen["saved2"] = CK.host_snapshot({"trainables": state.trainables,
+                                                   "optimizer": state.optimizer.state_dict()})
+
+        out = run("run-management", ["--max_steps", "3", "--merge_lora_during_training",
+                                     "True"], 3, on_step)
+        run_dir, state = out["run_dir"], seen["state"]
+        log(f"[run-management] step times {', '.join(f'{t:.4f}' for t in seen['times'])} s "
+            f"(step 2 follows the save at 2: the resume file's background write and the "
+            f"merged export) ({card})")
+        for n in (2, 3):
+            d = f"{run_dir}--{n}_chkpt"
+            need = ["dataset_statistics.json", f"action_head--{n}_checkpoint.pt",
+                    f"proprio_projector--{n}_checkpoint.pt", "config.json",
+                    "model.safetensors", "tokenizer.model"]
+            missing = [f for f in need if not os.path.isfile(os.path.join(d, f))]
+            files = {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+            log(f"[run-management] {os.path.basename(d)}: " + ", ".join(
+                f"{f} {b:,} B" for f, b in files.items()))
+            if missing:
+                raise AssertionError(f"{d} lacks {missing}")
+        d3 = f"{run_dir}--3_chkpt"
+        heads = {"action_head": CK.import_action_head_pt(
+                     os.path.join(d3, "action_head--3_checkpoint.pt"), device="cuda"),
+                 "proprio_projector": CK.import_projector_pt(
+                     os.path.join(d3, "proprio_projector--3_checkpoint.pt"), device="cuda")}
+        n_pt = trees_bitwise_equal({k: CK.host_snapshot(state.trainables[k]) for k in heads},
+                                   CK.host_snapshot(heads))
+        log(f"[run-management] the re-imported .pt files: {n_pt} leaves bitwise equal to the "
+            f"trained state")
+        shutil.rmtree(f"{run_dir}--2_chkpt")
+
+        # get_vla on the merged dir against the in-memory merge of the trained state.
+        model_cfg, norm_stats = C.OpenVLAConfig.from_json_file(os.path.join(d3, "config.json"))
+        model_cfg = dataclasses.replace(model_cfg, num_images_in_input=2)
+        with torch.no_grad():
+            params = apply_lora(state.base_params, state.trainables["lora"], rank=32, alpha=16.0)
+            params = _detached({**params, **{k: state.trainables[k] for k in heads}})
+        with open(os.path.join(d3, "tokenizer.model"), "rb") as f:
+            tokenizer = SentencePieceTokenizer(parse_model_proto(f.read()))
+        memory_policy = OpenVLAPolicy(cfg=model_cfg, platform=get_platform("libero"),
+                                      params=serving_params(params), norm_stats=norm_stats,
+                                      tokenizer=tokenizer)
+        del params, seen["state"], state
+        deploy_cfg = DeployConfig(pretrained_checkpoint=d3, device="cuda",
+                                  unnorm_key=CKPT_UNNORM_KEY, num_images_in_input=2,
+                                  device_preprocess=True, num_open_loop_steps=8, warmup=False,
+                                  host="127.0.0.1", port=free_port())
+        server = OpenVLAServer(deploy_cfg)
+        server.run(background=True)
+        obs = observation(memory_policy, rng)
+        action = np.asarray(get_action_from_server(obs, f"http://127.0.0.1:{deploy_cfg.port}/act"))
+        server.shutdown()
+        server = None
+        want = memory_policy.predict_action_from_frames(
+            frames_of(memory_policy, obs), obs["instruction"], proprio=obs["state"],
+            unnorm_key=CKPT_UNNORM_KEY)
+        if action.shape != want.shape or not np.array_equal(action, want) \
+                or not np.isfinite(action).all():
+            raise AssertionError(f"the merged dir answered max|d| = "
+                                 f"{np.abs(action - want).max():.3e} from the in-memory merge")
+        log(f"[run-management] /act on the merged dir (get_vla): {action.shape}, bitwise equal "
+            f"to the in-memory policy built from apply_lora on the trained state ({card})")
+        del memory_policy
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The resume from step 2 to 4, the restored state against the saved one.
+        restored = {}
+        original = FT.restore_training_state
+
+        def capture(state, *args, **kw):
+            step = original(state, *args, **kw)
+            restored["state"] = CK.host_snapshot({"trainables": state.trainables,
+                                                  "optimizer": state.optimizer.state_dict()})
+            return step
+
+        with patched(FT, "restore_training_state", capture):
+            out2 = run("resume", ["--max_steps", "4", "--resume", "True", "--resume_step", "2",
+                                  "--run_id_override", os.path.basename(run_dir),
+                                  "--merge_lora_during_training", "False"], 2)
+        n_state = states_bitwise_equal(seen["saved2"], restored["state"])
+        if out2["final_step"] != 4 or CK.latest_step(os.path.join(run_dir, "ckpt")) != 4:
+            raise AssertionError(f"the resumed run ended at {out2}")
+        log(f"[resume] from step 2 to {out2['final_step']}: the restored trainables and "
+            f"optimizer state, {n_state} tensors, bitwise equal to the saved ones")
+
+        # (e) SIGTERM at the third micro-step.
+        before = signal.getsignal(signal.SIGTERM)
+        times = []
+
+        def preempt(step, metrics, state):
+            times.append(metrics["step_time"])
+            if step == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        pflags = ["--max_steps", "6", "--merge_lora_during_training", "False",
+                  "--run_id_note", "preempt"]
+        out3 = run("preempt", pflags, 3, preempt)
+        ckpt_dir = os.path.join(out3["run_dir"], "ckpt")
+        restored_handler = signal.getsignal(signal.SIGTERM) is before
+        log(f"[preempt] step times {', '.join(f'{t:.4f}' for t in times)} s (step 2 follows "
+            f"the save at 2 and overlaps its background write; step 1 follows none) "
+            f"({card})")
+        if out3["final_step"] != 3 or CK.latest_step(ckpt_dir) != 3 or not restored_handler:
+            raise AssertionError(f"preemption: final_step {out3['final_step']}, latest "
+                                 f"checkpoint {CK.latest_step(ckpt_dir)}, SIGTERM handler "
+                                 f"restored {restored_handler}")
+        out4 = run("preempt-resume", pflags + ["--resume", "True", "--run_id_override",
+                                               os.path.basename(out3["run_dir"])], 3)
+        if out4["final_step"] != 6:
+            raise AssertionError(f"the run resumed after preemption ended at {out4}")
+        log(f"[preempt] SIGTERM at micro-step 3: saved at 3, final_step 3, the SIGTERM handler "
+            f"restored; resumed from 3 to {out4['final_step']} ({card})")
+    finally:
+        if server is not None:
+            server.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[run-management] phase 14 (d), (e) took {time.perf_counter() - t_phase:.1f} s "
+        f"(host clock)")
+    return runs
+
+
+def _detached(node):
+    if isinstance(node, dict):
+        return {k: _detached(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_detached(v) for v in node]
+    return node.detach()
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
                  bound_by, library_ms, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": "openvla_oft_tpu_torch/csrc/" + source,
@@ -3289,6 +3794,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     objectives = objectives_phase(card, n_layers)
     episodes = episode_phase(card, n_layers, train_info["step_times"])
+    qlora = qlora_phase(card, n_layers, train_info["peak"])
+    remat = remat_phase(card, n_layers)
+    phase14 = [run for name, run in qlora.items() if name != "int4 times"] + list(remat.values())
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -3307,11 +3815,15 @@ def main() -> int:
                    + sum(run["K1"] for run in diffusion.values())
                    + sum(run["K1"] for run in discrete.values())
                    + sum(run["K1"] for run in checkpoint.values()) + train_launches["K1"]
-                   + sum(run["K1"] for run in objectives.values()) + episodes["K1"])
+                   + sum(run["K1"] for run in objectives.values()) + episodes["K1"]
+                   + sum(run["K1"] for run in phase14))
     # K2 and K3 launch in the training runs: phase 10, phase 11b's three,
-    # the run from phase 8e's checkpoint dir and phase 13's.
+    # the runs from phase 8e's checkpoint dir (11b (d), 14 (d), (e)), phase
+    # 13's and phase 14's.
     bwd_runs = [train_launches, checkpoint["checkpoint training"], *objectives.values(),
-                episodes]
+                episodes, *phase14,
+                *(checkpoint[k] for k in ("run-management", "resume", "preempt",
+                                          "preempt-resume"))]
     k2_launches = sum(run["K2"] for run in bwd_runs)
     k3_launches = sum(run["K3"] for run in bwd_runs)
     bwd_others = {n: {"ms_dq": c["ms_dq"], "ms_dkv": c["ms_dkv"], "library_ms": c["library_ms"],
@@ -3356,7 +3868,8 @@ def main() -> int:
                      library_events_ms=fc1["library_ms"]),
         kernel_entry("int4_matmul", "int4_w4a16.cu", "openvla_oft_tpu/ops/int4_matmul.py:43",
                      w4a16["K5"] + diffusion["int4 W4A16"]["K5"]
-                     + discrete["AR int4 W4A16"]["K5"] + checkpoint["checkpoint int4 W4A16"]["K5"],
+                     + discrete["AR int4 W4A16"]["K5"] + checkpoint["checkpoint int4 W4A16"]["K5"]
+                     + qlora["QLoRA int4 B=1"]["K5"],
                      max(c["err5"] for c in int4.values()), wqkv["dev5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["dev_lib5"],
                      also_replaces="openvla_oft_tpu/ops/int4_matmul.py:199",
@@ -3397,6 +3910,13 @@ def main() -> int:
     log(f"[objectives] launches of phase 11b's runs (3 steps each): " + ", ".join(
         f"{name} {run}" for name, run in objectives.items()))
     log(f"[episodes] launches of phase 13's run (4 steps and its validation): {episodes}")
+    log(f"[qlora] launches of phase 14's QLoRA runs: " + ", ".join(
+        f"{name} {run}" for name, run in qlora.items() if name != "int4 times"))
+    log(f"[remat] launches of phase 14's remat runs (3 losses and backwards each): " + ", ".join(
+        f"{name} {run}" for name, run in remat.items()))
+    log(f"[run-management] launches of phase 14's runs from the dir: " + ", ".join(
+        f"{name} {checkpoint[name]}" for name in ("run-management", "resume", "preempt",
+                                                  "preempt-resume")))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Llama-2 decoder for the OFT parallel-decoding prefill.
 
 Port of `openvla_oft_tpu/models/llama.py` (`embed_tokens`,
-`fuse_inference_weights`, `_block`, `_qkv_proj`, `_mlp`, `llama_model` with
-`out_window` and activation remat). RMSNorm -> RoPE attention with the OFT
-block-bidirectional mask -> SwiGLU; hidden states are returned after the
+`fuse_inference_weights`, `_block` as `_attend` and `_finish`, `_qkv_proj`,
+`_mlp`, `llama_model` with `out_window` and the activation remat
+policies). RMSNorm -> RoPE attention with the OFT block-bidirectional mask
+-> SwiGLU; hidden states are returned after the
 final RMSNorm. Layers stay stacked (L, ...) and run as a Python loop over
 per-layer views (`bridge.index_layer`). That covers int4 layers too: the
 JAX package's `_has_int4`/`_index_layer` keep the stacked int4 leaves and
@@ -45,30 +46,70 @@ from openvla_oft_tpu_torch.ops.rotary import apply_rope, rope_sin_cos
 Params = Dict[str, Any]
 
 
+REMAT_POLICIES = ("all", "dots", "attn_out", "none")
+
+
 def resolve_remat(remat_policy: Optional[str]) -> bool:
     """Whether each block runs under activation remat (JAX
     `resolve_remat_policy` with its call sites' "none" check).
 
-    "all": the block's forward is recomputed in the backward
-    (`torch.utils.checkpoint`, non-reentrant); None / "none": activations
-    are kept.
+    None / "none": activations are kept. The others recompute in the
+    backward (`run_block`); they change what is kept, never a value:
+    "all": the whole block; "dots": all but the outputs of the products
+    without batch dims (JAX's `dots_with_no_batch_dims_saveable`), which
+    are kept; "attn_out": all but each block's attention output (JAX's
+    `save_only_these_names("attn_out")`).
     """
     if remat_policy in (None, "none"):
         return False
-    if remat_policy == "all":
+    if remat_policy in REMAT_POLICIES:
         return True
-    if remat_policy in ("dots", "attn_out"):
-        raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported "
-                                  "yet (ROADMAP queue 1, item 14c)")
     raise ValueError(f"Unknown remat policy {remat_policy!r} (use 'all', 'dots', "
                      "'attn_out' or 'none')")
 
 
-def run_block(block, remat: bool, *args):
-    """block(*args), under `torch.utils.checkpoint` when `remat` and grad is on."""
-    if remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False)
-    return block(*args)
+# The ops whose outputs "dots" keeps: aten's matrix products without batch
+# dims (bf16 and fp32 `mm`, `addmm`, and the int8 `_int_mm`). Batched
+# products (the dense attention's) and the hand-written kernels (K1, K5:
+# no aten op) are recomputed, as JAX recomputes its batched dots and
+# Pallas calls under that policy.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten._int_mm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def run_block(attend, finish, remat_policy: Optional[str], p: Params, cfg, x: torch.Tensor,
+              attend_args: tuple = (), finish_args: tuple = ()) -> torch.Tensor:
+    """One block split at its attention output: `finish(p, cfg, x, o,
+    *finish_args)` with `o = attend(p, cfg, x, *attend_args)`, under the
+    remat policy when grad is on (`torch.utils.checkpoint`, non-reentrant).
+    "all" checkpoints the block whole; "dots" too, with a selective context
+    that keeps `_DOTS`' outputs; "attn_out" checkpoints the two halves
+    apart, so o is kept between them and each half recomputes its own ops
+    (K1's autograd Function is no aten op a selective policy could see)."""
+    def whole(p, x):
+        return finish(p, cfg, x, attend(p, cfg, x, *attend_args), *finish_args)
+
+    if not (resolve_remat(remat_policy) and torch.is_grad_enabled()):
+        return whole(p, x)
+    ckpt = torch.utils.checkpoint.checkpoint
+    if remat_policy == "attn_out":
+        o = ckpt(attend, p, cfg, x, *attend_args, use_reentrant=False)
+        return ckpt(finish, p, cfg, x, o, *finish_args, use_reentrant=False)
+    if remat_policy == "dots":
+        return ckpt(whole, p, x, use_reentrant=False, context_fn=_dots_context)
+    return ckpt(whole, p, x, use_reentrant=False)
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -174,13 +215,11 @@ def _absmax(a: torch.Tensor) -> torch.Tensor:
     return a.float().abs().amax()
 
 
-def _block(p: Params, cfg: LlamaConfig, x: torch.Tensor, sin, cos, mask,
-           is_causal: bool, use_flash: bool, bidir_block, key_valid=None,
-           bidir_1d=None, collect_act_stats: bool = False):
-    """One decoder block. collect_act_stats (static-quant calibration): also
-    return each linear's input absmax (0-d fp32), keyed by the param tree's
-    paths, so that stacked over the layers they attach as "scale_x" leaves
-    (`ops/quant_calibrate.py::attach_static_act_scales`)."""
+def _attend(p: Params, cfg: LlamaConfig, x: torch.Tensor, sin, cos, mask, is_causal: bool,
+            use_flash: bool, bidir_block, key_valid=None, bidir_1d=None) -> torch.Tensor:
+    """A decoder block's first half: RMSNorm, q/k/v, RoPE, attention ->
+    the attention output (B, S, H * hd), before wo (what JAX's "attn_out"
+    remat policy keeps)."""
     b, s, _ = x.shape
     xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
     q, k, v = _qkv_proj(p["attn"], cfg, xa)
@@ -189,11 +228,27 @@ def _block(p: Params, cfg: LlamaConfig, x: torch.Tensor, sin, cos, mask,
     o = attention(q, k, v, mask=mask, is_causal=is_causal, use_flash=use_flash,
                   key_valid=key_valid, bidir_mask=bidir_1d,
                   bidir_block=bidir_block)
-    o_flat = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return o.reshape(b, s, cfg.num_heads * cfg.head_dim)
+
+
+def _finish(p: Params, cfg: LlamaConfig, x: torch.Tensor, o_flat: torch.Tensor) -> torch.Tensor:
+    """A decoder block's second half: wo and the residual, RMSNorm, SwiGLU."""
+    x = x + linear(p["attn"]["wo"], o_flat)
+    return x + _mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps))
+
+
+def _block_stats(p: Params, cfg: LlamaConfig, x: torch.Tensor, sin, cos, mask,
+                 is_causal: bool, use_flash: bool, bidir_block, key_valid=None,
+                 bidir_1d=None):
+    """One decoder block for the static-quant calibration: its output and
+    each linear's input absmax (0-d fp32), keyed by the param tree's paths,
+    so that stacked over the layers they attach as "scale_x" leaves
+    (`ops/quant_calibrate.py::attach_static_act_scales`)."""
+    o_flat = _attend(p, cfg, x, sin, cos, mask, is_causal, use_flash, bidir_block,
+                     key_valid, bidir_1d)
+    xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
     x = x + linear(p["attn"]["wo"], o_flat)
     xm = rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps)
-    if not collect_act_stats:
-        return x + _mlp(p["mlp"], xm)
     y_mlp, am_act = _mlp(p["mlp"], xm, collect_act=True)
     am_xa, am_xm = _absmax(xa), _absmax(xm)
     attn_stats = ({"wqkv": am_xa} if "wqkv" in p["attn"]
@@ -267,26 +322,24 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     layers = params["layers"]
     n_layers = tree_leaves(layers)[0].shape[0]
     n_full = n_layers if out_window is None else n_layers - 1
-    checkpointed = resolve_remat(remat_policy)
     x = inputs_embeds
     if collect_act_stats:
-        if out_window is not None or checkpointed:
+        if out_window is not None or resolve_remat(remat_policy):
             raise ValueError("collect_act_stats is a calibration-only forward: no "
                              "out_window, no remat")
         per_layer = []
         for i in range(n_layers):
-            x, stats = _block(index_layer(layers, i), cfg, x, sin, cos, mask, is_causal,
-                              use_flash, bidir_block, key_valid, bidir_1d,
-                              collect_act_stats=True)
+            x, stats = _block_stats(index_layer(layers, i), cfg, x, sin, cos, mask,
+                                    is_causal, use_flash, bidir_block, key_valid, bidir_1d)
             per_layer.append(stats)
         stacked = {group: {key: torch.stack([st[group][key] for st in per_layer])
                            for key in group_stats}
                    for group, group_stats in per_layer[0].items()}
         return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), stacked
     for i in range(n_full):
-        x = run_block(_block, checkpointed, index_layer(layers, i), cfg, x, sin,
-                      cos, mask, is_causal, use_flash, bidir_block, key_valid,
-                      bidir_1d)
+        x = run_block(_attend, _finish, remat_policy, index_layer(layers, i), cfg, x,
+                      (sin, cos, mask, is_causal, use_flash, bidir_block, key_valid,
+                       bidir_1d))
     if out_window is None:
         return rms_norm(params["final_norm"], x, cfg.rms_norm_eps)
 

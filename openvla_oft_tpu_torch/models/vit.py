@@ -21,7 +21,7 @@ import torch
 
 from openvla_oft_tpu_torch.config import ViTConfig
 from openvla_oft_tpu_torch.bridge import index_layer
-from openvla_oft_tpu_torch.models.llama import resolve_remat, run_block
+from openvla_oft_tpu_torch.models.llama import run_block
 from openvla_oft_tpu_torch.ops import vit_fused as VF
 from openvla_oft_tpu_torch.ops.attention import attention
 from openvla_oft_tpu_torch.ops.layers import ACTIVATIONS, layer_norm, linear
@@ -107,14 +107,20 @@ def _ln_linear(norm_p: Params, lin_p: Params, x: torch.Tensor,
     return y if act_name is None else ACTIVATIONS[act_name](y)
 
 
-def _vit_block(p: Params, cfg: ViTConfig, x: torch.Tensor,
-               film: Optional[tuple] = None) -> torch.Tensor:
-    """One pre-norm ViT block; `film` = (gamma, beta), each (B, width) in x's
-    dtype, or None."""
+def _vit_attend(p: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
+    """A ViT block's first half: LN, qkv, attention -> the attention output
+    (B, S, width) before proj (what JAX's "attn_out" remat policy keeps)."""
     b, s, d = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     qkv = _ln_linear(p["norm1"], p["attn"]["qkv"], x).reshape(b, s, 3, nh, hd)
-    o = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]).reshape(b, s, d)
+    return attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]).reshape(b, s, d)
+
+
+def _vit_finish(p: Params, cfg: ViTConfig, x: torch.Tensor, o: torch.Tensor,
+                film: Optional[tuple] = None) -> torch.Tensor:
+    """A ViT block's second half: proj, layer scale and the residual, FiLM,
+    then the MLP; `film` = (gamma, beta), each (B, width) in x's dtype, or
+    None."""
     o = linear(p["attn"]["proj"], o)
     if "ls1" in p:
         o = o * p["ls1"]["scale_factor"]
@@ -128,6 +134,12 @@ def _vit_block(p: Params, cfg: ViTConfig, x: torch.Tensor,
     if "ls2" in p:
         m = m * p["ls2"]["scale_factor"]
     return x + m
+
+
+def _vit_block(p: Params, cfg: ViTConfig, x: torch.Tensor,
+               film: Optional[tuple] = None) -> torch.Tensor:
+    """One pre-norm ViT block (`_vit_attend`, then `_vit_finish`)."""
+    return _vit_finish(p, cfg, x, _vit_attend(p, cfg, x), film)
 
 
 def vit_frontend(params: Params, cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
@@ -169,15 +181,14 @@ def vit_featurize(params: Params, cfg: ViTConfig, images: torch.Tensor,
 
     film_params + language_embedding (B, llm_dim): FiLM in every block that
     runs. remat_policy: recompute each block in the backward, like the Llama
-    blocks (`resolve_remat`).
+    blocks (`models/llama.py::run_block`).
     Training gradients flow through the ViTs (LoRA targets their kernels).
     """
-    checkpointed = resolve_remat(remat_policy)
     x = vit_frontend(params, cfg, images)
     film = film_params is not None and language_embedding is not None
     le = language_embedding.float() if film else None
     for i in range(cfg.depth - 1):
         f = _film(film_params, le, i, x.dtype) if film else None
-        x = run_block(_vit_block, checkpointed, index_layer(params["layers"], i),
-                      cfg, x, f)
+        x = run_block(_vit_attend, _vit_finish, remat_policy,
+                      index_layer(params["layers"], i), cfg, x, finish_args=(f,))
     return x[:, cfg.num_prefix_tokens:]

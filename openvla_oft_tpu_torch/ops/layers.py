@@ -28,34 +28,30 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     the down projection rounds to x's dtype, the up projection keeps an fp32
     result on x's-dtype operands, and the sum with y rounds once.
 
-    An int4-packed dict ("kernel_q4", "scale_w4") goes to
-    `ops/quant.py::int4_linear`, an int8 one ("kernel" int8, "scale_w") to
-    `ops/quant.py::int8_linear`.
+    An int4-packed dict ("kernel_q4", "scale_w4") takes its product from
+    `ops/quant.py::int4_linear`, an int8 one ("kernel" int8, "scale_w") from
+    `ops/quant.py::int8_linear`; LoRA factors beside them add the same delta
+    (QLoRA: a frozen quantized base, straight-through gradients for x).
     """
     if "kernel_q4" in p:
-        if "lora_a" in p:
-            raise NotImplementedError("LoRA over an int4 base (QLoRA) is not ported "
-                                      "yet (ROADMAP queue 1, item 14c)")
         from openvla_oft_tpu_torch.ops.quant import int4_linear
 
-        return int4_linear(p, x)
-    w = p["kernel"]
-    if w.dtype == torch.int8:
-        if "lora_a" in p:
-            raise NotImplementedError("LoRA over an int8 base (QLoRA) is not ported "
-                                      "yet (ROADMAP queue 1, item 14c)")
+        y = int4_linear(p, x)
+    elif p["kernel"].dtype == torch.int8:
         from openvla_oft_tpu_torch.ops.quant import int8_linear
 
-        return int8_linear(p, x)
-    dt = torch.promote_types(x.dtype, w.dtype)
-    if "bias" not in p:
-        y = torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
+        y = int8_linear(p, x)
     else:
-        # addmm adds the bias to the fp32 accumulator before the one rounding
-        # to dt, as the JAX version adds it to its fp32 dot output.
-        y = torch.addmm(p["bias"].to(dt), x.reshape(-1, x.shape[-1]).to(dt),
-                        w.to(dt))
-        y = y.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype)
+        w = p["kernel"]
+        dt = torch.promote_types(x.dtype, w.dtype)
+        if "bias" not in p:
+            y = torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
+        else:
+            # addmm adds the bias to the fp32 accumulator before the one
+            # rounding to dt, as the JAX version adds it to its fp32 dot output.
+            y = torch.addmm(p["bias"].to(dt), x.reshape(-1, x.shape[-1]).to(dt),
+                            w.to(dt))
+            y = y.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype)
     if "lora_a" not in p:
         return y
     down = torch.matmul(x, p["lora_a"].to(x.dtype).transpose(-1, -2))

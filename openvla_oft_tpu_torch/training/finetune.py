@@ -6,22 +6,27 @@ The counterpart of `vla_scripts/finetune.py::finetune`, with the same flags
     python -m openvla_oft_tpu_torch.training.finetune --device cuda \\
       --vla_path random:7b --data_root_dir dummy --robot_platform libero \\
       --use_l1_regression True --use_proprio True --num_images_in_input 2 \\
-      --lora_rank 32 --batch_size 8 --max_steps 3 \\
-      --merge_lora_during_training False --run_root_dir /tmp/runs
+      --lora_rank 32 --batch_size 8 --max_steps 3 --run_root_dir /tmp/runs
 
 Ported: random weights (`random:tiny` or `random:7b`, drawn on the device
 from a seeded generator) or a checkpoint dir (its LLM, vision backbone and
 projector loaded onto the device; the heads, FiLM and LoRA drawn as for
-`random:`), the `dummy` dataset or RLDS episode shards under
-`--data_root_dir` (`data/rlds/pipeline.py::make_rlds_iterator`, no
-TensorFlow; its statistics saved to the run dir), the batches moved to the
-device by `data/prefetch.py::DevicePrefetcher` on a side stream, validation
-on a held-out stream (`--use_val_set`), `--recipe`, the three objectives (L1,
-`--use_diffusion` with the periodic sampling metric, and the discrete CE of
-`--use_l1_regression False`), FiLM (`--use_film`) on every registered
-platform, remat "all"/"none", gradient accumulation, metrics through
-`VLAMetrics` (JSONL), and a checkpoint at every `save_freq` gradient steps
-and at the last. Flags for what is not ported raise at startup, naming their
+`random:`), a QLoRA base (`--quantize_base`, int8 or int4, quantized on the
+device after LoRA is drawn on the float base), the `dummy` dataset or RLDS
+episode shards under `--data_root_dir` (`data/rlds/pipeline.py::
+make_rlds_iterator`, no TensorFlow; its statistics saved to the run dir),
+the batches moved to the device by `data/prefetch.py::DevicePrefetcher` on a
+side stream, validation on a held-out stream (`--use_val_set`), `--recipe`,
+the three objectives (L1, `--use_diffusion` with the periodic sampling
+metric, and the discrete CE of `--use_l1_regression False`), FiLM
+(`--use_film`) on every registered platform, the remat policies ("all",
+"dots", "attn_out", "none"), gradient accumulation, metrics through
+`VLAMetrics` (JSONL), and checkpoints at every `save_freq` gradient steps
+and at the last (`save_training_checkpoint`: the resume file, written in the
+background, and the reference's layout of per-module `.pt` files and, with
+`--merge_lora_during_training`, the merged model), `--resume`, and
+preemption (SIGTERM or SIGINT: a checkpoint, then a clean return). The
+multi-GPU flags (`--multihost`, `--mesh_*`) raise at startup, naming their
 ROADMAP item. `--device cuda` never falls back to the CPU, and nothing is
 downloaded: a `vla_path` that is neither `random:` nor a dir raises.
 """
@@ -151,12 +156,6 @@ def unported_flags(cfg: FinetuneConfig) -> list:
     checks = [
         (cfg.multihost, "multihost", f"{_Q1} 17"),
         ((cfg.mesh_dp, cfg.mesh_fsdp, cfg.mesh_tp) != (1, 1, 1), "mesh_*", f"{_Q1} 17"),
-        (cfg.quantize_base, "quantize_base", f"{_Q1} 14c (QLoRA base)"),
-        (cfg.resume, "resume", f"{_Q1} 14b (resume)"),
-        (cfg.merge_lora_during_training and cfg.use_lora,
-         "merge_lora_during_training True", f"{_Q1} 14b (merged export)"),
-        (cfg.remat_policy in ("dots", "attn_out"), f"remat_policy {cfg.remat_policy}",
-         f"{_Q1} 14c"),
     ]
     return [(flag, item) for bad, flag, item in checks if bad]
 
@@ -296,7 +295,12 @@ def build_model(cfg: FinetuneConfig, model_cfg, platform, device: torch.device):
     device leaf by leaf (with the lm_head for the discrete objective, which
     raises naming `language_model.lm_head.weight` where the dir has none)
     and the rest is drawn from the same generator. LoRA comes from a
-    generator seeded 1 (`bridge.py::split_base_trainables`)."""
+    generator seeded 1 (`bridge.py::split_base_trainables`), on the float
+    base. `--quantize_base` then quantizes the LLM, the vision backbone and
+    the projector (`ops/quant.py::quantize_tree_lowmem`, int8 or int4 by
+    `--quantize_base_bits`, kernels with at least `--quantize_base_min_dim`
+    inputs), leaf by leaf, so the float and quantized trees never coexist
+    (the JAX CLI's order, finetune.py:252-268)."""
     from openvla_oft_tpu_torch.bridge import init_params, param_spec, split_base_trainables
 
     head = objective_of(cfg)
@@ -311,8 +315,146 @@ def build_model(cfg: FinetuneConfig, model_cfg, platform, device: torch.device):
                                                device=device, head=head)
         heads = [k for k in param_spec(model_cfg, platform, head) if k not in _BASE]
         params.update(init_params(model_cfg, platform, gen, keys=heads, **kw))
-    return split_base_trainables(params, torch.Generator(device=device).manual_seed(1),
-                                 cfg.lora_rank, cfg.use_proprio)
+    base, trainables = split_base_trainables(
+        params, torch.Generator(device=device).manual_seed(1), cfg.lora_rank, cfg.use_proprio)
+    del params
+    if cfg.quantize_base:
+        from openvla_oft_tpu_torch.ops.quant import quantize_tree_lowmem
+
+        for k in _BASE:
+            base[k] = quantize_tree_lowmem(base[k], min_dim=cfg.quantize_base_min_dim,
+                                           bits=cfg.quantize_base_bits)
+    return base, trainables
+
+
+def checkpoint_norm_stats(cfg: FinetuneConfig) -> Optional[dict]:
+    """The statistics of the `--vla_path` dir (its config.json's, else its
+    `dataset_statistics.json`), None for `random:`: what the merged export
+    carries, as the JAX CLI passes the loader's norm_stats."""
+    if not os.path.isdir(cfg.vla_path):
+        return None
+    import openvla_oft_tpu_torch.config as C
+    from openvla_oft_tpu_torch.utils.hf_import import _read_norm_stats
+
+    _, stats = C.OpenVLAConfig.from_json_file(os.path.join(cfg.vla_path, "config.json"))
+    return _read_norm_stats(cfg.vla_path, stats)
+
+
+def restore_training_state(state, cfg: FinetuneConfig, ckpt_dir: str,
+                           device: torch.device) -> int:
+    """`--resume`: the trainables and the optimizer's state (its moments,
+    step count, accumulation and the LR scheduler's position) of gradient
+    step `--resume_step`, else of the latest one in `ckpt_dir`, into
+    `state`, whose micro-step becomes step x grad_accumulation_steps (JAX
+    finetune.py:334-365). Returns the step. The data stream and the step's
+    generator restart from their seeds, as in the JAX CLI."""
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.training.checkpoint import (checkpoint_path, latest_step,
+                                                           restore_checkpoint)
+
+    step0 = cfg.resume_step if cfg.resume_step is not None else latest_step(ckpt_dir)
+    if step0 is None or not os.path.exists(checkpoint_path(ckpt_dir, step0)):
+        which = "" if step0 is None else f" for step {step0}"
+        raise FileNotFoundError(f"--resume: no checkpoint{which} in {ckpt_dir}")
+    restored = restore_checkpoint(ckpt_dir, step0, map_location=device)
+    dst, src = tree_leaves(state.trainables), tree_leaves(restored["trainables"])
+    shapes = [tuple(t.shape) for t in dst], [tuple(t.shape) for t in src]
+    if shapes[0] != shapes[1]:
+        raise RuntimeError(f"--resume: the trainables in {ckpt_dir} step {step0} do not fit "
+                           "this run's (another model, rank or LoRA layout; a pre-rank-major "
+                           "checkpoint can still be merged offline, scripts/"
+                           "merge_lora_weights_and_save.py migrates its A factors)")
+    with torch.no_grad():
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    state.optimizer.load_state_dict(restored["optimizer"])
+    state.step = step0 * max(cfg.grad_accumulation_steps, 1)
+    return step0
+
+
+def _copy_tokenizer(src_dir: str, dst_dir: str) -> None:
+    """The tokenizer files of a checkpoint dir, copied beside a merged export
+    (the reference saves its processor with the model; `get_vla` needs it)."""
+    import shutil
+
+    from openvla_oft_tpu_torch.serving.openvla_utils import TOKENIZER_FILES
+
+    for name in TOKENIZER_FILES:
+        if os.path.isfile(os.path.join(src_dir, name)):
+            shutil.copyfile(os.path.join(src_dir, name), os.path.join(dst_dir, name))
+
+
+def save_training_checkpoint(cfg: FinetuneConfig, state, grad_step: int, run_dir: str,
+                             stats: dict, model_cfg, norm_stats: Optional[dict] = None) -> str:
+    """The layout of the JAX CLI's `save_training_checkpoint`
+    (finetune.py:509-619). The resume file goes to `run_dir/ckpt` without
+    blocking (`save_checkpoint(block=False)`). Into `{run_dir}--{N}_chkpt`,
+    or `run_dir` with the label `latest` under
+    `--save_latest_checkpoint_only` (which also prunes the older resume
+    files): `dataset_statistics.json`, the per-module `.pt` files, the FiLMed
+    vision backbone's `.pt` (FiLM on, base not quantized), and with
+    `--merge_lora_during_training` the merged model
+    (`training/lora.py::merge_lora_into_params` on the base's device, into a
+    host tree one leaf at a time; `export_openvla_checkpoint`). Under
+    `--quantize_base` the merge reloads the float base from `--vla_path` in
+    its stored dtype, or is skipped where `--vla_path` is not a dir. Returns
+    the resume file's path."""
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.data.transforms import save_dataset_statistics
+    from openvla_oft_tpu_torch.training.checkpoint import (export_film_vision_backbone_pt,
+                                                           export_module_pt,
+                                                           prune_old_steps, save_checkpoint,
+                                                           wait_for_checkpoints)
+
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    ckpt = save_checkpoint(ckpt_dir, grad_step, {"trainables": state.trainables,
+                                                 "optimizer": state.optimizer.state_dict()},
+                           block=False)
+    if cfg.save_latest_checkpoint_only:
+        chkpt_dir, label = run_dir, "latest"
+        prune_old_steps(ckpt_dir)            # waits for the write first
+    else:
+        chkpt_dir, label = f"{run_dir}--{grad_step}_chkpt", str(grad_step)
+    os.makedirs(chkpt_dir, exist_ok=True)
+    save_dataset_statistics(stats, chkpt_dir)
+    print(f"[finetune] saved checkpoint for step {grad_step}")
+    tr = state.trainables
+    for mod in ("action_head", "proprio_projector", "noisy_action_projector"):
+        if mod in tr:
+            export_module_pt(tr[mod], mod, chkpt_dir, label)
+    if cfg.use_film and "film" in tr and not cfg.quantize_base:
+        export_film_vision_backbone_pt(state.base_params["vision_backbone"], tr["film"],
+                                       model_cfg, chkpt_dir, label)
+    if not (cfg.merge_lora_during_training and cfg.use_lora):
+        return ckpt
+    from openvla_oft_tpu_torch.training.lora import merge_lora_into_params
+    from openvla_oft_tpu_torch.utils.hf_import import (export_openvla_checkpoint,
+                                                       load_openvla_checkpoint)
+
+    from_dir = os.path.isdir(cfg.vla_path)
+    if cfg.quantize_base:
+        if not from_dir:
+            print("[finetune] skipping merged export: base is quantized and vla_path is "
+                  "not a local checkpoint to re-merge against; use "
+                  "merge_lora_weights_and_save.py offline")
+            return ckpt
+        wait_for_checkpoints()
+        device = tree_leaves(tr)[0].device
+        _, loaded, _ = load_openvla_checkpoint(cfg.vla_path, dtype=None, device=device)
+        base = {k: loaded[k] for k in _BASE}
+        del loaded
+    else:
+        base = state.base_params
+    with torch.no_grad():
+        merged = merge_lora_into_params(base, tr["lora"], rank=cfg.lora_rank,
+                                        alpha=float(min(cfg.lora_rank, 16)), out_device="cpu")
+    del base
+    export_openvla_checkpoint(model_cfg, merged, chkpt_dir, norm_stats=norm_stats,
+                              extras_from=cfg.vla_path if from_dir else None)
+    if from_dir:
+        _copy_tokenizer(cfg.vla_path, chkpt_dir)
+    print(f"[finetune] merged LoRA checkpoint -> {chkpt_dir}")
+    return ckpt
 
 
 def run_validation(state, val_batches, model_cfg, platform, tcfg, device: torch.device,
@@ -342,7 +484,9 @@ def run_validation(state, val_batches, model_cfg, platform, tcfg, device: torch.
 def finetune(cfg: TorchFinetuneConfig,
              on_step: Optional[Callable[[int, dict, object], None]] = None,
              on_validation: Optional[Callable[[int, dict, int], None]] = None) -> dict:
-    """Run the fine-tuning loop; returns {"final_step", "run_dir", "ckpt"}.
+    """Run the fine-tuning loop; returns {"final_step" (micro-steps taken,
+    counting those before a resume), "run_dir", "ckpt" (the last resume
+    file written, or None)}.
 
     on_step(grad_step, metrics, state), if given, runs after every
     micro-step with the step's metrics as floats (and `step_time`, seconds on
@@ -351,12 +495,20 @@ def finetune(cfg: TorchFinetuneConfig,
     diffusion sampling metric they hold its metrics and `sample_time` too.
     on_validation(grad_step, val_metrics, n_batches) runs after each
     validation pass (`--use_val_set`, every `val_freq` gradient steps).
+
+    SIGTERM or SIGINT during the run (`training/preemption.py`) makes the
+    loop save a checkpoint after the micro-step in flight, labelled
+    grad_step + 1 as in the JAX CLI (also in the middle of an accumulation
+    window: the optimizer's partial sums are in the resume file), and
+    return. The handlers are restored when the loop ends, also on an
+    exception, and every background write is waited for.
     """
     from openvla_oft_tpu_torch.data.collator import batch_iterator
     from openvla_oft_tpu_torch.data.prefetch import DevicePrefetcher
     from openvla_oft_tpu_torch.data.transforms import save_dataset_statistics
     from openvla_oft_tpu_torch.training.metrics import JSONLinesTracker, VLAMetrics
-    from openvla_oft_tpu_torch.training.checkpoint import save_checkpoint
+    from openvla_oft_tpu_torch.training.checkpoint import wait_for_checkpoints
+    from openvla_oft_tpu_torch.training.preemption import PreemptionGuard
     from openvla_oft_tpu_torch.training.train_step import (create_train_state,
                                                            diffusion_sampling_metrics,
                                                            train_step)
@@ -384,15 +536,22 @@ def finetune(cfg: TorchFinetuneConfig,
 
     run_id = get_run_id(cfg)
     run_dir = os.path.join(str(cfg.run_root_dir), run_id)
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    if cfg.resume and not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"--resume: no checkpoint in {ckpt_dir}")
     os.makedirs(run_dir, exist_ok=True)
     print(f"[finetune] run_id={run_id} objective={objective} platform={platform.name} "
           f"film={model_cfg.use_film} device={device}")
 
-    # === Model: bf16 base, fp32 heads, FiLM and LoRA, on the device ===
+    # === Model: bf16 (or quantized) base, fp32 heads, FiLM and LoRA, on the device ===
     base, trainables = build_model(cfg, model_cfg, platform, device)
     tcfg = train_config(cfg)
     state = create_train_state(base, trainables, tcfg,
                                torch.Generator(device=device).manual_seed(2))
+    if cfg.resume:
+        step0 = restore_training_state(state, cfg, ckpt_dir, device)
+        print(f"[finetune] resumed at gradient step {step0}")
+    norm_stats = checkpoint_norm_stats(cfg)
 
     # === Data ===
     g = max(cfg.grad_accumulation_steps, 1)
@@ -402,70 +561,80 @@ def finetune(cfg: TorchFinetuneConfig,
     metrics = VLAMetrics([JSONLinesTracker(run_dir, run_id)], window=g)
     val_batches = None        # the validation stream, built once, at its first use
 
-    ckpt_dir = os.path.join(run_dir, "ckpt")
     ckpt = None
+    start = state.step
     t_start = time.time()
     prefetched = DevicePrefetcher(batch_iterator(dataset, cfg.batch_size, collator), device)
     try:
-        micro = -1
-        while True:
-            t_wait = time.perf_counter()
-            batch = next(prefetched, None)
-            if batch is None or (micro + 1) // g >= cfg.max_steps:
-                break
-            micro += 1
-            grad_step = micro // g
-            t0 = time.perf_counter()
-            state, m = train_step(state, batch, model_cfg, platform, tcfg, use_flash)
-            m = {k: float(v) for k, v in m.items()}     # waits for the device
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            m["step_time"] = time.perf_counter() - t0
-            m["data_time"] = t0 - t_wait
-            if not np.isfinite(m["loss"]):
-                raise FloatingPointError(f"non-finite loss at micro-step {micro}: {m}")
-            metrics.commit(**{k: v for k, v in m.items() if k not in ("step_time", "data_time")})
-            at_boundary = (micro + 1) % g == 0
-            if cfg.use_diffusion and at_boundary \
-                    and (grad_step + 1) % cfg.diffusion_sample_freq == 0:
-                # Reverse diffusion on the step's batch, its generator seeded
-                # from the step (the JAX CLI's PRNGKey(grad_step)).
+        with PreemptionGuard() as guard:
+            micro = state.step - 1
+            while True:
+                t_wait = time.perf_counter()
+                batch = next(prefetched, None)
+                if batch is None or (micro + 1) // g >= cfg.max_steps:
+                    break
+                micro += 1
+                grad_step = micro // g
                 t0 = time.perf_counter()
-                dm = diffusion_sampling_metrics(
-                    state.trainables, state.base_params, batch, model_cfg, platform, tcfg,
-                    torch.Generator(device=device).manual_seed(grad_step), use_flash)
-                dm = {k: float(v) for k, v in dm.items()}
-                metrics.commit(**dm)
-                m.update(dm, sample_time=time.perf_counter() - t0)
-            if grad_step % cfg.wandb_log_freq == 0 and at_boundary:
-                smoothed = metrics.push(grad_step)
-                print(f"[step {grad_step}] " + " ".join(
-                    f"{k}={v:.4f}" for k, v in sorted(smoothed.items())), flush=True)
-            if on_step is not None:
-                on_step(grad_step, m, state)
-            if cfg.use_val_set and at_boundary and (grad_step + 1) % cfg.val_freq == 0:
-                if val_batches is None:
-                    val_set, _, _ = training_data(cfg, model_cfg, platform, 8 * cfg.batch_size,
-                                                  train=False)
-                    val_batches = batch_iterator(val_set, cfg.batch_size, collator)
-                extra, n_val = run_validation(state, val_batches, model_cfg, platform, tcfg,
-                                              device, cfg.val_time_limit, use_flash)
-                if n_val:
-                    metrics.push(grad_step, extra=extra)
-                    print(f"[finetune] val_loss={extra['val_loss']:.4f} ({n_val} batches)",
-                          flush=True)
-                if on_validation is not None:
-                    on_validation(grad_step, extra, n_val)
-            if at_boundary and ((grad_step + 1) % cfg.save_freq == 0
-                                or grad_step + 1 == cfg.max_steps):
-                ckpt = save_checkpoint(ckpt_dir, grad_step + 1, {
-                    "trainables": state.trainables,
-                    "optimizer": state.optimizer.state_dict()})
-                print(f"[finetune] saved checkpoint for step {grad_step + 1}: {ckpt}")
+                state, m = train_step(state, batch, model_cfg, platform, tcfg, use_flash)
+                m = {k: float(v) for k, v in m.items()}     # waits for the device
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                m["step_time"] = time.perf_counter() - t0
+                m["data_time"] = t0 - t_wait
+                if not np.isfinite(m["loss"]):
+                    raise FloatingPointError(f"non-finite loss at micro-step {micro}: {m}")
+                metrics.commit(**{k: v for k, v in m.items()
+                                  if k not in ("step_time", "data_time")})
+                at_boundary = (micro + 1) % g == 0
+                if cfg.use_diffusion and at_boundary \
+                        and (grad_step + 1) % cfg.diffusion_sample_freq == 0:
+                    # Reverse diffusion on the step's batch, its generator seeded
+                    # from the step (the JAX CLI's PRNGKey(grad_step)).
+                    t0 = time.perf_counter()
+                    dm = diffusion_sampling_metrics(
+                        state.trainables, state.base_params, batch, model_cfg, platform, tcfg,
+                        torch.Generator(device=device).manual_seed(grad_step), use_flash)
+                    dm = {k: float(v) for k, v in dm.items()}
+                    metrics.commit(**dm)
+                    m.update(dm, sample_time=time.perf_counter() - t0)
+                if grad_step % cfg.wandb_log_freq == 0 and at_boundary:
+                    smoothed = metrics.push(grad_step)
+                    print(f"[step {grad_step}] " + " ".join(
+                        f"{k}={v:.4f}" for k, v in sorted(smoothed.items())), flush=True)
+                if on_step is not None:
+                    on_step(grad_step, m, state)
+                if cfg.use_val_set and at_boundary and (grad_step + 1) % cfg.val_freq == 0:
+                    if val_batches is None:
+                        val_set, _, _ = training_data(cfg, model_cfg, platform,
+                                                      8 * cfg.batch_size, train=False)
+                        val_batches = batch_iterator(val_set, cfg.batch_size, collator)
+                    extra, n_val = run_validation(state, val_batches, model_cfg, platform,
+                                                  tcfg, device, cfg.val_time_limit, use_flash)
+                    if n_val:
+                        metrics.push(grad_step, extra=extra)
+                        print(f"[finetune] val_loss={extra['val_loss']:.4f} ({n_val} batches)",
+                              flush=True)
+                    if on_validation is not None:
+                        on_validation(grad_step, extra, n_val)
+                # The signal's flag is polled once the micro-step is done, so the
+                # checkpoint is the consistent post-step state.
+                preempted = guard.should_stop
+                if preempted or (at_boundary and ((grad_step + 1) % cfg.save_freq == 0
+                                                  or grad_step + 1 == cfg.max_steps)):
+                    ckpt = save_training_checkpoint(cfg, state, grad_step + 1, run_dir, stats,
+                                                    model_cfg, norm_stats)
+                if preempted:
+                    print(f"[finetune] preempted (signal {guard.received_signal}); "
+                          f"checkpoint saved at step {grad_step + 1} - resume with "
+                          "--resume True", flush=True)
+                    break
     finally:
         prefetched.close()      # the worker and its buffered device batches
+        wait_for_checkpoints()  # the background writes, also on an exception
     metrics.finalize()
-    print(f"[finetune] done: {state.step} micro-steps in {time.time() - t_start:.1f} s")
+    print(f"[finetune] done: {state.step - start} micro-steps in "
+          f"{time.time() - t_start:.1f} s")
     return {"final_step": state.step, "run_dir": run_dir, "ckpt": ckpt}
 
 

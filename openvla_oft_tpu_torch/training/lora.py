@@ -71,27 +71,52 @@ def _is_factor_pair(node) -> bool:
     return isinstance(node, dict) and set(node) == {"a", "b"}
 
 
+def _moved(node, device):
+    """The tree with its tensors on `device` (None: left where they are)."""
+    if isinstance(node, dict):
+        return {k: _moved(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_moved(v, device) for v in node]
+    return node if device is None else node.to(device)
+
+
+def _merge_kernel(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale: float,
+                  out_device) -> torch.Tensor:
+    """W + scale * A^T B for one kernel, one stacked layer at a time: the
+    fp32 temporaries stay one layer large. Computed on W's device, written
+    into a tensor on `out_device` in W's dtype."""
+    out = torch.empty(w.shape, dtype=w.dtype, device=out_device or w.device)
+    a, b = a.to(w.device), b.to(w.device)
+    flat_w, flat_out = w.reshape(-1, *w.shape[-2:]), out.view(-1, *w.shape[-2:])
+    flat_a, flat_b = a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:])
+    for i in range(flat_w.shape[0]):
+        delta = torch.einsum("ri,ro->io", flat_a[i].float(), flat_b[i].float()) * scale
+        flat_out[i] = (flat_w[i].float() + delta).to(w.dtype)
+    return out
+
+
 def apply_lora(params: Params, lora: Params, rank: int = 32,
-               alpha: float = 16.0) -> Params:
+               alpha: float = 16.0, out_device=None) -> Params:
     """Return params with W := W + (alpha/r) * A^T B at every LoRA site
-    (computed in fp32, cast to W's dtype)."""
+    (computed in fp32 on W's device, cast to W's dtype), leaf by leaf and
+    one stacked layer at a time, so no second fp32 tree is ever held.
+    out_device: where the merged tree is built (None: beside each leaf; the
+    fine-tuning CLI's export passes "cpu", so the card holds one merged
+    leaf at a time); leaves without LoRA are moved there too."""
     scale = alpha / rank
 
     def merge(base_node, lora_node):
         if _is_factor_pair(lora_node):
-            w = base_node["kernel"]
-            delta = torch.einsum("...ri,...ro->...io", lora_node["a"].float(),
-                                 lora_node["b"].float()) * scale
-            return {**base_node, "kernel": (w.float() + delta).to(w.dtype)}
-        out = dict(base_node)
-        for k, v in lora_node.items():
-            out[k] = merge(base_node[k], v)
+            out = _moved(base_node, out_device)
+            out["kernel"] = _merge_kernel(base_node["kernel"], lora_node["a"],
+                                          lora_node["b"], scale, out_device)
+            return out
+        out = {k: (merge(v, lora_node[k]) if k in lora_node else _moved(v, out_device))
+               for k, v in base_node.items()}
         return out
 
-    merged = dict(params)
-    for k, v in lora.items():
-        merged[k] = merge(params[k], v)
-    return merged
+    return {k: (merge(v, lora[k]) if k in lora else _moved(v, out_device))
+            for k, v in params.items()}
 
 
 def inject_lora(params: Params, lora: Params, rank: int = 32,
@@ -135,7 +160,8 @@ def migrate_lora_layout(lora: Params, rank: int) -> Params:
 
 
 def merge_lora_into_params(params: Params, lora: Params, rank: int = 32,
-                           alpha: float = 16.0) -> Params:
+                           alpha: float = 16.0, out_device=None) -> Params:
     """Offline merge (reference `merge_lora_weights_and_save.py:33-73`),
-    accepting both the rank-major and the pre-flip (in, r) A layouts."""
-    return apply_lora(params, migrate_lora_layout(lora, rank), rank, alpha)
+    accepting both the rank-major and the pre-flip (in, r) A layouts; leaf
+    by leaf as `apply_lora`, the merged tree on `out_device`."""
+    return apply_lora(params, migrate_lora_layout(lora, rank), rank, alpha, out_device)

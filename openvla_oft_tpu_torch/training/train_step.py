@@ -63,7 +63,7 @@ class TrainConfig:
     num_diffusion_steps: int = 100
     weight_decay: float = 0.01            # torch AdamW default
     grad_accumulation_steps: int = 1
-    remat_policy: str = "all"             # "all" | "none" ("dots", "attn_out" raise)
+    remat_policy: str = "all"             # "all" | "dots" | "attn_out" | "none"
 
 
 def lr_schedule(cfg: TrainConfig):

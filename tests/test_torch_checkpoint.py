@@ -12,6 +12,11 @@
   with DDP "module." prefixes (the L1 and diffusion heads, both projectors,
   the FiLMed vision backbone, plain and with peft LoRA factors), against
   JAX's importers: equal, and within 1e-6 where LoRA merges in fp32.
+  The exporters against JAX's on the same numpy trees: the same keys and
+  bitwise equal tensors, each side's importer reading the other's file back
+  to the tree. The LoRA merge against JAX's within one ulp of W's dtype.
+  The background save (a host snapshot first, the write on a thread, its
+  error raised on wait) and the prune of all but the newest step.
 - `scripts/convert_weights.py`: import then export gives the same tensors.
 """
 
@@ -363,6 +368,130 @@ def test_film_vision_backbone_pt_matches_jax(tmp_path, lora):
     assert sorted(fj) == sorted(fp)
     for k in fj:        # W + B @ A in fp32, the sums in another order
         np.testing.assert_allclose(fp[k], fj[k], rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+# === the exporters, the merge and run management ===
+def _same_state_dicts(a_path, b_path):
+    a = torch.load(a_path, weights_only=True)
+    b = torch.load(b_path, weights_only=True)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype == torch.float32, k
+        assert a[k].shape == b[k].shape and torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("head,module", [("l1", "action_head"), ("diffusion", "action_head"),
+                                         ("l1", "proprio_projector"),
+                                         ("diffusion", "noisy_action_projector")])
+def test_module_pt_export_matches_jax(tmp_path, head, module):
+    """`export_module_pt` against JAX's on the same numpy tree: the same keys
+    and bitwise equal fp32 (out, in) tensors; the port's importer reads the
+    JAX file back to the tree and JAX's importer the port's."""
+    full = init_openvla_params(jax.random.PRNGKey(4), CFG, LIBERO, dtype=jnp.float32,
+                               head=head)
+    tree = jax.tree_util.tree_map(np.asarray, full[module])
+    jpath = JCK.export_module_pt(tree, module, str(tmp_path / "jax"), 7)
+    ppath = PCK.export_module_pt(params_from_numpy(tree), module, str(tmp_path / "port"),
+                                 "latest")
+    assert os.path.basename(ppath) == f"{module}--latest_checkpoint.pt"
+    _same_state_dicts(jpath, ppath)
+    if module == "action_head":
+        back_p = PCK.import_action_head_pt(jpath, head=head)
+        back_j = JCK.import_action_head_pt(ppath, head=head)
+    else:
+        kind = module.rsplit("_", 1)[0]
+        back_p = PCK.import_projector_pt(jpath, kind=kind)
+        back_j = JCK.import_projector_pt(ppath, kind=kind)
+    assert_trees_equal(tree, back_p)
+    assert_trees_equal(tree, back_j)
+
+
+def test_film_vision_backbone_export_matches_jax(tmp_path):
+    from openvla_oft_tpu.models.vision_backbone import init_film, init_vision_backbone
+
+    backbone = jax.tree_util.tree_map(np.asarray, init_vision_backbone(
+        jax.random.PRNGKey(1), CFG, dtype=jnp.float32))
+    film = jax.tree_util.tree_map(np.asarray, init_film(jax.random.PRNGKey(2), CFG,
+                                                        dtype=jnp.float32))
+    jpath = JCK.export_film_vision_backbone_pt(backbone, film, CFG, str(tmp_path / "jax"), 3)
+    ppath = PCK.export_film_vision_backbone_pt(params_from_numpy(backbone),
+                                               params_from_numpy(film), P_CFG,
+                                               str(tmp_path / "port"), 3)
+    _same_state_dicts(jpath, ppath)
+    pb, pf = PCK.import_film_vision_backbone_pt(jpath, P_CFG)
+    jb, jf = JCK.import_film_vision_backbone_pt(ppath, CFG)
+    for got in (pb, jb):
+        assert_trees_equal(backbone, got)
+    for got in (pf, jf):
+        assert_trees_equal(film, got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_merge_matches_jax_within_one_ulp(jax_params, dtype):
+    """`merge_lora_into_params` (leaf by leaf, one stacked layer at a time,
+    into a host tree) against JAX's on the same numpy base and LoRA: every
+    merged kernel within one ulp of W's dtype, every other leaf equal."""
+    from openvla_oft_tpu.training import lora as JL
+    from openvla_oft_tpu_torch.training import lora as PL
+
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    base = jax.tree_util.tree_map(lambda x: np.asarray(x.astype(jdt)), jax_params)
+    rng = np.random.default_rng(8)
+    lora = jax.tree_util.tree_map(
+        lambda x: (0.05 * rng.standard_normal(x.shape)).astype(np.float32),
+        JL.init_lora(jax.random.PRNGKey(1), jax_params, rank=4))
+    ref = JL.merge_lora_into_params(jax.tree_util.tree_map(jnp.asarray, base),
+                                    jax.tree_util.tree_map(jnp.asarray, lora), rank=4,
+                                    alpha=4.0)
+    got = PL.merge_lora_into_params(params_from_numpy(base), params_from_numpy(lora), rank=4,
+                                    alpha=4.0, out_device="cpu")
+    fr, fg = flat(ref), flat(got)
+    assert sorted(fr) == sorted(fg)
+    for k in fr:
+        r = fr[k].astype(np.float32)
+        g = fg[k].astype(np.float32)
+        ulp = np.spacing(np.abs(r).astype(np.float32))
+        if dtype == "bfloat16":
+            ulp = ulp * 2.0 ** 16          # bf16 keeps 8 of fp32's 24 significand bits
+        assert (np.abs(g - r) <= ulp).all(), k
+
+
+def test_async_save_snapshots_then_writes(tmp_path):
+    """save_checkpoint(block=False) copies the state before it returns (an
+    in-place update afterwards does not reach the file), writes in the
+    background under a temporary name, and restore waits for it."""
+    state = {"trainables": {"w": torch.arange(6.0)}, "optimizer": {"micro": 2, "accum": None}}
+    paths = [PCK.save_checkpoint(str(tmp_path), step, state, block=False)
+             for step in (1, 2)]
+    state["trainables"]["w"].add_(100.0)
+    got = PCK.restore_checkpoint(str(tmp_path))
+    assert torch.equal(got["trainables"]["w"], torch.arange(6.0))
+    assert got["optimizer"] == {"micro": 2, "accum": None}
+    assert [os.path.basename(p) for p in paths] == ["000001.pt", "000002.pt"]
+    assert sorted(os.listdir(tmp_path)) == ["000001.pt", "000002.pt"]
+    assert all(r["write_s"] >= 0 and r["bytes"] == 24 for r in list(PCK.SAVE_LOG)[-2:])
+
+
+def test_a_failed_background_write_raises_on_wait(tmp_path, monkeypatch):
+    def broken(obj, f):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(PCK.torch, "save", broken)
+    PCK.save_checkpoint(str(tmp_path), 1, {"w": torch.zeros(2)}, block=False)
+    with pytest.raises(OSError, match="disk full"):
+        PCK.wait_for_checkpoints()
+    PCK.wait_for_checkpoints()           # nothing left in flight
+
+
+def test_prune_keeps_the_newest_step_by_number(tmp_path):
+    """Steps compare as integers (000010 after 000009), and a temporary file
+    left by a killed write is neither kept as the newest nor deleted."""
+    for step in (2, 9, 10):
+        PCK.save_checkpoint(str(tmp_path), step, {"w": torch.zeros(1)}, block=False)
+    (tmp_path / "000011.pt.tmp.123").write_bytes(b"partial")
+    PCK.prune_old_steps(str(tmp_path))
+    assert sorted(os.listdir(tmp_path)) == ["000010.pt", "000011.pt.tmp.123"]
+    assert PCK.latest_step(str(tmp_path)) == 10
 
 
 # === the converter ===

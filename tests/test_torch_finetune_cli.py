@@ -7,8 +7,12 @@ the CPU write their metrics JSONL and checkpoint for each objective (L1,
 diffusion with its sampling metric, discrete), for ALOHA with FiLM and from
 a checkpoint dir; on RLDS episode shards written by the port's writer (L1
 with image augmentation, discrete with two cameras, and validation logging
-its `val_*` metrics); every flag for a feature that is not ported raises at
-startup, and so does a hub id.
+its `val_*` metrics); the multi-GPU flags raise at startup, and so does a
+hub id. With the JAX CLI's defaults (`--merge_lora_during_training True`)
+a run writes the reference's layout of `--N_chkpt` dirs; resume, the QLoRA
+base (int8, int4), the merge script and the restart wrapper mirror the JAX
+package's slow tests (test_finetune_cli.py, test_merge_script*), which run
+in seconds here.
 """
 
 import dataclasses
@@ -92,18 +96,15 @@ def test_tiny_run_writes_metrics_and_checkpoint(tmp_path):
 
 
 UNPORTED = [
-    (["--quantize_base", "True"], "quantize_base"),
-    (["--resume", "True"], "resume"),
-    (["--merge_lora_during_training", "True"], "merge_lora"),
     (["--multihost", "True"], "multihost"),
     (["--mesh_fsdp", "2"], "mesh"),
-    (["--remat_policy", "dots"], "remat_policy dots"),
 ]
 
 
 @pytest.mark.parametrize("flags,what", UNPORTED, ids=[w for _, w in UNPORTED])
 def test_unported_flags_raise(tmp_path, flags, what):
-    with pytest.raises(NotImplementedError, match=what):
+    """Only the multi-GPU flags are left (ROADMAP item 17)."""
+    with pytest.raises(NotImplementedError, match=f"{what}.*item 17"):
         FT.main(TINY_RUN + flags + ["--max_steps", "1", "--run_root_dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())         # raised before any work
 
@@ -357,3 +358,178 @@ def test_validation_logs_val_metrics(episode_root, tmp_path):
     for key in ("val_loss", "val_curr_action_l1_loss", "val_next_actions_l1_loss"):
         assert np.isfinite(val[0][key]), key
     assert val[0]["val_loss"] == pytest.approx(seen[0][1]["val_loss"])
+
+
+# === run management: the reference's layout, resume, QLoRA, the scripts ===
+DEFAULT_RUN = [f for f in TINY_RUN if f not in ("--merge_lora_during_training", "False")]
+
+
+def test_defaults_write_the_reference_layout(tmp_path):
+    """The JAX CLI's defaults (merge during training) on random:tiny: the
+    per-module .pt files, the statistics and the merged model in every
+    `--N_chkpt` dir; the merged model is the trained LoRA merged into the
+    base, bit for bit, and the .pt files hold the trained heads."""
+    from openvla_oft_tpu_torch.training.checkpoint import (import_action_head_pt,
+                                                           import_projector_pt)
+    from openvla_oft_tpu_torch.training.lora import apply_lora
+    from openvla_oft_tpu_torch.utils.hf_import import load_openvla_checkpoint
+
+    assert "--merge_lora_during_training" not in DEFAULT_RUN
+    seen = []
+    out = FT.main(DEFAULT_RUN + ["--batch_size", "2", "--max_steps", "3", "--save_freq", "2",
+                                 "--run_root_dir", str(tmp_path)],
+                  on_step=lambda step, m, state: seen.append(state))
+    run_dir, state = out["run_dir"], seen[-1]
+    assert sorted(p.name for p in (Path(run_dir) / "ckpt").iterdir()) == ["000002.pt",
+                                                                         "000003.pt"]
+    for n in (2, 3):
+        files = {p.name for p in Path(f"{run_dir}--{n}_chkpt").iterdir()}
+        assert files == {"config.json", "model.safetensors", "dataset_statistics.json",
+                         f"action_head--{n}_checkpoint.pt",
+                         f"proprio_projector--{n}_checkpoint.pt"}, files
+    d3 = f"{run_dir}--3_chkpt"
+    _, merged, _ = load_openvla_checkpoint(d3, dtype=None)
+    with torch.no_grad():
+        want = apply_lora(state.base_params, state.trainables["lora"], rank=4, alpha=4.0)
+    _assert_bitwise(merged, want)
+    heads = {"action_head": import_action_head_pt(f"{d3}/action_head--3_checkpoint.pt"),
+             "proprio_projector": import_projector_pt(
+                 f"{d3}/proprio_projector--3_checkpoint.pt")}
+    for k, tree in heads.items():
+        for a, b in zip(tree_leaves(tree), tree_leaves(state.trainables[k])):
+            assert torch.equal(a, b.detach()), k
+
+
+def test_save_latest_checkpoint_only(tmp_path):
+    out = FT.main(TINY_RUN + ["--batch_size", "2", "--max_steps", "3", "--save_freq", "1",
+                              "--save_latest_checkpoint_only", "True",
+                              "--run_root_dir", str(tmp_path)])
+    run_dir = Path(out["run_dir"])
+    assert sorted(p.name for p in (run_dir / "ckpt").iterdir()) == ["000003.pt"]
+    assert (run_dir / "action_head--latest_checkpoint.pt").exists()
+    assert (run_dir / "proprio_projector--latest_checkpoint.pt").exists()
+    assert not list(tmp_path.glob("*_chkpt"))
+
+
+def test_finetune_resume(tmp_path):
+    """Mirrors tests/test_finetune_cli.py::test_finetune_resume, and the
+    restored state is the saved one: the trainables, the optimizer's moments,
+    count and LR scheduler, the micro-step."""
+    from openvla_oft_tpu_torch.training.checkpoint import host_snapshot, restore_checkpoint
+
+    base = TINY_RUN + ["--batch_size", "2", "--save_freq", "2", "--wandb_log_freq", "100",
+                       "--run_root_dir", str(tmp_path)]
+    out1 = FT.main(base + ["--max_steps", "2"])
+    assert out1["final_step"] == 2
+    saved = restore_checkpoint(str(Path(out1["run_dir"]) / "ckpt"), 2)
+    restored = {}
+    original = FT.restore_training_state
+
+    def capture(state, *args, **kw):
+        step = original(state, *args, **kw)
+        restored.update(step=step, micro=state.step,
+                        opt=host_snapshot(state.optimizer.state_dict()),
+                        trainables=[t.detach().clone() for t in tree_leaves(state.trainables)])
+        return step
+
+    FT.restore_training_state = capture
+    try:
+        out2 = FT.main(base + ["--max_steps", "4", "--resume", "True", "--run_id_override",
+                               Path(out1["run_dir"]).name])
+    finally:
+        FT.restore_training_state = original
+    assert out2["final_step"] == 4
+    assert sorted(p.name for p in (Path(out1["run_dir"]) / "ckpt").iterdir()) == [
+        "000002.pt", "000004.pt"]
+    assert restored["step"] == 2 and restored["micro"] == 2
+    for a, b in zip(restored["trainables"], tree_leaves(saved["trainables"])):
+        assert torch.equal(a, b)
+    assert restored["opt"]["scheduler"]["last_epoch"] == 2
+    adam = restored["opt"]["adamw"]["state"]
+    for i, st in saved["optimizer"]["adamw"]["state"].items():
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(adam[i][key], st[key]), (i, key)
+
+
+def test_resume_without_a_checkpoint_names_the_dir(tmp_path):
+    with pytest.raises(FileNotFoundError, match="no checkpoint.*ckpt"):
+        FT.main(TINY_RUN + ["--resume", "True", "--run_id_override", "nothing-here",
+                            "--run_root_dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("bits,remat", [(8, "all"), (4, "dots")], ids=["int8", "int4-dots"])
+def test_finetune_quantize_base(tmp_path, bits, remat):
+    """Mirrors tests/test_finetune_cli.py::test_finetune_quantize_base[_int4]:
+    a quantized frozen base (every kernel, min_dim 1) trains with finite
+    losses, LoRA moving through the straight-through backward."""
+    seen = []
+    out = FT.main(TINY_RUN + ["--batch_size", "2", "--max_steps", "3", "--quantize_base",
+                              "True", "--quantize_base_min_dim", "1", "--quantize_base_bits",
+                              str(bits), "--remat_policy", remat, "--run_root_dir",
+                              str(tmp_path)],
+                  on_step=lambda step, m, state: seen.append((m["loss"], state)))
+    assert out["final_step"] == 3
+    assert all(np.isfinite(loss) for loss, _ in seen)
+    base = seen[-1][1].base_params
+    key = "kernel" if bits == 8 else "kernel_q4"
+    assert base["llm"]["layers"]["attn"]["wq"][key].dtype == torch.int8
+    b = seen[-1][1].trainables["lora"]["llm"]["layers"]["attn"]["wq"]["b"]
+    assert b.abs().max() > 0
+
+
+def test_quantized_merge_reloads_the_float_base(tmp_path):
+    """--quantize_base with the merged export from a checkpoint dir: the merge
+    reloads the dir's float base (its stored dtype) and equals the offline
+    merge script's output on the same resume file, bit for bit."""
+    from openvla_oft_tpu_torch.scripts.merge_lora_weights_and_save import MergeConfig, merge
+    from openvla_oft_tpu_torch.utils.hf_import import load_openvla_checkpoint
+
+    ckpt, _ = _tiny_checkpoint(tmp_path, "l1")
+    out = FT.main(DEFAULT_RUN + ["--vla_path", ckpt, "--batch_size", "2", "--max_steps", "2",
+                                 "--save_freq", "2", "--quantize_base", "True",
+                                 "--quantize_base_min_dim", "1", "--run_root_dir",
+                                 str(tmp_path / "runs")])
+    in_training = f"{out['run_dir']}--2_chkpt"
+    offline = merge(MergeConfig(base_checkpoint=ckpt, finetune_run_dir=out["run_dir"],
+                                lora_rank=4, device="cpu"))
+    assert offline == f"{out['run_dir']}/merged--2_chkpt"
+    _, a, _ = load_openvla_checkpoint(in_training, dtype=None)
+    _, b, _ = load_openvla_checkpoint(offline, dtype=None)
+    _, float_base, _ = load_openvla_checkpoint(ckpt, dtype=None)
+    _assert_bitwise(a, b)
+    assert a["llm"]["layers"]["attn"]["wq"]["kernel"].dtype == torch.bfloat16
+    assert not torch.equal(a["llm"]["layers"]["attn"]["wq"]["kernel"],
+                           float_base["llm"]["layers"]["attn"]["wq"]["kernel"])
+
+
+def test_quantized_merge_from_random_weights_is_skipped(tmp_path, capsys):
+    out = FT.main(DEFAULT_RUN + ["--batch_size", "2", "--max_steps", "1", "--quantize_base",
+                                 "True", "--quantize_base_min_dim", "1", "--run_root_dir",
+                                 str(tmp_path)])
+    assert "skipping merged export" in capsys.readouterr().out
+    assert not (Path(f"{out['run_dir']}--1_chkpt") / "model.safetensors").exists()
+    assert (Path(f"{out['run_dir']}--1_chkpt") / "action_head--1_checkpoint.pt").exists()
+
+
+def test_run_finetune_adds_resume_after_the_first_attempt(monkeypatch):
+    """The restart wrapper (mirrors vla_scripts/run_finetune.py): relaunch
+    until exit 0, `--resume True` from the second attempt on, unless the
+    arguments hold --resume already (`--resume_step` does not count)."""
+    from openvla_oft_tpu_torch.scripts import run_finetune as RF
+
+    calls = []
+
+    def fake_run(cmd):
+        calls.append(cmd)
+        return type("P", (), {"returncode": 0 if len(calls) == 3 else 1})()
+
+    monkeypatch.setattr(RF.subprocess, "run", fake_run)
+    assert RF.main(["--restart_delay_s", "0", "--", "--max_steps", "5",
+                    "--resume_step", "2"]) == 0
+    assert [c[1:3] for c in calls] == [["-m", RF.FINETUNE]] * 3
+    assert calls[0][3:] == ["--max_steps", "5", "--resume_step", "2"]
+    assert calls[1][3:] == calls[2][3:] == ["--max_steps", "5", "--resume_step", "2",
+                                            "--resume", "True"]
+    assert RF.with_resume(["--resume=False"], 1) == ["--resume=False"]
+    assert RF.with_resume(["--resume", "False"], 2) == ["--resume", "False"]

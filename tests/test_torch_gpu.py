@@ -1364,3 +1364,72 @@ def test_stream_prefetcher_matches_plain_copies(cuda):
         assert i == 4
     finally:
         pf.close()
+
+
+# --- QLoRA and the remat policies ------------------------------------------------
+
+def test_qlora_int4_linear_k5_matches_plain(cuda):
+    """LoRA over an int4 base at at most FUSED_MAX_ROWS rows: y through K5
+    and x's gradient through its backward against the same linear on
+    `int4_matmul_ref` (every int4 linear there with FUSED_MAX_ROWS = 0)."""
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops import layers as L
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    k, n, r, t = 512, 384, 8, 300
+    p = Q.quantize_weight_int4(torch.randn((k, n), generator=gen, device=cuda) * 0.05)
+    p["lora_a"] = torch.randn((r, k), generator=gen, device=cuda) * 0.05
+    p["lora_b"] = torch.randn((r, n), generator=gen, device=cuda) * 0.05
+    x0 = torch.randn((2, t // 2, k), generator=gen, device=cuda).bfloat16()
+    g = torch.randn((2, t // 2, n), generator=gen, device=cuda).bfloat16()
+    out = {}
+    for plain in (False, True):
+        x = x0.clone().requires_grad_()
+        before = M.int4_matmul_fused.launches
+        old = Q.FUSED_MAX_ROWS
+        Q.FUSED_MAX_ROWS = 0 if plain else old
+        try:
+            y = L.linear(p, x)
+            (gx,) = torch.autograd.grad(y, x, g)
+        finally:
+            Q.FUSED_MAX_ROWS = old
+        torch.cuda.synchronize()
+        assert M.int4_matmul_fused.launches == before + (0 if plain else 1)
+        out[plain] = (y.float(), gx.float())
+    for got, want in zip(out[False], out[True]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+def test_remat_policies_match_all_on_card(cuda):
+    """The remat policies on the card at random:tiny (dense attention): the
+    loss and every gradient of "dots", "attn_out" and "none" bitwise those
+    of "all"."""
+    import dataclasses
+
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.training import finetune as FT
+    from openvla_oft_tpu_torch.training import train_step as TT
+
+    cfg = FT.parse_config(["--vla_path", "random:tiny", "--data_root_dir", "dummy",
+                           "--robot_platform", "libero", "--use_proprio", "True",
+                           "--num_images_in_input", "2", "--lora_rank", "4",
+                           "--batch_size", "2", "--device", "cuda"])
+    model_cfg, platform = FT.model_config(cfg), FT.platform_of(cfg)
+    base, trainables = FT.build_model(cfg, model_cfg, platform, cuda)
+    with torch.no_grad():
+        for t in tree_leaves(trainables["lora"]):
+            t.add_(torch.randn(t.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                               device=cuda) * 1e-2)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in FT.first_batch(cfg).items()}
+    leaves = tree_leaves(trainables)
+    out = {}
+    for policy in ("all", "dots", "attn_out", "none"):
+        tcfg = dataclasses.replace(FT.train_config(cfg), remat_policy=policy)
+        loss, _ = TT.loss_and_metrics(trainables, base, batch, model_cfg, platform, tcfg,
+                                      use_flash=False)
+        out[policy] = [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+    for policy in ("dots", "attn_out", "none"):
+        for a, b in zip(out[policy], out["all"]):
+            assert torch.equal(a, b), policy

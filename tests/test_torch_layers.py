@@ -41,22 +41,25 @@ def test_linear(rng, bias):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
 
-def test_linear_rejects_unported_formats():
-    x = torch.zeros(2, 4)
-    # LoRA factors are ported (item 14): a zero B leaves the base product.
-    lora = {"kernel": torch.ones(4, 3), "lora_a": torch.ones(2, 4),
-            "lora_b": torch.zeros(2, 3)}
-    assert torch.equal(T.linear(lora, x + 1), T.linear({"kernel": torch.ones(4, 3)}, x + 1))
-    # int4 weights are ported (item 15, ops/quant.py); LoRA over an int4 base
-    # (QLoRA) is not (item 14).
-    q4 = {"kernel_q4": torch.zeros(2, 3, dtype=torch.int8), "scale_w4": torch.ones(1, 3)}
-    assert torch.equal(T.linear(q4, x), torch.zeros(2, 3))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.linear({**q4, "lora_a": torch.ones(2, 4), "lora_b": torch.zeros(2, 3)}, x)
-    # int8 weights are ported (item 9); LoRA over an int8 base is not (item 14).
-    q8 = {"kernel": torch.zeros(4, 3, dtype=torch.int8), "scale_w": torch.ones(3)}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.linear({**q8, "lora_a": torch.ones(2, 4), "lora_b": torch.zeros(2, 3)}, x)
+@pytest.mark.parametrize("fmt", ["float", "int8", "int4"])
+def test_linear_dispatches_lora_over_every_base(fmt):
+    """LoRA factors add over a float, an int8 and an int4 base alike (QLoRA):
+    the base's own product, plus the delta with the float branch's roundings.
+    A zero B leaves the base product bit for bit."""
+    from openvla_oft_tpu_torch.ops import quant as Q
+
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn((16, 8), generator=g) * 0.1
+    base = {"float": {"kernel": w}, "int8": Q.quantize_weight(w),
+            "int4": Q.quantize_weight_int4(w)}[fmt]
+    x = torch.randn((3, 16), generator=g).bfloat16()
+    a, b = torch.randn((2, 16), generator=g), torch.randn((2, 8), generator=g)
+    y = T.linear(base, x)
+    assert torch.equal(T.linear({**base, "lora_a": a, "lora_b": torch.zeros(2, 8)}, x), y)
+    got = T.linear({**base, "lora_a": a, "lora_b": b}, x)
+    down = torch.matmul(x, a.bfloat16().T)
+    want = (y.float() + torch.matmul(down.float(), b.bfloat16().float())).bfloat16()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])

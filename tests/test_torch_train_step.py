@@ -217,10 +217,12 @@ def test_remat_all_matches_none():
 
 
 @pytest.mark.parametrize("policy,on", [(None, False), ("none", False), ("all", True),
+                                       ("dots", True), ("attn_out", True),
                                        ("bogus", ValueError)])
 def test_resolve_remat(policy, on):
     """remat_policy is the one switch: None and "none" keep activations,
-    "all" recomputes each block, anything else raises."""
+    "all", "dots" and "attn_out" recompute (each its share of) each block,
+    anything else raises."""
     from openvla_oft_tpu_torch.models.llama import resolve_remat
 
     if on is ValueError:
@@ -230,14 +232,43 @@ def test_resolve_remat(policy, on):
         assert resolve_remat(policy) is on
 
 
-@pytest.mark.parametrize("policy", ["dots", "attn_out"])
-def test_unported_remat_policies_and_objectives_raise(policy):
-    """The remat policies "dots" and "attn_out" are not ported (item 14c);
-    every objective is (tests/test_torch_train_objectives.py)."""
+def _loss_and_grads(policy, use_flash):
     state, cfg = _port_state(_port_cfg(), remat_policy=policy)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TT.loss_and_metrics(state.trainables, state.base_params, _port_batch(), P_CFG,
-                            P_LIBERO, cfg)
+    loss, _ = TT.loss_and_metrics(state.trainables, state.base_params, _port_batch(),
+                                  P_CFG, P_LIBERO, cfg, use_flash=use_flash)
+    return [loss.detach()] + list(torch.autograd.grad(loss, tree_leaves(state.trainables)))
+
+
+@pytest.mark.parametrize("policy", ["dots", "attn_out"])
+def test_remat_policies_equal_all_bitwise(policy):
+    """"dots" and "attn_out" change only what is kept for the backward: the
+    loss and every gradient are bitwise those of "all", on the dense path and
+    on K1/K2/K3's plain versions."""
+    for use_flash in (False, True):
+        want, got = _loss_and_grads("all", use_flash), _loss_and_grads(policy, use_flash)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b), (policy, use_flash)
+
+
+@pytest.mark.parametrize("policy", ["dots", "attn_out"])
+def test_remat_policy_matches_jax(policy):
+    """The loss and gradients under "dots" and "attn_out" against the JAX
+    step with the same policy (its `jax.checkpoint` policies), at this
+    file's tolerances ("all" and "none": test_train_step_matches_jax and
+    test_remat_all_matches_none)."""
+    jcfg = _jax_cfg(remat_policy=policy)
+    (loss_j, _), grads_j = jax.value_and_grad(JT.loss_and_metrics, has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, NP_TRAIN),
+        jax.tree_util.tree_map(jnp.asarray, NP_BASE),
+        {k: jnp.asarray(v) for k, v in NP_BATCH.items()}, CFG, LIBERO, jcfg,
+        jax.random.PRNGKey(0), False)
+    loss_t, *grads_t = _loss_and_grads(policy, False)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=2e-4)
+    for gj, gt in zip(_flat(grads_j), grads_t):
+        gt = gt.double().numpy()
+        scale = np.abs(gj).max()
+        assert np.abs(gt - gj).max() <= 1e-2 * scale
+        assert _cos(gt, gj) >= 0.9999
 
 
 def test_loss_decreases():
