@@ -16,7 +16,10 @@ and its bench script `openvla_oft_tpu_torch.scripts.bench_ar`, the probe script
 `openvla_oft_tpu_torch.scripts.exp_int4_probe`, and the fine-tuning CLI
 `openvla_oft_tpu_torch.training.finetune` (LoRA r=32: the L1 objective at
 B=8, the diffusion and discrete objectives at B=8, OFT+ ALOHA with FiLM at
-B=4, and L1 from a checkpoint dir).
+B=4, and L1 from a checkpoint dir), and the full-parameter scripts
+`openvla_oft_tpu_torch.scripts.train` (the four freeze stages) and
+`scripts.pretrain` (align, finetune on LLaVA-format data) at B=8, and the
+VLM REPL `scripts.generate`.
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. environment: the card, torch/CUDA versions, TF32 off;
@@ -220,6 +223,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      host snapshot and background write; (e) SIGTERM at the third
      micro-step: a checkpoint at 3, final_step 3, the handler restored, a
      resumed run to step 6.
+ 15. (after 14) full-parameter training and VLM pretraining, each run at
+     random:7b's full width and depth, B=8, 3 steps, through the scripts'
+     entry points: (a) both JPEG decoders with the ISLOW inverse DCT bitwise
+     PIL's pixels on every entry of `tests/goldens/jpeg_decode_pil.npz`;
+     (b), (c) `scripts/pretrain.py` align and finetune on a LLaVA JSON of
+     32 records whose images are the two JPEG goldens' bytes (seq_bucket
+     128: S = 384); (d) `scripts/train.py`'s four stages on dummy LIBERO
+     data. Each run: K1 64, K2 32, K3 32 a step, the step times, the peak,
+     the optimizer's share of a step, every trainable group moved (the
+     share of sampled entries that changed), every frozen leaf bitwise its
+     value before the first step; align, finetune (the trainables, 13.8
+     GB), vla-sandwich-train and vla-last-layer-train save and restore
+     bitwise at full depth; vla-train and vla-full-train save nothing
+     there (vla-full-train's 45.6 GB took 55 s to write, and checking it
+     passed the machine's 96 GiB of host memory), and vla-full-train saves
+     and restores at 2 layers; (e) vla-full-train's
+     loss and backward through K1/K2/K3 against the dense path (phase 12's
+     bounds, the cosine over all trainables and per group); (f)
+     `scripts/generate.py` at random:7b with the stand-in tokenizer: one
+     prompt on its input stream, 8 new tokens, K1 32 in the prefill.
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
@@ -239,6 +262,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -3693,6 +3717,380 @@ def run_management(ckpt: str, card: str, rng, n_layers: int) -> dict:
     return runs
 
 
+# === Phase 15: full-parameter training and VLM pretraining (PR 20) ===
+# The scripts' runs at random:7b, full width and depth: pretrain.py's align
+# and finetune on a LLaVA JSON whose images are the JPEG goldens' bytes,
+# train.py's four stages on dummy LIBERO data; B = 8, 3 steps each.
+FULL_BATCH, FULL_STEPS = 8, 3
+# Stages saved and restored bitwise at full depth. vla-full-train's file
+# (7.53 B trainables and two bf16 moments, 45.6 GB) took 55 s to write, and
+# its check passed the machine's 96 GiB of host memory (the pinned snapshot's
+# blocks stay cached): the stages that train the LLM with the optimizer's
+# moments save from a 2-layer LLM instead.
+FULL_SAVED = ("align", "finetune", "vla-sandwich-train", "vla-last-layer-train")
+FULL_SAVE_CUT_LAYERS = 2
+CUT_LLM_ID = f"llama2-7b-pure-{FULL_SAVE_CUT_LAYERS}-layers"
+LLAVA_RECORDS = 32
+PROMPT = "What is on the table?"
+
+
+def islow_check(card: str) -> list:
+    """Phase 15 (a): both decoders with `idct="islow"` bitwise PIL's pixels
+    on the ISLOW golden. Returns the JPEG bytes of both goldens."""
+    from openvla_oft_tpu_torch.processing.jpeg_decode import decode_jpeg, decode_jpeg_plain
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    entries = []
+    for name in ("jpeg_decode_pil.npz", "jpeg_decode_tf.npz"):
+        with np.load(os.path.join(root, name)) as z:
+            entries.append([(str(n), z[f"data_{i}"].tobytes(), z[f"pixels_{i}"])
+                            for i, n in enumerate(z["names"])])
+    t0 = time.perf_counter()
+    for name, data, pixels in entries[0]:
+        for label, decoder in (("host library", decode_jpeg), ("plain", decode_jpeg_plain)):
+            got = decoder(data, idct="islow")
+            if got.shape != pixels.shape or not np.array_equal(got, pixels):
+                raise AssertionError(f"the {label} ISLOW decoder differs from PIL on {name}")
+    log(f"[islow] JPEG decoders, host library and plain, idct=islow bitwise equal to PIL "
+        f"on all {len(entries[0])} entries of jpeg_decode_pil.npz "
+        f"({', '.join(n for n, _, _ in entries[0])}) in {time.perf_counter() - t0:.1f} s")
+    return [(n, d) for part in entries for n, d, px in part if min(px.shape[:2]) >= 16]
+
+
+def llava_json(jpegs: list, root: str) -> tuple:
+    """A LLaVA JSON of LLAVA_RECORDS records (2 or 4 turns) over the JPEG
+    files written under root/images; returns (json path, image root)."""
+    images = os.path.join(root, "images")
+    os.makedirs(images, exist_ok=True)
+    words = ("a table with two blocks on it near the wall and a bowl the robot holds a "
+             "plate of red green blue objects in the light").split()
+    rng = np.random.default_rng(0)
+    recs = []
+    for i in range(LLAVA_RECORDS):
+        name, data = jpegs[i % len(jpegs)]
+        fname = f"{i:03d}_{name}.jpg"
+        with open(os.path.join(images, fname), "wb") as f:
+            f.write(data)
+        say = lambda n: " ".join(rng.choice(words, n))      # noqa: E731
+        turns = [{"from": "human", "value": f"<image>\n{say(8)}?"},
+                 {"from": "gpt", "value": say(int(rng.integers(20, 90)))}]
+        if i % 2:
+            turns += [{"from": "human", "value": f"{say(6)}?"},
+                      {"from": "gpt", "value": say(int(rng.integers(10, 60)))}]
+        recs.append({"id": str(i), "image": fname, "conversations": turns})
+    path = os.path.join(root, "chat.json")
+    with open(path, "w") as f:
+        json.dump(recs, f)
+    return path, images
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _sample(t: torch.Tensor) -> torch.Tensor:
+    """About 65,536 evenly strided entries of a leaf, copied."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // 65536)].clone()
+
+
+def _equal_on_host(a, b, path="") -> int:
+    """`states_bitwise_equal` of a restored state (host tensors) and the
+    live one, each live tensor brought to the host alone; returns the
+    number of tensors."""
+    if isinstance(a, torch.Tensor):
+        return trees_bitwise_equal(a, b.detach().cpu(), path)
+    if isinstance(a, dict):
+        if sorted(a, key=str) != sorted(b, key=str):
+            raise AssertionError(f"{path}: keys {sorted(a, key=str)} != {sorted(b, key=str)}")
+        return sum(_equal_on_host(a[k], b[k], f"{path}/{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        return sum(_equal_on_host(x, y, f"{path}/{i}")
+                   for i, (x, y) in enumerate(zip(a, b, strict=True)))
+    if a != b:
+        raise AssertionError(f"{path}: {a!r} != {b!r}")
+    return 0
+
+
+def full_stage(card: str, label: str, run, cfg, n_layers: int, saved: bool) -> dict:
+    """One run of `run` (scripts/train.py's `train` or pretrain.py's
+    `pretrain`) with `cfg`: launches K1 2 x n_layers, K2 and K3 n_layers a
+    step and nothing else; step times; the peak (the build's and the first
+    step's, then the later steps'); the optimizer's time a step (CUDA events
+    recorded around its update, which add no synchronize); every group's sampled share of
+    entries that moved (> 0); every frozen leaf bitwise its value before
+    the first step (host copies); with `saved`, the checkpoint restored
+    bitwise equal to the trained state, else its saves replaced by nothing.
+    Returns launches, times, peaks and the state."""
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.training import checkpoint as CK
+    from openvla_oft_tpu_torch.training import train_step as TT
+
+    expect = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers, "K4": 0, "K5": 0, "K6": 0,
+              "probe": 0, "int8": 0}
+    seen = {"prev": {k: 0 for k in expect}, "times": [], "opt": [], "events": []}
+
+    def on_start(state):
+        seen["frozen"] = {p: t.detach().to("cpu") for p, t in _paths(state.base_params).items()}
+        seen["first"] = {p: _sample(t) for p, t in _paths(state.trainables).items()}
+        seen["n_trainable"] = sum(t.numel() for t in tree_leaves(state.trainables))
+        seen["n_frozen"] = sum(t.numel() for t in tree_leaves(state.base_params))
+
+    def on_step(step, metrics, state):
+        counts = launch_counts()
+        per_step = {k: counts[k] - seen["prev"][k] for k in counts}
+        seen["prev"] = counts
+        seen["times"].append(metrics["step_time"])
+        start, end = seen["events"][-1]     # the step ended in a synchronize
+        seen["opt"].append(start.elapsed_time(end) / 1e3)
+        log(f"[{label}] step {step}: loss={metrics['loss']:.6f} "
+            f"grad_norm={metrics['grad_norm']:.6f} "
+            f"token_accuracy={metrics['token_accuracy']:.4f} "
+            f"step_time={metrics['step_time']:.4f} s (host clock, ends in "
+            f"torch.cuda.synchronize), optimizer {seen['opt'][-1]:.4f} s (CUDA events "
+            f"around the update); launches {per_step} ({card})")
+        if not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["grad_norm"])
+                and metrics["grad_norm"] > 0):
+            raise AssertionError(f"bad {label} step {step}: {metrics}")
+        if per_step != expect:
+            raise AssertionError(f"{label} step {step} launched {per_step}, expected {expect}")
+        if step == 0:
+            seen["peak0"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+    update = TT.Optimizer.update
+
+    def timed_update(self, grads):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = update(self, grads)
+        end.record()
+        seen["events"].append((start, end))
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(TT.Optimizer, "update", timed_update))
+        if not saved:
+            stack.enter_context(patched(CK, "save_checkpoint", lambda *a, **k: None))
+        out = run(cfg, on_step=on_step, on_start=on_start)
+    total = time.perf_counter() - t0
+    launches = launch_counts()
+    step_peak = torch.cuda.max_memory_allocated()
+    state = out["state"]
+    want = {k: FULL_STEPS * n for k, n in expect.items()}
+    if out["final_step"] != FULL_STEPS or launches != want:
+        raise AssertionError(f"{label}: {out['final_step']} steps, launches {launches}, "
+                             f"expected {FULL_STEPS} and {want}")
+    frozen_ok = all(torch.equal(t.detach().to("cpu"), seen["frozen"][p])
+                    for p, t in _paths(state.base_params).items())
+    if not frozen_ok or sorted(_paths(state.base_params)) != sorted(seen["frozen"]):
+        raise AssertionError(f"{label}: a frozen leaf changed")
+    moved = {}
+    for group, tree in state.trainables.items():
+        paths = _paths(tree, f"/{group}")
+        changed = sum(int((_sample(t) != seen["first"][p]).sum()) for p, t in paths.items())
+        n = sum(seen["first"][p].numel() for p in paths)
+        moved[group] = changed / n
+    log(f"[{label}] {out['final_step']} steps in {total:.1f} s (the 7B drawn on the card"
+        f"{', checkpoint written' if saved else ''}); {seen['n_trainable'] / 1e9:.3f} B "
+        f"trainable, {seen['n_frozen'] / 1e9:.3f} B frozen (bitwise unchanged, "
+        f"{len(seen['frozen'])} leaves); share of sampled entries moved by the 3 updates: "
+        + ", ".join(f"{g} {m:.4f}" for g, m in moved.items())
+        + f"; step times {', '.join(f'{t:.4f}' for t in seen['times'])} s, median of the "
+        f"later {float(np.median(seen['times'][1:])):.4f} s; optimizer "
+        f"{', '.join(f'{t:.4f}' for t in seen['opt'])} s, "
+        f"{float(np.median(seen['opt'][1:])) / float(np.median(seen['times'][1:])):.3f} of a "
+        f"later step; peak {max(seen['peak0'], step_peak) / 2**30:.3f} GiB (build and first "
+        f"step {seen['peak0'] / 2**30:.3f}, later steps {step_peak / 2**30:.3f}); launches "
+        f"{launches} ({card})")
+    if not all(m > 0 for m in moved.values()):
+        raise AssertionError(f"{label}: a trainable group did not move: {moved}")
+    if saved:
+        from openvla_oft_tpu_torch.training.checkpoint import SAVE_LOG
+
+        rec = SAVE_LOG[-1]
+        log(f"[{label}] save: {rec['bytes'] / 1e9:.2f} GB snapshotted to pinned host memory in "
+            f"{rec['snapshot_s']:.2f} s, written in the background in {rec['write_s']:.2f} s")
+        t1 = time.perf_counter()
+        # Memory-mapped, so the file is read leaf by leaf, not held twice.
+        restored = torch.load(out["ckpt"], map_location="cpu", mmap=True, weights_only=True)
+        n = _equal_on_host(restored["trainables"], state.trainables)
+        if "optimizer" in restored:
+            n += _equal_on_host(restored["optimizer"], state.optimizer.state_dict())
+        log(f"[{label}] checkpoint {out['ckpt']}: {os.path.getsize(out['ckpt']) / 1e9:.2f} GB, "
+            f"restored bitwise equal to the trained state ({n} tensors, optimizer "
+            f"{'included' if 'optimizer' in restored else 'not saved, as in JAX'}) in "
+            f"{time.perf_counter() - t1:.1f} s")
+        del restored
+        shutil.rmtree(out["run_dir"], ignore_errors=True)
+    return {"launches": launches, "times": seen["times"], "opt": seen["opt"],
+            "peak": max(seen["peak0"], step_peak), "state": state}
+
+
+def full_parity(state, model_cfg, card: str) -> None:
+    """Phase 15 (e): one vla-full-train loss and backward through K1/K2/K3
+    and through the dense path on the trained weights and the first dummy
+    batch; phase 12's bounds, the cosine over all trainables and per group."""
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.data.collator import PaddedCollatorForActionPrediction
+    from openvla_oft_tpu_torch.data.datasets import DummyDataset, RLDSBatchTransform
+    from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
+    from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
+    from openvla_oft_tpu_torch.training import train_step as TT
+
+    dev = tree_leaves(state.trainables)[0].device
+    data = DummyDataset(RLDSBatchTransform(PrismaticProcessor(model_cfg), ActionTokenizer(),
+                                           LIBERO),
+                        image_size=model_cfg.vision_configs[0].image_size,
+                        num_samples=FULL_BATCH)
+    batch = PaddedCollatorForActionPrediction(pad_token_id=model_cfg.pad_token_id)(list(data))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+             if isinstance(v, np.ndarray)}
+    tcfg = TT.TrainConfig(objective="discrete", use_proprio=False)
+    leaves = tree_leaves(state.trainables)
+    loss, grads = {}, {}
+    for use_flash in (True, False):
+        before = launch_counts()
+        value, _ = TT.loss_and_metrics(state.trainables, state.base_params, batch, model_cfg,
+                                       LIBERO, tcfg, use_flash=use_flash)
+        grads[use_flash] = torch.autograd.grad(value, leaves)
+        loss[use_flash] = value.item()
+        used = {k: v - before[k] for k, v in launch_counts().items()}
+        log(f"[full-parity] use_flash={use_flash}: loss={loss[use_flash]:.6f} launches {used}")
+        del value
+    rel = abs(loss[True] - loss[False]) / abs(loss[False])
+    ok = np.isfinite(loss[True]) and rel <= TRAIN_LOSS_REL
+    dot = {f: 0.0 for f in ("ab", "aa", "bb")}
+    start = 0
+    for group, tree in state.trainables.items():
+        stop = start + len(tree_leaves(tree))
+        g = {f: 0.0 for f in ("ab", "aa", "bb")}
+        for a, b in zip(grads[True][start:stop], grads[False][start:stop]):
+            a, b = a.double().flatten(), b.double().flatten()
+            g["ab"] += float(a @ b)
+            g["aa"] += float(a @ a)
+            g["bb"] += float(b @ b)
+        cos = g["ab"] / np.sqrt(g["aa"] * g["bb"])
+        log(f"[full-parity] {group}: gradient cosine(K1/K2/K3 path, dense path) = {cos:.6f}")
+        ok = ok and cos >= TRAIN_GRAD_COSINE
+        for k in dot:
+            dot[k] += g[k]
+        start = stop
+    cos_all = dot["ab"] / np.sqrt(dot["aa"] * dot["bb"])
+    log(f"[full-parity] loss K1/K2/K3 path {loss[True]:.6f}, dense path {loss[False]:.6f}, "
+        f"relative difference {rel:.3e} (bound {TRAIN_LOSS_REL}); gradient cosine over all "
+        f"trainables {cos_all:.6f} (bound {TRAIN_GRAD_COSINE}) ({card})")
+    if not (ok and cos_all >= TRAIN_GRAD_COSINE):
+        raise AssertionError("full-parameter training through K1/K2/K3 disagrees with the "
+                             "dense path")
+
+
+def generate_phase(jpegs: list, root: str, card: str) -> dict:
+    """Phase 15 (f): scripts/generate.py at random:7b, the stand-in
+    tokenizer, a golden JPEG as the image, one prompt on its input stream:
+    8 new tokens, K1 32 in the prefill and nothing else."""
+    import io
+
+    from openvla_oft_tpu_torch.scripts import generate as GEN
+
+    path = os.path.join(root, "generate.jpg")
+    with open(path, "wb") as f:
+        f.write(jpegs[-1][1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = GEN.generate(GEN.GenerateConfig(model_path="random:7b", image_path=path,
+                                              max_new_tokens=8, device="cuda"),
+                           io.StringIO(PROMPT + "\n"))
+    launches = launch_counts()
+    want = {"K1": 32, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "probe": 0, "int8": 0}
+    log(f"[generate] {PROMPT!r} -> {answers}; {time.perf_counter() - t0:.1f} s with the "
+        f"7B's build; launches {launches} ({card})")
+    if len(answers) != 1 or len(answers[0].split()) != 8 or launches != want:
+        raise AssertionError(f"generate.py answered {answers} with launches {launches}, "
+                             f"expected 8 tokens and {want}")
+    return launches
+
+
+def full_training_phase(card: str, n_layers: int) -> dict:
+    """Phase 15. Returns each run's launches (the parity's, which compare
+    two paths, not counted)."""
+    import openvla_oft_tpu_torch.config as C
+    from openvla_oft_tpu_torch.scripts import pretrain as PP
+    from openvla_oft_tpu_torch.scripts import train as PT
+
+    t_phase = time.perf_counter()
+    jpegs = islow_check(card)
+    root = checkpoint_dir(16e9)
+    runs = {}
+    try:
+        js, images = llava_json(jpegs, root)
+        for stage in PP.STAGE_TRAINABLE:
+            saved = stage in FULL_SAVED
+            cfg = PP.PretrainConfig(stage=stage, pretrained_checkpoint="random:7b",
+                                    llava_json=js, image_root=images, batch_size=FULL_BATCH,
+                                    max_steps=FULL_STEPS, save_interval=FULL_STEPS,
+                                    run_root_dir=Path(root), seq_bucket=128)
+            log(f"[pretrain-{stage}] {LLAVA_RECORDS} records, seq_bucket {cfg.seq_bucket}: "
+                f"S = {cfg.seq_bucket} text slots + 256 patches = {cfg.seq_bucket + 256}")
+            out = full_stage(card, f"pretrain-{stage}", PP.pretrain, cfg, n_layers, saved)
+            runs[f"pretrain-{stage}"] = out.pop("launches")
+            del out
+        for stage in PT.STAGE_TRAINABLE:
+            saved = stage in FULL_SAVED
+            cfg = PT.TrainConfig(stage=stage, pretrained_checkpoint="random:7b",
+                                 data_root_dir=Path("dummy"), dataset_name="libero_dummy",
+                                 robot_platform="libero", batch_size=FULL_BATCH,
+                                 max_steps=FULL_STEPS, save_interval=FULL_STEPS,
+                                 run_root_dir=Path(root))
+            out = full_stage(card, f"train-{stage}", PT.train, cfg, n_layers, saved)
+            runs[f"train-{stage}"] = out.pop("launches")
+            if stage == "vla-full-train":
+                state = out.pop("state")
+                state.optimizer = None          # the moments' 30 GB, for the two gradients
+                gc.collect()
+                torch.cuda.empty_cache()
+                full_parity(state, PT.model_config("random:7b"), card)
+                del state
+            del out
+        # The full-LLM stages' checkpoint, from the flagship cut to a
+        # FULL_SAVE_CUT_LAYERS-layer LLM (registered here, under its own id).
+        flagship = PT.model_config("random:7b")
+        C._LLM_REGISTRY[CUT_LLM_ID] = dataclasses.replace(flagship.llm,
+                                                          num_layers=FULL_SAVE_CUT_LAYERS)
+        cut = dataclasses.replace(flagship, llm_backbone_id=CUT_LLM_ID)
+        cfg = PT.TrainConfig(stage="vla-full-train", pretrained_checkpoint="random:7b",
+                             data_root_dir=Path("dummy"), dataset_name="libero_dummy",
+                             robot_platform="libero", batch_size=FULL_BATCH,
+                             max_steps=FULL_STEPS, save_interval=FULL_STEPS,
+                             run_root_dir=Path(root), run_id="cut")
+        with patched(PT, "model_config", lambda ckpt: cut):
+            out = full_stage(card, f"train-vla-full-train-{FULL_SAVE_CUT_LAYERS}-layers",
+                             PT.train, cfg, FULL_SAVE_CUT_LAYERS, True)
+        runs["train-vla-full-train-cut"] = out.pop("launches")
+        del out
+        runs["generate"] = generate_phase(jpegs, root, card)
+    finally:
+        C._LLM_REGISTRY.pop(CUT_LLM_ID, None)
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[full-train] phase 15 took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return runs
+
+
 def _detached(node):
     if isinstance(node, dict):
         return {k: _detached(v) for k, v in node.items()}
@@ -3797,6 +4195,7 @@ def main() -> int:
     qlora = qlora_phase(card, n_layers, train_info["peak"])
     remat = remat_phase(card, n_layers)
     phase14 = [run for name, run in qlora.items() if name != "int4 times"] + list(remat.values())
+    full = full_training_phase(card, n_layers)
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -3816,12 +4215,13 @@ def main() -> int:
                    + sum(run["K1"] for run in discrete.values())
                    + sum(run["K1"] for run in checkpoint.values()) + train_launches["K1"]
                    + sum(run["K1"] for run in objectives.values()) + episodes["K1"]
-                   + sum(run["K1"] for run in phase14))
+                   + sum(run["K1"] for run in phase14)
+                   + sum(run["K1"] for run in full.values()))
     # K2 and K3 launch in the training runs: phase 10, phase 11b's three,
     # the runs from phase 8e's checkpoint dir (11b (d), 14 (d), (e)), phase
     # 13's and phase 14's.
     bwd_runs = [train_launches, checkpoint["checkpoint training"], *objectives.values(),
-                episodes, *phase14,
+                episodes, *phase14, *full.values(),
                 *(checkpoint[k] for k in ("run-management", "resume", "preempt",
                                           "preempt-resume"))]
     k2_launches = sum(run["K2"] for run in bwd_runs)
@@ -3917,6 +4317,9 @@ def main() -> int:
     log(f"[run-management] launches of phase 14's runs from the dir: " + ", ".join(
         f"{name} {checkpoint[name]}" for name in ("run-management", "resume", "preempt",
                                                   "preempt-resume")))
+    log(f"[full-train] launches of phase 15's runs (3 steps each; generate.py's one "
+        f"prompt): " + ", ".join(
+            f"{name} {run}" for name, run in full.items()))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

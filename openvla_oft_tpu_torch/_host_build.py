@@ -1,7 +1,8 @@
 """Build the port's host (CPU) library and load it through ctypes.
 
 `hostsrc/*.cc` (the baseline JPEG decoder, the frame augmentation and the
-CRC-32C of the training data path) compile with the host's C++ compiler
+CRC-32C of the training data path, and the collator's and the action
+tokenizer's loops) compile with the host's C++ compiler
 (`$CXX`, else `g++`) into ONE shared library with a plain C interface,
 `_build/host-<hash>/libopenvla_host.so`, keyed by a hash of the sources and
 flags: a rebuild happens only when they change. There is no fallback: a
@@ -82,8 +83,8 @@ def library() -> ctypes.CDLL:
     fn = lib.openvla_jpeg_info                   # data n height width err err_len
     fn.argtypes = [p, i64, ctypes.POINTER(i), ctypes.POINTER(i), ctypes.c_char_p, i]
     fn.restype = i
-    fn = lib.openvla_jpeg_decode                 # data n out out_len err err_len
-    fn.argtypes = [p, i64, p, i64, ctypes.c_char_p, i]
+    fn = lib.openvla_jpeg_decode                 # data n out out_len islow err err_len
+    fn.argtypes = [p, i64, p, i64, i, ctypes.c_char_p, i]
     fn.restype = i
     f = ctypes.c_float
     fn = lib.openvla_augment_image               # img h w oy ox ch cw, 4 draws,
@@ -93,4 +94,19 @@ def library() -> ctypes.CDLL:
     fn = lib.openvla_crc32c                      # data n crc
     fn.argtypes = [p, i64, ctypes.c_uint32]
     fn.restype = ctypes.c_uint32
+    fn = lib.openvla_pad_stack_i32               # flat lengths n target fill out
+    fn.argtypes = [p, p, i, i, ctypes.c_int32, p]
+    fn.restype = i
+    fn = lib.openvla_attention_mask_i32          # lengths n target out
+    fn.argtypes = [p, i, i, p]
+    fn.restype = None
+    fn = lib.openvla_encode_actions_i32          # actions n bins min max vocab out
+    fn.argtypes = [p, i64, i, f, f, i, p]
+    fn.restype = None
+    fn = lib.openvla_decode_actions_f32          # ids n bins min max vocab out
+    fn.argtypes = [p, i64, i, f, f, i, p]
+    fn.restype = None
+    fn = lib.openvla_normalize_image_f32         # img pixels mean std out
+    fn.argtypes = [p, i64, p, p, p]
+    fn.restype = None
     return lib

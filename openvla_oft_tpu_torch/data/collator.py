@@ -1,5 +1,6 @@
 """Batch collation with fixed-shape padding (the port's copy of
-`openvla_oft_tpu/data/collator.py`, with NumPy in place of its native pad/stack).
+`openvla_oft_tpu/data/collator.py`, its pad/stack and attention mask in the
+host library, `utils/native.py`).
 
 Reference `PaddedCollatorForActionPrediction`
 (`prismatic/util/data_utils.py:96-156`): right-pad input_ids with pad_token_id
@@ -19,7 +20,8 @@ from openvla_oft_tpu_torch.constants import IGNORE_INDEX
 
 
 def _pad_stack(seqs, target: int, fill: int) -> np.ndarray:
-    """Variable-length int sequences -> (n, target) int32, right-padded."""
+    """Variable-length int sequences -> (n, target) int32, right-padded: the
+    plain version the tests hold `utils/native.py::pad_stack` to."""
     out = np.full((len(seqs), target), fill, np.int32)
     for i, s in enumerate(seqs):
         out[i, :len(s)] = s
@@ -42,12 +44,12 @@ class PaddedCollatorForActionPrediction:
         if max(lens) > target:
             raise ValueError(f"sequence length {max(lens)} exceeds bucket {target}")
 
-        # NumPy pad/stack: the same arrays as the JAX package's native
-        # library (`openvla_oft_tpu/utils/native.py`, ROADMAP queue 1).
-        input_ids = _pad_stack([e["input_ids"] for e in examples], target,
-                               self.pad_token_id)
-        labels = _pad_stack([e["labels"] for e in examples], target, IGNORE_INDEX)
-        attn = (np.arange(target)[None, :] < np.asarray(lens)[:, None]).astype(np.int32)
+        from openvla_oft_tpu_torch.utils import native
+
+        input_ids = native.pad_stack([e["input_ids"] for e in examples], target,
+                                     self.pad_token_id)
+        labels = native.pad_stack([e["labels"] for e in examples], target, IGNORE_INDEX)
+        attn = native.attention_mask(lens, target)
 
         batch = {
             "input_ids": input_ids,

@@ -1,11 +1,15 @@
 // Baseline JPEG decoder: what libjpeg(-turbo) gives under
 // `tf.io.decode_jpeg(data, channels=3)` (the IFAST inverse DCT, fancy
-// upsampling), for the host side of the training data path.
+// upsampling) or, with the ISLOW inverse DCT, under PIL's
+// `Image.open(...).convert("RGB")`, for the host side of the data paths.
 //
 // The integer stages are those of `processing/jpeg.py`, each a copy of the
 // libjpeg source it names there:
-//   dequantize   jddctmgr.c  the IFAST multipliers (q * aanscale + 2^11) >> 12
-//   inverse_dct  jidctfst.c  jpeg_idct_ifast, (x >> 5) + 128 saturated
+//   dequantize   jddctmgr.c  the IFAST multipliers (q * aanscale + 2^11) >> 12,
+//                            or the table itself (ISLOW)
+//   inverse_dct  jidctfst.c  jpeg_idct_ifast, (x >> 5) + 128 saturated; or
+//                jidctint.c  jpeg_idct_islow in 64-bit sums, DESCALE by 11
+//                            then 18 bits, + 128 saturated
 //   upsample     jdsample.c  h2v2_fancy_upsample (h2v2_upsample below 3 columns)
 //   ycbcr_to_rgb jdcolor.c   ycc_rgb_convert; a grey plane is replicated
 // and the byte stream is jdmarker.c's and jdhuff.c's: SOI, APPn and COM
@@ -161,9 +165,70 @@ void inverse_dct(int32_t* blk, uint8_t* out, int stride) {
   }
 }
 
+// jdct.h DESCALE: a right shift that rounds half up.
+inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
+
+// jidctint.c, one pass of the LL&M butterfly over 8 values at stride `s`,
+// each output DESCALEd by `n` bits.
+inline void islow_1d(int64_t* t, int s, int n) {
+  int64_t c0 = t[0], c1 = t[s], c2 = t[2 * s], c3 = t[3 * s];
+  int64_t c4 = t[4 * s], c5 = t[5 * s], c6 = t[6 * s], c7 = t[7 * s];
+  int64_t z1 = (c2 + c6) * 4433;            // FIX_0_541196100
+  int64_t tmp2 = z1 + c6 * -15137;          // FIX_1_847759065
+  int64_t tmp3 = z1 + c2 * 6270;            // FIX_0_765366865
+  int64_t tmp0 = (c0 + c4) * 8192, tmp1 = (c0 - c4) * 8192;  // << CONST_BITS
+  int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  tmp0 = c7;  // odd part
+  tmp1 = c5;
+  tmp2 = c3;
+  tmp3 = c1;
+  z1 = tmp0 + tmp3;
+  int64_t z2 = tmp1 + tmp2, z3 = tmp0 + tmp2, z4 = tmp1 + tmp3;
+  int64_t z5 = (z3 + z4) * 9633;            // FIX_1_175875602
+  tmp0 *= 2446;                             // FIX_0_298631336
+  tmp1 *= 16819;                            // FIX_2_053119869
+  tmp2 *= 25172;                            // FIX_3_072711026
+  tmp3 *= 12299;                            // FIX_1_501321110
+  z1 *= -7373;                              // FIX_0_899976223
+  z2 *= -20995;                             // FIX_2_562915447
+  z3 = z3 * -16069 + z5;                    // FIX_1_961570560
+  z4 = z4 * -3196 + z5;                     // FIX_0_390180644
+  tmp0 += z1 + z3;
+  tmp1 += z2 + z4;
+  tmp2 += z2 + z3;
+  tmp3 += z1 + z4;
+  t[0] = descale(tmp10 + tmp3, n);
+  t[7 * s] = descale(tmp10 - tmp3, n);
+  t[s] = descale(tmp11 + tmp2, n);
+  t[6 * s] = descale(tmp11 - tmp2, n);
+  t[2 * s] = descale(tmp12 + tmp1, n);
+  t[5 * s] = descale(tmp12 - tmp1, n);
+  t[3 * s] = descale(tmp13 + tmp0, n);
+  t[4 * s] = descale(tmp13 - tmp0, n);
+}
+
+inline uint8_t clamp255_64(int64_t x) {
+  return static_cast<uint8_t>(x < 0 ? 0 : x > 255 ? 255 : x);
+}
+
+// As inverse_dct, by jpeg_idct_islow: columns (DESCALE by CONST_BITS -
+// PASS1_BITS = 11), then rows (by CONST_BITS + PASS1_BITS + 3 = 18), + 128.
+void inverse_dct_islow(const int32_t* blk, uint8_t* out, int stride) {
+  int64_t w[64];
+  for (int i = 0; i < 64; ++i) w[i] = blk[i];
+  for (int col = 0; col < 8; ++col) islow_1d(w + col, 8, 11);
+  for (int row = 0; row < 8; ++row) {
+    int64_t* r = w + 8 * row;
+    islow_1d(r, 1, 18);
+    for (int c = 0; c < 8; ++c) out[row * stride + c] = clamp255_64(r[c] + 128);
+  }
+}
+
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t n) : d_(data), n_(n) {}
+  Decoder(const uint8_t* data, size_t n, bool islow = false)
+      : d_(data), n_(n), islow_(islow) {}
 
   // Parses the markers up to the first SOF (the frame header).
   void header() {
@@ -311,9 +376,12 @@ class Decoder {
       if (tq > 3) throw Error{"bad DQT table id"};
       for (int k = 0; k < 64; ++k) {
         int q = (pq >> 4) ? word() : byte();
-        // jddctmgr.c keeps the IFAST multiplier in an IFAST_MULT_TYPE (short)
-        int32_t mult = static_cast<int16_t>((static_cast<int64_t>(q) * kAanScales[kNatural[k]] +
-                                             (1 << 11)) >> 12);
+        // jddctmgr.c keeps the multiplier in a short (IFAST_MULT_TYPE,
+        // ISLOW_MULT_TYPE): the ISLOW one is the table entry itself.
+        int32_t mult = islow_ ? static_cast<int16_t>(q)
+                              : static_cast<int16_t>((static_cast<int64_t>(q) *
+                                                          kAanScales[kNatural[k]] +
+                                                      (1 << 11)) >> 12);
         mult_[tq][kNatural[k]] = mult;
       }
       qdef_[tq] = true;
@@ -428,7 +496,10 @@ class Decoder {
             decode_block(bits, *c, blk);
             size_t row = size_t(my * bv + by) * 8, col = size_t(mx * bh + bx) * 8;
             int stride = c->blocks_w * 8;
-            inverse_dct(blk, c->plane.data() + row * stride + col, stride);
+            if (islow_)
+              inverse_dct_islow(blk, c->plane.data() + row * stride + col, stride);
+            else
+              inverse_dct(blk, c->plane.data() + row * stride + col, stride);
           }
         }
       }
@@ -535,6 +606,7 @@ class Decoder {
 
   const uint8_t* d_;
   size_t n_, pos_ = 0;
+  bool islow_ = false;
   bool frame_ = false;
   int hmax_ = 1, vmax_ = 1, mcus_x_ = 0, mcus_y_ = 0;
   int restart_interval_ = 0, adobe_transform_ = -1;
@@ -569,15 +641,16 @@ int openvla_jpeg_info(const uint8_t* data, int64_t n, int* height, int* width, c
   return -1;
 }
 
-// Decodes into `out`, uint8 (height, width, 3) RGB of `out_len` bytes.
-// 0 on success, else -1 with a message in `err`.
-int openvla_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_len, char* err,
-                        int err_len) {
+// Decodes into `out`, uint8 (height, width, 3) RGB of `out_len` bytes, by
+// the IFAST inverse DCT (TF's), or the ISLOW one (PIL's) where `islow` is
+// not 0. 0 on success, else -1 with a message in `err`.
+int openvla_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_len, int islow,
+                        char* err, int err_len) {
   try {
     Decoder d(data, static_cast<size_t>(n));
     d.header();
     if (int64_t(d.height) * d.width * 3 != out_len) throw Error{"output buffer of the wrong size"};
-    Decoder full(data, static_cast<size_t>(n));
+    Decoder full(data, static_cast<size_t>(n), islow != 0);
     full.decode(out);
     return 0;
   } catch (const Error& e) {

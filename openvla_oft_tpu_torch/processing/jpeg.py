@@ -16,6 +16,8 @@ frames' own device; each cites the libjpeg source it follows:
     quantize           jcdctmgr.c  quantize (divisor 8 q, rounded)
     dequantize         jddctmgr.c  the IFAST multipliers
     inverse_dct        jidctfst.c  jpeg_idct_ifast
+    inverse_dct_islow  jidctint.c  jpeg_idct_islow (PIL's decode; the JPEG
+                                   decoder's `idct="islow"`, not the round trip)
     upsample_h2v2      jdsample.c  h2v2_fancy_upsample, h2v2_upsample
     ycbcr_to_rgb       jdcolor.c   ycc_rgb_convert
 
@@ -270,6 +272,55 @@ def inverse_dct(coef: torch.Tensor) -> torch.Tensor:
     |x >> 5| <= 512)."""
     x = _idct_1d(_idct_1d(coef.transpose(-1, -2)).transpose(-1, -2))
     return ((x >> (_PASS1_BITS + 3)) + 128).clamp_(0, 255)
+
+
+def _islow_1d(t: torch.Tensor, n: int) -> torch.Tensor:
+    """One pass of jpeg_idct_islow along the last axis (LL&M), each output
+    DESCALEd by n bits."""
+    c0, c1, c2, c3, c4, c5, c6, c7 = t.unbind(-1)
+    z1 = (c2 + c6) * 4433                                     # FIX_0_541196100
+    tmp2 = z1 + c6 * -15137                                   # FIX_1_847759065
+    tmp3 = z1 + c2 * 6270                                     # FIX_0_765366865
+    tmp0 = (c0 + c4) << _FDCT_CONST_BITS
+    tmp1 = (c0 - c4) << _FDCT_CONST_BITS
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    tmp0, tmp1, tmp2, tmp3 = c7, c5, c3, c1                   # odd part
+    z1, z2 = tmp0 + tmp3, tmp1 + tmp2
+    z3, z4 = tmp0 + tmp2, tmp1 + tmp3
+    z5 = (z3 + z4) * 9633                                     # FIX_1_175875602
+    tmp0 = tmp0 * 2446                                        # FIX_0_298631336
+    tmp1 = tmp1 * 16819                                       # FIX_2_053119869
+    tmp2 = tmp2 * 25172                                       # FIX_3_072711026
+    tmp3 = tmp3 * 12299                                       # FIX_1_501321110
+    z1 = z1 * -7373                                           # FIX_0_899976223
+    z2 = z2 * -20995                                          # FIX_2_562915447
+    z3 = z3 * -16069 + z5                                     # FIX_1_961570560
+    z4 = z4 * -3196 + z5                                      # FIX_0_390180644
+    tmp0, tmp1 = tmp0 + z1 + z3, tmp1 + z2 + z4
+    tmp2, tmp3 = tmp2 + z2 + z3, tmp3 + z1 + z4
+    return torch.stack([_descale(v, n) for v in (
+        tmp10 + tmp3, tmp11 + tmp2, tmp12 + tmp1, tmp13 + tmp0,
+        tmp13 - tmp0, tmp12 - tmp1, tmp11 - tmp2, tmp10 - tmp3)], -1)
+
+
+def islow_multipliers(table: np.ndarray) -> np.ndarray:
+    """jddctmgr.c (JDCT_ISLOW): the table itself, kept in an
+    ISLOW_MULT_TYPE (short: a 16-bit DQT entry above 32767 wraps)."""
+    return np.asarray(table).astype(np.int16).astype(np.int64)
+
+
+def inverse_dct_islow(coef: torch.Tensor) -> torch.Tensor:
+    """jidctint.c: dequantized (..., 8, 8) -> samples in [0, 255], int32:
+    columns then rows in int64 (libjpeg's JLONG), the first pass DESCALEd
+    by CONST_BITS - PASS1_BITS, the second by CONST_BITS + PASS1_BITS + 3,
+    then + 128 clamped (the SIMD decoder saturates; the C range-limit
+    table agrees for in-range data). The shortcuts for all-zero AC
+    columns and rows give the same values, so they are not taken."""
+    x = coef.to(torch.int64)
+    x = _islow_1d(x.transpose(-1, -2), _FDCT_CONST_BITS - _PASS1_BITS).transpose(-1, -2)
+    x = _islow_1d(x, _FDCT_CONST_BITS + _PASS1_BITS + 3)
+    return (x + 128).clamp_(0, 255).to(_I32)
 
 
 def upsample_h2v2(plane: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""Baseline JPEG decoding as `tf.io.decode_jpeg(data, channels=3)` does it.
+"""Baseline JPEG decoding as `tf.io.decode_jpeg(data, channels=3)` or PIL does it.
 
 TF decodes with libjpeg-turbo: the IFAST inverse DCT (its default
 `dct_method`), fancy upsampling, then RGB; a grey image is replicated to 3
-channels. Two decoders give that, bit for bit:
+channels. PIL (`Image.open(...).convert("RGB")`) takes the same stages with
+the ISLOW inverse DCT (`jidctint.c`), which the caller asks for with
+`idct="islow"`; the default stays IFAST. Two decoders give either, bit for
+bit:
 
   decode_jpeg        the host library's (`hostsrc/jpeg_decode.cc`, built by
                      `_host_build.py`): the training loader's, called from a
@@ -48,16 +51,27 @@ def jpeg_size(data: bytes) -> Tuple[int, int]:
     return h.value, w.value
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> uint8 (H, W, 3) RGB, by the host library."""
+IDCTS = ("ifast", "islow")
+
+
+def _check_idct(idct: str) -> None:
+    if idct not in IDCTS:
+        raise ValueError(f"idct {idct!r}: use 'ifast' (TF's decode) or 'islow' (PIL's)")
+
+
+def decode_jpeg(data: bytes, idct: str = "ifast") -> np.ndarray:
+    """JPEG bytes -> uint8 (H, W, 3) RGB, by the host library. idct:
+    "ifast" gives `tf.io.decode_jpeg`'s pixels, "islow" PIL's
+    (`Image.open(...).convert("RGB")`)."""
     from openvla_oft_tpu_torch._host_build import library
 
+    _check_idct(idct)
     data = bytes(data)
     h, w = jpeg_size(data)
     out = np.empty((h, w, 3), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
-    _check(library().openvla_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, err,
-                                         _ERR_LEN), err)
+    _check(library().openvla_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes,
+                                         int(idct == "islow"), err, _ERR_LEN), err)
     return out
 
 
@@ -317,18 +331,23 @@ def _scan(d: bytes, start: int, sc, frame, restart: int) -> int:
     return end
 
 
-def _plane(coef: np.ndarray, table: np.ndarray) -> torch.Tensor:
+def _plane(coef: np.ndarray, table: np.ndarray, idct: str) -> torch.Tensor:
     """Quantized (bh, bw, 64) -> samples (1, 8 bh, 8 bw), int32."""
     bh, bw, _ = coef.shape
+    blocks = torch.from_numpy(coef).reshape(1, bh, bw, 8, 8)
+    if idct == "islow":
+        return J.from_blocks(J.inverse_dct_islow(
+            blocks.long() * torch.from_numpy(J.islow_multipliers(table))))
     # jddctmgr.c keeps the IFAST multiplier in a short (a 16-bit DQT can wrap)
     mult = J.ifast_multipliers(table).astype(np.int16).astype(np.int32)
-    blocks = torch.from_numpy(coef).reshape(1, bh, bw, 8, 8) * torch.from_numpy(mult)
-    return J.from_blocks(J.inverse_dct(blocks))
+    return J.from_blocks(J.inverse_dct(blocks * torch.from_numpy(mult)))
 
 
-def decode_jpeg_plain(data: bytes) -> np.ndarray:
+def decode_jpeg_plain(data: bytes, idct: str = "ifast") -> np.ndarray:
     """JPEG bytes -> uint8 (H, W, 3) RGB: the byte stream in Python, the
-    sample stages in `processing/jpeg.py`'s torch int32 ops."""
+    sample stages in `processing/jpeg.py`'s torch integer ops; `idct` as
+    `decode_jpeg`'s."""
+    _check_idct(idct)
     p = _parse(bytes(data))
     h, w = p["size"]
     planes = []
@@ -336,7 +355,7 @@ def decode_jpeg_plain(data: bytes) -> np.ndarray:
         if c["tq"] not in p["tables"]:
             raise ValueError("JPEG decode failed: a component uses an undefined "
                              "quantization table")
-        planes.append(_plane(c["coef"], p["tables"][c["tq"]]))
+        planes.append(_plane(c["coef"], p["tables"][c["tq"]], idct))
     if len(planes) == 1:
         y = planes[0][0, :h, :w]
         return y[..., None].expand(h, w, 3).to(torch.uint8).numpy().copy()

@@ -79,6 +79,12 @@ class FakeLlamaTokenizer:
             ids.append(EMPTY_TOKEN_ID)
         return {"input_ids": ids, "attention_mask": [1] * len(ids)}
 
+    def decode(self, ids, **kw) -> str:
+        """Each id as `<id>`, space-separated (the JAX stand-in's decode)."""
+        import numpy as np
+
+        return " ".join(f"<{i}>" for i in np.atleast_1d(np.asarray(ids)))
+
 
 class PrismaticProcessor:
     """A tokenizer (the stand-in by default) and the training image

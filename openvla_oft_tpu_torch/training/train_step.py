@@ -13,12 +13,21 @@ Port of `openvla_oft_tpu/training/train_step.py` (reference
 The base VLA is frozen (requires_grad=False); the trainables are
 {lora, action_head, proprio_projector, noisy_action_projector, film}, as far
 as the model has them. LoRA enters merge-free
-(`training/lora.py::inject_lora`), so the base is never copied. The
-optimizer is torch AdamW with the JAX chain's semantics: optional global-norm
-clipping (optax `clip_by_global_norm`), the warmup + step-decay schedule
-evaluated at the count of applied updates (optax's count; `LambdaLR` starts
-at lr(0)), and gradient accumulation that averages `grad_accumulation_steps`
-micro-batch gradients before one update (`optax.MultiSteps`).
+(`training/lora.py::inject_lora`), so the base is never copied. Full-parameter
+training (`scripts/train.py`, `scripts/pretrain.py`) makes whole `llm`,
+`vision_backbone` or `projector` subtrees trainable, or `llm_last_layer`: the
+last slice of every stacked layer leaf with `embed` and `lm_head`, which the
+merged tree reads in place of the stack's slice L-1 without a copy of the
+stack (`LastSliceOverride`).
+
+The optimizer has the JAX chain's semantics: optional global-norm clipping
+(optax `clip_by_global_norm`), the warmup + step-decay schedule evaluated at
+the count of applied updates (optax's count; `LambdaLR` starts at lr(0)),
+gradient accumulation that averages `grad_accumulation_steps` micro-batch
+gradients before one update (`optax.MultiSteps`), and AdamW: torch's for
+fp32 trainables, and for bf16 ones (the full-parameter stages, which JAX
+trains in bf16 with bf16 moments) optax's own op order in bf16
+(`Bf16AdamW`), a leaf or a layer slice at a time.
 
 Unlike the JAX step, which returns a new state, `train_step` updates the
 trainables and the optimizer state in place and returns the same state. The
@@ -31,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from openvla_oft_tpu_torch.config import OpenVLAConfig
@@ -84,19 +94,100 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def _f32_pow(x: float, n: int) -> np.float32:
+    """x ** n in fp32 by repeated squaring: what XLA computes for optax's
+    `decay ** count` (a weak float to an int32 power)."""
+    base, acc = np.float32(x), np.float32(1.0)
+    while n:
+        if n & 1:
+            acc = np.float32(acc * base)
+        base = np.float32(base * base)
+        n >>= 1
+    return acc
+
+
+class Bf16AdamW:
+    """`optax.adamw(lr_schedule, b1=0.9, b2=0.999, eps=1e-8, weight_decay)`
+    on bf16 leaves with bf16 moments, op for op as optax writes it, each op
+    rounded to bf16 and every Python constant taken as a bf16 value (JAX's
+    weak types):
+        mu = (1 - b1) g + b1 mu            nu = (1 - b2) g^2 + b2 nu
+        u  = (mu / c1) / (sqrt(nu / c2) + eps),  c = bf16(fp32(1 - b ** count))
+        u  = u + wd p;  p = p + bf16(-lr(count)) u
+    Stacked (L, ...) leaves update one layer slice at a time, so the
+    temporaries stay one slice large."""
+
+    def __init__(self, cfg: TrainConfig, params: List[torch.Tensor]):
+        self.params = params
+        self.weight_decay = cfg.weight_decay
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.count = 0          # updates applied (optax's count)
+
+    @staticmethod
+    def _slices(t: torch.Tensor):
+        return t.unbind(0) if t.ndim >= 3 else (t,)
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor], lr: float) -> None:
+        device = self.params[0].device
+
+        def bf16(x) -> torch.Tensor:
+            # Rounded on the host, filled on the device: no blocking copy, so
+            # the host queues the update while the backward still runs.
+            value = torch.tensor(float(x), dtype=torch.float32).to(torch.bfloat16).item()
+            return torch.full((), value, dtype=torch.bfloat16, device=device)
+
+        count = self.count + 1
+        b1, c1 = bf16(0.9), bf16(1 - 0.9)
+        b2, c2 = bf16(0.999), bf16(1 - 0.999)
+        bc1 = bf16(np.float32(1) - _f32_pow(0.9, count))
+        bc2 = bf16(np.float32(1) - _f32_pow(0.999, count))
+        eps, wd, neg_lr = bf16(1e-8), bf16(self.weight_decay), bf16(np.float32(-lr))
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            for ps, gs, ms, ns in zip(*map(self._slices, (p, g.to(p.dtype), mu, nu))):
+                ms.mul_(b1).add_(gs * c1)
+                ns.mul_(b2).add_((gs * gs) * c2)
+                u = (ms / bc1).div_((ns / bc2).sqrt_().add_(eps))
+                if self.weight_decay:
+                    u.add_(ps * wd)
+                ps.add_(u.mul_(neg_lr))
+        self.count = count
+
+    def state_dict(self) -> dict:
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        with torch.no_grad():
+            for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+                dst.copy_(src)
+        self.count = state["count"]
+
+
 class Optimizer:
     """The JAX chain `MultiSteps(chain(clip_by_global_norm, adamw))` over a
-    fixed list of fp32 trainable tensors."""
+    fixed list of trainable tensors: torch AdamW for the fp32 ones,
+    `Bf16AdamW` for the bf16 ones."""
 
     def __init__(self, cfg: TrainConfig, params: List[torch.Tensor]):
         self.cfg = cfg
         self.params = params
-        schedule = lr_schedule(cfg)
-        self.adamw = torch.optim.AdamW(params, lr=cfg.learning_rate,
-                                       betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=cfg.weight_decay)
-        self.scheduler = torch.optim.lr_scheduler.LambdaLR(
-            self.adamw, lambda count: schedule(count) / cfg.learning_rate)
+        self.schedule = schedule = lr_schedule(cfg)
+        other = {p.dtype for p in params} - {torch.float32, torch.bfloat16}
+        if other:
+            raise TypeError(f"trainables of dtype {sorted(map(str, other))}: the optimizer "
+                            "takes fp32 and bf16 leaves")
+        self.fp32 = [i for i, p in enumerate(params) if p.dtype == torch.float32]
+        self.bf16 = [i for i, p in enumerate(params) if p.dtype == torch.bfloat16]
+        self.adamw = self.scheduler = self.low = None
+        if self.fp32:
+            self.adamw = torch.optim.AdamW([params[i] for i in self.fp32], lr=cfg.learning_rate,
+                                           betas=(0.9, 0.999), eps=1e-8,
+                                           weight_decay=cfg.weight_decay)
+            self.scheduler = torch.optim.lr_scheduler.LambdaLR(
+                self.adamw, lambda count: schedule(count) / cfg.learning_rate)
+        if self.bf16:
+            self.low = Bf16AdamW(cfg, [params[i] for i in self.bf16])
         self.micro = 0
         self.accum: Optional[List[torch.Tensor]] = None
 
@@ -118,21 +209,30 @@ class Optimizer:
             norm = global_norm(grads)
             if norm >= self.cfg.max_grad_norm:
                 grads = [g / norm * self.cfg.max_grad_norm for g in grads]
-        for p, g in zip(self.params, grads):
-            p.grad = g.to(p.dtype)
-        self.adamw.step()
-        self.scheduler.step()
-        self.adamw.zero_grad(set_to_none=True)
+        if self.low is not None:
+            self.low.step([grads[i] for i in self.bf16], self.schedule(self.low.count))
+        if self.adamw is not None:
+            for i in self.fp32:
+                self.params[i].grad = grads[i].to(self.params[i].dtype)
+            self.adamw.step()
+            self.scheduler.step()
+            self.adamw.zero_grad(set_to_none=True)
         return True
 
     def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(),
-                "scheduler": self.scheduler.state_dict(),
-                "micro": self.micro, "accum": self.accum}
+        state = {"adamw": None, "scheduler": None, "micro": self.micro, "accum": self.accum}
+        if self.adamw is not None:
+            state.update(adamw=self.adamw.state_dict(), scheduler=self.scheduler.state_dict())
+        if self.low is not None:
+            state["bf16_adamw"] = self.low.state_dict()
+        return state
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
-        self.scheduler.load_state_dict(state["scheduler"])
+        if self.adamw is not None:
+            self.adamw.load_state_dict(state["adamw"])
+            self.scheduler.load_state_dict(state["scheduler"])
+        if self.low is not None:
+            self.low.load_state_dict(state["bf16_adamw"])
         self.micro, self.accum = state["micro"], state["accum"]
 
 
@@ -163,17 +263,73 @@ def create_train_state(base_params: Params, trainables: Params, cfg: TrainConfig
     return TrainState(base_params, trainables, make_optimizer(cfg, trainables), generator)
 
 
-_SHADOWED = ("proprio_projector", "noisy_action_projector", "film")
+_SHADOWED = ("llm", "vision_backbone", "projector", "proprio_projector",
+             "noisy_action_projector", "film")
+
+
+class LastSliceOverride:
+    """A stacked (L, ...) leaf whose slice L-1 is another tensor: the merged
+    tree's view of a layer stack under the `llm_last_layer` trainables.
+    Indexing it (`bridge.index_layer`) gives the stack's slice, or `last` at
+    L-1, so the trainable slice takes the gradient and the stack is neither
+    copied nor written."""
+
+    def __init__(self, stack: torch.Tensor, last: torch.Tensor):
+        if tuple(last.shape) != tuple(stack.shape[1:]):
+            raise ValueError(f"last slice {tuple(last.shape)} does not fit the stack "
+                             f"{tuple(stack.shape)}")
+        self.stack, self.last = stack, last.to(stack.dtype)
+
+    @property
+    def shape(self):
+        return self.stack.shape
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.last if i in (-1, self.stack.shape[0] - 1) else self.stack[i]
+
+
+def _override_last(stack, last):
+    if isinstance(stack, dict):
+        return {k: _override_last(v, last[k]) for k, v in stack.items()}
+    return LastSliceOverride(stack, last)
+
+
+def last_layer_trainables(llm: Params) -> Params:
+    """The `llm_last_layer` trainables of an LLM tree (reference
+    last_layer_finetune_modules = (embed_tokens, layers[-1], lm_head),
+    llm/llama2.py:101-102): copies of the last slice of every stacked layer
+    leaf, of `embed` and of `lm_head`, so that the base stays as it is."""
+    def copy(tree):
+        return {k: copy(v) for k, v in tree.items()} if isinstance(tree, dict) \
+            else tree.detach().clone()
+
+    def last(tree):
+        return {k: last(v) for k, v in tree.items()} if isinstance(tree, dict) \
+            else tree[-1].detach().clone()
+
+    out = {"layers": last(llm["layers"]), "embed": copy(llm["embed"])}
+    if "lm_head" in llm:
+        out["lm_head"] = copy(llm["lm_head"])
+    return out
 
 
 def _merged_params(base: Params, trainables: Params, cfg: TrainConfig) -> Params:
-    """The base with LoRA injected, and the trainable projectors and FiLM
-    projectors in their places."""
+    """The base with LoRA injected, and the trainable subtrees in their
+    places: whole modules shadow the base's, and `llm_last_layer` supplies
+    the stack's slice L-1, `embed` and `lm_head` (JAX `_merged_params`)."""
     params = inject_lora(base, trainables["lora"], cfg.lora_rank, cfg.lora_alpha) \
         if "lora" in trainables else dict(base)
     for k in _SHADOWED:
         if k in trainables:
             params[k] = trainables[k]
+    if "llm_last_layer" in trainables:
+        t = trainables["llm_last_layer"]
+        llm = dict(params["llm"])
+        llm["layers"] = _override_last(llm["layers"], t["layers"])
+        llm["embed"] = t["embed"]
+        if "lm_head" in llm and "lm_head" in t:
+            llm["lm_head"] = t["lm_head"]
+        params["llm"] = llm
     return params
 
 

@@ -1433,3 +1433,69 @@ def test_remat_policies_match_all_on_card(cuda):
     for policy in ("dots", "attn_out", "none"):
         for a, b in zip(out[policy], out["all"]):
             assert torch.equal(a, b), policy
+
+
+@pytest.mark.parametrize("stage", ["vla-full-train", "vla-last-layer-train", "align"])
+def test_full_parameter_step_flash_matches_dense(cuda, stage):
+    """A full-parameter stage (`scripts/train.py`, `scripts/pretrain.py`) at
+    the small width: the discrete loss through K1/K2/K3 and through the
+    dense path on the same bf16 weights and batch within 1e-2 relative, K1
+    2 x layers, K2 and K3 a layer each, every trainable group's gradient
+    cosine >= 0.99; then one `train_step` (bf16 AdamW with bf16 moments)
+    moves every group and leaves every frozen leaf bitwise."""
+    import dataclasses
+
+    from openvla_oft_tpu_torch.bridge import init_params, tree_leaves
+    from openvla_oft_tpu_torch.constants import LIBERO
+    from openvla_oft_tpu_torch.data.collator import PaddedCollatorForActionPrediction
+    from openvla_oft_tpu_torch.data.datasets import DummyDataset, RLDSBatchTransform
+    from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
+    from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
+    from openvla_oft_tpu_torch.scripts import pretrain as PP
+    from openvla_oft_tpu_torch.scripts import train as PT
+    from openvla_oft_tpu_torch.training import train_step as TT
+
+    cfg = dataclasses.replace(_tiny_cfg(), num_images_in_input=1)
+    full = init_params(cfg, LIBERO, torch.Generator(device=cuda).manual_seed(0), device=cuda,
+                       dtype=torch.bfloat16, head_dtype=torch.float32, head="discrete")
+    table = {**PT.STAGE_TRAINABLE, **PP.STAGE_TRAINABLE}
+    base, trainables = PT.split_stage(full, table[stage])
+    data = DummyDataset(RLDSBatchTransform(PrismaticProcessor(cfg), ActionTokenizer(), LIBERO),
+                        image_size=cfg.vision_configs[0].image_size, num_samples=2)
+    batch = PaddedCollatorForActionPrediction(pad_token_id=cfg.pad_token_id)(list(data))
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()
+             if isinstance(v, np.ndarray)}
+    tcfg = TT.TrainConfig(objective="discrete", learning_rate=1e-3, use_proprio=False)
+    n = cfg.llm.num_layers
+    leaves = tree_leaves(trainables)
+    loss, grads = {}, {}
+    for use_flash in (True, False):
+        before = _launch_counts()
+        value, _ = TT.loss_and_metrics(trainables, base, batch, cfg, LIBERO, tcfg,
+                                       use_flash=use_flash)
+        grads[use_flash] = torch.autograd.grad(value, leaves)
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(_launch_counts(), before)]
+        assert launched == ([2 * n, n, n] if use_flash else [0, 0, 0])
+        loss[use_flash] = value.item()
+    assert np.isfinite(loss[True])
+    assert abs(loss[True] - loss[False]) <= 1e-2 * abs(loss[False])
+    start = 0
+    for group in trainables.values():
+        stop = start + len(tree_leaves(group))
+        flat = [torch.cat([g.float().flatten() for g in grads[f][start:stop]])
+                for f in (True, False)]
+        assert _cosine(*flat) >= 0.99
+        start = stop
+    frozen = [t.clone() for t in tree_leaves(base)]
+    first = [t.detach().clone() for t in leaves]
+    state = TT.create_train_state(base, trainables, tcfg)
+    state, m = TT.train_step(state, batch, cfg, LIBERO, tcfg)
+    assert np.isfinite(m["loss"].item())
+    for a, b in zip(frozen, tree_leaves(state.base_params)):
+        assert torch.equal(a, b)
+    start = 0
+    for group in trainables.values():
+        stop = start + len(tree_leaves(group))
+        assert any(not torch.equal(a, b) for a, b in zip(first[start:stop], leaves[start:stop]))
+        start = stop

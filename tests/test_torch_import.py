@@ -91,7 +91,9 @@ _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "ut
                 "data.rlds.augment", "data.rlds.goal_task_aug", "data.rlds.oxe.configs",
                 "data.rlds.oxe.transforms", "data.rlds.oxe.droid_utils",
                 "data.rlds.oxe.materialize", "data.rlds.oxe.mixtures", "data.npz_dataset",
-                "data.prefetch", "_host_build")
+                "data.prefetch", "_host_build", "utils.overwatch", "utils.native",
+                "data.batching", "data.vlm_datasets", "models.registry", "scripts.train",
+                "scripts.pretrain", "scripts.generate", "scripts.build_instruct_mixtures")
 
 
 def test_every_module_imports_without_jax():
@@ -121,13 +123,15 @@ def test_no_jax_import_in_the_source():
 
 
 def test_host_library_sources_are_the_ports_own():
-    """The host library (the JPEG decoder, augmentation and CRC-32C of the data path) is
-    built from sources under the port's own directory, nothing else: not
-    the JAX package's `native/` sources."""
+    """The host library (the JPEG decoder, augmentation and CRC-32C of the data path,
+    and the collator's and tokenizer's loops) is built from sources under
+    the port's own directory, nothing else: not the JAX package's `native/`
+    sources."""
     from openvla_oft_tpu_torch import _host_build as H
 
     sources = H.sources()
-    assert {p.name for p in sources} == {"augment.cc", "crc32c.cc", "jpeg_decode.cc"}
+    assert {p.name for p in sources} == {"augment.cc", "crc32c.cc", "data_ops.cc",
+                                         "jpeg_decode.cc"}
     for path in sources:
         assert not path.is_symlink() and path.resolve().is_relative_to(PKG / "hostsrc")
         assert "#include \"" not in path.read_text()      # no header from elsewhere

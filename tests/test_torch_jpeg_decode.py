@@ -14,6 +14,12 @@ against `tf.io.decode_jpeg(data, channels=3)`, bit for bit.
 - Live cases against TF: random sizes, contents and qualities.
 - Refusals: progressive (SOF2), arithmetic-coded (SOF9), 12-bit and 4:2:2
   streams raise naming what they are, and so does corrupt data.
+- The ISLOW inverse DCT (`idct="islow"`), PIL's decode: both decoders
+  against `Image.open(...).convert("RGB")` bit for bit on every entry of
+  `tests/goldens/jpeg_decode_pil.npz` (PIL's bytes and pixels: 4:2:0, 4:4:4
+  and grey at qualities 50, 75 and 95, an odd size, restart markers, and
+  two 224-pixel frames that `chip_smoke.py` trains on), and on frames drawn
+  by hypothesis. The default stays IFAST, whose cases above keep their bits.
 """
 
 import io
@@ -27,6 +33,7 @@ from openvla_oft_tpu_torch.processing.jpeg_decode import (decode_jpeg, decode_jp
                                                           jpeg_size)
 
 GOLDEN = Path(__file__).parent / "goldens" / "jpeg_decode_tf.npz"
+PIL_GOLDEN = Path(__file__).parent / "goldens" / "jpeg_decode_pil.npz"
 
 
 def scene(h: int, w: int, seed: int, noise: float = 4.0) -> np.ndarray:
@@ -80,8 +87,31 @@ def golden_cases():
     return cases
 
 
-def load_golden():
-    with np.load(GOLDEN) as z:
+def pil_golden_cases():
+    """(name, JPEG bytes) of the ISLOW golden, made by PIL from seeded frames."""
+    from PIL import Image
+
+    def pil(a, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(a).save(buf, format="JPEG", **kw)
+        return buf.getvalue()
+
+    small = scene(48, 64, seed=3, noise=20.0)
+    cases = []
+    for q in (50, 75, 95):
+        cases += [(f"q{q}_420_48x64", pil(small, quality=q)),
+                  (f"q{q}_444_48x64", pil(small, quality=q, subsampling=0)),
+                  (f"q{q}_grey_48x64", pil(small[..., 2], quality=q))]
+    cases.append(("q90_420_37x53", pil(scene(37, 53, seed=4, noise=20.0), quality=90)))
+    cases.append(("q90_restart_48x96", pil(scene(48, 96, seed=5, noise=20.0), quality=90,
+                                           restart_marker_blocks=3)))
+    cases += [(f"llava_q95_224_{i}", pil(scene(224, 224 - 32 * i, seed=30 + i), quality=95))
+              for i in range(2)]
+    return cases
+
+
+def load_golden(path=GOLDEN):
+    with np.load(path) as z:
         names = [str(n) for n in z["names"]]
         return [(n, z[f"data_{i}"].tobytes(), z[f"pixels_{i}"]) for i, n in enumerate(names)]
 
@@ -115,6 +145,56 @@ def test_golden_bitwise(decoder):
         got = decoder(data)
         assert got.dtype == np.uint8 and got.shape == pixels.shape, name
         np.testing.assert_array_equal(got, pixels, err_msg=name)
+
+
+def test_pil_golden_is_unchanged_when_rebuilt():
+    Image = pytest.importorskip("PIL.Image")
+    entries = [(n, d, np.asarray(Image.open(io.BytesIO(d)).convert("RGB")))
+               for n, d in pil_golden_cases()]
+    if os.environ.get("REGEN_GOLDENS"):
+        arrays = {"names": np.array([n for n, _, _ in entries])}
+        for i, (_, d, px) in enumerate(entries):
+            arrays[f"data_{i}"] = np.frombuffer(d, np.uint8)
+            arrays[f"pixels_{i}"] = px
+        np.savez_compressed(PIL_GOLDEN, **arrays)
+    stored = load_golden(PIL_GOLDEN)
+    assert [n for n, _, _ in stored] == [n for n, _, _ in entries]
+    for (name, d, px), (_, d0, px0) in zip(entries, stored):
+        assert d == d0, name
+        np.testing.assert_array_equal(px, px0, err_msg=name)
+    assert PIL_GOLDEN.stat().st_size < 400_000
+
+
+@pytest.mark.parametrize("decoder", [decode_jpeg, decode_jpeg_plain],
+                         ids=["host_library", "plain"])
+def test_pil_golden_bitwise_islow(decoder):
+    entries = load_golden(PIL_GOLDEN)
+    assert len(entries) == 13
+    for name, data, pixels in entries:
+        got = decoder(data, idct="islow")
+        assert got.dtype == np.uint8 and got.shape == pixels.shape, name
+        np.testing.assert_array_equal(got, pixels, err_msg=name)
+    # IFAST (the default) is another decode: it differs on these frames
+    assert any(not np.array_equal(decoder(d), px) for _, d, px in entries)
+
+
+def test_pil_golden_covers_the_layouts():
+    entries = {n: d for n, d, _ in load_golden(PIL_GOLDEN)}
+    sof = lambda d: d[d.index(b"\xff\xc0") + 9:][:10]            # noqa: E731
+    for q in (50, 75, 95):
+        assert sof(entries[f"q{q}_420_48x64"])[2] == 0x22
+        assert sof(entries[f"q{q}_444_48x64"])[2] == 0x11
+        assert sof(entries[f"q{q}_grey_48x64"])[0] == 1
+    assert b"\xff\xdd" in entries["q90_restart_48x96"]
+    assert jpeg_size(entries["q90_420_37x53"]) == (37, 53)
+    assert jpeg_size(entries["llava_q95_224_1"]) == (224, 192)
+
+
+def test_unknown_idct_raises():
+    data = load_golden(PIL_GOLDEN)[0][1]
+    for decoder in (decode_jpeg, decode_jpeg_plain):
+        with pytest.raises(ValueError, match="idct"):
+            decoder(data, idct="float")
 
 
 def test_golden_covers_the_layouts():
@@ -214,3 +294,26 @@ def test_threads_decode_in_parallel_and_agree():
         got = list(pool.map(decode_jpeg, datas))
     for (name, _, pixels), out in zip(entries * 4, got):
         np.testing.assert_array_equal(out, pixels, err_msg=name)
+
+
+@pytest.mark.parametrize("subsampling", [2, 0, "grey"])
+def test_islow_against_pil_drawn(pil, subsampling):
+    """Frames, sizes and qualities drawn by hypothesis, both decoders with
+    `idct="islow"` against PIL's decode bit for bit."""
+    from hypothesis import HealthCheck, given, settings, strategies as st
+
+    @settings(max_examples=12, deadline=None, derandomize=True,
+              suppress_health_check=list(HealthCheck))
+    @given(h=st.integers(1, 70), w=st.integers(1, 70), quality=st.integers(5, 100),
+           seed=st.integers(0, 2 ** 16), smooth=st.booleans())
+    def check(h, w, quality, seed, smooth):
+        rng = np.random.default_rng(seed)
+        a = (scene(h, w, seed) if smooth and min(h, w) > 20 else
+             rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        data = (_pil_jpeg(pil, a[..., 0], quality=quality) if subsampling == "grey" else
+                _pil_jpeg(pil, a, quality=quality, subsampling=subsampling))
+        want = np.asarray(pil.open(io.BytesIO(data)).convert("RGB"))
+        np.testing.assert_array_equal(decode_jpeg(data, idct="islow"), want)
+        np.testing.assert_array_equal(decode_jpeg_plain(data, idct="islow"), want)
+
+    check()
