@@ -582,8 +582,6 @@ def finetune(cfg: TorchFinetuneConfig,
                     torch.cuda.synchronize(device)
                 m["step_time"] = time.perf_counter() - t0
                 m["data_time"] = t0 - t_wait
-                if not np.isfinite(m["loss"]):
-                    raise FloatingPointError(f"non-finite loss at micro-step {micro}: {m}")
                 metrics.commit(**{k: v for k, v in m.items()
                                   if k not in ("step_time", "data_time")})
                 at_boundary = (micro + 1) % g == 0
