@@ -204,10 +204,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      beside phase 10's, val_loss finite, peak memory, the run dir's
      statistics the pipeline's; one step traced fed by the prefetcher, with
      its idle share; (f) the dataset removed.
- 14. (after 13) the rest of the fine-tuning CLI: (a) QLoRA int8 (B=8, remat
+ 14. (after 13; this phase and the next run random:7b with its Llama cut to
+     8 of 32 layers, every width kept: `cut_flagship`) the rest of the
+     fine-tuning CLI: (a) QLoRA int8 (B=8, remat
      "all", 3 steps): the int8 products a step against the count from the
-     widths (the forward's and its recompute's), K1/K2/K3 as phase 10, the
-     step times, the peak beside phase 10's, and one loss and backward
+     widths (the forward's and its recompute's), K1/K2/K3 twice and once
+     the layers a step, the step times, the peak beside phase 10's, and one loss and backward
      against the plain int8 product (float64) within phase 12's bounds; (b)
      QLoRA int4 at B=1 (K5 in every int4 linear, counted alike) against
      `int4_matmul_ref`, then B=8 (the dequant path, 2 steps), K5 at the
@@ -224,25 +226,52 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      micro-step: a checkpoint at 3, final_step 3, the handler restored, a
      resumed run to step 6.
  15. (after 14) full-parameter training and VLM pretraining, each run at
-     random:7b's full width and depth, B=8, 3 steps, through the scripts'
-     entry points: (a) both JPEG decoders with the ISLOW inverse DCT bitwise
+     random:7b's full width (the Llama at 8 layers), B=8, 3 steps, through
+     the scripts' entry points: (a) both JPEG decoders with the ISLOW inverse DCT bitwise
      PIL's pixels on every entry of `tests/goldens/jpeg_decode_pil.npz`;
      (b), (c) `scripts/pretrain.py` align and finetune on a LLaVA JSON of
      32 records whose images are the two JPEG goldens' bytes (seq_bucket
      128: S = 384); (d) `scripts/train.py`'s four stages on dummy LIBERO
-     data. Each run: K1 64, K2 32, K3 32 a step, the step times, the peak,
-     the optimizer's share of a step, every trainable group moved (the
-     share of sampled entries that changed), every frozen leaf bitwise its
-     value before the first step; align, finetune (the trainables, 13.8
-     GB), vla-sandwich-train and vla-last-layer-train save and restore
-     bitwise at full depth; vla-train and vla-full-train save nothing
-     there (vla-full-train's 45.6 GB took 55 s to write, and checking it
-     passed the machine's 96 GiB of host memory), and vla-full-train saves
-     and restores at 2 layers; (e) vla-full-train's
+     data. Each run: K1 16, K2 8, K3 8 a step (twice and once the 8
+     layers), the step times, the peak, the optimizer's share of a step,
+     every trainable group moved (the share of sampled entries that
+     changed), every frozen leaf bitwise its value before the first step,
+     its checkpoint saved and restored bitwise; (e) vla-full-train's
      loss and backward through K1/K2/K3 against the dense path (phase 12's
      bounds, the cosine over all trainables and per group); (f)
      `scripts/generate.py` at random:7b with the stand-in tokenizer: one
      prompt on its input stream, 8 new tokens, K1 32 in the prefill.
+ 16. (after 15) Phi-2 as the VLA's LLM and the TFDS-format data path: the
+     `phi-2+3b` model (CLIP ViT-L/14 at 336 px, Phi-2, 3.09 B parameters)
+     at full width and depth, seeded bf16 weights drawn on the card
+     (`bridge.init_params`), LIBERO's geometry (2 images, bucket 48, S =
+     1,258): (a) the L1 head through `predict_action_from_frames` with
+     `vit_fused` off and on (K4 46 a request at CLIP's qkv and fc1, which
+     phase 3 checks at those shapes; no K1: Phi-2 takes the dense
+     attention), the K4 path against the unfused one (cosine >= 0.99); the
+     diffusion head, 50 DDIM steps through the full-prefill route (50
+     `predict_action_hidden` calls a chunk, no prefix K/V); the discrete
+     head; the AR decode at 1 image, 7 tokens, its cached logits against a
+     no-cache forward (cosine >= 0.999, argmax equal); the L1 head with
+     `load_in_4bit` (all 6 x 32 LLM linears int4): one request at 2 images
+     (S = 1,258, above FUSED_MAX_ROWS: the dequant path, no K5) and one at
+     1 image (S = 682: K5 192 a request), the K5 path against the plain
+     one (cosine >= 0.99), then K5 against int4_matmul_ref at Phi-2's wq,
+     fc1 and fc2 at those rows and at T = 1; each with its times, peak and
+     a traced request's idle share; (b) the tree written as an HF
+     Phi checkpoint dir (6.2 GB in 2 GB shards, a 51,200-piece
+     `tokenizer.model`), loaded bitwise equal; 3 LoRA L1 steps of the
+     fine-tuning CLI from the dir at B = 8 (LoRA on wq/wk/wv/wo only, the
+     frozen base bitwise the dir's), one traced; `scripts/pretrain.py
+     --stage align` from the dir (3 steps, phase 15's LLaVA JSON, saved and
+     restored bitwise); `scripts/generate.py` on the dir (the Phi prompt
+     builder, 8 tokens); (c) two TFDS-layout datasets in raw LIBERO's
+     features (`libero_spatial_no_noops`, `libero_object_no_noops`),
+     converted by `data/rlds/tfds_format.py::convert_tfds_to_native`, mixed
+     0.7 / 0.3 by `make_interleaved_iterator` (frames/s alone; each share
+     within 0.05 of its weight over 2,000 frames), then 3 L1 LoRA steps of
+     the CLI at random:7b, B = 8, fed by the mixture: K1 64, K2 32, K3 32 a
+     step.
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
@@ -327,6 +356,10 @@ K4_SHAPES = [
 K4_EXTRA = [("DINOv2 qkv ALOHA, quick_gelu", 783, 1024, 3072, "quick_gelu"),
             ("ragged M=37 N=200", 37, 1024, 200, "gelu"),
             ("DINOv2 fc1 ALOHA, large-mean rows", 783, 1024, 4096, "gelu")]
+# Phase 16's CLIP ViT-L/14 at 336 px (LIBERO: 2 images of 577 tokens, width
+# 1024): qkv with no activation, fc1 with quick-GELU.
+K4_CLIP = [("CLIP-336 qkv LIBERO", 1154, 1024, 3072, None),
+           ("CLIP-336 fc1 LIBERO", 1154, 1024, 4096, "quick_gelu")]
 # K4_EXTRA cases drawn with rows of mean / std about 20 and high-norm tokens.
 K4_LARGE_MEAN = ("DINOv2 fc1 ALOHA, large-mean rows",)
 # H100 SXM (NVIDIA's data sheet): dense bf16 and int8 tensor-core peaks, HBM3 rate.
@@ -538,13 +571,23 @@ def kernel_check(card: str, s_train: int) -> dict:
     return results
 
 
-def k1_parts_phase(card: str) -> dict:
+def start_parts_builds(pool) -> dict:
+    """The parts scripts' builds (each one nvcc of its own source) started
+    in `pool`, beside the kernels' build: {script module: future}."""
+    from openvla_oft_tpu_torch.scripts import exp_fwd_parts, exp_k4_parts
+
+    return {m: pool.submit(m.build_parts) for m in (exp_k4_parts, exp_fwd_parts)}
+
+
+def k1_parts_phase(card: str, built) -> dict:
     """The script exp_fwd_parts: K1's variants at S = 618, 1168 and the
-    training batch, and the sweep over masks (it prints its own lines)."""
+    training batch, and the sweep over masks (it prints its own lines), on
+    its library built by `start_parts_builds`."""
     from openvla_oft_tpu_torch.scripts import exp_fwd_parts
 
     t0 = time.perf_counter()
-    out = exp_fwd_parts.main([])
+    with patched(exp_fwd_parts, "build_parts", built.result):
+        out = exp_fwd_parts.main([])
     for name, err in out["variants"]["max_abs_err"].items():
         if not err <= MAX_ABS_O:
             raise AssertionError(f"K1's parts build disagrees with its reference at {name}: {err}")
@@ -568,7 +611,7 @@ def ln_matmul_check(card: str) -> dict:
     dev = torch.device("cuda")
     flush = l2_flush_buffer(dev)
     results = {}
-    for name, m, d, n, act in K4_SHAPES + K4_EXTRA:
+    for name, m, d, n, act in K4_SHAPES + K4_EXTRA + K4_CLIP:
         x, w, b = operands(m, d, n, seed=m + d + n, large_mean=name in K4_LARGE_MEAN)
         y = VF.ln_matmul(x, w, b, act)
         torch.cuda.synchronize()
@@ -614,13 +657,15 @@ def ln_matmul_check(card: str) -> dict:
     return results
 
 
-def k4_parts_phase(card: str) -> dict:
+def k4_parts_phase(card: str, built) -> dict:
     """The script exp_k4_parts: K4's variants at DINOv2 fc1 ALOHA, then every
-    compiled tile at the 8 ViT shapes (it prints its own lines)."""
+    compiled tile at the 8 ViT shapes (it prints its own lines), on its
+    library built by `start_parts_builds`."""
     from openvla_oft_tpu_torch.scripts import exp_k4_parts
 
     t0 = time.perf_counter()
-    out = exp_k4_parts.main([])
+    with patched(exp_k4_parts, "build_parts", built.result):
+        out = exp_k4_parts.main([])
     for name, err in out["variants"]["rel_err"].items():
         if not err <= K4_REL:
             raise AssertionError(f"K4's {name} variant disagrees with its reference: {err}")
@@ -2813,7 +2858,7 @@ def profile_request(policy, obs, label: str, card: str, request=None, runs: int 
     return busy, by_class
 
 
-def profile_step(state, card: str) -> dict:
+def profile_step(state, card: str, flags=TRAIN_FLAGS, label: str = "train_step at B=8") -> dict:
     """The CLI's train_step on its final state and first batch: 3 steps
     timed without the profiler, then one traced with torch.profiler (device
     activity only). The idle share of the traced step is 1 - (union of kernel
@@ -2822,7 +2867,7 @@ def profile_step(state, card: str) -> dict:
     (median untraced step) estimates the idle share of an untraced step."""
     from openvla_oft_tpu_torch.training.train_step import train_step
 
-    model_cfg, platform, tcfg, batch = training_setup()
+    model_cfg, platform, tcfg, batch = training_setup(flags)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
     def step():
@@ -2831,10 +2876,10 @@ def profile_step(state, card: str) -> dict:
     untraced = [timed(step) for _ in range(3)]
     wall, n, busy, by_class = trace(step)
     if busy is None:
-        log(f"[profile] train_step at B=8: untraced {', '.join(f'{t:.1f}' for t in untraced)} "
+        log(f"[profile] {label}: untraced {', '.join(f'{t:.1f}' for t in untraced)} "
             f"ms; device time not measured ({card})")
         return {"untraced_ms": untraced, "traced_ms": wall, "busy_ms": None}
-    log(f"[profile] train_step at B=8: untraced {', '.join(f'{t:.1f}' for t in untraced)} ms;"
+    log(f"[profile] {label}: untraced {', '.join(f'{t:.1f}' for t in untraced)} ms;"
         f" traced {wall:.1f} ms with {n} kernels and {busy:.1f} ms of device time"
         f" (union of kernel intervals); idle share of the traced step "
         f"{1 - busy / wall:.3f}; estimate for the untraced steps "
@@ -2843,7 +2888,7 @@ def profile_step(state, card: str) -> dict:
     log_classes("profile", by_class)
     k1 = by_class.get("K1", (0.0, 0))[0]
     k23 = sum(by_class.get(c, (0.0, 0))[0] for c in ("K2", "K3"))
-    log(f"[profile] train_step at B=8: K1 {k1:.1f} ms = {k1 / busy:.3f} and K2 + K3 {k23:.1f} "
+    log(f"[profile] {label}: K1 {k1:.1f} ms = {k1 / busy:.3f} and K2 + K3 {k23:.1f} "
         f"ms = {k23 / busy:.3f} of the device time ({card})")
     return {"untraced_ms": untraced, "traced_ms": wall, "busy_ms": busy, "k1_ms": k1,
             "k23_ms": k23}
@@ -3254,6 +3299,39 @@ TRAIN_INT4_SHAPES = [("wq wk wv wo", 4096, 4096), ("gate up", 4096, 11008),
                      ("down", 11008, 4096)]
 
 
+# Phases 14 and 15 run random:7b with its Llama cut to CUT_LAYERS of its 32
+# layers, every width kept (registered as CUT_LLM_ID): their checks (the
+# counts a step, bitwise restores and policies, parity, moved shares) do not
+# depend on the depth, and the whole run must end within its time limit.
+CUT_LAYERS = 8
+CUT_LLM_ID = f"llama2-7b-pure-{CUT_LAYERS}-layers"
+
+
+@contextlib.contextmanager
+def cut_flagship():
+    """The fine-tuning CLI's, train.py's and pretrain.py's `random:7b` model
+    with its Llama cut to CUT_LAYERS layers inside the block."""
+    import openvla_oft_tpu_torch.config as C
+    from openvla_oft_tpu_torch.scripts import pretrain as PP
+    from openvla_oft_tpu_torch.scripts import train as PT
+    from openvla_oft_tpu_torch.training import finetune as FT
+
+    def cut(cfg):
+        return dataclasses.replace(cfg, llm_backbone_id=CUT_LLM_ID) \
+            if cfg.llm_backbone_id == "llama2-7b-pure" else cfg
+
+    C._LLM_REGISTRY[CUT_LLM_ID] = dataclasses.replace(C._LLM_REGISTRY["llama2-7b-pure"],
+                                                      num_layers=CUT_LAYERS)
+    ft_config, pt_config = FT.model_config, PT.model_config
+    try:
+        with patched(FT, "model_config", lambda cfg: cut(ft_config(cfg))), \
+                patched(PT, "model_config", lambda ckpt: cut(pt_config(ckpt))), \
+                patched(PP, "model_config", lambda ckpt: cut(pt_config(ckpt))):
+            yield
+    finally:
+        C._LLM_REGISTRY.pop(CUT_LLM_ID, None)
+
+
 @contextlib.contextmanager
 def patched(module, name: str, value):
     """module.name = value inside the block (the plain path of a parity check)."""
@@ -3328,14 +3406,15 @@ def path_vs_plain(state, flags, label: str, plain, card: str) -> None:
         raise AssertionError(f"{label}: the card's path disagrees with the plain one")
 
 
-def int4_training_times(card: str, b1_step_s: float, b8_step_s: float) -> dict:
+def int4_training_times(card: str, b1_step_s: float, b8_step_s: float,
+                        layers: int) -> dict:
     """K5 at the LLM's training shapes (T = 585, B = 1) beside torch.matmul
     on the bf16 weight (device times, L2 flushed), and at B = 8 (T = 4,680)
     the dequant product that the int4 linears take (`int4_matmul_ref`: an
     fp32 product of bf16 values) beside `torch.mm(..., out_dtype=float32)`
     on bf16 operands (CUDA events), with the share of the B = 8 step that
-    32 layers x 3 passes of the former come to (the forward, its recompute
-    and the product of the backward)."""
+    `layers` layers x 3 passes of the former come to (the forward, its
+    recompute and the product of the backward)."""
     from openvla_oft_tpu_torch.ops import int4_matmul as M
     from openvla_oft_tpu_torch.ops.quant import dequantize_int4, quantize_weight_int4
 
@@ -3369,10 +3448,9 @@ def int4_training_times(card: str, b1_step_s: float, b8_step_s: float) -> dict:
             f"int4_matmul_ref {ref:.4f} ms, torch.mm(bf16, bf16, out_dtype=float32) "
             f"{'n/a' if mm is None else f'{mm:.4f}'} ms (CUDA events, L2 flushed) ({card})")
         del q, packed, scales, w16, x, x8
-    layers = 32
     share = 3 * layers * per_layer_ref / 1e3 / b8_step_s
     log(f"[qlora-int4] the LLM's dequant products at B = 8: {3 * layers * per_layer_ref:.1f} "
-        f"ms a step (32 layers x 3 passes), {share:.3f} of the median B = 8 step "
+        f"ms a step ({layers} layers x 3 passes), {share:.3f} of the median B = 8 step "
         f"({b8_step_s:.3f} s); with torch.mm(out_dtype=float32) "
         f"{3 * layers * per_layer_mm:.1f} ms; the B = 1 step {b1_step_s:.3f} s ({card})")
     del flush
@@ -3428,7 +3506,7 @@ def qlora_phase(card: str, n_layers: int, bf16_peak: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     runs["int4 times"] = int4_training_times(card, float(np.median(info1["step_times"][1:])),
-                                             float(np.median(info8["step_times"])))
+                                             float(np.median(info8["step_times"])), n_layers)
     log(f"[qlora] phase 14 (a), (b) took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return runs
 
@@ -3718,20 +3796,30 @@ def run_management(ckpt: str, card: str, rng, n_layers: int) -> dict:
 
 
 # === Phase 15: full-parameter training and VLM pretraining (PR 20) ===
-# The scripts' runs at random:7b, full width and depth: pretrain.py's align
-# and finetune on a LLaVA JSON whose images are the JPEG goldens' bytes,
-# train.py's four stages on dummy LIBERO data; B = 8, 3 steps each.
+# The scripts' runs at random:7b's full width, its Llama cut to CUT_LAYERS
+# (`cut_flagship`): pretrain.py's align and finetune on a LLaVA JSON whose
+# images are the JPEG goldens' bytes, train.py's four stages on dummy
+# LIBERO data; B = 8, 3 steps each, each saved and restored bitwise.
 FULL_BATCH, FULL_STEPS = 8, 3
-# Stages saved and restored bitwise at full depth. vla-full-train's file
-# (7.53 B trainables and two bf16 moments, 45.6 GB) took 55 s to write, and
-# its check passed the machine's 96 GiB of host memory (the pinned snapshot's
-# blocks stay cached): the stages that train the LLM with the optimizer's
-# moments save from a 2-layer LLM instead.
-FULL_SAVED = ("align", "finetune", "vla-sandwich-train", "vla-last-layer-train")
-FULL_SAVE_CUT_LAYERS = 2
-CUT_LLM_ID = f"llama2-7b-pure-{FULL_SAVE_CUT_LAYERS}-layers"
 LLAVA_RECORDS = 32
 PROMPT = "What is on the table?"
+
+
+def golden_entries() -> list:
+    """The JPEG goldens' (name, bytes, pixels): PIL's ISLOW golden, then TF's."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+    entries = []
+    for name in ("jpeg_decode_pil.npz", "jpeg_decode_tf.npz"):
+        with np.load(os.path.join(root, name)) as z:
+            entries.append([(str(n), z[f"data_{i}"].tobytes(), z[f"pixels_{i}"])
+                            for i, n in enumerate(z["names"])])
+    return entries
+
+
+def golden_jpegs(entries=None) -> list:
+    """(name, bytes) of every golden JPEG at least 16 pixels a side."""
+    return [(n, d) for part in entries or golden_entries() for n, d, px in part
+            if min(px.shape[:2]) >= 16]
 
 
 def islow_check(card: str) -> list:
@@ -3739,12 +3827,7 @@ def islow_check(card: str) -> list:
     on the ISLOW golden. Returns the JPEG bytes of both goldens."""
     from openvla_oft_tpu_torch.processing.jpeg_decode import decode_jpeg, decode_jpeg_plain
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
-    entries = []
-    for name in ("jpeg_decode_pil.npz", "jpeg_decode_tf.npz"):
-        with np.load(os.path.join(root, name)) as z:
-            entries.append([(str(n), z[f"data_{i}"].tobytes(), z[f"pixels_{i}"])
-                            for i, n in enumerate(z["names"])])
+    entries = golden_entries()
     t0 = time.perf_counter()
     for name, data, pixels in entries[0]:
         for label, decoder in (("host library", decode_jpeg), ("plain", decode_jpeg_plain)):
@@ -3754,7 +3837,7 @@ def islow_check(card: str) -> list:
     log(f"[islow] JPEG decoders, host library and plain, idct=islow bitwise equal to PIL "
         f"on all {len(entries[0])} entries of jpeg_decode_pil.npz "
         f"({', '.join(n for n, _, _ in entries[0])}) in {time.perf_counter() - t0:.1f} s")
-    return [(n, d) for part in entries for n, d, px in part if min(px.shape[:2]) >= 16]
+    return golden_jpegs(entries)
 
 
 def llava_json(jpegs: list, root: str) -> tuple:
@@ -3817,18 +3900,16 @@ def _equal_on_host(a, b, path="") -> int:
     return 0
 
 
-def full_stage(card: str, label: str, run, cfg, n_layers: int, saved: bool) -> dict:
+def full_stage(card: str, label: str, run, cfg, n_layers: int) -> dict:
     """One run of `run` (scripts/train.py's `train` or pretrain.py's
     `pretrain`) with `cfg`: launches K1 2 x n_layers, K2 and K3 n_layers a
     step and nothing else; step times; the peak (the build's and the first
     step's, then the later steps'); the optimizer's time a step (CUDA events
     recorded around its update, which add no synchronize); every group's sampled share of
     entries that moved (> 0); every frozen leaf bitwise its value before
-    the first step (host copies); with `saved`, the checkpoint restored
-    bitwise equal to the trained state, else its saves replaced by nothing.
-    Returns launches, times, peaks and the state."""
+    the first step (host copies); the checkpoint restored bitwise equal to
+    the trained state. Returns launches, times, peaks and the state."""
     from openvla_oft_tpu_torch.bridge import tree_leaves
-    from openvla_oft_tpu_torch.training import checkpoint as CK
     from openvla_oft_tpu_torch.training import train_step as TT
 
     expect = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers, "K4": 0, "K5": 0, "K6": 0,
@@ -3878,10 +3959,7 @@ def full_stage(card: str, label: str, run, cfg, n_layers: int, saved: bool) -> d
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(patched(TT.Optimizer, "update", timed_update))
-        if not saved:
-            stack.enter_context(patched(CK, "save_checkpoint", lambda *a, **k: None))
+    with patched(TT.Optimizer, "update", timed_update):
         out = run(cfg, on_step=on_step, on_start=on_start)
     total = time.perf_counter() - t0
     launches = launch_counts()
@@ -3901,8 +3979,8 @@ def full_stage(card: str, label: str, run, cfg, n_layers: int, saved: bool) -> d
         changed = sum(int((_sample(t) != seen["first"][p]).sum()) for p, t in paths.items())
         n = sum(seen["first"][p].numel() for p in paths)
         moved[group] = changed / n
-    log(f"[{label}] {out['final_step']} steps in {total:.1f} s (the 7B drawn on the card"
-        f"{', checkpoint written' if saved else ''}); {seen['n_trainable'] / 1e9:.3f} B "
+    log(f"[{label}] {out['final_step']} steps in {total:.1f} s (the model built on the card, "
+        f"checkpoint written); {seen['n_trainable'] / 1e9:.3f} B "
         f"trainable, {seen['n_frozen'] / 1e9:.3f} B frozen (bitwise unchanged, "
         f"{len(seen['frozen'])} leaves); share of sampled entries moved by the 3 updates: "
         + ", ".join(f"{g} {m:.4f}" for g, m in moved.items())
@@ -3915,24 +3993,23 @@ def full_stage(card: str, label: str, run, cfg, n_layers: int, saved: bool) -> d
         f"{launches} ({card})")
     if not all(m > 0 for m in moved.values()):
         raise AssertionError(f"{label}: a trainable group did not move: {moved}")
-    if saved:
-        from openvla_oft_tpu_torch.training.checkpoint import SAVE_LOG
+    from openvla_oft_tpu_torch.training.checkpoint import SAVE_LOG
 
-        rec = SAVE_LOG[-1]
-        log(f"[{label}] save: {rec['bytes'] / 1e9:.2f} GB snapshotted to pinned host memory in "
-            f"{rec['snapshot_s']:.2f} s, written in the background in {rec['write_s']:.2f} s")
-        t1 = time.perf_counter()
-        # Memory-mapped, so the file is read leaf by leaf, not held twice.
-        restored = torch.load(out["ckpt"], map_location="cpu", mmap=True, weights_only=True)
-        n = _equal_on_host(restored["trainables"], state.trainables)
-        if "optimizer" in restored:
-            n += _equal_on_host(restored["optimizer"], state.optimizer.state_dict())
-        log(f"[{label}] checkpoint {out['ckpt']}: {os.path.getsize(out['ckpt']) / 1e9:.2f} GB, "
-            f"restored bitwise equal to the trained state ({n} tensors, optimizer "
-            f"{'included' if 'optimizer' in restored else 'not saved, as in JAX'}) in "
-            f"{time.perf_counter() - t1:.1f} s")
-        del restored
-        shutil.rmtree(out["run_dir"], ignore_errors=True)
+    rec = SAVE_LOG[-1]
+    log(f"[{label}] save: {rec['bytes'] / 1e9:.2f} GB snapshotted to pinned host memory in "
+        f"{rec['snapshot_s']:.2f} s, written in the background in {rec['write_s']:.2f} s")
+    t1 = time.perf_counter()
+    # Memory-mapped, so the file is read leaf by leaf, not held twice.
+    restored = torch.load(out["ckpt"], map_location="cpu", mmap=True, weights_only=True)
+    n = _equal_on_host(restored["trainables"], state.trainables)
+    if "optimizer" in restored:
+        n += _equal_on_host(restored["optimizer"], state.optimizer.state_dict())
+    log(f"[{label}] checkpoint {out['ckpt']}: {os.path.getsize(out['ckpt']) / 1e9:.2f} GB, "
+        f"restored bitwise equal to the trained state ({n} tensors, optimizer "
+        f"{'included' if 'optimizer' in restored else 'not saved, as in JAX'}) in "
+        f"{time.perf_counter() - t1:.1f} s")
+    del restored
+    shutil.rmtree(out["run_dir"], ignore_errors=True)
     return {"launches": launches, "times": seen["times"], "opt": seen["opt"],
             "peak": max(seen["peak0"], step_peak), "state": state}
 
@@ -4025,70 +4102,659 @@ def generate_phase(jpegs: list, root: str, card: str) -> dict:
 
 
 def full_training_phase(card: str, n_layers: int) -> dict:
-    """Phase 15. Returns each run's launches (the parity's, which compare
-    two paths, not counted)."""
-    import openvla_oft_tpu_torch.config as C
+    """Phase 15, inside `cut_flagship`. Returns each run's launches (the
+    parity's, which compare two paths, not counted)."""
     from openvla_oft_tpu_torch.scripts import pretrain as PP
     from openvla_oft_tpu_torch.scripts import train as PT
 
     t_phase = time.perf_counter()
     jpegs = islow_check(card)
-    root = checkpoint_dir(16e9)
+    root = checkpoint_dir(24e9)
     runs = {}
     try:
         js, images = llava_json(jpegs, root)
         for stage in PP.STAGE_TRAINABLE:
-            saved = stage in FULL_SAVED
             cfg = PP.PretrainConfig(stage=stage, pretrained_checkpoint="random:7b",
                                     llava_json=js, image_root=images, batch_size=FULL_BATCH,
                                     max_steps=FULL_STEPS, save_interval=FULL_STEPS,
                                     run_root_dir=Path(root), seq_bucket=128)
             log(f"[pretrain-{stage}] {LLAVA_RECORDS} records, seq_bucket {cfg.seq_bucket}: "
                 f"S = {cfg.seq_bucket} text slots + 256 patches = {cfg.seq_bucket + 256}")
-            out = full_stage(card, f"pretrain-{stage}", PP.pretrain, cfg, n_layers, saved)
+            out = full_stage(card, f"pretrain-{stage}", PP.pretrain, cfg, n_layers)
             runs[f"pretrain-{stage}"] = out.pop("launches")
             del out
         for stage in PT.STAGE_TRAINABLE:
-            saved = stage in FULL_SAVED
             cfg = PT.TrainConfig(stage=stage, pretrained_checkpoint="random:7b",
                                  data_root_dir=Path("dummy"), dataset_name="libero_dummy",
                                  robot_platform="libero", batch_size=FULL_BATCH,
                                  max_steps=FULL_STEPS, save_interval=FULL_STEPS,
                                  run_root_dir=Path(root))
-            out = full_stage(card, f"train-{stage}", PT.train, cfg, n_layers, saved)
+            out = full_stage(card, f"train-{stage}", PT.train, cfg, n_layers)
             runs[f"train-{stage}"] = out.pop("launches")
             if stage == "vla-full-train":
                 state = out.pop("state")
-                state.optimizer = None          # the moments' 30 GB, for the two gradients
+                state.optimizer = None          # the moments, for the two gradients
                 gc.collect()
                 torch.cuda.empty_cache()
                 full_parity(state, PT.model_config("random:7b"), card)
                 del state
             del out
-        # The full-LLM stages' checkpoint, from the flagship cut to a
-        # FULL_SAVE_CUT_LAYERS-layer LLM (registered here, under its own id).
-        flagship = PT.model_config("random:7b")
-        C._LLM_REGISTRY[CUT_LLM_ID] = dataclasses.replace(flagship.llm,
-                                                          num_layers=FULL_SAVE_CUT_LAYERS)
-        cut = dataclasses.replace(flagship, llm_backbone_id=CUT_LLM_ID)
-        cfg = PT.TrainConfig(stage="vla-full-train", pretrained_checkpoint="random:7b",
-                             data_root_dir=Path("dummy"), dataset_name="libero_dummy",
-                             robot_platform="libero", batch_size=FULL_BATCH,
-                             max_steps=FULL_STEPS, save_interval=FULL_STEPS,
-                             run_root_dir=Path(root), run_id="cut")
-        with patched(PT, "model_config", lambda ckpt: cut):
-            out = full_stage(card, f"train-vla-full-train-{FULL_SAVE_CUT_LAYERS}-layers",
-                             PT.train, cfg, FULL_SAVE_CUT_LAYERS, True)
-        runs["train-vla-full-train-cut"] = out.pop("launches")
-        del out
         runs["generate"] = generate_phase(jpegs, root, card)
     finally:
-        C._LLM_REGISTRY.pop(CUT_LLM_ID, None)
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
     log(f"[full-train] phase 15 took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return runs
+
+
+# === Phase 16: Phi-2 as the VLA's LLM; TFDS shards and the mixture ===
+# The `phi-2+3b` registry row's model at full width and depth: CLIP ViT-L/14
+# at 336 px (0.30 B) and Phi-2 (2.78 B with its biased lm_head: 32 layers of
+# 32 x 80 heads, parallel blocks, partial RoPE, always the dense attention),
+# seeded random bf16 weights drawn on the card, at LIBERO's geometry: 2
+# images of 336², the 48-token bucket, the 8 x 7 chunk (S = 48 + 2 x 576 + 1
+# + 57 = 1,258).
+PHI_IDS = ("clip-vit-l-336px", "phi-2-3b")
+PHI_TOKENIZER_PIECES = 51200            # every Phi-2 id decodes
+PHI_SHARD_BYTES = 2 * 10**9
+PHI_PRETRAIN_BUCKET = 128
+# The TFDS datasets of (c): raw LIBERO layout, each EPISODES_PER_SET episodes
+# of the golden's 256 x 256 frames, mixed MIX_WEIGHTS; shares over MIX_FRAMES
+# frames within MIX_SHARE_TOL of the weights.
+MIX_NAMES = ("libero_spatial_no_noops", "libero_object_no_noops")
+MIX_WEIGHTS = (0.7, 0.3)
+MIX_FRAMES, MIX_SHARE_TOL, MIX_SHUFFLE = 2000, 0.05, 2000
+EPISODES_PER_SET = 12
+MIX_FLAGS = TRAIN_FLAGS + ["--image_aug", "True", "--shuffle_buffer_size", str(MIX_SHUFFLE)]
+
+
+# Phase 16 (a)'s int4 linears, (name, K, N): Phi-2's wq, wk, wv, wo and fc1
+# read 2,560 columns (wq stands for the four attention projections), fc2
+# reads 10,240. Every LLM linear is quantized under load_in_4bit (d_in >=
+# QUANT_MIN_DIM); K5 takes those of a request with at most FUSED_MAX_ROWS
+# rows, the dequant path the others.
+PHI_INT4_SHAPES = [("wq", 2560, 2560), ("fc1", 2560, 10240), ("fc2", 10240, 2560)]
+
+
+def phi_config(num_images: int = 2):
+    from openvla_oft_tpu_torch.config import OpenVLAConfig
+
+    return OpenVLAConfig(vision_backbone_id=PHI_IDS[0], llm_backbone_id=PHI_IDS[1],
+                         num_images_in_input=num_images)
+
+
+def phi_params(cfg, platform) -> tuple:
+    """The discrete tree (the LLM with its biased lm_head, the ViT, the
+    projector, the proprio projector), seed 0, and the L1 head (seed 1) and
+    diffusion head with its noisy-action projector (seed 2), bf16, drawn on
+    the card by `bridge.init_params`."""
+    from openvla_oft_tpu_torch.bridge import init_params
+
+    def draw(seed, head, keys=None):
+        return init_params(cfg, platform, torch.Generator(device="cuda").manual_seed(seed),
+                           device="cuda", dtype=torch.bfloat16, head=head, keys=keys)
+
+    return draw(0, "discrete"), {"l1": draw(1, "l1", ("action_head",)),
+                                 "diffusion": draw(2, "diffusion", ("action_head",
+                                                                    "noisy_action_projector"))}
+
+
+def no_launches(**extra) -> dict:
+    return {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "probe": 0, "int8": 0,
+            **extra}
+
+
+def phi_request(policy, request, label: str, expect: dict, card: str, runs: int = 2) -> dict:
+    """`runs` calls of request() counted (each must launch `expect`) and
+    timed, the peak, then one more timed and one traced (`profile_request`).
+    Returns the launches of the counted calls, the output of the last and
+    the number of calls."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    outs, times = [], []
+    for i in range(runs):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        outs.append(request())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per = {k: n - before[k] for k, n in launch_counts().items()}
+        if per != expect:
+            raise AssertionError(f"one {label} request launched {per}, expected {expect}")
+    launches = launch_counts()
+    log(f"[phi] {label}: {runs} requests of {', '.join(f'{t:.1f}' for t in times)} ms (host "
+        f"clock, ends in torch.cuda.synchronize; the first one cold), launches each {expect}, "
+        f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB ({card})")
+    profile_request(policy, None, f"Phi-2 {label}", card, request=request, runs=1)
+    return {"launches": launches, "out": outs[-1], "calls": runs + 2}
+
+
+def phi_ar_parity(params, cfg, platform, card: str) -> None:
+    """The cached decode's logits (`phi_prefill`, then `phi_decode_step` fed
+    the generated tokens) against one no-cache `phi_model` forward over the
+    prefix and the same tokens, cosine >= 0.999, argmax equal."""
+    from openvla_oft_tpu_torch.models import phi as PH
+    from openvla_oft_tpu_torch.models.prismatic import (autoregressive_layout,
+                                                       predict_action_autoregressive)
+
+    llm, dev = params["llm"], params["llm"]["embed"]["embedding"].device
+    ids, mask, pixels = ar_inputs(cfg, dev)
+    n = platform.action_dim
+    with torch.inference_mode():
+        tokens, logits = predict_action_autoregressive(params, cfg, platform, ids, mask, pixels,
+                                                       n, return_logits=True)
+        embeds, positions, key_valid, _ = autoregressive_layout(params, cfg, ids, mask, pixels)
+        s = embeds.shape[1]
+        steps = torch.arange(1, n, device=dev)[None]
+        full = PH.phi_model(
+            llm, cfg.llm, torch.cat([embeds, PH.embed_tokens(llm, tokens[:, :n - 1])
+                                     .to(embeds.dtype)], dim=1),
+            padding_mask=torch.cat([key_valid, torch.ones_like(steps, dtype=torch.bool)], 1),
+            positions=torch.cat([positions, positions[:, -1:] + steps], dim=1))[:, s - 1:]
+        teacher = PH.lm_logits(llm, full)
+    cos = cosine(logits, teacher)
+    same = bool(torch.equal(logits.argmax(-1), teacher.argmax(-1)))
+    log(f"[phi-ar-parity] the cached decode's logits ({n} tokens: the prefill's last row and "
+        f"{n - 1} steps, S = {s}) against the no-cache forward: cosine {cos:.6f}, max|d| "
+        f"{(logits - teacher).abs().max().item():.4e}, argmax equal {same}; tokens "
+        f"{tokens.tolist()[0]} ({card})")
+    if not (cos >= 0.999 and same and torch.isfinite(logits).all()):
+        raise AssertionError("Phi-2's cached decode disagrees with the full forward")
+
+
+def phi_serving(card: str, rng, cfg, platform, params, heads) -> dict:
+    """Phase 16 (a): the L1 head (vit_fused off, then on: K4 2 x 23 a
+    request, the K4 path against the unfused one), the diffusion head (50
+    DDIM steps through the full-prefill route: 50 predict_action_hidden
+    calls, no prefix K/V), the discrete head and the AR decode at 1 image
+    (7 tokens; the cached decode against the full forward). No K1 anywhere:
+    the Phi LLM's attention is the dense path. Returns the launches."""
+    from openvla_oft_tpu_torch import policy as P
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.models.prismatic import predict_action_autoregressive
+    from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats, serving_params
+
+    served = serving_params(dict(params))
+    if served["llm"] is not params["llm"]:
+        raise AssertionError("serving_params changed the Phi-2 tree: fuse_inference_weights "
+                             "must return it unchanged")
+    n_vit = sum(t.numel() for t in tree_leaves(params["vision_backbone"]))
+    n_llm = sum(t.numel() for t in tree_leaves(params["llm"]))
+    log(f"[phi] {PHI_IDS[0]} + {PHI_IDS[1]}: LLM {n_llm / 1e9:.3f} B parameters (lm_head "
+        f"included), ViT {n_vit / 1e9:.3f} B, on the card "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB ({card})")
+
+    def policy_of(head, **kw):
+        tree = dict(served)
+        if head != "discrete":
+            tree.update(heads[head])
+        return P.OpenVLAPolicy(cfg=cfg, platform=platform, params=tree, head=head,
+                               prompt_bucket=48, norm_stats=placeholder_norm_stats(platform),
+                               **kw)
+
+    runs = {}
+    l1 = policy_of("l1")
+    obs = observation(l1, rng)
+    frames = frames_of(l1, obs)
+    k4 = 2 * sum(v.depth - 1 for v in cfg.vision_configs)
+    for fused in (False, True):
+        l1.vit_fused = fused
+        out = phi_request(l1, lambda: l1.predict_action_from_frames(
+            frames, obs["instruction"], proprio=obs["state"]),
+            f"L1 vit_fused={fused}", no_launches(K4=k4 if fused else 0), card)
+        if out["out"].shape != (platform.num_actions_chunk, platform.action_dim) or \
+                not np.isfinite(out["out"]).all():
+            raise AssertionError(f"bad Phi-2 L1 chunk {out['out']}")
+        runs[f"phi L1 vit_fused={fused}"] = out["launches"]
+    l1.vit_fused = False
+    inputs = model_inputs(l1, obs)
+    s = inputs[1].shape[1] + cfg.num_images_in_input * cfg.vision_configs[0].num_patches + 1 \
+        + platform.chunk_len + 1
+    hidden = {fused: actions_hidden(l1, inputs, vit_fused=fused) for fused in (True, False)}
+    cos = cosine(hidden[True], hidden[False])
+    log(f"[phi] S = {s}: actions_hidden cosine(K4 path, unfused path) = {cos:.6f} ({card})")
+    if not cos >= PARITY_COSINE:
+        raise AssertionError(f"Phi-2's K4 path disagrees with the unfused path: {cos}")
+    del l1
+    pixels, proprio = inputs[3][0], np.clip(obs["state"], -1.0, 1.0)
+
+    diff = policy_of("diffusion", num_diffusion_steps=DIFFUSION_STEPS)
+    calls = {"full": 0, "prefix": 0}
+    full_fn, prefix_fn = P.predict_action_hidden, P.build_diffusion_prefix
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    with patched(P, "predict_action_hidden", count("full", full_fn)), \
+            patched(P, "build_diffusion_prefix", count("prefix", prefix_fn)):
+        out = phi_request(diff, lambda: diff.predict_action(pixels, obs["instruction"],
+                                                             proprio=proprio),
+                          f"diffusion ({DIFFUSION_STEPS} DDIM steps, full prefill)",
+                          no_launches(), card)
+    per_request = calls["full"] / out["calls"]
+    log(f"[phi] diffusion: {calls['full']} predict_action_hidden calls in {out['calls']} "
+        f"requests, "
+        f"{calls['prefix']} prefix K/V builds (diffusion_prefix_kv={diff.diffusion_prefix_kv}, "
+        f"split_kv={diff.split_kv})")
+    if calls["prefix"] or per_request != DIFFUSION_STEPS or not np.isfinite(out["out"]).all():
+        raise AssertionError(f"the Phi-2 diffusion chunk did not take the full-prefill route: "
+                             f"{calls}")
+    runs["phi diffusion"] = out["launches"]
+    del diff
+
+    disc = policy_of("discrete")
+    out = phi_request(disc, lambda: disc.predict_action(pixels, obs["instruction"],
+                                                         proprio=proprio),
+                      "discrete", no_launches(), card)
+    runs["phi discrete"] = out["launches"]
+    del disc
+
+    cfg1 = dataclasses.replace(cfg, num_images_in_input=1)
+    ar_in = ar_inputs(cfg1, torch.device("cuda"))
+
+    def ar():
+        with torch.inference_mode():
+            return predict_action_autoregressive(served, cfg1, platform, *ar_in,
+                                                 num_new_tokens=platform.action_dim).cpu()
+
+    out = phi_request(None, ar, f"AR decode, 1 image, {platform.action_dim} tokens",
+                      no_launches(), card)
+    runs["phi AR"] = out["launches"]
+    phi_ar_parity(served, cfg1, platform, card)
+    return runs
+
+
+def phi_int4_check(card: str, rows) -> dict:
+    """K5 against int4_matmul_ref at PHI_INT4_SHAPES, at each of `rows`
+    (the int4 requests' rows), device times (L2 flushed) beside the plain
+    version, torch.matmul on the dequantized bf16 weight and the bound."""
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops.quant import dequantize_int4, quantize_weight_int4
+
+    dev = torch.device("cuda")
+    flush = l2_flush_buffer(dev)
+    results = {}
+    for t in rows:
+        for name, k, n in PHI_INT4_SHAPES:
+            gen = torch.Generator(device=dev).manual_seed(t + k + n)
+            x = torch.randn((t, k), generator=gen, device=dev).bfloat16()
+            q = quantize_weight_int4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+            packed, scales = q["kernel_q4"], q["scale_w4"]
+            y = M.int4_matmul_fused(x, packed, scales)
+            torch.cuda.synchronize()
+            ref = M.int4_matmul_ref(x, packed, scales)
+            err = (y - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            w16 = dequantize_int4(packed, scales, torch.bfloat16)
+            ms, how = device_ms(lambda: M.int4_matmul_fused(x, packed, scales), flush)
+            lib, how_lib = device_ms(lambda: torch.matmul(x, w16), flush)
+            plain = cuda_time_ms(lambda: M.int4_matmul_ref(x, packed, scales), flush=flush)
+            b, by = bound(2 * t * k * n, nbytes(x, packed, scales, y), PEAK_BF16)
+            group = k // scales.shape[0]
+            log(f"[phi-int4] K5 {name} T={t}: K={k} N={n} group={group}, plan "
+                f"{M._k5_plan(t, k, n, group)}: max|d| {err:.3e} (rel {rel:.3e}) against "
+                f"int4_matmul_ref; {ms:.4f} ms ({how}), torch.matmul on the bf16 weight "
+                f"{lib:.4f} ({how_lib}) (K5 / matmul {ms / lib:.2f}), plain {plain:.4f} (CUDA "
+                f"events), bound {b:.4f} ({by}) (L2 flushed; {card})")
+            if not (torch.isfinite(y).all() and rel <= INT4_K5_REL):
+                raise AssertionError(f"K5 disagrees with int4_matmul_ref at Phi-2's {name} "
+                                     f"T={t}: rel {rel}")
+            results[f"{name} T={t}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                        "bound_ms": b, "bound_by": by, "library_ms": lib,
+                                        "timing": how}
+            del x, q, packed, scales, y, ref, w16
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def phi_int4_serving(card: str, rng, cfg, platform, params, heads) -> tuple:
+    """Phase 16 (a), int4: the L1 tree through `serving_params(load_in_4bit=
+    True)` (every LLM linear int4, as the JAX loader quantizes Phi-2), one
+    request at LIBERO's 2 images (more than FUSED_MAX_ROWS rows: every int4
+    linear takes the dequant path, no K5) and one at 1 image (K5 on each of
+    the 6 x 32 linears), the 1-image K5 path against the plain one, then K5
+    at those rows (`phi_int4_check`). Returns (launches, K5's check)."""
+    from openvla_oft_tpu_torch import policy as P
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops.quant import FUSED_MAX_ROWS
+    from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats, serving_params
+
+    t0 = time.perf_counter()
+    # quantize_tree_lowmem consumes the LLM's dicts: hand it a copy of them.
+    tree = serving_params({**params, **heads["l1"], "llm": _detached(params["llm"])},
+                          load_in_4bit=True)
+    torch.cuda.synchronize()
+    wq = tree["llm"]["layers"]["attn"]["wq"]
+    if "kernel_q4" not in wq or "bias" not in wq or "kernel" not in tree["llm"]["lm_head"]:
+        raise AssertionError(f"load_in_4bit left Phi-2's wq as {sorted(wq)}")
+    log(f"[phi-int4] load_in_4bit tree built in {time.perf_counter() - t0:.1f} s, on the card "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB ({card})")
+    per_request = sum(1 for group in tree["llm"]["layers"].values() for leaf in group.values()
+                      if isinstance(leaf, dict) and "kernel_q4" in leaf) * cfg.llm.num_layers
+    refs = {"n": 0}
+    plain = M.int4_matmul_ref
+
+    def counted_ref(*a, **k):
+        refs["n"] += 1
+        return plain(*a, **k)
+
+    runs, rows, hidden = {}, [], {}
+    for n_images in (2, 1):
+        cfg_n = dataclasses.replace(cfg, num_images_in_input=n_images)
+        policy = P.OpenVLAPolicy(cfg=cfg_n, platform=platform, params=tree, head="l1",
+                                 prompt_bucket=48, norm_stats=placeholder_norm_stats(platform))
+        obs = observation(policy, rng)
+        inputs = model_inputs(policy, obs)
+        s = inputs[1].shape[1] + n_images * cfg.vision_configs[0].num_patches + 1 \
+            + platform.chunk_len + 1
+        fused = s <= FUSED_MAX_ROWS
+        frames = frames_of(policy, obs)
+        refs["n"] = 0
+        with patched(M, "int4_matmul_ref", counted_ref):
+            out = phi_request(policy, lambda: policy.predict_action_from_frames(
+                frames, obs["instruction"], proprio=obs["state"]),
+                f"L1 int4 W4A16, {n_images} image(s), S = {s}",
+                no_launches(K5=per_request if fused else 0), card)
+        counted = refs["n"] / out["calls"]
+        log(f"[phi-int4] {n_images} image(s), S = {s}: {per_request} int4 linears a request, "
+            f"K5 {per_request if fused else 0}, the dequant path (int4_matmul_ref) {counted:g} "
+            f"({'at most' if fused else 'more than'} FUSED_MAX_ROWS = {FUSED_MAX_ROWS} rows)")
+        if out["out"].shape != (platform.num_actions_chunk, platform.action_dim) or \
+                not np.isfinite(out["out"]).all() or counted != (0 if fused else per_request):
+            raise AssertionError(f"bad Phi-2 int4 request at {n_images} image(s): "
+                                 f"{out['out']}, {counted} dequant products")
+        runs[f"phi L1 int4 {n_images} image(s)"] = out["launches"]
+        rows.append(s)
+        if fused:
+            before = launch_counts()["K5"]
+            hidden["K5"] = actions_hidden(policy, inputs)
+            used = launch_counts()["K5"] - before
+            with patched(M, "int4_matmul_fused", plain):
+                hidden["plain"] = actions_hidden(policy, inputs)
+            cos = cosine(hidden["K5"], hidden["plain"])
+            log(f"[phi-int4] S = {s}: actions_hidden cosine(K5 path, plain path) = {cos:.6f}, "
+                f"max|d| {(hidden['K5'] - hidden['plain']).abs().max().item():.4e}, K5 "
+                f"launches {used} ({card})")
+            if not (cos >= PARITY_COSINE and used == per_request
+                    and torch.isfinite(hidden["K5"]).all()):
+                raise AssertionError("Phi-2's K5 path disagrees with the plain path")
+        del policy
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, phi_int4_check(card, (*rows, 1))
+
+
+def write_phi_checkpoint(cfg, params, platform, root: str, card: str) -> str:
+    """Phase 16 (b): the tree in HF names (`export_phi`, the vision
+    backbone and projector by `export_vision_tensors`), 2 GB shards, the
+    config, a synthetic SentencePiece `tokenizer.model` of 51,200 pieces."""
+    from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats
+    from openvla_oft_tpu_torch.utils.hf_import import export_phi, export_vision_tensors, hf_config
+    from openvla_oft_tpu_torch.utils.safetensors_io import save_sharded
+
+    path = os.path.join(root, "phi-2+3b")
+    os.makedirs(path)
+    t0 = time.perf_counter()
+    tensors = {**export_phi(params["llm"], cfg.llm), **export_vision_tensors(cfg, params)}
+    shards = save_sharded({k: v.contiguous() for k, v in tensors.items()}, path,
+                          PHI_SHARD_BYTES)
+    stats = {"libero_spatial_no_noops": placeholder_norm_stats(platform)["random"]}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(cfg, stats), f)
+    with open(os.path.join(path, "tokenizer.model"), "wb") as f:
+        f.write(llama_like_tokenizer(PHI_TOKENIZER_PIECES))
+    size = sum(os.path.getsize(p) for p in shards)
+    log(f"[phi-checkpoint] {len(tensors)} tensors, {size / 1e9:.2f} GB in {len(shards)} shards, "
+        f"written in {time.perf_counter() - t0:.1f} s (host clock), with config.json and a "
+        f"{PHI_TOKENIZER_PIECES}-piece tokenizer.model ({card})")
+    return path
+
+
+def phi_generate(path: str, jpegs: list, root: str, card: str) -> dict:
+    """Phase 16 (b): scripts/generate.py on the dir (its tokenizer.model,
+    the Phi prompt builder): one prompt, 8 new tokens, no kernel launch."""
+    import io
+
+    from openvla_oft_tpu_torch.models import prismatic as PM
+    from openvla_oft_tpu_torch.processing.prompting import get_prompt_builder
+    from openvla_oft_tpu_torch.scripts import generate as GEN
+
+    builder = type(get_prompt_builder(PHI_IDS[1])).__name__
+    image = os.path.join(root, "generate.jpg")
+    with open(image, "wb") as f:
+        f.write(jpegs[-1][1])
+    shapes = []
+    decode = PM.predict_action_autoregressive
+
+    def recorded(*a, **k):
+        tokens = decode(*a, **k)
+        shapes.append(tuple(tokens.shape))
+        return tokens
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(PM, "predict_action_autoregressive", recorded):
+        answers = GEN.generate(GEN.GenerateConfig(model_path=path, image_path=image,
+                                                  max_new_tokens=8, device="cuda"),
+                               io.StringIO(PROMPT + "\n"))
+    launches = launch_counts()
+    log(f"[phi-generate] {PROMPT!r} ({builder}) -> {answers}; tokens {shapes}; "
+        f"{time.perf_counter() - t0:.1f} s with the dir's load; launches {launches} ({card})")
+    if builder != "PhiPromptBuilder" or len(answers) != 1 or shapes != [(1, 8)] \
+            or launches != no_launches():
+        raise AssertionError(f"generate.py on the Phi-2 dir answered {answers} ({shapes}, "
+                             f"{builder}), launches {launches}")
+    return launches
+
+
+def phi_training(card: str, cfg, platform, params) -> dict:
+    """Phase 16 (b): the checkpoint dir written and loaded bitwise, 3 LoRA
+    L1 steps of the fine-tuning CLI from it at B = 8 (remat "all"; LoRA on
+    wq/wk/wv/wo only, the frozen base bitwise the dir's tree), one step
+    traced, `scripts/pretrain.py --stage align` 3 steps on it (phase 15's
+    LLaVA JSON), `scripts/generate.py` on it. Returns the launches."""
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.scripts import pretrain as PP
+    from openvla_oft_tpu_torch.utils.hf_import import load_openvla_checkpoint
+
+    runs = {}
+    root = checkpoint_dir(16e9)
+    try:
+        path = write_phi_checkpoint(cfg, params, platform, root, card)
+        t0 = time.perf_counter()
+        _, loaded, _ = load_openvla_checkpoint(path, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = trees_bitwise_equal(loaded, {k: params[k] for k in loaded})
+        size = sum(t.numel() * t.element_size() for t in tree_leaves(loaded))
+        log(f"[phi-checkpoint] loaded in {dt:.1f} s ({size / 1e9 / dt:.2f} GB/s), {n} leaves "
+            f"bitwise equal to the in-memory tree ({card})")
+
+        flags = TRAIN_FLAGS + ["--vla_path", path]
+        state, runs["phi train"], info = train(card, 0, flags, label="phi-train")
+        lora = state.trainables["lora"]
+        targets = sorted(lora["llm"]["layers"]["attn"])
+        frozen = trees_bitwise_equal(state.base_params["llm"],
+                                     {k: loaded["llm"][k] for k in state.base_params["llm"]})
+        frozen += trees_bitwise_equal(state.base_params["vision_backbone"],
+                                      loaded["vision_backbone"])
+        log(f"[phi-train] LoRA on the LLM's {', '.join(targets)} only ({sorted(lora['llm']['layers'])}"
+            f" groups); {frozen} frozen leaves bitwise the dir's after 3 steps; step times "
+            f"{', '.join(f'{t:.4f}' for t in info['step_times'])} s, peak "
+            f"{info['peak'] / 2**30:.3f} GiB ({card})")
+        if targets != ["wk", "wo", "wq", "wv"] or set(lora["llm"]["layers"]) != {"attn"}:
+            raise AssertionError(f"Phi-2's LoRA targets are {lora['llm']['layers'].keys()}")
+        profile_step(state, card, flags, "Phi-2 LoRA train_step at B=8")
+        del state, lora, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        jpegs = golden_jpegs()
+        js, images = llava_json(jpegs, root)
+        pcfg = PP.PretrainConfig(model_id="phi-2+3b", stage="align", pretrained_checkpoint=path,
+                                 llava_json=js, image_root=images, batch_size=FULL_BATCH,
+                                 max_steps=FULL_STEPS, save_interval=FULL_STEPS,
+                                 run_root_dir=Path(root), seq_bucket=PHI_PRETRAIN_BUCKET)
+        log(f"[phi-pretrain-align] {LLAVA_RECORDS} records, seq_bucket {PHI_PRETRAIN_BUCKET}: "
+            f"S = {PHI_PRETRAIN_BUCKET} text slots + {cfg.vision_configs[0].num_patches} "
+            f"patches")
+        out = full_stage(card, "phi-pretrain-align", PP.pretrain, pcfg, 0)
+        runs["phi pretrain-align"] = out.pop("launches")
+        del out
+        runs["phi generate"] = phi_generate(path, jpegs, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def write_tfds_sets(frames: list, root: str, card: str) -> int:
+    """Phase 16 (c): MIX_NAMES in TFDS's layout (`<name>/1.0.0/<name>-
+    train.tfrecord-0000i-of-00002`) and raw LIBERO's features (image,
+    wrist_image, an 8-dim state, gripper actions -1 / +1, one instruction
+    a step), written by the port's TFRecord writer. Returns the steps."""
+    from openvla_oft_tpu_torch.data.rlds import tfrecord
+
+    rng = np.random.default_rng(16)
+    steps = 0
+    t0 = time.perf_counter()
+    for s, name in enumerate(MIX_NAMES):
+        records = []
+        for e in range(EPISODES_PER_SET):
+            t = int(rng.integers(40, 61))
+            actions = rng.uniform(-0.5, 0.5, (t, 7))
+            actions[:, -1] = np.where(rng.random(t) < 0.5, -1.0, 1.0)
+            records.append(tfrecord.serialize_example({
+                "steps/observation/image": ("bytes", [frames[(s + e + i) % len(frames)]
+                                                      for i in range(t)]),
+                "steps/observation/wrist_image": ("bytes", [frames[(e + 2 * i + 1) % len(frames)]
+                                                            for i in range(t)]),
+                "steps/observation/state": ("float", rng.standard_normal(t * 8)),
+                "steps/action": ("float", actions.reshape(-1)),
+                "steps/language_instruction": ("bytes", [f"{name} task {e % 4}".encode()] * t),
+            }))
+            steps += t
+        d = os.path.join(root, name, "1.0.0")
+        os.makedirs(d)
+        for k in range(2):
+            tfrecord.write_tfrecords(os.path.join(d, f"{name}-train.tfrecord-{k:05d}-of-00002"),
+                                     records[k::2])
+    log(f"[tfds] wrote {len(MIX_NAMES)} TFDS datasets ({', '.join(MIX_NAMES)}), "
+        f"{EPISODES_PER_SET} episodes each, {steps} steps, 2 shards each, in "
+        f"{time.perf_counter() - t0:.2f} s (host clock; {card}'s host)")
+    return steps
+
+
+def mixture_phase(card: str, n_layers: int) -> dict:
+    """Phase 16 (c): the TFDS datasets converted (`convert_tfds_to_native`,
+    the LIBERO standardization at conversion), the mixture at MIX_WEIGHTS
+    alone (frames/s with augmentation over MIX_FRAMES frames, each member's
+    share within MIX_SHARE_TOL of its weight), then 3 L1 LoRA steps of the
+    fine-tuning CLI at random:7b, B = 8, fed by the mixture (its
+    `training_data` replaced by one over `make_interleaved_iterator`): K1
+    64, K2 32, K3 32 a step. Returns the run's launches."""
+    from openvla_oft_tpu_torch.data.collator import PaddedCollatorForActionPrediction
+    from openvla_oft_tpu_torch.data.datasets import RLDSBatchTransform
+    from openvla_oft_tpu_torch.data.rlds.pipeline import make_interleaved_iterator
+    from openvla_oft_tpu_torch.data.rlds.tfds_format import convert_tfds_to_native
+    from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
+    from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
+    from openvla_oft_tpu_torch.training import finetune as FT
+
+    frames = [d for n, d in golden_jpegs() if n.startswith("libero_")]
+    root = tempfile.mkdtemp(prefix="chip_smoke_tfds_")
+    try:
+        tfds_root, native = os.path.join(root, "tfds"), os.path.join(root, "native")
+        write_tfds_sets(frames, tfds_root, card)
+        flags = MIX_FLAGS + ["--data_root_dir", native]
+        platform = FT.platform_of(FT.parse_config(flags))
+        for name in MIX_NAMES:
+            t0 = time.perf_counter()
+            n = convert_tfds_to_native(tfds_root, name, platform, os.path.join(native, name))
+            with open(os.path.join(native, name, "native_format.json")) as f:
+                marker = json.load(f)
+            log(f"[tfds] {name}: {n} episodes converted to the native format in "
+                f"{time.perf_counter() - t0:.2f} s, marker {marker}")
+            if n != EPISODES_PER_SET or marker != {"standardized": True,
+                                                   "transform": "libero_dataset_transform"}:
+                raise AssertionError(f"the conversion of {name} gave {n} episodes, {marker}")
+
+        t0 = time.perf_counter()
+        it, stats = make_interleaved_iterator(native, list(MIX_NAMES), list(MIX_WEIGHTS),
+                                              lambda b: b, platform,
+                                              shuffle_buffer_size=MIX_SHUFFLE, image_aug=True,
+                                              num_images=2)
+        next(it)
+        first = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        names = [next(it)["dataset_name"] for _ in range(MIX_FRAMES)]
+        rate = MIX_FRAMES / (time.perf_counter() - t1)
+        del it
+        shares = {n: names.count(n) / MIX_FRAMES for n in MIX_NAMES}
+        log(f"[mixture] {dict(zip(MIX_NAMES, MIX_WEIGHTS))}: {rate:.1f} frames/s with "
+            f"augmentation (2 images a frame, {MIX_FRAMES} frames, host clock), first frame "
+            f"after {first:.2f} s (a {MIX_SHUFFLE}-frame buffer); shares {shares}; transitions "
+            f"{ {n: s['num_transitions'] for n, s in stats.items()} } ({card}'s host)")
+        for name, w in zip(MIX_NAMES, MIX_WEIGHTS):
+            if abs(shares[name] - w) > MIX_SHARE_TOL:
+                raise AssertionError(f"{name}'s share {shares[name]} is not within "
+                                     f"{MIX_SHARE_TOL} of {w}")
+
+        def mixture_data(cfg, model_cfg, platform, num_samples, train=True):
+            transform = RLDSBatchTransform(PrismaticProcessor(model_cfg), ActionTokenizer(),
+                                           platform)
+            data, stats = make_interleaved_iterator(
+                str(cfg.data_root_dir), list(MIX_NAMES), list(MIX_WEIGHTS), transform,
+                platform, shuffle_buffer_size=cfg.shuffle_buffer_size,
+                image_aug=cfg.image_aug, train=train, num_images=cfg.num_images_in_input)
+            return data, PaddedCollatorForActionPrediction(
+                pad_token_id=model_cfg.pad_token_id, max_length=cfg.seq_bucket or None), stats
+
+        with patched(FT, "training_data", mixture_data):
+            state, launches, info = train(card, n_layers, flags, label="train-mixture")
+        log(f"[train-mixture] step times {', '.join(f'{t:.4f}' for t in info['step_times'])} s, "
+            f"peak {info['peak'] / 2**30:.3f} GiB ({card})")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phi_phase(card: str, rng, n_layers: int) -> tuple:
+    """Phase 16. Returns each run's launches and K5's check at Phi-2's shapes."""
+    from openvla_oft_tpu_torch.constants import LIBERO
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = phi_config()
+    t0 = time.perf_counter()
+    params, heads = phi_params(cfg, LIBERO)
+    torch.cuda.synchronize()
+    log(f"[phi] drawn on the card in {time.perf_counter() - t0:.1f} s")
+    runs = phi_serving(card, rng, cfg, LIBERO, params, heads)
+    int4_runs, k5 = phi_int4_serving(card, rng, cfg, LIBERO, params, heads)
+    runs.update(int4_runs)
+    del heads
+    runs.update(phi_training(card, cfg, LIBERO, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train-mixture"] = mixture_phase(card, n_layers)
+    log(f"[phi] phase 16 took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return runs, k5
 
 
 def _detached(node):
@@ -4125,10 +4791,16 @@ def main() -> int:
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from openvla_oft_tpu_torch.scripts import exp_fwd_parts, exp_k4_parts
+
     t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(max_workers=2, thread_name_prefix="parts-build")
+    parts = start_parts_builds(pool)
     lib_path = _build.build()
     log(f"[build] {lib_path.relative_to(_build.PKG_DIR.parent)} ready in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (K4's and K1's parts libraries building beside it)")
     log((lib_path.parent / "build.log").read_text().strip())
     wgmma = wgmma_build_report(lib_path)
 
@@ -4145,8 +4817,9 @@ def main() -> int:
     checks = kernel_check(card, s_train)
     tiny_launches = tiny_auto_request(card)
     k4 = ln_matmul_check(card)
-    k4_parts_phase(card)
-    k1_parts_phase(card)
+    k4_parts_phase(card, parts[exp_k4_parts])
+    k1_parts_phase(card, parts[exp_fwd_parts])
+    pool.shutdown()
 
     t0 = time.perf_counter()
     policy = flagship_policy("cuda", seed=0)
@@ -4192,10 +4865,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     objectives = objectives_phase(card, n_layers)
     episodes = episode_phase(card, n_layers, train_info["step_times"])
-    qlora = qlora_phase(card, n_layers, train_info["peak"])
-    remat = remat_phase(card, n_layers)
+    with cut_flagship():
+        qlora = qlora_phase(card, CUT_LAYERS, train_info["peak"])
+        remat = remat_phase(card, CUT_LAYERS)
+        full = full_training_phase(card, CUT_LAYERS)
     phase14 = [run for name, run in qlora.items() if name != "int4 times"] + list(remat.values())
-    full = full_training_phase(card, n_layers)
+    phi, phi_k5 = phi_phase(card, rng, n_layers)
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -4207,6 +4882,7 @@ def main() -> int:
     libero, tr, wqkv = checks["libero_prefill"], bwd["training"], int4["wqkv T=618"]
     bwd_cases = {n: c for n, c in bwd.items() if n != "stats"}
     fc1 = k4["DINOv2 fc1 ALOHA"]
+    k4_launches = aloha_k4["K4"] + sum(run["K4"] for run in phi.values())
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
     k1_launches = (serve_launches["K1"] + staged_l1["K1"] + aloha[True]["launches"]["K1"]
                    + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
@@ -4216,12 +4892,13 @@ def main() -> int:
                    + sum(run["K1"] for run in checkpoint.values()) + train_launches["K1"]
                    + sum(run["K1"] for run in objectives.values()) + episodes["K1"]
                    + sum(run["K1"] for run in phase14)
-                   + sum(run["K1"] for run in full.values()))
+                   + sum(run["K1"] for run in full.values())
+                   + sum(run["K1"] for run in phi.values()))
     # K2 and K3 launch in the training runs: phase 10, phase 11b's three,
     # the runs from phase 8e's checkpoint dir (11b (d), 14 (d), (e)), phase
-    # 13's and phase 14's.
+    # 13's, 14's, 15's and 16's.
     bwd_runs = [train_launches, checkpoint["checkpoint training"], *objectives.values(),
-                episodes, *phase14, *full.values(),
+                episodes, *phase14, *full.values(), *phi.values(),
                 *(checkpoint[k] for k in ("run-management", "resume", "preempt",
                                           "preempt-resume"))]
     k2_launches = sum(run["K2"] for run in bwd_runs)
@@ -4260,21 +4937,27 @@ def main() -> int:
                      events_ms=tr["events_dkv"], library_events_ms=tr["library_events_ms"],
                      stats_pass_ms=bwd["stats"]["ms"], other_cases=bwd_others),
         kernel_entry("ln_matmul", "ln_matmul.cu", "openvla_oft_tpu/ops/vit_fused.py:47",
-                     aloha_k4["K4"], max(c["max_abs_err"] for c in k4.values()),
+                     k4_launches, max(c["max_abs_err"] for c in k4.values()),
                      fc1["dev_ms"], fc1["plain_ms"], fc1["bound_ms"], fc1["bound_by"],
                      fc1["dev_lib"], library_call="torch.matmul on the product alone",
+                     clip_336={name: {"ms": k4[name]["dev_ms"], "bound_ms": k4[name]["bound_ms"],
+                                      "bound_by": k4[name]["bound_by"],
+                                      "library_ms": k4[name]["dev_lib"],
+                                      "plain_ms": k4[name]["plain_ms"]}
+                               for name, *_ in K4_CLIP},
                      unfused_ms=fc1["unfused_ms"], plan=list(fc1["plan"]), hgmma=wgmma["K4"],
                      timing=fc1["timing"], events_ms=fc1["ms"],
                      library_events_ms=fc1["library_ms"]),
         kernel_entry("int4_matmul", "int4_w4a16.cu", "openvla_oft_tpu/ops/int4_matmul.py:43",
                      w4a16["K5"] + diffusion["int4 W4A16"]["K5"]
                      + discrete["AR int4 W4A16"]["K5"] + checkpoint["checkpoint int4 W4A16"]["K5"]
-                     + qlora["QLoRA int4 B=1"]["K5"],
-                     max(c["err5"] for c in int4.values()), wqkv["dev5"],
+                     + qlora["QLoRA int4 B=1"]["K5"] + sum(run["K5"] for run in phi.values()),
+                     max([c["err5"] for c in int4.values()]
+                         + [c["max_abs_err"] for c in phi_k5.values()]), wqkv["dev5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["dev_lib5"],
                      also_replaces="openvla_oft_tpu/ops/int4_matmul.py:199",
                      plan=list(wqkv["plan5"]), hgmma=wgmma["K5"], timing=wqkv["timing"],
-                     events_ms=wqkv["ms5"], library_events_ms=wqkv["lib5"]),
+                     events_ms=wqkv["ms5"], library_events_ms=wqkv["lib5"], phi_2=phi_k5),
         kernel_entry("int4_matmul_a8", "int4_w4a8.cu", "openvla_oft_tpu/ops/int4_matmul.py:432",
                      w4a8["K6"], max(c["err6"] for c in int4.values()), wqkv["dev6"],
                      wqkv["plain6"], *wqkv["bound6"], wqkv["dev_lib6"],
@@ -4320,6 +5003,9 @@ def main() -> int:
     log(f"[full-train] launches of phase 15's runs (3 steps each; generate.py's one "
         f"prompt): " + ", ".join(
             f"{name} {run}" for name, run in full.items()))
+    log(f"[phi] launches of phase 16's runs (Phi-2: 2 counted requests each, 3 training "
+        f"steps, 3 pretrain steps, one generate prompt; the mixture-fed flagship, 3 steps): "
+        + ", ".join(f"{name} {run}" for name, run in phi.items()))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -129,6 +129,50 @@ def _mlp_resnet(d_in: int, hidden: int, d_out: int) -> Params:
             "ln_out": _layer_norm(hidden), "fc_out": _linear(hidden, d_out)}
 
 
+def _llama_spec(llm) -> Params:
+    """models/llama.py::init_llama_params, without the lm_head."""
+    h, kv, d = llm.num_heads, llm.num_kv_heads, llm.hidden_size
+    hd, inter, L = llm.head_dim, llm.intermediate_size, llm.num_layers
+    return {
+        "embed": {"embedding": Init((llm.vocab_size, d), d ** -0.5)},
+        "layers": {
+            "attn": {
+                "wq": {"kernel": Init((L, d, h * hd), d ** -0.5)},
+                "wk": {"kernel": Init((L, d, kv * hd), d ** -0.5)},
+                "wv": {"kernel": Init((L, d, kv * hd), d ** -0.5)},
+                "wo": {"kernel": Init((L, h * hd, d), (h * hd) ** -0.5)},
+            },
+            "mlp": {
+                "gate": {"kernel": Init((L, d, inter), d ** -0.5)},
+                "up": {"kernel": Init((L, d, inter), d ** -0.5)},
+                "down": {"kernel": Init((L, inter, d), inter ** -0.5)},
+            },
+            "attn_norm": {"scale": Init((L, d), fill=1.0)},
+            "mlp_norm": {"scale": Init((L, d), fill=1.0)},
+        },
+        "final_norm": {"scale": Init((d,), fill=1.0)},
+    }
+
+
+def _phi_spec(llm: PhiConfig) -> Params:
+    """models/phi.py::init_phi_params, without the lm_head: every linear
+    fan_in^-0.5 with a zero bias, LayerNorms scale 1 and bias 0."""
+    d, inter, L = llm.hidden_size, llm.intermediate_size, llm.num_layers
+
+    def wb(d_in: int, d_out: int) -> Params:
+        return {"kernel": Init((L, d_in, d_out), d_in ** -0.5), "bias": Init((L, d_out))}
+
+    return {
+        "embed": {"embedding": Init((llm.vocab_size, d), d ** -0.5)},
+        "layers": {
+            "attn": {name: wb(d, d) for name in ("wq", "wk", "wv", "wo")},
+            "mlp": {"fc1": wb(d, inter), "fc2": wb(inter, d)},
+            "ln": {"scale": Init((L, d), fill=1.0), "bias": Init((L, d))},
+        },
+        "final_norm": _layer_norm(d),
+    }
+
+
 HEADS = ("l1", "diffusion", "discrete")
 
 
@@ -138,14 +182,13 @@ def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec, head: str = "l1") -> 
     action_head["model"], no lm_head; "diffusion": the noise predictor under
     action_head["noise_predictor"] and the noisy-action projector (JAX
     `init_diffusion_head`, `init_noisy_action_projector`), no lm_head;
-    "discrete": llm["lm_head"] (D, vocab) and no action head."""
+    "discrete": llm["lm_head"] (D, vocab; with its (vocab,) bias for a
+    Phi-2 LLM) and no action head. The LLM is Llama-family or Phi-2's
+    parallel-block tree ({attn: {wq, wk, wv, wo}, mlp: {fc1, fc2}, ln},
+    each linear biased) by `cfg.llm`."""
     if head not in HEADS:
         raise ValueError(f"head must be one of {HEADS}, got {head!r}")
     llm = cfg.llm
-    if isinstance(llm, PhiConfig):
-        raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
-    h, kv, d = llm.num_heads, llm.num_kv_heads, llm.hidden_size
-    hd, inter, L = llm.head_dim, llm.intermediate_size, llm.num_layers
     names = ("featurizer", "fused_featurizer")[: len(cfg.vision_configs)]
     vision_dim, llm_dim = cfg.vision_dim, cfg.llm_dim
     if cfg.use_fused_vision_backbone:
@@ -157,25 +200,7 @@ def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec, head: str = "l1") -> 
                      "fc2": _linear(llm_dim, llm_dim)}
     head_in = llm_dim * platform.action_dim
     spec: Params = {
-        "llm": {
-            "embed": {"embedding": Init((llm.vocab_size, d), d ** -0.5)},
-            "layers": {
-                "attn": {
-                    "wq": {"kernel": Init((L, d, h * hd), d ** -0.5)},
-                    "wk": {"kernel": Init((L, d, kv * hd), d ** -0.5)},
-                    "wv": {"kernel": Init((L, d, kv * hd), d ** -0.5)},
-                    "wo": {"kernel": Init((L, h * hd, d), (h * hd) ** -0.5)},
-                },
-                "mlp": {
-                    "gate": {"kernel": Init((L, d, inter), d ** -0.5)},
-                    "up": {"kernel": Init((L, d, inter), d ** -0.5)},
-                    "down": {"kernel": Init((L, inter, d), inter ** -0.5)},
-                },
-                "attn_norm": {"scale": Init((L, d), fill=1.0)},
-                "mlp_norm": {"scale": Init((L, d), fill=1.0)},
-            },
-            "final_norm": {"scale": Init((d,), fill=1.0)},
-        },
+        "llm": _phi_spec(llm) if isinstance(llm, PhiConfig) else _llama_spec(llm),
         "vision_backbone": {name: _vit_spec(v)
                             for name, v in zip(names, cfg.vision_configs)},
         "projector": projector,
@@ -184,7 +209,10 @@ def param_spec(cfg: OpenVLAConfig, platform: PlatformSpec, head: str = "l1") -> 
     }
     trunk = _mlp_resnet(head_in, llm_dim, platform.action_dim)
     if head == "discrete":
+        d = llm.hidden_size
         spec["llm"]["lm_head"] = {"kernel": Init((d, llm.vocab_size), d ** -0.5)}
+        if isinstance(llm, PhiConfig):
+            spec["llm"]["lm_head"]["bias"] = Init((llm.vocab_size,))
     elif head == "l1":
         spec["action_head"] = {"model": trunk}
     else:

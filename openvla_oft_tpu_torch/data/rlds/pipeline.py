@@ -11,6 +11,11 @@ serialized `tf.train.Example` an episode, read by `data/rlds/tfrecord.py`:
   steps/action                    : float list (T * action_dim)
   language_instruction            : bytes
 
+`make_interleaved_iterator` mixes several such datasets by weight (the JAX
+`make_interleaved_iterator`, reference `make_interleaved_dataset`).
+TFDS-format shards are converted to this format first
+(`data/rlds/tfds_format.py::convert_tfds_to_native`).
+
 Stages, as the JAX graph runs them: records in file order (`read_parallelism`
 files interleaved a record at a time; the port reads every file), in train
 mode repeated and shuffled over min(64, max(4 * files, 8)) records; each
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import glob
+import itertools
 import json
 import os
 import sys
@@ -126,9 +132,10 @@ _WARNED_PROPRIO_KEYS: set = set()
 def _assemble_proprio(obs: Dict, name: str, t: int) -> Optional[np.ndarray]:
     """The registry's state_obs_keys concatenated into the proprio vector,
     None entries a zero column (reference rlds/dataset.py obs remapping; the
-    port's copy of `openvla_oft_tpu/data/rlds/tfds_format.py::
-    _assemble_proprio`). obs["proprio"] (or None) where a key is absent or
-    none are registered."""
+    one copy, shared by the standardize path here and the TFDS conversion,
+    `data/rlds/tfds_format.py`). Columns are cut to `t`, so truncating
+    transforms stay aligned. obs["proprio"] (or None) where a key is absent
+    or none are registered."""
     from openvla_oft_tpu_torch.data.rlds.oxe import OXE_DATASET_CONFIGS
 
     cfg = OXE_DATASET_CONFIGS.get(name)
@@ -475,3 +482,102 @@ def make_rlds_iterator(
     decoded = _ordered_map(lambda f: _decode_frame(f, image_aug, train, task_augment_prob),
                            frames, threads)
     return _wrap_frame_iterator(decoded, batch_transform), {name: stats}
+
+
+def _frame_structure(frame: Dict) -> tuple:
+    """What tf.data's element_spec compares: the frame's keys, and each
+    array's dtype and shape (bytes and strings by their type alone)."""
+    return tuple(sorted((k, (v.dtype.str, v.shape) if isinstance(v, np.ndarray)
+                         else type(v).__name__) for k, v in frame.items()))
+
+
+def _peeked(stream: Iterator) -> Tuple[Optional[Dict], Iterator]:
+    """(first item or None, the stream with it put back)."""
+    first = next(stream, None)
+    return first, (stream if first is None else itertools.chain([first], stream))
+
+
+def _sample(streams: List[Iterator], weights: np.ndarray,
+            rng: np.random.Generator) -> Iterator:
+    """tf.data `sample_from_datasets(stop_on_empty_dataset=False)`: each item
+    from a member drawn by the weights; an exhausted member leaves the draw
+    (the others' weights renormalized), and the mixture ends with the last."""
+    live = list(range(len(streams)))
+    while live:
+        w = weights[live] / weights[live].sum()
+        i = live[int(rng.choice(len(live), p=w))]
+        try:
+            yield next(streams[i])
+        except StopIteration:
+            live.remove(i)
+
+
+def make_interleaved_iterator(
+    root: str,
+    names: List[str],
+    weights: List[float],
+    batch_transform,
+    platform: PlatformSpec,
+    shuffle_buffer_size: int = 10_000,
+    image_aug: bool = True,
+    train: bool = True,
+    seed: int = 0,
+    balance_weights: bool = False,
+    **kwargs,
+) -> Tuple[Iterator[Dict[str, np.ndarray]], Dict]:
+    """A weighted mixture of datasets (the JAX function; reference
+    `make_interleaved_dataset`, rlds/dataset.py:458-589): returns
+    (iterator, {name: stats}).
+
+    Each member is `_build_encoded_frames` with `seed + i`; members are
+    drawn by the normalised weights (`balance_weights` multiplies each by
+    its dataset's `num_transitions` first); one shuffle buffer runs over the
+    still-encoded frames of the mix, then one decode and augmentation stage.
+    Where the members' frames differ in structure (OXE members whose
+    `state_obs_keys` give proprio vectors of different widths), each member
+    is shuffled and decoded on its own and the decoded frames are mixed on
+    the host. The draws are the port's own numpy generators',
+    so the order of samples is not TF's; the shares follow the weights.
+    Other keyword arguments go to every member (`_build_encoded_frames`),
+    and `task_augment_prob` and `decode_parallelism` to the decode stage."""
+    task_augment_prob = kwargs.pop("task_augment_prob", 0.0)
+    threads = max(int(kwargs.pop("decode_parallelism", None)
+                      or min(os.cpu_count() or 1, 8)), 1)
+    kwargs.pop("transform_parallelism", None)
+    members, all_stats = [], {}
+    for i, name in enumerate(names):
+        frames, stats = _build_encoded_frames(root, name, platform, train=train, seed=seed + i,
+                                              **kwargs)
+        members.append(frames)
+        all_stats[name] = stats
+
+    w = np.asarray(weights, np.float64)
+    if balance_weights:
+        w = w * np.asarray([all_stats[n].get("num_transitions", 1) for n in names],
+                           np.float64)
+    w = w / w.sum()
+
+    firsts = []
+    for i, stream in enumerate(members):
+        first, members[i] = _peeked(stream)
+        firsts.append(first)
+    structures = {_frame_structure(f) for f in firsts if f is not None}
+
+    def decode(frames):
+        return _ordered_map(lambda f: _decode_frame(f, image_aug, train, task_augment_prob),
+                            frames, threads)
+
+    if len(structures) <= 1:
+        mixed = _sample(members, w, np.random.default_rng([seed, 2]))
+        if train:
+            mixed = _shuffle(mixed, shuffle_buffer_size, np.random.default_rng([seed, 1]))
+        return _wrap_frame_iterator(decode(mixed), batch_transform), all_stats
+
+    # The members' frames differ in structure: decode each on its own, mix on the host.
+    its = []
+    for i, frames in enumerate(members):
+        if train:
+            frames = _shuffle(frames, max(shuffle_buffer_size // len(members), 1),
+                              np.random.default_rng([seed + i, 1]))
+        its.append(_wrap_frame_iterator(decode(frames), batch_transform))
+    return _sample(its, w, np.random.default_rng(seed)), all_stats

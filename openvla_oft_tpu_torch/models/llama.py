@@ -131,11 +131,13 @@ def fuse_inference_weights(llm_params: Params, fold_norms: bool = True) -> Param
     JAX loader's fuse-then-quantize gives, bit for bit, without a float copy
     of wqkv and gate_up (`serving/deploy.py::serving_params`). Quantized
     kernels take no fold, and static activation scales attach after fusing.
+    A Phi-2 tree (no attn_norm: parallel blocks, biased projections) is
+    returned unchanged, as the JAX version returns it.
     """
     layers = llm_params["layers"]
-    attn, mlp = layers["attn"], layers["mlp"]
     if "attn_norm" not in layers:
-        raise NotImplementedError("only Llama-family trees are ported")
+        return llm_params
+    attn, mlp = layers["attn"], layers["mlp"]
     if any("lora" in key for sub in (attn, mlp) for leaf in sub.values()
            for key in leaf):
         raise ValueError("fuse_inference_weights after LoRA merge, not before")

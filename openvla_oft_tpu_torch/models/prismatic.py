@@ -7,7 +7,9 @@ path: `compute_patch_features`, `DiffusionPrefix`, `build_diffusion_prefix`,
 `diffusion_suffix_step`, and the discrete head's: `lm_logits`, the
 KV-cached greedy decode `predict_action_autoregressive`,
 `detokenize_discrete_actions`). FiLM conditions the ViTs in serving and in
-training.
+training. The LLM is Llama-family (`models/llama.py`) or Phi-2
+(`models/phi.py`), chosen by the config (`_run_llm`): Phi-2 computes every
+row of its last layer and has no prefix K/V reuse, as in the JAX version.
 
 Training (`prismatic_forward`): right-padded batches as the collator emits
 them, physical layout [BOS][patches (+proprio)(+diffusion t)][text rest][PAD],
@@ -47,6 +49,8 @@ from openvla_oft_tpu_torch.models.llama import (KVCache, embed_tokens, llama_dec
                                                llama_model, llama_prefill,
                                                llama_suffix_forward)
 from openvla_oft_tpu_torch.models.llama import lm_logits as llama_lm_logits
+from openvla_oft_tpu_torch.models.phi import lm_logits as phi_lm_logits
+from openvla_oft_tpu_torch.models.phi import phi_decode_step, phi_model, phi_prefill
 from openvla_oft_tpu_torch.models.projector import (noisy_action_projector,
                                                    proprio_projector, vision_projector)
 from openvla_oft_tpu_torch.models.vision_backbone import vision_backbone_forward
@@ -56,12 +60,20 @@ from openvla_oft_tpu_torch.ops.masks import (get_all_actions_mask,
 Params = Dict[str, Any]
 
 
+def _run_llm(params: Params, llm_cfg, inputs_embeds: torch.Tensor, **kw):
+    """The LLM by config family (JAX `_run_llm`): Llama and Mistral take
+    `llama_model`, Phi-2 `models/phi.py::phi_model`."""
+    if isinstance(llm_cfg, PhiConfig):
+        return phi_model(params, llm_cfg, inputs_embeds, **kw)
+    return llama_model(params, llm_cfg, inputs_embeds, **kw)
+
+
 def lm_logits(llm_params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """fp32 vocab logits of post-norm hidden states (`models/llama.py::
-    lm_logits`). A biased lm_head is Phi-2's, which is not ported."""
+    """fp32 vocab logits of post-norm hidden states: `models/llama.py::
+    lm_logits`, or Phi-2's with its bias (`models/phi.py::lm_logits`)
+    where the lm_head has one."""
     if "bias" in llm_params["lm_head"]:
-        raise NotImplementedError("Phi-2's biased lm_head is not ported yet (ROADMAP "
-                                  "queue 1, item 16)")
+        return phi_lm_logits(llm_params, hidden)
     return llama_lm_logits(llm_params, hidden)
 
 
@@ -158,8 +170,6 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
     objective's input). gather_actions: the action-slot hidden states
     (actions_hidden is None without it).
     """
-    if isinstance(cfg.llm, PhiConfig):
-        raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
     b = input_ids.shape[0]
     dtype = params["llm"]["embed"]["embedding"].dtype
     device = input_ids.device
@@ -196,9 +206,8 @@ def prismatic_forward(params: Params, cfg: OpenVLAConfig, platform: PlatformSpec
     ignore = torch.full((b, n_patch), IGNORE_INDEX, dtype=labels.dtype, device=device)
     mm_labels = torch.cat([labels[:, :1], ignore, labels[:, 1:]], dim=1)
 
-    hidden = llama_model(params["llm"], cfg.llm, mm_embeds, padding_mask=mm_pad,
-                         bidir_mask=mm_bidir, use_flash=use_flash,
-                         remat_policy=remat_policy)
+    hidden = _run_llm(params["llm"], cfg.llm, mm_embeds, padding_mask=mm_pad,
+                      bidir_mask=mm_bidir, use_flash=use_flash, remat_policy=remat_policy)
 
     # Hidden states at positions whose NEXT token is an action token: the
     # multimodal action mask shifted left by one.
@@ -296,8 +305,6 @@ def predict_action_hidden(params: Params, cfg: OpenVLAConfig,
     as the JAX version runs it, returning (PredictOutput, stats) with the
     LLM linears' per-layer input absmaxes (`llama_model`).
     """
-    if isinstance(cfg.llm, PhiConfig):
-        raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
     b, p_len = input_ids.shape
     chunk = platform.chunk_len
     dtype = params["llm"]["embed"]["embedding"].dtype
@@ -328,16 +335,27 @@ def predict_action_hidden(params: Params, cfg: OpenVLAConfig,
     bidir[:, window[0]:window[0] + chunk + 1] = True
     # Predictor rows: the last prompt token through the second-to-last slot.
     start = p_len + n_patch - 1
+    is_phi = isinstance(cfg.llm, PhiConfig)
     if collect_act_stats:
+        if is_phi:
+            raise ValueError("collect_act_stats calibrates Llama-family LLMs only, as in "
+                             "the JAX version")
         hidden, stats = llama_model(params["llm"], cfg.llm, embeds, positions=positions,
                                     padding_mask=key_valid, bidir_mask=bidir,
                                     use_flash=False, bidir_block=window,
                                     collect_act_stats=True)
         return PredictOutput(hidden[:, start:start + chunk]), stats
-    actions_hidden = llama_model(params["llm"], cfg.llm, embeds,
-                                 positions=positions, padding_mask=key_valid,
-                                 bidir_mask=bidir, use_flash=use_flash,
-                                 bidir_block=window, out_window=(start, chunk))
+    if is_phi:
+        # Phi-2's last layer computes every row (no out_window, as in JAX),
+        # through the dense attention; the predictor rows are sliced after.
+        hidden = phi_model(params["llm"], cfg.llm, embeds, positions=positions,
+                           padding_mask=key_valid, bidir_mask=bidir)
+        actions_hidden = hidden[:, start:start + chunk]
+    else:
+        actions_hidden = llama_model(params["llm"], cfg.llm, embeds,
+                                     positions=positions, padding_mask=key_valid,
+                                     bidir_mask=bidir, use_flash=use_flash,
+                                     bidir_block=window, out_window=(start, chunk))
     logits = lm_logits(params["llm"], actions_hidden) if compute_logits else None
     return PredictOutput(actions_hidden, logits)
 
@@ -369,7 +387,12 @@ def build_diffusion_prefix(params: Params, cfg: OpenVLAConfig, input_ids: torch.
                            use_flash="auto") -> DiffusionPrefix:
     """The ViTs, the projector and the proprio token once, then the prefill
     of [BOS][patches][proprio] into a K/V cache (`llama_prefill`: through
-    K1 on the card under "auto"). input_ids / prompt_mask (B, P) left-padded."""
+    K1 on the card under "auto"). input_ids / prompt_mask (B, P) left-padded.
+    Llama-family LLMs only: a Phi-2 policy takes the full-prefill route
+    (`policy.py`), as in the JAX version."""
+    if isinstance(cfg.llm, PhiConfig):
+        raise ValueError("the prefix K/V reuse is Llama-family only: Phi-2 runs one full "
+                         "predict_action_hidden a step")
     b, p_len = input_ids.shape
     dtype = params["llm"]["embed"]["embedding"].dtype
     device = input_ids.device
@@ -469,9 +492,10 @@ def predict_action_autoregressive(params: Params, cfg: OpenVLAConfig,
     """Greedy KV-cached decode of `num_new_tokens` tokens, the vanilla
     OpenVLA path (reference `prismatic/models/vlas/openvla.py:36-103`):
     one causal prefill (`llama_prefill`, through K1 on the card under
-    "auto") fills the cache, then each token is the argmax of the fp32
-    logits of the last hidden state, and all but the last go through one
-    `llama_decode_step` at RoPE position index - pad count. The JAX
+    "auto"; Phi-2's `phi_prefill`, dense) fills the cache, then each token
+    is the argmax of the fp32 logits of the last hidden state, and all but
+    the last go through one `llama_decode_step` (`phi_decode_step`) at RoPE
+    position index - pad count. The JAX
     version's scan runs one decode step more, whose output nothing reads;
     the tokens are the same. The tokens stay on the device until the caller
     reads them. Returns (B, num_new_tokens) int64 token ids, and with
@@ -480,8 +504,6 @@ def predict_action_autoregressive(params: Params, cfg: OpenVLAConfig,
     input_ids / prompt_mask (B, P) left-padded; pixels (B, N, n_backbones,
     H, W, 3). `platform` is unused, as in the JAX version's signature.
     """
-    if isinstance(cfg.llm, PhiConfig):
-        raise NotImplementedError("Phi-2's decode is not ported yet (ROADMAP queue 1, item 16)")
     if num_new_tokens < 1:
         raise ValueError(f"num_new_tokens must be at least 1, got {num_new_tokens}")
     llm = params["llm"]
@@ -490,8 +512,12 @@ def predict_action_autoregressive(params: Params, cfg: OpenVLAConfig,
     b, s, _ = embeds.shape
     cache = KVCache.create(cfg.llm, b, s + num_new_tokens - 1, dtype=embeds.dtype,
                            device=embeds.device)
-    hidden, cache = llama_prefill(llm, cfg.llm, embeds, cache, positions=positions,
-                                  key_valid=key_valid, use_flash=use_flash)
+    if isinstance(cfg.llm, PhiConfig):
+        prefill_fn, decode_fn = phi_prefill, phi_decode_step
+    else:
+        prefill_fn, decode_fn = llama_prefill, llama_decode_step
+    hidden, cache = prefill_fn(llm, cfg.llm, embeds, cache, positions=positions,
+                               key_valid=key_valid, use_flash=use_flash)
     last = hidden[:, -1:]
     tokens = torch.empty((b, num_new_tokens), dtype=torch.long, device=embeds.device)
     all_logits = []
@@ -502,8 +528,8 @@ def predict_action_autoregressive(params: Params, cfg: OpenVLAConfig,
             all_logits.append(logits)
         if step + 1 < num_new_tokens:
             emb = embed_tokens(llm, tokens[:, step:step + 1]).to(embeds.dtype)
-            last, cache = llama_decode_step(llm, cfg.llm, emb, cache,
-                                            positions=(cache.index - pad_counts)[:, None])
+            last, cache = decode_fn(llm, cfg.llm, emb, cache,
+                                    positions=(cache.index - pad_counts)[:, None])
     if return_logits:
         return tokens, torch.stack(all_logits, dim=1)
     return tokens

@@ -30,7 +30,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from openvla_oft_tpu_torch.config import OpenVLAConfig
+from openvla_oft_tpu_torch.config import OpenVLAConfig, PhiConfig
 from openvla_oft_tpu_torch.constants import NormalizationType, PlatformSpec
 from openvla_oft_tpu_torch.models.action_heads import (diffusion_predict_noise,
                                                      diffusion_scheduler, l1_head_predict,
@@ -124,6 +124,8 @@ class OpenVLAPolicy:
     the suffix rows; False runs a full `predict_action_hidden` per step (the
     parity oracle). `split_kv`: the suffix attention as two online-softmax
     blocks instead of a concatenated K/V (the JAX version's OPENVLA_SPLIT_KV).
+    A Phi-2 LLM always takes the full-prefill route, and `split_kv` then
+    does nothing, as in the JAX version.
     The starting noise of each request comes from `generator`, which lives
     on the params' device (seed 0 unless the caller passes one). The DDIM
     scheduler and its table are built once, with the policy, so
@@ -184,7 +186,10 @@ class OpenVLAPolicy:
             noise = torch.randn((b, platform.num_actions_chunk, platform.action_dim),
                                 generator=self.generator, device=self.device,
                                 dtype=torch.float32)
-        if self.diffusion_prefix_kv:
+        # Phi-2 takes the full-prefill route whatever diffusion_prefix_kv
+        # says (its parallel blocks have no prefix K/V path), as in JAX.
+        prefix_kv = self.diffusion_prefix_kv and not isinstance(self.cfg.llm, PhiConfig)
+        if prefix_kv:
             prefix = build_diffusion_prefix(params, cfg, input_ids, prompt_mask, pixels,
                                             proprio, use_flash=self.use_flash)
             layout = diffusion_suffix_layout(prefix, platform.chunk_len)
@@ -196,7 +201,7 @@ class OpenVLAPolicy:
         for t in sched.timesteps(n_inf).tolist():
             t_emb = sinusoidal_time_encoding(
                 torch.full((b,), t, dtype=torch.int64, device=self.device), cfg.llm_dim)[:, None]
-            if self.diffusion_prefix_kv:
+            if prefix_kv:
                 hidden = diffusion_suffix_step(params, cfg, platform, prefix, t_emb, x_t,
                                                split_kv=self.split_kv, layout=layout)
             else:

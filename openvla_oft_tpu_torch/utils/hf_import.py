@@ -63,13 +63,10 @@ def load_openvla_checkpoint(ckpt_dir: str, dtype: Optional[torch.dtype] = torch.
     (the JAX version's rule)."""
     cfg, norm_stats = OpenVLAConfig.from_json_file(os.path.join(ckpt_dir, "config.json"))
     get = SafetensorsIndex(ckpt_dir)
-    if isinstance(cfg.llm, PhiConfig):
-        llm = port_hf_phi(get, cfg.llm, prefix="language_model.", dtype=dtype, device=device)
-    else:
-        llm = port_hf_llama(get, cfg.llm, prefix="language_model.", dtype=dtype,
-                            device=device,
-                            lm_head={"discrete": True, "l1": False, "diffusion": False,
-                                     None: None}[head])
+    port_llm = port_hf_phi if isinstance(cfg.llm, PhiConfig) else port_hf_llama
+    llm = port_llm(get, cfg.llm, prefix="language_model.", dtype=dtype, device=device,
+                   lm_head={"discrete": True, "l1": False, "diffusion": False,
+                            None: None}[head])
     params: Params = {
         "llm": llm,
         "projector": port_fc_mlp(get, ("fc1", "fc2", "fc3") if cfg.use_fused_vision_backbone
@@ -113,9 +110,41 @@ def export_llama(params: Params, cfg, prefix: str = "language_model.") -> Dict[s
     return out
 
 
+def export_phi(params: Params, cfg, prefix: str = "language_model.") -> Dict[str, torch.Tensor]:
+    """The HF `PhiForCausalLM` names -> tensors (views of the tree: (out,
+    in) weights), the inverse of `utils/weights.py::port_hf_phi`. Not part
+    of `export_tensors`: the JAX exporter writes Llama names only."""
+    lay = params["layers"]
+    out: Dict[str, torch.Tensor] = {
+        prefix + "model.embed_tokens.weight": params["embed"]["embedding"],
+        prefix + "model.final_layernorm.weight": params["final_norm"]["scale"],
+        prefix + "model.final_layernorm.bias": params["final_norm"]["bias"],
+        prefix + "lm_head.weight": params["lm_head"]["kernel"].T,
+        prefix + "lm_head.bias": params["lm_head"]["bias"],
+    }
+    fmt_map = {"model.layers.{i}.input_layernorm.weight": (lay["ln"]["scale"], False),
+               "model.layers.{i}.input_layernorm.bias": (lay["ln"]["bias"], False)}
+    for (group, name), hf in {("attn", "wq"): "self_attn.q_proj",
+                              ("attn", "wk"): "self_attn.k_proj",
+                              ("attn", "wv"): "self_attn.v_proj",
+                              ("attn", "wo"): "self_attn.dense",
+                              ("mlp", "fc1"): "mlp.fc1", ("mlp", "fc2"): "mlp.fc2"}.items():
+        fmt_map[f"model.layers.{{i}}.{hf}.weight"] = (lay[group][name]["kernel"], True)
+        fmt_map[f"model.layers.{{i}}.{hf}.bias"] = (lay[group][name]["bias"], False)
+    _per_layer(out, prefix, fmt_map, cfg.num_layers)
+    return out
+
+
 def export_tensors(cfg: OpenVLAConfig, params: Params) -> Dict[str, torch.Tensor]:
-    """Every tensor of the checkpoint, by its reference name (views of the tree)."""
-    tensors = export_llama(params["llm"], cfg.llm)
+    """Every tensor of the checkpoint, by its reference name (views of the
+    tree). The LLM is written by the Llama exporter, as in the JAX version."""
+    return {**export_llama(params["llm"], cfg.llm), **export_vision_tensors(cfg, params)}
+
+
+def export_vision_tensors(cfg: OpenVLAConfig, params: Params) -> Dict[str, torch.Tensor]:
+    """The vision backbone's and the projector's tensors by their reference
+    names (views of the tree)."""
+    tensors: Dict[str, torch.Tensor] = {}
     for name, vcfg in zip(featurizer_names(cfg), cfg.vision_configs):
         vp = params["vision_backbone"][name]
         pre = f"vision_backbone.{name}."

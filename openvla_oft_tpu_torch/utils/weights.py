@@ -3,7 +3,7 @@
 The port's copy of `openvla_oft_tpu/utils/weights.py`. It covers the
 reference's checkpoint families: HF-format OpenVLA checkpoints
 (`vision_backbone.featurizer.*` timm ViTs, `projector.*`,
-`language_model.model.*` HF Llama tensors) and the per-module fine-tune
+`language_model.model.*` HF Llama or Phi-2 tensors) and the per-module fine-tune
 files `{name}--{step}_checkpoint.pt` (DDP "module." prefixes stripped).
 
 Every porter takes a getter `get(name) -> torch.Tensor` (a
@@ -121,10 +121,51 @@ def port_hf_llama(get: Getter, cfg: LlamaConfig, prefix: str = "",
     return out
 
 
-def port_hf_phi(get: Getter, cfg, prefix: str = "", dtype=torch.float32,
-                device="cpu") -> Params:
-    """HF Phi-2 tensors -> the tree: the port has no Phi-2 LLM yet."""
-    raise NotImplementedError("Phi-2 is not ported yet (ROADMAP queue 1, item 16)")
+# === Phi-2 (HF `PhiForCausalLM` names -> stacked layer tree) ===
+def port_hf_phi(get: Getter, cfg, prefix: str = "",
+                dtype: Optional[torch.dtype] = torch.float32, device="cpu",
+                lm_head: Optional[bool] = None) -> Params:
+    """HF Phi-2 tensors under `prefix` -> the stacked tree (JAX
+    `port_hf_phi`): Linear weights (out, in) -> kernels (in, out); biases,
+    LayerNorm scales and biases as stored. Every projection, each LayerNorm
+    and the lm_head carry a bias. lm_head as in `port_hf_llama`."""
+    L = cfg.num_layers
+
+    def stack(fmt: str, transpose: bool) -> torch.Tensor:
+        return _stacked(get, [prefix + fmt.format(i=i) for i in range(L)], dtype, device,
+                        transpose)
+
+    def wb(name: str) -> Params:
+        return {"kernel": stack(f"model.layers.{{i}}.{name}.weight", True),
+                "bias": stack(f"model.layers.{{i}}.{name}.bias", False)}
+
+    out = {
+        "embed": {"embedding": _leaf(get(prefix + "model.embed_tokens.weight"), dtype,
+                                     device)},
+        "layers": {
+            "attn": {"wq": wb("self_attn.q_proj"), "wk": wb("self_attn.k_proj"),
+                     "wv": wb("self_attn.v_proj"), "wo": wb("self_attn.dense")},
+            "mlp": {"fc1": wb("mlp.fc1"), "fc2": wb("mlp.fc2")},
+            "ln": {"scale": stack("model.layers.{i}.input_layernorm.weight", False),
+                   "bias": stack("model.layers.{i}.input_layernorm.bias", False)},
+        },
+        "final_norm": {
+            "scale": _leaf(get(prefix + "model.final_layernorm.weight"), dtype, device),
+            "bias": _leaf(get(prefix + "model.final_layernorm.bias"), dtype, device)},
+    }
+    if lm_head is False:
+        return out
+    key = prefix + "lm_head.weight"
+    try:
+        w = get(key)
+    except KeyError:
+        if lm_head:
+            raise KeyError(f"the checkpoint has no {key!r}: the discrete head and the "
+                           "autoregressive decode read the lm_head") from None
+        return out
+    out["lm_head"] = {"kernel": _leaf(w, dtype, device, transpose=True),
+                      "bias": _leaf(get(prefix + "lm_head.bias"), dtype, device)}
+    return out
 
 
 # === timm ViT -> stacked tree ===

@@ -98,7 +98,9 @@ def _top2_gap(logits) -> float:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lm_logits_matches_jax(discrete_params, dtype):
     """fp32 logits from fp32 or bf16 operands (JAX
-    `preferred_element_type=float32`; on the CPU the port upcasts both)."""
+    `preferred_element_type=float32`; on the CPU the port upcasts both); a
+    biased lm_head (Phi-2's) adds its bias in fp32, as JAX's
+    `prismatic.lm_logits` does."""
     rng = np.random.default_rng(1)
     kernel = discrete_params["llm"]["lm_head"]["kernel"]
     hidden = rng.standard_normal((2, 5, CFG.llm_dim)).astype(np.float32)
@@ -110,9 +112,14 @@ def test_lm_logits_matches_jax(discrete_params, dtype):
     assert want.dtype == jnp.float32 and got.dtype == torch.float32
     assert got.shape == (2, 5, CFG.llm.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
-    biased = {"lm_head": {**p_llm["lm_head"], "bias": torch.zeros(CFG.llm.vocab_size)}}
-    with pytest.raises(NotImplementedError, match="item 16"):
-        P.lm_logits(biased, torch.from_numpy(hidden))
+    bias = rng.standard_normal(CFG.llm.vocab_size).astype(np.float32)
+    want = JP.lm_logits({"lm_head": {**j_llm["lm_head"], "bias": jnp.asarray(bias, dtype)}},
+                        jnp.asarray(hidden, dtype))
+    got = P.lm_logits({"lm_head": {**p_llm["lm_head"],
+                                   "bias": torch.from_numpy(bias).to(getattr(torch, dtype))}},
+                      torch.from_numpy(hidden).to(getattr(torch, dtype)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
 def test_detokenize_discrete_actions_matches_jax():
