@@ -18,8 +18,9 @@ and its bench script `openvla_oft_tpu_torch.scripts.bench_ar`, the probe script
 B=8, the diffusion and discrete objectives at B=8, OFT+ ALOHA with FiLM at
 B=4, and L1 from a checkpoint dir), and the full-parameter scripts
 `openvla_oft_tpu_torch.scripts.train` (the four freeze stages) and
-`scripts.pretrain` (align, finetune on LLaVA-format data) at B=8, and the
-VLM REPL `scripts.generate`.
+`scripts.pretrain` (align, finetune on LLaVA-format data) at B=8, the
+VLM REPL `scripts.generate`, and the robot eval clients (LIBERO, ALOHA,
+UR5e-robosuite, Bridge) and the quickstart.
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. environment: the card, torch/CUDA versions, TF32 off;
@@ -272,12 +273,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      within 0.05 of its weight over 2,000 frames), then 3 L1 LoRA steps of
      the CLI at random:7b, B = 8, fed by the mixture: K1 64, K2 32, K3 32 a
      step.
+ 17. (after 16) the robot eval clients of `openvla_oft_tpu_torch/experiments/`
+     and the quickstart, each through its own entry point at random:7b in
+     bf16, on scripted stand-in environments that replay frames and states
+     drawn from seed 0 (what a client builds itself, the WidowX client and
+     `input()`, patched from outside its module): (a)
+     `scripts/quickstart.py::main` on the committed LIBERO fixture (2
+     queries); (b) one LIBERO spatial episode through
+     `run_libero_eval.run_episode` (10 settle steps, 220 of the policy's, 28
+     queries of 8), its rollout written as PNG frames by the port's writer
+     with imageio hidden and read back; (c) one ALOHA episode through
+     `run_aloha_eval.run_episode` against phase 5a's deployment (3 cameras,
+     FiLM, `vit_fused`) behind the deploy CLI's warmed-up /act server (50
+     steps at 25 Hz, 2 queries of 25, 480 x 640 frames resized on the
+     card); (d) one UR5e episode through `run_robosuite_eval.run_episode`
+     (the 200 x 360 front camera cropped and resized, 40 steps, 5 queries
+     of 8); (e) `run_bridgev2_eval.eval_bridge`, the discrete head, 1
+     episode of 10 queries whose 5 actions go to the arm at 5 Hz. Each
+     client: K1 31 a query (and K4 98 for ALOHA), every stepped action
+     bitwise equal to what `get_vla_action` (or the server) gives on the
+     same observation followed by the client's own action processing, the
+     episode's wall time and its queries' median on the host clock.
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
 with one entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
+import builtins
 import contextlib
 import dataclasses
 import gc
@@ -4757,6 +4780,433 @@ def phi_phase(card: str, rng, n_layers: int) -> tuple:
     return runs, k5
 
 
+# Phase 17: the robot eval clients, each through its own entry point, with
+# scripted stand-in environments that replay frames and states drawn from
+# the run's seeded generator. What a client builds itself (the WidowX
+# client, `input()`) is patched from outside its module.
+ALOHA_CAMS = ("cam_high", "cam_low", "cam_left_wrist", "cam_right_wrist")
+
+
+class Timed:
+    """A client's query function with the host time of each call, ms (its
+    result is numpy on the host, so each call ends after the card's work)."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+class LiberoStandIn:
+    """LIBERO's OffScreenRenderEnv surface: seeded 256 x 256 camera pairs and
+    robot states replayed in turn, never done. Logs each stepped action with
+    the index of the observation it answered."""
+
+    def __init__(self, rng, n: int = 3):
+        self.obs = []
+        for _ in range(n):
+            q = rng.standard_normal(4)
+            self.obs.append({
+                "agentview_image": rng.integers(0, 256, (256, 256, 3), dtype=np.uint8),
+                "robot0_eye_in_hand_image": rng.integers(0, 256, (256, 256, 3), dtype=np.uint8),
+                "robot0_eef_pos": rng.uniform(-0.3, 0.3, 3), "robot0_eef_quat": q / np.linalg.norm(q),
+                "robot0_gripper_qpos": rng.uniform(-0.04, 0.04, 2)})
+        self.i, self.log = 0, []
+
+    def reset(self):
+        self.i, self.log = 0, []
+
+    def get_observation(self):
+        return self.obs[self.i]
+
+    def step(self, action):
+        self.log.append((self.i, np.asarray(action, np.float64)))
+        self.i = (self.i + 1) % len(self.obs)
+        return self.obs[self.i], 0.0, False, {}
+
+
+class AlohaStandIn:
+    """The real ALOHA env's surface (reset, get_qpos, get_observation, step):
+    seeded 480 x 640 frames of the four cameras and 14-D joint states."""
+
+    def __init__(self, rng, n: int = 3):
+        self.frames = [{cam: rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                        for cam in ALOHA_CAMS} for _ in range(n)]
+        self.qpos = [rng.standard_normal(14) for _ in range(n)]
+        self.stepped = []
+
+    def reset(self):
+        return None
+
+    def get_qpos(self):
+        return self.qpos[0]
+
+    def get_observation(self, t: int = 0):
+        import types
+
+        n = len(self.frames)
+        return types.SimpleNamespace(observation={"images": self.frames[t % n],
+                                                  "qpos": self.qpos[t % n]})
+
+    def step(self, action):
+        self.stepped.append(np.asarray(action, np.float64))
+
+
+class RobosuiteStandIn:
+    """The UR5e task env's surface: seeded 200 x 360 front and eye-in-hand
+    frames (the tasks' render size) and states, never done; logs each world
+    action with the index of the observation it answered."""
+
+    def __init__(self, rng, n: int = 3):
+        self.obs = []
+        for _ in range(n):
+            q = rng.standard_normal(4)
+            self.obs.append({
+                "camera_front_image": rng.integers(0, 256, (200, 360, 3), dtype=np.uint8),
+                "eye_in_hand_image": rng.integers(0, 256, (200, 360, 3), dtype=np.uint8),
+                "eef_pos": rng.uniform(-0.3, 0.3, 3), "eef_quat": q / np.linalg.norm(q),
+                "joint_pos": rng.uniform(-1.5, 1.5, 6)})
+        self.i, self.log = 0, []
+
+    def reset(self):
+        self.i, self.log = 0, []
+        return dict(self.obs[0])
+
+    def step(self, action):
+        self.log.append((self.i, np.asarray(action, np.float64)))
+        self.i = (self.i + 1) % len(self.obs)
+        return dict(self.obs[self.i]), 0.0, False, {}
+
+
+class WidowXStandIn:
+    """The `widowx_envs` client's surface that `eval_bridge` drives: seeded
+    flat (3, 256, 256) images in [0, 1] and 7-D states."""
+
+    def __init__(self, rng, n: int = 3):
+        self.images = [rng.random(3 * 256 * 256) for _ in range(n)]
+        self.states = [rng.standard_normal(7) for _ in range(n)]
+        self.served, self.stepped = [], []
+
+    def reset(self):
+        return None
+
+    def get_observation(self):
+        i = len(self.served) % len(self.images)
+        self.served.append(i)
+        return {"image": self.images[i], "state": self.states[i]}
+
+    def step_action(self, action):
+        self.stepped.append(np.asarray(action, np.float64))
+
+
+@contextlib.contextmanager
+def hidden_module(name: str):
+    """`import name` raises ImportError inside the block."""
+    old = sys.modules.get(name, None)
+    had = name in sys.modules
+    sys.modules[name] = None
+    try:
+        yield
+    finally:
+        if had:
+            sys.modules[name] = old
+        else:
+            del sys.modules[name]
+
+
+def launches_per_query(policy) -> dict:
+    """K1 and K4 launches of one query: K1 on every LLM layer but the first
+    (its window layer), K4 on two projections of every ViT block but the
+    last with `vit_fused`."""
+    k4 = 2 * sum(v.depth - 1 for v in policy.cfg.vision_configs) if policy.vit_fused else 0
+    return {"K1": policy.cfg.llm.num_layers - 1, "K4": k4}
+
+
+def read_png(path: str) -> np.ndarray:
+    """The uint8 (H, W, 3) frame of a PNG that `libero_utils.write_png`
+    wrote (one IDAT, filter 0 on every row)."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is no PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    start = data.index(b"IDAT") + 4
+    rows = np.frombuffer(zlib.decompress(data[start:start + struct.unpack(
+        ">I", data[start - 8:start - 4])[0]]), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row with a filter")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def client_report(name: str, card: str, expect: dict, queries: int, launches: dict,
+                  wall_s: float, query_ms: list, steps: int, n_checked: int) -> dict:
+    """Logs and checks one client's run: launches = expect x queries."""
+    want = {k: v * queries for k, v in expect.items()}
+    got = {k: launches[k] for k in want}
+    ms = np.asarray(query_ms)
+    log(f"[clients] {name}: {steps} env steps, {queries} queries, launches {got} (expected "
+        f"{want}); {n_checked} stepped actions bitwise equal to the direct path's; episode "
+        f"{wall_s:.2f} s, query median {float(np.median(ms)):.2f} ms (min {ms.min():.2f}, max "
+        f"{ms.max():.2f}; host clock, each ends with the actions on the host; {card})")
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    return {**launches, "queries": queries, "episode_s": wall_s,
+            "query_median_ms": float(np.median(ms))}
+
+
+def bitwise_equal(name: str, got, want) -> int:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        d = float(np.abs(got - want).max()) if got.shape == want.shape else None
+        raise AssertionError(f"{name}: the stepped actions {got.shape} differ from the direct "
+                             f"path's {want.shape} (max|d| {d})")
+    return len(got)
+
+
+def quickstart_client(card: str, device: str, ckpt: str) -> dict:
+    """(a) `scripts/quickstart.py::main` on the committed fixture: its two
+    predicts, then the same observation through `get_vla_action`."""
+    from openvla_oft_tpu_torch.scripts import quickstart as Q
+    from openvla_oft_tpu_torch.serving import openvla_utils as PU
+
+    if not Q.FIXTURE.exists():
+        raise AssertionError(f"the committed fixture {Q.FIXTURE} is missing")
+    built, get_vla = [], PU.get_vla
+
+    def capture(cfg, *a, **kw):
+        built.append((cfg, get_vla(cfg, *a, **kw)))
+        return built[-1][1]
+
+    timer = Timed(PU.get_vla_action)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(PU, "get_vla", capture), patched(PU, "get_vla_action", timer):
+        actions = Q.main(Q.QuickstartConfig(checkpoint=ckpt, device=device))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    cfg, vla = built[0]
+    obs = Q.load_observation(None)
+    task = obs.pop("task_description")
+    want = PU.get_vla_action(cfg, vla, PU.get_processor(cfg), obs, task)
+    n = bitwise_equal("quickstart", np.stack(actions), np.stack(want))
+    if not np.isfinite(np.stack(actions)).all() or np.stack(actions).shape != (8, 7):
+        raise AssertionError("quickstart: bad action chunk")
+    run = client_report("(a) quickstart, fixture observation", card, launches_per_query(vla),
+                        len(timer.ms), launches, wall, timer.ms, 0, n)
+    del vla, built
+    return run
+
+
+def libero_client(card: str, rng, device: str, ckpt: str) -> dict:
+    """(b) One LIBERO spatial episode through `run_libero_eval.run_episode`
+    (10 settle steps and 220 of the policy's, 28 queries of 8), its rollout
+    written as PNG frames with imageio hidden, as on the card's machine."""
+    from openvla_oft_tpu_torch.experiments.robot.libero import libero_utils as LU
+    from openvla_oft_tpu_torch.experiments.robot.libero import run_libero_eval as L
+    from openvla_oft_tpu_torch.serving import openvla_utils as PU
+
+    cfg = L.GenerateConfig(pretrained_checkpoint=ckpt, task_suite_name="libero_spatial",
+                           device=device)
+    L.validate_config(cfg)
+    model, processor, head, proprio, noisy = L.initialize_model(cfg)
+    L.check_unnorm_key(cfg, model)
+    resize = L.get_image_resize_size(cfg)
+    env = LiberoStandIn(rng)
+    task = "pick up the black bowl between the plate and the ramekin and place it on the plate"
+    timer = Timed(L.get_action)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(L, "get_action", timer):
+        success, replay = L.run_episode(cfg, env, task, model, resize, processor, head, proprio,
+                                        noisy)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    policy_steps = env.log[cfg.num_steps_wait:]
+    if len(policy_steps) != L.TASK_MAX_STEPS["libero_spatial"] or len(replay) != len(policy_steps):
+        raise AssertionError(f"LIBERO: {len(env.log)} steps taken (an episode error?)")
+    n = 0
+    for k in range(0, len(policy_steps), cfg.num_open_loop_steps):
+        observation, _ = L.prepare_observation(env.obs[policy_steps[k][0]], resize)
+        acts = PU.get_vla_action(cfg, model, processor, observation, task)
+        chunk = policy_steps[k:k + cfg.num_open_loop_steps]
+        n += bitwise_equal("LIBERO", [a for _, a in chunk],
+                           [L.process_action(a, cfg.model_family) for a in acts[:len(chunk)]])
+    with tempfile.TemporaryDirectory() as tmp, hidden_module("imageio"):
+        path = LU.save_rollout_video(replay, 1, success, task, rollout_dir=tmp)
+        pngs = sorted(Path(path).glob("*.png"))
+        stride = max(len(replay) // 20, 1)
+        if len(pngs) != len(replay[::stride]) or not all(
+                np.array_equal(read_png(str(p)), replay[i * stride])
+                for i, p in enumerate(pngs)):
+            raise AssertionError("LIBERO: the rollout's PNG frames are not the replay's")
+        log(f"[clients] (b) LIBERO rollout: {len(pngs)} PNG frames of {len(replay)} by the port's "
+            f"writer (zlib + struct; imageio hidden), each read back equal to its frame")
+    run = client_report("(b) LIBERO spatial episode", card, launches_per_query(model),
+                        len(timer.ms), launches, wall, timer.ms, len(env.log), n)
+    del model
+    return run
+
+
+def aloha_client(card: str, rng, device: str, build_policy) -> dict:
+    """(c) One ALOHA episode through `run_aloha_eval.run_episode` against
+    phase 5a's deployment served over /act by the deploy CLI's server
+    (warmed up): 50 steps at 25 Hz, 2 queries of 25."""
+    from openvla_oft_tpu_torch.experiments.robot.aloha import run_aloha_eval as A
+    from openvla_oft_tpu_torch.serving.deploy import build_server, warmup
+
+    policy = build_policy()
+    server = build_server(policy)
+    warmup(server, policy)
+    port = free_port()
+    server.run("127.0.0.1", port, background=True)
+    endpoint = f"http://127.0.0.1:{port}/act"
+    env = AlohaStandIn(rng)
+    cfg = A.GenerateConfig(max_steps=50, device=device)
+    task = "fold the towel"
+    timer = Timed(A.get_action_from_server)
+    answers = iter(["", "n"])
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with patched(A, "get_action_from_server", timer), \
+                patched(builtins, "input", lambda *a: next(answers)):
+            stats, replay = A.run_episode(cfg, env, task, endpoint)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        if stats["total_steps"] != cfg.max_steps or len(env.stepped) != cfg.max_steps:
+            raise AssertionError(f"ALOHA: {stats} (an episode error?)")
+        n = 0
+        for t in range(0, cfg.max_steps, cfg.num_open_loop_steps):
+            observation, *_ = A.prepare_observation(env.get_observation(t=t), 224, device)
+            observation["instruction"] = task
+            want = np.asarray(A.get_action_from_server(observation, endpoint))
+            chunk = env.stepped[t:t + cfg.num_open_loop_steps]
+            n += bitwise_equal("ALOHA", chunk, want[:len(chunk)])
+    finally:
+        server.shutdown()
+    log(f"[clients] (c) ALOHA: {stats['model_query_time']:.3f} s of model queries in the "
+        f"client's own count, episode {stats['episode_duration']:.2f} s (its 2 s settle and "
+        f"25 Hz pacing included; {card})")
+    run = client_report("(c) ALOHA episode over /act", card, launches_per_query(policy),
+                        len(timer.ms), launches, wall, timer.ms, len(env.stepped), n)
+    del policy
+    return run
+
+
+def robosuite_client(card: str, rng, device: str, ckpt: str) -> dict:
+    """(d) One UR5e episode through `run_robosuite_eval.run_episode`: the
+    200 x 360 front camera cropped and resized, 40 steps, 5 queries of 8."""
+    from openvla_oft_tpu_torch.experiments.robot.robosuite import robosuite_utils as RU
+    from openvla_oft_tpu_torch.experiments.robot.robosuite import run_robosuite_eval as R
+    from openvla_oft_tpu_torch.serving import openvla_utils as PU
+
+    cfg = R.GenerateConfig(pretrained_checkpoint=ckpt, max_steps=40, device=device)
+    model = R.get_model(cfg)
+    processor = R.get_processor(cfg)
+    if model.platform.name != "ur5e":
+        raise AssertionError(f"robosuite: platform {model.platform.name}")
+    env = RobosuiteStandIn(rng)
+    task = R.task_instruction(cfg, 0)
+    timer = Timed(R.get_action)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(R, "get_action", timer):
+        success = R.run_episode(cfg, env, model, processor, None, None, task)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if len(env.log) != cfg.max_steps:
+        raise AssertionError(f"robosuite: {len(env.log)} steps taken (an episode error?)")
+    n = 0
+    for k in range(0, cfg.max_steps, cfg.num_open_loop_steps):
+        obs = dict(env.obs[env.log[k][0]])
+        obs["camera_front_image"] = RU.crop_front_image(obs["camera_front_image"], cfg.task_name)
+        acts = PU.get_vla_action(cfg, model, processor, RU.prepare_observation(obs, device=device),
+                                 task)
+        chunk = env.log[k:k + cfg.num_open_loop_steps]
+        n += bitwise_equal("robosuite", [a for _, a in chunk], [
+            RU.convert_action_to_world(np.asarray(a), env.obs[i]["eef_pos"])[0]
+            for (i, _), a in zip(chunk, acts)])
+    run = client_report(f"(d) UR5e robosuite episode (success {success})", card,
+                        launches_per_query(model), len(timer.ms), launches, wall, timer.ms,
+                        len(env.log), n)
+    del model
+    return run
+
+
+def bridge_client(card: str, rng, device: str, ckpt: str) -> dict:
+    """(e) `run_bridgev2_eval.eval_bridge`, the discrete head: 1 episode of
+    10 steps, each a query whose 5 actions go to the arm at 5 Hz."""
+    from openvla_oft_tpu_torch.experiments.robot.bridge import run_bridgev2_eval as B
+    from openvla_oft_tpu_torch.serving import openvla_utils as PU
+    from openvla_oft_tpu_torch.serving.robot_utils import (invert_gripper_action,
+                                                           normalize_gripper_action)
+
+    cfg = B.GenerateConfig(pretrained_checkpoint=ckpt, max_episodes=1, max_steps=10,
+                           device=device)
+    client = WidowXStandIn(rng)
+    task = "put the spoon on the towel"
+    models, get_model = [], B.get_model
+
+    def capture(c):
+        models.append(get_model(c))
+        return models[-1]
+
+    timer = Timed(B.get_action)
+    answers = iter([task, "n"])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(B, "get_widowx_env", lambda c: client), patched(B, "get_model", capture), \
+            patched(B, "get_action", timer), patched(builtins, "input", lambda *a: next(answers)):
+        B.eval_bridge(cfg)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    model = models[0]
+    if model.head != "discrete" or model.platform.name != "bridge":
+        raise AssertionError(f"Bridge: head {model.head}, platform {model.platform.name}")
+    if len(client.stepped) != cfg.max_steps * cfg.num_open_loop_steps:
+        raise AssertionError(f"Bridge: {len(client.stepped)} actions stepped")
+    processor = PU.get_processor(cfg)
+    n = 0
+    for q, i in enumerate(client.served):
+        obs = B.prepare_observation({"image": client.images[i], "state": client.states[i]})
+        acts = PU.get_vla_action(cfg, model, processor, obs, task)
+        n += bitwise_equal("Bridge", client.stepped[5 * q:5 * q + 5], [
+            invert_gripper_action(normalize_gripper_action(np.asarray(a))) for a in acts[:5]])
+    run = client_report("(e) Bridge, discrete head", card, launches_per_query(model),
+                        len(timer.ms), launches, wall, timer.ms, len(client.stepped), n)
+    del model, models
+    return run
+
+
+def eval_clients_phase(card: str, rng, device: str = "cuda", ckpt: str = "random:7b",
+                       build_aloha=None) -> dict:
+    """Phase 17: the quickstart and the LIBERO, ALOHA, UR5e-robosuite and
+    Bridge clients on `ckpt` (the flagship at full width), in that order.
+    Returns each client's launches and times."""
+    from openvla_oft_tpu_torch.serving.deploy import flagship_policy
+
+    t_phase = time.perf_counter()
+    build_aloha = build_aloha or (lambda: flagship_policy(device, seed=0, platform="aloha",
+                                                           vit_fused=True))
+    runs = {}
+    for name, run in (("quickstart", lambda: quickstart_client(card, device, ckpt)),
+                      ("libero", lambda: libero_client(card, rng, device, ckpt)),
+                      ("aloha", lambda: aloha_client(card, rng, device, build_aloha)),
+                      ("robosuite", lambda: robosuite_client(card, rng, device, ckpt)),
+                      ("bridge", lambda: bridge_client(card, rng, device, ckpt))):
+        runs[name] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[clients] phase 17 took {time.perf_counter() - t_phase:.1f} s (host clock; {card})")
+    return runs
+
+
 def _detached(node):
     if isinstance(node, dict):
         return {k: _detached(v) for k, v in node.items()}
@@ -4871,6 +5321,7 @@ def main() -> int:
         full = full_training_phase(card, CUT_LAYERS)
     phase14 = [run for name, run in qlora.items() if name != "int4 times"] + list(remat.values())
     phi, phi_k5 = phi_phase(card, rng, n_layers)
+    clients = eval_clients_phase(card, rng)
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -4882,7 +5333,8 @@ def main() -> int:
     libero, tr, wqkv = checks["libero_prefill"], bwd["training"], int4["wqkv T=618"]
     bwd_cases = {n: c for n, c in bwd.items() if n != "stats"}
     fc1 = k4["DINOv2 fc1 ALOHA"]
-    k4_launches = aloha_k4["K4"] + sum(run["K4"] for run in phi.values())
+    k4_launches = (aloha_k4["K4"] + sum(run["K4"] for run in phi.values())
+                   + sum(run["K4"] for run in clients.values()))
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
     k1_launches = (serve_launches["K1"] + staged_l1["K1"] + aloha[True]["launches"]["K1"]
                    + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
@@ -4893,7 +5345,8 @@ def main() -> int:
                    + sum(run["K1"] for run in objectives.values()) + episodes["K1"]
                    + sum(run["K1"] for run in phase14)
                    + sum(run["K1"] for run in full.values())
-                   + sum(run["K1"] for run in phi.values()))
+                   + sum(run["K1"] for run in phi.values())
+                   + sum(run["K1"] for run in clients.values()))
     # K2 and K3 launch in the training runs: phase 10, phase 11b's three,
     # the runs from phase 8e's checkpoint dir (11b (d), 14 (d), (e)), phase
     # 13's, 14's, 15's and 16's.
@@ -5006,6 +5459,8 @@ def main() -> int:
     log(f"[phi] launches of phase 16's runs (Phi-2: 2 counted requests each, 3 training "
         f"steps, 3 pretrain steps, one generate prompt; the mixture-fed flagship, 3 steps): "
         + ", ".join(f"{name} {run}" for name, run in phi.items()))
+    log(f"[clients] launches of phase 17's clients: " + ", ".join(
+        f"{name} {run}" for name, run in clients.items()))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

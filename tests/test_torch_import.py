@@ -93,7 +93,19 @@ _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "ut
                 "data.rlds.oxe.materialize", "data.rlds.oxe.mixtures", "data.npz_dataset",
                 "data.prefetch", "_host_build", "utils.overwatch", "utils.native",
                 "data.batching", "data.vlm_datasets", "models.registry", "scripts.train",
-                "scripts.pretrain", "scripts.generate", "scripts.build_instruct_mixtures")
+                "scripts.pretrain", "scripts.generate", "scripts.build_instruct_mixtures",
+                "scripts.quickstart", "experiments.robot.libero.libero_utils",
+                "experiments.robot.libero.run_libero_eval", "experiments.robot.aloha.constants",
+                "experiments.robot.aloha.robot_utils", "experiments.robot.aloha.real_env",
+                "experiments.robot.aloha.aloha_utils", "experiments.robot.aloha.run_aloha_eval",
+                "experiments.robot.aloha.preprocess_split_aloha_data",
+                "experiments.robot.bridge.widowx_env", "experiments.robot.bridge.bridgev2_utils",
+                "experiments.robot.bridge.run_bridgev2_eval",
+                "experiments.robot.robosuite.robosuite_utils",
+                "experiments.robot.robosuite.run_robosuite_eval",
+                "experiments.robot.robosuite.create_video",
+                "experiments.robot.robosuite.collect_data.collect_task",
+                "experiments.robot.robosuite.collect_data.rollout_trajectory")
 
 
 def test_every_module_imports_without_jax():
