@@ -20,7 +20,8 @@ B=4, and L1 from a checkpoint dir), and the full-parameter scripts
 `openvla_oft_tpu_torch.scripts.train` (the four freeze stages) and
 `scripts.pretrain` (align, finetune on LLaVA-format data) at B=8, the
 VLM REPL `scripts.generate`, and the robot eval clients (LIBERO, ALOHA,
-UR5e-robosuite, Bridge) and the quickstart.
+UR5e-robosuite, Bridge) and the quickstart, and multi-GPU execution: the
+CLI on a one-rank NCCL mesh and tp = 2 serving on two processes of the card.
 
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. environment: the card, torch/CUDA versions, TF32 off;
@@ -294,6 +295,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      bitwise equal to what `get_vla_action` (or the server) gives on the
      same observation followed by the client's own action processing, the
      episode's wall time and its queries' median on the host clock.
+ 18. (after 17) multi-GPU execution (`openvla_oft_tpu_torch/parallel/`) on
+     the one card: (a) the fine-tuning CLI at phase 14's cut (8 layers, full
+     width), B = 8, 3 steps, without a mesh and then with `--multihost True`
+     on a one-rank NCCL group (every leaf a DTensor on the (1, 1, 1) mesh):
+     losses and trainables bitwise equal (else within phase 12's bounds),
+     K1 16, K2 8, K3 8 a step, the step times side by side (the DTensor
+     overhead); then `flash_attention_tp` on the one-rank tp mesh at the
+     training shape, K1 forward and K2/K3 backward under `local_map`,
+     bitwise the unsharded call; (b) tp = 2 serving of the flagship on the
+     one card: two processes on cuda:0 in a gloo group (NCCL refuses two
+     ranks on one device), `flagship_policy(tp_mesh=...)`, 3 requests each
+     through `predict_action_from_frames`, K1 31 a request over 16 of the 32
+     heads a rank; the actions_hidden cosine against the one-rank policy
+     (phase 5's bound), both ranks' answers equal, each rank's weights and
+     peak memory; the request times are this harness's cost only (gloo
+     stages every collective through the host).
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
@@ -2696,7 +2713,8 @@ def backward_check(card: str, s_train: int, s_aloha: int) -> dict:
 
 
 def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
-          steps: int = 3, sample_freq: int = 0, expect_extra: dict = None) -> tuple:
+          steps: int = 3, sample_freq: int = 0, expect_extra: dict = None,
+          keep_first: bool = False) -> tuple:
     """`steps` steps of the fine-tuning CLI with `flags` (in process), the
     launch counts reset just before it and read just after. Each step must
     launch K1 2 x n_layers (remat "all": the forward and its recompute) and
@@ -2704,7 +2722,8 @@ def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
     base's int8 products or K5 launches a step); a step that runs the diffusion
     sampling metric (every `sample_freq`) adds K1 n_layers for each of its
     forwards. Every trainable group must move between the first step and
-    the last. Returns (state, launches, info)."""
+    the last. Returns (state, launches, info); with `keep_first` the
+    info holds the trainables after step 0 ("first")."""
     from openvla_oft_tpu_torch.bridge import tree_leaves
     from openvla_oft_tpu_torch.training import finetune as FT
 
@@ -2724,6 +2743,7 @@ def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
             seen["samples"].append({k: metrics[k] for k in metrics if "sampled" in k
                                     or k == "sample_time"})
         seen["times"].append(metrics["step_time"])
+        seen.setdefault("losses", []).append(metrics["loss"])
         log(f"[{label}] step {step}: " + " ".join(
             f"{k}={v:.6f}" for k, v in sorted(metrics.items()) if k != "step_time")
             + f" step_time={metrics['step_time']:.4f} s (host clock, ends in "
@@ -2780,10 +2800,10 @@ def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
             if not moved > 0:
                 raise AssertionError(f"trainables {group} did not change")
             start = stop
-        del seen["first"]
         return state, launches, {"step_times": seen["times"], "peak": peak,
-                                 "step_peak": step_peak,
-                                 "samples": seen["samples"]}
+                                 "step_peak": step_peak, "losses": seen["losses"],
+                                 "samples": seen["samples"],
+                                 "first": seen.pop("first") if keep_first else None}
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
 
@@ -4733,7 +4753,8 @@ def mixture_phase(card: str, n_layers: int) -> dict:
                 raise AssertionError(f"{name}'s share {shares[name]} is not within "
                                      f"{MIX_SHARE_TOL} of {w}")
 
-        def mixture_data(cfg, model_cfg, platform, num_samples, train=True):
+        def mixture_data(cfg, model_cfg, platform, num_samples, train=True,
+                         process=(0, 1)):       # one process: every shard
             transform = RLDSBatchTransform(PrismaticProcessor(model_cfg), ActionTokenizer(),
                                            platform)
             data, stats = make_interleaved_iterator(
@@ -5215,6 +5236,344 @@ def _detached(node):
     return node.detach()
 
 
+# === Phase 18: multi-GPU execution on the one card (PR 23) ===
+# (a) The fine-tuning CLI with --multihost on a one-rank NCCL group (every
+# trainable and base leaf a DTensor on the (1, 1, 1) mesh) against the same
+# CLI without it, at phase 14's cut (8 layers, full width), seed and batch;
+# then flash_attention_tp (K1 forward, K2/K3 backward under local_map) on the
+# one-rank tp mesh at the training shape, bitwise against the unsharded call.
+# (b) tp = 2 serving of the flagship on the one card: two processes on cuda:0
+# in a gloo group (NCCL refuses two ranks on one device: ncclInvalidUsage on
+# every collective, measured on the H100 with NCCL 2.28.9), each with half of
+# every tp-sharded leaf, K1 over 16 of the 32 heads; the actions and hidden
+# states against the one-rank policy's; then flash_attention_tp forward and
+# backward (K1, K2, K3 under local_map) on each rank's 16 heads at the
+# training shape against flash_attention over all 32. Gloo's collectives
+# stage CUDA tensors through the host, so the request times are the cost of
+# this harness only.
+TP_REQUESTS = 3
+
+
+def one_rank_training(card: str, s_train: int) -> dict:
+    """Phase 18 (a). Returns the two CLI runs' launches."""
+    import torch.distributed as dist
+
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    one_rank = ["--multihost", "True", "--coordinator_address", f"file://{store}/store",
+                "--num_processes", "1", "--process_id", "0"]
+    runs = {}
+    try:
+        with cut_flagship():
+            state, runs["plain"], plain = train(card, CUT_LAYERS, label="multigpu-plain",
+                                                keep_first=True)
+            want = [t.detach().clone() for t in tree_leaves(state.trainables)]
+            groups = {g: len(tree_leaves(t)) for g, t in state.trainables.items()}
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            state, runs["1-rank"], multi = train(card, CUT_LAYERS, flags=TRAIN_FLAGS + one_rank,
+                                                 label="multigpu-1rank", keep_first=True)
+            got = [t.detach().to_local() if hasattr(t, "to_local") else t.detach()
+                   for t in tree_leaves(state.trainables)]
+            first = [t.to_local() if hasattr(t, "to_local") else t for t in multi["first"]]
+            backend = dist.get_backend()
+            sharded = sum(hasattr(t, "device_mesh") for t in tree_leaves(state.trainables))
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        equal = sum(int(torch.equal(a, b)) for a, b in zip(got, want))
+        bitwise = multi["losses"] == plain["losses"] and equal == len(want)
+        log(f"[multigpu-1rank] backend {backend}, {sharded} of {len(got)} trainable leaves "
+            f"DTensors; losses {multi['losses']} against {plain['losses']} without a mesh; "
+            f"{equal} of {len(want)} trainable leaves bitwise equal after "
+            f"{len(plain['losses'])} steps ({card})")
+        if not bitwise:
+            rels = [abs(a - b) / abs(b) for a, b in zip(multi["losses"], plain["losses"])]
+            ok = all(np.isfinite(multi["losses"])) and max(rels) <= TRAIN_LOSS_REL
+            start = 0
+            for group, n in groups.items():
+                upd = [torch.cat([(x - f).float().flatten() for x, f in
+                                  zip(src[start:start + n], fst[start:start + n])])
+                       for src, fst in ((got, first), (want, plain["first"]))]
+                cos = torch.nn.functional.cosine_similarity(upd[0], upd[1], dim=0).item()
+                log(f"[multigpu-1rank] {group}: cosine of the updates after step 0, with "
+                    f"and without the mesh = {cos:.6f}")
+                ok = ok and cos >= TRAIN_GRAD_COSINE
+                start += n
+            log(f"[multigpu-1rank] loss relative differences {rels} (bound {TRAIN_LOSS_REL})")
+            if not ok:
+                raise AssertionError("the one-rank mesh run disagrees with the run without it")
+        t_plain = float(np.median(plain["step_times"][1:]))
+        t_multi = float(np.median(multi["step_times"][1:]))
+        log(f"[multigpu-1rank] step time, median of steps 1-2: {t_multi:.4f} s on the "
+            f"one-rank mesh, {t_plain:.4f} s without (x{t_multi / t_plain:.3f}, the DTensor "
+            f"overhead; host clock, each step ends in torch.cuda.synchronize); peak "
+            f"{multi['peak'] / 2**30:.3f} GiB against {plain['peak'] / 2**30:.3f} GiB ({card})")
+        runs["tp-wrapper"] = tp_wrapper_check(card, s_train)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    log(f"[multigpu] phase 18 (a) took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return runs
+
+
+def tp_wrapper_check(card: str, s_train: int) -> dict:
+    """K1, then K2 and K3, through `flash_attention_tp`'s local_map on the
+    one-rank tp mesh of the group phase 18 (a) set up, at the training
+    batch's shape; bitwise against `flash_attention`. Returns the launches."""
+    from openvla_oft_tpu_torch.ops.flash_attention import flash_attention, flash_attention_tp
+    from openvla_oft_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 1, 1, device_type="cuda")
+    q, k, v, do, key_valid, bidir = tp_attention_inputs(s_train)
+    b = q.shape[0]
+    out = {}
+    for name in ("tp", "plain"):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = launch_counts()
+        if name == "tp":
+            o = flash_attention_tp(*ins, mesh, key_valid=key_valid, bidir_mask=bidir)
+            o = o.to_local()
+        else:
+            o = flash_attention(*ins, key_valid=key_valid, bidir_mask=bidir)
+        grads = torch.autograd.grad(o, ins, do)
+        torch.cuda.synchronize()
+        out[name] = ((o.detach(),) + grads,
+                     {key: n - before[key] for key, n in launch_counts().items()})
+    (tp, used), (plain, _) = out["tp"], out["plain"]
+    same = [torch.equal(a, b) for a, b in zip(tp, plain)]
+    log(f"[multigpu-tp] flash_attention_tp on the one-rank mesh at B = {b}, S = {s_train}: "
+        f"launches {used}; O, dq, dk, dv bitwise equal to flash_attention: {same} ({card})")
+    if used["K1"] != 1 or used["K2"] != 1 or used["K3"] != 1 or not all(same):
+        raise AssertionError("flash_attention_tp on one rank is not K1, K2, K3 as they are")
+    return used
+
+
+def tp_attention_inputs(s_train: int, device: str = "cuda") -> tuple:
+    """q, k, v, dO (B = 8, S = s_train, 32 heads of 128, bf16, drawn from a
+    generator seeded 18 on `device`, alike in every process), key_valid with
+    7 i padded keys in row i, and a bidirectional block of 57."""
+    gen = torch.Generator(device=device).manual_seed(18)
+    b, h, d = 8, 32, 128
+    q, k, v, do = (torch.randn((b, s_train, h, d), generator=gen, device=device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    key_valid = torch.ones((b, s_train), dtype=torch.bool, device=device)
+    for i in range(b):
+        key_valid[i, s_train - 7 * i:] = False
+    bidir = torch.zeros_like(key_valid)
+    bidir[:, s_train - 120:s_train - 63] = True
+    return q, k, v, do, key_valid, bidir
+
+
+def tp_attention_check(mesh, s_train: int, device: str = "cuda") -> dict:
+    """`flash_attention_tp` forward and backward on this rank's head shard
+    of the tp mesh (K1, then K2 and K3, under local_map) at the training
+    batch's shape, against `flash_attention` over every head on the same
+    inputs: O, dq, dk and dv of the rank's heads. The inputs enter as
+    DTensors Shard(2) of the rank's own heads, so no collective runs.
+    Returns the tp call's launches and the errors."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from openvla_oft_tpu_torch.ops.flash_attention import (flash_attention,
+                                                           flash_attention_tp, tp_mesh_of)
+
+    tp = tp_mesh_of(mesh)
+    q, k, v, do, key_valid, bidir = tp_attention_inputs(s_train, device)
+    whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*whole, key_valid=key_valid, bidir_mask=bidir)
+    ref = (o.detach(),) + torch.autograd.grad(o, whole, do)
+    n = q.shape[2] // tp.size()
+    heads = slice(tp.get_local_rank() * n, (tp.get_local_rank() + 1) * n)
+    own = [t[:, :, heads].clone().requires_grad_(True) for t in (q, k, v)]
+    before = launch_counts()
+    o = flash_attention_tp(*(DTensor.from_local(t, tp, [Shard(2)], run_check=False)
+                             for t in own), mesh, key_valid=key_valid,
+                           bidir_mask=bidir).to_local()
+    got = (o.detach(),) + torch.autograd.grad(o, own, do[:, :, heads].contiguous())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    used = {key: c - before[key] for key, c in launch_counts().items()}
+    refs = [r[:, :, heads] for r in ref]
+    return {"launches": used, "heads": (heads.start, heads.stop), "shape": tuple(q.shape),
+            "errs": {name: _rel_cos(g, r) for name, g, r in zip(("O", "dq", "dk", "dv"),
+                                                                 got, refs)},
+            "bitwise": [torch.equal(g, r) for g, r in zip(got, refs)]}
+
+
+def tp_serving_rank(rank: int, store: str, obs: dict, s_train: int, out_q) -> None:
+    """One rank of phase 18 (b), in its own process: the flagship policy on
+    the tp = 2 mesh of a gloo group on cuda:0, TP_REQUESTS requests through
+    `predict_action_from_frames`, then the action rows' hidden states; then
+    `tp_attention_check` on the rank's 16 heads."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from openvla_oft_tpu_torch.bridge import tree_leaves
+        from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden
+        from openvla_oft_tpu_torch.parallel.mesh import init_distributed, make_mesh
+        from openvla_oft_tpu_torch.serving.deploy import flagship_policy
+
+        torch.cuda.set_device(0)
+        init_distributed("cuda", f"file://{store}", 2, rank, backend="gloo")
+        mesh = make_mesh(1, 1, 2, device_type="cuda")
+        t0 = time.perf_counter()
+        policy = flagship_policy("cuda", seed=0, tp_mesh=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weights = sum((t.to_local() if hasattr(t, "to_local") else t).nbytes
+                      for t in tree_leaves(policy.params))
+        held = torch.cuda.memory_allocated()
+        from openvla_oft_tpu_torch.parallel.sharding import replicate
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        replicate.counts.update({k: 0 for k in replicate.counts})
+        times, answers = [], []
+        for _ in range(TP_REQUESTS):
+            t0 = time.perf_counter()
+            answers.append(policy.predict_action_from_frames(
+                frames_of(policy, obs), obs["instruction"], np.asarray(obs["state"])))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = launch_counts()
+        collectives = {k: v / TP_REQUESTS for k, v in replicate.counts.items()}
+        _, ids, mask, pixels, proprio = model_inputs(policy, obs)
+        params, ctx = policy._sharded()
+        with ctx:
+            hidden = predict_action_hidden(params, policy.cfg, policy.platform, ids, mask, pixels,
+                                           proprio=proprio.clamp(-1, 1), use_flash=True)
+        local_heads = policy.cfg.llm.num_heads // mesh.size(2)
+        del policy, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        attention = tp_attention_check(mesh, s_train)
+        out_q.put((rank, {"answers": answers, "times": times, "launches": launches,
+                          "attention": attention,
+                          "hidden": hidden.actions_hidden.float().cpu().numpy(),
+                          "weights": weights, "held": held, "build_s": build_s,
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "local_heads": local_heads, "collectives": collectives}))
+        dist.destroy_process_group()
+    except BaseException:
+        out_q.put((rank, {"error": traceback.format_exc()}))
+
+
+def tp_serving(card: str, rng, s_train: int) -> tuple:
+    """Phase 18 (b). Returns each rank's launches in the serve, and in its
+    attention check."""
+    import multiprocessing as mp
+    import queue
+
+    from openvla_oft_tpu_torch.serving.deploy import flagship_policy
+
+    t_phase = time.perf_counter()
+    policy = flagship_policy("cuda", seed=0)
+    obs = observation(policy, rng)
+    ref_actions = policy.predict_action_from_frames(frames_of(policy, obs), obs["instruction"],
+                                                    np.asarray(obs["state"]))
+    ref_hidden = actions_hidden(policy, model_inputs(policy, obs)).cpu()
+    n_layers, n_heads = policy.cfg.llm.num_layers, policy.cfg.llm.num_heads
+    del policy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    store = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    procs = [ctx.Process(target=tp_serving_rank,
+                         args=(r, os.path.join(store, "store"), obs, s_train, out_q))
+             for r in range(2)]
+    results = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 420
+        while len(results) < 2 and time.monotonic() < deadline:
+            try:
+                rank, res = out_q.get(timeout=5)
+                results[rank] = res
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+        for p in procs:
+            p.join(timeout=30)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(store, ignore_errors=True)
+    errors = {r: res["error"] for r, res in results.items() if "error" in res}
+    if len(results) < 2 or errors:
+        raise AssertionError(f"phase 18 (b): ranks {sorted(results)} answered; exit codes "
+                             f"{[p.exitcode for p in procs]}; errors {errors}")
+    want = {"K1": TP_REQUESTS * (n_layers - 1), "K4": 0, "K5": 0, "K6": 0, "int8": 0}
+    for rank, res in sorted(results.items()):
+        cos = cosine(torch.from_numpy(res["hidden"]), ref_hidden)
+        d_act = max(float(np.abs(a - ref_actions).max()) for a in res["answers"])
+        log(f"[tp-serve] rank {rank}: tp = 2 on cuda:0 (gloo), K1 over {res['local_heads']} of "
+            f"{n_heads} heads a launch; weights held {res['weights'] / 2**30:.3f} GiB, "
+            f"allocated after the build {res['held'] / 2**30:.3f} GiB, peak over the "
+            f"requests {res['peak'] / 2**30:.3f} GiB; launches over {TP_REQUESTS} requests "
+            f"{res['launches']}; collectives a request: "
+            f"{res['collectives']['all_gather']:.0f} all-gathers "
+            f"({res['collectives']['all_gather_bytes'] / 2**20:.1f} MiB out), "
+            f"{res['collectives']['all_reduce']:.0f} all-reduces "
+            f"({res['collectives']['all_reduce_bytes'] / 2**20:.1f} MiB); "
+            f"actions_hidden cosine against the one-rank policy "
+            f"{cos:.6f}, max|d actions| {d_act:.4e}; request times "
+            f"{', '.join(f'{t:.3f}' for t in res['times'])} s (host clock: the cost of this "
+            f"harness, gloo staging every collective through the host, not a speed); "
+            f"built in {res['build_s']:.1f} s ({card})")
+        if cos < PARITY_COSINE or not all(np.isfinite(a).all() for a in res["answers"]):
+            raise AssertionError(f"rank {rank}'s tp = 2 answer disagrees with one rank: "
+                                 f"cosine {cos}")
+        if any(res["launches"][k] != n for k, n in want.items()):
+            raise AssertionError(f"rank {rank} launched {res['launches']}, expected {want}")
+        att = res["attention"]
+        log(f"[tp-attn] rank {rank}: flash_attention_tp at tp = 2, B, S, H, D = "
+            f"{att['shape']}, heads {att['heads'][0]}-{att['heads'][1] - 1} on this rank, "
+            f"forward and backward under local_map: launches {att['launches']}; against "
+            f"flash_attention over all heads: " + " ".join(
+                f"{n} max|d|={e[0]:.3e} rel={e[1]:.3e} cos={e[2]:.6f}"
+                for n, e in att["errs"].items())
+            + f"; bitwise (O, dq, dk, dv): {att['bitwise']} (bounds rel {BWD_REL}, cosine "
+              f"{BWD_COSINE}; {card})")
+        if not all(e[1] <= BWD_REL and e[2] >= BWD_COSINE for e in att["errs"].values()):
+            raise AssertionError(f"rank {rank}'s flash_attention_tp disagrees with "
+                                 f"flash_attention")
+        if any(att["launches"][key] != 1 for key in ("K1", "K2", "K3")):
+            raise AssertionError(f"rank {rank}'s flash_attention_tp launched "
+                                 f"{att['launches']}, expected K1, K2 and K3 once each")
+    if not all(np.array_equal(a, b) for a, b in zip(results[0]["answers"],
+                                                   results[1]["answers"])):
+        raise AssertionError("the two tp ranks answered differently")
+    log(f"[tp-serve] phase 18 (b) took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return ({f"tp2 rank {r}": results[r]["launches"] for r in (0, 1)},
+            {f"tp2 rank {r}": results[r]["attention"]["launches"] for r in (0, 1)})
+
+
+def tp_note(multigpu: dict, tp_serve: dict, tp_attention: dict, key: str) -> dict:
+    """A kernel's phase 18 launches: in the one-rank mesh CLI (DTensor
+    trainables, whose tp placements the one-rank mesh replicates, so no
+    tp route; counted in its launches), through local_map on one rank and on
+    each rank's 16 heads at tp = 2 in the wrapper checks (not counted), and
+    per tp rank of the tp = 2 serve (counted; K1 only)."""
+    note = {"one-rank mesh CLI (DTensor trainables, no tp route)": multigpu["1-rank"][key],
+            "local_map check on one rank (not counted)": multigpu["tp-wrapper"][key]}
+    note.update({f"{name} local_map check, 16 of 32 heads (not counted)": run[key]
+                 for name, run in tp_attention.items()})
+    if key == "K1":
+        note.update({f"{name}, 16 of 32 heads": run["K1"] for name, run in tp_serve.items()})
+    return note
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
                  bound_by, library_ms, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": "openvla_oft_tpu_torch/csrc/" + source,
@@ -5322,6 +5681,8 @@ def main() -> int:
     phase14 = [run for name, run in qlora.items() if name != "int4 times"] + list(remat.values())
     phi, phi_k5 = phi_phase(card, rng, n_layers)
     clients = eval_clients_phase(card, rng)
+    multigpu = one_rank_training(card, s_train)
+    tp_serve, tp_attention = tp_serving(card, rng, s_train)
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -5346,12 +5707,15 @@ def main() -> int:
                    + sum(run["K1"] for run in phase14)
                    + sum(run["K1"] for run in full.values())
                    + sum(run["K1"] for run in phi.values())
-                   + sum(run["K1"] for run in clients.values()))
+                   + sum(run["K1"] for run in clients.values())
+                   + multigpu["plain"]["K1"] + multigpu["1-rank"]["K1"]
+                   + sum(run["K1"] for run in tp_serve.values()))
     # K2 and K3 launch in the training runs: phase 10, phase 11b's three,
     # the runs from phase 8e's checkpoint dir (11b (d), 14 (d), (e)), phase
-    # 13's, 14's, 15's and 16's.
+    # 13's, 14's, 15's, 16's and 18 (a)'s two.
     bwd_runs = [train_launches, checkpoint["checkpoint training"], *objectives.values(),
                 episodes, *phase14, *full.values(), *phi.values(),
+                multigpu["plain"], multigpu["1-rank"],
                 *(checkpoint[k] for k in ("run-management", "resume", "preempt",
                                           "preempt-resume"))]
     k2_launches = sum(run["K2"] for run in bwd_runs)
@@ -5372,7 +5736,8 @@ def main() -> int:
                      library_events_ms=libero["library_events_ms"],
                      other_cases={n: {"ms": c["ms"], "library_ms": c["library_ms"],
                                       "bound_ms": c["bound_ms"], "timing": c["timing"]}
-                                  for n, c in checks.items() if n != "libero_prefill"}),
+                                  for n, c in checks.items() if n != "libero_prefill"},
+                     tp=tp_note(multigpu, tp_serve, tp_attention, "K1")),
         kernel_entry("flash_attention_dq", "flash_attention_bwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:181", k2_launches,
                      max(c["dq_err"] for c in bwd_cases.values()), tr["ms_dq"],
@@ -5380,7 +5745,7 @@ def main() -> int:
                      library_call="SDPA's backward with the boolean OFT mask (dq, dk, dv)",
                      plan=tr["plan"], hgmma=wgmma["K2"], timing=tr["timing"],
                      events_ms=tr["events_dq"], library_events_ms=tr["library_events_ms"],
-                     other_cases=bwd_others),
+                     other_cases=bwd_others, tp=tp_note(multigpu, tp_serve, tp_attention, "K2")),
         kernel_entry("flash_attention_dkv", "flash_attention_bwd.cu",
                      "openvla_oft_tpu/ops/flash_attention.py:207", k3_launches,
                      max(c["dkv_err"] for c in bwd_cases.values()), tr["ms_dkv"],
@@ -5388,7 +5753,8 @@ def main() -> int:
                      library_call="SDPA's backward with the boolean OFT mask (dq, dk, dv)",
                      plan=tr["plan"], hgmma=wgmma["K3"], timing=tr["timing"],
                      events_ms=tr["events_dkv"], library_events_ms=tr["library_events_ms"],
-                     stats_pass_ms=bwd["stats"]["ms"], other_cases=bwd_others),
+                     stats_pass_ms=bwd["stats"]["ms"], other_cases=bwd_others,
+                     tp=tp_note(multigpu, tp_serve, tp_attention, "K3")),
         kernel_entry("ln_matmul", "ln_matmul.cu", "openvla_oft_tpu/ops/vit_fused.py:47",
                      k4_launches, max(c["max_abs_err"] for c in k4.values()),
                      fc1["dev_ms"], fc1["plain_ms"], fc1["bound_ms"], fc1["bound_by"],
@@ -5461,6 +5827,11 @@ def main() -> int:
         + ", ".join(f"{name} {run}" for name, run in phi.items()))
     log(f"[clients] launches of phase 17's clients: " + ", ".join(
         f"{name} {run}" for name, run in clients.items()))
+    log(f"[multigpu] launches of phase 18's runs (3 CLI steps each at 8 layers; "
+        f"{TP_REQUESTS} tp = 2 requests a rank): " + ", ".join(
+            f"{name} {run}" for name, run in {**multigpu, **tp_serve}.items())
+        + "; the tp = 2 attention checks: " + ", ".join(
+            f"{name} {run}" for name, run in tp_attention.items()))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -73,3 +73,13 @@ def batch_iterator(dataset, batch_size: int, collator) :
         if len(buf) == batch_size:
             yield collator(buf)
             buf = []
+
+
+def rank_rows(batches, index: int, count: int):
+    """Rows `index`/`count` of every batch (the arrays' leading dim cut in
+    `count` equal parts): one data rank's share of global batches that every
+    rank builds alike."""
+    for batch in batches:
+        n = next(len(v) for v in batch.values() if hasattr(v, "shape")) // count
+        yield {k: v[index * n:(index + 1) * n] if hasattr(v, "shape") else v
+               for k, v in batch.items()}

@@ -211,6 +211,16 @@ def _resolve_standardize_fn(root: str, name: str, standardize_fn):
     return OXE_STANDARDIZATION_TRANSFORMS.get(name)
 
 
+def _process_shard(index: Optional[int], count: Optional[int]) -> Tuple[int, int]:
+    """(index, count) of the process reading, by default from the process
+    group (0 of 1 without one)."""
+    if count is None:
+        from openvla_oft_tpu_torch.parallel.mesh import process_count, process_index
+
+        index, count = process_index(), process_count()
+    return (index or 0), count
+
+
 def _files(root: str, name: str) -> List[str]:
     files = sorted(glob.glob(os.path.join(root, name, "*.tfrecord*")))
     if not files:
@@ -348,9 +358,13 @@ def _build_encoded_frames(root: str, name: str, platform: PlatformSpec, train: b
                           seed: int = 0, standardize_fn="auto", num_images: int = 1,
                           goal_relabeling_strategy: Optional[str] = None,
                           read_parallelism: Optional[int] = None,
-                          cycle_length: int = 4) -> Tuple[Iterator[Dict], Dict]:
+                          cycle_length: int = 4, process_index: Optional[int] = None,
+                          process_count: Optional[int] = None) -> Tuple[Iterator[Dict], Dict]:
     """The frame stream up to (and without) decoding, images still
-    JPEG-encoded, and the dataset's statistics."""
+    JPEG-encoded, and the dataset's statistics. With `process_count` > 1
+    (by default the process group's size) and at least that many episode
+    files, process `process_index` reads `files[index::count]` and shuffles
+    with seed + index (JAX pipeline.py:315-332)."""
     if goal_relabeling_strategy not in (None, "uniform"):
         raise ValueError(f"unknown goal_relabeling_strategy {goal_relabeling_strategy!r}")
     standardize_fn = _resolve_standardize_fn(root, name, standardize_fn)
@@ -358,6 +372,12 @@ def _build_encoded_frames(root: str, name: str, platform: PlatformSpec, train: b
     norm_type = platform.norm_type
     future = platform.num_actions_chunk - 1
     files = _files(root, name)
+    proc, n_proc = _process_shard(process_index, process_count)
+    if n_proc > 1 and len(files) >= n_proc:
+        files = files[proc::n_proc]
+        print(f"[rlds] process {proc}/{n_proc} reads {len(files)} of the episode "
+              f"shards for {name}")
+    seed = seed + proc
     has_wrist = num_images > 1
     reads = max(int(read_parallelism or 1), 1)
 
@@ -463,6 +483,8 @@ def make_rlds_iterator(
     transform_parallelism: Optional[int] = None,
     decode_parallelism: Optional[int] = None,
     cycle_length: int = 4,
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
 ) -> Tuple[Iterator[Dict[str, np.ndarray]], Dict]:
     """The frame iterator (through `batch_transform`) and {name: stats},
     with the JAX function's signature. `read_parallelism`: shards
@@ -470,14 +492,19 @@ def make_rlds_iterator(
     decode and augmentation threads (default the CPU count, at most 8);
     `transform_parallelism` is accepted for the signature (episodes are
     parsed in the consumer's thread). Train mode repeats forever; at
-    `train=False` one pass."""
+    `train=False` one pass. `process_index` / `process_count`: this
+    process's shard of the episode files (`_build_encoded_frames`; by
+    default the process group's rank and size)."""
     del transform_parallelism
     frames, stats = _build_encoded_frames(
         root, name, platform, train=train, seed=seed, standardize_fn=standardize_fn,
         num_images=num_images, goal_relabeling_strategy=goal_relabeling_strategy,
-        read_parallelism=read_parallelism, cycle_length=cycle_length)
+        read_parallelism=read_parallelism, cycle_length=cycle_length,
+        process_index=process_index, process_count=process_count)
     if train:
-        frames = _shuffle(frames, shuffle_buffer_size, np.random.default_rng([seed, 1]))
+        proc, _ = _process_shard(process_index, process_count)
+        frames = _shuffle(frames, shuffle_buffer_size,
+                          np.random.default_rng([seed + proc, 1]))
     threads = max(int(decode_parallelism or min(os.cpu_count() or 1, 8)), 1)
     decoded = _ordered_map(lambda f: _decode_frame(f, image_aug, train, task_augment_prob),
                            frames, threads)

@@ -6,7 +6,7 @@ Port of `openvla_oft_tpu/models/llama.py` (`embed_tokens`,
 policies). RMSNorm -> RoPE attention with the OFT block-bidirectional mask
 -> SwiGLU; hidden states are returned after the
 final RMSNorm. Layers stay stacked (L, ...) and run as a Python loop over
-per-layer views (`bridge.index_layer`). That covers int4 layers too: the
+per-layer views (`parallel/sharding.py::layer_params`). That covers int4 layers too: the
 JAX package's `_has_int4`/`_index_layer` keep the stacked int4 leaves and
 pass a layer index to its stacked kernels, while here `kernel_q4[l]` and
 `scale_w4[l]` are views that the int4 kernels read without a copy; int8
@@ -33,15 +33,17 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from openvla_oft_tpu_torch.config import LlamaConfig
-from openvla_oft_tpu_torch.bridge import index_layer, tree_leaves
+from openvla_oft_tpu_torch.bridge import tree_leaves
 from openvla_oft_tpu_torch.ops.attention import (attention, attention_split_kv,
                                                  resolve_use_flash)
 from openvla_oft_tpu_torch.ops.layers import linear, rms_norm
 from openvla_oft_tpu_torch.ops.masks import make_block_bidirectional_mask
 from openvla_oft_tpu_torch.ops.quant import empty_int8_kernel
 from openvla_oft_tpu_torch.ops.rotary import apply_rope, rope_sin_cos
+from openvla_oft_tpu_torch.parallel.sharding import layer_params, like_replicated, replicate
 
 Params = Dict[str, Any]
 
@@ -113,7 +115,16 @@ def run_block(attend, finish, remat_policy: Optional[str], p: Params, cfg, x: to
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["embedding"][input_ids.long()]
+    """Embedding rows of `input_ids`. A table sharded over tp (its columns)
+    looks up its own columns and gathers the rows' columns after."""
+    table = params["embed"]["embedding"]
+    if isinstance(table, DTensor):
+        from torch.distributed.tensor import Shard
+
+        rows = table.to_local()[input_ids.long()]
+        return replicate(DTensor.from_local(rows, table.device_mesh, [Shard(rows.ndim - 1)],
+                                            run_check=False))
+    return table[input_ids.long()]
 
 
 def fuse_inference_weights(llm_params: Params, fold_norms: bool = True) -> Params:
@@ -188,10 +199,13 @@ def _qkv_proj(attn: Params, cfg: LlamaConfig, xa: torch.Tensor):
     b, s, _ = xa.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "wqkv" in attn:
-        qkv = linear(attn["wqkv"], xa)
-        return (qkv[..., :h * hd].reshape(b, s, h, hd),
-                qkv[..., h * hd:(h + kv) * hd].reshape(b, s, kv, hd),
-                qkv[..., (h + kv) * hd:].reshape(b, s, kv, hd))
+        # Under tp the fused [q|k|v] columns shard contiguously, not by head:
+        # gathered whole before the split.
+        y = linear(attn["wqkv"], xa)
+        qkv = replicate(y)
+        return like_replicated((qkv[..., :h * hd].reshape(b, s, h, hd),
+                                qkv[..., h * hd:(h + kv) * hd].reshape(b, s, kv, hd),
+                                qkv[..., (h + kv) * hd:].reshape(b, s, kv, hd)), y)
     return (linear(attn["wq"], xa).reshape(b, s, h, hd),
             linear(attn["wk"], xa).reshape(b, s, kv, hd),
             linear(attn["wv"], xa).reshape(b, s, kv, hd))
@@ -202,7 +216,7 @@ def _mlp(mlp: Params, xm: torch.Tensor, collect_act: bool = False):
     the absmax of the down projection's input (the one linear input that
     `_block` does not see)."""
     if "gate_up" in mlp:
-        gu = linear(mlp["gate_up"], xm)
+        gu = replicate(linear(mlp["gate_up"], xm))      # [gate|up]: as wqkv
         inter = gu.shape[-1] // 2
         act = F.silu(gu[..., :inter]) * gu[..., inter:]
     else:
@@ -331,7 +345,7 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                              "out_window, no remat")
         per_layer = []
         for i in range(n_layers):
-            x, stats = _block_stats(index_layer(layers, i), cfg, x, sin, cos, mask,
+            x, stats = _block_stats(layer_params(layers, i), cfg, x, sin, cos, mask,
                                     is_causal, use_flash, bidir_block, key_valid, bidir_1d)
             per_layer.append(stats)
         stacked = {group: {key: torch.stack([st[group][key] for st in per_layer])
@@ -339,7 +353,7 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                    for group, group_stats in per_layer[0].items()}
         return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), stacked
     for i in range(n_full):
-        x = run_block(_attend, _finish, remat_policy, index_layer(layers, i), cfg, x,
+        x = run_block(_attend, _finish, remat_policy, layer_params(layers, i), cfg, x,
                       (sin, cos, mask, is_causal, use_flash, bidir_block, key_valid,
                        bidir_1d))
     if out_window is None:
@@ -348,7 +362,7 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     # Sliced final layer: Q and MLP over the window rows only, keys/values
     # over all rows, through the dense path with the window's mask rows.
     w0, wl = out_window
-    last = index_layer(layers, n_layers - 1)
+    last = layer_params(layers, n_layers - 1)
     if mask is not None and mask.shape[2] == s and not is_causal:
         win_mask = mask[:, :, w0:w0 + wl]
     else:
@@ -370,7 +384,12 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     xa = rms_norm(last["attn_norm"], x, cfg.rms_norm_eps)
     xa_w = xa[:, w0:w0 + wl]
     x_w = x[:, w0:w0 + wl]
-    if "wqkv" in last["attn"]:
+    if "wqkv" in last["attn"] and isinstance(last["attn"]["wqkv"].get("kernel"), DTensor):
+        # A column view of a tp-sharded kernel would gather it: project every
+        # row through the sharded kernel and take the window's q rows after.
+        q, k, v = _qkv_proj(last["attn"], cfg, xa)
+        q = q[:, w0:w0 + wl]
+    elif "wqkv" in last["attn"]:
         wqkv = last["attn"]["wqkv"]
 
         # Every leaf's last axis is `out`, so these are column views: of the
@@ -438,11 +457,28 @@ def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """
     w = params["lm_head"]["kernel"]
     h2 = hidden.reshape(-1, hidden.shape[-1])
+    if isinstance(w, DTensor):
+        return _lm_logits_tp(h2, w).reshape(*hidden.shape[:-1], w.shape[-1])
     if h2.dtype == w.dtype == torch.bfloat16:
         out = _LmHeadProduct.apply(h2, w)
     else:
         out = h2.float() @ w.float()
     return out.reshape(*hidden.shape[:-1], w.shape[-1])
+
+
+def _lm_logits_tp(h2: torch.Tensor, w) -> torch.Tensor:
+    """fp32 logits (N, V) of a vocab-sharded lm_head (columns over tp): each
+    rank's own columns by the product of `lm_logits`, then gathered; h2's
+    gradient is a partial sum over tp."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = w.device_mesh
+    h = DTensor.from_local(replicate(h2), mesh, [Replicate()], run_check=False).to_local(
+        grad_placements=[Partial()])
+    wl = w.to_local()
+    out = _LmHeadProduct.apply(h, wl) if h.dtype == wl.dtype == torch.bfloat16 \
+        else h.float() @ wl.float()
+    return replicate(DTensor.from_local(out, mesh, [Shard(1)], run_check=False))
 
 
 @dataclasses.dataclass
@@ -494,15 +530,15 @@ def llama_prefill(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     layers = params["layers"]
     x = inputs_embeds
     for i in range(tree_leaves(layers)[0].shape[0]):
-        p = index_layer(layers, i)
+        p = layer_params(layers, i)
         xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
         q, k, v = _qkv_proj(p["attn"], cfg, xa)
         q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
         o = attention(q, k, v, is_causal=True, use_flash=use_flash, key_valid=key_valid)
         x = x + linear(p["attn"]["wo"], o.reshape(b, s, h * hd))
         x = x + _mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps))
-        cache.k[i, :, :s] = k
-        cache.v[i, :, :s] = v
+        cache.k[i, :, :s] = replicate(k)
+        cache.v[i, :, :s] = replicate(v)
     cache.valid[:, :s] = key_valid
     cache.index = s
     return rms_norm(params["final_norm"], x, cfg.rms_norm_eps), cache
@@ -535,12 +571,12 @@ def llama_decode_step(params: Params, cfg: LlamaConfig, token_embed: torch.Tenso
     layers = params["layers"]
     x = token_embed
     for i in range(tree_leaves(layers)[0].shape[0]):
-        p = index_layer(layers, i)
+        p = layer_params(layers, i)
         xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
         q, k, v = _qkv_proj(p["attn"], cfg, xa)
         q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
-        cache.k[i, :, idx] = k[:, 0]
-        cache.v[i, :, idx] = v[:, 0]
+        cache.k[i, :, idx] = replicate(k)[:, 0]
+        cache.v[i, :, idx] = replicate(v)[:, 0]
         o = attention(q, cache.k[i], cache.v[i], mask=mask)
         x = x + linear(p["attn"]["wo"], o.reshape(b, 1, h * hd))
         x = x + _mlp(p["mlp"], rms_norm(p["mlp_norm"], x, cfg.rms_norm_eps))
@@ -571,7 +607,7 @@ def llama_suffix_forward(params: Params, cfg: LlamaConfig, suffix_embeds: torch.
     layers = params["layers"]
     x = suffix_embeds
     for i in range(tree_leaves(layers)[0].shape[0]):
-        p = index_layer(layers, i)
+        p = layer_params(layers, i)
         xa = rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
         q, k, v = _qkv_proj(p["attn"], cfg, xa)
         q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)

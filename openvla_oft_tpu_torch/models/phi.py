@@ -16,7 +16,8 @@ Attention is always the dense path (`ops/attention.py`, `use_flash=False`),
 as the JAX `phi_model` takes XLA's attention with an explicit mask and
 swallows `use_flash`, `out_window` and `tp_mesh`; kernel K1 would refuse
 head_dim 80 anyway (`resolve_use_flash`). Layers stay stacked (L, ...) and
-run as a Python loop over per-layer views (`bridge.index_layer`), which
+run as a Python loop over per-layer views
+(`parallel/sharding.py::layer_params`), which
 also covers int8 and int4 layers (`ops/layers.py::linear` adds the bias).
 """
 
@@ -26,7 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from openvla_oft_tpu_torch.bridge import index_layer, tree_leaves
+from openvla_oft_tpu_torch.bridge import tree_leaves
 from openvla_oft_tpu_torch.config import PhiConfig
 from openvla_oft_tpu_torch.models.llama import KVCache, embed_tokens, run_block
 from openvla_oft_tpu_torch.models.llama import lm_logits as _unbiased_logits
@@ -34,6 +35,7 @@ from openvla_oft_tpu_torch.ops.attention import attention
 from openvla_oft_tpu_torch.ops.layers import gelu_tanh, layer_norm, linear
 from openvla_oft_tpu_torch.ops.masks import make_block_bidirectional_mask
 from openvla_oft_tpu_torch.ops.rotary import apply_rope, rope_sin_cos
+from openvla_oft_tpu_torch.parallel.sharding import layer_params
 
 Params = Dict[str, Any]
 
@@ -119,7 +121,7 @@ def phi_model(params: Params, cfg: PhiConfig, inputs_embeds: torch.Tensor,
 
     x = inputs_embeds
     for i in range(_n_layers(params)):
-        x = run_block(_attend, _finish, remat_policy, index_layer(params["layers"], i), cfg,
+        x = run_block(_attend, _finish, remat_policy, layer_params(params["layers"], i), cfg,
                       x, (sin, cos, mask, is_causal))
     return layer_norm(params["final_norm"], x, cfg.layer_norm_eps)
 
@@ -149,7 +151,7 @@ def phi_prefill(params: Params, cfg: PhiConfig, inputs_embeds: torch.Tensor,
     key_valid = key_valid.bool()
     x = inputs_embeds
     for i in range(_n_layers(params)):
-        p = index_layer(params["layers"], i)
+        p = layer_params(params["layers"], i)
         xa = layer_norm(p["ln"], x, cfg.layer_norm_eps)
         q, k, v = _qkv(p, cfg, xa, sin, cos)
         o = attention(q, k, v, is_causal=True, key_valid=key_valid)
@@ -178,7 +180,7 @@ def phi_decode_step(params: Params, cfg: PhiConfig, token_embed: torch.Tensor,
     mask = cache.valid[:, None, None, :]
     x = token_embed
     for i in range(_n_layers(params)):
-        p = index_layer(params["layers"], i)
+        p = layer_params(params["layers"], i)
         xa = layer_norm(p["ln"], x, cfg.layer_norm_eps)
         q, k, v = _qkv(p, cfg, xa, sin, cos)
         cache.k[i, :, idx] = k[:, 0]

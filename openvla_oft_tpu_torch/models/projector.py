@@ -11,6 +11,7 @@ from typing import Any, Dict
 import torch
 
 from openvla_oft_tpu_torch.ops.layers import gelu, gelu_erf_fast, linear
+from openvla_oft_tpu_torch.parallel.sharding import replicate
 
 Params = Dict[str, Any]
 
@@ -21,7 +22,9 @@ def vision_projector(p: Params, patches: torch.Tensor,
     act = gelu_erf_fast if fast_gelu else gelu
     x = linear(p["fc2"], act(linear(p["fc1"], patches)))
     if "fc3" in p:
-        x = linear(p["fc3"], act(x))
+        # fc3 is column-parallel under tp: its output is gathered here, where
+        # the patch tokens join the text and proprio tokens.
+        x = replicate(linear(p["fc3"], act(x)))
     return x
 
 

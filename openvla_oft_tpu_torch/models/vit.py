@@ -18,13 +18,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from openvla_oft_tpu_torch.config import ViTConfig
-from openvla_oft_tpu_torch.bridge import index_layer
 from openvla_oft_tpu_torch.models.llama import run_block
 from openvla_oft_tpu_torch.ops import vit_fused as VF
 from openvla_oft_tpu_torch.ops.attention import attention
 from openvla_oft_tpu_torch.ops.layers import ACTIVATIONS, layer_norm, linear
+from openvla_oft_tpu_torch.parallel.sharding import layer_params, like_replicated, replicate
 
 Params = Dict[str, Any]
 
@@ -92,6 +93,9 @@ def _use_fused_ln_matmul(norm_p: Params, lin_p: Params) -> bool:
     if not VF.vit_fused_enabled() or "scale" in norm_p or "kernel_q4" in lin_p:
         return False
     k = lin_p.get("kernel")
+    if isinstance(k, DTensor):
+        raise NotImplementedError("vit_fused (K4) on a kernel sharded over tp is not ported "
+                                  "yet (ROADMAP queue 1, item 17b)")
     return k is not None and k.dtype != torch.int8 and "lora_a" not in lin_p
 
 
@@ -112,8 +116,12 @@ def _vit_attend(p: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:
     (B, S, width) before proj (what JAX's "attn_out" remat policy keeps)."""
     b, s, d = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
-    qkv = _ln_linear(p["norm1"], p["attn"]["qkv"], x).reshape(b, s, 3, nh, hd)
-    return attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]).reshape(b, s, d)
+    # Under tp the fused [q|k|v] columns shard contiguously, not by head:
+    # gathered whole before the split.
+    y = _ln_linear(p["norm1"], p["attn"]["qkv"], x)
+    q, k, v = like_replicated((t.reshape(b, s, nh, hd)
+                               for t in replicate(y).split(nh * hd, dim=-1)), y)
+    return attention(q, k, v).reshape(b, s, d)
 
 
 def _vit_finish(p: Params, cfg: ViTConfig, x: torch.Tensor, o: torch.Tensor,
@@ -190,5 +198,5 @@ def vit_featurize(params: Params, cfg: ViTConfig, images: torch.Tensor,
     for i in range(cfg.depth - 1):
         f = _film(film_params, le, i, x.dtype) if film else None
         x = run_block(_vit_attend, _vit_finish, remat_policy,
-                      index_layer(params["layers"], i), cfg, x, finish_args=(f,))
+                      layer_params(params["layers"], i), cfg, x, finish_args=(f,))
     return x[:, cfg.num_prefix_tokens:]

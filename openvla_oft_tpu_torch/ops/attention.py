@@ -12,7 +12,11 @@ from typing import Optional
 
 import torch
 
-from openvla_oft_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
+from torch.distributed.tensor import DTensor
+
+from openvla_oft_tpu_torch.ops.flash_attention import (HEAD_DIMS, flash_attention,
+                                                      flash_attention_tp, heads_local_map)
+from openvla_oft_tpu_torch.parallel.sharding import replicate
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
@@ -90,7 +94,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     use_flash: True -> K1 (its plain version on CPU); False -> dense;
     "auto" -> K1 where K1 takes the call, else dense; a dense `mask` is
     always dense (`resolve_use_flash`).
+
+    q as a DTensor over the tp mesh (a tp-sharded model, `parallel/`) takes
+    the tp route, `_attention_tp`; the mesh rides on q, so no `tp_mesh`
+    argument is threaded down as in the JAX version.
     """
+    if isinstance(q, DTensor):
+        return _attention_tp(q, k, v, mask, is_causal, use_flash, key_valid,
+                             bidir_mask, bidir_block)
     if resolve_use_flash(use_flash, q.shape, q.dtype, q.device, k.shape[1],
                          dense_mask=mask is not None):
         return flash_attention(q, k, v, is_causal=is_causal, key_valid=key_valid,
@@ -115,6 +126,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             allow = allow | (bm[:, :, None] & bm[:, None, :] & kv[:, None, :])
         mask = allow[:, None]
     return attention_dense(q, k, v, mask=mask, is_causal=is_causal)
+
+
+def _attention_tp(q, k, v, mask, is_causal, use_flash, key_valid, bidir_mask,
+                  bidir_block):
+    """`attention` of tp DTensors: where the heads divide the tp axis, each
+    rank attends over its own heads (`flash_attention_tp` on the K1 route,
+    else the dense path under `heads_local_map`) and the output stays a
+    DTensor Shard(2); where they do not, every rank computes all heads
+    (JAX leaves that case to GSPMD, which gathers them too)."""
+    mesh = q.device_mesh
+    ntp = mesh.size()
+    if q.shape[2] % ntp or k.shape[2] % ntp:
+        return attention(replicate(q), replicate(k), replicate(v), mask=mask,
+                         is_causal=is_causal, use_flash=use_flash, key_valid=key_valid,
+                         bidir_mask=bidir_mask, bidir_block=bidir_block)
+    if resolve_use_flash(use_flash, q.shape, q.dtype, q.device, k.shape[1],
+                         dense_mask=mask is not None):
+        return flash_attention_tp(q, k, v, mesh, is_causal=is_causal, key_valid=key_valid,
+                                  bidir_mask=bidir_mask, bidir_block=bidir_block)
+    masks = [t for t in (mask, key_valid, bidir_mask) if t is not None]
+
+    def per_shard(q_, k_, v_, *m):
+        it = iter(m)
+        return attention(q_, k_, v_, mask=next(it) if mask is not None else None,
+                         is_causal=is_causal, use_flash=False,
+                         key_valid=next(it) if key_valid is not None else None,
+                         bidir_mask=next(it) if bidir_mask is not None else None,
+                         bidir_block=bidir_block)
+
+    return heads_local_map(per_shard, q, k, v, mesh, *masks)
 
 
 def attention_split_kv(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,

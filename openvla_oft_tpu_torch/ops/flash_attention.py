@@ -492,3 +492,63 @@ flash_attention_dkv.stats_launches = 0
 # per program, a TPU layout choice. K1 already reads q/k/v of shape
 # (B, S, H, D) through their strides, so on Hopper it is K1 itself.
 flash_attention_allheads = flash_attention
+
+
+def tp_mesh_of(mesh, axis: str = "tp"):
+    """The 1-D mesh of `axis`: `mesh` itself when it is that mesh, else its
+    sub-mesh."""
+    return mesh if mesh.mesh_dim_names == (axis,) else mesh[axis]
+
+
+def heads_local_map(fn, q, k, v, mesh, *replicated, axis: str = "tp"):
+    """`fn(q, k, v, *replicated)` per head shard: `local_map` over the head
+    dim (2) of q, k and v on the tp mesh, the other tensors replicated;
+    returns a DTensor Shard(2). Heads are independent in attention, so each
+    rank computes its H/tp query heads over its Hkv/tp kv heads and no
+    collective runs inside; plain q, k, v count as replicated (their head
+    slice is free)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    tp = tp_mesh_of(mesh, axis)
+    ntp = tp.size()
+    h, hkv = q.shape[2], k.shape[2]
+    if h % ntp or hkv % ntp:
+        raise ValueError(f"{h} query and {hkv} kv heads over tp = {ntp}")
+
+    def dt(t):
+        return t if isinstance(t, DTensor) else \
+            DTensor.from_local(t, tp, [Replicate()], run_check=False)
+
+    heads, rep = [Shard(2)], [Replicate()]
+    wrapped = local_map(fn, out_placements=heads,
+                        in_placements=(heads, heads, heads) + (rep,) * len(replicated),
+                        device_mesh=tp, redistribute_inputs=True)
+    return wrapped(dt(q), dt(k), dt(v), *(dt(t) for t in replicated))
+
+
+def flash_attention_tp(q, k, v, mesh, axis: str = "tp", is_causal: bool = True,
+                       key_valid: Optional[torch.Tensor] = None,
+                       bidir_mask: Optional[torch.Tensor] = None,
+                       bidir_block: Optional[Tuple[int, int]] = None):
+    """Tensor-parallel flash attention (JAX `flash_attention_tp`): K1 (and
+    K2/K3 in the backward) on each rank's H/tp query heads and Hkv/tp kv
+    heads, through `local_map` over the head dim of q, k, v (B, S, H, D)
+    on the `axis` mesh of `mesh`. The 1-D masks are built once, outside,
+    and replicated, so no rank can build them otherwise. Returns a DTensor
+    Shard(2) over the tp mesh."""
+    tp = tp_mesh_of(mesh, axis)
+    assert q.shape[2] % tp.size() == 0 and k.shape[2] % tp.size() == 0, \
+        (q.shape[2], k.shape[2], tp.size())
+    if k.shape[1] != q.shape[1]:
+        raise ValueError("flash attention is for self-attention prefill (S == T)")
+    key_valid, bidir = _mask_vectors(q, key_valid, bidir_mask, bidir_block)
+
+    def per_shard(q_, k_, v_, kv_, bd_):
+        # A shard's layout is what the redistribution left (seen on the card:
+        # d not innermost); the kernels read a contiguous last dim.
+        q_, k_, v_ = (t.contiguous() for t in (q_, k_, v_))
+        return flash_attention(q_, k_, v_, is_causal=is_causal, key_valid=kv_,
+                               bidir_mask=bd_)
+
+    return heads_local_map(per_shard, q, k, v, tp, key_valid, bidir)

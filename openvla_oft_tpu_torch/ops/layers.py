@@ -12,6 +12,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 Params = Dict[str, Any]
 
@@ -32,7 +33,12 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     `ops/quant.py::int4_linear`, an int8 one ("kernel" int8, "scale_w") from
     `ops/quant.py::int8_linear`; LoRA factors beside them add the same delta
     (QLoRA: a frozen quantized base, straight-through gradients for x).
+
+    A kernel that is a DTensor over the tp mesh (the compute form of a
+    sharded tree, `parallel/sharding.py`) takes `_linear_tp`.
     """
+    if any(isinstance(t, DTensor) for t in p.values()):
+        return _linear_tp(p, x)
     if "kernel_q4" in p:
         from openvla_oft_tpu_torch.ops.quant import int4_linear
 
@@ -59,6 +65,65 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     # to bf16 before the add.
     delta = torch.matmul(down.float(), p["lora_b"].to(x.dtype).float())
     return (y.float() + delta).to(x.dtype)
+
+
+def _linear_tp(p: Params, x) -> torch.Tensor:
+    """`linear` with its kernel sharded over the tp mesh, Megatron-style and
+    with the collectives written out: each rank computes its block with the
+    plain `linear` on local tensors.
+
+    column-parallel (kernel Shard(1), the output columns): x whole, the
+    output a DTensor Shard(-1); x's gradient is a partial sum over tp (an
+    all-reduce in the backward), as is the replicated LoRA A's. The bias and
+    LoRA B take their own columns.
+    row-parallel (kernel Shard(0), the input rows): x's own columns (a free
+    slice of a whole x), partial outputs summed by an all-reduce into a plain
+    tensor, then the bias; LoRA A takes its rows and B, replicated, a
+    partial gradient.
+    A kernel replicated over tp computes the plain product on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from openvla_oft_tpu_torch.parallel.sharding import replicate
+
+    if "kernel_q4" in p or p["kernel"].dtype == torch.int8:
+        raise NotImplementedError("a quantized linear sharded over tp is not ported yet "
+                                  "(ROADMAP queue 1, item 17b)")
+    w = p["kernel"]
+    mesh = w.device_mesh
+    last = x.ndim - 1
+
+    def local(t, want, grad=None):
+        """t's local block under the placement `want`: a gather (`replicate`)
+        of a sharded DTensor, a free slice of a whole tensor."""
+        if isinstance(t, DTensor) and want == Replicate():
+            t = replicate(t)
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()], run_check=False)
+        if t.placements[0] != want:
+            t = t.redistribute(mesh, [want])
+        return t.to_local(grad_placements=None if grad is None else [grad])
+
+    role = w.placements[0]
+    if role == Shard(1):
+        lp = {"kernel": w.to_local()}
+        if "bias" in p:
+            lp["bias"] = local(p["bias"], Shard(0))
+        if "lora_a" in p:
+            lp["lora_a"] = local(p["lora_a"], Replicate(), Partial())
+            lp["lora_b"] = local(p["lora_b"], Shard(1))
+        y = linear(lp, local(x, Replicate(), Partial()))
+        return DTensor.from_local(y, mesh, [Shard(last)], run_check=False)
+    if role == Shard(0):
+        lp = {"kernel": w.to_local()}
+        if "lora_a" in p:
+            lp["lora_a"] = local(p["lora_a"], Shard(1))
+            lp["lora_b"] = local(p["lora_b"], Replicate(), Partial())
+        y = replicate(DTensor.from_local(linear(lp, local(x, Shard(last))), mesh, [Partial()],
+                                         run_check=False))
+        if "bias" in p:
+            y = y + local(p["bias"], Replicate()).to(y.dtype)
+        return y
+    return linear({k: local(t, Replicate()) for k, t in p.items()}, local(x, Replicate()))
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -130,6 +130,13 @@ class OpenVLAPolicy:
     on the params' device (seed 0 unless the caller passes one). The DDIM
     scheduler and its table are built once, with the policy, so
     `num_diffusion_steps` is fixed then.
+
+    tp_mesh: a ("dp", "fsdp", "tp") mesh (`parallel/mesh.py::make_mesh`;
+    every rank of the process group builds the same policy): the params are
+    sharded on it (`parallel/sharding.py::shard_params`) and every request
+    runs tp-sharded, each rank attending over its own heads (K1 through
+    `flash_attention_tp`), as the JAX policy's `tp_mesh` serves. Every rank
+    takes the same request and returns the same actions.
     """
 
     cfg: OpenVLAConfig
@@ -148,6 +155,7 @@ class OpenVLAPolicy:
     diffusion_prefix_kv: bool = True
     split_kv: bool = False
     generator: Optional[torch.Generator] = None
+    tp_mesh: Any = None
     scheduler: Optional[DDIMScheduler] = dataclasses.field(default=None, init=False,
                                                            repr=False)
 
@@ -157,6 +165,14 @@ class OpenVLAPolicy:
         if self.head == "discrete" and "lm_head" not in self.params["llm"]:
             raise ValueError("head='discrete' needs llm['lm_head'] in the params "
                              "(bridge.init_params(..., head='discrete'))")
+        if self.tp_mesh is not None:
+            from openvla_oft_tpu_torch.parallel.mesh import mesh_shape
+            from openvla_oft_tpu_torch.parallel.sharding import shard_params
+
+            if self.vit_fused and mesh_shape(self.tp_mesh)["tp"] > 1:
+                raise NotImplementedError("vit_fused (K4) under tp is not ported yet "
+                                          "(ROADMAP queue 1, item 17b)")
+            self.params = shard_params(self.params, self.tp_mesh)
         if self.fast_gelu and not self.cfg.fast_gelu:
             self.cfg = dataclasses.replace(self.cfg, fast_gelu=True)
         if self.tokenizer is None:
@@ -172,13 +188,31 @@ class OpenVLAPolicy:
     def device(self) -> torch.device:
         return self.params["llm"]["embed"]["embedding"].device
 
+    def _sharded(self):
+        """(params in their compute form, the context a request runs in):
+        the params and nothing without a mesh. DTensors take no views under
+        `inference_mode`, so a sharded request runs under `no_grad`."""
+        import contextlib
+
+        if self.tp_mesh is None:
+            return self.params, contextlib.nullcontext()
+        from openvla_oft_tpu_torch.parallel.sharding import compute_view, dtensor_context
+
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.inference_mode(False))
+        ctx.enter_context(torch.no_grad())
+        ctx.enter_context(dtensor_context(self.params))
+        return compute_view(self.params), ctx
+
     def _diffusion_loop(self, input_ids: torch.Tensor, prompt_mask: torch.Tensor,
                         pixels: torch.Tensor, proprio: Optional[torch.Tensor],
-                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        noise: Optional[torch.Tensor] = None, params=None) -> torch.Tensor:
         """The reverse DDIM loop: normalized actions (B, chunk, action_dim)
         fp32. noise: the starting x_T (B, chunk, action_dim); None draws it
-        from `generator`."""
-        params, cfg, platform = self.params, self.cfg, self.platform
+        from `generator`. params: the tree in its compute form (a sharded
+        policy's, `_sharded`); None takes `self.params`."""
+        params = self.params if params is None else params
+        cfg, platform = self.cfg, self.platform
         sched = self.scheduler
         n_inf = self.num_diffusion_steps_inference or self.num_diffusion_steps
         b = input_ids.shape[0]
@@ -232,16 +266,17 @@ class OpenVLAPolicy:
         pixels = torch.as_tensor(images, device=dev)[None]
         proprio_t = None if proprio is None else \
             torch.as_tensor(proprio, dtype=torch.float32, device=dev)[None]
-        with int4_a8_mode(self.int4_a8), vit_fused_mode(self.vit_fused):
+        params, sharded = self._sharded()
+        with int4_a8_mode(self.int4_a8), vit_fused_mode(self.vit_fused), sharded:
             if self.head == "diffusion":
-                actions = self._diffusion_loop(ids, mask, pixels, proprio_t, noise)
+                actions = self._diffusion_loop(ids, mask, pixels, proprio_t, noise, params)
             else:
-                out = predict_action_hidden(self.params, self.cfg, self.platform, ids, mask,
+                out = predict_action_hidden(params, self.cfg, self.platform, ids, mask,
                                             pixels, proprio=proprio_t,
                                             use_flash=self.use_flash,
                                             compute_logits=self.head == "discrete")
                 actions = out.action_logits.argmax(dim=-1) if self.head == "discrete" else \
-                    l1_head_predict(self.params["action_head"], out.actions_hidden.float(),
+                    l1_head_predict(params["action_head"], out.actions_hidden.float(),
                                     self.platform)
         normalized = actions[0].cpu().numpy()
         if self.head == "discrete":
@@ -299,15 +334,17 @@ class OpenVLAPolicy:
                     "proprio_mask": mask_t(p_stats["mask"]) if "mask" in p_stats else None,
                     "proprio_zero": mask_t(zero)}
         ids, m = prepare_prompt_ids(self.tokenizer, instruction, self.prompt_bucket)
-        actions = serve_action_chunk(
-            self.params, self.cfg, self.platform,
-            frames_u8=torch.tensor(np.asarray(frames_u8, np.uint8), device=dev)[None],
-            input_ids=torch.as_tensor(ids, device=dev)[None],
-            prompt_mask=torch.as_tensor(m, device=dev)[None],
-            proprio=None if proprio is None else f32(proprio)[None],
-            action_low=f32(low), action_high=f32(high), action_mask=mask_t(amask),
-            use_flash=self.use_flash, center_crop=center_crop,
-            resize_size=self.cfg.vision_configs[0].image_size,
-            fast_gelu=self.fast_gelu, int4_a8=self.int4_a8, vit_fused=self.vit_fused,
-            **p_kw)
+        params, sharded = self._sharded()
+        with sharded:
+            actions = serve_action_chunk(
+                params, self.cfg, self.platform,
+                frames_u8=torch.tensor(np.asarray(frames_u8, np.uint8), device=dev)[None],
+                input_ids=torch.as_tensor(ids, device=dev)[None],
+                prompt_mask=torch.as_tensor(m, device=dev)[None],
+                proprio=None if proprio is None else f32(proprio)[None],
+                action_low=f32(low), action_high=f32(high), action_mask=mask_t(amask),
+                use_flash=self.use_flash, center_crop=center_crop,
+                resize_size=self.cfg.vision_configs[0].image_size,
+                fast_gelu=self.fast_gelu, int4_a8=self.int4_a8, vit_fused=self.vit_fused,
+                **p_kw)
         return actions[0].cpu().numpy()

@@ -16,7 +16,9 @@ the named variant `--dataset_id` under `--dataset_root_dir`
 batched by the fixed-length collator. Images decode as PIL decodes them
 (`processing/jpeg_decode.py`, the ISLOW inverse DCT); a file that is not a
 baseline JPEG raises. The trainables are saved every `save_interval` steps
-and at the last one. The mesh flags take 1 (ROADMAP item 17).
+and at the last one. `--mesh_*` shard the run over one process per GPU
+(`torchrun --nproc-per-node N -m openvla_oft_tpu_torch.scripts.pretrain
+--mesh_fsdp N ...`), as `scripts/train.py` does.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ from typing import Callable, Optional
 
 import torch
 
-from openvla_oft_tpu_torch.scripts.train import (build_full_model, check_mesh, device_of,
-                                                 model_config, run_loop, split_stage)
+from openvla_oft_tpu_torch.scripts.train import (build_full_model, device_of, model_config,
+                                                 run_loop, shard_stage, split_stage)
+from openvla_oft_tpu_torch.training.finetune import data_rank
 
 
 @dataclasses.dataclass
@@ -70,7 +73,7 @@ def pretrain(cfg: PretrainConfig, on_step: Optional[Callable] = None,
     on_start and on_step as `scripts/train.py::train` takes them."""
     from openvla_oft_tpu_torch.constants import LIBERO
     from openvla_oft_tpu_torch.data.collator import (PaddedCollatorForActionPrediction,
-                                                     batch_iterator)
+                                                     batch_iterator, rank_rows)
     from openvla_oft_tpu_torch.data.vlm_datasets import VLMPretrainDataset, resolve_vlm_dataset
     from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
     from openvla_oft_tpu_torch.training.train_step import (TrainConfig as StepConfig,
@@ -80,7 +83,6 @@ def pretrain(cfg: PretrainConfig, on_step: Optional[Callable] = None,
     overwatch = initialize_overwatch("pretrain")
     if cfg.stage not in STAGE_TRAINABLE:
         raise ValueError(f"unknown stage {cfg.stage!r}; use one of {sorted(STAGE_TRAINABLE)}")
-    check_mesh(cfg)
     device = device_of(cfg.device)
 
     ckpt = cfg.pretrained_checkpoint or "random:tiny"
@@ -88,6 +90,11 @@ def pretrain(cfg: PretrainConfig, on_step: Optional[Callable] = None,
     full, _ = build_full_model(ckpt, model_cfg, LIBERO, device, cfg.seed, use_proprio=False)
     base, trainables = split_stage(full, STAGE_TRAINABLE[cfg.stage])
     del full
+    mesh, base, trainables = shard_stage(base, trainables, cfg, device)
+    proc, n_data = data_rank(mesh)
+    if cfg.batch_size % n_data:
+        raise ValueError(f"the global batch {cfg.batch_size} must divide over the "
+                         f"{n_data} data ranks (dp x fsdp)")
     overwatch.info(f"stage={cfg.stage} trainable={sorted(trainables)}")
 
     scfg = StepConfig(objective="discrete", learning_rate=cfg.learning_rate,
@@ -115,9 +122,11 @@ def pretrain(cfg: PretrainConfig, on_step: Optional[Callable] = None,
                                torch.Generator(device=device).manual_seed(cfg.seed))
     if on_start is not None:
         on_start(state)
-    last = run_loop(state, batch_iterator(examples(), cfg.batch_size, collator), model_cfg,
-                    LIBERO, scfg, run_dir, run_id, cfg.max_steps, cfg.save_interval,
-                    overwatch, device, on_step, with_optimizer=False)
+    # every data rank builds the global batches alike and trains on its rows
+    batches = rank_rows(batch_iterator(examples(), cfg.batch_size, collator), proc, n_data)
+    last = run_loop(state, batches, model_cfg, LIBERO, scfg, run_dir, run_id, cfg.max_steps,
+                    cfg.save_interval, overwatch, device, on_step, with_optimizer=False,
+                    mesh=mesh)
     return {"final_step": state.step, "run_dir": run_dir, "ckpt": last, "state": state}
 
 

@@ -19,7 +19,11 @@ trainables take optax's AdamW in bf16 with bf16 moments
 statistics go into the run dir. Metrics go through `VLAMetrics`; the
 trainables and the optimizer's state are saved every `save_interval` steps
 and at the last one (`{run_dir}/ckpt/{step:06d}.pt`, written in the
-background). The mesh flags take 1 (ROADMAP item 17).
+background). `--mesh_dp/--mesh_fsdp/--mesh_tp` shard the run over one process
+per GPU (`torchrun --nproc-per-node N -m openvla_oft_tpu_torch.scripts.train
+--mesh_fsdp N ...`, `parallel/`): the base and the trainables under the
+sharding rules, each data rank on its rows of the global batch, the
+checkpoints gathered and written by rank 0.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from typing import Callable, Optional
 
 import torch
 
-from openvla_oft_tpu_torch.training.finetune import _Q1, _device as device_of
+from openvla_oft_tpu_torch.training.finetune import (_device as device_of, data_rank,
+                                                    local_batches, run_mesh)
 
 
 @dataclasses.dataclass
@@ -78,11 +83,15 @@ STAGE_TRAINABLE = {
 }
 
 
-def check_mesh(cfg) -> None:
-    """The mesh flags take 1: multi-GPU is not ported yet."""
-    if (cfg.mesh_dp, cfg.mesh_fsdp, cfg.mesh_tp) != (1, 1, 1):
-        raise NotImplementedError(f"not ported yet: --mesh_* ({_Q1} 17); the mesh flags "
-                                  "take 1")
+def shard_stage(base: dict, trainables: dict, cfg, device) -> tuple:
+    """(mesh, base, trainables): the mesh of `--mesh_*` (None for 1 x 1 x 1,
+    `training/finetune.py::run_mesh`) and the trees sharded on it."""
+    mesh = run_mesh(cfg, device)
+    if mesh is None:
+        return None, base, trainables
+    from openvla_oft_tpu_torch.parallel.sharding import shard_params
+
+    return mesh, shard_params(base, mesh), shard_params(trainables, mesh)
 
 
 def model_config(ckpt: str):
@@ -147,22 +156,28 @@ def split_stage(params: dict, trainable_keys) -> tuple:
 
 def run_loop(state, batches, model_cfg, platform, scfg, run_dir: str, run_id: str,
              max_steps: int, save_interval: int, overwatch, device,
-             on_step: Optional[Callable] = None, with_optimizer: bool = True) -> Optional[str]:
+             on_step: Optional[Callable] = None, with_optimizer: bool = True,
+             mesh=None) -> Optional[str]:
     """The training loop of train.py and pretrain.py: `max_steps` steps of
     `train_step` on the prefetched batches, metrics through `VLAMetrics`
     (logged every 10 steps), the trainables (and the optimizer's state,
     with `with_optimizer`) saved every `save_interval` steps and at the last.
     on_step(i, metrics, state) runs after each
     step with its metrics as floats and `step_time` (host clock, ending in
-    a device synchronize). Returns the last checkpoint's path."""
+    a device synchronize). On a `mesh` the batches are this data rank's
+    rows, the metrics are logged by rank 0, and a save gathers the trees
+    (every rank) for rank 0 to write. Returns the last checkpoint's path."""
     import time
 
     from openvla_oft_tpu_torch.data.prefetch import DevicePrefetcher
-    from openvla_oft_tpu_torch.training.checkpoint import save_checkpoint, wait_for_checkpoints
+    from openvla_oft_tpu_torch.parallel.sharding import gather_params
+    from openvla_oft_tpu_torch.training.checkpoint import (checkpoint_path, save_checkpoint,
+                                                           wait_for_checkpoints)
     from openvla_oft_tpu_torch.training.metrics import JSONLinesTracker, VLAMetrics
     from openvla_oft_tpu_torch.training.train_step import train_step
 
-    metrics = VLAMetrics([JSONLinesTracker(run_dir, run_id)])
+    primary = mesh is None or torch.distributed.get_rank() == 0
+    metrics = VLAMetrics([JSONLinesTracker(run_dir, run_id)] if primary else [])
     prefetched = DevicePrefetcher(batches, device)
     ckpt = None
     try:
@@ -186,7 +201,11 @@ def run_loop(state, batches, model_cfg, platform, scfg, run_dir: str, run_id: st
                 saved = {"trainables": state.trainables}
                 if with_optimizer:
                     saved["optimizer"] = state.optimizer.state_dict()
-                ckpt = save_checkpoint(os.path.join(run_dir, "ckpt"), i + 1, saved, block=False)
+                ckpt_dir = os.path.join(run_dir, "ckpt")
+                if mesh is not None:
+                    saved = gather_params(saved, to_host=True)
+                ckpt = save_checkpoint(ckpt_dir, i + 1, saved, block=False) if primary \
+                    else checkpoint_path(ckpt_dir, i + 1)
     finally:
         prefetched.close()
         wait_for_checkpoints()
@@ -201,8 +220,7 @@ def train(cfg: TrainConfig, on_step: Optional[Callable] = None,
     runs once the state is built, before the first step; on_step as
     `run_loop` says."""
     from openvla_oft_tpu_torch.constants import detect_robot_platform, get_platform
-    from openvla_oft_tpu_torch.data.collator import (PaddedCollatorForActionPrediction,
-                                                     batch_iterator)
+    from openvla_oft_tpu_torch.data.collator import PaddedCollatorForActionPrediction
     from openvla_oft_tpu_torch.data.datasets import DummyDataset, RLDSBatchTransform
     from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
     from openvla_oft_tpu_torch.processing.processor import PrismaticProcessor
@@ -213,7 +231,6 @@ def train(cfg: TrainConfig, on_step: Optional[Callable] = None,
     overwatch = initialize_overwatch("train")
     if cfg.stage not in STAGE_TRAINABLE:
         raise ValueError(f"unknown stage {cfg.stage!r}; use one of {sorted(STAGE_TRAINABLE)}")
-    check_mesh(cfg)
     device = device_of(cfg.device)
     platform = get_platform(cfg.robot_platform) if cfg.robot_platform else \
         detect_robot_platform(cfg.dataset_name)
@@ -223,6 +240,11 @@ def train(cfg: TrainConfig, on_step: Optional[Callable] = None,
     full, norm_stats = build_full_model(ckpt, model_cfg, platform, device, cfg.seed)
     base, trainables = split_stage(full, STAGE_TRAINABLE[cfg.stage])
     del full
+    mesh, base, trainables = shard_stage(base, trainables, cfg, device)
+    proc, n_data = data_rank(mesh)
+    if cfg.batch_size % n_data:
+        raise ValueError(f"the global batch {cfg.batch_size} must divide over the "
+                         f"{n_data} data ranks (dp x fsdp)")
     overwatch.info(f"stage={cfg.stage} trainable={sorted(trainables)} frozen={sorted(base)}")
 
     scfg = StepConfig(objective="discrete", learning_rate=cfg.learning_rate,
@@ -246,15 +268,17 @@ def train(cfg: TrainConfig, on_step: Optional[Callable] = None,
 
         dataset, data_stats = make_rlds_iterator(
             str(cfg.data_root_dir), cfg.dataset_name, transform, platform,
-            shuffle_buffer_size=cfg.shuffle_buffer_size, image_aug=cfg.image_aug)
+            shuffle_buffer_size=cfg.shuffle_buffer_size, image_aug=cfg.image_aug,
+            process_index=proc, process_count=n_data)
         # reference train.py:202-204: the statistics ride with the run, so
         # that an eval can un-normalize actions
-        save_dataset_statistics(data_stats, run_dir)
+        if mesh is None or torch.distributed.get_rank() == 0:
+            save_dataset_statistics(data_stats, run_dir)
         norm_stats = norm_stats or data_stats
     collator = PaddedCollatorForActionPrediction(pad_token_id=model_cfg.pad_token_id)
-    last = run_loop(state, batch_iterator(dataset, cfg.batch_size, collator), model_cfg,
+    last = run_loop(state, local_batches(cfg, dataset, collator, proc, n_data), model_cfg,
                     platform, scfg, run_dir, run_id, cfg.max_steps, cfg.save_interval,
-                    overwatch, device, on_step)
+                    overwatch, device, on_step, mesh=mesh)
     return {"final_step": state.step, "run_dir": run_dir, "ckpt": last, "state": state,
             "norm_stats": norm_stats}
 

@@ -189,7 +189,8 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
                     platform: str = "libero", vit_fused: bool = False,
                     load_in_8bit: bool = False, load_vision_in_8bit: bool = False,
                     head: str = "l1", num_diffusion_steps: int = 50,
-                    use_film: Optional[bool] = None, num_images: Optional[int] = None):
+                    use_film: Optional[bool] = None, num_images: Optional[int] = None,
+                    tp_mesh=None):
     """The flagship serving policy with seeded random bf16 weights, fused for
     serving as the JAX bench does (wqkv/gate_up and ViT folds), at the
     `platform` deployment ("libero" or "aloha", `DEPLOYMENTS`). With
@@ -204,7 +205,8 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
     them. head "discrete" gives the lm_head (D, vocab), which stays bf16
     under every quant flag, and no action head. `use_film` and `num_images`
     override the deployment's FiLM setting and image count (base OpenVLA
-    takes one image; the param tree does not depend on the count)."""
+    takes one image; the param tree does not depend on the count).
+    `tp_mesh`: serve tp-sharded on that mesh (`OpenVLAPolicy.tp_mesh`)."""
     import torch
 
     from openvla_oft_tpu_torch.bridge import init_params
@@ -232,7 +234,7 @@ def flagship_policy(device, seed: int = 0, prompt_bucket: int = 48,
                          int4_a8=int4_a8, vit_fused=vit_fused, head=head,
                          num_diffusion_steps=num_diffusion_steps,
                          generator=torch.Generator(device=device).manual_seed(seed)
-                         if head == "diffusion" else None)
+                         if head == "diffusion" else None, tp_mesh=tp_mesh)
 
 
 @dataclasses.dataclass

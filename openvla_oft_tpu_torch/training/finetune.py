@@ -25,10 +25,18 @@ metric, and the discrete CE of `--use_l1_regression False`), FiLM
 and at the last (`save_training_checkpoint`: the resume file, written in the
 background, and the reference's layout of per-module `.pt` files and, with
 `--merge_lora_during_training`, the merged model), `--resume`, and
-preemption (SIGTERM or SIGINT: a checkpoint, then a clean return). The
-multi-GPU flags (`--multihost`, `--mesh_*`) raise at startup, naming their
-ROADMAP item. `--device cuda` never falls back to the CPU, and nothing is
-downloaded: a `vla_path` that is neither `random:` nor a dir raises.
+preemption (SIGTERM or SIGINT: a checkpoint, then a clean return), and
+several GPUs, one process each (`parallel/`): `--multihost True` sets up the
+process group (from torchrun's environment, or `--coordinator_address`,
+`--num_processes`, `--process_id`) and `--mesh_dp/--mesh_fsdp/--mesh_tp`
+shape the mesh, whose product is the process count:
+
+    torchrun --nproc-per-node 4 -m openvla_oft_tpu_torch.training.finetune \
+      --multihost True --mesh_fsdp 2 --mesh_tp 2 --seq_bucket 640 ...
+
+`--batch_size` is the global batch, split over the dp x fsdp data ranks.
+`--device cuda` never falls back to the CPU, and nothing is downloaded: a
+`vla_path` that is neither `random:` nor a dir raises.
 """
 
 from __future__ import annotations
@@ -41,9 +49,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-
-_Q1 = "ROADMAP queue 1, item"
-
 
 # The flags of `vla_scripts/finetune.py` (FinetuneConfig) and its run id,
 # copied field for field.
@@ -151,13 +156,36 @@ class TorchFinetuneConfig(FinetuneConfig):
     device: str = "cuda"                          # "cuda", "cuda:N" or "cpu"
 
 
-def unported_flags(cfg: FinetuneConfig) -> list:
-    """(flag, ROADMAP item) for every set flag the port does not run yet."""
-    checks = [
-        (cfg.multihost, "multihost", f"{_Q1} 17"),
-        ((cfg.mesh_dp, cfg.mesh_fsdp, cfg.mesh_tp) != (1, 1, 1), "mesh_*", f"{_Q1} 17"),
-    ]
-    return [(flag, item) for bad, flag, item in checks if bad]
+def run_mesh(cfg, device: torch.device):
+    """The ("dp", "fsdp", "tp") mesh of `--mesh_*` over the process group, or
+    None for a run on one device without a group (mesh 1 x 1 x 1, no
+    `--multihost`). `--multihost` sets the group up from
+    `--coordinator_address`, `--num_processes` and `--process_id` (a
+    "host:port" or a `file://` / `tcp://` URL), else from torchrun's
+    environment; a larger mesh without `--multihost` takes torchrun's. One
+    process drives one device: the mesh's product is the process count."""
+    from openvla_oft_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    multihost = getattr(cfg, "multihost", False)
+    shape = (cfg.mesh_dp, cfg.mesh_fsdp, cfg.mesh_tp)
+    if not multihost and shape == (1, 1, 1):
+        return None
+    if multihost:
+        init_distributed(device.type, cfg.coordinator_address, cfg.num_processes,
+                         cfg.process_id)
+    else:
+        init_distributed(device.type)
+    return make_mesh(*shape, device_type=device.type)
+
+
+def data_rank(mesh) -> tuple:
+    """(index, count) of this process among the ranks the batch splits over
+    (dp x fsdp; the tp ranks of a data rank read the same rows)."""
+    if mesh is None:
+        return 0, 1
+    dp, fsdp = mesh.size(0), mesh.size(1)
+    c = mesh.get_coordinate()
+    return c[0] * fsdp + c[1], dp * fsdp
 
 
 def objective_of(cfg: FinetuneConfig) -> str:
@@ -232,13 +260,15 @@ def train_config(cfg: FinetuneConfig):
 
 
 def training_data(cfg: FinetuneConfig, model_cfg, platform, num_samples: int,
-                  train: bool = True):
+                  train: bool = True, process: tuple = (0, 1)):
     """(dataset, collator, stats): the examples through the training
     transform, the collator that batches them, and {dataset_name: stats}.
     `dummy`: `num_samples` random examples (seed 0, or 999 for the
     validation stream); else the RLDS episodes under `data_root_dir`, train
     mode shuffled over `shuffle_buffer_size` frames and repeated, the
-    validation stream (`train=False`) one pass in order."""
+    validation stream (`train=False`) one pass in order. `process` = (index,
+    count) of this data rank: the RLDS reader takes its shard of the
+    episode files (`local_batches` cuts the dummy set's global batches)."""
     from openvla_oft_tpu_torch.data.collator import PaddedCollatorForActionPrediction
     from openvla_oft_tpu_torch.processing.action_tokenizer import ActionTokenizer
     from openvla_oft_tpu_torch.data.datasets import DummyDataset, RLDSBatchTransform
@@ -260,10 +290,32 @@ def training_data(cfg: FinetuneConfig, model_cfg, platform, num_samples: int,
         dataset, stats = make_rlds_iterator(
             str(cfg.data_root_dir), cfg.dataset_name, transform, platform,
             shuffle_buffer_size=cfg.shuffle_buffer_size if train else 1000,
-            image_aug=cfg.image_aug, train=train, num_images=cfg.num_images_in_input)
+            image_aug=cfg.image_aug, train=train, num_images=cfg.num_images_in_input,
+            process_index=process[0], process_count=process[1])
     collator = PaddedCollatorForActionPrediction(pad_token_id=model_cfg.pad_token_id,
                                                  max_length=cfg.seq_bucket or None)
     return dataset, collator, stats
+
+
+def local_batches(cfg: FinetuneConfig, dataset, collator, index: int, count: int):
+    """This data rank's batches of `batch_size // count` rows: from its own
+    shard of the episodes, or, for `dummy`, its rows of every global batch
+    (so that a run on any mesh trains on the global batches of one
+    device)."""
+    from openvla_oft_tpu_torch.data.collator import batch_iterator, rank_rows
+
+    if str(cfg.data_root_dir) != "dummy" or count == 1:
+        return batch_iterator(dataset, cfg.batch_size // count, collator)
+    return rank_rows(batch_iterator(dataset, cfg.batch_size, collator), index, count)
+
+
+def _any_rank(flag: bool, mesh, device: torch.device) -> bool:
+    """`flag` of any rank (an all-reduce), or the flag itself without a mesh."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return bool(t.item())
 
 
 def first_batch(cfg: FinetuneConfig) -> dict:
@@ -346,9 +398,12 @@ def restore_training_state(state, cfg: FinetuneConfig, ckpt_dir: str,
     step count, accumulation and the LR scheduler's position) of gradient
     step `--resume_step`, else of the latest one in `ckpt_dir`, into
     `state`, whose micro-step becomes step x grad_accumulation_steps (JAX
-    finetune.py:334-365). Returns the step. The data stream and the step's
-    generator restart from their seeds, as in the JAX CLI."""
+    finetune.py:334-365); sharded trainables and moments take their slices
+    of the file's whole tensors, at any world size. Returns the step. The
+    data stream and the step's generator restart from their seeds, as in
+    the JAX CLI."""
     from openvla_oft_tpu_torch.bridge import tree_leaves
+    from openvla_oft_tpu_torch.parallel.sharding import copy_into
     from openvla_oft_tpu_torch.training.checkpoint import (checkpoint_path, latest_step,
                                                            restore_checkpoint)
 
@@ -366,7 +421,7 @@ def restore_training_state(state, cfg: FinetuneConfig, ckpt_dir: str,
                            "merge_lora_weights_and_save.py migrates its A factors)")
     with torch.no_grad():
         for d, s in zip(dst, src):
-            d.copy_(s)
+            copy_into(d, s)
     state.optimizer.load_state_dict(restored["optimizer"])
     state.step = step0 * max(cfg.grad_accumulation_steps, 1)
     return step0
@@ -385,7 +440,8 @@ def _copy_tokenizer(src_dir: str, dst_dir: str) -> None:
 
 
 def save_training_checkpoint(cfg: FinetuneConfig, state, grad_step: int, run_dir: str,
-                             stats: dict, model_cfg, norm_stats: Optional[dict] = None) -> str:
+                             stats: dict, model_cfg, norm_stats: Optional[dict] = None,
+                             mesh=None) -> str:
     """The layout of the JAX CLI's `save_training_checkpoint`
     (finetune.py:509-619). The resume file goes to `run_dir/ckpt` without
     blocking (`save_checkpoint(block=False)`). Into `{run_dir}--{N}_chkpt`,
@@ -398,17 +454,34 @@ def save_training_checkpoint(cfg: FinetuneConfig, state, grad_step: int, run_dir
     host tree one leaf at a time; `export_openvla_checkpoint`). Under
     `--quantize_base` the merge reloads the float base from `--vla_path` in
     its stored dtype, or is skipped where `--vla_path` is not a dir. Returns
-    the resume file's path."""
+    the resume file's path.
+
+    On a mesh every rank calls it: the trainables and the optimizer's state
+    are gathered whole (`parallel/sharding.py::gather_params`, a
+    collective), then rank 0 alone writes the single-file format, which a
+    resume at any world size re-shards. Over several processes the merged
+    export runs only from a `--vla_path` dir (the float base reloaded from
+    it, as under `--quantize_base`), as in the JAX CLI."""
     from openvla_oft_tpu_torch.bridge import tree_leaves
     from openvla_oft_tpu_torch.data.transforms import save_dataset_statistics
-    from openvla_oft_tpu_torch.training.checkpoint import (export_film_vision_backbone_pt,
+    from openvla_oft_tpu_torch.parallel.sharding import gather_params
+    from openvla_oft_tpu_torch.training.checkpoint import (checkpoint_path,
+                                                           export_film_vision_backbone_pt,
                                                            export_module_pt,
                                                            prune_old_steps, save_checkpoint,
                                                            wait_for_checkpoints)
 
     ckpt_dir = os.path.join(run_dir, "ckpt")
-    ckpt = save_checkpoint(ckpt_dir, grad_step, {"trainables": state.trainables,
-                                                 "optimizer": state.optimizer.state_dict()},
+    tr, opt = state.trainables, state.optimizer.state_dict()
+    n_proc = 1 if mesh is None else mesh.size()
+    film = cfg.use_film and "film" in tr and not cfg.quantize_base
+    vision = state.base_params["vision_backbone"] if film else None
+    if mesh is not None:
+        tr, opt = gather_params(tr, to_host=True), gather_params(opt, to_host=True)
+        vision = gather_params(vision, to_host=True) if film else None
+        if torch.distributed.get_rank() != 0:
+            return checkpoint_path(ckpt_dir, grad_step)
+    ckpt = save_checkpoint(ckpt_dir, grad_step, {"trainables": tr, "optimizer": opt},
                            block=False)
     if cfg.save_latest_checkpoint_only:
         chkpt_dir, label = run_dir, "latest"
@@ -418,13 +491,11 @@ def save_training_checkpoint(cfg: FinetuneConfig, state, grad_step: int, run_dir
     os.makedirs(chkpt_dir, exist_ok=True)
     save_dataset_statistics(stats, chkpt_dir)
     print(f"[finetune] saved checkpoint for step {grad_step}")
-    tr = state.trainables
     for mod in ("action_head", "proprio_projector", "noisy_action_projector"):
         if mod in tr:
             export_module_pt(tr[mod], mod, chkpt_dir, label)
-    if cfg.use_film and "film" in tr and not cfg.quantize_base:
-        export_film_vision_backbone_pt(state.base_params["vision_backbone"], tr["film"],
-                                       model_cfg, chkpt_dir, label)
+    if film:
+        export_film_vision_backbone_pt(vision, tr["film"], model_cfg, chkpt_dir, label)
     if not (cfg.merge_lora_during_training and cfg.use_lora):
         return ckpt
     from openvla_oft_tpu_torch.training.lora import merge_lora_into_params
@@ -432,19 +503,24 @@ def save_training_checkpoint(cfg: FinetuneConfig, state, grad_step: int, run_dir
                                                        load_openvla_checkpoint)
 
     from_dir = os.path.isdir(cfg.vla_path)
-    if cfg.quantize_base:
+    if n_proc > 1 and not from_dir:
+        print("[finetune] skipping merged export under multihost: the sharded base "
+              "would need a full cross-host gather; merge offline with "
+              "merge_lora_weights_and_save.py")
+        return ckpt
+    if cfg.quantize_base or n_proc > 1:
         if not from_dir:
             print("[finetune] skipping merged export: base is quantized and vla_path is "
                   "not a local checkpoint to re-merge against; use "
                   "merge_lora_weights_and_save.py offline")
             return ckpt
         wait_for_checkpoints()
-        device = tree_leaves(tr)[0].device
+        device = tree_leaves(state.trainables)[0].device      # tr may be on the host
         _, loaded, _ = load_openvla_checkpoint(cfg.vla_path, dtype=None, device=device)
         base = {k: loaded[k] for k in _BASE}
         del loaded
     else:
-        base = state.base_params
+        base = gather_params(state.base_params)      # one rank: the local tensors
     with torch.no_grad():
         merged = merge_lora_into_params(base, tr["lora"], rank=cfg.lora_rank,
                                         alpha=float(min(cfg.lora_rank, 16)), out_device="cpu")
@@ -463,12 +539,13 @@ def run_validation(state, val_batches, model_cfg, platform, tcfg, device: torch.
     long as `time_limit` seconds allow, without gradients (reference
     `run_validation`, finetune.py:678-760): ({f"val_{name}": mean}, batches
     run). The diffusion draws come from a generator seeded 4242."""
+    from openvla_oft_tpu_torch.parallel.sharding import dtensor_context
     from openvla_oft_tpu_torch.training.train_step import loss_and_metrics
 
     gen = torch.Generator(device=device).manual_seed(4242)
     agg: dict = {}
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), dtensor_context(state.trainables):
         for vb in val_batches:
             if time.perf_counter() - t0 > time_limit:
                 break
@@ -524,15 +601,23 @@ def finetune(cfg: TorchFinetuneConfig,
         raise ValueError("only LoRA fine-tuning is supported (reference finetune.py:779)")
     if cfg.lora_dropout != 0.0:
         raise ValueError("lora_dropout is not implemented (the reference recipes use 0.0)")
-    unported = unported_flags(cfg)
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(
-            f"--{flag} ({item})" for flag, item in unported))
     platform = platform_of(cfg)
     use_flash = _use_flash(cfg.use_flash_attention)
     device = _device(cfg.device)
     model_cfg = model_config(cfg)
     objective = objective_of(cfg)
+    mesh = run_mesh(cfg, device)
+    proc, n_data = data_rank(mesh)
+    n_proc = mesh.size() if mesh is not None else 1
+    is_primary = mesh is None or torch.distributed.get_rank() == 0
+    if cfg.batch_size % n_data:
+        raise ValueError(f"the global batch {cfg.batch_size} must divide over the "
+                         f"{n_data} data ranks (dp x fsdp)")
+    if n_proc > 1 and cfg.seq_bucket <= 0:
+        raise ValueError("multihost requires --seq_bucket: auto length-bucketing is "
+                         "per-process and the padded lengths would diverge across ranks")
+    if device.type == "cuda" and mesh is not None:
+        device = torch.device("cuda", torch.cuda.current_device())
 
     run_id = get_run_id(cfg)
     run_dir = os.path.join(str(cfg.run_root_dir), run_id)
@@ -541,10 +626,16 @@ def finetune(cfg: TorchFinetuneConfig,
         raise FileNotFoundError(f"--resume: no checkpoint in {ckpt_dir}")
     os.makedirs(run_dir, exist_ok=True)
     print(f"[finetune] run_id={run_id} objective={objective} platform={platform.name} "
-          f"film={model_cfg.use_film} device={device}")
+          f"film={model_cfg.use_film} device={device}"
+          + ("" if mesh is None else f" rank={torch.distributed.get_rank()}/{n_proc} "
+             f"mesh={tuple(mesh.mesh.shape)}"))
 
     # === Model: bf16 (or quantized) base, fp32 heads, FiLM and LoRA, on the device ===
     base, trainables = build_model(cfg, model_cfg, platform, device)
+    if mesh is not None:
+        from openvla_oft_tpu_torch.parallel.sharding import shard_params
+
+        base, trainables = shard_params(base, mesh), shard_params(trainables, mesh)
     tcfg = train_config(cfg)
     state = create_train_state(base, trainables, tcfg,
                                torch.Generator(device=device).manual_seed(2))
@@ -553,18 +644,21 @@ def finetune(cfg: TorchFinetuneConfig,
         print(f"[finetune] resumed at gradient step {step0}")
     norm_stats = checkpoint_norm_stats(cfg)
 
-    # === Data ===
+    # === Data: each data rank takes its rows of the global batch ===
     g = max(cfg.grad_accumulation_steps, 1)
     dataset, collator, stats = training_data(cfg, model_cfg, platform,
-                                             max(cfg.max_steps, 1) * cfg.batch_size * g)
-    save_dataset_statistics(stats, run_dir)
-    metrics = VLAMetrics([JSONLinesTracker(run_dir, run_id)], window=g)
+                                             max(cfg.max_steps, 1) * cfg.batch_size * g,
+                                             process=(proc, n_data))
+    if is_primary:
+        save_dataset_statistics(stats, run_dir)
+    # Host IO on the primary process only; every rank computes the metrics.
+    metrics = VLAMetrics([JSONLinesTracker(run_dir, run_id)] if is_primary else [], window=g)
     val_batches = None        # the validation stream, built once, at its first use
 
     ckpt = None
     start = state.step
     t_start = time.time()
-    prefetched = DevicePrefetcher(batch_iterator(dataset, cfg.batch_size, collator), device)
+    prefetched = DevicePrefetcher(local_batches(cfg, dataset, collator, proc, n_data), device)
     try:
         with PreemptionGuard() as guard:
             micro = state.step - 1
@@ -616,12 +710,13 @@ def finetune(cfg: TorchFinetuneConfig,
                     if on_validation is not None:
                         on_validation(grad_step, extra, n_val)
                 # The signal's flag is polled once the micro-step is done, so the
-                # checkpoint is the consistent post-step state.
-                preempted = guard.should_stop
+                # checkpoint is the consistent post-step state; on several
+                # ranks any rank's signal stops them all (the save is collective).
+                preempted = _any_rank(guard.should_stop, mesh, device)
                 if preempted or (at_boundary and ((grad_step + 1) % cfg.save_freq == 0
                                                   or grad_step + 1 == cfg.max_steps)):
                     ckpt = save_training_checkpoint(cfg, state, grad_step + 1, run_dir, stats,
-                                                    model_cfg, norm_stats)
+                                                    model_cfg, norm_stats, mesh)
                 if preempted:
                     print(f"[finetune] preempted (signal {guard.received_signal}); "
                           f"checkpoint saved at step {grad_step + 1} - resume with "

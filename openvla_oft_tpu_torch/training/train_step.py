@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from openvla_oft_tpu_torch.config import OpenVLAConfig
 from openvla_oft_tpu_torch.constants import (IGNORE_INDEX, LLAMA2_VOCAB_SIZE, N_ACTION_BINS,
@@ -50,6 +51,9 @@ from openvla_oft_tpu_torch.bridge import tree_leaves
 from openvla_oft_tpu_torch.models import action_heads as AH
 from openvla_oft_tpu_torch.models.prismatic import prismatic_forward
 from openvla_oft_tpu_torch.ops.masks import get_current_action_mask, get_next_actions_mask
+from openvla_oft_tpu_torch.parallel.mesh import mesh_shape
+from openvla_oft_tpu_torch.parallel.sharding import (compute_view, copy_into, distribute,
+                                                     dtensor_context)
 from openvla_oft_tpu_torch.processing.image_processing import _linspace_f32
 from openvla_oft_tpu_torch.training.lora import inject_lora
 
@@ -90,8 +94,24 @@ def lr_schedule(cfg: TrainConfig):
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, in fp32 (optax.global_norm)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    """sqrt of the sum of squares over all tensors, in fp32 (optax.global_norm).
+    A sharded (DTensor) tensor's sum is reduced across its ranks."""
+    return torch.sqrt(sum(_whole(t.float().square().sum()) for t in tensors))
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(full: torch.Tensor, param):
+    """A whole tensor placed as `param` is (its slice, for a DTensor)."""
+    if not isinstance(param, DTensor) or isinstance(full, DTensor):
+        return full
+    return distribute(full, param.device_mesh, param.placements)
 
 
 def _f32_pow(x: float, n: int) -> np.float32:
@@ -115,7 +135,8 @@ class Bf16AdamW:
         u  = (mu / c1) / (sqrt(nu / c2) + eps),  c = bf16(fp32(1 - b ** count))
         u  = u + wd p;  p = p + bf16(-lr(count)) u
     Stacked (L, ...) leaves update one layer slice at a time, so the
-    temporaries stay one slice large."""
+    temporaries stay one slice large; a sharded (DTensor) leaf updates its
+    local shard."""
 
     def __init__(self, cfg: TrainConfig, params: List[torch.Tensor]):
         self.params = params
@@ -145,7 +166,9 @@ class Bf16AdamW:
         bc2 = bf16(np.float32(1) - _f32_pow(0.999, count))
         eps, wd, neg_lr = bf16(1e-8), bf16(self.weight_decay), bf16(np.float32(-lr))
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            for ps, gs, ms, ns in zip(*map(self._slices, (p, g.to(p.dtype), mu, nu))):
+            # Elementwise: a sharded leaf updates its own slice.
+            p, g, mu, nu = (_local(t) for t in (p, g.to(p.dtype), mu, nu))
+            for ps, gs, ms, ns in zip(*map(self._slices, (p, g, mu, nu))):
                 ms.mul_(b1).add_(gs * c1)
                 ns.mul_(b2).add_((gs * gs) * c2)
                 u = (ms / bc1).div_((ns / bc2).sqrt_().add_(eps))
@@ -160,7 +183,7 @@ class Bf16AdamW:
     def load_state_dict(self, state: dict) -> None:
         with torch.no_grad():
             for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
-                dst.copy_(src)
+                copy_into(dst, src)
         self.count = state["count"]
 
 
@@ -228,12 +251,22 @@ class Optimizer:
         return state
 
     def load_state_dict(self, state: dict) -> None:
+        """Load a state whose tensors are whole (`state_dict` gathered, as
+        the resume file holds it): a sharded parameter's moments and
+        accumulated gradients take their slices."""
         if self.adamw is not None:
             self.adamw.load_state_dict(state["adamw"])
             self.scheduler.load_state_dict(state["scheduler"])
+            for p in self.adamw.param_groups[0]["params"]:
+                st = self.adamw.state[p]
+                for k in ("exp_avg", "exp_avg_sq"):
+                    if k in st:
+                        st[k] = _like(st[k], p)
         if self.low is not None:
             self.low.load_state_dict(state["bf16_adamw"])
-        self.micro, self.accum = state["micro"], state["accum"]
+        self.micro = state["micro"]
+        self.accum = None if state["accum"] is None else \
+            [_like(a.to(p.device), p) for a, p in zip(state["accum"], self.params)]
 
 
 def make_optimizer(cfg: TrainConfig, trainables: Params) -> Optimizer:
@@ -395,6 +428,7 @@ def loss_and_metrics(trainables: Params, base_params: Params,
     diffusion objective draws its noise and timesteps from `generator`."""
     if cfg.objective not in OBJECTIVES:
         raise ValueError(f"Unknown objective {cfg.objective!r}")
+    trainables, base_params = compute_view(trainables), compute_view(base_params)
     params = _merged_params(base_params, trainables, cfg)
     gt = batch.get("actions")
     if cfg.objective == "discrete":
@@ -434,13 +468,54 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     window) an optimizer update. Metrics add `grad_norm`, the global norm of
     this micro-batch's gradients."""
     leaves = state.optimizer.params
-    loss, metrics = loss_and_metrics(state.trainables, state.base_params, batch,
-                                     model_cfg, platform, cfg, state.generator, use_flash)
-    grads = torch.autograd.grad(loss, leaves)
-    metrics["grad_norm"] = global_norm(grads).detach()
-    state.optimizer.update(grads)
+    n_data = data_ranks(leaves)
+    with dtensor_context(leaves):
+        loss, metrics = loss_and_metrics(state.trainables, state.base_params,
+                                         batch, model_cfg, platform, cfg,
+                                         state.generator, use_flash)
+        # Each rank's loss is the mean over its own rows; the gradients sum
+        # over the data ranks, so 1/n of each gives the global batch's mean.
+        grads = torch.autograd.grad(loss / n_data if n_data > 1 else loss, leaves)
+        grads = [placed_like(g, p) for g, p in zip(grads, leaves)]
+        metrics = mean_over_data(metrics, leaves)
+        metrics["grad_norm"] = global_norm(grads).detach()
+        state.optimizer.update(grads)
     state.step += 1
     return state, metrics
+
+
+def placed_like(grad, param):
+    """`grad` placed as `param` is. A leaf replicated over the data axes
+    gets its gradient back as a partial sum there (each rank's rows give a
+    part of it, `parallel/sharding.py::compute_leaf`): this reduces it, so
+    that every replica takes the same update."""
+    if isinstance(grad, DTensor) and tuple(grad.placements) != tuple(param.placements):
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
+
+
+def data_ranks(leaves: Sequence[torch.Tensor]) -> int:
+    """The ranks the batch splits over (dp x fsdp) on the mesh of the first
+    sharded leaf; 1 without one."""
+    for t in leaves:
+        if isinstance(t, DTensor):
+            shape = mesh_shape(t.device_mesh)
+            return shape["dp"] * shape["fsdp"]
+    return 1
+
+
+def mean_over_data(metrics: Dict[str, torch.Tensor], leaves) -> Dict[str, torch.Tensor]:
+    """Each metric averaged over the data ranks (an all-reduce of the stacked
+    scalars); unchanged on one rank."""
+    if data_ranks(leaves) == 1 or not metrics:
+        return metrics
+    import torch.distributed as dist
+
+    keys = sorted(metrics)
+    vals = torch.stack([metrics[k].detach().float() for k in keys])
+    dist.all_reduce(vals)
+    vals = vals / dist.get_world_size()
+    return {k: vals[i] for i, k in enumerate(keys)}
 
 
 @torch.no_grad()
@@ -454,7 +529,18 @@ def diffusion_sampling_metrics(trainables: Params, base_params: Params,
     `diffusion_sample_freq` steps): noise drawn from `generator`, then, for
     each t of `timesteps(num_diffusion_steps)`, the whole training-layout
     forward (ViTs included, as the JAX `lax.scan` runs it), the predicted
-    noise and one DDIM step."""
+    noise and one DDIM step. On a mesh each data rank samples its own rows
+    and the metrics are averaged over the data ranks."""
+    leaves = tree_leaves(trainables)
+    with dtensor_context(leaves):
+        metrics = _sampling_metrics(compute_view(trainables), compute_view(base_params),
+                                    batch, model_cfg, platform, cfg,
+                                    generator, use_flash)
+        return mean_over_data(metrics, leaves)
+
+
+def _sampling_metrics(trainables, base_params, batch, model_cfg, platform, cfg,
+                      generator, use_flash):
     params = _merged_params(base_params, trainables, cfg)
     gt = batch["actions"]
     b, device = gt.shape[0], gt.device

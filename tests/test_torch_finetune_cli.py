@@ -7,8 +7,8 @@ the CPU write their metrics JSONL and checkpoint for each objective (L1,
 diffusion with its sampling metric, discrete), for ALOHA with FiLM and from
 a checkpoint dir; on RLDS episode shards written by the port's writer (L1
 with image augmentation, discrete with two cameras, and validation logging
-its `val_*` metrics); the multi-GPU flags raise at startup, and so does a
-hub id. With the JAX CLI's defaults (`--merge_lora_during_training True`)
+its `val_*` metrics); a hub id raises at startup. The multi-GPU flags are
+tested in `test_torch_parallel_cli.py`. With the JAX CLI's defaults (`--merge_lora_during_training True`)
 a run writes the reference's layout of `--N_chkpt` dirs; resume, the QLoRA
 base (int8, int4), the merge script and the restart wrapper mirror the JAX
 package's slow tests (test_finetune_cli.py, test_merge_script*), which run
@@ -95,20 +95,6 @@ def test_tiny_run_writes_metrics_and_checkpoint(tmp_path):
     assert b.abs().max() > 0
 
 
-UNPORTED = [
-    (["--multihost", "True"], "multihost"),
-    (["--mesh_fsdp", "2"], "mesh"),
-]
-
-
-@pytest.mark.parametrize("flags,what", UNPORTED, ids=[w for _, w in UNPORTED])
-def test_unported_flags_raise(tmp_path, flags, what):
-    """Only the multi-GPU flags are left (ROADMAP item 17)."""
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 17"):
-        FT.main(TINY_RUN + flags + ["--max_steps", "1", "--run_root_dir", str(tmp_path)])
-    assert not any(tmp_path.iterdir())         # raised before any work
-
-
 def test_unknown_use_flash_attention_is_rejected(tmp_path):
     """The JAX CLI maps an unknown value to "auto"; the port raises."""
     assert FT._use_flash(" TRUE ") is True and FT._use_flash("Auto") == "auto"
@@ -130,7 +116,7 @@ def test_libero_recipe_passes_the_startup_checks():
                        "oft-libero-spatial")
     assert (cfg.use_l1_regression, cfg.use_proprio, cfg.num_images_in_input,
             cfg.lora_rank, cfg.robot_platform) == (True, True, 2, 32, "libero")
-    assert FT.unported_flags(cfg) == []
+    assert FT.run_mesh(cfg, torch.device("cpu")) is None      # one device, no group
 
 
 def test_finetune_config_and_run_id_match_jax():

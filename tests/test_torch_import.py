@@ -105,7 +105,8 @@ _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "ut
                 "experiments.robot.robosuite.run_robosuite_eval",
                 "experiments.robot.robosuite.create_video",
                 "experiments.robot.robosuite.collect_data.collect_task",
-                "experiments.robot.robosuite.collect_data.rollout_trajectory")
+                "experiments.robot.robosuite.collect_data.rollout_trajectory",
+                "parallel.mesh", "parallel.sharding", "scripts.dryrun_multiprocess")
 
 
 def test_every_module_imports_without_jax():

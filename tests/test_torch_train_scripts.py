@@ -4,7 +4,7 @@
   checkpoint dir) and `scripts/pretrain.py` (both stages on a tiny LLaVA
   JSON whose JPEGs PIL writes here): the step count, finite metrics, the
   checkpoint restored bitwise equal to the trained state (the bf16 moments
-  too), and `--mesh_*` other than 1 raising with ROADMAP item 17.
+  too). `--mesh_*` runs are in `test_torch_parallel_scripts.py`.
 - `scripts/generate.py`: the REPL over stdin (in process and as a CLI with
   piped input) on `random:tiny`.
 - `scripts/build_instruct_mixtures.py`: the same JSON files as the JAX
@@ -162,16 +162,6 @@ def test_pretrain_resolves_a_named_variant(tmp_path):
                                         batch_size=2, max_steps=1, run_root_dir=tmp_path,
                                         seq_bucket=32, device="cpu"))
     assert out["final_step"] == 1 and out["ckpt"].endswith("000001.pt")
-
-
-@pytest.mark.parametrize("script", ["train", "pretrain"])
-@pytest.mark.parametrize("flag", ["mesh_dp", "mesh_fsdp", "mesh_tp"])
-def test_mesh_flags_raise_naming_item_17(tmp_path, script, flag):
-    cfg = _train_cfg(tmp_path, "vla-train") if script == "train" else \
-        PP.PretrainConfig(pretrained_checkpoint="random:tiny", device="cpu")
-    run = PT.train if script == "train" else PP.pretrain
-    with pytest.raises(NotImplementedError, match="item 17"):
-        run(dataclasses.replace(cfg, **{flag: 2}))
 
 
 def test_unknown_stage_and_cuda_without_a_card(tmp_path):
