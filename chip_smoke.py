@@ -98,33 +98,36 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      random_observations (`attach_static_act_scales`), 3 requests and a
      traced one, static against dynamic (logged); `load_vision_in_8bit`, 3
      requests (199 int8 products each) and a traced one;
-  8c. diffusion serving: `flagship_policy(head="diffusion")` (LIBERO, 50
+  8c. (this phase and 8d serve the flagship with its Llama cut to 8 of 32
+     layers, every width kept: `cut_serving_flagship`; the counts below are
+     for 8 layers) diffusion serving: `flagship_policy(head="diffusion")` (LIBERO, 50
      DDIM steps, the [BOS][patches][proprio] prefix K/V computed once, each
      step a 105-row suffix forward against 514 + 105 keys): build memory, 3
-     `predict_action` requests on pixels from `device_preprocess` (K1 32
+     `predict_action` requests on pixels from `device_preprocess` (K1 8
      each, the prefix prefill; K4/K5/K6 0), one traced (device time by
      class, idle share), wall and device time per chunk and per step; on
      the card the prefix K/V through K1 against the dense path, one suffix
      step against `predict_action_hidden`, the loop at 5 steps prefix-KV
      against full prefill and split-KV against concatenation (cosine >=
-     0.99 each); then rebuilt with `load_in_4bit`: 2 requests (K5 128 +
-     50 x 32 x 4 = 6,528 each), one traced, the prefix (T = 514) and one
+     0.99 each); then rebuilt with `load_in_4bit`: 2 requests (K5 32 +
+     50 x 8 x 4 = 1,632 each), one traced, the prefix (T = 514) and one
      step (T = 105) through K5 against K5's plain version (cosine >= 0.99);
   8d. discrete decoding: `flagship_policy(head="discrete")` (LIBERO): 3
-     `predict_action` requests (K1 31 each; K4/K5/K6 0), the action-row
+     `predict_action` requests (K1 7 each; K4/K5/K6 0), the action-row
      logits through K1 against dense (cosine >= 0.99, argmax agreement
      logged), the lm_head product (`torch.mm(..., out_dtype=float32)`)
      against the fp32 product of the same bf16 values (max|d| <= 1e-4 of
      max|ref|); base OpenVLA on the same tree at 1 image (bucket 48, 24
      real tokens, S = 304): `predict_action_autoregressive`, 3 requests of 7
-     tokens and 2 of 56 (K1 32 each, the prefill), the cached decode against
+     tokens and 2 of 56 (K1 8 each, the prefill), the cached decode against
      a no-cache forward over the same tokens (dense both, cosine >= 0.999),
      the prefill through K1 against dense (cosine >= 0.99), one request
      traced (device time by class, kernels a token, idle share); rebuilt
-     with `load_in_4bit`: 2 requests of 7 tokens (K5 128 + 6 x 128 = 896
+     with `load_in_4bit`: 2 requests of 7 tokens (K5 32 + 6 x 32 = 224
      each), one traced, one decode step through K5 against its plain version
-     (cosine >= 0.99); with `load_in_8bit`: one request (1,095 int8
-     products, one padded row per product in each step); `bench_ar` in bf16
+     (cosine >= 0.99); with `load_in_8bit`: one request (the ViTs' and
+     projector's int8 products and 4 x 8 a token, one padded row per
+     product in each step); `bench_ar` in bf16
      and with `--quant int4` (its 7-token, 56-token and parallel rows);
   8e. checkpoint: the flagship's widths with its Llama cut to 4 of 32 layers
      (registered as "llama2-7b-pure-4l"; both ViTs at full depth), seeded
@@ -167,21 +170,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      their plan; device times (torch.profiler, L2 flushed) beside SDPA's
      backward kernels alone and the bound, CUDA events beside them; the
      stats rows K2 writes against the stats pass and the plain LSE, delta;
- 10. training: 3 steps of the fine-tuning CLI at B=8 (remat "all": K1 64,
-     K2 32 and K3 32 launches per step), loss, grad norm, step time, peak
-     memory, no stats pass (K3 reads K2's stats rows);
+ 10. training (this phase, 11, 12, 11b, 13, 14 and 15 run random:7b with
+     its Llama cut to 4 of 32 layers, every width kept: `cut_flagship`): 3
+     steps of the fine-tuning CLI at B=8 (remat "all": K1 8, K2 4 and K3 4
+     launches per step), loss, grad norm, step time, peak memory, no stats
+     pass (K3 reads K2's stats rows), every step's metrics logged for phase
+     19; the run is phase 18 (a)'s run without a mesh;
  11. step profile: the CLI's train_step on its final state and first batch,
      3 steps timed, then one traced with torch.profiler (device activity
      only): device time by kernel class, K1's and K2 + K3's shares, the idle
      share;
  12. training-path parity: one loss and backward through K1/K2/K3 against
-     the dense path on the same 7B weights and batch;
+     the dense path on the same weights and batch;
  11b. (run after 12, which needs phase 10's state) the other objectives
-     through the same CLI at random:7b, 3 steps each, every step K1 64, K2
-     32, K3 32, each run's step times, peak memory and every trainable
+     through the same CLI, 3 steps each, every step K1 8, K2
+     4, K3 4, each run's step times, peak memory and every trainable
      group moving, then its K1/K2/K3 path against the dense path on the same
      weights, batch and draws (phase 12's bounds): (a) diffusion, B=8,
-     S=586, 50 DDIM steps, the sampling metric at step 3 (K1 1,600 more, no
+     S=586, 50 DDIM steps, the sampling metric at step 3 (K1 200 more, no
      K2/K3, finite); (b) discrete, B=8, and the lm_head product's backward
      on the card against its float64 product; (c) OFT+ ALOHA (FiLM, 3
      images, B=4, S=1137; the parity with every target at 10, so that the
@@ -201,13 +207,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the golden's 256 x 256 frames); (d) the loader alone, image_aug off and
      on: frames/s, decode and augmentation ms a frame, the resident set with
      a 10,000-frame buffer; (e) the CLI at random:7b on it (B=8, 2 images,
-     proprio, L1, image_aug, 4 steps, validation every 2): K1 64, K2 32, K3
-     32 a step and K1 32 a validation batch with no K2/K3, the step times
+     proprio, L1, image_aug, 4 steps, validation every 2): K1 8, K2 4, K3
+     4 a step and K1 4 a validation batch with no K2/K3, the step times
      beside phase 10's, val_loss finite, peak memory, the run dir's
      statistics the pipeline's; one step traced fed by the prefetcher, with
      its idle share; (f) the dataset removed.
- 14. (after 13; this phase and the next run random:7b with its Llama cut to
-     8 of 32 layers, every width kept: `cut_flagship`) the rest of the
+ 14. (after 13) the rest of the
      fine-tuning CLI: (a) QLoRA int8 (B=8, remat
      "all", 3 steps): the int8 products a step against the count from the
      widths (the forward's and its recompute's), K1/K2/K3 twice and once
@@ -228,13 +233,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      micro-step: a checkpoint at 3, final_step 3, the handler restored, a
      resumed run to step 6.
  15. (after 14) full-parameter training and VLM pretraining, each run at
-     random:7b's full width (the Llama at 8 layers), B=8, 3 steps, through
+     random:7b's full width (the Llama at 4 layers), B=8, 3 steps, through
      the scripts' entry points: (a) both JPEG decoders with the ISLOW inverse DCT bitwise
      PIL's pixels on every entry of `tests/goldens/jpeg_decode_pil.npz`;
      (b), (c) `scripts/pretrain.py` align and finetune on a LLaVA JSON of
      32 records whose images are the two JPEG goldens' bytes (seq_bucket
      128: S = 384); (d) `scripts/train.py`'s four stages on dummy LIBERO
-     data. Each run: K1 16, K2 8, K3 8 a step (twice and once the 8
+     data. Each run: K1 8, K2 4, K3 4 a step (twice and once the 4
      layers), the step times, the peak, the optimizer's share of a step,
      every trainable group moved (the share of sampled entries that
      changed), every frozen leaf bitwise its value before the first step,
@@ -244,8 +249,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      `scripts/generate.py` at random:7b with the stand-in tokenizer: one
      prompt on its input stream, 8 new tokens, K1 32 in the prefill.
  16. (after 15) Phi-2 as the VLA's LLM and the TFDS-format data path: the
-     `phi-2+3b` model (CLIP ViT-L/14 at 336 px, Phi-2, 3.09 B parameters)
-     at full width and depth, seeded bf16 weights drawn on the card
+     `phi-2+3b` model (CLIP ViT-L/14 at 336 px, Phi-2) at full width with
+     its LLM cut to 8 of 32 layers (`cut_llm`), seeded bf16 weights drawn on the card
      (`bridge.init_params`), LIBERO's geometry (2 images, bucket 48, S =
      1,258): (a) the L1 head through `predict_action_from_frames` with
      `vit_fused` off and on (K4 46 a request at CLIP's qkv and fc1, which
@@ -255,13 +260,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      `predict_action_hidden` calls a chunk, no prefix K/V); the discrete
      head; the AR decode at 1 image, 7 tokens, its cached logits against a
      no-cache forward (cosine >= 0.999, argmax equal); the L1 head with
-     `load_in_4bit` (all 6 x 32 LLM linears int4): one request at 2 images
+     `load_in_4bit` (all 6 x 8 LLM linears int4): one request at 2 images
      (S = 1,258, above FUSED_MAX_ROWS: the dequant path, no K5) and one at
-     1 image (S = 682: K5 192 a request), the K5 path against the plain
+     1 image (S = 682: K5 48 a request), the K5 path against the plain
      one (cosine >= 0.99), then K5 against int4_matmul_ref at Phi-2's wq,
      fc1 and fc2 at those rows and at T = 1; each with its times, peak and
      a traced request's idle share; (b) the tree written as an HF
-     Phi checkpoint dir (6.2 GB in 2 GB shards, a 51,200-piece
+     Phi checkpoint dir (2 GB shards, a 51,200-piece
      `tokenizer.model`), loaded bitwise equal; 3 LoRA L1 steps of the
      fine-tuning CLI from the dir at B = 8 (LoRA on wq/wk/wv/wo only, the
      frozen base bitwise the dir's), one traced; `scripts/pretrain.py
@@ -272,8 +277,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      converted by `data/rlds/tfds_format.py::convert_tfds_to_native`, mixed
      0.7 / 0.3 by `make_interleaved_iterator` (frames/s alone; each share
      within 0.05 of its weight over 2,000 frames), then 3 L1 LoRA steps of
-     the CLI at random:7b, B = 8, fed by the mixture: K1 64, K2 32, K3 32 a
-     step.
+     the CLI at random:7b cut to 4 layers (`cut_flagship`), B = 8, fed by
+     the mixture: K1 8, K2 4, K3 4 a step.
  17. (after 16) the robot eval clients of `openvla_oft_tpu_torch/experiments/`
      and the quickstart, each through its own entry point at random:7b in
      bf16, on scripted stand-in environments that replay frames and states
@@ -296,11 +301,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      same observation followed by the client's own action processing, the
      episode's wall time and its queries' median on the host clock.
  18. (after 17) multi-GPU execution (`openvla_oft_tpu_torch/parallel/`) on
-     the one card: (a) the fine-tuning CLI at phase 14's cut (8 layers, full
-     width), B = 8, 3 steps, without a mesh and then with `--multihost True`
-     on a one-rank NCCL group (every leaf a DTensor on the (1, 1, 1) mesh):
+     the one card: (a) the fine-tuning CLI at phase 10's cut and flags with
+     `--multihost True` on a one-rank NCCL group, against phase 10's run (every leaf a DTensor on the (1, 1, 1) mesh):
      losses and trainables bitwise equal (else within phase 12's bounds),
-     K1 16, K2 8, K3 8 a step, the step times side by side (the DTensor
+     K1 8, K2 4, K3 4 a step, the step times side by side (the DTensor
      overhead); then `flash_attention_tp` on the one-rank tp mesh at the
      training shape, K1 forward and K2/K3 backward under `local_map`,
      bitwise the unsharded call; (b) tp = 2 serving of the flagship on the
@@ -310,7 +314,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      heads a rank; the actions_hidden cosine against the one-rank policy
      (phase 5's bound), both ranks' answers equal, each rank's weights and
      peak memory; the request times are this harness's cost only (gloo
-     stages every collective through the host).
+     stages every collective through the host); (c) in the same two
+     processes, quantized tp = 2 serving of the flagship, 32 layers: the bf16
+     policy with `vit_fused` (K4 98 a request on each rank's column blocks),
+     `load_in_4bit` W4A16 and W4A8 (K5 + K5s or K6 + K6s 128 a request: the
+     out_window layer projects wqkv once over its tp columns, where one rank
+     takes q, k and v apart) and `load_in_8bit` (327 int8 products a
+     request, 2 fewer than phase 8b for the same reason), 2 requests each,
+     K1 31 a request a rank; each variant's actions_hidden cosine against
+     the same variant on one rank (phase 5's bound), both ranks' answers
+     equal, the weights, peak and collectives a rank; on each rank one K5
+     and one K6 launch at the local down shape (T = 618, K = 5,504) against
+     their plain versions; then, in the parent alone on the card, K4, K5
+     and K6 timed at tp = 2's local shapes beside their bounds and the
+     library call; (d) QLoRA through the CLI on the one-rank NCCL mesh
+     (`--quantize_base`, bits 8 at B = 8 and bits 4 at B = 1, phase 14's cut
+     and flags, 3 steps): losses and trainables bitwise equal to phase 14's
+     runs without a mesh (else within phase 12's bounds), the int8 products
+     and K5 launches a step as phase 14's, K1 8, K2 4, K3 4.
+ 19. (after 18) the run tools: `scripts/verify_openvla.py` at random:7b
+     (`zero_init`), 5 calls of the staged `predict_action`, bf16 and then
+     `--quant int8` (the LLM W8A8): p50, p90 and the launches a call;
+     `scripts/summarize_run.py` on phase 10's metrics JSONL (the CLI run
+     with `--wandb_log_freq 1`), its summary JSON printed.
+Each phase's host time is logged as `[phase-time]`, and all of them after
+phase 19.
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
@@ -335,6 +363,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+T_START = time.perf_counter()
 
 from openvla_oft_tpu_torch.utils.timing import (cuda_time_ms, device_ms, l2_flush_buffer,
                                                 profiled)
@@ -2800,9 +2830,13 @@ def train(card: str, n_layers: int, flags=TRAIN_FLAGS, label: str = "train",
             if not moved > 0:
                 raise AssertionError(f"trainables {group} did not change")
             start = stop
+        metrics_file = os.path.join(out["run_dir"], f"{os.path.basename(out['run_dir'])}"
+                                    "-metrics.jsonl")
+        with open(metrics_file) as f:
+            metrics_jsonl = f.read()
         return state, launches, {"step_times": seen["times"], "peak": peak,
                                  "step_peak": step_peak, "losses": seen["losses"],
-                                 "samples": seen["samples"],
+                                 "samples": seen["samples"], "metrics_jsonl": metrics_jsonl,
                                  "first": seen.pop("first") if keep_first else None}
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
@@ -3287,7 +3321,7 @@ def episode_phase(card: str, n_layers: int, dummy_times: list) -> dict:
         log(f"[train-episodes] finetune on the episodes: 4 steps and {n_val} validation "
             f"batches in {time.perf_counter() - t0:.1f} s; step times "
             f"{', '.join(f'{t:.4f}' for t in times)} s (median of the last 3 "
-            f"{float(np.median(times[1:])):.4f}) against phase 10's dummy-data steps "
+            f"{float(np.median(times[1:])):.4f}) against phase 10's dummy-data steps at the same cut "
             f"{', '.join(f'{t:.4f}' for t in dummy_times)} s (median of the last 2 "
             f"{float(np.median(dummy_times[1:])):.4f}); waits for the prefetched batch "
             f"{', '.join(f'{t:.4f}' for t in seen['data'])} s; launches {launches}; "
@@ -3342,11 +3376,11 @@ TRAIN_INT4_SHAPES = [("wq wk wv wo", 4096, 4096), ("gate up", 4096, 11008),
                      ("down", 11008, 4096)]
 
 
-# Phases 14 and 15 run random:7b with its Llama cut to CUT_LAYERS of its 32
+# Phases 10-15 and 18 (a), (d) run random:7b with its Llama cut to CUT_LAYERS of its 32
 # layers, every width kept (registered as CUT_LLM_ID): their checks (the
 # counts a step, bitwise restores and policies, parity, moved shares) do not
 # depend on the depth, and the whole run must end within its time limit.
-CUT_LAYERS = 8
+CUT_LAYERS = 4
 CUT_LLM_ID = f"llama2-7b-pure-{CUT_LAYERS}-layers"
 
 
@@ -3373,6 +3407,39 @@ def cut_flagship():
             yield
     finally:
         C._LLM_REGISTRY.pop(CUT_LLM_ID, None)
+
+
+# Phases 8c and 8d serve the flagship, and phase 16 Phi-2, with the LLM cut
+# to SERVE_CUT_LAYERS of its 32 layers, every width kept (`cut_llm`): their
+# checks count per layer and hold each path against its plain version, and
+# at full depth the whole run came within 30 s of its time limit.
+SERVE_CUT_LAYERS = 8
+
+
+@contextlib.contextmanager
+def cut_llm(llm_id: str, n_layers: int):
+    """The registered LLM `llm_id` with its first `n_layers` layers,
+    registered as f"{llm_id}-{n_layers}-layers" inside the block; yields
+    that id."""
+    import openvla_oft_tpu_torch.config as C
+
+    cut = f"{llm_id}-{n_layers}-layers"
+    C._LLM_REGISTRY[cut] = dataclasses.replace(C._LLM_REGISTRY[llm_id], num_layers=n_layers)
+    try:
+        yield cut
+    finally:
+        C._LLM_REGISTRY.pop(cut, None)
+
+
+@contextlib.contextmanager
+def cut_serving_flagship():
+    """`serving/deploy.py::flagship_policy` (and `scripts/bench_ar.py`, which
+    calls it) with its Llama cut to SERVE_CUT_LAYERS layers inside the block."""
+    from openvla_oft_tpu_torch.serving import deploy
+
+    vision, llm = deploy.FLAGSHIP_IDS
+    with cut_llm(llm, SERVE_CUT_LAYERS) as cut, patched(deploy, "FLAGSHIP_IDS", (vision, cut)):
+        yield
 
 
 @contextlib.contextmanager
@@ -3501,6 +3568,21 @@ def int4_training_times(card: str, b1_step_s: float, b8_step_s: float,
     return out
 
 
+# Phase 14's QLoRA runs without a mesh, the references of phase 18 (d):
+# their losses, trainables after the last step and after step 0, group sizes
+# and the quantized products a step.
+QLORA_REFS = {}
+
+
+def reference_run(state, info, extra: dict) -> dict:
+    """A CLI run's outcome, kept for a later run to be held against."""
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+
+    return {"losses": info["losses"], "first": info["first"], "extra": extra,
+            "trainables": [t.detach().clone() for t in tree_leaves(state.trainables)],
+            "groups": {g: len(tree_leaves(t)) for g, t in state.trainables.items()}}
+
+
 def qlora_phase(card: str, n_layers: int, bf16_peak: int) -> dict:
     """Phase 14 (a), (b): QLoRA int8 at B = 8 and int4 at B = 1 (K5) and
     B = 8 (the dequant path) through the fine-tuning CLI, each with its
@@ -3518,7 +3600,8 @@ def qlora_phase(card: str, n_layers: int, bf16_peak: int) -> dict:
         f"{per_step} products (the backward's are dequantized bf16 products)")
     # (a) int8 at B = 8.
     state, runs["QLoRA int8"], info = train(card, n_layers, QLORA_INT8_FLAGS, "qlora-int8",
-                                            expect_extra={"int8": per_step})
+                                            expect_extra={"int8": per_step}, keep_first=True)
+    QLORA_REFS["QLoRA int8"] = reference_run(state, info, {"int8": per_step})
     log(f"[qlora-int8] step times {', '.join(f'{t:.4f}' for t in info['step_times'])} s; "
         f"peak of steps 1-2 {info['step_peak'] / 2**30:.3f} GiB, of the run (build "
         f"included) {info['peak'] / 2**30:.3f} GiB, against phase 10's bf16 run "
@@ -3530,7 +3613,9 @@ def qlora_phase(card: str, n_layers: int, bf16_peak: int) -> dict:
     torch.cuda.empty_cache()
     # (b) int4 at B = 1: every int4 linear takes K5.
     state, runs["QLoRA int4 B=1"], info1 = train(card, n_layers, QLORA_INT4_FLAGS,
-                                                 "qlora-int4", expect_extra={"K5": per_step})
+                                                 "qlora-int4", expect_extra={"K5": per_step},
+                                                 keep_first=True)
+    QLORA_REFS["QLoRA int4 B=1"] = reference_run(state, info1, {"K5": per_step})
     log(f"[qlora-int4] B = 1: step times {', '.join(f'{t:.4f}' for t in info1['step_times'])}"
         f" s; peak of steps 1-2 {info1['step_peak'] / 2**30:.3f} GiB, of the run (build "
         f"included) {info1['peak'] / 2**30:.3f} GiB ({card})")
@@ -4776,27 +4861,33 @@ def mixture_phase(card: str, n_layers: int) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phi_phase(card: str, rng, n_layers: int) -> tuple:
-    """Phase 16. Returns each run's launches and K5's check at Phi-2's shapes."""
+def phi_phase(card: str, rng) -> tuple:
+    """Phase 16: Phi-2 cut to SERVE_CUT_LAYERS layers (`cut_llm`), its
+    mixture-fed flagship run at CUT_LAYERS. Returns each run's launches and
+    K5's check at Phi-2's shapes."""
     from openvla_oft_tpu_torch.constants import LIBERO
 
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = phi_config()
-    t0 = time.perf_counter()
-    params, heads = phi_params(cfg, LIBERO)
-    torch.cuda.synchronize()
-    log(f"[phi] drawn on the card in {time.perf_counter() - t0:.1f} s")
-    runs = phi_serving(card, rng, cfg, LIBERO, params, heads)
-    int4_runs, k5 = phi_int4_serving(card, rng, cfg, LIBERO, params, heads)
-    runs.update(int4_runs)
-    del heads
-    runs.update(phi_training(card, cfg, LIBERO, params))
-    del params
+    module = sys.modules[__name__]
+    with cut_llm(PHI_IDS[1], SERVE_CUT_LAYERS) as cut, \
+            patched(module, "PHI_IDS", (PHI_IDS[0], cut)):
+        cfg = phi_config()
+        t0 = time.perf_counter()
+        params, heads = phi_params(cfg, LIBERO)
+        torch.cuda.synchronize()
+        log(f"[phi] drawn on the card in {time.perf_counter() - t0:.1f} s ({cut})")
+        runs = phi_serving(card, rng, cfg, LIBERO, params, heads)
+        int4_runs, k5 = phi_int4_serving(card, rng, cfg, LIBERO, params, heads)
+        runs.update(int4_runs)
+        del heads
+        runs.update(phi_training(card, cfg, LIBERO, params))
+        del params
     gc.collect()
     torch.cuda.empty_cache()
-    runs["train-mixture"] = mixture_phase(card, n_layers)
+    with cut_flagship():
+        runs["train-mixture"] = mixture_phase(card, CUT_LAYERS)
     log(f"[phi] phase 16 took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return runs, k5
 
@@ -5239,7 +5330,7 @@ def _detached(node):
 # === Phase 18: multi-GPU execution on the one card (PR 23) ===
 # (a) The fine-tuning CLI with --multihost on a one-rank NCCL group (every
 # trainable and base leaf a DTensor on the (1, 1, 1) mesh) against the same
-# CLI without it, at phase 14's cut (8 layers, full width), seed and batch;
+# CLI without it (phase 10's run), at CUT_LAYERS layers, full width, seed and batch;
 # then flash_attention_tp (K1 forward, K2/K3 backward under local_map) on the
 # one-rank tp mesh at the training shape, bitwise against the unsharded call.
 # (b) tp = 2 serving of the flagship on the one card: two processes on cuda:0
@@ -5254,8 +5345,10 @@ def _detached(node):
 TP_REQUESTS = 3
 
 
-def one_rank_training(card: str, s_train: int) -> dict:
-    """Phase 18 (a). Returns the two CLI runs' launches."""
+def one_rank_training(card: str, s_train: int, want: dict, plain: dict) -> dict:
+    """Phase 18 (a), and (d) in the same one-rank NCCL group: the CLI on the
+    mesh against phase 10's run without one (`want`, its `reference_run`;
+    `plain`, its info). Returns the CLI runs' launches."""
     import torch.distributed as dist
 
     from openvla_oft_tpu_torch.bridge import tree_leaves
@@ -5267,58 +5360,82 @@ def one_rank_training(card: str, s_train: int) -> dict:
     runs = {}
     try:
         with cut_flagship():
-            state, runs["plain"], plain = train(card, CUT_LAYERS, label="multigpu-plain",
-                                                keep_first=True)
-            want = [t.detach().clone() for t in tree_leaves(state.trainables)]
-            groups = {g: len(tree_leaves(t)) for g, t in state.trainables.items()}
-            del state
-            gc.collect()
-            torch.cuda.empty_cache()
             state, runs["1-rank"], multi = train(card, CUT_LAYERS, flags=TRAIN_FLAGS + one_rank,
                                                  label="multigpu-1rank", keep_first=True)
-            got = [t.detach().to_local() if hasattr(t, "to_local") else t.detach()
-                   for t in tree_leaves(state.trainables)]
-            first = [t.to_local() if hasattr(t, "to_local") else t for t in multi["first"]]
             backend = dist.get_backend()
             sharded = sum(hasattr(t, "device_mesh") for t in tree_leaves(state.trainables))
+            log(f"[multigpu-1rank] backend {backend}, {sharded} of "
+                f"{len(tree_leaves(state.trainables))} trainable leaves DTensors ({card})")
+            hold_to_reference("multigpu-1rank", state, multi, want, card)
             del state
             gc.collect()
             torch.cuda.empty_cache()
-        equal = sum(int(torch.equal(a, b)) for a, b in zip(got, want))
-        bitwise = multi["losses"] == plain["losses"] and equal == len(want)
-        log(f"[multigpu-1rank] backend {backend}, {sharded} of {len(got)} trainable leaves "
-            f"DTensors; losses {multi['losses']} against {plain['losses']} without a mesh; "
-            f"{equal} of {len(want)} trainable leaves bitwise equal after "
-            f"{len(plain['losses'])} steps ({card})")
-        if not bitwise:
-            rels = [abs(a - b) / abs(b) for a, b in zip(multi["losses"], plain["losses"])]
-            ok = all(np.isfinite(multi["losses"])) and max(rels) <= TRAIN_LOSS_REL
-            start = 0
-            for group, n in groups.items():
-                upd = [torch.cat([(x - f).float().flatten() for x, f in
-                                  zip(src[start:start + n], fst[start:start + n])])
-                       for src, fst in ((got, first), (want, plain["first"]))]
-                cos = torch.nn.functional.cosine_similarity(upd[0], upd[1], dim=0).item()
-                log(f"[multigpu-1rank] {group}: cosine of the updates after step 0, with "
-                    f"and without the mesh = {cos:.6f}")
-                ok = ok and cos >= TRAIN_GRAD_COSINE
-                start += n
-            log(f"[multigpu-1rank] loss relative differences {rels} (bound {TRAIN_LOSS_REL})")
-            if not ok:
-                raise AssertionError("the one-rank mesh run disagrees with the run without it")
-        t_plain = float(np.median(plain["step_times"][1:]))
-        t_multi = float(np.median(multi["step_times"][1:]))
-        log(f"[multigpu-1rank] step time, median of steps 1-2: {t_multi:.4f} s on the "
-            f"one-rank mesh, {t_plain:.4f} s without (x{t_multi / t_plain:.3f}, the DTensor "
-            f"overhead; host clock, each step ends in torch.cuda.synchronize); peak "
-            f"{multi['peak'] / 2**30:.3f} GiB against {plain['peak'] / 2**30:.3f} GiB ({card})")
-        runs["tp-wrapper"] = tp_wrapper_check(card, s_train)
+            t_plain = float(np.median(plain["step_times"][1:]))
+            t_multi = float(np.median(multi["step_times"][1:]))
+            log(f"[multigpu-1rank] step time, median of steps 1-2: {t_multi:.4f} s on the "
+                f"one-rank mesh, {t_plain:.4f} s without in phase 10 (x{t_multi / t_plain:.3f}, "
+                f"the DTensor "
+                f"overhead; host clock, each step ends in torch.cuda.synchronize); peak "
+                f"{multi['peak'] / 2**30:.3f} GiB against {plain['peak'] / 2**30:.3f} GiB "
+                f"({card})")
+            runs["tp-wrapper"] = tp_wrapper_check(card, s_train)
+            log(f"[multigpu] phase 18 (a) took {time.perf_counter() - t_phase:.1f} s "
+                f"(host clock)")
+            t_d = time.perf_counter()
+            # (d) QLoRA on the one-rank mesh against phase 14's runs without one.
+            for name, flags in (("QLoRA int8", QLORA_INT8_FLAGS),
+                                ("QLoRA int4 B=1", QLORA_INT4_FLAGS)):
+                ref = QLORA_REFS[name]
+                label = f"multigpu-{name.replace(' ', '-').lower()}"
+                state, runs[f"1-rank {name}"], info = train(
+                    card, CUT_LAYERS, flags=flags + one_rank, label=label,
+                    expect_extra=ref["extra"], keep_first=True)
+                hold_to_reference(label, state, info, ref, card)
+                log(f"[{label}] step times {', '.join(f'{t:.4f}' for t in info['step_times'])}"
+                    f" s on the one-rank mesh, peak {info['peak'] / 2**30:.3f} GiB; the "
+                    f"quantized products a step {ref['extra']} as phase 14's ({card})")
+                del state
+                gc.collect()
+                torch.cuda.empty_cache()
+            log(f"[multigpu] phase 18 (d) took {time.perf_counter() - t_d:.1f} s (host clock)")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    log(f"[multigpu] phase 18 (a) took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return runs
+
+
+def hold_to_reference(label: str, state, info, ref: dict, card: str) -> None:
+    """A CLI run against `ref` (`reference_run`) on the same flags: losses
+    and trainables bitwise equal, else the losses within TRAIN_LOSS_REL and
+    each trainable group's update after step 0 within TRAIN_GRAD_COSINE."""
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+
+    got = [t.detach().to_local() if hasattr(t, "to_local") else t.detach()
+           for t in tree_leaves(state.trainables)]
+    first = [t.to_local() if hasattr(t, "to_local") else t for t in info["first"]]
+    want = ref["trainables"]
+    equal = sum(int(torch.equal(a, b)) for a, b in zip(got, want))
+    log(f"[{label}] losses {info['losses']} against {ref['losses']} without a mesh; "
+        f"{equal} of {len(want)} trainable leaves bitwise equal after "
+        f"{len(ref['losses'])} steps ({card})")
+    if info["losses"] == ref["losses"] and equal == len(want):
+        return
+    rels = [abs(a - b) / abs(b) for a, b in zip(info["losses"], ref["losses"])]
+    ok = all(np.isfinite(info["losses"])) and max(rels) <= TRAIN_LOSS_REL
+    start = 0
+    for group, n in ref["groups"].items():
+        upd = [torch.cat([(x - f).float().flatten() for x, f in
+                          zip(src[start:start + n], fst[start:start + n])])
+               for src, fst in ((got, first), (want, ref["first"]))]
+        cos = torch.nn.functional.cosine_similarity(upd[0], upd[1], dim=0).item()
+        log(f"[{label}] {group}: cosine of the updates after step 0, with and without the "
+            f"mesh = {cos:.6f}")
+        ok = ok and cos >= TRAIN_GRAD_COSINE
+        start += n
+    log(f"[{label}] loss relative differences {rels} (bound {TRAIN_LOSS_REL})")
+    if not ok:
+        raise AssertionError(f"{label}: the one-rank mesh run disagrees with the run without it")
 
 
 def tp_wrapper_check(card: str, s_train: int) -> dict:
@@ -5404,11 +5521,72 @@ def tp_attention_check(mesh, s_train: int, device: str = "cuda") -> dict:
             "bitwise": [torch.equal(g, r) for g, r in zip(got, refs)]}
 
 
+# Phase 18 (c): the quantized and K4 variants served at tp = 2, each built
+# with flagship_policy's flags, (label, build flags, policy switches).
+TP_VARIANTS = [("bf16 vit_fused", {}, {"vit_fused": True}),
+               ("W4A16", {"load_in_4bit": True}, {}),
+               ("W4A8", {"load_in_4bit": True}, {"int4_a8": True}),
+               ("W8A8", {"load_in_8bit": True}, {})]
+TP_VARIANT_REQUESTS = 2
+# tp = 2's local shapes of the int4 products (T = 618, K, N, route): each
+# rank's row block of wo and down, column block of wqkv and gate_up.
+TP_INT4_LOCAL = [("down rows", 618, 5504, 4096), ("wo rows", 618, 2048, 4096),
+                 ("wqkv columns", 618, 4096, 6144), ("gate_up columns", 618, 4096, 11008)]
+# K4's column blocks at tp = 2 (LIBERO, 2 images: M = 2 x 261 DINOv2 rows,
+# 2 x 256 SigLIP rows; D; the block's N; the activation).
+TP_K4_LOCAL = [("DINOv2 qkv columns", 522, 1024, 1536, None),
+               ("DINOv2 fc1 columns", 522, 1024, 2048, "gelu"),
+               ("SigLIP qkv columns", 512, 1152, 1728, None),
+               ("SigLIP fc1 columns", 512, 1152, 2152, "gelu_tanh")]
+
+
+def tp_variant_expect(cfg, label: str) -> dict:
+    """A tp = 2 request's launches a rank: K1 31 (16 of 32 heads); K4 98
+    with vit_fused; K5 + K5s or K6 + K6s 4 a layer (the out_window layer too:
+    its wqkv is tp-sharded, so it projects every row once over the rank's
+    columns, where one rank slices q, k and v apart); the int8 products of
+    phase 8b less the 2 column views."""
+    n = cfg.llm.num_layers
+    want = {"K1": n - 1, "K4": 0, "K5": 0, "K6": 0, "int8": 0}
+    if label == "bf16 vit_fused":
+        want["K4"] = 2 * sum(v.depth - 1 for v in cfg.vision_configs)
+    elif label in ("W4A16", "W4A8"):
+        want["K5" if label == "W4A16" else "K6"] = 4 * n
+    elif label == "W8A8":
+        want["int8"] = int8_per_request(cfg, True) - 2
+    return want
+
+
+def tp_local_kernels(dev) -> dict:
+    """One K5 and one K6 launch at tp = 2's local down shape (T = 618,
+    K = 5,504: each rank's 43 of 86 scale groups) against their plain
+    versions: (max|d| / max|ref| of each, the plans)."""
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops.quant import quantize_weight_int4
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn((618, 5504), generator=gen, device=dev).bfloat16()
+    q = quantize_weight_int4(torch.randn((5504, 4096), generator=gen, device=dev) * 0.02)
+    out = {}
+    for name, fn, ref in (("K5", M.int4_matmul_fused, M.int4_matmul_ref),
+                          ("K6", M.int4_matmul_fused_a8, M.int4_matmul_a8_ref)):
+        y = fn(x, q["kernel_q4"], q["scale_w4"])
+        r = ref(x, q["kernel_q4"], q["scale_w4"])
+        out[name] = (y - r).abs().max().item() / r.abs().max().item()
+    group = 5504 // q["scale_w4"].shape[0]
+    out["plans"] = {"K5": M._k5_plan(618, 5504, 4096, group),
+                    "K6": M._k6_plan(618, 5504, 4096, group)}
+    return out
+
+
 def tp_serving_rank(rank: int, store: str, obs: dict, s_train: int, out_q) -> None:
-    """One rank of phase 18 (b), in its own process: the flagship policy on
-    the tp = 2 mesh of a gloo group on cuda:0, TP_REQUESTS requests through
-    `predict_action_from_frames`, then the action rows' hidden states; then
-    `tp_attention_check` on the rank's 16 heads."""
+    """One rank of phase 18 (b) and (c), in its own process: the flagship
+    policy on the tp = 2 mesh of a gloo group on cuda:0, TP_REQUESTS
+    requests through `predict_action_from_frames`, then the action rows'
+    hidden states; then each of TP_VARIANTS (the bf16 policy with vit_fused,
+    the int4 one for W4A16 and W4A8, the int8 one), TP_VARIANT_REQUESTS
+    requests and the hidden states each; one K5 and one K6 launch at the
+    local down shape; then `tp_attention_check` on the rank's 16 heads."""
     import traceback
 
     try:
@@ -5416,57 +5594,104 @@ def tp_serving_rank(rank: int, store: str, obs: dict, s_train: int, out_q) -> No
 
         from openvla_oft_tpu_torch.bridge import tree_leaves
         from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden
+        from openvla_oft_tpu_torch.ops.quant import int4_a8
+        from openvla_oft_tpu_torch.ops.vit_fused import vit_fused
         from openvla_oft_tpu_torch.parallel.mesh import init_distributed, make_mesh
+        from openvla_oft_tpu_torch.parallel.sharding import replicate, shard_params
         from openvla_oft_tpu_torch.serving.deploy import flagship_policy
 
         torch.cuda.set_device(0)
         init_distributed("cuda", f"file://{store}", 2, rank, backend="gloo")
         mesh = make_mesh(1, 1, 2, device_type="cuda")
+
+        def serve_variant(policy, n_requests):
+            """The requests' answers, times, launches and collectives, and
+            the action rows' hidden states under the policy's switches."""
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            replicate.counts.update({k: 0 for k in replicate.counts})
+            times, answers = [], []
+            for _ in range(n_requests):
+                t0 = time.perf_counter()
+                answers.append(policy.predict_action_from_frames(
+                    frames_of(policy, obs), obs["instruction"], np.asarray(obs["state"])))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            launches = launch_counts()
+            collectives = {k: v / n_requests for k, v in replicate.counts.items()}
+            peak = torch.cuda.max_memory_allocated()
+            _, ids, mask, pixels, proprio = model_inputs(policy, obs)
+            params, ctx = policy._sharded()
+            with ctx, int4_a8(policy.int4_a8), vit_fused(policy.vit_fused):
+                hidden = predict_action_hidden(params, policy.cfg, policy.platform, ids, mask,
+                                               pixels, proprio=proprio.clamp(-1, 1),
+                                               use_flash=True)
+            return {"answers": answers, "times": times, "launches": launches, "peak": peak,
+                    "collectives": collectives,
+                    "hidden": hidden.actions_hidden.float().cpu().numpy(),
+                    "weights": sum((t.to_local() if hasattr(t, "to_local") else t).nbytes
+                                   for t in tree_leaves(policy.params))}
+
         t0 = time.perf_counter()
         policy = flagship_policy("cuda", seed=0, tp_mesh=mesh)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        weights = sum((t.to_local() if hasattr(t, "to_local") else t).nbytes
-                      for t in tree_leaves(policy.params))
         held = torch.cuda.memory_allocated()
-        from openvla_oft_tpu_torch.parallel.sharding import replicate
-
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        replicate.counts.update({k: 0 for k in replicate.counts})
-        times, answers = [], []
-        for _ in range(TP_REQUESTS):
-            t0 = time.perf_counter()
-            answers.append(policy.predict_action_from_frames(
-                frames_of(policy, obs), obs["instruction"], np.asarray(obs["state"])))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        launches = launch_counts()
-        collectives = {k: v / TP_REQUESTS for k, v in replicate.counts.items()}
-        _, ids, mask, pixels, proprio = model_inputs(policy, obs)
-        params, ctx = policy._sharded()
-        with ctx:
-            hidden = predict_action_hidden(params, policy.cfg, policy.platform, ids, mask, pixels,
-                                           proprio=proprio.clamp(-1, 1), use_flash=True)
-        local_heads = policy.cfg.llm.num_heads // mesh.size(2)
-        del policy, params
+        res = serve_variant(policy, TP_REQUESTS)
+        res.update(build_s=build_s, held=held,
+                   local_heads=policy.cfg.llm.num_heads // mesh.size(2))
+        variants = {}
+        policy.vit_fused = True
+        variants["bf16 vit_fused"] = serve_variant(policy, TP_VARIANT_REQUESTS)
+        del policy
         gc.collect()
         torch.cuda.empty_cache()
-        attention = tp_attention_check(mesh, s_train)
-        out_q.put((rank, {"answers": answers, "times": times, "launches": launches,
-                          "attention": attention,
-                          "hidden": hidden.actions_hidden.float().cpu().numpy(),
-                          "weights": weights, "held": held, "build_s": build_s,
-                          "peak": torch.cuda.max_memory_allocated(),
-                          "local_heads": local_heads, "collectives": collectives}))
+        for build in ({"load_in_4bit": True}, {"load_in_8bit": True}):
+            t0 = time.perf_counter()
+            policy = flagship_policy("cuda", seed=0, tp_mesh=mesh, **build)
+            torch.cuda.synchronize()
+            built = {"build_s": time.perf_counter() - t0, "kept_whole": shard_params.kept_whole}
+            for label, flags, switches in TP_VARIANTS:
+                if flags != build:
+                    continue
+                policy.int4_a8 = switches.get("int4_a8", False)
+                variants[label] = {**serve_variant(policy, TP_VARIANT_REQUESTS), **built}
+            del policy
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["variants"] = variants
+        res["local_kernels"] = tp_local_kernels(torch.device("cuda"))
+        res["attention"] = tp_attention_check(mesh, s_train)
+        out_q.put((rank, res))
         dist.destroy_process_group()
     except BaseException:
         out_q.put((rank, {"error": traceback.format_exc()}))
 
 
+def tp_references(policy, obs) -> dict:
+    """Phase 18 (c)'s one-rank references: the actions_hidden of each of
+    TP_VARIANTS on one rank, from the bf16 `policy` (with vit_fused) and the
+    flagship rebuilt with each quantized build; the policies are freed."""
+    from openvla_oft_tpu_torch.ops.quant import int4_a8
+    from openvla_oft_tpu_torch.serving.deploy import flagship_policy
+
+    inputs = model_inputs(policy, obs)
+    refs = {"bf16 vit_fused": actions_hidden(policy, inputs, vit_fused=True).cpu()}
+    for build in ({"load_in_4bit": True}, {"load_in_8bit": True}):
+        quantized = flagship_policy("cuda", seed=0, **build)
+        for label, flags, switches in TP_VARIANTS:
+            if flags == build:
+                with int4_a8(switches.get("int4_a8", False)):
+                    refs[label] = actions_hidden(quantized, inputs).cpu()
+        del quantized
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
 def tp_serving(card: str, rng, s_train: int) -> tuple:
-    """Phase 18 (b). Returns each rank's launches in the serve, and in its
-    attention check."""
+    """Phase 18 (b) and (c). Returns each rank's launches in the bf16 serve,
+    in each variant's serve, and in its attention check."""
     import multiprocessing as mp
     import queue
 
@@ -5478,7 +5703,11 @@ def tp_serving(card: str, rng, s_train: int) -> tuple:
     ref_actions = policy.predict_action_from_frames(frames_of(policy, obs), obs["instruction"],
                                                     np.asarray(obs["state"]))
     ref_hidden = actions_hidden(policy, model_inputs(policy, obs)).cpu()
-    n_layers, n_heads = policy.cfg.llm.num_layers, policy.cfg.llm.num_heads
+    cfg = policy.cfg
+    n_layers, n_heads = cfg.llm.num_layers, cfg.llm.num_heads
+    t_refs = time.perf_counter()
+    refs = tp_references(policy, obs)
+    t_refs = time.perf_counter() - t_refs
     del policy
     gc.collect()
     torch.cuda.empty_cache()
@@ -5493,7 +5722,7 @@ def tp_serving(card: str, rng, s_train: int) -> tuple:
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + 420
+        deadline = time.monotonic() + 600
         while len(results) < 2 and time.monotonic() < deadline:
             try:
                 rank, res = out_q.get(timeout=5)
@@ -5536,6 +5765,37 @@ def tp_serving(card: str, rng, s_train: int) -> tuple:
                                  f"cosine {cos}")
         if any(res["launches"][k] != n for k, n in want.items()):
             raise AssertionError(f"rank {rank} launched {res['launches']}, expected {want}")
+        for label, v in res["variants"].items():
+            per = tp_variant_expect(cfg, label)
+            expect = {k: TP_VARIANT_REQUESTS * n for k, n in per.items()}
+            vcos = cosine(torch.from_numpy(v["hidden"]), refs[label])
+            log(f"[tp-quant] rank {rank}, {label}: launches over {TP_VARIANT_REQUESTS} "
+                f"requests {v['launches']} (expected {expect}); actions_hidden cosine against "
+                f"the same variant on one rank {vcos:.6f} (bound {PARITY_COSINE}); weights "
+                f"held {v['weights'] / 2**30:.3f} GiB, peak over the requests "
+                f"{v['peak'] / 2**30:.3f} GiB; collectives a request "
+                f"{v['collectives']['all_gather']:.0f} all-gathers "
+                f"({v['collectives']['all_gather_bytes'] / 2**20:.1f} MiB), "
+                f"{v['collectives']['all_reduce']:.0f} all-reduces "
+                f"({v['collectives']['all_reduce_bytes'] / 2**20:.1f} MiB)"
+                + (f"; built in {v['build_s']:.1f} s, kept whole over tp: "
+                   f"{v['kept_whole'] or 'none'}" if "build_s" in v else "")
+                + f"; request times {', '.join(f'{t:.3f}' for t in v['times'])} s (host "
+                  f"clock, gloo) ({card})")
+            if vcos < PARITY_COSINE or not all(np.isfinite(a).all() for a in v["answers"]):
+                raise AssertionError(f"rank {rank}'s {label} answer at tp = 2 disagrees with "
+                                     f"one rank: cosine {vcos}")
+            if any(v["launches"][k] != n for k, n in expect.items()):
+                raise AssertionError(f"rank {rank}'s {label} launched {v['launches']}, "
+                                     f"expected {expect}")
+        lk = res["local_kernels"]
+        log(f"[tp-quant] rank {rank}: K5 and K6 at the local down shape (T = 618, K = 5,504, "
+            f"N = 4,096, 43 groups) against their plain versions: K5 rel {lk['K5']:.3e} "
+            f"(bound {INT4_K5_REL}), K6 rel {lk['K6']:.3e} (bound {INT4_K6_REL}); plans "
+            f"(t_tile, splits, CTAs) K5 {lk['plans']['K5']}, K6 {lk['plans']['K6']} ({card})")
+        if not (lk["K5"] <= INT4_K5_REL and lk["K6"] <= INT4_K6_REL):
+            raise AssertionError(f"rank {rank}: K5/K6 at the local down shape disagree with "
+                                 f"their plain versions")
         att = res["attention"]
         log(f"[tp-attn] rank {rank}: flash_attention_tp at tp = 2, B, S, H, D = "
             f"{att['shape']}, heads {att['heads'][0]}-{att['heads'][1] - 1} on this rank, "
@@ -5551,12 +5811,91 @@ def tp_serving(card: str, rng, s_train: int) -> tuple:
         if any(att["launches"][key] != 1 for key in ("K1", "K2", "K3")):
             raise AssertionError(f"rank {rank}'s flash_attention_tp launched "
                                  f"{att['launches']}, expected K1, K2 and K3 once each")
-    if not all(np.array_equal(a, b) for a, b in zip(results[0]["answers"],
-                                                   results[1]["answers"])):
-        raise AssertionError("the two tp ranks answered differently")
-    log(f"[tp-serve] phase 18 (b) took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    for label in ["bf16"] + list(results[0]["variants"]):
+        a = results[0]["answers"] if label == "bf16" else results[0]["variants"][label]["answers"]
+        b = results[1]["answers"] if label == "bf16" else results[1]["variants"][label]["answers"]
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"the two tp ranks answered differently ({label})")
+    log(f"[tp-serve] phase 18 (b), (c) took {time.perf_counter() - t_phase:.1f} s (host clock; "
+        f"the one-rank references of (c) {t_refs:.1f} s)")
+    local = tp_local_shapes(card)
     return ({f"tp2 rank {r}": results[r]["launches"] for r in (0, 1)},
-            {f"tp2 rank {r}": results[r]["attention"]["launches"] for r in (0, 1)})
+            {f"tp2 rank {r} {label}": v["launches"] for r in (0, 1)
+             for label, v in results[r]["variants"].items()},
+            {f"tp2 rank {r}": results[r]["attention"]["launches"] for r in (0, 1)},
+            local)
+
+
+def tp_local_shapes(card: str) -> dict:
+    """K5 and K6 at tp = 2's local blocks of the int4 LLM (TP_INT4_LOCAL) and
+    K4 at the ViTs' column blocks (TP_K4_LOCAL), alone on the card: device
+    time (mean of 10, L2 flushed) beside the bound and the library call at
+    the same local shape (torch.matmul on the bf16 weight, torch._int_mm on
+    the int8 one, torch.matmul on K4's product), and the plain version's
+    time by CUDA events; each checked against its plain version."""
+    from openvla_oft_tpu_torch.ops import int4_matmul as M
+    from openvla_oft_tpu_torch.ops import vit_fused as VF
+    from openvla_oft_tpu_torch.ops.quant import _unpack_int4, dequantize_int4, quantize_weight_int4
+
+    dev = torch.device("cuda")
+    flush = l2_flush_buffer(dev)
+    out = {}
+    for name, t, k, n in TP_INT4_LOCAL:
+        gen = torch.Generator(device=dev).manual_seed(t + k + n)
+        x = torch.randn((t, k), generator=gen, device=dev).bfloat16()
+        q = quantize_weight_int4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        packed, scales = q["kernel_q4"], q["scale_w4"]
+        group = k // scales.shape[0]
+        row = {}
+        for label, fn, ref, peak in (("K5", M.int4_matmul_fused, M.int4_matmul_ref, PEAK_BF16),
+                                     ("K6", M.int4_matmul_fused_a8, M.int4_matmul_a8_ref,
+                                      PEAK_INT8)):
+            y, r = fn(x, packed, scales), ref(x, packed, scales)
+            rel = (y - r).abs().max().item() / r.abs().max().item()
+            ms, how = device_ms(lambda: fn(x, packed, scales), flush)
+            plain = cuda_time_ms(lambda: ref(x, packed, scales), flush=flush)
+            b, by = bound(2 * t * k * n, nbytes(x, packed, scales, y), peak)
+            row[label] = {"ms": ms, "how": how, "plain_ms": plain, "bound_ms": b,
+                          "bound_by": by, "rel": rel,
+                          "plan": (M._k5_plan if label == "K5" else M._k6_plan)(t, k, n, group)}
+        w16 = dequantize_int4(packed, scales, torch.bfloat16)
+        row["K5"]["library_ms"] = device_ms(lambda: torch.matmul(x, w16), flush)[0]
+        x8, _ = M.quantize_act_rows(x)
+        row["K6"]["library_ms"] = int_mm_times(x8, _unpack_int4(packed), flush)[1]
+        for label in ("K5", "K6"):
+            e = row[label]
+            lib = "n/a" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
+            log(f"[tp-local] {label} at {name} (T = {t}, K = {k}, N = {n}, group {group}): "
+                f"{e['ms']:.4f} ms ({e['how']}), plan {e['plan']}, bound {e['bound_ms']:.4f} "
+                f"({e['bound_by']}; {e['bound_ms'] / e['ms']:.3f} of it), "
+                f"{'torch.matmul' if label == 'K5' else 'torch._int_mm'} {lib}, plain "
+                f"{e['plain_ms']:.4f} (events); rel {e['rel']:.3e} ({card})")
+        if not (row["K5"]["rel"] <= INT4_K5_REL and row["K6"]["rel"] <= INT4_K6_REL):
+            raise AssertionError(f"K5/K6 disagree with their plain versions at {name}")
+        out[name] = row
+        del x, q, packed, scales, w16, x8
+    for name, m, d, n, act in TP_K4_LOCAL:
+        gen = torch.Generator(device=dev).manual_seed(m + d + n)
+        x = torch.randn((m, d), generator=gen, device=dev).bfloat16()
+        w = (torch.randn((d, n), generator=gen, device=dev) * 0.02).bfloat16()
+        bias = (torch.randn((n,), generator=gen, device=dev) * 0.02).bfloat16()
+        y, r = VF.ln_matmul(x, w, bias, act=act), VF.ln_matmul_ref(x, w, bias, act=act)
+        rel = (y.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+        ms, how = device_ms(lambda: VF.ln_matmul(x, w, bias, act=act), flush)
+        plain = cuda_time_ms(lambda: VF.ln_matmul_ref(x, w, bias, act=act), flush=flush)
+        lib = device_ms(lambda: torch.matmul(x, w), flush)[0]
+        b, by = bound(2 * m * d * n, nbytes(x, w, bias, y), PEAK_BF16)
+        log(f"[tp-local] K4 at {name} (M = {m}, D = {d}, N = {n}, act {act}): {ms:.4f} ms "
+            f"({how}), plan {VF._k4_plan(m, d, n)}, bound {b:.4f} ({by}; {b / ms:.3f} of it), "
+            f"torch.matmul on the product {lib:.4f}, plain {plain:.4f} (events); rel "
+            f"{rel:.3e} ({card})")
+        if rel > K4_REL:
+            raise AssertionError(f"K4 disagrees with its plain version at {name}")
+        out[name] = {"K4": {"ms": ms, "how": how, "plain_ms": plain, "bound_ms": b,
+                            "bound_by": by, "library_ms": lib, "rel": rel}}
+    del flush
+    torch.cuda.empty_cache()
+    return out
 
 
 def tp_note(multigpu: dict, tp_serve: dict, tp_attention: dict, key: str) -> dict:
@@ -5572,6 +5911,72 @@ def tp_note(multigpu: dict, tp_serve: dict, tp_attention: dict, key: str) -> dic
     if key == "K1":
         note.update({f"{name}, 16 of 32 heads": run["K1"] for name, run in tp_serve.items()})
     return note
+
+
+# === Phase 19: the run tools ===
+VERIFY_ITERATIONS = 5
+
+
+def run_tools_phase(card: str, metrics_jsonl: str) -> dict:
+    """`scripts/verify_openvla.py` at random:7b (zero_init), VERIFY_ITERATIONS
+    calls of the staged predict_action, bf16 and then --quant int8, with the
+    launches a call (the counts reset just before each, read just after);
+    then `scripts/summarize_run.py` on phase 10's metrics JSONL. Returns the
+    launches of each verify run."""
+    from openvla_oft_tpu_torch.scripts import summarize_run, verify_openvla
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for quant in ("", "int8"):
+        cfg = verify_openvla.VerifyConfig(pretrained_checkpoint="random:7b", zero_init=True,
+                                          num_iterations=VERIFY_ITERATIONS, quant=quant,
+                                          device="cuda")
+        reset_launch_counts()
+        stats = verify_openvla.verify(cfg)
+        launches = launch_counts()
+        label = quant or "bf16"
+        runs[f"verify {label}"] = launches
+        per_call = {k: v / VERIFY_ITERATIONS for k, v in launches.items() if v}
+        log(f"[verify] {label}: p50 {stats['p50'] * 1e3:.2f} ms, p90 {stats['p90'] * 1e3:.2f} "
+            f"ms, mean {stats['mean'] * 1e3:.2f} ms over calls 2-{VERIFY_ITERATIONS} (host "
+            f"clock, the staged predict_action, its actions copied to the host); launches a "
+            f"call {per_call} ({card})")
+        n = 32
+        want = {"K1": n - 1, "int8": (4 * (n - 1) + 6 if quant else 0)}
+        if any(launches[k] != VERIFY_ITERATIONS * v for k, v in want.items()):
+            raise AssertionError(f"verify {label} launched {launches}, expected {want} a call")
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_summary_") as tmp:
+        path = os.path.join(tmp, "phase10-metrics.jsonl")
+        with open(path, "w") as f:
+            f.write(metrics_jsonl)
+        summary = summarize_run.summarize(path)
+    log(f"[summarize] phase 10's run: {json.dumps(summary)}")
+    if summary["n_records"] < 1 or not np.isfinite(summary["last_window_loss"]):
+        raise AssertionError(f"summarize_run on phase 10's metrics gave {summary}")
+    log(f"[run-tools] phase 19 took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return runs
+
+
+PHASE_TIMES = {}
+
+
+def phase(name: str, fn, *args, **kw):
+    """fn(*args, **kw), its host time logged and kept in PHASE_TIMES."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_TIMES[name] = time.perf_counter() - t0
+        log(f"[phase-time] {name}: {PHASE_TIMES[name]:.1f} s (host clock)")
+
+
+def tp_local_note(tp_local: dict, key: str) -> dict:
+    """A kernel's times at tp = 2's local shapes (`tp_local_shapes`)."""
+    return {name: {k: row[key][k] for k in ("ms", "bound_ms", "bound_by", "library_ms",
+                                             "plain_ms")}
+            for name, row in tp_local.items() if key in row}
 
 
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
@@ -5623,12 +6028,13 @@ def main() -> int:
         f"{a_batch['input_ids'].shape[1]} + {a_cfg.num_images_in_input} x "
         f"{a_cfg.vision_configs[0].num_patches} patches + proprio), batch "
         f"{a_batch['input_ids'].shape[0]}")
-    checks = kernel_check(card, s_train)
-    tiny_launches = tiny_auto_request(card)
-    k4 = ln_matmul_check(card)
-    k4_parts_phase(card, parts[exp_k4_parts])
-    k1_parts_phase(card, parts[exp_fwd_parts])
+    checks = phase("3 kernel check", kernel_check, card, s_train)
+    tiny_launches = phase("3c auto", tiny_auto_request, card)
+    k4 = phase("3 K4 check", ln_matmul_check, card)
+    phase("3a K4 parts", k4_parts_phase, card, parts[exp_k4_parts])
+    phase("3b K1 parts", k1_parts_phase, card, parts[exp_fwd_parts])
     pool.shutdown()
+    t_serve = time.perf_counter()
 
     t0 = time.perf_counter()
     policy = flagship_policy("cuda", seed=0)
@@ -5651,38 +6057,55 @@ def main() -> int:
     del policy
     gc.collect()
     torch.cuda.empty_cache()
+    PHASE_TIMES["4-5 bf16 serving (with 8f's jpeg check and staged L1)"] = \
+        time.perf_counter() - t_serve
+    log(f"[phase-time] 4-5 bf16 serving: {time.perf_counter() - t_serve:.1f} s (host clock)")
 
-    aloha = aloha_serving(card, rng)
+    aloha = phase("5a ALOHA", aloha_serving, card, rng)
     aloha_k4 = aloha[True]["launches"]
 
-    int4 = int4_check(card)
-    int4_launches = int4_serving(card, rng, observations[0], bf16_hidden)
+    int4 = phase("6 int4 check", int4_check, card)
+    int4_launches = phase("7-8 int4 serving", int4_serving, card, rng, observations[0],
+                          bf16_hidden)
     gc.collect()
     torch.cuda.empty_cache()
-    probe = probe_phase(card)
-    int8_launches = int8_serving(card, rng, observations[0], bf16_hidden)
-    diffusion = diffusion_serving(card, rng)
-    discrete = discrete_serving(card, rng)
-    checkpoint = checkpoint_serving(card, rng)
+    probe = phase("8a probe", probe_phase, card)
+    int8_launches = phase("8b int8", int8_serving, card, rng, observations[0], bf16_hidden)
+    with cut_serving_flagship():
+        diffusion = phase("8c diffusion", diffusion_serving, card, rng)
+        discrete = phase("8d discrete", discrete_serving, card, rng)
+    checkpoint = phase("8e checkpoint", checkpoint_serving, card, rng)
 
-    bwd = backward_check(card, s_train, s_aloha)
-    state, train_launches, train_info = train(card, n_layers)
-    profile_step(state, card)
-    training_parity(state, card)
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    objectives = objectives_phase(card, n_layers)
-    episodes = episode_phase(card, n_layers, train_info["step_times"])
+    bwd = phase("9 backward check", backward_check, card, s_train, s_aloha)
     with cut_flagship():
-        qlora = qlora_phase(card, CUT_LAYERS, train_info["peak"])
-        remat = remat_phase(card, CUT_LAYERS)
-        full = full_training_phase(card, CUT_LAYERS)
+        # Phase 10's run logs every step's metrics (--wandb_log_freq 1) for
+        # phase 19, and is phase 18 (a)'s run without a mesh.
+        t10 = time.perf_counter()
+        state, train_launches, train_info = train(card, CUT_LAYERS,
+                                                  TRAIN_FLAGS + ["--wandb_log_freq", "1"],
+                                                  keep_first=True)
+        plain_run = reference_run(state, train_info, {})
+        PHASE_TIMES["10 training"] = time.perf_counter() - t10
+        log(f"[phase-time] 10 training: {PHASE_TIMES['10 training']:.1f} s (host clock)")
+        phase("11 step profile", profile_step, state, card)
+        phase("12 training parity", training_parity, state, card)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        objectives = phase("11b objectives", objectives_phase, card, CUT_LAYERS)
+        episodes = phase("13 episodes", episode_phase, card, CUT_LAYERS,
+                         train_info["step_times"])
+        qlora = phase("14 (a)-(b) QLoRA", qlora_phase, card, CUT_LAYERS, train_info["peak"])
+        remat = phase("14 (c) remat", remat_phase, card, CUT_LAYERS)
+        full = phase("15 full training", full_training_phase, card, CUT_LAYERS)
     phase14 = [run for name, run in qlora.items() if name != "int4 times"] + list(remat.values())
-    phi, phi_k5 = phi_phase(card, rng, n_layers)
-    clients = eval_clients_phase(card, rng)
-    multigpu = one_rank_training(card, s_train)
-    tp_serve, tp_attention = tp_serving(card, rng, s_train)
+    phi, phi_k5 = phase("16 Phi-2", phi_phase, card, rng)
+    clients = phase("17 clients", eval_clients_phase, card, rng)
+    multigpu = phase("18 (a), (d) one-rank mesh", one_rank_training, card, s_train,
+                     plain_run, train_info)
+    tp_serve, tp_quant, tp_attention, tp_local = phase("18 (b), (c) tp = 2", tp_serving, card,
+                                                       rng, s_train)
+    run_tools = phase("19 run tools", run_tools_phase, card, train_info["metrics_jsonl"])
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -5694,8 +6117,13 @@ def main() -> int:
     libero, tr, wqkv = checks["libero_prefill"], bwd["training"], int4["wqkv T=618"]
     bwd_cases = {n: c for n, c in bwd.items() if n != "stats"}
     fc1 = k4["DINOv2 fc1 ALOHA"]
+    # Phase 18 (c)'s variants on both ranks, (d)'s QLoRA runs on the
+    # one-rank mesh and phase 19's verify runs are main-path runs too.
+    extra_runs = [*tp_quant.values(), *run_tools.values(),
+                  *(run for name, run in multigpu.items() if name.startswith("1-rank QLoRA"))]
     k4_launches = (aloha_k4["K4"] + sum(run["K4"] for run in phi.values())
-                   + sum(run["K4"] for run in clients.values()))
+                   + sum(run["K4"] for run in clients.values())
+                   + sum(run["K4"] for run in extra_runs))
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
     k1_launches = (serve_launches["K1"] + staged_l1["K1"] + aloha[True]["launches"]["K1"]
                    + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
@@ -5708,14 +6136,15 @@ def main() -> int:
                    + sum(run["K1"] for run in full.values())
                    + sum(run["K1"] for run in phi.values())
                    + sum(run["K1"] for run in clients.values())
-                   + multigpu["plain"]["K1"] + multigpu["1-rank"]["K1"]
-                   + sum(run["K1"] for run in tp_serve.values()))
+                   + multigpu["1-rank"]["K1"]
+                   + sum(run["K1"] for run in tp_serve.values())
+                   + sum(run["K1"] for run in extra_runs))
     # K2 and K3 launch in the training runs: phase 10, phase 11b's three,
     # the runs from phase 8e's checkpoint dir (11b (d), 14 (d), (e)), phase
-    # 13's, 14's, 15's, 16's and 18 (a)'s two.
+    # 13's, 14's, 15's, 16's, 18 (a)'s and 18 (d)'s two.
     bwd_runs = [train_launches, checkpoint["checkpoint training"], *objectives.values(),
                 episodes, *phase14, *full.values(), *phi.values(),
-                multigpu["plain"], multigpu["1-rank"],
+                *(run for name, run in multigpu.items() if name != "tp-wrapper"),
                 *(checkpoint[k] for k in ("run-management", "resume", "preempt",
                                           "preempt-resume"))]
     k2_launches = sum(run["K2"] for run in bwd_runs)
@@ -5766,24 +6195,29 @@ def main() -> int:
                                for name, *_ in K4_CLIP},
                      unfused_ms=fc1["unfused_ms"], plan=list(fc1["plan"]), hgmma=wgmma["K4"],
                      timing=fc1["timing"], events_ms=fc1["ms"],
-                     library_events_ms=fc1["library_ms"]),
+                     library_events_ms=fc1["library_ms"],
+                     tp2_local=tp_local_note(tp_local, "K4")),
         kernel_entry("int4_matmul", "int4_w4a16.cu", "openvla_oft_tpu/ops/int4_matmul.py:43",
                      w4a16["K5"] + diffusion["int4 W4A16"]["K5"]
                      + discrete["AR int4 W4A16"]["K5"] + checkpoint["checkpoint int4 W4A16"]["K5"]
-                     + qlora["QLoRA int4 B=1"]["K5"] + sum(run["K5"] for run in phi.values()),
+                     + qlora["QLoRA int4 B=1"]["K5"] + sum(run["K5"] for run in phi.values())
+                     + sum(run["K5"] for run in extra_runs),
                      max([c["err5"] for c in int4.values()]
                          + [c["max_abs_err"] for c in phi_k5.values()]), wqkv["dev5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["dev_lib5"],
                      also_replaces="openvla_oft_tpu/ops/int4_matmul.py:199",
                      plan=list(wqkv["plan5"]), hgmma=wgmma["K5"], timing=wqkv["timing"],
-                     events_ms=wqkv["ms5"], library_events_ms=wqkv["lib5"], phi_2=phi_k5),
+                     events_ms=wqkv["ms5"], library_events_ms=wqkv["lib5"], phi_2=phi_k5,
+                     tp2_local=tp_local_note(tp_local, "K5")),
         kernel_entry("int4_matmul_a8", "int4_w4a8.cu", "openvla_oft_tpu/ops/int4_matmul.py:432",
-                     w4a8["K6"], max(c["err6"] for c in int4.values()), wqkv["dev6"],
+                     w4a8["K6"] + sum(run["K6"] for run in extra_runs),
+                     max(c["err6"] for c in int4.values()), wqkv["dev6"],
                      wqkv["plain6"], *wqkv["bound6"], wqkv["dev_lib6"],
                      also_replaces="openvla_oft_tpu/ops/int4_matmul.py:527",
                      library_call="torch._int_mm on the unpacked int8 weight, no scales",
                      plan=list(wqkv["plan6"]), igmma=wgmma["K6"], timing=wqkv["timing6"],
-                     events_ms=wqkv["ms6"], library_events_ms=wqkv["lib6"]),
+                     events_ms=wqkv["ms6"], library_events_ms=wqkv["lib6"],
+                     tp2_local=tp_local_note(tp_local, "K6")),
         kernel_entry("int4_probe", "int4_probe.cu", "vla_scripts/exp_int4_probe.py:53",
                      probe["launches"], probe["max_abs_err"], probe["ms"], probe["plain_ms"],
                      probe["bound_ms"], probe["bound_by"], probe["library_ms"],
@@ -5827,11 +6261,16 @@ def main() -> int:
         + ", ".join(f"{name} {run}" for name, run in phi.items()))
     log(f"[clients] launches of phase 17's clients: " + ", ".join(
         f"{name} {run}" for name, run in clients.items()))
-    log(f"[multigpu] launches of phase 18's runs (3 CLI steps each at 8 layers; "
-        f"{TP_REQUESTS} tp = 2 requests a rank): " + ", ".join(
-            f"{name} {run}" for name, run in {**multigpu, **tp_serve}.items())
+    log(f"[multigpu] launches of phase 18's runs (3 CLI steps each at {CUT_LAYERS} layers; "
+        f"{TP_REQUESTS} tp = 2 requests a rank, {TP_VARIANT_REQUESTS} a variant): " + ", ".join(
+            f"{name} {run}" for name, run in {**multigpu, **tp_serve, **tp_quant}.items())
         + "; the tp = 2 attention checks: " + ", ".join(
             f"{name} {run}" for name, run in tp_attention.items()))
+    log(f"[run-tools] launches of phase 19's verify runs ({VERIFY_ITERATIONS} calls each): "
+        + ", ".join(f"{name} {run}" for name, run in run_tools.items()))
+    log("[phase-time] all phases: " + ", ".join(f"{name} {t:.1f} s"
+                                                for name, t in PHASE_TIMES.items())
+        + f"; the run so far {time.perf_counter() - T_START:.1f} s (host clock)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -384,7 +384,8 @@ def llama_model(params: Params, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     xa = rms_norm(last["attn_norm"], x, cfg.rms_norm_eps)
     xa_w = xa[:, w0:w0 + wl]
     x_w = x[:, w0:w0 + wl]
-    if "wqkv" in last["attn"] and isinstance(last["attn"]["wqkv"].get("kernel"), DTensor):
+    if "wqkv" in last["attn"] and any(isinstance(t, DTensor)
+                                      for t in last["attn"]["wqkv"].values()):
         # A column view of a tp-sharded kernel would gather it: project every
         # row through the sharded kernel and take the window's q rows after.
         q, k, v = _qkv_proj(last["attn"], cfg, xa)

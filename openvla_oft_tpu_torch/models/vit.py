@@ -18,7 +18,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from openvla_oft_tpu_torch.config import ViTConfig
 from openvla_oft_tpu_torch.models.llama import run_block
@@ -89,26 +89,38 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 def _use_fused_ln_matmul(norm_p: Params, lin_p: Params) -> bool:
     """The JAX gate (`models/vit.py::_use_fused_ln_matmul`) without its
     platform test: the `vit_fused` switch is on, the norm's affine is folded
-    away, and the linear is a plain float kernel (no int8, no int4, no LoRA)."""
+    away, and the linear is a plain float kernel (no int8, no int4, no
+    LoRA), whole or a tp DTensor of its output columns (the rules shard the
+    folded qkv and fc1 so)."""
     if not VF.vit_fused_enabled() or "scale" in norm_p or "kernel_q4" in lin_p:
         return False
     k = lin_p.get("kernel")
-    if isinstance(k, DTensor):
-        raise NotImplementedError("vit_fused (K4) on a kernel sharded over tp is not ported "
-                                  "yet (ROADMAP queue 1, item 17b)")
-    return k is not None and k.dtype != torch.int8 and "lora_a" not in lin_p
+    return k is not None and k.dtype != torch.int8 and "lora_a" not in lin_p and \
+        (not isinstance(k, DTensor) or k.placements[0] == Shard(1))
 
 
 def _ln_linear(norm_p: Params, lin_p: Params, x: torch.Tensor,
                act_name: Optional[str] = None) -> torch.Tensor:
     """LayerNorm -> linear (-> activation): one `ln_matmul` (K4 on CUDA) where
     the gate allows, else the separate ops. K4 computes exact-erf GELU in
-    fp32, so it takes "gelu" for `gelu_erf_fast`, as the JAX path does."""
-    if _use_fused_ln_matmul(norm_p, lin_p):
-        act = "gelu" if act_name == "gelu_erf_fast" else act_name
-        return VF.ln_matmul(x, lin_p["kernel"], lin_p.get("bias"), act=act)
-    y = linear(lin_p, layer_norm(norm_p, x))
-    return y if act_name is None else ACTIVATIONS[act_name](y)
+    fp32, so it takes "gelu" for `gelu_erf_fast`, as the JAX path does.
+    Under tp, K4 runs on the whole x and this rank's column block of the
+    kernel and of the bias; the output is a DTensor Shard(-1), as the
+    column-parallel `linear` gives."""
+    if not _use_fused_ln_matmul(norm_p, lin_p):
+        y = linear(lin_p, layer_norm(norm_p, x))
+        return y if act_name is None else ACTIVATIONS[act_name](y)
+    act = "gelu" if act_name == "gelu_erf_fast" else act_name
+    w, bias = lin_p["kernel"], lin_p.get("bias")
+    if not isinstance(w, DTensor):
+        return VF.ln_matmul(x, w, bias, act=act)
+    local = w.to_local()
+    if bias is not None:
+        bias = replicate(bias)
+        n = local.shape[-1]
+        bias = bias.narrow(-1, w.device_mesh.get_local_rank() * n, n).clone()
+    y = VF.ln_matmul(replicate(x), local, bias, act=act)
+    return DTensor.from_local(y, w.device_mesh, [Shard(y.ndim - 1)], run_check=False)
 
 
 def _vit_attend(p: Params, cfg: ViTConfig, x: torch.Tensor) -> torch.Tensor:

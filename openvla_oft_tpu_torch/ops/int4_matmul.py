@@ -40,7 +40,8 @@ import functools
 
 import torch
 
-from openvla_oft_tpu_torch.ops.quant import _unpack_int4, dequantize_int4, quantize_act_rows
+from openvla_oft_tpu_torch.ops.quant import (_unpack_int4, dequantize_int4, quantize_act_rows,
+                                             quantize_rows)
 
 
 def int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -51,12 +52,19 @@ def int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor)
     return torch.matmul(x.float(), w.float())
 
 
-def int4_matmul_a8_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """Plain K6: per-token int8 activations; group by group an exact integer
-    product over the group's depth (fp32 holds it exactly: |sum| <= 127 * 7
-    * 128 < 2**24), times the group's scale, summed over the groups in
-    order; then times the token scale."""
-    x8, sx = quantize_act_rows(x.reshape(-1, x.shape[-1]))
+def _act8(x2: torch.Tensor, sx=None) -> tuple:
+    """(x8, sx): x2's per-token int8 codes and scales, with the given scale
+    sx (T, 1) where there is one (a row-parallel block's, of the whole rows)."""
+    return quantize_act_rows(x2) if sx is None else (quantize_rows(x2, sx), sx)
+
+
+def int4_matmul_a8_ref(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                       sx=None) -> torch.Tensor:
+    """Plain K6: per-token int8 activations (scale `sx` where given); group
+    by group an exact integer product over the group's depth (fp32 holds it
+    exactly: |sum| <= 127 * 7 * 128 < 2**24), times the group's scale,
+    summed over the groups in order; then times the token scale."""
+    x8, sx = _act8(x.reshape(-1, x.shape[-1]), sx)
     w8 = _unpack_int4(packed)
     k_dim, n = w8.shape
     groups = scales.shape[0]
@@ -203,7 +211,8 @@ def _launch_w4a16(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) 
                            _k5_plan, "openvla_int4_matmul_w4a16")
 
 
-def _launch_w4a8(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def _launch_w4a8(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                 sx=None) -> torch.Tensor:
     from openvla_oft_tpu_torch import _build
 
     name = "int4_matmul_fused_a8 (K6)"
@@ -211,7 +220,8 @@ def _launch_w4a8(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -
     _check_group(name, group)
     if group > K6_BK:
         raise ValueError(f"{name} takes groups of at most {K6_BK}, got {group}")
-    x8, sx = quantize_act_rows(x2)
+    x8, sx = _act8(x2, sx)
+    sx = sx.float().contiguous()                     # one fp32 scale a row
     x8 = x8.contiguous()                             # the TMA copies need rows K bytes apart
     if x8.data_ptr() % 16:                           # and a 16-byte base
         x8 = x8.clone()
@@ -247,12 +257,13 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return True
 
 
-def _forward(x, packed, scales, a8: bool) -> torch.Tensor:
+def _forward(x, packed, scales, a8: bool, sx=None) -> torch.Tensor:
     if _on_cpu(x):
-        ref = int4_matmul_a8_ref if a8 else int4_matmul_ref
-        return ref(x, packed, scales)
-    launch = _launch_w4a8 if a8 else _launch_w4a16
-    out = launch(x.reshape(-1, x.shape[-1]), packed, scales)
+        if a8:
+            return int4_matmul_a8_ref(x, packed, scales, sx)
+        return int4_matmul_ref(x, packed, scales)
+    x2 = x.reshape(-1, x.shape[-1])
+    out = _launch_w4a8(x2, packed, scales, sx) if a8 else _launch_w4a16(x2, packed, scales)
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
@@ -260,23 +271,23 @@ class _Int4Matmul(torch.autograd.Function):
     """K5 or K6 forward; the backward is the JAX `_fused_bwd`."""
 
     @staticmethod
-    def forward(ctx, x, packed, scales, a8):
+    def forward(ctx, x, packed, scales, a8, sx=None):
         ctx.save_for_backward(packed, scales)
         ctx.x_dtype = x.dtype
-        return _forward(x, packed, scales, a8)
+        return _forward(x, packed, scales, a8, sx)
 
     @staticmethod
     def backward(ctx, g):
         packed, scales = ctx.saved_tensors
         w = dequantize_int4(packed, scales, torch.bfloat16)
         gx = torch.matmul(g.to(torch.bfloat16).float(), w.float().t())
-        return gx.to(ctx.x_dtype), None, None, None
+        return gx.to(ctx.x_dtype), None, None, None, None
 
 
-def _apply(x, packed, scales, a8: bool) -> torch.Tensor:
+def _apply(x, packed, scales, a8: bool, sx=None) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Int4Matmul.apply(x, packed, scales.detach(), a8)
-    return _forward(x, packed, scales, a8)
+        return _Int4Matmul.apply(x, packed, scales.detach(), a8, sx)
+    return _forward(x, packed, scales, a8, sx)
 
 
 def int4_matmul_fused(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -286,11 +297,14 @@ def int4_matmul_fused(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tenso
     return _apply(x, packed, scales, False)
 
 
-def int4_matmul_fused_a8(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def int4_matmul_fused_a8(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                         sx=None) -> torch.Tensor:
     """W4A8: per-token int8 activations (quantized here, as the JAX wrapper
     does), exact int32 group products, kernel K6 on CUDA, the plain version
-    on the CPU. The same operands as `int4_matmul_fused`."""
-    return _apply(x, packed, scales, True)
+    on the CPU. The same operands as `int4_matmul_fused`. `sx` (T, 1): the
+    per-token scale to quantize x with instead of its own (a row-parallel
+    block's, of the whole rows: `ops/layers.py::_linear_tp`)."""
+    return _apply(x, packed, scales, True, sx)
 
 
 int4_matmul_fused.launches = 0

@@ -35,9 +35,10 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     (QLoRA: a frozen quantized base, straight-through gradients for x).
 
     A kernel that is a DTensor over the tp mesh (the compute form of a
-    sharded tree, `parallel/sharding.py`) takes `_linear_tp`.
+    sharded tree, `parallel/sharding.py`), or an x that is one, takes
+    `_linear_tp`.
     """
-    if any(isinstance(t, DTensor) for t in p.values()):
+    if isinstance(x, DTensor) or any(isinstance(t, DTensor) for t in p.values()):
         return _linear_tp(p, x)
     if "kernel_q4" in p:
         from openvla_oft_tpu_torch.ops.quant import int4_linear
@@ -75,21 +76,23 @@ def _linear_tp(p: Params, x) -> torch.Tensor:
     column-parallel (kernel Shard(1), the output columns): x whole, the
     output a DTensor Shard(-1); x's gradient is a partial sum over tp (an
     all-reduce in the backward), as is the replicated LoRA A's. The bias and
-    LoRA B take their own columns.
+    LoRA B take their own columns, and so do a quantized kernel's scales
+    (`scale_w`, `scale_w4`: column views).
     row-parallel (kernel Shard(0), the input rows): x's own columns (a free
     slice of a whole x), partial outputs summed by an all-reduce into a plain
     tensor, then the bias; LoRA A takes its rows and B, replicated, a
-    partial gradient.
-    A kernel replicated over tp computes the plain product on every rank."""
+    partial gradient. A quantized block (`_row_parallel_quant`) sums in
+    int32 (W8A8) or fp32 (int4) and rounds once.
+    A kernel replicated over tp (a quantized weight kept whole,
+    `parallel/sharding.py::quant_block_fits`) computes the whole product on
+    every rank, its input gathered."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     from openvla_oft_tpu_torch.parallel.sharding import replicate
 
-    if "kernel_q4" in p or p["kernel"].dtype == torch.int8:
-        raise NotImplementedError("a quantized linear sharded over tp is not ported yet "
-                                  "(ROADMAP queue 1, item 17b)")
-    w = p["kernel"]
-    mesh = w.device_mesh
+    name = "kernel_q4" if "kernel_q4" in p else "kernel"
+    w = p[name]
+    mesh = next(t.device_mesh for t in (w, *p.values(), x) if isinstance(t, DTensor))
     last = x.ndim - 1
 
     def local(t, want, grad=None):
@@ -103,27 +106,69 @@ def _linear_tp(p: Params, x) -> torch.Tensor:
             t = t.redistribute(mesh, [want])
         return t.to_local(grad_placements=None if grad is None else [grad])
 
-    role = w.placements[0]
+    role = w.placements[0] if isinstance(w, DTensor) else Replicate()
     if role == Shard(1):
-        lp = {"kernel": w.to_local()}
-        if "bias" in p:
-            lp["bias"] = local(p["bias"], Shard(0))
+        lp = {name: w.to_local()}
+        for k in ("bias", "scale_w", "scale_w4"):
+            if k in p:
+                lp[k] = local(p[k], Shard(p[k].ndim - 1))
+        if "scale_x" in p:
+            lp["scale_x"] = local(p["scale_x"], Replicate())
         if "lora_a" in p:
             lp["lora_a"] = local(p["lora_a"], Replicate(), Partial())
             lp["lora_b"] = local(p["lora_b"], Shard(1))
         y = linear(lp, local(x, Replicate(), Partial()))
         return DTensor.from_local(y, mesh, [Shard(last)], run_check=False)
     if role == Shard(0):
-        lp = {"kernel": w.to_local()}
+        lp = {name: w.to_local()}
+        if "scale_w4" in p:
+            lp["scale_w4"] = local(p["scale_w4"], Shard(0))
+        for k in ("scale_w", "scale_x"):
+            if k in p:
+                lp[k] = local(p[k], Replicate())
         if "lora_a" in p:
             lp["lora_a"] = local(p["lora_a"], Shard(1))
             lp["lora_b"] = local(p["lora_b"], Replicate(), Partial())
-        y = replicate(DTensor.from_local(linear(lp, local(x, Shard(last))), mesh, [Partial()],
-                                         run_check=False))
+        xl = local(x, Shard(last))
+        if name == "kernel_q4" or w.dtype == torch.int8:
+            if "bias" in p:
+                lp["bias"] = local(p["bias"], Replicate())
+            return _row_parallel_quant(lp, xl, mesh.get_group())
+        y = replicate(DTensor.from_local(linear(lp, xl), mesh, [Partial()], run_check=False))
         if "bias" in p:
             y = y + local(p["bias"], Replicate()).to(y.dtype)
         return y
     return linear({k: local(t, Replicate()) for k, t in p.items()}, local(x, Replicate()))
+
+
+def _row_parallel_quant(lp: Params, xl: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel quantized product on this rank's block: x's own
+    columns `xl` against the kernel's own rows (`lp`, with the whole bias),
+    summed over the tp `group`; then the bias and one rounding to x's dtype,
+    as the one-device path does. W8A8 quantizes x with the per-token scale
+    of the whole rows (an all-reduce MAX of the ranks' absmaxes; none with a
+    static `scale_x`) and sums the exact int32 accumulators, so the result
+    is bitwise the unsharded product's; int4 sums the fp32 products (K6
+    with the whole rows' scale too). LoRA factors in `lp` add their
+    row-parallel delta, summed likewise. Every collective goes through c10d
+    (`parallel/sharding.py::all_reduce`) and is counted."""
+    from openvla_oft_tpu_torch.ops import quant as Q
+    from openvla_oft_tpu_torch.parallel.sharding import all_reduce
+
+    base = {k: v for k, v in lp.items() if k not in ("lora_a", "lora_b")}
+    int8 = "kernel" in base
+    per_token = "scale_x" not in base if int8 else Q.int4_takes_a8(base, xl)
+    sx = None
+    if per_token:
+        absmax = Q.act_absmax_rows(xl.detach().reshape(-1, xl.shape[-1]))
+        sx = Q.act_scale(all_reduce(absmax, group, "max"))
+    product = Q.int8_linear if int8 else Q.int4_linear
+    y = product(base, xl, sx=sx, reduce=lambda t: all_reduce(t, group))
+    if "lora_a" not in lp:
+        return y
+    down = torch.matmul(xl, lp["lora_a"].to(xl.dtype).transpose(-1, -2))
+    delta = all_reduce(torch.matmul(down.float(), lp["lora_b"].to(xl.dtype).float()), group)
+    return (y.float() + delta).to(xl.dtype)
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:

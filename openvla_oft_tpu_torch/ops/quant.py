@@ -112,15 +112,31 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"kernel": kernel, "scale_w": scale_w}
 
 
+def act_absmax_rows(x2: torch.Tensor) -> torch.Tensor:
+    """Each row's absmax of x2 (T, K), fp32 (T, 1): the per-token scale's
+    numerator. A row split over tp takes the MAX of its parts' (exact)."""
+    return x2.float().abs().amax(dim=-1, keepdim=True)
+
+
+def act_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """The per-token scale of a row absmax: absmax / 127."""
+    return _div(absmax, 127.0)
+
+
+def quantize_rows(x2: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """x2 (T, K) to int8 with the given per-row scale sx (T, 1): round half
+    to even, clip to +-127."""
+    q = torch.clamp(torch.round(x2.float() / torch.clamp(sx, min=1e-12)), -127, 127)
+    return q.to(torch.int8)
+
+
 def quantize_act_rows(x2: torch.Tensor):
     """Per-token symmetric int8 (the JAX `_int8_matmul`'s and
     `_quantize_act_rows`'s): sx = absmax / 127, round half to even, clip to
     +-127. Returns (int8 (T, K), fp32 (T, 1)). The W8A8 linear and K6's
     wrapper both quantize x with it."""
-    xf = x2.float()
-    sx = _div(xf.abs().amax(dim=-1, keepdim=True), 127.0)
-    q = torch.clamp(torch.round(xf / torch.clamp(sx, min=1e-12)), -127, 127)
-    return q.to(torch.int8), sx
+    sx = act_scale(act_absmax_rows(x2))
+    return quantize_rows(x2, sx), sx
 
 
 def int8_mm(x8: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -128,12 +144,15 @@ def int8_mm(x8: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     `torch._int_mm`, on the card and on the CPU. Fewer than INT_MM_MIN_ROWS
     rows are padded with zero rows (CUDA refuses them; exact either way).
     On CUDA, K and N must be multiples of 8: there is no float fallback.
-    `int8_mm.launches` counts the products."""
+    x8 is made row-major (cuBLASLt has no int8 product of two transposed
+    operands; a tp rank's columns of a gathered activation can come as a
+    column-major view). `int8_mm.launches` counts the products."""
     t, k = x8.shape
     n = kernel.shape[-1]
     if x8.is_cuda and (k % 8 or n % 8):
         raise ValueError(f"int8_mm: CUDA torch._int_mm takes K and N that are multiples "
                          f"of 8, got K={k}, N={n}")
+    x8 = x8.contiguous()
     if t < INT_MM_MIN_ROWS:
         x8 = torch.cat([x8, x8.new_zeros((INT_MM_MIN_ROWS - t, k))])
     out = torch._int_mm(x8, kernel)
@@ -150,19 +169,32 @@ def int8_mm_ref(x8: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x8.double(), kernel.double()).round().to(torch.int32)
 
 
-def _int8_forward(x, kernel, scale_w, scale_x) -> torch.Tensor:
+def _int8_forward(x, kernel, scale_w, scale_x, sx=None, reduce=None) -> torch.Tensor:
     """The JAX `_int8_matmul` (scale_x None) or `_int8_matmul_static`'s
     scalar branch, fp32 out, with their epilogue orders: (acc * sx) * sw,
-    or acc * (sx * sw)."""
+    or acc * (sx * sw).
+
+    For a row-parallel product (x's own columns and the kernel's own rows on
+    each tp rank): `sx`, the per-token scale (T, 1) of the whole rows, which
+    the dynamic path then takes instead of x's own; `reduce`, applied to the
+    exact int32 accumulator before the epilogue (the SUM over the ranks), so
+    that the result is bitwise the unsharded product's."""
     x2 = x.reshape(-1, x.shape[-1])
     if scale_x is None:
-        x8, sx = quantize_act_rows(x2)
-        y = (int8_mm(x8, kernel).float() * sx) * scale_w.float()
+        if sx is None:
+            x8, sx = quantize_act_rows(x2)
+        else:
+            x8 = quantize_rows(x2, sx)
+        acc = int8_mm(x8, kernel)
+        acc = acc if reduce is None else reduce(acc)
+        y = (acc.float() * sx) * scale_w.float()
     else:
         sxf = scale_x.float()
         inv = 1.0 / torch.clamp(sxf, min=1e-12)
         x8 = torch.clamp(torch.round(x2.float() * inv), -127, 127).to(torch.int8)
-        y = int8_mm(x8, kernel).float() * (sxf * scale_w.float())
+        acc = int8_mm(x8, kernel)
+        acc = acc if reduce is None else reduce(acc)
+        y = acc.float() * (sxf * scale_w.float())
     return y.reshape(*x.shape[:-1], kernel.shape[-1])
 
 
@@ -174,12 +206,12 @@ class _Int8Matmul(torch.autograd.Function):
     state) a zero one in its own dtype."""
 
     @staticmethod
-    def forward(ctx, x, kernel, scale_w, scale_x):
+    def forward(ctx, x, kernel, scale_w, scale_x, sx=None, reduce=None):
         ctx.save_for_backward(kernel, scale_w)
         ctx.x_dtype = x.dtype
         ctx.sx_like = None if scale_x is None else (scale_x.shape, scale_x.dtype,
                                                      scale_x.device)
-        return _int8_forward(x, kernel, scale_w, scale_x)
+        return _int8_forward(x, kernel, scale_w, scale_x, sx, reduce)
 
     @staticmethod
     def backward(ctx, g):
@@ -191,15 +223,16 @@ class _Int8Matmul(torch.autograd.Function):
         if ctx.sx_like is not None and ctx.needs_input_grad[3]:
             shape, dtype, device = ctx.sx_like
             gsx = torch.zeros(shape, dtype=dtype, device=device)
-        return gx.to(ctx.x_dtype), None, None, gsx
+        return gx.to(ctx.x_dtype), None, None, gsx, None, None
 
 
-def int8_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+def int8_linear(p: Params, x: torch.Tensor, sx=None, reduce=None) -> torch.Tensor:
     """y = int8 product of x and the int8 kernel, dequantized (+ bias in
     fp32), in x's dtype. Per-token activation scales by default; a "scale_x"
     (0-d, one layer's calibrated scalar) switches to the static path. Takes
     one layer's 2-D weight (a layer or column view included). Differentiable
-    in x, straight through (`_Int8Matmul`)."""
+    in x, straight through (`_Int8Matmul`). `sx` and `reduce`: a
+    row-parallel block's (`_int8_forward`)."""
     kernel, scale_w = p["kernel"], p["scale_w"].detach()
     scale_x = p.get("scale_x")
     if kernel.ndim != 2:
@@ -211,9 +244,9 @@ def int8_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
                          f"{tuple(scale_x.shape)}")
     if torch.is_grad_enabled() and (x.requires_grad or (scale_x is not None
                                                         and scale_x.requires_grad)):
-        y = _Int8Matmul.apply(x, kernel, scale_w, scale_x)
+        y = _Int8Matmul.apply(x, kernel, scale_w, scale_x, sx, reduce)
     else:
-        y = _int8_forward(x, kernel, scale_w, scale_x)
+        y = _int8_forward(x, kernel, scale_w, scale_x, sx, reduce)
     if "bias" in p:
         y = y + p["bias"].float()
     return y.to(x.dtype)
@@ -269,16 +302,34 @@ def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor,
     return w.reshape(q.shape).to(dtype)
 
 
-def int4_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+def int4_takes_a8(p: Params, x: torch.Tensor) -> bool:
+    """Whether `int4_linear` runs x through K6 (W4A8, per-token int8
+    activations) here: inside `int4_a8()`, on the fused dispatch."""
+    return _INT4_A8.get() and _int4_fused(p, x)
+
+
+def _int4_fused(p: Params, x: torch.Tensor) -> bool:
+    """The JAX package's dispatch: at most FUSED_MAX_ROWS rows of x, and
+    half-groups g2 = group / 2 that are a multiple of 8."""
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
+    return rows <= FUSED_MAX_ROWS and \
+        (p["kernel_q4"].shape[-2] // p["scale_w4"].shape[-2]) % 8 == 0
+
+
+def int4_linear(p: Params, x: torch.Tensor, sx=None, reduce=None) -> torch.Tensor:
     """y = x @ dequant(kernel_q4, scale_w4) (+ bias), in x's dtype.
 
-    The JAX package's dispatch: one layer's 2-D weight (a view included), at
-    most FUSED_MAX_ROWS rows of x, and half-groups g2 = group / 2 that are a
-    multiple of 8 take the fused kernels (`ops/int4_matmul.py`: K5, or K6
-    inside `int4_a8()`); otherwise the whole weight is dequantized first
+    The JAX package's dispatch (`_int4_fused`): one layer's 2-D weight (a
+    view included), at most FUSED_MAX_ROWS rows of x, and half-groups that
+    are a multiple of 8 take the fused kernels (`ops/int4_matmul.py`: K5, or
+    K6 inside `int4_a8()`); otherwise the whole weight is dequantized first
     (`int4_matmul_ref`, W4A16 in either mode, as in the JAX package). Scales
     and packed bytes get no gradient; x does (straight through the
     dequantized weight). The bias adds in fp32.
+
+    For a row-parallel block: `sx`, K6's per-token scale (T, 1) of the whole
+    rows (`int4_takes_a8`); `reduce`, applied to the fp32 product before the
+    bias and the cast (the SUM over the ranks).
     """
     from openvla_oft_tpu_torch.ops import int4_matmul as M
 
@@ -287,12 +338,15 @@ def int4_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"int4_linear takes one layer's (in/2, out) weight, got "
                          f"{tuple(packed.shape)}; index stacked layers first "
                          "(bridge.index_layer)")
-    rows = x.numel() // x.shape[-1] if x.shape[-1] else 0
-    if rows <= FUSED_MAX_ROWS and (packed.shape[0] // scales.shape[0]) % 8 == 0:
+    if not _int4_fused(p, x):
+        y = M.int4_matmul_ref(x, packed, scales)
+    elif sx is not None:                      # a row-parallel block under W4A8
+        y = M.int4_matmul_fused_a8(x, packed, scales, sx=sx)
+    else:
         fn = M.int4_matmul_fused_a8 if _INT4_A8.get() else M.int4_matmul_fused
         y = fn(x, packed, scales)
-    else:
-        y = M.int4_matmul_ref(x, packed, scales)
+    if reduce is not None:
+        y = reduce(y)
     if "bias" in p:
         y = y + p["bias"].float()
     return y.to(x.dtype)

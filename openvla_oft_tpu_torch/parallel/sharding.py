@@ -12,12 +12,18 @@ sharding propagation inserts the collectives.
 
 Megatron-style layout: column-parallel into attention and the MLP (the
 contracting dim on "fsdp", the output on "tp"), row-parallel out of them.
+
+A quantized linear shards like its float kernel (int8 `kernel`, packed
+`kernel_q4`; their scales stay replicated), except where a tp rank's block
+would be one its kernels cannot take (`quant_block_fits`): such a leaf is
+kept whole over tp, a departure from the JAX rules, and each rank runs the
+whole product (`ops/layers.py::_linear_tp`).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -92,12 +98,75 @@ def placements_of(spec: tuple, axes=("dp", "fsdp", "tp")) -> list:
     return [Shard(spec.index(ax)) if ax in spec else Replicate() for ax in axes]
 
 
+def quant_block_fits(node: dict, spec: tuple, mesh_shape: dict) -> bool:
+    """Whether each tp rank's block of the quantized weight in `node` (its
+    rule's fitted `spec`) is one the quantized kernels take. A packed int4
+    leaf split by rows must keep whole scale groups: its group scales stay
+    replicated, and K5 and K6 read a rank's rows against its own scale
+    rows. An int8 kernel's block must keep K and N multiples of 8, which
+    CUDA `torch._int_mm` needs (SigLIP's 4,304-wide MLP at tp = 4). A
+    column split of a packed leaf, and a split over fsdp (gathered before
+    the product), always fit."""
+    tp = mesh_shape.get("tp", 1)
+    if "tp" not in spec[-2:]:
+        return True
+    rows = spec[-2] == "tp"
+    if "kernel_q4" in node:
+        return not rows or node["scale_w4"].shape[-2] % tp == 0
+    k, n = node["kernel"].shape[-2:]
+    k, n = (k // tp, n) if rows else (k, n // tp)
+    return k % 8 == 0 and n % 8 == 0
+
+
+def _quantized_kernel(node: dict) -> Optional[str]:
+    if "kernel_q4" in node:
+        return "kernel_q4"
+    k = node.get("kernel")
+    return "kernel" if torch.is_tensor(k) and k.dtype == torch.int8 else None
+
+
+def _map_specs(fn, params: Params, mesh_shape: dict, kept: Optional[list] = None) -> Params:
+    """fn(path, leaf, spec) over every leaf of `params`, spec its rule's
+    (`_spec_of`), where a quantized weight whose tp block does not fit
+    (`quant_block_fits`) keeps its tp axis whole (its path appended to
+    `kept`)."""
+    def walk(node, path):
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (str(i),)) for i, v in enumerate(node))
+        if not isinstance(node, dict):
+            p = "/".join(path)
+            return fn(p, node, _spec_of(p, tuple(node.shape), mesh_shape))
+        name = _quantized_kernel(node)
+        out = {}
+        for k, v in node.items():
+            if k != name:
+                out[k] = walk(v, path + (str(k),))
+                continue
+            p = "/".join(path + (k,))
+            spec = _spec_of(p, tuple(v.shape), mesh_shape)
+            if not quant_block_fits(node, spec, mesh_shape):
+                spec = tuple(None if ax == "tp" else ax for ax in spec)
+                if kept is not None:
+                    kept.append(p)
+            out[k] = fn(p, v, spec)
+        return out
+
+    return walk(params, ())
+
+
+def kept_whole(params: Params, mesh_shape: dict) -> list:
+    """The paths of the quantized weights that `_map_specs` keeps whole
+    over tp where the JAX rules split them."""
+    kept = []
+    _map_specs(lambda p, leaf, spec: None, params, mesh_shape, kept)
+    return kept
+
+
 def param_placements(params: Params, mesh_shape: dict) -> Params:
     """The placements of every leaf of `params` on a ("dp", "fsdp", "tp")
     mesh of `mesh_shape`. A pure function of shapes and sizes: no process
     group is needed."""
-    return _map_with_path(
-        lambda p, leaf: placements_of(_spec_of(p, tuple(leaf.shape), mesh_shape)), params)
+    return _map_specs(lambda p, leaf, spec: placements_of(spec), params, mesh_shape)
 
 
 def _local_slice(t: torch.Tensor, mesh, placements) -> torch.Tensor:
@@ -117,26 +186,47 @@ def distribute(t: torch.Tensor, mesh, placements):
     kept."""
     local = _local_slice(t.detach(), mesh, placements)
     if any(pl.is_shard() for pl in placements):
-        local = local.contiguous().clone()
+        local = _own_copy(local)
     out = DTensor.from_local(local, mesh, placements, run_check=False)
     return out.requires_grad_(t.requires_grad) if t.is_floating_point() else out
 
 
+def _own_copy(t: torch.Tensor) -> torch.Tensor:
+    """A slice copied into its own storage, in its layout: an int8 W8A8
+    kernel's column-major (`ops/quant.py::empty_int8_kernel`) stays so."""
+    if t.ndim >= 2 and t.stride(-2) == 1 and t.stride(-1) != 1:
+        return t.transpose(-1, -2).clone(memory_format=torch.contiguous_format
+                                         ).transpose(-1, -2)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def shard_params(params: Params, mesh) -> Params:
     """`params` as DTensors under the rules on `mesh` (each rank keeps its
-    slices). Leaves that are already DTensors are returned as they are."""
+    slices). Leaves that are already DTensors are returned as they are. The
+    quantized weights kept whole over tp (`kept_whole`) are logged and
+    left in `shard_params.kept_whole`."""
+    import torch.distributed as dist
+
     from openvla_oft_tpu_torch.parallel.mesh import mesh_shape
 
     shape = mesh_shape(mesh)
-    check_shardable(params, shape)
+    shard_params.kept_whole = []
 
-    def put(path, leaf):
+    def put(path, leaf, spec):
         if isinstance(leaf, DTensor):
             return leaf
-        return distribute(leaf, mesh, placements_of(_spec_of(path, tuple(leaf.shape), shape),
-                                                    mesh.mesh_dim_names))
+        return distribute(leaf, mesh, placements_of(spec, mesh.mesh_dim_names))
 
-    return _map_with_path(put, params)
+    out = _map_specs(put, params, shape, shard_params.kept_whole)
+    if shard_params.kept_whole and (not dist.is_initialized() or dist.get_rank() == 0):
+        print(f"[sharding] kept whole over tp = {shape['tp']} (a rank's block would cut "
+              f"int4 scale groups, or give an int8 product a K or N that is not a multiple "
+              f"of 8; its input is gathered and each rank runs the whole product): "
+              + ", ".join(shard_params.kept_whole), flush=True)
+    return out
+
+
+shard_params.kept_whole = []
 
 
 def gather_params(params: Params, to_host: bool = False) -> Params:
@@ -258,6 +348,25 @@ def like_replicated(tensors, like):
                  for t in tensors)
 
 
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The all-reduce of `t` over `group` through c10d, counted in
+    `replicate.counts`: "sum" (differentiable: the output's gradient goes to
+    every rank's part as it is) or "max" (of a tensor that takes no
+    gradient: a per-token absmax)."""
+    import torch.distributed as dist
+
+    if op == "sum":
+        out = _SumPartials.apply(t, group)
+    elif op == "max":
+        out = t.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    else:
+        raise ValueError(f"op must be 'sum' or 'max', got {op!r}")
+    replicate.counts["all_reduce"] += 1
+    replicate.counts["all_reduce_bytes"] += out.nbytes
+    return out
+
+
 class _GatherShards(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local, dim, group):
@@ -307,26 +416,6 @@ def dtensor_context(tree):
     from torch.distributed.tensor.experimental import implicit_replication
 
     return implicit_replication()
-
-
-def check_shardable(params: Params, mesh_shape: dict) -> None:
-    """Raise where this slice of the port does not run a tree sharded over
-    fsdp or tp: a quantized base (int8 kernels, or packed int4 `kernel_q4`)
-    on a mesh with more than one rank on either axis (ROADMAP item 17b)."""
-    if mesh_shape.get("fsdp", 1) == 1 and mesh_shape.get("tp", 1) == 1:
-        return
-
-    def quantized(tree):
-        if not isinstance(tree, dict):
-            return False
-        return "kernel_q4" in tree or (torch.is_tensor(tree.get("kernel"))
-                                       and tree["kernel"].dtype == torch.int8) \
-            or any(quantized(v) for v in tree.values())
-
-    if quantized(params):
-        raise NotImplementedError(
-            "a quantized base (int8 or int4 kernels) sharded over fsdp or tp is not "
-            "ported yet (ROADMAP queue 1, item 17b); run it on a dp-only mesh")
 
 
 def copy_into(dst, src: torch.Tensor) -> None:

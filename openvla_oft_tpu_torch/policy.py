@@ -136,7 +136,10 @@ class OpenVLAPolicy:
     sharded on it (`parallel/sharding.py::shard_params`) and every request
     runs tp-sharded, each rank attending over its own heads (K1 through
     `flash_attention_tp`), as the JAX policy's `tp_mesh` serves. Every rank
-    takes the same request and returns the same actions.
+    takes the same request and returns the same actions. Quantized trees
+    (`load_in_4bit`, `load_in_8bit`, `load_vision_in_8bit`, static scales)
+    serve so too, each rank on its own block of the int8 and int4 weights,
+    and `vit_fused` runs K4 on each rank's column block.
     """
 
     cfg: OpenVLAConfig
@@ -166,12 +169,8 @@ class OpenVLAPolicy:
             raise ValueError("head='discrete' needs llm['lm_head'] in the params "
                              "(bridge.init_params(..., head='discrete'))")
         if self.tp_mesh is not None:
-            from openvla_oft_tpu_torch.parallel.mesh import mesh_shape
             from openvla_oft_tpu_torch.parallel.sharding import shard_params
 
-            if self.vit_fused and mesh_shape(self.tp_mesh)["tp"] > 1:
-                raise NotImplementedError("vit_fused (K4) under tp is not ported yet "
-                                          "(ROADMAP queue 1, item 17b)")
             self.params = shard_params(self.params, self.tp_mesh)
         if self.fast_gelu and not self.cfg.fast_gelu:
             self.cfg = dataclasses.replace(self.cfg, fast_gelu=True)

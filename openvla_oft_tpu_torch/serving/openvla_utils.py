@@ -109,7 +109,8 @@ def get_vla(cfg: Any, dtype: torch.dtype = torch.bfloat16) -> OpenVLAPolicy:
     quantization of `serving/deploy.py::serving_params` (`load_in_8bit`,
     `load_in_4bit` or `load_vision_in_8bit`), the checkpoint's tokenizer
     (`allow_fake_tokenizer`, `hf_tokenizer`), and the policy's switches
-    (`int4_a8`, `vit_fused`, the diffusion steps)."""
+    (`int4_a8`, `vit_fused`, the diffusion steps, and `tp_mesh`: serve
+    tp-sharded on that mesh, quantized trees included)."""
     from openvla_oft_tpu_torch.bridge import init_params, param_spec
     from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats, serving_params
     from openvla_oft_tpu_torch.utils.hf_import import load_openvla_checkpoint
@@ -157,7 +158,8 @@ def get_vla(cfg: Any, dtype: torch.dtype = torch.bfloat16) -> OpenVLAPolicy:
                                  hf=getattr(cfg, "hf_tokenizer", False)),
         int4_a8=getattr(cfg, "int4_a8", False), vit_fused=getattr(cfg, "vit_fused", False),
         num_diffusion_steps=getattr(cfg, "num_diffusion_steps", 50),
-        num_diffusion_steps_inference=getattr(cfg, "num_diffusion_steps_inference", None))
+        num_diffusion_steps_inference=getattr(cfg, "num_diffusion_steps_inference", None),
+        tp_mesh=getattr(cfg, "tp_mesh", None))
 
 
 def _try_tokenizer(ckpt: str, allow_fake: bool = False, hf: bool = False):

@@ -33,7 +33,7 @@ from openvla_oft_tpu.training.lora import init_lora as jax_init_lora
 from openvla_oft_tpu_torch.bridge import params_from_numpy
 from openvla_oft_tpu_torch.ops.flash_attention import flash_attention
 from openvla_oft_tpu_torch.parallel import mesh as PM
-from openvla_oft_tpu_torch.parallel.sharding import param_placements
+from openvla_oft_tpu_torch.parallel.sharding import kept_whole, param_placements
 from openvla_oft_tpu_torch.models.prismatic import predict_action_hidden as port_predict
 from test_torch_import import port_config, port_platform
 from torch_parallel_worker import launch
@@ -80,7 +80,14 @@ def test_param_placements_match_jax_pspecs(tree, mesh):
     not divide (TINY's widths against tp = 4) replicated."""
     params = _trees()[tree]
     jspecs = param_pspecs(params, jax_mesh(*mesh))
-    got = param_placements(params, dict(zip(PM.AXES, mesh)))
+    shape = dict(zip(PM.AXES, mesh))
+    got = param_placements(params, shape)
+    # The port's one departure: a packed leaf whose row split over tp would
+    # cut its scale groups stays whole over tp (`quant_block_fits`): TINY's
+    # wo and down are 64 and 128 deep, one scale group each.
+    whole = set(kept_whole(params, shape))
+    assert whole == ({f"llm/layers/{n}/kernel_q4" for n in ("attn/wo", "mlp/down")}
+                     if tree == "int4" else set())
     paths = []
 
     def walk(path, leaf, spec, placements):
@@ -91,7 +98,10 @@ def test_param_placements_match_jax_pspecs(tree, mesh):
             for i, v in enumerate(leaf):
                 walk(path + (str(i),), v, spec[i], placements[i])
         else:
-            assert placements == _placements_of(spec, leaf.ndim), ("/".join(path), spec)
+            want = _placements_of(spec, leaf.ndim)
+            if "/".join(path) in whole:
+                want[2] = Replicate()
+            assert placements == want, ("/".join(path), spec)
             paths.append("/".join(path))
 
     walk((), params, jspecs, got)
@@ -261,21 +271,3 @@ def test_collectives_a_layer_takes(tmp_path):
     for o in out:
         assert o["unfused"] == {"all_gather": 0, "all_reduce": 2}
         assert o["fused"] == {"all_gather": 2, "all_reduce": 2}
-
-
-def test_quantized_base_on_fsdp_or_tp_raises_naming_17b():
-    """A quantized base shards on dp only (ROADMAP item 17b): int8 and
-    packed-int4 trees refused on an fsdp or tp axis, no process group
-    needed; a float tree or a dp-only mesh passes."""
-    from openvla_oft_tpu_torch.parallel.sharding import check_shardable
-
-    int8 = {"llm": {"layers": {"attn": {"wq": {"kernel": torch.zeros((2, 8, 8), dtype=torch.int8),
-                                                "scale_w": torch.ones((2, 8))}}}}}
-    int4 = {"llm": {"layers": {"mlp": {"up": {"kernel_q4": torch.zeros((2, 4, 8),
-                                                                       dtype=torch.int8)}}}}}
-    for tree in (int8, int4):
-        for shape in ({"dp": 1, "fsdp": 2, "tp": 1}, {"dp": 1, "fsdp": 1, "tp": 2}):
-            with pytest.raises(NotImplementedError, match="item 17b"):
-                check_shardable(tree, shape)
-        check_shardable(tree, {"dp": 4, "fsdp": 1, "tp": 1})
-    check_shardable({"w": {"kernel": torch.zeros((8, 8))}}, {"dp": 1, "fsdp": 2, "tp": 2})
