@@ -129,8 +129,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      projector's int8 products and 4 x 8 a token, one padded row per
      product in each step); `bench_ar` in bf16
      and with `--quant int4` (its 7-token, 56-token and parallel rows);
-  8e. checkpoint: the flagship's widths with its Llama cut to 4 of 32 layers
-     (registered as "llama2-7b-pure-4l"; both ViTs at full depth), seeded
+  8e. checkpoint: the flagship's widths with its Llama cut to 2 of 32 layers
+     (registered as "llama2-7b-pure-2l"; both ViTs at full depth; phase 20
+     (e) round-trips all 32), seeded
      bf16 weights exported by `utils/hf_import.py::export_openvla_checkpoint`
      into a temporary dir with `dataset_statistics.json`, the L1 head's and
      the proprio projector's `.pt` files and a synthetic Llama-like
@@ -139,14 +140,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      to the exported tree; the host's resident set sampled during the load)
      and served by the deploy CLI's `OpenVLAServer` (`get_vla`,
      `device_preprocess`, LIBERO, bucket 64, S = 634): 3 /act requests (K1
-     3 each), bitwise equal to an in-memory policy built from the same seed
+     1 each), bitwise equal to an in-memory policy built from the same seed
      with `serving_params`; one request to the deploy CLI (`python -m
      openvla_oft_tpu_torch.serving.deploy --pretrained-checkpoint DIR
      --unnorm-key K --device-preprocess`) in a process of its own, stopped
      after it, then one without `--device-preprocess` (the CLI's default,
      the staged path; phase 8f (c)); the device peak of the build from disk against
      the build from seeded weights; then `load_in_4bit`, one request (K5
-     18); bytes, write and load seconds, load GB/s, host and device peaks,
+     10); bytes, write and load seconds, load GB/s, host and device peaks,
      the warm-up and each request's time; the dir removed;
   8f. staged serving, the reference's eval conditioning on the card (run
      inside phases 5, 8c, 8d and 8e, on their policies): (a) after phase 5,
@@ -224,7 +225,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      products' share of the B=8 step; (c) the remat policies "all",
      "dots", "attn_out", "none" at B=8 from the same weights and batch: the
      loss and gradients bitwise those of "all", the launches, median time
-     and peak of each; (d) (inside phase 8e, on its 4-layer dir) the CLI
+     and peak of each; (d) (inside phase 8e, on its 2-layer dir) the CLI
      with the merged export every 2 steps: the `--2_chkpt` and `--3_chkpt`
      dirs, the re-imported `.pt` files bitwise the trained state, `/act` on
      the merged dir (get_vla) bitwise the in-memory merge, a resume from
@@ -315,7 +316,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (phase 5's bound), both ranks' answers equal, each rank's weights and
      peak memory; the request times are this harness's cost only (gloo
      stages every collective through the host); (c) in the same two
-     processes, quantized tp = 2 serving of the flagship, 32 layers: the bf16
+     processes, quantized tp = 2 serving of the flagship (both (b) and (c)
+     with its Llama cut to 8 of 32 layers, `cut_serving_flagship`
+     in the parent and in each rank; the counts here are at 32
+     layers, and a cut of n takes n - 1 K1 and 4 n K5 + K5s or K6 + K6s a
+     request and 4 (32 - n) fewer int8 products: at 8, K1 7, 32 and 231): the bf16
      policy with `vit_fused` (K4 98 a request on each rank's column blocks),
      `load_in_4bit` W4A16 and W4A8 (K5 + K5s or K6 + K6s 128 a request: the
      out_window layer projects wqkv once over its tp columns, where one rank
@@ -337,8 +342,35 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      `--quant int8` (the LLM W8A8): p50, p90 and the launches a call;
      `scripts/summarize_run.py` on phase 10's metrics JSONL (the CLI run
      with `--wandb_log_freq 1`), its summary JSON printed.
+ 20. (after 19) image files, the JPEG encoder, the data scripts and the
+     converter's round trip at full depth: (a) the JPEG decoders, host
+     library and plain, on every stream of `tests/goldens/image_modes.npz`
+     (PIL's progressive, restart, optimize, grey, 4:2:2, 4:4:4 and CMYK
+     streams; 4:1:1, 4:4:0, 3:1, mixed samplings, YCCK, Adobe RGB and RGB
+     by ids from the port's encoder; progressive streams cut after their
+     early scans, which smooth), ISLOW bitwise PIL's pixels and IFAST TF's,
+     the host library's ms a 256 x 256 frame of the synthetic set under
+     ISLOW and IFAST; the PNG decoder on every colour type
+     and depth, plain and interlaced, bitwise PIL's; (b)
+     `scripts/generate.py` at random:7b on a progressive JPEG and on a PNG
+     of the golden, K1 32 in each prefill; (c)
+     `scripts/make_synthetic_rlds.py` at its defaults (48 episodes of 64
+     to 71 steps at 256 x 256, frames through the host encoder): frames/s
+     encoded, held to `tests/goldens/synthetic_rlds.npz`, the JAX script's
+     set (every frame and all but the floats bitwise, the actions within 1
+     ULP of NumPy's float32 sine, the proprio their running sum), then the
+     fine-tuning CLI on it at phase 10's cut (1 image; phase 13 keeps its
+     own set, whose name takes the OXE registry's LIBERO transform, which
+     the synthetic set, marked standardized, skips), K1 8, K2 4, K3 4 a
+     step; (d) `scripts/make_quickstart_fixture.py`,
+     its object bitwise the committed pickle; (e)
+     `scripts/exp_roundtrip_7b.py --scale 7b`: the 32-layer tree drawn on
+     the card, its action chunk (K1 31), exported, freed, loaded back, every
+     leaf bitwise the tree drawn again and the chunk bitwise the first:
+     bytes, the write's seconds, the load's GB/s and the host's peak
+     resident set.
 Each phase's host time is logged as `[phase-time]`, and all of them after
-phase 19.
+phase 20.
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
@@ -2023,7 +2055,7 @@ def discrete_serving(card: str, rng) -> dict:
 
 
 # === Phase 8e: a checkpoint dir through get_vla and OpenVLAServer ===
-CKPT_LLM_ID, CKPT_LAYERS = "llama2-7b-pure-4l", 4
+CKPT_LLM_ID, CKPT_LAYERS = "llama2-7b-pure-2l", 2
 CKPT_UNNORM_KEY = "libero_spatial_no_noops"
 CKPT_WORDS = ("in", "what", "action", "should", "the", "robot", "take", "to", "put", "bowl",
               "on", "plate", "out", "do", "task")
@@ -2241,7 +2273,8 @@ def checkpoint_serving(card: str, rng, device: str = "cuda") -> dict:
     log(f"[checkpoint] the flagship at full width ({FLAGSHIP_IDS[0]}, Llama 4096 wide, 32 "
         f"heads, 11008, vocab 32064), its Llama cut to {CKPT_LAYERS} of 32 layers (registered "
         f"as {CKPT_LLM_ID!r}; both ViTs at full depth): the serving code does not depend on "
-        f"the depth, and the cut writes about 3.3 GB to disk instead of 14 GB")
+        f"the depth; the cut writes about 3.0 GB to disk, and phase 20 (e) round-trips all 32 "
+        f"layers")
     d, pd = platform.action_dim, platform.proprio_dim
     stats = {CKPT_UNNORM_KEY: {
         "action": {"q01": [-0.9] * d, "q99": [0.9] * d, "min": [-1.0] * d, "max": [1.0] * d,
@@ -3748,7 +3781,7 @@ def states_bitwise_equal(a, b, path="") -> int:
 
 
 def run_management(ckpt: str, card: str, rng, n_layers: int) -> dict:
-    """Phase 14 (d), (e), inside phase 8e on its 4-layer dir: the CLI with
+    """Phase 14 (d), (e), inside phase 8e on its 2-layer dir: the CLI with
     the merged export every 2 steps (its dirs, the .pt files re-imported
     bitwise, the merged dir served bitwise as the in-memory merge), a resume
     from step 2 (the restored state bitwise the saved one), the save's times,
@@ -5600,70 +5633,72 @@ def tp_serving_rank(rank: int, store: str, obs: dict, s_train: int, out_q) -> No
         from openvla_oft_tpu_torch.parallel.sharding import replicate, shard_params
         from openvla_oft_tpu_torch.serving.deploy import flagship_policy
 
-        torch.cuda.set_device(0)
-        init_distributed("cuda", f"file://{store}", 2, rank, backend="gloo")
-        mesh = make_mesh(1, 1, 2, device_type="cuda")
+        # the parent's cut of the flagship (SERVE_CUT_LAYERS), in this process too
+        with cut_serving_flagship():
+            torch.cuda.set_device(0)
+            init_distributed("cuda", f"file://{store}", 2, rank, backend="gloo")
+            mesh = make_mesh(1, 1, 2, device_type="cuda")
 
-        def serve_variant(policy, n_requests):
-            """The requests' answers, times, launches and collectives, and
-            the action rows' hidden states under the policy's switches."""
-            torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            replicate.counts.update({k: 0 for k in replicate.counts})
-            times, answers = [], []
-            for _ in range(n_requests):
-                t0 = time.perf_counter()
-                answers.append(policy.predict_action_from_frames(
-                    frames_of(policy, obs), obs["instruction"], np.asarray(obs["state"])))
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            launches = launch_counts()
-            collectives = {k: v / n_requests for k, v in replicate.counts.items()}
-            peak = torch.cuda.max_memory_allocated()
-            _, ids, mask, pixels, proprio = model_inputs(policy, obs)
-            params, ctx = policy._sharded()
-            with ctx, int4_a8(policy.int4_a8), vit_fused(policy.vit_fused):
-                hidden = predict_action_hidden(params, policy.cfg, policy.platform, ids, mask,
-                                               pixels, proprio=proprio.clamp(-1, 1),
-                                               use_flash=True)
-            return {"answers": answers, "times": times, "launches": launches, "peak": peak,
-                    "collectives": collectives,
-                    "hidden": hidden.actions_hidden.float().cpu().numpy(),
-                    "weights": sum((t.to_local() if hasattr(t, "to_local") else t).nbytes
-                                   for t in tree_leaves(policy.params))}
+            def serve_variant(policy, n_requests):
+                """The requests' answers, times, launches and collectives, and
+                the action rows' hidden states under the policy's switches."""
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                replicate.counts.update({k: 0 for k in replicate.counts})
+                times, answers = [], []
+                for _ in range(n_requests):
+                    t0 = time.perf_counter()
+                    answers.append(policy.predict_action_from_frames(
+                        frames_of(policy, obs), obs["instruction"], np.asarray(obs["state"])))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                launches = launch_counts()
+                collectives = {k: v / n_requests for k, v in replicate.counts.items()}
+                peak = torch.cuda.max_memory_allocated()
+                _, ids, mask, pixels, proprio = model_inputs(policy, obs)
+                params, ctx = policy._sharded()
+                with ctx, int4_a8(policy.int4_a8), vit_fused(policy.vit_fused):
+                    hidden = predict_action_hidden(params, policy.cfg, policy.platform, ids, mask,
+                                                   pixels, proprio=proprio.clamp(-1, 1),
+                                                   use_flash=True)
+                return {"answers": answers, "times": times, "launches": launches, "peak": peak,
+                        "collectives": collectives,
+                        "hidden": hidden.actions_hidden.float().cpu().numpy(),
+                        "weights": sum((t.to_local() if hasattr(t, "to_local") else t).nbytes
+                                       for t in tree_leaves(policy.params))}
 
-        t0 = time.perf_counter()
-        policy = flagship_policy("cuda", seed=0, tp_mesh=mesh)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        held = torch.cuda.memory_allocated()
-        res = serve_variant(policy, TP_REQUESTS)
-        res.update(build_s=build_s, held=held,
-                   local_heads=policy.cfg.llm.num_heads // mesh.size(2))
-        variants = {}
-        policy.vit_fused = True
-        variants["bf16 vit_fused"] = serve_variant(policy, TP_VARIANT_REQUESTS)
-        del policy
-        gc.collect()
-        torch.cuda.empty_cache()
-        for build in ({"load_in_4bit": True}, {"load_in_8bit": True}):
             t0 = time.perf_counter()
-            policy = flagship_policy("cuda", seed=0, tp_mesh=mesh, **build)
+            policy = flagship_policy("cuda", seed=0, tp_mesh=mesh)
             torch.cuda.synchronize()
-            built = {"build_s": time.perf_counter() - t0, "kept_whole": shard_params.kept_whole}
-            for label, flags, switches in TP_VARIANTS:
-                if flags != build:
-                    continue
-                policy.int4_a8 = switches.get("int4_a8", False)
-                variants[label] = {**serve_variant(policy, TP_VARIANT_REQUESTS), **built}
+            build_s = time.perf_counter() - t0
+            held = torch.cuda.memory_allocated()
+            res = serve_variant(policy, TP_REQUESTS)
+            res.update(build_s=build_s, held=held,
+                       local_heads=policy.cfg.llm.num_heads // mesh.size(2))
+            variants = {}
+            policy.vit_fused = True
+            variants["bf16 vit_fused"] = serve_variant(policy, TP_VARIANT_REQUESTS)
             del policy
             gc.collect()
             torch.cuda.empty_cache()
-        res["variants"] = variants
-        res["local_kernels"] = tp_local_kernels(torch.device("cuda"))
-        res["attention"] = tp_attention_check(mesh, s_train)
-        out_q.put((rank, res))
-        dist.destroy_process_group()
+            for build in ({"load_in_4bit": True}, {"load_in_8bit": True}):
+                t0 = time.perf_counter()
+                policy = flagship_policy("cuda", seed=0, tp_mesh=mesh, **build)
+                torch.cuda.synchronize()
+                built = {"build_s": time.perf_counter() - t0, "kept_whole": shard_params.kept_whole}
+                for label, flags, switches in TP_VARIANTS:
+                    if flags != build:
+                        continue
+                    policy.int4_a8 = switches.get("int4_a8", False)
+                    variants[label] = {**serve_variant(policy, TP_VARIANT_REQUESTS), **built}
+                del policy
+                gc.collect()
+                torch.cuda.empty_cache()
+            res["variants"] = variants
+            res["local_kernels"] = tp_local_kernels(torch.device("cuda"))
+            res["attention"] = tp_attention_check(mesh, s_train)
+            out_q.put((rank, res))
+            dist.destroy_process_group()
     except BaseException:
         out_q.put((rank, {"error": traceback.format_exc()}))
 
@@ -5962,6 +5997,231 @@ def run_tools_phase(card: str, metrics_jsonl: str) -> dict:
 PHASE_TIMES = {}
 
 
+# === Phase 20: image files, the JPEG encoder, the data scripts, the round trip ===
+IMAGE_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                            "image_modes.npz")
+SYNTH_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                            "synthetic_rlds.npz")
+
+
+def image_modes_check(card: str) -> dict:
+    """Phase 20 (a): both JPEG decoders on every golden stream (ISLOW against
+    PIL's pixels, IFAST against TF's), the PNG decoder on every golden PNG;
+    the host library's time a 256 x 256 frame of the synthetic set under
+    ISLOW and IFAST. Returns the golden."""
+    from openvla_oft_tpu_torch.processing.jpeg_decode import decode_jpeg, decode_jpeg_plain
+    from openvla_oft_tpu_torch.processing.png_decode import decode_png
+    from openvla_oft_tpu_torch.scripts.time_jpeg_host import synthetic_frames
+
+    with np.load(IMAGE_GOLDEN) as f:
+        z = {k: f[k] for k in f.files}
+    names = [str(n) for n in z["jpeg_names"]]
+    for i, name in enumerate(names):
+        data = z[f"jpeg_{i}"].tobytes()
+        for label, decoder in (("host library", decode_jpeg), ("plain", decode_jpeg_plain)):
+            for idct, key in (("islow", f"jpeg_pil_{i}"), ("ifast", f"jpeg_tf_{i}")):
+                if key not in z:
+                    continue
+                got = decoder(data, idct=idct)
+                if got.shape != z[key].shape or not np.array_equal(got, z[key]):
+                    raise AssertionError(f"the {label} decoder ({idct}) differs from "
+                                         f"{'PIL' if idct == 'islow' else 'TF'} on {name}")
+    frames = synthetic_frames(32)
+    ms = {}
+    for idct in ("islow", "ifast"):
+        decode_jpeg(frames[0], idct=idct)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for data in frames:
+                decode_jpeg(data, idct=idct)
+        ms[idct] = (time.perf_counter() - t0) * 1e3 / (3 * len(frames))
+    pngs = [str(n) for n in z["png_names"]]
+    for i, name in enumerate(pngs):
+        got = decode_png(z[f"png_{i}"].tobytes())
+        if got.shape != z[f"png_pil_{i}"].shape or not np.array_equal(got, z[f"png_pil_{i}"]):
+            raise AssertionError(f"the PNG decoder differs from PIL on {name}")
+    n_tf = sum(f"jpeg_tf_{i}" in z for i in range(len(names)))
+    log(f"[image-modes] JPEG decoders, host library and plain: {len(names)} golden streams "
+        f"bitwise PIL's pixels under ISLOW and {n_tf} TF's under IFAST "
+        f"({', '.join(names)}); the host library on 256 x 256 frames of the synthetic set "
+        f"(4:2:0, quality 90, {np.mean([len(d) for d in frames]):.0f} B): "
+        f"{ms['islow']:.3f} ms a frame (ISLOW), {ms['ifast']:.3f} ms (IFAST), mean over "
+        f"{3 * len(frames)} decodes each, one thread (host clock, {card}'s host); "
+        f"the PNG decoder on {len(pngs)} golden PNGs bitwise PIL's ({', '.join(pngs)})")
+    return z
+
+
+def generate_images(z: dict, root: str, card: str) -> dict:
+    """Phase 20 (b): scripts/generate.py at random:7b on the golden's
+    progressive JPEG and on its 16-bit RGBA PNG, one prompt each: 4 new
+    tokens, K1 32 in each prefill and nothing else."""
+    import io
+
+    from openvla_oft_tpu_torch.scripts import generate as GEN
+
+    names = {str(n): i for i, n in enumerate(z["jpeg_names"])}
+    pngs = {str(n): i for i, n in enumerate(z["png_names"])}
+    files = {"progressive.jpg": z[f"jpeg_{names['pil_progressive_420']}"],
+             "rgba16.png": z[f"png_{pngs['type6_depth16']}"]}
+    total = {}
+    for name, data in files.items():
+        path = os.path.join(root, name)
+        with open(path, "wb") as f:
+            f.write(data.tobytes())
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        answers = GEN.generate(GEN.GenerateConfig(model_path="random:7b", image_path=path,
+                                                  max_new_tokens=4, device="cuda"),
+                               io.StringIO(PROMPT + "\n"))
+        launches = launch_counts()
+        want = {"K1": 32, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "probe": 0, "int8": 0}
+        log(f"[generate-image] {name}: {PROMPT!r} -> {answers}; {time.perf_counter() - t0:.1f} "
+            f"s with the 7B's build; launches {launches} ({card})")
+        if len(answers) != 1 or len(answers[0].split()) != 4 or launches != want:
+            raise AssertionError(f"generate.py on {name} answered {answers} with launches "
+                                 f"{launches}, expected 4 tokens and {want}")
+        total = {k: total.get(k, 0) + n for k, n in launches.items()}
+    return total
+
+
+SYNTH_FLAGS = TRAIN_FLAGS + ["--dataset_name", "libero_synth_l1", "--num_images_in_input", "1",
+                             "--image_aug", "True", "--shuffle_buffer_size", "2000"]
+
+
+def synthetic_set_phase(z: dict, card: str, n_layers: int) -> dict:
+    """Phase 20 (c): make_synthetic_rlds at its defaults on this host (frames
+    through the host encoder) held to the golden of the JAX script's set
+    (`make_synthetic_rlds.compare_to_golden`: every frame and all but the
+    floats bitwise, the actions within 1 ULP, as NumPy's float32 sine
+    differs by that much between versions, the proprio their running sum);
+    then the fine-tuning CLI on it, 3 L1 steps at the cut, K1 2 x n_layers,
+    K2 and K3 n_layers a step. Removes the set. Returns the run's
+    launches."""
+    from openvla_oft_tpu_torch.scripts import make_synthetic_rlds as MS
+    from openvla_oft_tpu_torch.training import finetune as FT
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_synth_")
+    run_root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        t0 = time.perf_counter()
+        set_dir = MS.main(["--out", root])
+        t_write = time.perf_counter() - t0
+        summary = MS.set_summary(set_dir)
+        with np.load(SYNTH_GOLDEN) as f:
+            golden = {k: f[k] for k in f.files}
+        frames = int(summary["lengths"].sum())
+        size = sum(os.path.getsize(os.path.join(set_dir, f)) for f in os.listdir(set_dir))
+        log(f"[synthetic] make_synthetic_rlds at its defaults: {frames} frames of 256 x 256 "
+            f"in {t_write:.1f} s, {frames / t_write:.1f} frames/s drawn, encoded (host "
+            f"library) and written (host clock, {card}'s host), {size / 1e6:.1f} MB; frames' "
+            f"SHA-256 {summary['frames_sha256']}, the rest's {summary['other_sha256']}, "
+            f"against the golden of the JAX script's set ({golden['args']}, NumPy "
+            f"{golden['numpy']}; here {np.__version__})")
+        held = MS.compare_to_golden(summary, golden)
+        log(f"[synthetic] every frame and all but the floats bitwise the golden's; "
+            f"{held['actions_off_by_1_ulp']} of {held['actions']} actions 1 ULP off it, the "
+            f"rest bitwise; the proprio the actions' running sum, bitwise")
+        flags = SYNTH_FLAGS + ["--data_root_dir", root, "--run_root_dir", run_root]
+        step_want = {"K1": 2 * n_layers, "K2": n_layers, "K3": n_layers, "K4": 0, "K5": 0,
+                     "K6": 0, "probe": 0, "int8": 0}
+        seen = {"prev": None}
+
+        def on_step(step, metrics, state):
+            counts = launch_counts()
+            per_step = {k: counts[k] - seen["prev"][k] for k in counts}
+            seen["prev"] = counts
+            log(f"[train-synthetic] step {step}: loss={metrics['loss']:.6f} "
+                f"grad_norm={metrics['grad_norm']:.6f} step_time={metrics['step_time']:.4f} s "
+                f"(host clock) launches {per_step}")
+            if not (np.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0):
+                raise AssertionError(f"bad training step {step}: {metrics}")
+            if per_step != step_want:
+                raise AssertionError(f"step {step} launched {per_step}, expected {step_want}")
+
+        reset_launch_counts()
+        seen["prev"] = launch_counts()
+        t0 = time.perf_counter()
+        out = FT.main(flags, on_step=on_step)
+        launches = launch_counts()
+        total = {k: 3 * n for k, n in step_want.items()}
+        if out["final_step"] != 3 or launches != total:
+            raise AssertionError(f"the synthetic-set run ended at {out} with launches "
+                                 f"{launches}, expected {total}")
+        log(f"[train-synthetic] 3 L1 steps on the synthetic set (1 image, image_aug) in "
+            f"{time.perf_counter() - t0:.1f} s with the build; launches {launches} ({card})")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(run_root, ignore_errors=True)
+
+
+def fixture_check(card: str) -> None:
+    """Phase 20 (d): make_quickstart_fixture's object against the committed
+    pickle, leaf for leaf, bitwise."""
+    import pickle
+
+    from openvla_oft_tpu_torch.scripts import make_quickstart_fixture as QF
+
+    committed = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "robot",
+                             "libero", "sample_libero_spatial_observation.pkl")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(QF.main(["--out", os.path.join(tmp, "obs.pkl")]), "rb") as f:
+            got = pickle.load(f)
+    with open(committed, "rb") as f:
+        want = pickle.load(f)
+    for key, value in want.items():
+        same = (isinstance(value, np.ndarray) and value.dtype == got[key].dtype
+                and value.shape == got[key].shape and value.tobytes() == got[key].tobytes()) \
+            or (not isinstance(value, np.ndarray) and got[key] == value)
+        if not same or got.keys() != want.keys():
+            raise AssertionError(f"the fixture's {key!r} differs from the committed pickle's")
+    log(f"[fixture] make_quickstart_fixture: {sorted(want)} bitwise equal to the committed "
+        f"pickle ({card})")
+
+
+def roundtrip_phase(card: str) -> dict:
+    """Phase 20 (e): exp_roundtrip_7b at 32 layers on the card. Returns the
+    launches (the two action chunks: K1 31 each)."""
+    from openvla_oft_tpu_torch.scripts import exp_roundtrip_7b as RT
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = checkpoint_dir(16 * 10**9)
+    reset_launch_counts()
+    with RssPeak() as rss:
+        out = RT.run("7b", out=out_dir, device="cuda")
+    launches = launch_counts()
+    want = {"K1": 62, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "probe": 0, "int8": 0}
+    log(f"[roundtrip] 32 layers: {out['bytes']:,} B written in {out['write_s']:.1f} s "
+        f"({out['bytes'] / out['write_s'] / 1e9:.2f} GB/s, synced to disk), loaded onto the "
+        f"card in {out['load_s']:.1f} s ({out['load_gbps']:.2f} GB/s; the files just written, "
+        f"likely from the page cache), {out['leaf_bytes']:,} B of leaves bitwise equal to the "
+        f"tree drawn again, the action chunk {tuple(out['chunk'].shape)} bitwise equal; host "
+        f"resident set {rss.base / 2**30:.3f} GiB before, peak {rss.peak / 2**30:.3f} GiB "
+        f"during; launches {launches} (host clock, {card})")
+    if launches != want or not torch.isfinite(out["chunk"]).all():
+        raise AssertionError(f"the round trip launched {launches}, expected {want}")
+    return launches
+
+
+def files_phase(card: str, n_layers: int) -> dict:
+    """Phase 20: (a)-(e). Returns each run's launches."""
+    z = phase("20 (a) image modes", image_modes_check, card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_images_")
+    try:
+        runs = {"generate": phase("20 (b) generate", generate_images, z, root, card)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with cut_flagship():
+        runs["synthetic"] = phase("20 (c) synthetic set", synthetic_set_phase, z, card,
+                                  n_layers)
+    phase("20 (d) fixture", fixture_check, card)
+    runs["roundtrip"] = phase("20 (e) round trip", roundtrip_phase, card)
+    return runs
+
+
 def phase(name: str, fn, *args, **kw):
     """fn(*args, **kw), its host time logged and kept in PHASE_TIMES."""
     t0 = time.perf_counter()
@@ -6103,9 +6363,11 @@ def main() -> int:
     clients = phase("17 clients", eval_clients_phase, card, rng)
     multigpu = phase("18 (a), (d) one-rank mesh", one_rank_training, card, s_train,
                      plain_run, train_info)
-    tp_serve, tp_quant, tp_attention, tp_local = phase("18 (b), (c) tp = 2", tp_serving, card,
-                                                       rng, s_train)
+    with cut_serving_flagship():
+        tp_serve, tp_quant, tp_attention, tp_local = phase("18 (b), (c) tp = 2", tp_serving,
+                                                           card, rng, s_train)
     run_tools = phase("19 run tools", run_tools_phase, card, train_info["metrics_jsonl"])
+    files = files_phase(card, CUT_LAYERS)
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -6138,15 +6400,16 @@ def main() -> int:
                    + sum(run["K1"] for run in clients.values())
                    + multigpu["1-rank"]["K1"]
                    + sum(run["K1"] for run in tp_serve.values())
-                   + sum(run["K1"] for run in extra_runs))
+                   + sum(run["K1"] for run in extra_runs)
+                   + sum(run["K1"] for run in files.values()))
     # K2 and K3 launch in the training runs: phase 10, phase 11b's three,
     # the runs from phase 8e's checkpoint dir (11b (d), 14 (d), (e)), phase
-    # 13's, 14's, 15's, 16's, 18 (a)'s and 18 (d)'s two.
+    # 13's, 14's, 15's, 16's, 18 (a)'s and 18 (d)'s two, and 20 (c)'s.
     bwd_runs = [train_launches, checkpoint["checkpoint training"], *objectives.values(),
                 episodes, *phase14, *full.values(), *phi.values(),
                 *(run for name, run in multigpu.items() if name != "tp-wrapper"),
                 *(checkpoint[k] for k in ("run-management", "resume", "preempt",
-                                          "preempt-resume"))]
+                                          "preempt-resume")), files["synthetic"]]
     k2_launches = sum(run["K2"] for run in bwd_runs)
     k3_launches = sum(run["K3"] for run in bwd_runs)
     bwd_others = {n: {"ms_dq": c["ms_dq"], "ms_dkv": c["ms_dkv"], "library_ms": c["library_ms"],
@@ -6268,6 +6531,9 @@ def main() -> int:
             f"{name} {run}" for name, run in tp_attention.items()))
     log(f"[run-tools] launches of phase 19's verify runs ({VERIFY_ITERATIONS} calls each): "
         + ", ".join(f"{name} {run}" for name, run in run_tools.items()))
+    log(f"[files] launches of phase 20's runs (generate.py on 2 images, 3 steps on the "
+        f"synthetic set, the round trip's 2 chunks): " + ", ".join(
+            f"{name} {run}" for name, run in files.items()))
     log("[phase-time] all phases: " + ", ".join(f"{name} {t:.1f} s"
                                                 for name, t in PHASE_TIMES.items())
         + f"; the run so far {time.perf_counter() - T_START:.1f} s (host clock)")

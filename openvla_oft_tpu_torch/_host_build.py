@@ -1,6 +1,6 @@
 """Build the port's host (CPU) library and load it through ctypes.
 
-`hostsrc/*.cc` (the baseline JPEG decoder, the frame augmentation and the
+`hostsrc/*.cc` (the JPEG decoder and encoder, the frame augmentation and the
 CRC-32C of the training data path, and the collator's and the action
 tokenizer's loops) compile with the host's C++ compiler
 (`$CXX`, else `g++`) into ONE shared library with a plain C interface,
@@ -85,6 +85,12 @@ def library() -> ctypes.CDLL:
     fn.restype = i
     fn = lib.openvla_jpeg_decode                 # data n out out_len islow err err_len
     fn.argtypes = [p, i64, p, i64, i, ctypes.c_char_p, i]
+    fn.restype = i
+    fn = lib.openvla_jpeg_encode_bound           # height width
+    fn.argtypes = [i, i]
+    fn.restype = i64
+    fn = lib.openvla_jpeg_encode                 # frame h w channels quality out cap n err err_len
+    fn.argtypes = [p, i, i, i, i, p, i64, ctypes.POINTER(i64), ctypes.c_char_p, i]
     fn.restype = i
     f = ctypes.c_float
     fn = lib.openvla_augment_image               # img h w oy ox ch cw, 4 draws,

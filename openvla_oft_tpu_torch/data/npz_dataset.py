@@ -1,7 +1,8 @@
 """TF-free episode store and streaming loader: the port's copy of
-`openvla_oft_tpu/data/npz_dataset.py`, decoding with the port's JPEG
-decoder (`processing/jpeg_decode.py`, TF's pixels) where the JAX module
-takes PIL's.
+`openvla_oft_tpu/data/npz_dataset.py`, reading its frames with the port's
+image reader (`processing/image_io.py`) where the JAX module takes PIL's
+`Image.open(...).convert("RGB")`: the ISLOW inverse DCT, so that a frame
+equals the JAX store's PIL pixels bit for bit.
 
 Episodes live as one `.npz` per episode (JPEG bytes + actions + proprio +
 instruction), and the loader streams chunked and normalized frames using
@@ -50,9 +51,9 @@ def write_npz_episodes(out_dir: str, episodes: List[Dict]) -> List[str]:
 
 
 def _decode_jpeg(data: bytes) -> np.ndarray:
-    from openvla_oft_tpu_torch.processing.jpeg_decode import decode_jpeg
+    from openvla_oft_tpu_torch.processing.image_io import read_image
 
-    return decode_jpeg(data)
+    return read_image(data, idct="islow")
 
 
 def _load_episode(path: str) -> Dict:

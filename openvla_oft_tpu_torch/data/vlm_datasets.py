@@ -9,9 +9,10 @@ them (align, then finetune):
   - "finetune": tokenized turn by turn through the prompt builder, every
                 human turn masked, BOS masked.
 Each example is truncated to `max_length`; the order is shuffled with
-`shuffle_seed`. Images decode with the host JPEG decoder's ISLOW inverse DCT,
-PIL's pixels bit for bit (the JAX dataset decodes with PIL); a file that is
-not a baseline JPEG raises, naming it. The processor's transform applies the
+`shuffle_seed`. Images are read by `processing/image_io.py` (JPEG through
+the host decoder's ISLOW inverse DCT, and PNG), PIL's pixels bit for bit
+(the JAX dataset decodes with PIL); a file of another format raises, naming
+it. The processor's transform applies the
 model's resize strategy.
 """
 
@@ -65,17 +66,18 @@ def resolve_vlm_dataset(dataset_id: str, stage: str, dataset_root_dir: str) -> t
 
 
 def load_image(path: str) -> np.ndarray:
-    """A baseline JPEG file -> uint8 (H, W, 3) RGB, PIL's pixels (the ISLOW
-    inverse DCT). Anything else raises, naming the file."""
-    from openvla_oft_tpu_torch.processing.jpeg_decode import decode_jpeg
+    """A JPEG or PNG file -> uint8 (H, W, 3) RGB, PIL's pixels
+    (`processing/image_io.py`: `Image.open(...).convert("RGB")`). Any other
+    format, or a file the decoders refuse, raises naming the file."""
+    from openvla_oft_tpu_torch.processing.image_io import read_image
 
     with open(path, "rb") as f:
         data = f.read()
     try:
-        return decode_jpeg(data, idct="islow")
+        return read_image(data, idct="islow")
     except ValueError as err:
-        raise ValueError(f"{path}: {err} (the VLM datasets read baseline JPEG "
-                         "files only)") from err
+        raise ValueError(f"{path}: {err} (the VLM datasets read JPEG and PNG "
+                         "files)") from err
 
 
 @dataclasses.dataclass

@@ -1,25 +1,46 @@
-// Baseline JPEG decoder: what libjpeg(-turbo) gives under
+// JPEG decoder: what libjpeg(-turbo) gives under
 // `tf.io.decode_jpeg(data, channels=3)` (the IFAST inverse DCT, fancy
-// upsampling) or, with the ISLOW inverse DCT, under PIL's
-// `Image.open(...).convert("RGB")`, for the host side of the data paths.
+// upsampling, TF's libjpeg-turbo 2.1.4) or, with the ISLOW inverse DCT,
+// under PIL's `Image.open(...).convert("RGB")` (libjpeg-turbo 3.x), for the
+// host side of the data paths. `processing/jpeg_decode.py`'s plain version
+// is the same decoder in Python and torch; tests hold this one to it, bit
+// for bit.
 //
-// The integer stages are those of `processing/jpeg.py`, each a copy of the
-// libjpeg source it names there:
+// The byte stream is jdmarker.c's: SOI, APPn (JFIF APP0 and Adobe APP14
+// read, the rest skipped) and COM, DQT (8- and 16-bit), SOF0, SOF1 and SOF2,
+// DHT, SOS, DRI, RSTn, EOI. Entropy decoding is jdhuff.c's for sequential
+// scans, each block dequantized and inverse-transformed into its
+// component's sample plane as it is decoded, and jdphuff.c's four
+// progressive scan kinds (DC first and refine, AC first with EOB runs and
+// AC refine with correction bits), into a coefficient buffer over the
+// padded MCU grid kept across scans and transformed after the last; DC
+// predictors and EOB runs reset at every restart marker; a non-interleaved
+// scan walks its component's own ceil(w/8) x ceil(h/8) blocks; zeros are
+// read past the end of the data (jdhuff.c fills the bit buffer with zeros
+// at a marker). Then, per component:
+//   smoothing    jdcoefct.c decompress_smooth_data, for a progressive frame
+//                whose first AC coefficients are not all refined to Al = 0
+//                (smoothing_ok): the 5 x 5 DC estimate, with libjpeg-turbo
+//                2.1.4's row and column walk for IFAST (TF's) and 3.x's for
+//                ISLOW (PIL's)
 //   dequantize   jddctmgr.c  the IFAST multipliers (q * aanscale + 2^11) >> 12,
-//                            or the table itself (ISLOW)
+//                            or the table itself (ISLOW), latched at the
+//                            component's first scan
 //   inverse_dct  jidctfst.c  jpeg_idct_ifast, (x >> 5) + 128 saturated; or
 //                jidctint.c  jpeg_idct_islow in 64-bit sums, DESCALE by 11
 //                            then 18 bits, + 128 saturated
-//   upsample     jdsample.c  h2v2_fancy_upsample (h2v2_upsample below 3 columns)
-//   ycbcr_to_rgb jdcolor.c   ycc_rgb_convert; a grey plane is replicated
-// and the byte stream is jdmarker.c's and jdhuff.c's: SOI, APPn and COM
-// skipped, DQT (8- and 16-bit), SOF0 and SOF1, DHT, SOS, DRI, RSTn, EOI;
-// Huffman decoding with 0xFF00 stuffing, DC prediction reset at every
-// restart marker, EOB and ZRL runs, zig-zag order, and zeros read past the
-// end of the data (jdhuff.c fills the bit buffer with zeros at a marker).
-// Progressive, lossless, hierarchical, arithmetic-coded and 12-bit streams
-// are refused, naming their SOF marker; so is any sampling layout other
-// than 4:4:4, 4:2:0 and one grey component.
+//   upsample     jdsample.c  jinit_upsampler's choice: h2v1, h1v2 and h2v2
+//                            fancy (h2v1 and h2v2 plain at 2 columns or
+//                            fewer), int_upsample for other integral ratios
+//   colour       jdcolor.c   ycc_rgb_convert (YCbCr), null (Adobe RGB),
+//                            ycck_cmyk_convert, then PIL's CMYK;I + cmyk2rgb
+//                            (ISLOW) or TF's CMYK -> RGB (IFAST); a grey
+//                            plane is replicated
+// The colour space is jdapimin.c default_decompress_parms': 3 components
+// YCbCr under JFIF, else Adobe transform 0 RGB, else the component ids;
+// 4 components CMYK under Adobe transform 0 or no Adobe marker, else YCCK.
+// Lossless, hierarchical, arithmetic-coded and 12-bit streams and DNL are
+// refused, naming their marker.
 //
 // Plain C interface (ctypes, which releases the GIL around each call), no
 // state between calls: a pool of threads decodes in parallel.
@@ -62,15 +83,6 @@ struct Huffman {
   // Indexed by the next 16 bits of the stream: (code length << 8) | symbol,
   // 0 where no code is a prefix of those bits.
   std::vector<uint16_t> lookup;
-};
-
-struct Component {
-  int id = 0, h = 1, v = 1, tq = 0;
-  int dc = 0, ac = 0;      // Huffman table slots of the current scan
-  int pred = 0;            // DC predictor
-  int width = 0, height = 0;       // samples (downsampled size)
-  int blocks_w = 0, blocks_h = 0;  // blocks of the padded plane
-  std::vector<uint8_t> plane;      // blocks_h * 8 rows of blocks_w * 8
 };
 
 class BitReader {
@@ -225,6 +237,58 @@ void inverse_dct_islow(const int32_t* blk, uint8_t* out, int stride) {
   }
 }
 
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int dc = 0, ac = 0;              // Huffman table slots of the current scan
+  int pred = 0;                    // DC predictor
+  int width = 0, height = 0;       // samples (downsampled size)
+  int bw = 0, bh = 0;              // its real blocks
+  int cols = 0, rows = 0;          // blocks of the padded MCU grid
+  std::vector<int16_t> coef;       // progressive: rows * cols * 64, natural order (JCOEF)
+  std::vector<uint8_t> plane;      // samples, rows * 8 lines of cols * 8
+  int bits[64];                    // jdphuff.c coef_bits: Al of the last scan, -1 before
+  bool latched = false;            // quantization table latched (first scan)
+  int32_t q[64] = {};              // the latched table, natural order
+  int32_t mult[64] = {};           // its dequantization multipliers (jddctmgr.c)
+  int16_t* block(int r, int c) { return coef.data() + (size_t(r) * cols + c) * 64; }
+  const int16_t* block(int r, int c) const { return coef.data() + (size_t(r) * cols + c) * 64; }
+  int stride() const { return cols * 8; }
+  uint8_t* at(int r, int c) { return plane.data() + size_t(r) * 8 * stride() + size_t(c) * 8; }
+};
+
+// jdcoefct.c: natural positions of zig-zag coefficients 1..9, which block
+// smoothing estimates.
+const int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// decompress_smooth_data's kernels over the 5 x 5 DC neighbourhood (rows
+// two up to two down, each two left to two right): with DC interpolation
+// (no AC scan yet) for coefficients 1..9 and the DC, without for 1..5.
+const int kSmoothDc[10][25] = {
+    {-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8, -6, 6, 42, 6, -6, -2, -6, -8, -6, -2},
+    {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+    {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+    {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+    {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+    {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0}};
+const int kSmoothAc[6][25] = {
+    {0},
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+    {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0},
+    {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0},
+    {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0},
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}};
+
+// PIL Convert.c MULDIV255.
+inline int muldiv255(int a, int b) {
+  int t = a * b + 128;
+  return ((t >> 8) + t) >> 8;
+}
+
 class Decoder {
  public:
   Decoder(const uint8_t* data, size_t n, bool islow = false)
@@ -237,6 +301,7 @@ class Decoder {
     while (!frame_) {
       int m = next_marker();
       if (m == 0xD9) throw Error{"EOI before a frame header"};
+      if (m == 0xDA) throw Error{"SOS before a frame header"};
       segment(m);
     }
   }
@@ -284,7 +349,7 @@ class Decoder {
 
   void segment(int m) {
     static const char* kRefused[16] = {
-        nullptr, nullptr, "progressive DCT (SOF2)", "lossless (SOF3)", nullptr,
+        nullptr, nullptr, nullptr, "lossless (SOF3)", nullptr,
         "differential sequential (SOF5)", "differential progressive (SOF6)",
         "differential lossless (SOF7)", nullptr, "arithmetic-coded sequential (SOF9)",
         "arithmetic-coded progressive (SOF10)", "arithmetic-coded lossless (SOF11)",
@@ -297,7 +362,8 @@ class Decoder {
     switch (m) {
       case 0xC0:
       case 0xC1:
-        sof(end);
+      case 0xC2:
+        sof(end, m == 0xC2);
         break;
       case 0xC4:
         dht(end);
@@ -310,6 +376,9 @@ class Decoder {
         break;
       case 0xDC:
         throw Error{"unsupported JPEG: DNL marker"};
+      case 0xE0:  // APP0: a JFIF header says YCbCr
+        if (end - pos_ >= 14 && std::memcmp(d_ + pos_, "JFIF\0", 5) == 0) jfif_ = true;
+        break;
       case 0xEE:  // APP14 (Adobe): its colour transform
         if (end - pos_ >= 12 && std::memcmp(d_ + pos_, "Adobe", 5) == 0)
           adobe_transform_ = d_[pos_ + 11];
@@ -320,8 +389,9 @@ class Decoder {
     pos_ = end;
   }
 
-  void sof(size_t end) {
+  void sof(size_t end, bool progressive) {
     if (frame_) throw Error{"a second frame header"};
+    progressive_ = progressive;
     int precision = byte();
     if (precision != 8)
       throw Error{"unsupported JPEG: " + std::to_string(precision) +
@@ -332,7 +402,7 @@ class Decoder {
     if (height <= 0 || width <= 0) throw Error{"unsupported JPEG: zero image size (DNL)"};
     if (static_cast<int64_t>(height) * width > (int64_t(1) << 28))
       throw Error{"JPEG image too large"};
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
       throw Error{"unsupported JPEG: " + std::to_string(nc) + " components"};
     comps_.resize(nc);
     for (auto& c : comps_) {
@@ -347,24 +417,22 @@ class Decoder {
       vmax_ = std::max(vmax_, c.v);
     }
     if (pos_ != end) throw Error{"bad frame header length"};
-    if (nc == 1) {
-      hmax_ = vmax_ = comps_[0].h = comps_[0].v = 1;  // one block an MCU
-    } else {
-      bool ok = comps_[1].h == 1 && comps_[1].v == 1 && comps_[2].h == 1 && comps_[2].v == 1 &&
-                ((comps_[0].h == 1 && comps_[0].v == 1) || (comps_[0].h == 2 && comps_[0].v == 2));
-      if (!ok)
-        throw Error{"unsupported JPEG sampling (Y " + std::to_string(comps_[0].h) + "x" +
-                    std::to_string(comps_[0].v) + ", Cb " + std::to_string(comps_[1].h) + "x" +
-                    std::to_string(comps_[1].v) + ", Cr " + std::to_string(comps_[2].h) + "x" +
-                    std::to_string(comps_[2].v) + "): only 4:4:4, 4:2:0 and grey"};
-    }
     mcus_x_ = (width + 8 * hmax_ - 1) / (8 * hmax_);
     mcus_y_ = (height + 8 * vmax_ - 1) / (8 * vmax_);
     for (auto& c : comps_) {
+      if (hmax_ % c.h || vmax_ % c.v)
+        throw Error{"unsupported JPEG sampling: fractional upsampling " + std::to_string(c.h) +
+                    "x" + std::to_string(c.v) + " of " + std::to_string(hmax_) + "x" +
+                    std::to_string(vmax_)};
       c.width = (width * c.h + hmax_ - 1) / hmax_;
       c.height = (height * c.v + vmax_ - 1) / vmax_;
-      c.blocks_w = mcus_x_ * c.h;
-      c.blocks_h = mcus_y_ * c.v;
+      c.bw = (c.width + 7) / 8;
+      c.bh = (c.height + 7) / 8;
+      c.cols = mcus_x_ * c.h;
+      c.rows = mcus_y_ * c.v;
+      if (progressive_) c.coef.assign(size_t(c.cols) * c.rows * 64, 0);
+      c.plane.assign(size_t(c.cols) * 8 * c.rows * 8, 0);
+      std::fill(c.bits, c.bits + 64, -1);
     }
     frame_ = true;
   }
@@ -374,16 +442,7 @@ class Decoder {
       int pq = byte();
       int tq = pq & 15;
       if (tq > 3) throw Error{"bad DQT table id"};
-      for (int k = 0; k < 64; ++k) {
-        int q = (pq >> 4) ? word() : byte();
-        // jddctmgr.c keeps the multiplier in a short (IFAST_MULT_TYPE,
-        // ISLOW_MULT_TYPE): the ISLOW one is the table entry itself.
-        int32_t mult = islow_ ? static_cast<int16_t>(q)
-                              : static_cast<int16_t>((static_cast<int64_t>(q) *
-                                                          kAanScales[kNatural[k]] +
-                                                      (1 << 11)) >> 12);
-        mult_[tq][kNatural[k]] = mult;
-      }
+      for (int k = 0; k < 64; ++k) qraw_[tq][kNatural[k]] = (pq >> 4) ? word() : byte();
       qdef_[tq] = true;
     }
   }
@@ -440,85 +499,135 @@ class Decoder {
     return out;
   }
 
+  enum Kind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+
   void scan() {
-    if (!frame_) throw Error{"SOS before a frame header"};
     size_t end = segment_end();
     int ns = byte();
     if (ns < 1 || ns > static_cast<int>(comps_.size())) throw Error{"bad scan header"};
     std::vector<Component*> sc;
+    std::vector<int> tables;
     for (int i = 0; i < ns; ++i) {
       int cs = byte(), t = byte();
       Component* c = nullptr;
       for (auto& k : comps_)
         if (k.id == cs) c = &k;
       if (c == nullptr) throw Error{"scan names an unknown component"};
-      c->dc = t >> 4;
-      c->ac = t & 15;
-      if (c->dc > 3 || c->ac > 3 || dc_[c->dc].lookup.empty() || ac_[c->ac].lookup.empty())
-        throw Error{"scan uses an undefined Huffman table"};
-      if (!qdef_[c->tq]) throw Error{"component uses an undefined quantization table"};
-      c->pred = 0;
-      if (c->plane.empty()) c->plane.assign(size_t(c->blocks_w) * 8 * c->blocks_h * 8, 0);
+      if (!qdef_[c->tq]) throw Error{"a component uses an undefined quantization table"};
+      if (!c->latched) {  // jdinput.c latch_quant_tables
+        std::memcpy(c->q, qraw_[c->tq], sizeof(c->q));
+        for (int i = 0; i < 64; ++i)
+          // jddctmgr.c keeps the multiplier in a short (IFAST_MULT_TYPE,
+          // ISLOW_MULT_TYPE): the ISLOW one is the table entry itself.
+          c->mult[i] = islow_ ? static_cast<int16_t>(c->q[i])
+                              : static_cast<int16_t>((static_cast<int64_t>(c->q[i]) *
+                                                          kAanScales[i] + (1 << 11)) >> 12);
+        c->latched = true;
+      }
       sc.push_back(c);
+      tables.push_back(t);
     }
     int ss = byte(), se = byte(), a = byte();
-    if (ss != 0 || se != 63 || a != 0) throw Error{"unsupported JPEG: a progressive scan"};
+    int ah = a >> 4, al = a & 15;
     pos_ = end;
+    Kind kind;
+    if (!progressive_) {
+      if (ss != 0 || se != 63 || a != 0) throw Error{"unsupported JPEG: a progressive scan"};
+      kind = kSequential;
+    } else if (ss == 0) {
+      if (se != 0) throw Error{"bad progression (a DC scan with AC)"};
+      kind = ah == 0 ? kDcFirst : kDcRefine;
+    } else {
+      if (ns != 1 || se < ss || se > 63) throw Error{"bad progression (an AC scan)"};
+      kind = ah == 0 ? kAcFirst : kAcRefine;
+    }
+    for (int i = 0; i < ns; ++i) {
+      Component* c = sc[i];
+      c->dc = tables[i] >> 4;
+      c->ac = tables[i] & 15;
+      bool need_dc = kind == kSequential || kind == kDcFirst;
+      bool need_ac = kind == kSequential || kind == kAcFirst || kind == kAcRefine;
+      if ((need_dc && (c->dc > 3 || dc_[c->dc].lookup.empty())) ||
+          (need_ac && (c->ac > 3 || ac_[c->ac].lookup.empty())))
+        throw Error{"scan uses an undefined Huffman table"};
+      c->pred = 0;
+    }
 
     // MCUs of the scan: interleaved, h x v blocks of each component; one
     // component alone, its blocks covering its real size.
-    int units_x, units_y;
-    if (ns == 1) {
-      units_x = (sc[0]->width + 7) / 8;
-      units_y = (sc[0]->height + 7) / 8;
-    } else {
-      units_x = mcus_x_;
-      units_y = mcus_y_;
-    }
+    int units_x = ns == 1 ? sc[0]->bw : mcus_x_;
+    int units_y = ns == 1 ? sc[0]->bh : mcus_y_;
     auto data = intervals();
     int64_t total = int64_t(units_x) * units_y;
     int64_t per = restart_interval_ > 0 ? restart_interval_ : total;
     size_t seg = 0;
     BitReader bits(data[0].data(), data[0].size());
-    int32_t blk[64];
+    int eobrun = 0;
+    int16_t seq[64];
+    int32_t ws[64];
     for (int64_t m = 0; m < total; ++m) {
       if (m > 0 && m % per == 0) {
-        ++seg;  // a restart: byte-aligned new data, predictors reset
+        ++seg;  // a restart: byte-aligned new data, predictors and EOB run reset
         bits = seg < data.size() ? BitReader(data[seg].data(), data[seg].size())
                                  : BitReader(nullptr, 0);
         for (Component* c : sc) c->pred = 0;
+        eobrun = 0;
       }
       int mx = static_cast<int>(m % units_x), my = static_cast<int>(m / units_x);
       for (Component* c : sc) {
         int bh = ns == 1 ? 1 : c->h, bv = ns == 1 ? 1 : c->v;
         for (int by = 0; by < bv; ++by) {
           for (int bx = 0; bx < bh; ++bx) {
-            decode_block(bits, *c, blk);
-            size_t row = size_t(my * bv + by) * 8, col = size_t(mx * bh + bx) * 8;
-            int stride = c->blocks_w * 8;
-            if (islow_)
-              inverse_dct_islow(blk, c->plane.data() + row * stride + col, stride);
-            else
-              inverse_dct(blk, c->plane.data() + row * stride + col, stride);
+            int row = my * bv + by, col = mx * bh + bx;
+            if (kind == kSequential) {  // straight to samples: no smoothing
+              decode_sequential(bits, *c, seq);
+              for (int i = 0; i < 64; ++i) ws[i] = seq[i];
+              transform(*c, ws, c->at(row, col));
+              continue;
+            }
+            int16_t* blk = c->block(row, col);
+            switch (kind) {
+              case kDcFirst: {
+                int s = decode_symbol(bits, dc_[c->dc]);
+                if (s > 15) throw Error{"corrupt JPEG data: bad DC magnitude"};
+                if (s) c->pred += extend(bits.get(s), s);
+                blk[0] = static_cast<int16_t>(static_cast<unsigned>(c->pred) << al);
+                break;
+              }
+              case kDcRefine:
+                if (bits.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+                break;
+              case kAcFirst:
+                decode_ac_first(bits, ac_[c->ac], blk, ss, se, al, eobrun);
+                break;
+              case kAcRefine:
+                decode_ac_refine(bits, ac_[c->ac], blk, ss, se, al, eobrun);
+                break;
+              default:
+                break;
+            }
           }
         }
       }
     }
+    for (Component* c : sc)
+      for (int k = ss; k <= se; ++k) c->bits[k] = al;
   }
 
-  void decode_block(BitReader& bits, Component& c, int32_t* blk) {
-    std::memset(blk, 0, 64 * sizeof(int32_t));
+  // jdhuff.c decode_mcu: one block, the DC difference then the AC runs.
+  void decode_sequential(BitReader& bits, Component& c, int16_t* blk) {
+    std::memset(blk, 0, 64 * sizeof(int16_t));
     int s = decode_symbol(bits, dc_[c.dc]);
     if (s > 15) throw Error{"corrupt JPEG data: bad DC magnitude"};
     c.pred += s ? extend(bits.get(s), s) : 0;
-    blk[0] = c.pred;
+    blk[0] = static_cast<int16_t>(c.pred);
     for (int k = 1; k < 64;) {
       int rs = decode_symbol(bits, ac_[c.ac]);
       int r = rs >> 4;
       s = rs & 15;
       if (s) {
         k += r;
-        blk[kNatural[k]] = extend(bits.get(s), s);
+        blk[kNatural[k]] = static_cast<int16_t>(extend(bits.get(s), s));
         ++k;
       } else if (r == 15) {
         k += 16;
@@ -526,30 +635,232 @@ class Decoder {
         break;  // EOB
       }
     }
-    const int32_t* mult = mult_[c.tq];
-    for (int i = 0; i < 64; ++i) blk[i] *= mult[i];
   }
 
-  // jdsample.c: the chroma plane at its real size (h, w) -> (2h, 2w).
-  static std::vector<int32_t> upsample_h2v2(const Component& c) {
-    int h = c.height, w = c.width, stride = c.blocks_w * 8;
-    std::vector<int32_t> out(size_t(2 * h) * 2 * w);
-    std::vector<int32_t> cols(w);
-    for (int oy = 0; oy < 2 * h; ++oy) {
-      int y = oy / 2;
-      int ny = oy % 2 == 0 ? (y > 0 ? y - 1 : 0) : (y + 1 < h ? y + 1 : h - 1);
-      const uint8_t* p = c.plane.data() + size_t(y) * stride;
-      const uint8_t* q = c.plane.data() + size_t(ny) * stride;
-      int32_t* o = out.data() + size_t(oy) * 2 * w;
-      if (w <= 2) {  // h2v2_upsample: each sample 2 x 2
-        for (int x = 0; x < w; ++x) o[2 * x] = o[2 * x + 1] = p[x];
-        continue;
+  // jdphuff.c decode_mcu_AC_first: the band's first pass, EOB runs spanning
+  // blocks.
+  static void decode_ac_first(BitReader& bits, const Huffman& t, int16_t* blk, int ss, int se,
+                              int al, int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode_symbol(bits, t);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(extend(bits.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += bits.get(r);
+        --eobrun;
+        break;
       }
-      for (int x = 0; x < w; ++x) cols[x] = 3 * p[x] + q[x];
-      for (int x = 0; x < w; ++x) {
-        int32_t left = cols[x > 0 ? x - 1 : 0], right = cols[x + 1 < w ? x + 1 : w - 1];
-        o[2 * x] = (3 * cols[x] + left + 8) >> 4;
-        o[2 * x + 1] = (3 * cols[x] + right + 7) >> 4;
+    }
+  }
+
+  // jdphuff.c decode_mcu_AC_refine: one more bit of the band; a correction
+  // bit for every nonzero coefficient the run passes, newly nonzero
+  // coefficients of +-1 << Al.
+  static void decode_ac_refine(BitReader& bits, const Huffman& t, int16_t* blk, int ss, int se,
+                               int al, int& eobrun) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int k = ss;
+    auto correct = [&](int pos) {
+      if (bits.get(1) && (blk[pos] & p1) == 0)
+        blk[pos] = static_cast<int16_t>(blk[pos] + (blk[pos] >= 0 ? p1 : m1));
+    };
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = decode_symbol(bits, t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = bits.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits.get(r);
+          break;
+        }
+        do {
+          int pos = kNatural[k];
+          if (blk[pos] != 0) {
+            correct(pos);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int pos = kNatural[k];
+        if (blk[pos] != 0) correct(pos);
+      }
+      --eobrun;
+    }
+  }
+
+  // jdcoefct.c smoothing_ok.
+  bool smoothing_ok() const {
+    if (!progressive_) return false;
+    bool useful = false;
+    for (const auto& c : comps_) {
+      for (int i = 0; i < 10; ++i)
+        if (c.q[kSmoothPos[i]] == 0) return false;
+      if (c.bits[0] < 0) return false;
+      for (int i = 1; i < 10; ++i) useful |= c.bits[i] != 0;
+    }
+    return useful;
+  }
+
+  // processing/jpeg_decode.py smoothing_rows: the rows block row a reads,
+  // two up to two down, walked one iMCU row at a time as libjpeg-turbo
+  // 3.x (islow_) or 2.1.4 walks them.
+  std::vector<int> smoothing_rows(const Component& c) const {
+    std::vector<int> rows;
+    int last = mcus_y_ - 1, v = c.v;
+    for (int r = 0; r < mcus_y_ && static_cast<int>(rows.size()) < 5 * c.bh; ++r) {
+      int n = r < last ? v : (c.bh % v ? c.bh % v : v);
+      for (int b = 0; b < n; ++b) {
+        int a = r * v + b;
+        bool up, up2, down, down2;
+        if (islow_) {
+          int i = r * n + b, total = n * mcus_y_;
+          up = i > 0;
+          up2 = i > 1;
+          down = i < total - 1;
+          down2 = i < total - 2;
+        } else {
+          up = b > 0 || r > 0;
+          up2 = b > 1 || r > 1;
+          down = b < n - 1 || r < last;
+          down2 = b < n - 2 || r + 1 < last;
+        }
+        int prev = up ? a - 1 : a, nxt = down ? a + 1 : a;
+        int row[5] = {up2 ? a - 2 : prev, prev, a, nxt, down2 ? a + 2 : nxt};
+        rows.insert(rows.end(), row, row + 5);
+      }
+    }
+    rows.resize(size_t(5) * c.bh);
+    return rows;
+  }
+
+  // jdcoefct.c decompress_smooth_data's estimates for block (r, x) into
+  // `ws` (its quantized coefficients on entry).
+  void smooth(Component& c, const std::vector<int>& rows, int r, int x, int32_t* ws) const {
+    int64_t dcs[25];
+    for (int i = 0; i < 5; ++i) {
+      for (int j = 0; j < 5; ++j) {
+        int col;
+        if (!islow_ && c.bw == 2) {  // 2.1.4's window for a picture two blocks wide
+          static const int k2[2][5] = {{0, 0, 0, 1, 0}, {0, 0, 1, 0, 0}};
+          col = k2[x][j];
+        } else {
+          col = std::min(std::max(x + j - 2, 0), c.bw - 1);
+        }
+        dcs[5 * i + j] = c.block(rows[5 * r + i], col)[0];
+      }
+    }
+    bool change_dc = true;
+    for (int i = 1; i < 10; ++i) change_dc &= c.bits[i] == -1;
+    const int64_t q00 = c.q[0];
+    auto estimate = [&](const int* kernel, int64_t qk, int al) {
+      int64_t num = 0;
+      for (int i = 0; i < 25; ++i) num += kernel[i] * dcs[i];
+      num *= q00;
+      int64_t pred = ((qk << 7) + (num >= 0 ? num : -num)) / (qk << 8);
+      if (al > 0 && pred >= (int64_t(1) << al)) pred = (int64_t(1) << al) - 1;
+      return static_cast<int32_t>(num >= 0 ? pred : -pred);
+    };
+    for (int i = 1; i < (change_dc ? 10 : 6); ++i) {
+      int al = c.bits[i], pos = kSmoothPos[i];
+      if (al != 0 && ws[pos] == 0)
+        ws[pos] = estimate(change_dc ? kSmoothDc[i] : kSmoothAc[i], c.q[pos], al);
+    }
+    if (change_dc) ws[0] = estimate(kSmoothDc[0], q00, -1);
+  }
+
+  // One block's quantized coefficients (natural order) dequantized in
+  // place and through the inverse DCT into `out`, the component's plane.
+  void transform(const Component& c, int32_t* blk, uint8_t* out) const {
+    for (int i = 0; i < 64; ++i) blk[i] *= c.mult[i];
+    if (islow_)
+      inverse_dct_islow(blk, out, c.stride());
+    else
+      inverse_dct(blk, out, c.stride());
+  }
+
+  // A progressive frame's real blocks through the inverse DCT (smoothed
+  // first where `smooth_on`) into the component's plane.
+  void samples(Component& c, bool smooth_on) const {
+    std::vector<int> rows;
+    if (smooth_on) rows = smoothing_rows(c);
+    int32_t blk[64];
+    for (int r = 0; r < c.bh; ++r) {
+      for (int x = 0; x < c.bw; ++x) {
+        const int16_t* src = c.block(r, x);
+        for (int i = 0; i < 64; ++i) blk[i] = src[i];
+        if (smooth_on) smooth(c, rows, r, x, blk);
+        transform(c, blk, c.at(r, x));
+      }
+    }
+  }
+
+  // jdsample.c, jinit_upsampler's choice: the component's plane at its real
+  // size (c.height x c.width) -> (c.height * vmax / v) x (c.width * hmax / h),
+  // rows of `out_w` samples.
+  std::vector<uint8_t> upsample(const Component& c, int& out_w) const {
+    int h = c.height, w = c.width, hx = hmax_ / c.h, vx = vmax_ / c.v;
+    const int stride = c.stride();
+    out_w = w * hx;
+    std::vector<uint8_t> out(size_t(h) * vx * out_w);
+    auto line = [&](int y) { return c.plane.data() + size_t(y) * stride; };
+    if (hx == 2 && vx == 1 && w > 2) {  // h2v1_fancy_upsample
+      for (int y = 0; y < h; ++y) {
+        const uint8_t* p = line(y);
+        uint8_t* o = out.data() + size_t(y) * out_w;
+        for (int x = 0; x < w; ++x) {
+          int t = 3 * p[x];
+          o[2 * x] = static_cast<uint8_t>((t + p[x > 0 ? x - 1 : 0] + 1) >> 2);
+          o[2 * x + 1] = static_cast<uint8_t>((t + p[x + 1 < w ? x + 1 : w - 1] + 2) >> 2);
+        }
+      }
+    } else if (hx == 1 && vx == 2) {  // h1v2_fancy_upsample
+      for (int y = 0; y < h; ++y) {
+        const uint8_t *p = line(y), *up = line(y > 0 ? y - 1 : 0),
+                      *dn = line(y + 1 < h ? y + 1 : h - 1);
+        uint8_t* o0 = out.data() + size_t(2 * y) * out_w;
+        uint8_t* o1 = o0 + out_w;
+        for (int x = 0; x < w; ++x) {
+          int t = 3 * p[x];
+          o0[x] = static_cast<uint8_t>((t + up[x] + 1) >> 2);
+          o1[x] = static_cast<uint8_t>((t + dn[x] + 2) >> 2);
+        }
+      }
+    } else if (hx == 2 && vx == 2 && w > 2) {  // h2v2_fancy_upsample
+      std::vector<int> cols(w);
+      for (int oy = 0; oy < 2 * h; ++oy) {
+        int y = oy / 2;
+        int ny = oy % 2 == 0 ? (y > 0 ? y - 1 : 0) : (y + 1 < h ? y + 1 : h - 1);
+        const uint8_t *p = line(y), *q = line(ny);
+        uint8_t* o = out.data() + size_t(oy) * out_w;
+        for (int x = 0; x < w; ++x) cols[x] = 3 * p[x] + q[x];
+        for (int x = 0; x < w; ++x) {
+          int left = cols[x > 0 ? x - 1 : 0], right = cols[x + 1 < w ? x + 1 : w - 1];
+          o[2 * x] = static_cast<uint8_t>((3 * cols[x] + left + 8) >> 4);
+          o[2 * x + 1] = static_cast<uint8_t>((3 * cols[x] + right + 7) >> 4);
+        }
+      }
+    } else {  // h2v1_upsample, h2v2_upsample, int_upsample
+      for (int y = 0; y < h * vx; ++y) {
+        const uint8_t* p = line(y / vx);
+        uint8_t* o = out.data() + size_t(y) * out_w;
+        for (int x = 0; x < out_w; ++x) o[x] = p[x / hx];
       }
     }
     return out;
@@ -557,49 +868,83 @@ class Decoder {
 
   void emit(uint8_t* out) {
     for (const auto& c : comps_)
-      if (c.plane.empty()) throw Error{"a component has no scan"};
-    const Component& y = comps_[0];
-    int ys = y.blocks_w * 8;
-    if (comps_.size() == 1) {
-      for (int r = 0; r < height; ++r)
-        for (int x = 0; x < width; ++x) {
-          uint8_t v = y.plane[size_t(r) * ys + x];
-          uint8_t* o = out + (size_t(r) * width + x) * 3;
-          o[0] = o[1] = o[2] = v;
-        }
-      return;
+      if (!c.latched) throw Error{"a component has no scan"};
+    bool smooth_on = smoothing_ok();
+    int nc = static_cast<int>(comps_.size());
+    // Each component's samples at full size: its own plane where it is not
+    // subsampled (fullsize_upsample), else an upsampled copy.
+    std::vector<std::vector<uint8_t>> up(nc);
+    const uint8_t* planes[4];
+    int strides[4];
+    for (int i = 0; i < nc; ++i) {
+      Component& c = comps_[i];
+      if (progressive_) samples(c, smooth_on);
+      if (c.h == hmax_ && c.v == vmax_) {
+        planes[i] = c.plane.data();
+        strides[i] = c.stride();
+      } else {
+        up[i] = upsample(c, strides[i]);
+        planes[i] = up[i].data();
+      }
     }
-    if (adobe_transform_ == 0) throw Error{"unsupported JPEG: RGB components (Adobe transform 0)"};
+    // jdapimin.c default_decompress_parms
+    enum { kGrey, kRgb, kYcc, kCmyk, kYcck } space = kGrey;
+    if (nc == 3) {
+      if (jfif_) space = kYcc;
+      else if (adobe_transform_ >= 0) space = adobe_transform_ == 0 ? kRgb : kYcc;
+      else space = (comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66) ? kRgb : kYcc;
+    } else if (nc == 4) {
+      space = adobe_transform_ >= 0 && adobe_transform_ != 0 ? kYcck : kCmyk;
+    }
     const int kHalf = 1 << 15;
     auto fix = [](double x) { return static_cast<int32_t>(x * 65536 + 0.5); };
     const int32_t cr_r = fix(1.40200), cb_g = fix(0.34414), cr_g = fix(0.71414),
                   cb_b = fix(1.77200);
-    bool up = hmax_ == 2;
-    std::vector<int32_t> cb, cr;
-    int cw = 0;
-    if (up) {
-      cb = upsample_h2v2(comps_[1]);
-      cr = upsample_h2v2(comps_[2]);
-      cw = 2 * comps_[1].width;
-    }
-    int cs = comps_[1].blocks_w * 8;
     for (int r = 0; r < height; ++r) {
-      for (int x = 0; x < width; ++x) {
-        int32_t Y = y.plane[size_t(r) * ys + x];
-        int32_t B, R;
-        if (up) {
-          B = cb[size_t(r) * cw + x];
-          R = cr[size_t(r) * cw + x];
-        } else {
-          B = comps_[1].plane[size_t(r) * cs + x];
-          R = comps_[2].plane[size_t(r) * cs + x];
+      const uint8_t* p[4] = {};
+      for (int i = 0; i < nc; ++i) p[i] = planes[i] + size_t(r) * strides[i];
+      uint8_t* o = out + size_t(r) * width * 3;
+      if (space == kGrey) {
+        for (int x = 0; x < width; ++x, o += 3) o[0] = o[1] = o[2] = p[0][x];
+        continue;
+      }
+      if (space == kRgb) {
+        for (int x = 0; x < width; ++x, o += 3) o[0] = p[0][x], o[1] = p[1][x], o[2] = p[2][x];
+        continue;
+      }
+      if (space == kYcc) {  // ycc_rgb_convert
+        for (int x = 0; x < width; ++x, o += 3) {
+          int Y = p[0][x], B = p[1][x] - 128, R = p[2][x] - 128;
+          o[0] = clamp255(Y + ((cr_r * R + kHalf) >> 16));
+          o[1] = clamp255(Y + ((-cb_g * B + kHalf - cr_g * R) >> 16));
+          o[2] = clamp255(Y + ((cb_b * B + kHalf) >> 16));
         }
-        B -= 128;
-        R -= 128;
-        uint8_t* o = out + (size_t(r) * width + x) * 3;
-        o[0] = clamp255(Y + ((cr_r * R + kHalf) >> 16));
-        o[1] = clamp255(Y + ((-cb_g * B + kHalf - cr_g * R) >> 16));
-        o[2] = clamp255(Y + ((cb_b * B + kHalf) >> 16));
+        continue;
+      }
+      for (int x = 0; x < width; ++x, o += 3) {
+        int s[4] = {p[0][x], p[1][x], p[2][x], p[3][x]};
+        int rgb[3] = {s[0], s[1], s[2]};
+        if (space == kYcck) {
+          int Y = s[0], B = s[1] - 128, R = s[2] - 128;
+          rgb[0] = clamp255(Y + ((cr_r * R + kHalf) >> 16));
+          rgb[1] = clamp255(Y + ((-cb_g * B + kHalf - cr_g * R) >> 16));
+          rgb[2] = clamp255(Y + ((cb_b * B + kHalf) >> 16));
+        }
+        int cmyk[4] = {rgb[0], rgb[1], rgb[2], s[3]};
+        if (space == kYcck)  // ycck_cmyk_convert
+          for (int i = 0; i < 3; ++i) cmyk[i] = 255 - rgb[i];
+        for (int i = 0; i < 3; ++i) {
+          int v;
+          if (islow_) {  // PIL: CMYK;I (inverted), then cmyk2rgb
+            int nk = cmyk[3];
+            v = nk - muldiv255(255 - cmyk[i], nk);
+          } else if (adobe_transform_ >= 0) {  // TF, Adobe polarity
+            v = cmyk[3] * cmyk[i] / 255;
+          } else {
+            v = (255 - cmyk[3]) * (255 - cmyk[i]) / 255;
+          }
+          o[i] = clamp255(v);
+        }
       }
     }
   }
@@ -607,10 +952,10 @@ class Decoder {
   const uint8_t* d_;
   size_t n_, pos_ = 0;
   bool islow_ = false;
-  bool frame_ = false;
+  bool frame_ = false, progressive_ = false, jfif_ = false;
   int hmax_ = 1, vmax_ = 1, mcus_x_ = 0, mcus_y_ = 0;
   int restart_interval_ = 0, adobe_transform_ = -1;
-  int32_t mult_[4][64] = {};
+  int32_t qraw_[4][64] = {};
   bool qdef_[4] = {false, false, false, false};
   Huffman dc_[4], ac_[4];
   std::vector<Component> comps_;
@@ -641,9 +986,9 @@ int openvla_jpeg_info(const uint8_t* data, int64_t n, int* height, int* width, c
   return -1;
 }
 
-// Decodes into `out`, uint8 (height, width, 3) RGB of `out_len` bytes, by
-// the IFAST inverse DCT (TF's), or the ISLOW one (PIL's) where `islow` is
-// not 0. 0 on success, else -1 with a message in `err`.
+// Decodes into `out`, uint8 (height, width, 3) RGB of `out_len` bytes: TF's
+// pixels (the IFAST inverse DCT), or PIL's (ISLOW) where `islow` is not 0.
+// 0 on success, else -1 with a message in `err`.
 int openvla_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_len, int islow,
                         char* err, int err_len) {
   try {

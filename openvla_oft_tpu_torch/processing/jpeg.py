@@ -19,7 +19,14 @@ frames' own device; each cites the libjpeg source it follows:
     inverse_dct_islow  jidctint.c  jpeg_idct_islow (PIL's decode; the JPEG
                                    decoder's `idct="islow"`, not the round trip)
     upsample_h2v2      jdsample.c  h2v2_fancy_upsample, h2v2_upsample
+    upsample_h2v1,     jdsample.c  h2v1_fancy_upsample, h2v1_upsample,
+    upsample_h1v2,                 h1v2_fancy_upsample, int_upsample, and
+    int_upsample,                  jinit_upsampler's choice among them
+    upsample                       (the JPEG decoder's other samplings)
     ycbcr_to_rgb       jdcolor.c   ycc_rgb_convert
+    ycck_to_cmyk       jdcolor.c   ycck_cmyk_convert
+    cmyk_to_rgb_pil    PIL         `CMYK;I` unpacking, Convert.c cmyk2rgb
+    cmyk_to_rgb_tf     TF          jpeg_mem.cc's CMYK -> RGB
 
 Where the libraries differ: TF's and PIL's encoders write the same
 coefficients at a given quality; their decoders differ. TF decodes with the
@@ -60,6 +67,13 @@ STD_CHROMINANCE = np.array([
     24, 26, 56, 99, 99, 99, 99, 99,
     47, 66, 99, 99, 99, 99, 99, 99,
     *[99] * 32], np.int64).reshape(8, 8)
+
+# jutils.c jpeg_natural_order: the natural-order index of zig-zag entry k.
+NATURAL_ORDER = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 # jddctmgr.c: the AA&N scale factors of the IFAST multipliers, scaled by 2^14.
 AANSCALES = np.array([
@@ -347,6 +361,95 @@ def upsample_h2v2(plane: torch.Tensor) -> torch.Tensor:
     odd = (3 * cols + right + 7) >> 4
     return torch.stack([even, odd], 3).reshape(n, 2 * h, 2 * w)
 
+
+
+def upsample_h2v1(plane: torch.Tensor) -> torch.Tensor:
+    """jdsample.c: (N, h, w) -> (N, h, 2w). w > 2: h2v1_fancy_upsample,
+    (3 this + left + 1) >> 2 and (3 this + right + 2) >> 2 along the row,
+    the edge columns replicated (so the first and last outputs are the
+    samples themselves). Otherwise h2v1_upsample: each sample twice."""
+    n, h, w = plane.shape
+    if w <= 2:
+        return plane.repeat_interleave(2, 2)
+    left = torch.cat([plane[:, :, :1], plane[:, :, :-1]], 2)
+    right = torch.cat([plane[:, :, 1:], plane[:, :, -1:]], 2)
+    even = (3 * plane + left + 1) >> 2
+    odd = (3 * plane + right + 2) >> 2
+    return torch.stack([even, odd], 3).reshape(n, h, 2 * w)
+
+
+def upsample_h1v2(plane: torch.Tensor) -> torch.Tensor:
+    """jdsample.c h1v2_fancy_upsample: (N, h, w) -> (N, 2h, w), each output
+    row (3 nearest + next nearest + bias) >> 2, the next nearest the row
+    above (bias 1) for even output rows and below (bias 2) for odd; the
+    edge rows replicated (jdmainct.c's context rows). libjpeg takes it at
+    every width."""
+    n, h, w = plane.shape
+    up = torch.cat([plane[:, :1], plane[:, :-1]], 1)
+    down = torch.cat([plane[:, 1:], plane[:, -1:]], 1)
+    even = (3 * plane + up + 1) >> 2
+    odd = (3 * plane + down + 2) >> 2
+    return torch.stack([even, odd], 2).reshape(n, 2 * h, w)
+
+
+def int_upsample(plane: torch.Tensor, h_expand: int, v_expand: int) -> torch.Tensor:
+    """jdsample.c int_upsample (and h2v1_upsample, h2v2_upsample): each
+    sample replicated h_expand x v_expand."""
+    return plane.repeat_interleave(v_expand, 1).repeat_interleave(h_expand, 2)
+
+
+def upsample(plane: torch.Tensor, h_in: int, v_in: int, h_out: int, v_out: int) -> torch.Tensor:
+    """jdsample.c jinit_upsampler's choice for one component with fancy
+    upsampling on (libjpeg's default, PIL's and TF's): a decoded plane
+    (N, h, w) at its real size, sampled h_in x v_in of the frame's
+    h_out x v_out -> (N, h v_out / v_in, w h_out / h_in). Equal factors
+    pass through; 2:1 across is h2v1 (fancy above 2 columns), 1:2 down
+    h1v2 (fancy), 2:1 both ways h2v2 (fancy above 2 columns); any other
+    integral ratio int_upsample. A fractional ratio raises, as libjpeg
+    does (JERR_FRACT_SAMPLE_NOTIMPL)."""
+    if (h_in, v_in) == (h_out, v_out):
+        return plane
+    if h_in * 2 == h_out and v_in == v_out:
+        return upsample_h2v1(plane)
+    if h_in == h_out and v_in * 2 == v_out:
+        return upsample_h1v2(plane)
+    if h_in * 2 == h_out and v_in * 2 == v_out:
+        return upsample_h2v2(plane)
+    if h_out % h_in or v_out % v_in:
+        raise ValueError(f"JPEG decode failed: unsupported JPEG sampling: fractional "
+                         f"upsampling {h_in}x{v_in} of {h_out}x{v_out}")
+    return int_upsample(plane, h_out // h_in, v_out // v_in)
+
+
+def ycck_to_cmyk(ycck: torch.Tensor) -> torch.Tensor:
+    """jdcolor.c ycck_cmyk_convert: int32 (..., 4) YCCK -> CMYK, each of C,
+    M, Y 255 minus ycc_rgb_convert's clamped R, G, B; K passes through."""
+    rgb = ycbcr_to_rgb(ycck[..., :3])
+    return torch.cat([255 - rgb, ycck[..., 3:]], -1)
+
+
+def cmyk_to_rgb_pil(cmyk: torch.Tensor) -> torch.Tensor:
+    """PIL: the CMYK samples libjpeg hands back, read as `CMYK;I` (Adobe's
+    inverted polarity: each byte 255 - v) and then `convert("RGB")`
+    (Convert.c cmyk2rgb: nk = 255 - K, each channel nk - MULDIV255(C, nk),
+    MULDIV255(a, b) = ((t >> 8) + t) >> 8 with t = a b + 128). int32
+    (..., 4) -> (..., 3)."""
+    inv = 255 - cmyk
+    nk = 255 - inv[..., 3:]
+    t = inv[..., :3] * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).clamp_(0, 255)
+
+
+def cmyk_to_rgb_tf(cmyk: torch.Tensor, adobe: bool) -> torch.Tensor:
+    """`tf.io.decode_jpeg(..., channels=3)` on a 4-component file
+    (jpeg/jpeg_mem.cc): libjpeg's CMYK, then each channel K C / 255 where
+    the file has an Adobe marker (inverted polarity), else
+    (255 - K)(255 - C) / 255, in integer division. int32 (..., 4) ->
+    (..., 3)."""
+    c, k = cmyk[..., :3], cmyk[..., 3:]
+    if adobe:
+        return (k * c) // 255
+    return ((255 - k) * (255 - c)) // 255
 
 def jpeg_roundtrip(frames: torch.Tensor, quality: int = 95) -> torch.Tensor:
     """uint8 (N, H, W, 3) RGB -> uint8 (N, H, W, 3): what

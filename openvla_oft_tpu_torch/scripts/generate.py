@@ -12,8 +12,8 @@ end of input ends the REPL.
     echo "what is on the table?" | python -m openvla_oft_tpu_torch.scripts.generate \\
       --model_path random:7b --max_new_tokens 8
 
-The image (`--image_path`, a baseline JPEG) is read by the port's decoder as
-PIL reads it (the ISLOW inverse DCT), then the staged eval conditioning
+The image (`--image_path`, a JPEG or PNG) is read by the port's reader as
+PIL reads it (`processing/image_io.py`), then the staged eval conditioning
 (`prepare_images_for_policy`, no center crop); without one, a random frame.
 """
 

@@ -14,8 +14,8 @@ the multimodal sequence. The data is `--llava_json` with `--image_root`, or
 the named variant `--dataset_id` under `--dataset_root_dir`
 (`data/vlm_datasets.py`), each example truncated to `--seq_bucket` tokens and
 batched by the fixed-length collator. Images decode as PIL decodes them
-(`processing/jpeg_decode.py`, the ISLOW inverse DCT); a file that is not a
-baseline JPEG raises. The trainables are saved every `save_interval` steps
+(`processing/image_io.py`: JPEG, progressive too, and PNG); a GIF, BMP,
+WebP or TIFF file raises, naming itself. The trainables are saved every `save_interval` steps
 and at the last one. `--mesh_*` shard the run over one process per GPU
 (`torchrun --nproc-per-node N -m openvla_oft_tpu_torch.scripts.pretrain
 --mesh_fsdp N ...`), as `scripts/train.py` does.

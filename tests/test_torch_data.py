@@ -84,9 +84,9 @@ def _jpegs(rng, n, size):
 
 def test_npz_dataset_tf_free(tmp_path):
     """The port's npz store against the JAX one: the same frames, actions,
-    proprio and instructions in train and eval order; pixels TF's decode."""
-    pytest.importorskip("PIL")
-    tf = pytest.importorskip("tensorflow")
+    proprio and instructions in train and eval order; every frame PIL's
+    pixels, bit for bit (the port reads no TF and no PIL)."""
+    Image = pytest.importorskip("PIL.Image")
     from openvla_oft_tpu.data import npz_dataset as JNPZ
     from openvla_oft_tpu_torch.data import npz_dataset as PNPZ
 
@@ -112,19 +112,18 @@ def test_npz_dataset_tf_free(tmp_path):
                                           want["observation"]["proprio"])
             assert got["task"] == want["task"] and got["dataset_name"] == want["dataset_name"]
             for key in ("image_primary", "image_wrist"):
-                # the same JPEG: the port's pixels are TF's decode of it
-                assert got["observation"][key].shape == want["observation"][key].shape
-                assert np.abs(got["observation"][key].astype(int)
-                              - want["observation"][key]).max() <= 16
+                # the same JPEG, decoded as PIL decodes it
+                np.testing.assert_array_equal(got["observation"][key],
+                                              want["observation"][key])
             n += 1
             if train and n == 20:
                 break
         assert n == (20 if train else 15)       # eval: 3 episodes x (12 - 7) frames
-    # the decoded pixels are TF's
+    # the decoded pixels are PIL's
     first = next(PNPZ.make_npz_iterator(str(tmp_path / "port"), "libero_npz", lambda b: b,
                                         platform, train=False, num_images=2)[0])
-    np.testing.assert_array_equal(first["observation"]["image_primary"],
-                                  tf.io.decode_jpeg(episodes[0]["images"][0], channels=3).numpy())
+    pil = Image.open(io.BytesIO(episodes[0]["images"][0])).convert("RGB")
+    np.testing.assert_array_equal(first["observation"]["image_primary"], np.asarray(pil))
 
 
 def test_device_prefetcher_order_and_errors():

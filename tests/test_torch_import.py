@@ -106,7 +106,10 @@ _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "ut
                 "experiments.robot.robosuite.create_video",
                 "experiments.robot.robosuite.collect_data.collect_task",
                 "experiments.robot.robosuite.collect_data.rollout_trajectory",
-                "parallel.mesh", "parallel.sharding", "scripts.dryrun_multiprocess")
+                "parallel.mesh", "parallel.sharding", "scripts.dryrun_multiprocess",
+                "processing.png_decode", "processing.image_io", "processing.jpeg_encode",
+                "scripts.make_synthetic_rlds", "scripts.make_quickstart_fixture",
+                "scripts.exp_roundtrip_7b", "scripts.time_jpeg_host")
 
 
 def test_every_module_imports_without_jax():
@@ -136,7 +139,7 @@ def test_no_jax_import_in_the_source():
 
 
 def test_host_library_sources_are_the_ports_own():
-    """The host library (the JPEG decoder, augmentation and CRC-32C of the data path,
+    """The host library (the JPEG decoder and encoder, augmentation and CRC-32C of the data path,
     and the collator's and tokenizer's loops) is built from sources under
     the port's own directory, nothing else: not the JAX package's `native/`
     sources."""
@@ -144,7 +147,7 @@ def test_host_library_sources_are_the_ports_own():
 
     sources = H.sources()
     assert {p.name for p in sources} == {"augment.cc", "crc32c.cc", "data_ops.cc",
-                                         "jpeg_decode.cc"}
+                                         "jpeg_decode.cc", "jpeg_encode.cc"}
     for path in sources:
         assert not path.is_symlink() and path.resolve().is_relative_to(PKG / "hostsrc")
         assert "#include \"" not in path.read_text()      # no header from elsewhere

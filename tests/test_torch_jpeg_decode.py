@@ -12,8 +12,10 @@ against `tf.io.decode_jpeg(data, channels=3)`, bit for bit.
   These run without TF or PIL. Where both import, the golden is built again
   and must be unchanged (`REGEN_GOLDENS=1` rewrites it).
 - Live cases against TF: random sizes, contents and qualities.
-- Refusals: progressive (SOF2), arithmetic-coded (SOF9), 12-bit and 4:2:2
-  streams raise naming what they are, and so does corrupt data.
+- Refusals: lossless (SOF3), arithmetic-coded (SOF9), 12-bit streams and a
+  fractional sampling raise naming what they are, and so does corrupt data;
+  PIL's progressive and 4:2:2 streams decode to its pixels
+  (`tests/test_torch_image_modes.py` holds every other mode).
 - The ISLOW inverse DCT (`idct="islow"`), PIL's decode: both decoders
   against `Image.open(...).convert("RGB")` bit for bit on every entry of
   `tests/goldens/jpeg_decode_pil.npz` (PIL's bytes and pixels: 4:2:0, 4:4:4
@@ -256,19 +258,19 @@ def _with_sof(data: bytes, marker: int) -> bytes:
 def test_refusals(decoder):
     entries = {n: d for n, d, _ in load_golden()}
     base = entries["pil_q90_48x64"]
-    with pytest.raises(ValueError, match=r"progressive DCT \(SOF2\)"):
-        decoder(_with_sof(base, 0xC2))
+    with pytest.raises(ValueError, match=r"lossless \(SOF3\)"):
+        decoder(_with_sof(base, 0xC3))
     with pytest.raises(ValueError, match=r"arithmetic-coded sequential \(SOF9\)"):
         decoder(_with_sof(base, 0xC9))
     i = base.index(b"\xff\xc0")
     twelve = base[:i + 4] + bytes([12]) + base[i + 5:]
     with pytest.raises(ValueError, match="12-bit"):
         decoder(twelve)
-    # Y 2x1: 4:2:2
+    # Y 3x2 over chroma 2x2: not an integral ratio
     j = i + 11
-    h422 = base[:j] + bytes([0x21]) + base[j + 1:]
+    fractional = base[:j] + bytes([0x32]) + base[j + 1:j + 3] + bytes([0x22]) + base[j + 4:]
     with pytest.raises(ValueError, match="sampling"):
-        decoder(h422)
+        decoder(fractional)
     with pytest.raises(ValueError, match="SOI"):
         decoder(b"not a jpeg")
     with pytest.raises(ValueError, match="JPEG decode failed"):
@@ -276,11 +278,13 @@ def test_refusals(decoder):
 
 
 def test_pil_progressive_and_422_raise(pil):
+    """PIL's progressive and 4:2:2 streams, which the decoders refused
+    before they took every mode: now PIL's pixels under ISLOW."""
     a = scene(32, 48, seed=5)
-    with pytest.raises(ValueError, match=r"SOF2"):
-        decode_jpeg(_pil_jpeg(pil, a, quality=90, progressive=True))
-    with pytest.raises(ValueError, match="sampling"):
-        decode_jpeg(_pil_jpeg(pil, a, quality=90, subsampling=1))
+    for data in (_pil_jpeg(pil, a, quality=90, progressive=True),
+                 _pil_jpeg(pil, a, quality=90, subsampling=1)):
+        want = np.asarray(pil.open(io.BytesIO(data)).convert("RGB"))
+        np.testing.assert_array_equal(decode_jpeg(data, idct="islow"), want)
 
 
 def test_threads_decode_in_parallel_and_agree():

@@ -97,19 +97,27 @@ def test_vlm_dataset_decodes_pils_pixels(llava):
 
 
 def test_vlm_dataset_refuses_what_is_not_a_baseline_jpeg(tmp_path):
+    """A file of a format the reader refuses (GIF, BMP) raises naming the
+    file; PNG and progressive JPEG files, refused before, now load."""
     from PIL import Image
 
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(tmp_path / "a.png")
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(tmp_path / "b.jpg", progressive=True)
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(tmp_path / "a.gif")
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(tmp_path / "b.bmp")
     recs = [{"id": n, "image": n, "conversations": [{"from": "human", "value": "q"},
                                                     {"from": "gpt", "value": "a"}]}
-            for n in ("a.png", "b.jpg")]
+            for n in ("a.gif", "b.bmp")]
     for rec in recs:
         (tmp_path / "d.json").write_text(json.dumps([rec]))
         ds = PV.VLMPretrainDataset(str(tmp_path / "d.json"), str(tmp_path),
                                    PProcessor(port_config(CFG)))
         with pytest.raises(ValueError, match=rec["image"]):
             next(iter(ds))
+    frame = np.random.default_rng(3).integers(0, 256, (20, 28, 3), np.uint8)
+    Image.fromarray(frame).save(tmp_path / "c.png")
+    Image.fromarray(frame).save(tmp_path / "d.jpg", progressive=True, subsampling=1)
+    for name in ("c.png", "d.jpg"):
+        np.testing.assert_array_equal(PV.load_image(str(tmp_path / name)),
+                                      np.asarray(Image.open(tmp_path / name).convert("RGB")))
 
 
 def test_vlm_dataset_registry_matches_jax():
