@@ -98,9 +98,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      random_observations (`attach_static_act_scales`), 3 requests and a
      traced one, static against dynamic (logged); `load_vision_in_8bit`, 3
      requests (199 int8 products each) and a traced one;
-  8c. (this phase and 8d serve the flagship with its Llama cut to 8 of 32
+  8c. (this phase and 8d serve the flagship with its Llama cut to 2 of 32
      layers, every width kept: `cut_serving_flagship`; the counts below are
-     for 8 layers) diffusion serving: `flagship_policy(head="diffusion")` (LIBERO, 50
+     those of a cut to 8 layers, and the per-layer ones scale with the cut) diffusion serving: `flagship_policy(head="diffusion")` (LIBERO, 50
      DDIM steps, the [BOS][patches][proprio] prefix K/V computed once, each
      step a 105-row suffix forward against 514 + 105 keys): build memory, 3
      `predict_action` requests on pixels from `device_preprocess` (K1 8
@@ -143,9 +143,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      1 each), bitwise equal to an in-memory policy built from the same seed
      with `serving_params`; one request to the deploy CLI (`python -m
      openvla_oft_tpu_torch.serving.deploy --pretrained-checkpoint DIR
-     --unnorm-key K --device-preprocess`) in a process of its own, stopped
-     after it, then one without `--device-preprocess` (the CLI's default,
-     the staged path; phase 8f (c)); the device peak of the build from disk against
+     --unnorm-key K --device-preprocess`) in a process of its own, and one
+     to a second CLI without `--device-preprocess` (the CLI's default, the
+     staged path; phase 8f (c)), both started at once and stopped after
+     their request; the device peak of the build from disk against
      the build from seeded weights; then `load_in_4bit`, one request (K5
      10); bytes, write and load seconds, load GB/s, host and device peaks,
      the warm-up and each request's time; the dir removed;
@@ -172,9 +173,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      backward kernels alone and the bound, CUDA events beside them; the
      stats rows K2 writes against the stats pass and the plain LSE, delta;
  10. training (this phase, 11, 12, 11b, 13, 14 and 15 run random:7b with
-     its Llama cut to 4 of 32 layers, every width kept: `cut_flagship`): 3
-     steps of the fine-tuning CLI at B=8 (remat "all": K1 8, K2 4 and K3 4
-     launches per step), loss, grad norm, step time, peak memory, no stats
+     its Llama cut to 2 of 32 layers, every width kept: `cut_flagship`): 3
+     steps of the fine-tuning CLI at B=8 (remat "all": K1 2n, K2 n and K3 n
+     launches per step at n layers; the counts named below are those of 4), loss, grad norm, step time, peak memory, no stats
      pass (K3 reads K2's stats rows), every step's metrics logged for phase
      19; the run is phase 18 (a)'s run without a mesh;
  11. step profile: the CLI's train_step on its final state and first batch,
@@ -234,7 +235,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      micro-step: a checkpoint at 3, final_step 3, the handler restored, a
      resumed run to step 6.
  15. (after 14) full-parameter training and VLM pretraining, each run at
-     random:7b's full width (the Llama at 4 layers), B=8, 3 steps, through
+     random:7b's full width (the Llama at 2 layers), B=8, 3 steps, through
      the scripts' entry points: (a) both JPEG decoders with the ISLOW inverse DCT bitwise
      PIL's pixels on every entry of `tests/goldens/jpeg_decode_pil.npz`;
      (b), (c) `scripts/pretrain.py` align and finetune on a LLaVA JSON of
@@ -251,7 +252,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      prompt on its input stream, 8 new tokens, K1 32 in the prefill.
  16. (after 15) Phi-2 as the VLA's LLM and the TFDS-format data path: the
      `phi-2+3b` model (CLIP ViT-L/14 at 336 px, Phi-2) at full width with
-     its LLM cut to 8 of 32 layers (`cut_llm`), seeded bf16 weights drawn on the card
+     its LLM cut to 2 of 32 layers (`cut_llm`), seeded bf16 weights drawn on the card
      (`bridge.init_params`), LIBERO's geometry (2 images, bucket 48, S =
      1,258): (a) the L1 head through `predict_action_from_frames` with
      `vit_fused` off and on (K4 46 a request at CLIP's qkv and fc1, which
@@ -278,8 +279,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      converted by `data/rlds/tfds_format.py::convert_tfds_to_native`, mixed
      0.7 / 0.3 by `make_interleaved_iterator` (frames/s alone; each share
      within 0.05 of its weight over 2,000 frames), then 3 L1 LoRA steps of
-     the CLI at random:7b cut to 4 layers (`cut_flagship`), B = 8, fed by
-     the mixture: K1 8, K2 4, K3 4 a step.
+     the CLI at random:7b cut to 2 layers (`cut_flagship`), B = 8, fed by
+     the mixture: K1 4, K2 2, K3 2 a step.
  17. (after 16) the robot eval clients of `openvla_oft_tpu_torch/experiments/`
      and the quickstart, each through its own entry point at random:7b in
      bf16, on scripted stand-in environments that replay frames and states
@@ -310,22 +311,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      training shape, K1 forward and K2/K3 backward under `local_map`,
      bitwise the unsharded call; (b) tp = 2 serving of the flagship on the
      one card: two processes on cuda:0 in a gloo group (NCCL refuses two
-     ranks on one device), `flagship_policy(tp_mesh=...)`, 3 requests each
+     ranks on one device), `flagship_policy(tp_mesh=...)`, 2 requests each
      through `predict_action_from_frames`, K1 31 a request over 16 of the 32
      heads a rank; the actions_hidden cosine against the one-rank policy
      (phase 5's bound), both ranks' answers equal, each rank's weights and
      peak memory; the request times are this harness's cost only (gloo
      stages every collective through the host); (c) in the same two
      processes, quantized tp = 2 serving of the flagship (both (b) and (c)
-     with its Llama cut to 8 of 32 layers, `cut_serving_flagship`
+     with its Llama cut to 2 of 32 layers, `cut_serving_flagship`
      in the parent and in each rank; the counts here are at 32
      layers, and a cut of n takes n - 1 K1 and 4 n K5 + K5s or K6 + K6s a
-     request and 4 (32 - n) fewer int8 products: at 8, K1 7, 32 and 231): the bf16
+     request and 4 (32 - n) fewer int8 products: at 2, K1 1, 8 and 207): the bf16
      policy with `vit_fused` (K4 98 a request on each rank's column blocks),
      `load_in_4bit` W4A16 and W4A8 (K5 + K5s or K6 + K6s 128 a request: the
      out_window layer projects wqkv once over its tp columns, where one rank
      takes q, k and v apart) and `load_in_8bit` (327 int8 products a
-     request, 2 fewer than phase 8b for the same reason), 2 requests each,
+     request, 2 fewer than phase 8b for the same reason), 1 request each,
      K1 31 a request a rank; each variant's actions_hidden cosine against
      the same variant on one rank (phase 5's bound), both ranks' answers
      equal, the weights, peak and collectives a rank; on each rank one K5
@@ -336,7 +337,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (`--quantize_base`, bits 8 at B = 8 and bits 4 at B = 1, phase 14's cut
      and flags, 3 steps): losses and trainables bitwise equal to phase 14's
      runs without a mesh (else within phase 12's bounds), the int8 products
-     and K5 launches a step as phase 14's, K1 8, K2 4, K3 4.
+     and K5 launches a step as phase 14's, K1 2n, K2 n, K3 n at n layers.
  19. (after 18) the run tools: `scripts/verify_openvla.py` at random:7b
      (`zero_init`), 5 calls of the staged `predict_action`, bf16 and then
      `--quant int8` (the LLM W8A8): p50, p90 and the launches a call;
@@ -369,8 +370,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      leaf bitwise the tree drawn again and the chunk bitwise the first:
      bytes, the write's seconds, the load's GB/s and the host's peak
      resident set.
+ 21. (after 20) the bench contract, its aids and the launchers
+     (`openvla_oft_tpu_torch/scripts/bench*.py`, `scripts/*.sh`): (a), (b)
+     one request of the bench's timed call (`bench_entry.entry`: the
+     flagship's zero tree at full width and depth, LIBERO) per config,
+     counted: bf16 K1 31 (and 31 K1 kernels in a torch.profiler trace of
+     one more request, or "not measured" where the window is empty), the
+     JAX bench's int4 tree (LLM int4, projector and ViTs int8) K5 + K5s 130
+     and int8 199 a request, with `int4_a8` K6 + K6s 130; then, one after
+     the other in one process of their own (started beside the counted
+     requests, its timed loops after them): (a), (c) `bench --extra` (its
+     one stdout line: the four keys, value > 0, vs_baseline = round(0.109 /
+     value, 3); its bf16 and int8 stderr lines; the four extra rows, ALOHA
+     bf16 and int8, diffusion int8 and int4a8 at --k 4, each in its own
+     process), (b) `bench --quant int4` and `--quant int4 --int4-a8`, their
+     lines checked the same way, (d) `bench_components --flash
+     --vit-fused`, 10 rows, and (f) `bench_data` at its defaults, its
+     pipeline line; (e) `bench_deploy --model 7b --n 10 --no_server` with
+     `--quant bf16` and `int8`, each JSON summary, against the deploy CLI
+     on the zero tree (bench_deploy's server command), both servers started
+     beside (g) `scripts/finetune.sh random:7b` with EXTRA_ARGS for 2 steps
+     at B = 8, the Llama cut to phase 10's layers (a `python` on PATH for
+     the launcher that applies `cut_flagship`), K1 2n, K2 n, K3 n a step at
+     n layers. Every process that exits non-zero fails the phase.
 Each phase's host time is logged as `[phase-time]`, and all of them after
-phase 20.
+phase 21.
 Every serving phase but the first builds its server with the deploy CLI's
 warm-up (one synthetic predict before it binds) and logs the warm-up's time
 and the first request after it. The line before the last is a JSON object
@@ -2185,15 +2209,10 @@ def trees_bitwise_equal(a, b, path="") -> int:
     return 1
 
 
-def deploy_cli(ckpt: str, device: str, obs: dict, want: np.ndarray, card: str,
-               device_preprocess: bool = True, max_d: float = 1e-3) -> None:
+def start_deploy_cli(ckpt: str, device: str, device_preprocess: bool = True) -> dict:
     """`python -m openvla_oft_tpu_torch.serving.deploy --pretrained-checkpoint
-    DIR --unnorm-key K [--device-preprocess]` in a process of its own: waits
-    for it to bind, sends `obs` to its /act, holds the answer against `want`
-    (the in-process server's, on the same observation) within `max_d`, and
-    stops it."""
-    from openvla_oft_tpu_torch.serving.deploy import get_action_from_server
-
+    DIR --unnorm-key K [--device-preprocess]` started in a process of its own;
+    `deploy_cli_answer` waits for it to bind, queries it and stops it."""
     port = free_port()
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "openvla_oft_tpu_torch.serving.deploy",
@@ -2202,49 +2221,66 @@ def deploy_cli(ckpt: str, device: str, obs: dict, want: np.ndarray, card: str,
            "--num-images-in-input", "2", "--num-open-loop-steps", "8",
            "--host", "127.0.0.1", "--port", str(port), "--device", device]
     env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    lines = []
+    cli = {"cmd": cmd, "port": port, "proc": proc, "lines": [], "bound": threading.Event(),
+           "t0": time.perf_counter(), "device_preprocess": device_preprocess}
+
+    def read():
+        for line in proc.stdout:
+            cli["lines"].append(line.rstrip())
+            if "serving /act on" in line:
+                cli["bound"].set()
+
+    threading.Thread(target=read, daemon=True).start()
+    return cli
+
+
+def stop(proc) -> None:
+    """Terminates `proc` (a subprocess.Popen) and waits for it."""
+    proc.terminate()
     try:
-        bound = threading.Event()
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
 
-        def read():
-            for line in proc.stdout:
-                lines.append(line.rstrip())
-                if "serving /act on" in line:
-                    bound.set()
 
-        threading.Thread(target=read, daemon=True).start()
-        while not bound.wait(1.0):
-            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+def deploy_cli_answer(cli: dict, obs: dict, want: np.ndarray, card: str,
+                      max_d: float = 1e-3) -> None:
+    """Waits for the deploy CLI `cli` to bind, sends `obs` to its /act, holds
+    the answer against `want` (the in-process server's, on the same
+    observation) within `max_d`, and stops it."""
+    from openvla_oft_tpu_torch.serving.deploy import get_action_from_server
+
+    proc, lines = cli["proc"], cli["lines"]
+    try:
+        while not cli["bound"].wait(1.0):
+            if proc.poll() is not None or time.perf_counter() - cli["t0"] > 300:
                 raise AssertionError("the deploy CLI did not bind: " + " | ".join(lines[-20:]))
-        t_bind = time.perf_counter() - t0
+        t_bind = time.perf_counter() - cli["t0"]
         time.sleep(0.5)                    # the server thread starts after the line
         got = None
         for _ in range(20):
             try:
-                got = get_action_from_server(obs, f"http://127.0.0.1:{port}/act")
+                got = get_action_from_server(obs, f"http://127.0.0.1:{cli['port']}/act")
                 break
             except OSError:
                 time.sleep(0.5)
         if not isinstance(got, np.ndarray):
             raise AssertionError(f"the deploy CLI's /act answered {got!r}")
         d = float(np.abs(got - want).max())
-        route = "--device-preprocess" if device_preprocess else "no --device-preprocess: staged"
-        log(f"[checkpoint] deploy CLI ({' '.join(cmd[1:5])} ... {route}): bound "
-            f"after {t_bind:.1f} s (process start, load, warm-up; host clock), /act answered "
-            f"{got.shape}, max|d| = {d:.3e} from the in-process server's answer ({card}); its "
-            f"log: " + " | ".join(line for line in lines if line.startswith("[deploy]")))
+        route = ("--device-preprocess" if cli["device_preprocess"]
+                 else "no --device-preprocess: staged")
+        log(f"[checkpoint] deploy CLI ({' '.join(cli['cmd'][1:5])} ... {route}): bound "
+            f"after {t_bind:.1f} s (process start, load, warm-up, beside the other route's "
+            f"CLI starting at once; host clock), /act answered {got.shape}, max|d| = {d:.3e} "
+            f"from the in-process server's answer ({card}); its log: "
+            + " | ".join(line for line in lines if line.startswith("[deploy]")))
         if not d <= max_d:
             raise AssertionError("the deploy CLI's answer differs from the in-process server's")
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+        stop(cli["proc"])
 
 
 def checkpoint_serving(card: str, rng, device: str = "cuda") -> dict:
@@ -2415,13 +2451,20 @@ def checkpoint_serving(card: str, rng, device: str = "cuda") -> dict:
                                      "policy")
         log("[checkpoint] the 3 /act answers are bitwise equal to the in-memory policy's on "
             "the same observations")
-        deploy_cli(ckpt, device, observations[0], answers[0], card)
-        # Phase 8f (c): the CLI's default, the staged path, against
-        # OpenVLAServer.predict in process on the same observation.
-        server.cfg = dataclasses.replace(deploy_cfg, device_preprocess=False)
-        staged = server.predict(dict(observations[0]), observations[0]["instruction"])
-        deploy_cli(ckpt, device, observations[0], staged, card, device_preprocess=False,
-                   max_d=0.0)
+        # The deploy CLI on the dir in processes of its own, with
+        # --device-preprocess and without (its default, the staged path),
+        # both started at once: their start-ups overlap.
+        clis = [start_deploy_cli(ckpt, device), start_deploy_cli(ckpt, device, False)]
+        try:
+            # Phase 8f (c): the staged path against OpenVLAServer.predict in
+            # process on the same observation, bitwise.
+            server.cfg = dataclasses.replace(deploy_cfg, device_preprocess=False)
+            staged = server.predict(dict(observations[0]), observations[0]["instruction"])
+            deploy_cli_answer(clis[0], observations[0], answers[0], card)
+            deploy_cli_answer(clis[1], observations[0], staged, card, max_d=0.0)
+        finally:
+            for cli in clis:
+                stop(cli["proc"])
         del server, memory_policy
         server = None
         gc.collect()
@@ -3412,8 +3455,9 @@ TRAIN_INT4_SHAPES = [("wq wk wv wo", 4096, 4096), ("gate up", 4096, 11008),
 # Phases 10-15 and 18 (a), (d) run random:7b with its Llama cut to CUT_LAYERS of its 32
 # layers, every width kept (registered as CUT_LLM_ID): their checks (the
 # counts a step, bitwise restores and policies, parity, moved shares) do not
-# depend on the depth, and the whole run must end within its time limit.
-CUT_LAYERS = 4
+# depend on the depth, and the whole run, phase 21's full-depth bench
+# included, must end within its time limit.
+CUT_LAYERS = 2
 CUT_LLM_ID = f"llama2-7b-pure-{CUT_LAYERS}-layers"
 
 
@@ -3445,8 +3489,9 @@ def cut_flagship():
 # Phases 8c and 8d serve the flagship, and phase 16 Phi-2, with the LLM cut
 # to SERVE_CUT_LAYERS of its 32 layers, every width kept (`cut_llm`): their
 # checks count per layer and hold each path against its plain version, and
-# at full depth the whole run came within 30 s of its time limit.
-SERVE_CUT_LAYERS = 8
+# the whole run, phase 21's full-depth bench included, must end within its
+# time limit.
+SERVE_CUT_LAYERS = 2
 
 
 @contextlib.contextmanager
@@ -5375,7 +5420,7 @@ def _detached(node):
 # training shape against flash_attention over all 32. Gloo's collectives
 # stage CUDA tensors through the host, so the request times are the cost of
 # this harness only.
-TP_REQUESTS = 3
+TP_REQUESTS = 2
 
 
 def one_rank_training(card: str, s_train: int, want: dict, plain: dict) -> dict:
@@ -5560,7 +5605,7 @@ TP_VARIANTS = [("bf16 vit_fused", {}, {"vit_fused": True}),
                ("W4A16", {"load_in_4bit": True}, {}),
                ("W4A8", {"load_in_4bit": True}, {"int4_a8": True}),
                ("W8A8", {"load_in_8bit": True}, {})]
-TP_VARIANT_REQUESTS = 2
+TP_VARIANT_REQUESTS = 1
 # tp = 2's local shapes of the int4 products (T = 618, K, N, route): each
 # rank's row block of wo and down, column block of wqkv and gate_up.
 TP_INT4_LOCAL = [("down rows", 618, 5504, 4096), ("wo rows", 618, 2048, 4096),
@@ -6222,6 +6267,320 @@ def files_phase(card: str, n_layers: int) -> dict:
     return runs
 
 
+BENCH_REPO = os.path.dirname(os.path.abspath(__file__))
+BENCH_K1 = 31            # the flagship's 32 layers but the out_window one
+BENCH_INT4 = 130         # 4 linears in each of 31 layers and 6 in the window layer
+BENCH_INT8_VISION = 199  # the two ViTs' 4 linears a block and the projector's 3
+BENCH_CASES = [("bf16", {}, {"K1": BENCH_K1, "K4": 0, "K5": 0, "K6": 0, "int8": 0}),
+               ("int4 W4A16", {"quant": "int4"},
+                {"K1": BENCH_K1, "K4": 0, "K5": BENCH_INT4, "K6": 0, "int8": BENCH_INT8_VISION}),
+               ("int4 W4A8", {"quant": "int4", "int4_a8": True},
+                {"K1": BENCH_K1, "K4": 0, "K5": 0, "K6": BENCH_INT4,
+                 "int8": BENCH_INT8_VISION})]
+# Phase 21 (g): `python` for the launcher, which runs the fine-tuning CLI
+# with random:7b's Llama cut to CUT_LAYERS (`cut_flagship`) and prints the
+# run's kernel launches.
+LAUNCHER_PYTHON = """import json, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+from openvla_oft_tpu_torch.training import finetune as FT
+args = sys.argv[1:]
+assert args[:2] == ["-m", "openvla_oft_tpu_torch.training.finetune"], args
+chip_smoke.reset_launch_counts()
+with chip_smoke.cut_flagship():
+    FT.main(args[2:])
+print("[launcher-launches] " + json.dumps(chip_smoke.launch_counts()), flush=True)
+"""
+
+
+# Phase 21 (a), (c), (b), (d), (f): the timed tools one after the other in
+# one process of their own (one start-up instead of two), each section of
+# stdout and stderr under a "=== <label>" line. The process imports them,
+# then waits for the file named by its argument: the smoke's counted
+# requests run while it starts, and none of its timed loops beside them.
+TOOLS = [("bench --extra", "bench", ["--extra"]),
+         ("int4", "bench", ["--quant", "int4"]),
+         ("int4 W4A8", "bench", ["--quant", "int4", "--int4-a8"]),
+         ("components", "bench_components", ["--flash", "--vit-fused"]),
+         ("data", "bench_data", [])]
+TOOLS_PROCESS = """import importlib, os, sys, time
+tools = {tools!r}
+mods = {{m: importlib.import_module("openvla_oft_tpu_torch.scripts." + m) for _, m, _ in tools}}
+while not os.path.exists(sys.argv[1]):
+    time.sleep(0.05)
+for label, module, argv in tools:
+    for stream in (sys.stdout, sys.stderr):
+        print("=== " + label, file=stream, flush=True)
+    t0 = time.perf_counter()
+    mods[module].main(argv)
+    print(f"# {{label}} took {{time.perf_counter() - t0:.1f}} s", file=sys.stderr, flush=True)
+""".format(tools=TOOLS)
+
+
+def tool_sections(text: str) -> dict:
+    """{label: the lines after "=== label"} of the tools process's output."""
+    sections, label = {}, None
+    for ln in text.splitlines(keepends=True):
+        if ln.startswith("=== "):
+            label = ln[4:].strip()
+            sections[label] = ""
+        elif label is not None:
+            sections[label] += ln
+    return sections
+
+
+def bench_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [BENCH_REPO, env.get("PYTHONPATH")]))
+    return env
+
+
+def run_tool(label: str, cmd: list, timeout: float, env=None) -> tuple:
+    """cmd in its own process from the repo's root: (stdout, stderr); a
+    non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=BENCH_REPO, env=env or bench_env(), capture_output=True,
+                       text=True, timeout=timeout)
+    log(f"[bench] {label}: exit {r.returncode} in {time.perf_counter() - t0:.1f} s "
+        f"(host clock, process start included)")
+    if r.returncode != 0:
+        log(r.stdout[-4000:])
+        log(r.stderr[-8000:])
+        raise AssertionError(f"{label} exited {r.returncode}")
+    return r.stdout, r.stderr
+
+
+def bench_requests(card: str) -> dict:
+    """Phase 21 (a), (b): one request of the bench's timed call
+    (`scripts/bench_entry.py::entry`, the zero tree at full width and depth)
+    per config, counted; the bf16 one also traced (torch.profiler, K1's
+    kernels by name). Returns each config's launches."""
+    from openvla_oft_tpu_torch.scripts.bench_entry import entry
+
+    runs = {}
+    for label, kw, want in BENCH_CASES:
+        t0 = time.perf_counter()
+        fn, args = entry(device="cuda", **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        fn(*args)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        runs[label] = got
+        if tuple(out.shape) != (1, 8, 7) or not torch.isfinite(out).all():
+            raise AssertionError(f"bench {label}: actions {tuple(out.shape)} not finite")
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"bench {label}: launches {got}, expected {want}")
+        note = ""
+        if label == "bf16":
+            kernels = profiled(lambda: fn(*args))
+            n_k1 = sum(kernel_class(k.name) == "K1" for k in kernels)
+            if kernels and n_k1 != BENCH_K1:
+                raise AssertionError(f"bench bf16: torch.profiler counted {n_k1} K1 kernels")
+            note = (f"; torch.profiler: {n_k1} K1 kernels of {len(kernels)}" if kernels
+                    else "; torch.profiler recorded no device activity: not measured")
+        log(f"[bench] {label} request of the bench's zero tree (built in {build_s:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB): launches {got}{note} "
+            f"({card})")
+        del fn, args, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def bench_contract(stdout: str, stderr: str, labels: list) -> dict:
+    """The bench's last stdout line (its only one), and a stderr line for
+    each of `labels`."""
+    lines = stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    if len(lines) != 1 or sorted(out) != ["metric", "unit", "value", "vs_baseline"]:
+        raise AssertionError(f"bench stdout: {lines}")
+    if out["metric"] != "action_chunk_latency" or out["unit"] != "s" or \
+            not out["value"] > 0 or out["vs_baseline"] != round(0.109 / out["value"], 3):
+        raise AssertionError(f"bench line: {out}")
+    for label in labels:
+        if not any(ln.startswith(f"# {label}:") for ln in stderr.splitlines()):
+            raise AssertionError(f"bench: no '# {label}:' line in {stderr[-2000:]}")
+    for ln in stderr.splitlines():
+        if ln.startswith("# ") and "ms " in ln:
+            log(f"[bench] {ln}")
+    log(f"[bench] stdout: {json.dumps(out)}")
+    return out
+
+
+def launcher_run(card: str) -> dict:
+    """Phase 21 (g): `scripts/finetune.sh` for 2 steps at random:7b, the
+    Llama cut to CUT_LAYERS, with EXTRA_ARGS. Returns its launches."""
+    n = CUT_LAYERS
+    root = tempfile.mkdtemp(prefix="chip_smoke_launcher_")
+    try:
+        bindir = os.path.join(root, "bin")
+        os.makedirs(bindir)
+        shim = os.path.join(root, "cut_python.py")
+        with open(shim, "w") as f:
+            f.write(LAUNCHER_PYTHON.format(repo=BENCH_REPO))
+        with open(os.path.join(bindir, "python"), "w") as f:
+            f.write(f'#!/bin/bash\nexec "{sys.executable}" "{shim}" "$@"\n')
+        os.chmod(os.path.join(bindir, "python"), 0o755)
+        env = bench_env()
+        env.update(PATH=bindir + os.pathsep + env.get("PATH", ""), DATA_ROOT_DIR="dummy",
+                   EXTRA_ARGS="--device cuda --robot_platform libero --max_steps 2 "
+                              "--save_freq 100 --merge_lora_during_training false "
+                              "--wandb_log_freq 1")
+        script = os.path.join(BENCH_REPO, "openvla_oft_tpu_torch", "scripts", "finetune.sh")
+        stdout, _ = run_tool("finetune.sh (2 steps)", ["bash", script, "random:7b", "launcher",
+                                                      "false", "0", os.path.join(root, "runs")],
+                             600, env)
+        steps = [ln for ln in stdout.splitlines() if ln.startswith("[step ")]
+        for ln in steps + [ln for ln in stdout.splitlines() if ln.startswith("[finetune]")]:
+            log(f"[launcher] {ln}")
+        launches = json.loads(next(ln for ln in stdout.splitlines()
+                                   if ln.startswith("[launcher-launches] ")).split(" ", 1)[1])
+        want = {"K1": 4 * n, "K2": 2 * n, "K3": 2 * n, "K4": 0, "K5": 0, "K6": 0, "int8": 0}
+        if "done: 2 micro-steps" not in stdout or any(launches[k] != v
+                                                       for k, v in want.items()):
+            raise AssertionError(f"finetune.sh: launches {launches}, expected {want}")
+        log(f"[launcher] finetune.sh random:7b at {n} layers, B = 8, 2 steps: launches "
+            f"{launches} ({card})")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def tools_lines(stdout: str, stderr: str) -> tuple:
+    """Phase 21 (a), (c) `bench --extra`; (b) `bench --quant int4` and
+    `--quant int4 --int4-a8`; (d) `bench_components --flash --vit-fused`;
+    (f) `bench_data`: their lines from the tools process, checked."""
+    out, err = tool_sections(stdout), tool_sections(stderr)
+    for ln in stderr.splitlines():
+        if ln.startswith("# ") and ln.endswith(" s") and " took " in ln:
+            log(f"[bench] {ln[2:]} (host clock, in the tools process)")
+    headline = bench_contract(out["bench --extra"], err["bench --extra"], ["bf16", "int8"])
+    extra = [ln for ln in err["bench --extra"].splitlines() if ln.startswith("# extra[")]
+    for ln in extra:
+        log(f"[bench] {ln}")
+    if len(extra) != 4 or any("failed" in ln for ln in extra):
+        raise AssertionError(f"bench --extra rows: {extra}")
+    int4 = {label: bench_contract(out[label], err[label], [label])
+            for label in ("int4", "int4 W4A8")}
+    rows = {}
+    for ln in out["components"].strip().splitlines():
+        log(f"[bench-components] {ln}")
+        label, ms, _ = ln.rsplit(None, 2)
+        rows[label] = float(ms)
+    if len(rows) != 10 or not all(ms > 0 for ms in rows.values()):
+        raise AssertionError(f"bench_components rows: {rows}")
+    for ln in out["data"].strip().splitlines():
+        log(f"[bench-data] {ln}")
+    line = next(ln for ln in out["data"].splitlines() if ln.startswith("pipeline["))
+    fps = float(line.split("]:")[1].split()[0])
+    if not fps > 0:
+        raise AssertionError(f"bench_data: {line}")
+    return headline, int4, rows, fps
+
+
+def bench_deploy_clients(servers: dict) -> dict:
+    """Phase 21 (e): `bench_deploy --no_server` against each running
+    server {quant: (port, process, log path)}, which it stops after."""
+    import io
+
+    from openvla_oft_tpu_torch.scripts import bench_deploy
+
+    outs = {}
+    for quant, (port, proc, path) in servers.items():
+        if proc.poll() is not None:
+            raise AssertionError(f"the {quant} deploy server exited {proc.returncode}: "
+                                 + Path(path).read_text()[-2000:])
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            summary = bench_deploy.main(["--no_server", "--port", str(port), "--model", "7b",
+                                         "--quant", quant, "--n", "10",
+                                         "--startup_timeout", "300"])
+        proc.terminate()
+        for ln in stdout.getvalue().strip().splitlines():
+            log(f"[bench-deploy] {ln}")
+        if summary["metric"] != "http_act_latency" or not summary["p50_ms"] > 0:
+            raise AssertionError(f"bench_deploy {quant}: {summary}")
+        outs[quant] = summary
+    return outs
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 21: the bench contract, its aids and the launchers. Returns
+    the launches of the counted runs.
+
+    What is not timed starts side by side: the tools process (it imports,
+    then waits for the file `go`), bench_deploy's two servers and the
+    launcher's run, while this process counts its requests. The HTTP
+    clients run once the launcher is done, and the tools process's timed
+    loops after the servers stop: each measurement has the card and the
+    host to itself. The timed tools run in a process of their own: in this
+    process, after the earlier phases' profiler windows, their rows took
+    1.3-2.7 times as long."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from openvla_oft_tpu_torch.scripts import bench_deploy
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    go = os.path.join(tmp, "go")
+    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="launcher")
+    outputs = [open(os.path.join(tmp, name), "w+") for name in ("stdout", "stderr")]
+    t_tools = time.perf_counter()
+    tools = subprocess.Popen([sys.executable, "-c", TOOLS_PROCESS, go], cwd=BENCH_REPO,
+                             env=bench_env(), stdout=outputs[0], stderr=outputs[1], text=True)
+    servers = {}
+    try:
+        def side_by_side():
+            for quant in ("bf16", "int8"):
+                args = bench_deploy.parse(["--model", "7b", "--quant", quant,
+                                           "--port", str(free_port())])
+                path = os.path.join(tmp, f"deploy_{quant}.log")
+                with open(path, "w") as f:
+                    servers[quant] = (args.port, subprocess.Popen(
+                        bench_deploy.server_command(args), cwd=BENCH_REPO, env=bench_env(),
+                        stdout=f, stderr=subprocess.STDOUT), path)
+            launcher = pool.submit(launcher_run, card)
+            runs = bench_requests(card)
+            runs["launcher"] = launcher.result()
+            return runs, bench_deploy_clients(servers)
+
+        runs, http = phase("21 (a), (b), (e), (g) counted requests, bench_deploy, "
+                           "finetune.sh", side_by_side)
+        for _, proc, _ in servers.values():
+            stop(proc)
+        open(go, "w").close()
+
+        def tools_run():
+            rc = tools.wait(timeout=1500)
+            for f in outputs:
+                f.seek(0)
+            stdout, stderr = (f.read() for f in outputs)
+            log(f"[bench] the tools process (bench --extra, bench int4 and int4 W4A8, "
+                f"bench_components, bench_data): exit {rc} in "
+                f"{time.perf_counter() - t_tools:.1f} s from its start (host clock)")
+            if rc != 0:
+                log(stdout[-4000:])
+                log(stderr[-8000:])
+                raise AssertionError(f"the tools process exited {rc}")
+            return tools_lines(stdout, stderr)
+
+        headline, int4, rows, fps = phase("21 (a), (c), (b), (d), (f) bench --extra, bench "
+                                          "int4, bench_components, bench_data", tools_run)
+    finally:
+        pool.shutdown()
+        for proc in [tools] + [proc for _, proc, _ in servers.values()]:
+            stop(proc)
+        for f in outputs:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[bench] headline {headline}, int4 {int4}, components {rows}, http "
+        f"{http}, loader {fps:.1f} frames/s ({card})")
+    return runs
+
+
 def phase(name: str, fn, *args, **kw):
     """fn(*args, **kw), its host time logged and kept in PHASE_TIMES."""
     t0 = time.perf_counter()
@@ -6368,6 +6727,7 @@ def main() -> int:
                                                            card, rng, s_train)
     run_tools = phase("19 run tools", run_tools_phase, card, train_info["metrics_jsonl"])
     files = files_phase(card, CUT_LAYERS)
+    bench_runs = bench_phase(card)
 
     # Each kernel at its main path's shape: K1 the LIBERO prefill, K2/K3 the
     # training batch, K4 the DINOv2 fc1 at ALOHA, K5/K6 the wqkv projection
@@ -6401,7 +6761,8 @@ def main() -> int:
                    + multigpu["1-rank"]["K1"]
                    + sum(run["K1"] for run in tp_serve.values())
                    + sum(run["K1"] for run in extra_runs)
-                   + sum(run["K1"] for run in files.values()))
+                   + sum(run["K1"] for run in files.values())
+                   + sum(run["K1"] for run in bench_runs.values()))
     # K2 and K3 launch in the training runs: phase 10, phase 11b's three,
     # the runs from phase 8e's checkpoint dir (11b (d), 14 (d), (e)), phase
     # 13's, 14's, 15's, 16's, 18 (a)'s and 18 (d)'s two, and 20 (c)'s.
@@ -6409,7 +6770,8 @@ def main() -> int:
                 episodes, *phase14, *full.values(), *phi.values(),
                 *(run for name, run in multigpu.items() if name != "tp-wrapper"),
                 *(checkpoint[k] for k in ("run-management", "resume", "preempt",
-                                          "preempt-resume")), files["synthetic"]]
+                                          "preempt-resume")), files["synthetic"],
+                bench_runs["launcher"]]
     k2_launches = sum(run["K2"] for run in bwd_runs)
     k3_launches = sum(run["K3"] for run in bwd_runs)
     bwd_others = {n: {"ms_dq": c["ms_dq"], "ms_dkv": c["ms_dkv"], "library_ms": c["library_ms"],
@@ -6464,7 +6826,8 @@ def main() -> int:
                      w4a16["K5"] + diffusion["int4 W4A16"]["K5"]
                      + discrete["AR int4 W4A16"]["K5"] + checkpoint["checkpoint int4 W4A16"]["K5"]
                      + qlora["QLoRA int4 B=1"]["K5"] + sum(run["K5"] for run in phi.values())
-                     + sum(run["K5"] for run in extra_runs),
+                     + sum(run["K5"] for run in extra_runs)
+                     + sum(run["K5"] for run in bench_runs.values()),
                      max([c["err5"] for c in int4.values()]
                          + [c["max_abs_err"] for c in phi_k5.values()]), wqkv["dev5"],
                      wqkv["plain5"], *wqkv["bound5"], wqkv["dev_lib5"],
@@ -6473,7 +6836,8 @@ def main() -> int:
                      events_ms=wqkv["ms5"], library_events_ms=wqkv["lib5"], phi_2=phi_k5,
                      tp2_local=tp_local_note(tp_local, "K5")),
         kernel_entry("int4_matmul_a8", "int4_w4a8.cu", "openvla_oft_tpu/ops/int4_matmul.py:432",
-                     w4a8["K6"] + sum(run["K6"] for run in extra_runs),
+                     w4a8["K6"] + sum(run["K6"] for run in extra_runs)
+                     + sum(run["K6"] for run in bench_runs.values()),
                      max(c["err6"] for c in int4.values()), wqkv["dev6"],
                      wqkv["plain6"], *wqkv["bound6"], wqkv["dev_lib6"],
                      also_replaces="openvla_oft_tpu/ops/int4_matmul.py:527",
@@ -6534,6 +6898,9 @@ def main() -> int:
     log(f"[files] launches of phase 20's runs (generate.py on 2 images, 3 steps on the "
         f"synthetic set, the round trip's 2 chunks): " + ", ".join(
             f"{name} {run}" for name, run in files.items()))
+    log(f"[bench] launches of phase 21's runs (one counted request of the bench's tree a "
+        f"config; the launcher's 2 steps at {CUT_LAYERS} layers): " + ", ".join(
+            f"{name} {run}" for name, run in bench_runs.items()))
     log("[phase-time] all phases: " + ", ".join(f"{name} {t:.1f} s"
                                                 for name, t in PHASE_TIMES.items())
         + f"; the run so far {time.perf_counter() - T_START:.1f} s (host clock)")

@@ -1,0 +1,22 @@
+#!/bin/bash
+# Absolute-pose UR5e fine-tuning launcher: the port's copy of
+# vla_scripts/finetune_abs_pose.sh (reference vla-scripts/finetune_abs_pose.sh:1-45,
+# the same flag set as finetune.sh with the abs-pose dataset default). It
+# delegates to finetune.sh, which starts one process per GPU.
+#
+# Positional args mirror the reference launcher:
+#   1 CKPT_FOLDER   2 RUN_ID_NOTE   3 RESUME   4 RESUME_STEP
+#   5 RUN_ROOT_DIR  6 DATASET_NAME (default ur5e_pick_place_abs_pose)
+set -euo pipefail
+
+CKPT_FOLDER="${1:-openvla/openvla-7b}"
+RUN_ID_NOTE="${2:-parallel_dec--8_acts_chunk--continuous_acts--L1_regression--3rd_person_img-gripper_img}"
+RESUME="${3:-false}"
+RESUME_STEP="${4:-0}"
+RUN_ROOT_DIR="${5:-runs}"
+DATASET_NAME="${6:-ur5e_pick_place_abs_pose}"
+
+MULTIHOST="${MULTIHOST:-false}" \
+exec bash "$(dirname "$0")/finetune.sh" \
+    "$CKPT_FOLDER" "$RUN_ID_NOTE" "$RESUME" "$RESUME_STEP" \
+    "$RUN_ROOT_DIR" "$DATASET_NAME"

@@ -109,7 +109,9 @@ _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "ut
                 "parallel.mesh", "parallel.sharding", "scripts.dryrun_multiprocess",
                 "processing.png_decode", "processing.image_io", "processing.jpeg_encode",
                 "scripts.make_synthetic_rlds", "scripts.make_quickstart_fixture",
-                "scripts.exp_roundtrip_7b", "scripts.time_jpeg_host")
+                "scripts.exp_roundtrip_7b", "scripts.time_jpeg_host", "scripts.bench_timing",
+                "scripts.bench_entry", "scripts.bench", "scripts.bench_components",
+                "scripts.bench_deploy", "scripts.bench_data")
 
 
 def test_every_module_imports_without_jax():
