@@ -58,7 +58,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      server's answer;
   5. path parity: the K1 path against the dense path on the same inputs;
      one request traced with torch.profiler with vit_fused on (K4 98
-     launches) and one with it off (device time by kernel class);
+     launches) and one with it off (device time by kernel class); then the
+     joint ViT pair (`models/vit_joint.py`), built from the policy's folded
+     pair and swapped in: the same observation served with each pair, one
+     counted request each (K1 31, K4 0; the joint pair's batched products
+     104 = 26 x 4, where the pair takes 4 x 49 = 196 products), the ViT
+     stage and a request traced (device time, kernels), then 5 rounds that
+     time each pair in turn, the ViT stage by CUDA events and the request by
+     the host clock (medians, the idle share), the joint tree's GiB;
+     the joint features and actions_hidden against the per-backbone ones
+     (cosine >= 0.99);
   5a. ALOHA serving: `flagship_policy(platform="aloha", vit_fused=True)`
      (3 cameras, FiLM, 25 x 14 chunk, S = 1168): 3 /act requests with K1 31
      and K4 98 launches each, then 3 with vit_fused off (K4 0); the K4 path
@@ -96,8 +105,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      product (max|d| <= 1e-6 of max|ref|), the K1 path against the dense
      path, int8 against bf16 (logged); static activation scales from 2
      random_observations (`attach_static_act_scales`), 3 requests and a
-     traced one, static against dynamic (logged); `load_vision_in_8bit`, 3
-     requests (199 int8 products each) and a traced one;
+     traced one, static against dynamic (logged); before them, the int8
+     joint ViT pair: an unfolded bf16 pair drawn from seed 0 alone, its
+     int8 joint tree (`quantize_joint_vit`) and its per-backbone int8 tree
+     each swapped into the load_in_8bit policy, measured as in phase 5
+     (341 int8 products a request with the joint pair: 130 + 26 x 4 x 2 +
+     3, against 329), held to each other (cosine >= 0.99);
+     `load_vision_in_8bit`, 3 requests (199 int8 products each) and a
+     traced one;
   8c. (this phase and 8d serve the flagship with its Llama cut to 2 of 32
      layers, every width kept: `cut_serving_flagship`; the counts below are
      those of a cut to 8 layers, and the per-layer ones scale with the cut) diffusion serving: `flagship_policy(head="diffusion")` (LIBERO, 50
@@ -233,7 +248,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      step 2 to 4 with the restored state bitwise the saved one, the save's
      host snapshot and background write; (e) SIGTERM at the third
      micro-step: a checkpoint at 3, final_step 3, the handler restored, a
-     resumed run to step 6.
+     resumed run to step 4 (one step).
  15. (after 14) full-parameter training and VLM pretraining, each run at
      random:7b's full width (the Llama at 2 layers), B=8, 3 steps, through
      the scripts' entry points: (a) both JPEG decoders with the ISLOW inverse DCT bitwise
@@ -333,7 +348,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and one K6 launch at the local down shape (T = 618, K = 5,504) against
      their plain versions; then, in the parent alone on the card, K4, K5
      and K6 timed at tp = 2's local shapes beside their bounds and the
-     library call; (d) QLoRA through the CLI on the one-rank NCCL mesh
+     library call; (e) (after 19) the 7B memory audit
+     (`scripts/dryrun_multichip.py::audit_7b_memory`, on meta tensors, no
+     process group): the flagship LoRA train state's GB a device at n = 1
+     and at each n = 8 factorization, against this card's memory, and the
+     share of big arrays the rules split (the dryrun's (a)-(c) are a CPU
+     harness: tier-1 runs them); (d) QLoRA through the CLI on the one-rank NCCL mesh
      (`--quantize_base`, bits 8 at B = 8 and bits 4 at B = 1, phase 14's cut
      and flags, 3 steps): losses and trainables bitwise equal to phase 14's
      runs without a mesh (else within phase 12's bounds), the int8 products
@@ -385,7 +405,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      bf16 and int8, diffusion int8 and int4a8 at --k 4, each in its own
      process), (b) `bench --quant int4` and `--quant int4 --int4-a8`, their
      lines checked the same way, (d) `bench_components --flash
-     --vit-fused`, 10 rows, and (f) `bench_data` at its defaults, its
+     --vit-fused`, 11 rows (the joint ViT pair's among them), and (f) `bench_data` at its defaults, its
      pipeline line; (e) `bench_deploy --model 7b --n 10 --no_server` with
      `--quant bf16` and `int8`, each JSON summary, against the deploy CLI
      on the zero tree (bench_deploy's server command), both servers started
@@ -1307,6 +1327,8 @@ def int8_serving(card: str, rng, obs, bf16_hidden) -> dict:
     _, _, runs["dynamic"], _ = serve(policy, card, rng, "int8 load_in_8bit", expect)
     dyn = int8_profile(policy, obs, "int8 dynamic", card)
     hidden = int8_parity(policy, obs, bf16_hidden, card)
+    for name, row in joint_vit_int8(policy, obs, card).items():
+        runs[f"joint-vit {name}"] = row["launches"]
 
     cal = random_observations(policy.cfg, policy.platform, n=2, seed=0, device="cuda")
     t0 = time.perf_counter()
@@ -1367,6 +1389,187 @@ def libero_vit_fused(policy, obs, card: str) -> dict:
     finally:
         policy.vit_fused = False
     return out
+
+
+JOINT_RUNS = 3           # rounds of the ViT stage and the request, each path in turn
+
+
+def joint_expect(cfg, int8: bool) -> dict:
+    """The launches of one LIBERO request with the per-backbone ViT pair and
+    with the joint one (`models/vit_joint.py`): K1 31 and K4 0 both ways;
+    the joint pair's batched products (`grouped_mm`) 4 a joint layer in
+    bf16 (26 x 4 = 104, where the pair takes 4 x (23 + 26) = 196 products),
+    none in int8, where each group's product is one int8 product (26 x 4 x
+    2 = 208, where the pair takes 196: 341 a load_in_8bit request against
+    329)."""
+    n_joint = max(v.depth - 1 for v in cfg.vision_configs)
+    base = {"K1": cfg.llm.num_layers - 1, "K4": 0, "K5": 0, "K6": 0}
+    if not int8:
+        return {"per-backbone": {**base, "int8": 0, "batched": 0},
+                "joint": {**base, "int8": 0, "batched": 4 * n_joint}}
+    pair = int8_per_request(cfg, True)
+    return {"per-backbone": {**base, "int8": pair, "batched": 0},
+            "joint": {**base, "int8": pair - 4 * sum(v.depth - 1 for v in cfg.vision_configs)
+                      + 4 * n_joint * 2, "batched": 0}}
+
+
+def tree_gib(tree) -> float:
+    from openvla_oft_tpu_torch.bridge import tree_leaves
+
+    return nbytes(*tree_leaves(tree)) / 2**30
+
+
+def vit_paths(policy, obs, trees: dict, label: str, expect: dict, card: str) -> dict:
+    """The same LIBERO observation served with each of `trees` ({"per-backbone":
+    ..., "joint": ...}) as the policy's vision tree: one counted request
+    (`expect[name]`, the joint's batched products as "batched"), the ViT
+    stage alone and one request traced (device time, kernels, GEMM
+    kernels), actions_hidden; then JOINT_RUNS rounds that time, path after
+    path, the ViT stage by CUDA events and the request by the host clock
+    (medians; the idle share from the traced device time). The joint answer
+    is held to the per-backbone one (cosine >= PARITY_COSINE, phase 5's
+    bound). The policy's own vision tree is put back after."""
+    from openvla_oft_tpu_torch.models import vit_joint as VJ
+    from openvla_oft_tpu_torch.models.vision_backbone import vision_backbone_forward
+
+    own = policy.params["vision_backbone"]
+    inputs = model_inputs(policy, obs)
+    pixels = inputs[3].to(policy.params["llm"]["embed"]["embedding"].dtype)
+    frames = frames_of(policy, obs)
+
+    def request():
+        policy.predict_action_from_frames(frames, obs["instruction"], proprio=obs["state"])
+
+    def vit():
+        with torch.inference_mode():
+            return vision_backbone_forward(policy.params["vision_backbone"], policy.cfg, pixels)
+
+    out = {}
+    try:
+        for name, tree in trees.items():
+            policy.params["vision_backbone"] = tree
+            reset_launch_counts()
+            VJ.grouped_mm.launches = 0
+            request()
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in launch_counts().items() if k in expect[name]}
+            launched["batched"] = VJ.grouped_mm.launches
+            if launched != expect[name]:
+                raise AssertionError(f"a {label} request with the {name} ViT pair launched "
+                                     f"{launched}, expected {expect[name]}")
+            _, vit_n, vit_busy, vit_classes = trace(vit)
+            _, req_n, req_busy, _ = trace(request)
+            out[name] = {"launches": launched, "vit_device_ms": vit_busy, "vit_kernels": vit_n,
+                         "vit_gemm_kernels": {c: vit_classes[c][1]
+                                              for c in ("bf16 GEMM", "int8 GEMM")
+                                              if c in vit_classes},
+                         "request_device_ms": req_busy, "request_kernels": req_n,
+                         "features": vit().float(), "hidden": actions_hidden(policy, inputs),
+                         "vit": [], "request": []}
+        for _ in range(JOINT_RUNS):
+            for name, tree in trees.items():
+                policy.params["vision_backbone"] = tree
+                out[name]["vit"].append(cuda_time_ms(vit, iters=1, warmup=0))
+                out[name]["request"].append(timed(request))
+    finally:
+        policy.params["vision_backbone"] = own
+
+    def shown(v, fmt):
+        return "not measured" if v is None else format(v, fmt)
+
+    for name, row in out.items():
+        row["vit_ms"], row["request_ms"] = (float(np.median(row[k])) for k in ("vit", "request"))
+        row["idle"] = None if row["request_device_ms"] is None else \
+            1 - row["request_device_ms"] / row["request_ms"]
+        log(f"[joint-vit] {label} {name}: launches a request {row['launches']}; the ViT stage "
+            f"{row['vit_ms']:.3f} ms (CUDA events, median of {JOINT_RUNS}: "
+            f"{', '.join(f'{t:.1f}' for t in row['vit'])}), device "
+            f"{shown(row['vit_device_ms'], '.3f')} ms over {row['vit_kernels']} kernels, GEMM "
+            f"kernels {row['vit_gemm_kernels']}; the request {row['request_ms']:.2f} ms (host "
+            f"clock, median of {JOINT_RUNS}: {', '.join(f'{t:.1f}' for t in row['request'])}), "
+            f"device {shown(row['request_device_ms'], '.2f')} ms over {row['request_kernels']} "
+            f"kernels, idle share {shown(row['idle'], '.3f')} ({card})")
+    pb, jt = out["per-backbone"], out["joint"]
+    cos_f, cos_h = cosine(jt["features"], pb["features"]), cosine(jt["hidden"], pb["hidden"])
+    log(f"[joint-vit] {label}: joint against per-backbone (timed in turns): vision features "
+        f"cosine {cos_f:.6f}, max|d| {(jt['features'] - pb['features']).abs().max().item():.4e}; "
+        f"actions_hidden cosine {cos_h:.6f}; the ViT stage {jt['vit_ms'] / pb['vit_ms']:.3f}x "
+        f"by CUDA events, the request {jt['request_ms'] / pb['request_ms']:.3f}x by the host "
+        f"clock ({card})")
+    if not (cos_f >= PARITY_COSINE and cos_h >= PARITY_COSINE):
+        raise AssertionError(f"the {label} joint ViT pair disagrees with the per-backbone pair")
+    for row in out.values():
+        del row["features"], row["hidden"]
+    return out
+
+
+def joint_vit_bf16(policy, obs, card: str) -> dict:
+    """Phase 5's joint pair: the joint tree built from the live bf16
+    policy's folded per-backbone tree, both served (`vit_paths`)."""
+    from openvla_oft_tpu_torch.models.vit_joint import joint_vision
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    joint = joint_vision(policy.params["vision_backbone"], policy.cfg.vision_configs,
+                         int8=False)["joint"]
+    torch.cuda.synchronize()
+    log(f"[joint-vit] bf16: the joint tree built from the policy's folded pair in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms: its layers {tree_gib(joint['layers']):.3f} GiB "
+        f"against the pair's {tree_gib(policy.params['vision_backbone']):.3f} GiB (the front "
+        f"ends shared); {(torch.cuda.memory_allocated() - before) / 2**30:.3f} GiB allocated "
+        f"by the build ({card})")
+    out = vit_paths(policy, obs, {"per-backbone": policy.params["vision_backbone"],
+                                  "joint": {"joint": joint}}, "bf16",
+                    joint_expect(policy.cfg, False), card)
+    del joint
+    torch.cuda.empty_cache()
+    return out
+
+
+def joint_vit_int8(policy, obs, card: str) -> dict:
+    """Phase 8b's joint pair: the unfolded bf16 ViT pair drawn from seed 0
+    alone, then its int8 joint tree (`quantize_joint_vit`) and its
+    per-backbone int8 tree (`quantize_tree_lowmem`, as `load_in_8bit`), each
+    swapped into the load_in_8bit policy's vision tree (`vit_paths`)."""
+    from openvla_oft_tpu_torch.bridge import init_params
+    from openvla_oft_tpu_torch.models.vit import fuse_vit_inference_weights
+    from openvla_oft_tpu_torch.models.vit_joint import joint_vision
+    from openvla_oft_tpu_torch.ops.quant import quantize_tree_lowmem
+    from openvla_oft_tpu_torch.serving.deploy import QUANT_MIN_DIM
+
+    t0 = time.perf_counter()
+    pair = init_params(policy.cfg, policy.platform, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda", dtype=torch.bfloat16, keys=("vision_backbone",))
+    unfolded = {name: fuse_vit_inference_weights(v, fold_norms=False)
+                for name, v in pair.pop("vision_backbone").items()}
+    joint = joint_vision(unfolded, policy.cfg.vision_configs, int8=True)["joint"]
+    per_backbone = quantize_tree_lowmem(unfolded, min_dim=QUANT_MIN_DIM)
+    torch.cuda.synchronize()
+    log(f"[joint-vit] int8: the seeded unfolded pair drawn and quantized both ways in "
+        f"{time.perf_counter() - t0:.2f} s: the joint tree's layers "
+        f"{tree_gib(joint['layers']):.3f} GiB, the per-backbone tree "
+        f"{tree_gib(per_backbone):.3f} GiB ({card})")
+    out = vit_paths(policy, obs, {"per-backbone": per_backbone, "joint": {"joint": joint}},
+                    "int8", joint_expect(policy.cfg, True), card)
+    del joint, per_backbone
+    torch.cuda.empty_cache()
+    return out
+
+
+def audit_phase(card: str) -> dict:
+    """Item 34's 7B memory audit (`scripts/dryrun_multichip.py::
+    audit_7b_memory`): the flagship LoRA train state on meta tensors, its GB
+    a device at n = 1 and at each n = 8 factorization, against this card's
+    memory."""
+    from openvla_oft_tpu_torch.scripts.dryrun_multichip import (audit_7b_memory,
+                                                                card_memory_gb,
+                                                                flagship_train_state)
+
+    budget = card_memory_gb()
+    log(f"[7b-audit] budget: this card's memory, {budget:.2f} GB (2**30 bytes; {card})")
+    state = flagship_train_state()
+    return {n: audit_7b_memory(n, budget, state) for n in (1, 8)}
 
 
 def vision_features(policy, inputs, vit_fused: bool) -> torch.Tensor:
@@ -3974,7 +4177,7 @@ def run_management(ckpt: str, card: str, rng, n_layers: int) -> dict:
             if step == 2:
                 os.kill(os.getpid(), signal.SIGTERM)
 
-        pflags = ["--max_steps", "6", "--merge_lora_during_training", "False",
+        pflags = ["--max_steps", "4", "--merge_lora_during_training", "False",
                   "--run_id_note", "preempt"]
         out3 = run("preempt", pflags, 3, preempt)
         ckpt_dir = os.path.join(out3["run_dir"], "ckpt")
@@ -3987,8 +4190,8 @@ def run_management(ckpt: str, card: str, rng, n_layers: int) -> dict:
                                  f"checkpoint {CK.latest_step(ckpt_dir)}, SIGTERM handler "
                                  f"restored {restored_handler}")
         out4 = run("preempt-resume", pflags + ["--resume", "True", "--run_id_override",
-                                               os.path.basename(out3["run_dir"])], 3)
-        if out4["final_step"] != 6:
+                                               os.path.basename(out3["run_dir"])], 1)
+        if out4["final_step"] != 4:
             raise AssertionError(f"the run resumed after preemption ended at {out4}")
         log(f"[preempt] SIGTERM at micro-step 3: saved at 3, final_step 3, the SIGTERM handler "
             f"restored; resumed from 3 to {out4['final_step']} ({card})")
@@ -6471,7 +6674,7 @@ def tools_lines(stdout: str, stderr: str) -> tuple:
         log(f"[bench-components] {ln}")
         label, ms, _ = ln.rsplit(None, 2)
         rows[label] = float(ms)
-    if len(rows) != 10 or not all(ms > 0 for ms in rows.values()):
+    if len(rows) != 11 or not all(ms > 0 for ms in rows.values()):
         raise AssertionError(f"bench_components rows: {rows}")
     for ln in out["data"].strip().splitlines():
         log(f"[bench-data] {ln}")
@@ -6670,6 +6873,7 @@ def main() -> int:
         warm=False, stdlib_check=True)
     bf16_hidden = path_parity(policy, observations[0], answers[0])
     libero_vit_fused(policy, observations[0], card)
+    joint_bf16 = phase("5 joint ViT pair bf16", joint_vit_bf16, policy, observations[0], card)
     jpeg_check(card)
     staged_l1 = staged_serving(policy, card, rng,
                                {"K1": n_layers - 1, "K4": 0, "K5": 0, "K6": 0, "int8": 0})
@@ -6726,6 +6930,7 @@ def main() -> int:
         tp_serve, tp_quant, tp_attention, tp_local = phase("18 (b), (c) tp = 2", tp_serving,
                                                            card, rng, s_train)
     run_tools = phase("19 run tools", run_tools_phase, card, train_info["metrics_jsonl"])
+    phase("18 (e) 7B memory audit", audit_phase, card)
     files = files_phase(card, CUT_LAYERS)
     bench_runs = bench_phase(card)
 
@@ -6748,6 +6953,7 @@ def main() -> int:
                    + sum(run["K4"] for run in extra_runs))
     w4a16, w4a8 = int4_launches["W4A16"], int4_launches["W4A8"]
     k1_launches = (serve_launches["K1"] + staged_l1["K1"] + aloha[True]["launches"]["K1"]
+                   + sum(row["launches"]["K1"] for row in joint_bf16.values())
                    + aloha[False]["launches"]["K1"] + w4a16["K1"] + w4a8["K1"]
                    + sum(run["K1"] for run in int8_launches.values())
                    + sum(run["K1"] for run in diffusion.values())
@@ -6858,7 +7064,12 @@ def main() -> int:
         f"TINY_LLAMA request under auto: {tiny_launches}")
     log(f"[int8] launches of the int8 serving runs (3 requests each): load_in_8bit "
         f"{int8_launches['dynamic']}, with static scales {int8_launches['static']}, "
-        f"load_vision_in_8bit {int8_launches['vision']}")
+        f"load_vision_in_8bit {int8_launches['vision']}; one counted request each with the "
+        f"seeded per-backbone and joint int8 ViT pair: "
+        f"{int8_launches['joint-vit per-backbone']}, {int8_launches['joint-vit joint']}")
+    log(f"[joint-vit] one counted bf16 request each with the per-backbone and the joint "
+        f"ViT pair: {joint_bf16['per-backbone']['launches']}, "
+        f"{joint_bf16['joint']['launches']}")
     log(f"[diffusion] launches of the diffusion runs: bf16 (3 requests) "
         f"{diffusion['bf16']}, staged bf16 (4 requests) {diffusion['staged bf16']}, int4 "
         f"W4A16 (2 requests) {diffusion['int4 W4A16']}")

@@ -28,8 +28,11 @@ clock, minus the median cost of an empty synchronize.
 The environment switches of the JAX bench are flags here:
 OPENVLA_BENCH_GEOMETRY `--geometry`, OPENVLA_BENCH_BUCKET `--bucket`,
 OPENVLA_USE_FLASH `--use-flash {auto,0,1}`, OPENVLA_INT4_A8 `--int4-a8`,
-OPENVLA_VIT_FUSED `--vit-fused`, OPENVLA_BENCH_QUANT `--quant`,
-OPENVLA_BENCH_BF16 `--bf16-headline`, OPENVLA_BENCH_EXTRA `--extra`.
+OPENVLA_VIT_FUSED `--vit-fused`, OPENVLA_VIT_JOINT `--vit-joint` (the bf16
+ViT pair as one joint program, `models/vit_joint.py`), OPENVLA_VIT_JOINT_INT8
+`--vit-joint-int8` (the int8 joint pair, for int8, int8_vit and int4),
+OPENVLA_BENCH_QUANT `--quant`, OPENVLA_BENCH_BF16 `--bf16-headline`,
+OPENVLA_BENCH_EXTRA `--extra`.
 
 Two departures from the JAX bench, both because a fallback may not hide a
 failure: an int8 measurement that fails raises (the JAX bench falls back to
@@ -40,7 +43,8 @@ on the card and is dropped.
 
     python -m openvla_oft_tpu_torch.scripts.bench [--quant Q] [--bf16-headline]
         [--geometry {libero,aloha}] [--bucket N] [--use-flash {auto,0,1}]
-        [--int4-a8] [--vit-fused] [--extra] [--device cuda]
+        [--int4-a8] [--vit-fused] [--vit-joint] [--vit-joint-int8] [--extra]
+        [--device cuda]
 
 It runs on the card unless `--device cpu` is given.
 """
@@ -82,6 +86,10 @@ def parse(argv=None) -> argparse.Namespace:
                     help="int4 linears W4A8 (K6) instead of W4A16 (K5)")
     ap.add_argument("--vit-fused", action="store_true",
                     help="the ViTs' folded LN + matmuls as K4 (bf16 trees)")
+    ap.add_argument("--vit-joint", action="store_true",
+                    help="the bf16 ViT pair as one joint G=2 program (bf16 config only)")
+    ap.add_argument("--vit-joint-int8", action="store_true",
+                    help="the int8 ViT pair as one joint program (int8, int8_vit, int4)")
     ap.add_argument("--extra", action="store_true",
                     help="the ALOHA and diffusion regression rows, each in its own process")
     ap.add_argument("--device", default="cuda")
@@ -108,7 +116,8 @@ def _measure(args, quant, device, cfg=None) -> tuple:
 
     fn, fargs = entry(geometry=args.geometry, quant=None if quant == "bf16" else quant,
                       bucket=args.bucket, use_flash=FLASH[args.use_flash],
-                      int4_a8=args.int4_a8, vit_fused=args.vit_fused, device=device, cfg=cfg)
+                      int4_a8=args.int4_a8, vit_fused=args.vit_fused, device=device, cfg=cfg,
+                      joint_vit=args.vit_joint, joint_vit_int8=args.vit_joint_int8)
     try:
         ms, first_s = measure(fn, fargs, k=K)
         sync_ms = sync_cost_s(fargs[1]) * 1e3
@@ -120,12 +129,19 @@ def _measure(args, quant, device, cfg=None) -> tuple:
     return ms / 1e3, sync_ms, first_s
 
 
-def _line(label: str, lat: float, sync_ms: float, first_s: float, card: str) -> str:
+def _line(label: str, lat: float, sync_ms: float, first_s: float, card: str,
+          joint: bool = False) -> str:
     note = " (the JAX bench's int4 tree: LLM int4, projector and ViTs int8; not " \
         "load_in_4bit)" if label.startswith("int4") else ""
+    note += " (joint ViT pair)" if joint else ""
     return (f"# {label}: {lat * 1e3:.1f}ms {1 / lat:.1f} chunks/s/card "
             f"vs_baseline={A100_CHUNK_LATENCY_S / lat:.2f} sync={sync_ms:.3f}ms "
             f"first_call={first_s:.1f}s device={card}{note}")
+
+
+def _joint(args, quant: str) -> bool:
+    """Whether `quant`'s tree holds the joint ViT pair under the flags."""
+    return args.vit_joint_int8 if quant != "bf16" else args.vit_joint
 
 
 def result(latency_s: float) -> dict:
@@ -144,16 +160,18 @@ def main(argv=None, cfg=None) -> dict:
     if args.quant:
         lat, sync_ms, first_s = _measure(args, args.quant, device, cfg)
         label = args.quant + (" W4A8" if args.quant == "int4" and args.int4_a8 else "")
-        print(_line(label + geo, lat, sync_ms, first_s, card), file=sys.stderr, flush=True)
+        print(_line(label + geo, lat, sync_ms, first_s, card, _joint(args, args.quant)),
+              file=sys.stderr, flush=True)
         headline = lat
     else:
         lat, sync_ms, first_s = _measure(args, "bf16", device, cfg)
-        print(_line("bf16" + geo, lat, sync_ms, first_s, card), file=sys.stderr, flush=True)
+        print(_line("bf16" + geo, lat, sync_ms, first_s, card, _joint(args, "bf16")),
+              file=sys.stderr, flush=True)
         headline = lat
         if not args.bf16_headline:
             headline, sync_ms, first_s = _measure(args, "int8", device, cfg)
-            print(_line("int8" + geo, headline, sync_ms, first_s, card), file=sys.stderr,
-                  flush=True)
+            print(_line("int8" + geo, headline, sync_ms, first_s, card, _joint(args, "int8")),
+                  file=sys.stderr, flush=True)
     if args.extra:
         extra_rows(args.device)
     out = result(headline)

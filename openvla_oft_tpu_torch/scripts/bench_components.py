@@ -7,6 +7,8 @@ queued calls and one synchronize), on the bench's zero tree
   - device preprocessing of 2 frames, 256 -> 224;
   - each ViT (DINOv2, SigLIP) on 2 images, and with `--vit-fused` each
     again through K4 (the ViTs' folded LN + matmuls; a bf16 tree only);
+  - in bf16, the joint pair (`models/vit_joint.py`: both ViTs as one G = 2
+    program), built from the per-backbone tree on the card;
   - the projector on 512 x 2,176 patch features;
   - the Llama prefill at S = 618 under the OFT mask (dense attention), the
     prefill with `out_window` (the last layer on the action rows only), and
@@ -18,10 +20,10 @@ the projector and the LLM are allocated, and that tree before the full
 call's, so that the 13.5 GB of LLM zeros are never resident beside another
 copy.
 
-Three rows of the JAX script have no counterpart here: "scan" against
+Two rows of the JAX script have no counterpart here: "scan" against
 "unrolled" ViT blocks (an XLA compile choice; the port runs its blocks in
-a Python loop), the joint ViT pair (ROADMAP item 18), and the flash
-prefill at block_q 128 / 256 (`OPENVLA_FLASH_BLOCK_Q`; K1's plan is fixed,
+a Python loop), and the flash prefill at block_q 128 / 256
+(`OPENVLA_FLASH_BLOCK_Q`; K1's plan is fixed,
 `ops/flash_attention.py::_fwd_plan`).
 
     python -m openvla_oft_tpu_torch.scripts.bench_components [--quant int8] [--k 20]
@@ -65,6 +67,8 @@ def main(argv=None, cfg=None) -> dict:
     from openvla_oft_tpu_torch.models.llama import llama_model
     from openvla_oft_tpu_torch.models.projector import vision_projector
     from openvla_oft_tpu_torch.models.vit import vit_featurize
+    from openvla_oft_tpu_torch.models.vit_joint import (build_joint_vit_pair,
+                                                        vit_pair_featurize_joint)
     from openvla_oft_tpu_torch.ops.vit_fused import vit_fused
     from openvla_oft_tpu_torch.processing.image_processing import device_preprocess
     from openvla_oft_tpu_torch.scripts.bench_entry import cheap_params, entry, flagship_cfg
@@ -101,6 +105,14 @@ def main(argv=None, cfg=None) -> dict:
                     return vit_featurize(p, vc, x)
 
             row(tag + " K4", fused, vis[name], imgs)
+    if args.quant is None:
+        # The joint tree beside the per-backbone one; the LLM is not resident.
+        joint = build_joint_vit_pair(vis, cfg.vision_configs)
+        # The last group's tap: the queue's last kernel, which `measure` waits for.
+        row("vit JOINT pair (G=2 batched)",
+            lambda j, x: vit_pair_featurize_joint(j, cfg.vision_configs, [x, x])[-1], joint,
+            imgs)
+        del joint
     del vis, imgs
     _free(dev)
 

@@ -26,10 +26,14 @@ then allocated as zeros in the layout the recipe gives it. The recipes, by
     the ViTs int8. This is the JAX bench's tree, not the port's
     `load_in_4bit`, which packs the LLM only (`__graft_entry__.py:86-90,
     112-113` against the loader).
-The joint-ViT branches (`OPENVLA_VIT_JOINT`, `OPENVLA_VIT_JOINT_INT8`) stay
-in the JAX package. The switches the JAX entry reads from the environment
-(`OPENVLA_BENCH_GEOMETRY`, `_BENCH_BUCKET`, `OPENVLA_USE_FLASH`,
-`OPENVLA_INT4_A8`, `OPENVLA_VIT_FUSED`, `OPENVLA_QUANT`) are arguments.
+The joint-ViT branches are arguments too: `joint_vit` (`OPENVLA_VIT_JOINT`)
+builds the ViT pair as one joint tree (`models/vit_joint.py`) at quant=None
+only, `joint_vit_int8` (`OPENVLA_VIT_JOINT_INT8`) the int8 joint tree for
+"int8", "int8_vit" and "int4" (`__graft_entry__.py:63-75, 96-111`); the
+geometry with FiLM (ALOHA) refuses both, as the JAX forward does. The other
+switches the JAX entry reads from the environment (`OPENVLA_BENCH_GEOMETRY`,
+`_BENCH_BUCKET`, `OPENVLA_USE_FLASH`, `OPENVLA_INT4_A8`, `OPENVLA_VIT_FUSED`,
+`OPENVLA_QUANT`) are arguments as well.
 """
 
 from __future__ import annotations
@@ -55,14 +59,15 @@ def flagship_cfg():
                          llm_backbone_id="llama2-7b-pure", num_images_in_input=2)
 
 
-def _meta(spec):
+def _meta(spec, dtype=torch.bfloat16):
+    """The `Init` tree `spec` as `device="meta"` tensors of `dtype`."""
     from openvla_oft_tpu_torch.bridge import Init
 
     if isinstance(spec, Init):
-        return torch.empty(spec.shape, dtype=torch.bfloat16, device="meta")
+        return torch.empty(spec.shape, dtype=dtype, device="meta")
     if isinstance(spec, dict):
-        return {k: _meta(v) for k, v in spec.items()}
-    return [_meta(v) for v in spec]
+        return {k: _meta(v, dtype) for k, v in spec.items()}
+    return [_meta(v, dtype) for v in spec]
 
 
 # The loader's flags for the recipes it shares with the JAX bench.
@@ -70,24 +75,30 @@ LOADER_FLAGS = {None: {}, "int8": {"load_in_8bit": True},
                 "int8_vit": {"load_vision_in_8bit": True}}
 
 
-def bench_recipe(params: dict, quant: Optional[str]) -> dict:
+def bench_recipe(params: dict, quant: Optional[str], joint_vit: bool = False,
+                 joint_vit_int8: bool = False, vision_configs=None) -> dict:
     """The JAX bench's fusions and quantization of a serving tree
-    (`__graft_entry__.py:41-116`, without the joint-ViT branches):
-    `serving_params` but for int4. Consumes `params`."""
+    (`__graft_entry__.py:41-116`): `serving_params` but for int4. joint_vit
+    (at quant None) and joint_vit_int8 (the int8 quants) put the ViT pair
+    into one joint tree; they need the backbones' `vision_configs`.
+    Consumes `params`."""
     from openvla_oft_tpu_torch.models.llama import fuse_inference_weights
     from openvla_oft_tpu_torch.models.vit import fuse_vit_inference_weights
+    from openvla_oft_tpu_torch.models.vit_joint import joint_vision
     from openvla_oft_tpu_torch.ops.quant import quantize_tree_lowmem
     from openvla_oft_tpu_torch.serving.deploy import serving_params
 
     if quant not in QUANTS:
         raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
     if quant in LOADER_FLAGS:
-        return serving_params(params, **LOADER_FLAGS[quant])
+        return serving_params(params, **LOADER_FLAGS[quant], joint_vit=joint_vit,
+                              joint_vit_int8=joint_vit_int8, vision_configs=vision_configs)
     params["llm"] = quantize_tree_lowmem(
         fuse_inference_weights(params["llm"], fold_norms=False), min_dim=QUANT_MIN_DIM, bits=4)
-    params["vision_backbone"] = quantize_tree_lowmem(
-        {name: fuse_vit_inference_weights(v, fold_norms=False)
-         for name, v in params["vision_backbone"].items()}, min_dim=QUANT_MIN_DIM)
+    vision = {name: fuse_vit_inference_weights(v, fold_norms=False)
+              for name, v in params["vision_backbone"].items()}
+    params["vision_backbone"] = joint_vision(vision, vision_configs, int8=True) \
+        if joint_vit_int8 else quantize_tree_lowmem(vision, min_dim=QUANT_MIN_DIM)
     params["projector"] = quantize_tree_lowmem(params["projector"], min_dim=QUANT_MIN_DIM)
     return params
 
@@ -101,14 +112,17 @@ def _zeros(tree, device):
 
 
 def cheap_params(cfg, platform, quant: Optional[str] = None,
-                 modules: Optional[Sequence[str]] = None, device="cuda") -> dict:
+                 modules: Optional[Sequence[str]] = None, device="cuda",
+                 joint_vit: bool = False, joint_vit_int8: bool = False) -> dict:
     """The flagship-shaped serving tree of `quant`'s recipe, as zeros on
     `device` (no random draw, no host transfer). modules: only these
     top-level groups are allocated (e.g. ("vision_backbone",) for a
-    component bench that must not hold the LLM's zeros beside it)."""
+    component bench that must not hold the LLM's zeros beside it).
+    joint_vit / joint_vit_int8: `bench_recipe`'s."""
     from openvla_oft_tpu_torch.bridge import param_spec
 
-    shapes = bench_recipe(_meta(param_spec(cfg, platform, "l1")), quant)
+    shapes = bench_recipe(_meta(param_spec(cfg, platform, "l1")), quant, joint_vit=joint_vit,
+                          joint_vit_int8=joint_vit_int8, vision_configs=cfg.vision_configs)
     if modules is not None:
         shapes = {k: shapes[k] for k in modules}
     return _zeros(shapes, torch.device(device))
@@ -157,16 +171,21 @@ def geometry_of(geometry: str, cfg=None) -> tuple:
 
 def entry(geometry: str = "libero", quant: Optional[str] = None, bucket: int = 48,
           use_flash="auto", int4_a8: bool = False, vit_fused: bool = False,
-          device="cuda", cfg=None) -> tuple:
+          device="cuda", cfg=None, joint_vit: bool = False,
+          joint_vit_int8: bool = False) -> tuple:
     """(fn, args): fn(*args) is one serving call on `quant`'s zero tree.
     use_flash: "auto" (K1 where it takes the call), True or False. int4_a8:
     the int4 linears run W4A8 (K6) instead of W4A16 (K5). vit_fused: the
     ViTs' folded LN + matmuls as K4 (a bf16 tree only: int8 ViTs keep their
-    norms)."""
+    norms; the joint pair never takes K4). joint_vit / joint_vit_int8: the
+    ViT pair as one joint tree (`bench_recipe`; not with FiLM)."""
     from openvla_oft_tpu_torch.policy import serve_action_chunk
 
     cfg, platform = geometry_of(geometry, cfg)
-    params = cheap_params(cfg, platform, quant=quant, device=device)
+    if (joint_vit or joint_vit_int8) and cfg.use_film:
+        raise ValueError("the joint ViT pair does not support FiLM (the ALOHA geometry)")
+    params = cheap_params(cfg, platform, quant=quant, device=device, joint_vit=joint_vit,
+                          joint_vit_int8=joint_vit_int8)
     x = bench_inputs(cfg, platform, bucket, device)
     resize = cfg.vision_configs[0].image_size
 

@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -74,43 +73,22 @@ def write_dataset(root: str) -> None:
 
 
 def launch(args, data_root: str, run_root: str, resume: bool, timeout: float) -> list:
-    """The two processes of one phase; each is joined within `timeout`
-    seconds in all and killed after it. Returns their logs."""
-    import time
+    """The two processes of one phase (`_ranks.py`); each is joined within
+    `timeout` seconds in all and killed after it. Returns their logs."""
+    from openvla_oft_tpu_torch.scripts import _ranks
 
     phase = "resume" if resume else "fresh"
     store = os.path.join(run_root, f"store_{phase}")
-    procs, logs = [], []
+    cmds = []
     for i in range(2):
-        log = Path(run_root) / f"{phase}_p{i}.log"
         cmd = [sys.executable, "-m", "openvla_oft_tpu_torch.scripts.dryrun_multiprocess",
                "--child", str(i), "--store", store, "--data-root", data_root,
                "--run-root", run_root, "--steps", str(args.steps)]
         if resume:
             cmd.append("--resume")
-        env = {**os.environ, "OMP_NUM_THREADS": "1",
-               "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
-        f = open(log, "w")
-        procs.append((subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
-                                       cwd=str(REPO)), f))
-        logs.append(log)
-    deadline = time.monotonic() + timeout
-    rcs = []
-    for p, f in procs:
-        try:
-            rcs.append(p.wait(timeout=max(deadline - time.monotonic(), 0.1)))
-        except subprocess.TimeoutExpired:
-            rcs.append(None)
-    for p, f in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-        f.close()
-    texts = [log.read_text() for log in logs]
-    if rcs != [0, 0]:
-        raise AssertionError(f"{phase} phase: exit codes {rcs} (None: killed at the time "
-                             "limit)\n" + "\n".join(t[-3000:] for t in texts))
-    return texts
+        cmds.append(cmd)
+    procs = _ranks.start(cmds, [Path(run_root) / f"{phase}_p{i}.log" for i in range(2)])
+    return _ranks.join(procs, timeout, f"{phase} phase")
 
 
 def parent(args) -> int:

@@ -129,7 +129,8 @@ QUANT_MIN_DIM = 1024
 
 
 def serving_params(params: dict, load_in_4bit: bool = False, load_in_8bit: bool = False,
-                   load_vision_in_8bit: bool = False) -> dict:
+                   load_vision_in_8bit: bool = False, joint_vit: bool = False,
+                   joint_vit_int8: bool = False, vision_configs=None) -> dict:
     """Fuse (and quantize) a param tree for serving, as the reference
     loader does (`experiments/robot/openvla_utils.py:181-194, 230-249`):
     wqkv/gate_up, and the ViT folds. Consumes `params`.
@@ -151,8 +152,18 @@ def serving_params(params: dict, load_in_4bit: bool = False, load_in_8bit: bool 
     - `load_in_4bit`: every LLM linear with d_in >= QUANT_MIN_DIM packed to
       int4, lm_head excepted; the ViTs and the projector stay bf16.
 
-    At most one of the three flags may be set (as in the reference's eval
-    config, `experiments/robot/libero/run_libero_eval.py:137`).
+    - `joint_vit` (a bf16 vision) or `joint_vit_int8` (an int8 one): the
+      ViT pair as one joint tree (`models/vit_joint.py`; `vision_configs`,
+      the two backbones' configs, must be given), as the JAX loader builds it
+      (`experiments/robot/openvla_utils.py:205-220`): never under
+      `load_in_4bit`, nor for a tree with FiLM projectors, nor for one
+      backbone. int8 builds it from the unfolded trees and quantizes the
+      joint tree after the build (`quantize_joint_vit`), in place of the
+      per-backbone quantization. The build's peak is the per-backbone tree
+      beside the joint one.
+
+    At most one of the three quantization flags may be set (as in the
+    reference's eval config, `experiments/robot/libero/run_libero_eval.py:137`).
     """
     from openvla_oft_tpu_torch.models.llama import fuse_inference_weights
     from openvla_oft_tpu_torch.models.vit import fuse_vit_inference_weights
@@ -169,10 +180,19 @@ def serving_params(params: dict, load_in_4bit: bool = False, load_in_8bit: bool 
     params["vision_backbone"] = {
         name: fuse_vit_inference_weights(v, fold_norms=not vit_int8)
         for name, v in params["vision_backbone"].items()}
+    joint = (joint_vit_int8 if vit_int8 else joint_vit) and not load_in_4bit \
+        and "film" not in params and len(params["vision_backbone"]) == 2
+    if joint:
+        from openvla_oft_tpu_torch.models.vit_joint import joint_vision
+
+        if vision_configs is None:
+            raise ValueError("the joint ViT pair needs the backbones' vision_configs")
+        params["vision_backbone"] = joint_vision(params["vision_backbone"], vision_configs,
+                                                 vit_int8)
     if load_in_4bit:
         params["llm"] = quantize_tree_lowmem(params["llm"], min_dim=QUANT_MIN_DIM, bits=4)
     if vit_int8:
-        for mod in ("vision_backbone", "projector"):
+        for mod in ("projector",) if joint else ("vision_backbone", "projector"):
             params[mod] = quantize_tree_lowmem(params[mod], min_dim=QUANT_MIN_DIM, bits=8)
     return params
 

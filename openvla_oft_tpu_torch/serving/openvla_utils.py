@@ -15,8 +15,8 @@ chunk.
 
 Every switch is a field of the config the caller passes (`device`,
 `zero_init`, `fake_norm_stats`, `allow_fake_tokenizer`, `hf_tokenizer`,
-`int4_a8`, `vit_fused`, ...), never the environment. The checkpoint must be
-a local directory: nothing is downloaded.
+`int4_a8`, `vit_fused`, `joint_vit`, ...), never the environment. The
+checkpoint must be a local directory: nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -107,7 +107,8 @@ def get_vla(cfg: Any, dtype: torch.dtype = torch.bfloat16) -> OpenVLAPolicy:
     `random:` weights drawn from seed 0 (zeros with `zero_init`, [-1, 1]
     statistics with `fake_norm_stats`); then the serving fusions and
     quantization of `serving/deploy.py::serving_params` (`load_in_8bit`,
-    `load_in_4bit` or `load_vision_in_8bit`), the checkpoint's tokenizer
+    `load_in_4bit` or `load_vision_in_8bit`; `joint_vit` / `joint_vit_int8`,
+    the ViT pair as one joint program), the checkpoint's tokenizer
     (`allow_fake_tokenizer`, `hf_tokenizer`), and the policy's switches
     (`int4_a8`, `vit_fused`, the diffusion steps, and `tp_mesh`: serve
     tp-sharded on that mesh, quantized trees included)."""
@@ -115,9 +116,6 @@ def get_vla(cfg: Any, dtype: torch.dtype = torch.bfloat16) -> OpenVLAPolicy:
     from openvla_oft_tpu_torch.serving.deploy import placeholder_norm_stats, serving_params
     from openvla_oft_tpu_torch.utils.hf_import import load_openvla_checkpoint
 
-    if getattr(cfg, "joint_vit", False) or getattr(cfg, "joint_vit_int8", False):
-        raise NotImplementedError("the joint ViT pair (joint_vit, joint_vit_int8) stays in the "
-                                  "JAX package (ROADMAP queue 1, item 18)")
     device = _device(cfg)
     platform = _platform_from_cfg(cfg)
     head = _head_of(cfg)
@@ -151,7 +149,10 @@ def get_vla(cfg: Any, dtype: torch.dtype = torch.bfloat16) -> OpenVLAPolicy:
                 device=device)
     params = serving_params(params, load_in_4bit=getattr(cfg, "load_in_4bit", False),
                             load_in_8bit=getattr(cfg, "load_in_8bit", False),
-                            load_vision_in_8bit=getattr(cfg, "load_vision_in_8bit", False))
+                            load_vision_in_8bit=getattr(cfg, "load_vision_in_8bit", False),
+                            joint_vit=getattr(cfg, "joint_vit", False),
+                            joint_vit_int8=getattr(cfg, "joint_vit_int8", False),
+                            vision_configs=model_cfg.vision_configs)
     return OpenVLAPolicy(
         cfg=model_cfg, platform=platform, params=params, norm_stats=norm_stats, head=head,
         tokenizer=_try_tokenizer(ckpt, allow_fake=getattr(cfg, "allow_fake_tokenizer", False),

@@ -42,15 +42,15 @@ def _leaves_with_paths(tree, prefix=""):
 
 def init_lora(generator: torch.Generator, params: Params, rank: int = 32,
               targets: Tuple[str, ...] = DEFAULT_TARGETS,
-              dtype: torch.dtype = torch.float32) -> Params:
-    """Build {path: {"a", "b"}} factors for every matched kernel, on the
-    generator's device.
+              dtype: torch.dtype = torch.float32, device=None) -> Params:
+    """Build {path: {"a", "b"}} factors for every matched kernel, on
+    `device` (None: the generator's; "meta" gives the shapes alone).
 
     Gaussian init (peft `init_lora_weights="gaussian"`): A ~ N(0, 1)/r,
     B = 0. Kernels (L, in, out) give A (L, r, in), rank-major as in the JAX
     version, and B (L, r, out).
     """
-    device = generator.device
+    device = generator.device if device is None else torch.device(device)
     lora: Params = {}
     for path, leaf in _leaves_with_paths(params):
         if not any(re.search(t, path) for t in targets):

@@ -1,6 +1,7 @@
 """The port's bench contract against the JAX package's: the zero tree
 (`scripts/bench_entry.py::cheap_params` against `__graft_entry__.py::
-_cheap_params`, leaf for leaf, in every quant mode), the timed call's inputs
+_cheap_params`, leaf for leaf, in every quant mode, and with the joint-ViT
+arguments against OPENVLA_VIT_JOINT / _INT8), the timed call's inputs
 (against `__graft_entry__.entry`'s), the timed call itself (against JAX's
 `serve_action_chunk`), `scripts/bench.py`'s one stdout line and its
 failures, and `scripts/bench_timing.py::measure`.
@@ -75,6 +76,56 @@ def test_bench_tree_is_jax_cheap_params(quant):
     # the LLM's 4 stacked linears, the projector's 3, each ViT's 4 stacked ones
     assert quantized == {None: 0, "int8": 4 + 3 + 2 * 4, "int8_vit": 3 + 2 * 4,
                          "int4": 4 + 3 + 2 * 4}[quant]
+
+
+JOINT_CASES = [(None, "OPENVLA_VIT_JOINT", {"joint_vit": True}, True),
+               ("int8", "OPENVLA_VIT_JOINT_INT8", {"joint_vit_int8": True}, True),
+               ("int8_vit", "OPENVLA_VIT_JOINT_INT8", {"joint_vit_int8": True}, True),
+               ("int4", "OPENVLA_VIT_JOINT_INT8", {"joint_vit_int8": True}, True),
+               (None, "OPENVLA_VIT_JOINT_INT8", {"joint_vit_int8": True}, False),
+               ("int8", "OPENVLA_VIT_JOINT", {"joint_vit": True}, False)]
+
+
+@pytest.mark.parametrize("quant,env,flags,joint", JOINT_CASES,
+                         ids=["bf16-joint", "int8-joint8", "int8_vit-joint8", "int4-joint8",
+                              "bf16-joint8-unused", "int8-joint-unused"])
+def test_bench_joint_tree_is_jax_cheap_params(monkeypatch, quant, env, flags, joint):
+    """The joint-ViT arguments against `_cheap_params` under the environment
+    switch they replace: every leaf the same path, shape and dtype, all
+    zeros; the joint tree only where JAX builds it (bf16 for
+    OPENVLA_VIT_JOINT, the int8 quants for OPENVLA_VIT_JOINT_INT8)."""
+    for name in ("OPENVLA_VIT_JOINT", "OPENVLA_VIT_JOINT_INT8"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv(env, "1")
+    ref = flat(G._cheap_params(CUT, LIBERO, quant=quant))
+    got = flat(BE.cheap_params(port_config(CUT), port_platform(LIBERO), quant=quant,
+                               device="cpu", **flags))
+    assert sorted(got) == sorted(ref)
+    assert any(p.startswith("/vision_backbone/joint/") for p in got) == joint
+    for path, r in ref.items():
+        g = got[path]
+        assert tuple(g.shape) == tuple(r.shape), path
+        assert torch_dtype_name(g) == str(r.dtype), path
+        assert not bool(g.any()), path
+
+
+def test_bench_joint_flags(capsys, few_calls):
+    """`--vit-joint` times the bf16 joint tree and says so on its line; the
+    geometry with FiLM refuses the joint pair; `bench_components` adds the
+    joint row in bf16."""
+    from openvla_oft_tpu_torch.scripts import bench_components
+
+    bench.main(["--device", "cpu", "--bf16-headline", "--vit-joint"], cfg=port_config(TINY))
+    err = capsys.readouterr().err
+    assert "# bf16:" in err and "(joint ViT pair)" in err
+    with pytest.raises(ValueError, match="FiLM"):
+        BE.entry(geometry="aloha", device="cpu", cfg=port_config(TINY), joint_vit=True)
+    rows = bench_components.main(["--device", "cpu", "--k", "1", "--skip_full"],
+                                 cfg=port_config(TINY))
+    assert "vit JOINT pair (G=2 batched)" in rows and len(rows) == 7
+    rows = bench_components.main(["--device", "cpu", "--k", "1", "--skip_full", "--quant",
+                                  "int8"], cfg=port_config(TINY))
+    assert not any("JOINT" in label for label in rows)
 
 
 @pytest.mark.parametrize("quant,flags", [(None, {}), ("int8", {"load_in_8bit": True}),

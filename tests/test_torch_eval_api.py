@@ -19,8 +19,9 @@ Also: the resize strategies of the processor transform ("resize-crop",
 "letterbox", and the bicubic "resize-naive") on non-square frames against
 JAX's `make_device_transform` (atol 1e-5 on normalized pixels: the same
 fp32 weights, summed in another order), the staged image pipeline, the
-loud failures (a missing tokenizer, a missing lm_head, a hub id,
-`joint_vit`, a wrong unnorm_key), the JPEG round trip with TF and PIL
+loud failures (a missing tokenizer, a missing lm_head, a hub id, a wrong
+unnorm_key), the joint ViT pair (`joint_vit`, `joint_vit_int8`) leaf for
+leaf JAX's loader's under its conditions, the JPEG round trip with TF and PIL
 hidden, the FiLM backbone from its `.pt`, and the deploy CLI serving a
 checkpoint dir over the stdlib server.
 """
@@ -268,16 +269,96 @@ def test_discrete_head_needs_the_lm_head(tmp_path):
     assert "lm_head" not in PU.get_vla(eval_cfg(d, "l1"), dtype=torch.float32).params["llm"]
 
 
-def test_hub_ids_and_joint_vit_raise(ckpts):
+def test_hub_ids_raise(ckpts):
     assert PU.model_is_on_hf_hub("moojink/openvla-7b-oft-finetuned-libero-spatial")
     assert not PU.model_is_on_hf_hub(ckpts["l1"])
     with pytest.raises(FileNotFoundError, match="downloads nothing"):
         PU.get_vla(eval_cfg("moojink/openvla-7b-oft-finetuned-libero-spatial"))
     with pytest.raises(FileNotFoundError, match="downloads nothing"):
         PU.get_action_head(eval_cfg("moojink/openvla-7b-oft-finetuned-libero-spatial"))
-    for flag in ("joint_vit", "joint_vit_int8"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            PU.get_vla(eval_cfg(ckpts["l1"], **{flag: True}))
+
+
+def _vision_trees_match(got: dict, want: dict, atol: float) -> None:
+    """The port's vision tree against JAX's leaf for leaf: paths, shapes and
+    dtypes equal; int8 codes and fp32 scales bitwise; floats within atol
+    (the two sides' LayerNorm folds sum in their own order)."""
+    got = {p: t for p, t in _flat(got).items()}
+    want = {p: np.asarray(w) for p, w in _flat(want).items()}
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        g = got[path]
+        assert tuple(g.shape) == w.shape and str(g.dtype).replace("torch.", "") == str(w.dtype), \
+            path
+        if g.dtype == torch.int8 or path.endswith("_s"):
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=path)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=atol, err_msg=path)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flat(sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _flat(sub, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("flags", [{"joint_vit": True},
+                                   {"load_vision_in_8bit": True, "joint_vit_int8": True},
+                                   {"load_in_8bit": True, "joint_vit_int8": True}],
+                         ids=["joint_vit", "vision8-joint_vit_int8", "int8-joint_vit_int8"])
+def test_get_vla_joint_vit_is_jaxs(ckpts, jax_fp32, rng, flags):
+    """`joint_vit` and `joint_vit_int8` (`tests/test_eval_api.py:68-75,
+    189-202`): the vision tree is {"joint"}, JAX's loader's leaf for leaf;
+    int8 builds it from the unfolded trees (its LN affines n1_g ... n2_b
+    stacked) and quantizes it after (qkv_k int8 beside qkv_s), the projector
+    quantized as before; the joint policy's actions within the eval
+    parity's bound of JAX's."""
+    import experiments.robot.openvla_utils as JU
+
+    cfg = eval_cfg(ckpts["l1"], device_preprocess=True, **flags)
+    j_vla, p_vla = JU.get_vla(cfg), PU.get_vla(cfg, dtype=torch.float32)
+    vision = p_vla.params["vision_backbone"]
+    assert set(vision) == set(j_vla.params["vision_backbone"]) == {"joint"}
+    _vision_trees_match(vision, j_vla.params["vision_backbone"], atol=1e-6)
+    layers = vision["joint"]["layers"]
+    if "joint_vit_int8" in flags:
+        assert layers["qkv_k"].dtype == torch.int8
+        assert {"qkv_s", "n1_g", "n2_b"} <= set(layers)
+    else:
+        assert layers["qkv_k"].dtype == torch.float32 and "n1_g" not in layers
+    size = CFG.vision_configs[0].image_size
+    obs = observation(rng, (size, size))
+    want = JU.get_vla_action(cfg, j_vla, None, dict(obs), "put the bowl on the stove",
+                             **_modules(JU, cfg, "l1"))
+    got = PU.get_vla_action(cfg, p_vla, None, dict(obs), "put the bowl on the stove",
+                            **_modules(PU, cfg, "l1"))
+    np.testing.assert_allclose(np.stack(got), np.stack(want), rtol=RTOL, atol=ATOL)
+
+
+def test_joint_vit_conditions_are_jaxs(ckpts):
+    """As JAX's loader (`experiments/robot/openvla_utils.py:205-220`): no
+    joint pair under `load_in_4bit`, with FiLM, for the flag of the other
+    precision (`joint_vit` under an int8 vision, `joint_vit_int8` under a
+    bf16 one), or for one backbone."""
+    names = {"featurizer", "fused_featurizer"}
+    for flags in ({"load_in_4bit": True, "joint_vit": True, "joint_vit_int8": True},
+                  {"load_vision_in_8bit": True, "joint_vit": True},
+                  {"joint_vit_int8": True}):
+        vla = PU.get_vla(eval_cfg(ckpts["l1"], **flags), dtype=torch.float32)
+        assert set(vla.params["vision_backbone"]) == names, flags
+    film = PU.get_vla(eval_cfg("random:tiny", use_film=True, joint_vit=True),
+                      dtype=torch.float32)
+    assert set(film.params["vision_backbone"]) == names and "film" in film.params
+    from openvla_oft_tpu_torch.bridge import param_spec
+    from openvla_oft_tpu_torch.config import OpenVLAConfig
+    from openvla_oft_tpu_torch.constants import LIBERO as P_LIBERO
+    from openvla_oft_tpu_torch.scripts.bench_entry import _meta
+
+    one = OpenVLAConfig(vision_backbone_id="dinov2-vit-l", llm_backbone_id="llama2-7b-pure")
+    single = deploy.serving_params(_meta(param_spec(one, P_LIBERO)), joint_vit=True,
+                                   vision_configs=one.vision_configs)
+    assert set(single["vision_backbone"]) == {"featurizer"}
 
 
 def test_jpeg_roundtrip_raises_without_tf_and_pil(monkeypatch, rng):

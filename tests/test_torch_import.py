@@ -111,7 +111,8 @@ _MUST_IMPORT = ("ops.vit_fused", "ops.int4_probe", "scripts.exp_int4_probe", "ut
                 "scripts.make_synthetic_rlds", "scripts.make_quickstart_fixture",
                 "scripts.exp_roundtrip_7b", "scripts.time_jpeg_host", "scripts.bench_timing",
                 "scripts.bench_entry", "scripts.bench", "scripts.bench_components",
-                "scripts.bench_deploy", "scripts.bench_data")
+                "scripts.bench_deploy", "scripts.bench_data", "models.vit_joint",
+                "scripts.dryrun_multichip", "scripts._ranks")
 
 
 def test_every_module_imports_without_jax():
